@@ -1,0 +1,34 @@
+"""The paper's contribution, ported: joint model splitting & placement
+(Algorithm 1, on the device through the min-plus kernel), closed-form
+micro-batching (Theorem 1) and their BCD combination (Algorithm 2).
+"""
+
+from .profiles import (ModelProfile, vgg16_profile, uniform_profile,
+                       random_profile)
+from .network import Node, EdgeNetwork, make_edge_network, shannon_rate
+from .latency import (SplitSolution, fill_latency, pipeline_interval,
+                      total_latency, memory_feasible, node_memory_usage,
+                      num_fills, breakdown, client_shares, client_max_share,
+                      memory_split, max_feasible_microbatch)
+from .msp_graph import GraphFactory, MSPGraph, build_graph, path_to_solution
+from .shortest_path import (DEFAULT_SOLVER, MSPResult, Planner, solve_msp,
+                            brute_force_msp, enumerate_solutions)
+from .cost_model import CostModel, ClosedForm, resolve_cost_model
+from .microbatch import (MicrobatchResult, optimal_microbatch,
+                         exhaustive_microbatch, feasibility_box)
+from .bcd import Plan, bcd_solve
+from .baselines import no_pipeline, ours
+
+__all__ = [
+    "ModelProfile", "vgg16_profile", "uniform_profile", "random_profile",
+    "Node", "EdgeNetwork", "make_edge_network", "shannon_rate",
+    "SplitSolution", "fill_latency", "pipeline_interval", "total_latency",
+    "memory_feasible", "node_memory_usage", "num_fills", "breakdown",
+    "client_shares", "client_max_share", "memory_split",
+    "max_feasible_microbatch", "GraphFactory", "MSPGraph", "build_graph",
+    "path_to_solution", "DEFAULT_SOLVER", "MSPResult", "Planner",
+    "solve_msp", "brute_force_msp", "enumerate_solutions", "CostModel",
+    "ClosedForm", "resolve_cost_model", "MicrobatchResult",
+    "optimal_microbatch", "exhaustive_microbatch", "feasibility_box", "Plan",
+    "bcd_solve", "no_pipeline", "ours",
+]

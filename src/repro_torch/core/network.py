@@ -1,0 +1,173 @@
+"""Edge-network model: heterogeneous nodes + wireless/wired links (Sec. III).
+
+The port's copy of ``repro/core/network.py`` (without the TPU stage
+network).  Nodes carry ``(f_n, kappa_n, M_n, p_n, t0, t1, b_th)``; links
+carry ``(W_nn', d_nn')`` and yield the Shannon rate of Eq. (4):
+
+    r_nn' = W_nn' * log2(1 + p_n * d_nn'^{-gamma} / N0)
+
+with ``N0 = n0_density * W_nn'``.  Traffic between nodes that are not
+directly connected is forwarded along the topology's shortest path: the
+effective rate is 1 / sum_hops(1/r_hop).  Host-side numpy, bit-equal to the
+reference for the same seed.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import heapq
+import math
+
+import numpy as np
+
+
+@dataclasses.dataclass(frozen=True)
+class Node:
+    """One compute node (client or edge server). Units per Table I/II."""
+    name: str
+    f: float                 # computing capability (FLOP/s)
+    kappa: float = 1.0       # computing intensity (FLOPs per workload unit)
+    mem: float = 8 * 2**30   # M_n: max accelerator memory (bytes)
+    p: float = 0.3           # transmit power (W)
+    t0: float = 1e-3         # FP init/model-load coefficient (t0^c / t0^s)
+    t1: float = 1e-3         # BP constant-latency coefficient (t1^c / t1^s)
+    b_th: int = 32           # BP latency threshold (b_th^c / b_th^s)
+    is_client: bool = False
+
+
+@dataclasses.dataclass
+class EdgeNetwork:
+    """N servers + one virtual client tier, with an effective rate matrix.
+
+    ``nodes[0]`` is always the *virtual client node* (the M clients grouped
+    as in Eq. (20)).  ``rate[n, n']`` is the effective bytes/s between
+    nodes, after multi-hop forwarding over the physical topology.
+    """
+    nodes: list
+    rate: np.ndarray          # (|N|, |N|) effective bytes/s
+    num_clients: int = 1      # M
+    topology: str = "mesh"
+
+    def __post_init__(self):
+        n = len(self.nodes)
+        if self.rate.shape != (n, n):
+            raise ValueError("rate matrix shape mismatch")
+
+    @property
+    def client(self) -> Node:
+        return self.nodes[0]
+
+    @property
+    def servers(self) -> list:
+        return self.nodes[1:]
+
+    @property
+    def num_servers(self) -> int:
+        return len(self.nodes) - 1
+
+    def server_indices(self) -> range:
+        return range(1, len(self.nodes))
+
+
+def shannon_rate(bandwidth_hz: float, power_w: float, distance_m: float,
+                 gamma: float = 3.5, n0_dbm_hz: float = -174.0) -> float:
+    """Eq. (4): achievable rate in *bytes/s* over a wireless link."""
+    n0 = 10 ** (n0_dbm_hz / 10.0) * 1e-3 * bandwidth_hz  # noise power (W)
+    snr = power_w * distance_m ** (-gamma) / n0
+    bits = bandwidth_hz * math.log2(1.0 + snr)
+    return bits / 8.0
+
+
+def _adjacency(topology: str, n: int, rng: np.random.Generator) -> np.ndarray:
+    """Boolean adjacency among n physical nodes (node 0 = client tier)."""
+    adj = np.zeros((n, n), dtype=bool)
+    if topology == "mesh":
+        adj[:] = True
+    elif topology == "line":
+        for i in range(n - 1):
+            adj[i, i + 1] = adj[i + 1, i] = True
+    elif topology == "star":
+        hub = 1 if n > 1 else 0        # first server is the hub
+        adj[hub, :] = adj[:, hub] = True
+    elif topology == "tree":           # binary tree rooted at the client
+        for i in range(1, n):
+            parent = (i - 1) // 2
+            adj[i, parent] = adj[parent, i] = True
+    elif topology == "random_geometric":
+        pos = rng.uniform(0, 500.0, (n, 2))
+        d = np.linalg.norm(pos[:, None] - pos[None, :], axis=-1)
+        adj = d < 300.0
+        for i in range(n - 1):         # ensure connectivity
+            adj[i, i + 1] = adj[i + 1, i] = True
+    else:
+        raise ValueError(f"unknown topology {topology!r}")
+    np.fill_diagonal(adj, False)
+    return adj
+
+
+def _effective_rates(link_rate: np.ndarray, adj: np.ndarray) -> np.ndarray:
+    """Per-pair effective bytes/s with store-and-forward over shortest
+    per-byte-time paths (Dijkstra on cost = 1/r per hop)."""
+    n = link_rate.shape[0]
+    inv = np.where(adj & (link_rate > 0), 1.0 / np.maximum(link_rate, 1e-30), np.inf)
+    eff = np.zeros((n, n))
+    for s in range(n):
+        dist = np.full(n, np.inf)
+        dist[s] = 0.0
+        pq = [(0.0, s)]
+        while pq:
+            d, u = heapq.heappop(pq)
+            if d > dist[u]:
+                continue
+            for v in range(n):
+                nd = d + inv[u, v]
+                if nd < dist[v]:
+                    dist[v] = nd
+                    heapq.heappush(pq, (nd, v))
+        with np.errstate(divide="ignore"):
+            eff[s] = np.where(dist > 0, 1.0 / dist, 0.0)
+    np.fill_diagonal(eff, 0.0)
+    return eff
+
+
+def make_edge_network(
+    num_servers: int = 6,
+    num_clients: int = 4,
+    topology: str = "mesh",
+    *,
+    seed: int = 0,
+    f_range: tuple = (1e12, 10e12),          # 1-10 TFLOPS (Table II)
+    bw_range_hz: tuple = (10e6, 50e6),       # sub-6GHz low-speed case
+    mem_range: tuple = (2 * 2**30, 16 * 2**30),
+    power_range_w: tuple = (0.1, 0.5),
+    area_m: float = 500.0,
+    gamma: float = 3.5,
+    kappa: float = 1.0,
+    client_f: float = 13.5e9,                # Raspberry-Pi-class client tier
+    client_mem: float = 4 * 2**30,
+    t0: float = 1e-3, t1: float = 1e-3, b_th: int = 32,
+) -> EdgeNetwork:
+    """Sample a paper-style edge network (Sec. VI simulation setup)."""
+    rng = np.random.default_rng(seed)
+    n = num_servers + 1  # + virtual client node
+    nodes = [Node(name="clients", f=client_f, kappa=kappa, mem=client_mem,
+                  p=float(rng.uniform(*power_range_w)), t0=t0, t1=t1,
+                  b_th=b_th, is_client=True)]
+    for s in range(num_servers):
+        nodes.append(Node(
+            name=f"server{s}", f=float(rng.uniform(*f_range)), kappa=kappa,
+            mem=float(rng.uniform(*mem_range)),
+            p=float(rng.uniform(*power_range_w)), t0=t0, t1=t1, b_th=b_th))
+    pos = rng.uniform(0, area_m, (n, 2))
+    dist = np.maximum(np.linalg.norm(pos[:, None] - pos[None, :], axis=-1), 1.0)
+    link = np.zeros((n, n))
+    for i in range(n):
+        for j in range(n):
+            if i == j:
+                continue
+            w = float(rng.uniform(*bw_range_hz))
+            link[i, j] = shannon_rate(w, nodes[i].p, dist[i, j], gamma)
+    adj = _adjacency(topology, n, rng)
+    rate = _effective_rates(link, adj)
+    return EdgeNetwork(nodes=nodes, rate=rate, num_clients=num_clients,
+                       topology=topology)

@@ -1,0 +1,68 @@
+"""Plain PyTorch version of the min-plus sweep kernel (K1).
+
+The same function as ``csrc/minplus.cu`` written with torch ops: the
+two-stage layered relaxation of ``repro_torch.core.shortest_path`` for one
+graph and a batch of thresholds, returning only the best terminal value per
+threshold.  The wrapper uses it for tensors on the CPU, the tests hold it
+against the reference's ``sweep_ref`` / ``_LayeredDP.dist_at``, and
+``chip_smoke.py`` holds the CUDA kernel against it on the card.
+
+Every operation is ``+``, ``max``, ``min`` or a compare, so in float64 the
+result is exactly rounded whatever order the reductions take.
+"""
+
+from __future__ import annotations
+
+import torch
+
+
+def slices_per_chunk(N: int, I1: int) -> int:
+    """Cap the slice axis so one chunk's candidate tensors stay ~64 MB."""
+    return max(1, int(2 ** 23 // max(1, N * I1 * max(N, I1))))
+
+
+def sweep_plain(Ccom, Bcom, Sseg, Bseg, src_cost, src_beta, K, ts,
+                mode: str = "sum") -> torch.Tensor:
+    """Best terminal value per threshold, shape ``ts.shape``.
+
+    Layouts: ``Ccom/Bcom[n, i, m]``, ``Sseg/Bseg[i, m, j]``,
+    ``src_cost/src_beta[i]`` (structural masks pre-folded, as after
+    ``_LayeredDP.rebind``).  ``mode="sum"`` is (+, min) shortest path among
+    edges with beta <= t; ``mode="max"`` is (max, min) minimal bottleneck.
+    """
+    ts = torch.as_tensor(ts, dtype=Ccom.dtype, device=Ccom.device).reshape(-1)
+    N, I1 = Ccom.shape[0], Ccom.shape[1]
+    per = slices_per_chunk(N, I1)
+    out = torch.empty_like(ts)
+    for c0 in range(0, ts.shape[0], per):
+        out[c0:c0 + per] = _sweep_chunk(Ccom, Bcom, Sseg, Bseg, src_cost,
+                                        src_beta, K, ts[c0:c0 + per], mode)
+    return out
+
+
+def _sweep_chunk(Ccom, Bcom, Sseg, Bseg, src_cost, src_beta, K, ts, mode):
+    is_sum = mode == "sum"
+    op = torch.add if is_sum else torch.maximum
+    src_val = src_cost if is_sum else src_beta
+    inf = torch.tensor(float("inf"), dtype=Ccom.dtype, device=Ccom.device)
+    S = ts.shape[0]
+    N, I1 = Ccom.shape[0], Ccom.shape[1]
+    I = I1 - 1
+
+    dist = torch.full((S, N, I1), float("inf"), dtype=Ccom.dtype,
+                      device=Ccom.device)
+    dist[:, 0, :] = torch.where(src_beta <= ts[:, None], src_val, inf)
+    best = dist[:, 0, I].clone()
+    # the threshold mask is layer-independent: fold beta > t edges to inf
+    t4 = ts[:, None, None, None]
+    Vc = torch.where(Bcom <= t4, Ccom if is_sum else Bcom, inf)
+    Vs = torch.where(Bseg <= t4, Sseg if is_sum else Bseg, inf)
+    for _k in range(2, K + 1):
+        A = op(dist[:, :, :, None], Vc).amin(dim=1)        # (S, I1, N)
+        nd = op(A[:, :, :, None], Vs).amin(dim=1)          # (S, N, I1)
+        dist = nd
+        if N > 1:
+            best = torch.minimum(best, nd[:, 1:, I].amin(dim=1))
+        if not torch.isfinite(nd).any():
+            break
+    return best

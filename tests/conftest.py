@@ -16,6 +16,10 @@ def pytest_configure(config):
         "markers",
         "pallas: kernel parity tests; skip (not fail) where the Pallas "
         "lowering toolchain is unavailable")
+    config.addinivalue_line(
+        "markers",
+        "cuda: tests of the PyTorch port's CUDA kernels; skip (not fail) "
+        "where no GPU is visible")
 
 
 @pytest.fixture

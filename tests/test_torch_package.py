@@ -1,0 +1,93 @@
+"""Package rules of the PyTorch port.
+
+* ``src/repro_torch/`` and ``chip_smoke.py`` import neither ``jax`` nor
+  anything of the reference package ``repro`` (``repro_torch`` is not
+  ``repro``): a port that calls the reference cannot be checked against it.
+* Entry points run on ``"cuda"`` by default and raise without a GPU unless
+  the caller asks for ``"cpu"`` — they never carry on quietly on the CPU.
+"""
+
+import ast
+import pathlib
+
+import pytest
+import torch
+
+import repro_torch
+from repro_torch import obs
+from repro_torch.core import (Planner, bcd_solve, make_edge_network,
+                              no_pipeline, ours, uniform_profile)
+from repro_torch.pipeline import SplitLearningExecutor
+from repro_torch.sim import FIFO, OneFOneB, resolve_policy
+
+ROOT = pathlib.Path(__file__).resolve().parents[1]
+PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + \
+    [ROOT / "chip_smoke.py"]
+
+
+def _imported_modules(path):
+    for node in ast.walk(ast.parse(path.read_text(), str(path))):
+        if isinstance(node, ast.Import):
+            yield from (a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module
+
+
+@pytest.mark.parametrize("path", PORT_FILES,
+                         ids=lambda p: str(p.relative_to(ROOT)))
+def test_port_imports_neither_jax_nor_repro(path):
+    for mod in _imported_modules(path):
+        top = mod.split(".")[0]
+        assert top not in ("jax", "jaxlib", "repro"), (path, mod)
+
+
+def test_scan_finds_every_port_module():
+    names = {p.name for p in PORT_FILES}
+    assert {"shortest_path.py", "kernel.py", "executor.py",
+            "chip_smoke.py"} <= names
+
+
+def test_default_device_raises_without_gpu(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    prof = uniform_profile(4)
+    net = make_edge_network(2, 2, seed=0)
+    for call in (lambda: Planner(prof, net),
+                 lambda: ours(prof, net, B=8),
+                 lambda: no_pipeline(prof, net, B=8),
+                 lambda: bcd_solve(prof, net, 8)):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            call()
+    plan = ours(prof, net, B=8, device="cpu")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        SplitLearningExecutor(plan, prof, net)
+    assert repro_torch.resolve_device("cpu") == torch.device("cpu")
+
+
+def test_planner_on_another_device_is_refused():
+    prof = uniform_profile(4)
+    net = make_edge_network(2, 2, seed=0)
+    pl = Planner(prof, net, device="cpu")
+    with pytest.raises(ValueError, match="planner runs on"):
+        bcd_solve(prof, net, 8, planner=pl, device="cuda")
+
+
+def test_obs_is_a_no_op_until_enabled():
+    obs.reset()
+    with obs.span("x", a=1):
+        obs.inc("c")
+    assert obs.counter("c") == 0 and obs.wall_spans() == []
+    with obs.enabled_scope():
+        with obs.span("x", a=1):
+            obs.inc("c", 2)
+    assert obs.counter("c") == 2
+    assert obs.span_summary()["x"]["count"] == 1
+    assert not obs.enabled()
+    obs.reset()
+
+
+def test_admission_policies():
+    assert OneFOneB().stage_capacity(4, 8) == {0: 4, 1: 3, 2: 2, 3: 1}
+    assert FIFO().stage_capacity(3, 8) == {0: 8, 1: 8, 2: 8}
+    assert isinstance(resolve_policy("gpipe"), FIFO)
+    with pytest.raises(ValueError, match="unknown admission policy"):
+        resolve_policy("memory")
