@@ -2,8 +2,9 @@
 
     python3 chip_smoke.py
 
-Runs the paper's plan-and-train loop through ``repro_torch`` on the card,
-in phases; any failure raises and exits non-zero:
+Runs the paper's plan-and-train loop and the RWKV6 server through
+``repro_torch`` on the card, in phases; any failure raises and exits
+non-zero:
 
   1. device  require CUDA; print the card's name and power limit
   2. build   build the min-plus kernel K1 from the checkout's sources
@@ -17,15 +18,33 @@ in phases; any failure raises and exits non-zero:
              no_pipeline and the Eq. (14) event-simulation gap
   5. train   one VGG-16 round on cuda matches the CPU (TF32 off); then a
              few rounds at the B=512 plan, timed
+  6. build   K3, the RWKV6 WKV scan (prints ptxas -v)
+  7. wkv6    hold K3 against its plain versions on the card at the
+             reference's WKV_SWEEP shapes, two odd chunks and the served
+             layer shape (1 x 512 tokens x 32 heads x 64, chunk 256):
+             atol = rtol = 1e-4 in float32 and 3e-2 in bfloat16 on y and
+             the final state; two halves with the state carried equal the
+             whole sequence; then time it
+  8. model   a 2-layer rwkv6-1.6b at full width in float32 compute (TF32
+             off): a 512-token prefill on cuda (through K3) matches the
+             same weights on the CPU (plain) within 1e-3 relative to each
+             tensor's largest magnitude, on the logits and the WKV state;
+             64 decode steps after a 64-token prefill match a 128-token
+             prefill at the reference's 2e-3
+  9. serve   BatchedServer("rwkv6-1.6b", reduced=False, batch=4,
+             cache_len=1024): 8 requests of 512 prompt tokens, 32 new
+             tokens each; K3 launched 8 x 24 = 192 times; prefill ms per
+             request, decode tokens/s, peak device memory
 
-The next-to-last line is a JSON object with K1's measurements; the last is
-``{"ok": true, "device": {...}}``.  Imports nothing of JAX or of the JAX
-package ``repro``.
+The next-to-last line is a JSON object with the kernels' measurements; the
+last is ``{"ok": true, "device": {...}}``.  Imports nothing of JAX or of
+the JAX package ``repro``.
 """
 
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import json
 import math
 import os
@@ -44,6 +63,17 @@ HBM_BYTES_PER_S = 3.35e12
 PEAK_OPS = {torch.float64: 34e12, torch.float32: 67e12}   # non-tensor-core
 F32_RTOL = 1e-4
 LOSS_RTOL = 1e-4
+#: K3 against its plain versions: the reference's WKV tolerances
+WKV_TOL = {torch.float32: 1e-4, torch.bfloat16: 3e-2}
+#: the reference's WKV_SWEEP (tests/test_kernels.py), two chunks the
+#: model's selection loop can produce for other prompt lengths, and the
+#: served layer shape: (B, S, H, hd, chunk)
+WKV_SHAPES = [(1, 64, 1, 16, 16), (2, 128, 2, 32, 32), (1, 256, 4, 64, 64),
+              (2, 96, 2, 8, 32), (1, 128, 2, 64, 128), (1, 62, 2, 64, 31),
+              (1, 9, 2, 64, 1)]
+SERVED_WKV = (1, 512, 32, 64, 256)
+MODEL_REL_TOL = 1e-3          # phase 8: cuda vs CPU, float32, TF32 off
+DECODE_TOL = 2e-3             # the reference's prefill-vs-decode contract
 
 
 def log(*args):
@@ -185,6 +215,75 @@ def all_thresholds(planner, b, max_s=1024):
     return (*dp._kernel_args(), ts)
 
 
+def wkv6_inputs(B, S, H, hd, dtype, seed=7):
+    """K3's inputs at the reference's scales (tests/test_kernels.py),
+    drawn on the card."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    n = lambda *shape: torch.randn(shape, generator=g, device="cuda")
+    r, k, v = (n(B, S, H, hd).mul_(0.5).to(dtype) for _ in range(3))
+    logw = -torch.exp(n(B, S, H, hd) * 0.5 - 2.0)
+    return r, k, v, logw, n(H, hd) * 0.3, n(B, H, hd, hd) * 0.2
+
+
+def wkv6_bound_ms(B, S, H, hd, dtype) -> tuple:
+    """(bound_ms, bound_by) of K3: each input read once and each output
+    written once over HBM bandwidth, vs the float32 operations of the
+    cheapest exact form of the same function over the non-tensor-core
+    float32 peak.  Two forms are counted per head, and the smaller taken:
+    the per-token recurrence (r S, the bonus, the state's decay and rank-1
+    update: 5 hd^2 + 6 hd per token), and the chunked form at its best
+    tile length n (q S and the state update, 2 n hd^2 each; q k'^T and its
+    product with v below the diagonal, n (n-1) hd each; decays,
+    exponentials and bonus, 8 n hd; the state's decay, hd^2)."""
+    esize = torch.tensor([], dtype=dtype).element_size()
+    elems = B * S * H * hd
+    byte_s = (elems * (3 * esize + 4 + 4) + H * hd * 4
+              + 2 * B * H * hd * hd * 4) / HBM_BYTES_PER_S
+
+    def chunked(n):
+        return sum(4 * m * hd * hd + 2 * m * (m - 1) * hd + 8 * m * hd
+                   + hd * hd
+                   for m in [n] * (S // n) + ([S % n] if S % n else []))
+
+    ops = min([S * (5 * hd * hd + 6 * hd)]
+              + [chunked(n) for n in range(1, S + 1)])
+    op_s = ops * B * H / PEAK_OPS[torch.float32]
+    return (max(byte_s, op_s) * 1e3,
+            "bytes" if byte_s >= op_s else "operations")
+
+
+def check_wkv6(shape, dtype, wkv6_mod) -> float:
+    """Hold K3 against wkv6_chunked_plain and the per-token wkv6_plain on
+    the card; returns the largest absolute error against the chunked
+    plain version."""
+    B, S, H, hd, chunk = shape
+    args = wkv6_inputs(B, S, H, hd, dtype)
+    y, s = wkv6_mod.wkv6(*args, chunk=chunk)
+    torch.cuda.synchronize()
+    tol = WKV_TOL[dtype]
+    err = 0.0
+    for name, (y_p, s_p) in (
+            ("chunked plain", wkv6_mod.wkv6_chunked_plain(*args, chunk)),
+            ("per-token plain", wkv6_mod.wkv6_plain(*args))):
+        for what, got, want in (("y", y, y_p), ("S_final", s, s_p)):
+            if not torch.allclose(got, want, atol=tol, rtol=tol):
+                bad = float((got - want).abs().max())
+                raise AssertionError(f"K3 {shape} {dtype} {what} vs {name}: "
+                                     f"max abs err {bad} > {tol}")
+            if name == "chunked plain":
+                err = max(err, float((got - want).abs().max()))
+    log(f"K3 (B,S,H,hd,chunk)={shape} {str(dtype)[6:]}: y and S_final "
+        f"within {tol} of both plain versions (max abs err {err:.3e})")
+    return err
+
+
+def rel_err(got, want) -> float:
+    """max |got - want| over max |want|."""
+    want = want.float().cpu()
+    return float((got.float().cpu() - want).abs().max()
+                 / want.abs().max().clamp_min(1e-30))
+
+
 def main() -> int:
     # 1. device ----------------------------------------------------------
     if not torch.cuda.is_available():
@@ -206,6 +305,8 @@ def main() -> int:
     from repro_torch.kernels import _build
     from repro_torch.kernels import minplus
     from repro_torch.kernels.minplus import kernel as minplus_kernel
+    from repro_torch.kernels import rwkv6 as wkv6_mod
+    from repro_torch.kernels.rwkv6 import kernel as wkv6_kernel
     from repro_torch.models import vgg
     from repro_torch.pipeline import (SplitLearningExecutor,
                                       simulate_from_breakdown)
@@ -252,6 +353,7 @@ def main() -> int:
 
     # 4. plan (the main path) ---------------------------------------------
     minplus.sweep_minplus.launches = 0
+    wkv6_mod.wkv6.launches = 0
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     plan = ours(profile, net, B=512, b0=20, device="cuda")
@@ -331,6 +433,158 @@ def main() -> int:
         f"TF32 default): ms/round {[round(t, 3) for t in times]}, losses "
         f"{[round(v, 4) for v in losses]}")
 
+    # 6. build K3 -----------------------------------------------------------
+    t0 = time.perf_counter()
+    wkv6_kernel._library()
+    log(f"build: K3 in {time.perf_counter() - t0:.2f} s")
+    for line in _build.build_log(wkv6_kernel.LIB_NAME).splitlines():
+        if "registers" in line or "spill" in line or "Compiling" in line:
+            log("  ptxas:", line.strip())
+
+    # 7. K3 against its plain versions ----------------------------------------
+    # phases 7 and 8 compare in full float32: TF32 off for every matmul
+    torch.backends.cuda.matmul.allow_tf32 = False
+    k3_err = 0.0
+    for shape in WKV_SHAPES + [SERVED_WKV]:
+        for dtype in (torch.float32, torch.bfloat16):
+            k3_err = max(k3_err, check_wkv6(shape, dtype, wkv6_mod))
+    B, S, H, hd, chunk = SERVED_WKV
+    for dtype in (torch.float32, torch.bfloat16):
+        r, k, v, lw, u, s0 = wkv6_inputs(B, S, H, hd, dtype, seed=11)
+        y, s_fin = wkv6_mod.wkv6(r, k, v, lw, u, s0, chunk=chunk)
+        h = S // 2
+        y1, s1 = wkv6_mod.wkv6(r[:, :h], k[:, :h], v[:, :h], lw[:, :h], u,
+                               s0, chunk=chunk)
+        y2, s2 = wkv6_mod.wkv6(r[:, h:], k[:, h:], v[:, h:], lw[:, h:], u,
+                               s1, chunk=chunk)
+        tol = WKV_TOL[dtype]
+        if not (torch.allclose(torch.cat([y1, y2], 1), y, atol=tol, rtol=tol)
+                and torch.allclose(s2, s_fin, atol=tol, rtol=tol)):
+            raise AssertionError(f"K3 state threading {dtype}: halves "
+                                 "differ from the whole sequence")
+    log(f"K3 state threading (2 x {h} tokens, state carried) equals the "
+        f"whole {S}-token scan in float32 and bfloat16")
+    served_args = wkv6_inputs(B, S, H, hd, torch.bfloat16)
+    k3_ms = cuda_ms(lambda: wkv6_mod.wkv6(*served_args, chunk=chunk))
+    k3_plain = cuda_ms(lambda: wkv6_mod.wkv6_chunked_plain(*served_args,
+                                                           chunk))
+    args32 = wkv6_inputs(B, S, H, hd, torch.float32)
+    k3_ms32 = cuda_ms(lambda: wkv6_mod.wkv6(*args32, chunk=chunk))
+    k3_bound, k3_by = wkv6_bound_ms(B, S, H, hd, torch.bfloat16)
+    log(f"K3 served shape {SERVED_WKV}, bf16 r/k/v: kernel {k3_ms:.4f} ms "
+        f"(f32 r/k/v {k3_ms32:.4f} ms), plain {k3_plain:.4f} ms, bound "
+        f"{k3_bound:.6f} ms ({k3_by})")
+
+    # 8. model check: cuda (K3) vs CPU (plain), float32 ----------------------
+    from repro_torch.configs import get_config
+    from repro_torch.launch.serve import BatchedServer, Request
+    from repro_torch.models import rwkv6
+
+    full = get_config("rwkv6-1.6b")
+    cfg8 = dataclasses.replace(full, num_layers=2,
+                               compute_dtype=torch.float32)
+    cpu_model = rwkv6.init_params(cfg8, torch.Generator().manual_seed(0),
+                                  "cpu")
+    gpu_model = rwkv6.RWKV6(cfg8, "cuda")
+    gpu_model.load_state_dict(cpu_model.state_dict())
+    prompt = torch.randint(0, full.vocab, (1, 512),
+                           generator=torch.Generator().manual_seed(1))
+    before = wkv6_mod.wkv6.launches
+    logits_g, state_g = rwkv6.prefill(gpu_model, prompt.cuda())
+    torch.cuda.synchronize()
+    if wkv6_mod.wkv6.launches - before != cfg8.num_layers:
+        raise AssertionError("the cuda prefill did not go through K3")
+    logits_c, state_c = rwkv6.prefill(cpu_model, prompt)
+    errs = {"logits": rel_err(logits_g, logits_c),
+            **{k: rel_err(state_g[k], state_c[k]) for k in state_c}}
+    if not (torch.isfinite(logits_g).all()
+            and max(errs.values()) <= MODEL_REL_TOL):
+        raise AssertionError(f"model cuda vs cpu: {errs}")
+    log(f"model ({cfg8.num_layers} layers, d {cfg8.d_model}, "
+        f"{rwkv6.num_heads(cfg8)} heads, vocab {cfg8.vocab}, f32, "
+        f"{prompt.shape[1]}-token prefill): cuda (K3) vs cpu (plain) max err "
+        f"/ max magnitude "
+        + ", ".join(f"{k} {v:.2e}" for k, v in errs.items())
+        + f" (tolerance {MODEL_REL_TOL})")
+    del cpu_model, logits_c, state_c
+    p128 = prompt[:, :128].cuda()
+    logits_128, _ = rwkv6.prefill(gpu_model, p128)
+    logits_d, state = rwkv6.prefill(gpu_model, p128[:, :64])
+    for t in range(64, 128):
+        logits_d, state = rwkv6.decode_step(gpu_model, state,
+                                            p128[:, t:t + 1], t)
+    if not torch.allclose(logits_d, logits_128, atol=DECODE_TOL,
+                          rtol=DECODE_TOL):
+        bad = float((logits_d - logits_128).abs().max())
+        raise AssertionError(f"64 decode steps vs 128-token prefill: {bad}")
+    log(f"64-token prefill + 64 decode steps == 128-token prefill within "
+        f"{DECODE_TOL} (max abs diff "
+        f"{float((logits_d - logits_128).abs().max()):.2e})")
+    del gpu_model, logits_g, state_g, logits_d, logits_128, state
+    torch.cuda.empty_cache()
+
+    # 9. serve rwkv6-1.6b at full width (the main path of K3) ----------------
+    prefill_s = []
+
+    class TimedServer(BatchedServer):
+        """Records each prefill's time; admission and decoding unchanged."""
+
+        def _prefill_one(self, req):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = super()._prefill_one(req)
+            torch.cuda.synchronize()
+            prefill_s.append(time.perf_counter() - t0)
+            return out
+
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    srv = TimedServer("rwkv6-1.6b", reduced=False, batch=4, cache_len=1024,
+                      seed=0, device="cuda")
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = srv.api.param_count(srv.params)
+    warm = srv.api.prefill(srv.params, {"tokens": prompt[:, :64].cuda()},
+                           1024)        # casts the weights to bf16 once
+    del warm
+    rng = np.random.default_rng(0)
+    reqs = [Request(rid, rng.integers(0, full.vocab, size=512)
+                    .astype(np.int32), max_new=32) for rid in range(8)]
+    for req in reqs:
+        srv.submit(req)
+    minplus.sweep_minplus.launches = 0
+    wkv6_mod.wkv6.launches = 0
+    stats = srv.run()
+    torch.cuda.synchronize()
+    k3_launches = wkv6_mod.wkv6.launches
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    if k3_launches != len(reqs) * full.num_layers:
+        raise AssertionError(f"K3 launches {k3_launches} != "
+                             f"{len(reqs) * full.num_layers}")
+    done = stats["completed"]
+    if not (len(done) == len(reqs) and all(
+            len(r.generated) == 32 and r.done
+            and all(0 <= t < full.vocab for t in r.generated)
+            for r in done)):
+        raise AssertionError(f"served {len(done)} of {len(reqs)} requests")
+    check_logits, check_state = srv.api.prefill(
+        srv.params, {"tokens": torch.as_tensor(reqs[0].prompt[None],
+                                               device="cuda")}, 1024)
+    if not (torch.isfinite(check_logits).all()
+            and torch.isfinite(check_state["wkv"]).all()
+            and int(torch.argmax(check_logits[0, -1])) == reqs[0].generated[0]):
+        raise AssertionError("a fresh prefill of request 0 is not finite or "
+                             "disagrees with its first served token")
+    prefill_ms = [round(t * 1e3, 3) for t in prefill_s]
+    decode_s = stats["seconds"] - sum(prefill_s)
+    log(f"serve rwkv6-1.6b full width ({n_params} parameters, f32 params, "
+        f"bf16 compute; init {init_s:.2f} s): {len(done)} requests x "
+        f"{len(reqs[0].prompt)} prompt tokens, {stats['tokens']} decode "
+        f"tokens in "
+        f"{stats['seconds']:.3f} s; prefill ms per request {prefill_ms}; "
+        f"decode {stats['tokens'] / decode_s:.2f} tokens/s; K3 launches "
+        f"{k3_launches}; peak device memory {peak_gib:.2f} GiB")
+
     log(json.dumps({"kernels": [{
         "name": "minplus_sweep",
         "route": "cuda",
@@ -344,6 +598,18 @@ def main() -> int:
         "library_ms": None,
         "quickstart_all_thresholds": quick_all,
         "fleet_window": fleet, "fleet_all_thresholds": fleet_all,
+    }, {
+        "name": "wkv6_scan",
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/rwkv6/csrc/wkv6.cu",
+        "replaces": "src/repro/kernels/rwkv6/kernel.py:27",
+        "launches": k3_launches,
+        "max_abs_err": k3_err,
+        "ms": k3_ms, "plain_ms": k3_plain,
+        "bound_ms": k3_bound, "bound_by": k3_by,
+        "library_ms": None,
+        "shape": dict(zip(("B", "S", "H", "hd", "chunk"), SERVED_WKV)),
+        "dtype": "bfloat16 r/k/v", "ms_f32_inputs": k3_ms32,
     }]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,0 +1,27 @@
+"""Arch registry of the port: ``get_config(arch_id, reduced=...)``.
+
+Only the ``ssm`` family (``rwkv6-1.6b``) is ported; the reference's other
+architectures are ROADMAP Queue 1 item 10.
+"""
+
+from repro_torch.models.common import ArchConfig
+
+from . import rwkv6_1_6b
+
+_MODULES = {
+    "rwkv6-1.6b": rwkv6_1_6b,
+}
+
+ARCH_IDS = tuple(_MODULES)
+
+
+def get_config(arch_id: str, reduced: bool = False) -> ArchConfig:
+    mod = _MODULES.get(arch_id)
+    if mod is None:
+        raise NotImplementedError(
+            f"arch {arch_id!r} is not ported yet (ROADMAP Queue 1 item 10); "
+            f"ported: {', '.join(ARCH_IDS)}")
+    return mod.reduced() if reduced else mod.CONFIG
+
+
+__all__ = ["ARCH_IDS", "ArchConfig", "get_config"]

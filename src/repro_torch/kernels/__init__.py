@@ -1,6 +1,6 @@
 """Hand-written Hopper kernels of the port, each beside its plain version.
 
-``minplus`` (K1) is ported.  The flash-attention and RWKV6 WKV kernels of
-``repro.kernels`` serve only the language-model stack and are not ported
-yet.
+``minplus`` (K1) and ``rwkv6`` (K3, the WKV6 scan) are ported.  The
+flash-attention kernel of ``repro.kernels`` has no caller in the reference
+and is not ported yet.
 """

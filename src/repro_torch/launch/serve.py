@@ -1,0 +1,139 @@
+"""Batched serving driver: continuous-batching decode loop.
+
+The port of ``repro/launch/serve.py``:
+
+    PYTHONPATH=src python -m repro_torch.launch.serve --device cpu \
+        --requests 4 --prompt-len 16 --gen 8           # reduced, on the CPU
+    PYTHONPATH=src python -m repro_torch.launch.serve --full \
+        --prompt-len 512 --gen 32                      # rwkv6-1.6b, on a GPU
+
+A request queue, a prefill of each admitted request into its own
+single-row state, then a decode loop that retires finished sequences and
+admits new ones into the freed slots (continuous batching); greedy
+sampling (``argmax``, the first index on ties).  Admission, retirement and
+the returned stats are the reference's.  The server runs on ``"cuda"``
+unless the caller passes ``device="cpu"``; without a GPU it raises.
+"""
+
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import time
+
+import numpy as np
+import torch
+
+from repro_torch._device import resolve_device
+from repro_torch.configs import get_config
+from repro_torch.models.registry import get_model
+
+
+@dataclasses.dataclass
+class Request:
+    rid: int
+    prompt: np.ndarray          # (P,) int32
+    max_new: int
+    generated: list = dataclasses.field(default_factory=list)
+    done: bool = False
+
+
+class BatchedServer:
+    def __init__(self, arch: str, *, reduced: bool = True, batch: int = 4,
+                 cache_len: int = 128, seed: int = 0, device="cuda",
+                 params=None):
+        self.device = resolve_device(device)
+        self.cfg = get_config(arch, reduced=reduced)
+        self.api = get_model(self.cfg, self.device)
+        self.batch = batch
+        self.cache_len = cache_len
+        if params is None:
+            gen = torch.Generator(device=self.device).manual_seed(seed)
+            params = self.api.init(gen)
+        self.params = params
+        self.decode = self.api.decode
+        self.queue: list = []
+        self.slots: list = [None] * batch
+
+    def submit(self, req: Request):
+        self.queue.append(req)
+
+    def _prefill_one(self, req: Request):
+        """Prefill a single request into a fresh single-row state."""
+        tokens = torch.as_tensor(np.asarray(req.prompt)[None, :],
+                                 device=self.device)
+        logits, cache = self.api.prefill(self.params, {"tokens": tokens},
+                                         self.cache_len)
+        tok = int(torch.argmax(logits[0, -1]))
+        return tok, cache, len(req.prompt)
+
+    def run(self, *, max_ticks: int = 1000) -> dict:
+        """Continuous batching: admit from queue, decode, retire."""
+        stats = {"ticks": 0, "completed": [], "tokens": 0}
+        t0 = time.time()
+        for _ in range(max_ticks):
+            # admit
+            for i in range(self.batch):
+                if self.slots[i] is None and self.queue:
+                    req = self.queue.pop(0)
+                    tok, cache, pos = self._prefill_one(req)
+                    req.generated.append(tok)
+                    self.slots[i] = {"req": req, "cache": cache, "pos": pos,
+                                     "last": tok}
+            live = [s for s in self.slots if s is not None]
+            if not live:
+                break
+            # decode each live slot (row-batched per slot: states are per
+            # slot so heterogeneous positions are exact)
+            for s in live:
+                token = torch.tensor([[s["last"]]], dtype=torch.int32,
+                                     device=self.device)
+                logits, s["cache"] = self.decode(self.params, s["cache"],
+                                                 token, s["pos"])
+                s["last"] = int(torch.argmax(logits[0, -1]))
+                s["pos"] += 1
+                s["req"].generated.append(s["last"])
+                stats["tokens"] += 1
+            # retire
+            for i, s in enumerate(self.slots):
+                if s is None:
+                    continue
+                req = s["req"]
+                if (len(req.generated) >= req.max_new
+                        or s["pos"] >= self.cache_len - 1):
+                    req.done = True
+                    stats["completed"].append(req)
+                    self.slots[i] = None
+            stats["ticks"] += 1
+        stats["seconds"] = time.time() - t0
+        stats["tok_per_s"] = stats["tokens"] / max(stats["seconds"], 1e-9)
+        return stats
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", default="rwkv6-1.6b")
+    ap.add_argument("--full", action="store_true",
+                    help="the full-size config (default: reduced)")
+    ap.add_argument("--device", default="cuda")
+    ap.add_argument("--requests", type=int, default=8)
+    ap.add_argument("--batch", type=int, default=4)
+    ap.add_argument("--prompt-len", type=int, default=16)
+    ap.add_argument("--gen", type=int, default=24)
+    ap.add_argument("--cache-len", type=int, default=128)
+    args = ap.parse_args(argv)
+    srv = BatchedServer(args.arch, reduced=not args.full, batch=args.batch,
+                        cache_len=args.cache_len, device=args.device)
+    rng = np.random.default_rng(0)
+    for rid in range(args.requests):
+        srv.submit(Request(rid, rng.integers(
+            0, srv.cfg.vocab, size=args.prompt_len).astype(np.int32),
+            max_new=args.gen))
+    stats = srv.run()
+    print(f"served {len(stats['completed'])} requests, "
+          f"{stats['tokens']} tokens in {stats['seconds']:.1f}s "
+          f"({stats['tok_per_s']:.1f} tok/s) on {srv.device}")
+
+
+if __name__ == "__main__":
+    main()

@@ -1,2 +1,3 @@
-"""Models of the port: VGG-16 (the paper's workload) and the shared cross
-entropy.  The language-model families are not ported yet."""
+"""Models of the port: VGG-16 (the paper's workload), RWKV6 (the ``ssm``
+family, served by ``launch/serve.py``), the shared pieces and the model
+registry.  The other language-model families are not ported yet."""

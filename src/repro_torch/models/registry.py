@@ -1,0 +1,49 @@
+"""Uniform model API — the port of ``repro/models/registry.py`` for the
+families ported so far (``ssm``: RWKV6).
+
+    api = get_model(cfg, device="cuda")
+    model = api.init(generator)                         # on api.device
+    logits, cache = api.prefill(model, batch, cache_len)
+    logits, cache = api.decode(model, cache, token, pos)
+
+The reference's ``loss`` (training) is not ported yet (ROADMAP Queue 1
+item 10).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Callable
+
+import torch
+
+from .._device import resolve_device
+from . import rwkv6 as rwkv_lib
+from .common import ArchConfig
+
+
+@dataclasses.dataclass(frozen=True)
+class ModelAPI:
+    cfg: ArchConfig
+    device: torch.device
+    init: Callable            # (generator) -> model on device
+    prefill: Callable         # (model, batch, cache_len) -> (logits, cache)
+    decode: Callable          # (model, cache, token, pos) -> (logits, cache)
+
+    def param_count(self, params) -> int:
+        return sum(p.numel() for p in params.parameters())
+
+
+def get_model(cfg: ArchConfig, device="cuda") -> ModelAPI:
+    """The model API of ``cfg``'s family on ``device`` (``"cuda"`` unless
+    the caller asks for the CPU; raises without a GPU)."""
+    dev = resolve_device(device)
+    if cfg.family == "ssm":
+        return ModelAPI(
+            cfg=cfg, device=dev,
+            init=lambda g: rwkv_lib.init_params(cfg, g, dev),
+            prefill=lambda m, b, n: rwkv_lib.prefill(m, b["tokens"], n),
+            decode=lambda m, c, t, pos: rwkv_lib.decode_step(m, c, t, pos),
+        )
+    raise NotImplementedError(
+        f"family {cfg.family!r} is not ported yet (ROADMAP Queue 1 item 10)")
