@@ -2,9 +2,9 @@
 
     python3 chip_smoke.py
 
-Runs the paper's plan-and-train loop and the RWKV6 server through
-``repro_torch`` on the card, in phases; any failure raises and exits
-non-zero:
+Runs the paper's plan-and-train loop, the RWKV6 server and the Qwen3
+server through ``repro_torch`` on the card, in phases; any failure raises
+and exits non-zero:
 
   1. device  require CUDA; print the card's name and power limit
   2. build   build the min-plus kernel K1 from the checkout's sources
@@ -35,6 +35,26 @@ non-zero:
              cache_len=1024): 8 requests of 512 prompt tokens, 32 new
              tokens each; K3 launched 8 x 24 = 192 times; prefill ms per
              request, decode tokens/s, peak device memory
+ 10. build   K2, the flash-attention forward (prints ptxas -v)
+ 11. flash   hold K2 against its plain version on the card at the
+             reference's FLASH_SWEEP shapes (a length of 200, cross lengths
+             128/256 with GQA 4:1, MQA), the served layer shape of
+             qwen3-0.6b (1 x 512 x 512, 16 heads, 8 kv heads of 128,
+             causal) and a 2048-token causal prompt (the reference's
+             chunked_attention branch): atol = rtol = 2e-5 in float32 and
+             2e-2 in bfloat16; then time K2, its plain version and
+             scaled_dot_product_attention (the library yardstick, never
+             called by the port) at the served shape, beside the bound
+ 12. model   a 2-layer qwen3-0.6b at full width in float32 compute (TF32
+             off): a 512-token prefill on cuda (through K2) matches the
+             same weights on the CPU (plain) within 1e-3 relative to each
+             tensor's largest magnitude, on the logits and the KV cache;
+             64 decode steps after a 64-token prefill match a 128-token
+             prefill at the reference's 2e-3
+ 13. serve   BatchedServer("qwen3-0.6b", reduced=False, batch=4,
+             cache_len=1024): 8 requests of 512 prompt tokens, 32 new
+             tokens each; K2 launched 8 x 28 = 224 times; prefill ms per
+             request, decode tokens/s, peak device memory
 
 The next-to-last line is a JSON object with the kernels' measurements; the
 last is ``{"ok": true, "device": {...}}``.  Imports nothing of JAX or of
@@ -58,9 +78,11 @@ import torch
 sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)),
                                 "src"))
 
-#: H100 SXM peaks (NVIDIA data sheet; dense, no sparsity, 700 W)
+#: H100 SXM peaks (NVIDIA data sheet; dense, no sparsity, 700 W): float64
+#: and float32 outside the tensor cores, bfloat16 on the tensor cores
 HBM_BYTES_PER_S = 3.35e12
-PEAK_OPS = {torch.float64: 34e12, torch.float32: 67e12}   # non-tensor-core
+PEAK_OPS = {torch.float64: 34e12, torch.float32: 67e12,
+            torch.bfloat16: 989e12}
 F32_RTOL = 1e-4
 LOSS_RTOL = 1e-4
 #: K3 against its plain versions: the reference's WKV tolerances
@@ -72,8 +94,19 @@ WKV_SHAPES = [(1, 64, 1, 16, 16), (2, 128, 2, 32, 32), (1, 256, 4, 64, 64),
               (2, 96, 2, 8, 32), (1, 128, 2, 64, 128), (1, 62, 2, 64, 31),
               (1, 9, 2, 64, 1)]
 SERVED_WKV = (1, 512, 32, 64, 256)
-MODEL_REL_TOL = 1e-3          # phase 8: cuda vs CPU, float32, TF32 off
+MODEL_REL_TOL = 1e-3          # phases 8, 12: cuda vs CPU, f32, TF32 off
 DECODE_TOL = 2e-3             # the reference's prefill-vs-decode contract
+#: K2 against its plain version: the reference's flash tolerances
+FLASH_TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
+#: the reference's FLASH_SWEEP (tests/test_kernels.py), the served layer
+#: shape of qwen3-0.6b and a 2048-token prompt, which the reference's
+#: transformer computes with chunked_attention: (B, S, T, H, KV, hd, causal)
+FLASH_SHAPES = [(1, 64, 64, 2, 2, 32, True), (2, 128, 128, 4, 2, 64, True),
+                (1, 200, 200, 4, 4, 64, True),
+                (2, 128, 256, 8, 2, 128, False),
+                (1, 96, 96, 8, 1, 64, True)]
+SERVED_FLASH = (1, 512, 512, 16, 8, 128, True)
+LONG_FLASH = (1, 2048, 2048, 16, 8, 128, True)
 
 
 def log(*args):
@@ -275,6 +308,57 @@ def check_wkv6(shape, dtype, wkv6_mod) -> float:
     log(f"K3 (B,S,H,hd,chunk)={shape} {str(dtype)[6:]}: y and S_final "
         f"within {tol} of both plain versions (max abs err {err:.3e})")
     return err
+
+
+def flash_inputs(B, S, T, H, KV, hd, dtype, seed=42):
+    """K2's q, k, v (standard normal, as tests/test_kernels.py draws
+    them), drawn on the card."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    return [torch.randn(shape, generator=g, device="cuda").to(dtype)
+            for shape in ((B, S, H, hd), (B, T, KV, hd), (B, T, KV, hd))]
+
+
+def flash_bound_ms(B, S, T, H, KV, hd, causal, dtype) -> tuple:
+    """(bound_ms, bound_by) of K2: q, k and v read once and the output
+    written once over HBM bandwidth, vs the operations of the query-key
+    pairs the mask keeps (2 hd for the score, 2 hd for its share of p v;
+    under the causal mask only the pairs kpos <= qpos, not whole tiles) over
+    the type's peak (bfloat16 on the tensor cores, float32 outside them)."""
+    esize = torch.tensor([], dtype=dtype).element_size()
+    byte_s = esize * (2 * B * S * H * hd + 2 * B * T * KV * hd) \
+        / HBM_BYTES_PER_S
+    pairs = sum(min(s + 1, T) for s in range(S)) if causal else S * T
+    op_s = 4 * hd * pairs * B * H / PEAK_OPS[dtype]
+    return (max(byte_s, op_s) * 1e3,
+            "bytes" if byte_s >= op_s else "operations")
+
+
+def check_flash(shape, dtype, flash_mod) -> float:
+    """Hold K2 against attention_plain on the card; returns the largest
+    absolute error."""
+    B, S, T, H, KV, hd, causal = shape
+    q, k, v = flash_inputs(B, S, T, H, KV, hd, dtype)
+    out = flash_mod.flash_attention(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    want = flash_mod.attention_plain(q, k, v, causal=causal)
+    tol = FLASH_TOL[dtype]
+    err = float((out.float() - want.float()).abs().max())
+    if not (out.dtype == dtype and torch.isfinite(out).all()
+            and torch.allclose(out.float(), want.float(), atol=tol,
+                               rtol=tol)):
+        raise AssertionError(f"K2 {shape} {dtype}: max abs err {err} > "
+                             f"{tol}")
+    log(f"K2 (B,S,T,H,KV,hd,causal)={shape} {str(dtype)[6:]}: within {tol} "
+        f"of the plain version (max abs err {err:.3e})")
+    return err
+
+
+def sdpa(q, k, v):
+    """The library yardstick of K2: one scaled_dot_product_attention call
+    on the (B, H, S, hd) views, GQA and the causal mask inside the call."""
+    return torch.nn.functional.scaled_dot_product_attention(
+        q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+        is_causal=True, enable_gqa=True)
 
 
 def rel_err(got, want) -> float:
@@ -584,6 +668,151 @@ def main() -> int:
         f"{stats['seconds']:.3f} s; prefill ms per request {prefill_ms}; "
         f"decode {stats['tokens'] / decode_s:.2f} tokens/s; K3 launches "
         f"{k3_launches}; peak device memory {peak_gib:.2f} GiB")
+    del srv, stats, done, reqs, check_logits, check_state
+    torch.cuda.empty_cache()
+
+    # 10. build K2 -----------------------------------------------------------
+    from repro_torch.kernels import flash as flash_mod
+    from repro_torch.kernels.flash import kernel as flash_kernel
+    from repro_torch.models import transformer
+
+    t0 = time.perf_counter()
+    flash_kernel._library()
+    log(f"build: K2 in {time.perf_counter() - t0:.2f} s")
+    for line in _build.build_log(flash_kernel.LIB_NAME).splitlines():
+        if "registers" in line or "spill" in line or "Compiling" in line:
+            log("  ptxas:", line.strip())
+
+    # 11. K2 against its plain version (TF32 still off) ----------------------
+    k2_err = 0.0
+    for shape in FLASH_SHAPES + [SERVED_FLASH, LONG_FLASH]:
+        for dtype in (torch.float32, torch.bfloat16):
+            k2_err = max(k2_err, check_flash(shape, dtype, flash_mod))
+    timings = {}
+    for label, shape in (("served", SERVED_FLASH), ("2048", LONG_FLASH)):
+        q, k, v = flash_inputs(*shape[:6], torch.bfloat16, seed=5)
+        mine = flash_mod.flash_attention(q, k, v)
+        lib = sdpa(q, k, v).transpose(1, 2)
+        if not torch.allclose(mine.float(), lib.float(), atol=2e-2,
+                              rtol=2e-2):
+            raise AssertionError(f"K2 {shape} differs from "
+                                 "scaled_dot_product_attention")
+        q32, k32, v32 = flash_inputs(*shape[:6], torch.float32, seed=5)
+        timings[label] = {
+            "ms": cuda_ms(lambda: flash_mod.flash_attention(q, k, v)),
+            "plain_ms": cuda_ms(lambda: flash_mod.attention_plain(q, k, v)),
+            "library_ms": cuda_ms(lambda: sdpa(q, k, v)),
+            "ms_f32_inputs": cuda_ms(
+                lambda: flash_mod.flash_attention(q32, k32, v32)),
+        }
+        bound, by = flash_bound_ms(*shape, torch.bfloat16)
+        bound32, by32 = flash_bound_ms(*shape, torch.float32)
+        timings[label].update(bound_ms=bound, bound_by=by,
+                              bound_ms_f32=bound32, bound_by_f32=by32)
+        t = timings[label]
+        log(f"K2 {label} shape {shape}, bf16: kernel {t['ms']:.4f} ms, plain "
+            f"{t['plain_ms']:.4f} ms, scaled_dot_product_attention "
+            f"{t['library_ms']:.4f} ms, bound {bound:.6f} ms ({by}); "
+            f"f32: kernel {t['ms_f32_inputs']:.4f} ms, bound {bound32:.6f} "
+            f"ms ({by32})")
+    del q, k, v, q32, k32, v32, mine, lib
+
+    # 12. model check: cuda (K2) vs CPU (plain), float32 ---------------------
+    full_q = get_config("qwen3-0.6b")
+    cfg12 = dataclasses.replace(full_q, num_layers=2,
+                                compute_dtype=torch.float32)
+    cpu_q = transformer.init_params(cfg12, torch.Generator().manual_seed(0),
+                                    "cpu")
+    gpu_q = transformer.Transformer(cfg12, "cuda")
+    gpu_q.load_state_dict(cpu_q.state_dict())
+    prompt_q = torch.randint(0, full_q.vocab, (1, 512),
+                             generator=torch.Generator().manual_seed(1))
+    before = flash_mod.flash_attention.launches
+    logits_g, cache_g = transformer.prefill(gpu_q, prompt_q.cuda(), 512)
+    torch.cuda.synchronize()
+    if flash_mod.flash_attention.launches - before != cfg12.num_layers:
+        raise AssertionError("the cuda prefill did not go through K2")
+    logits_c, cache_c = transformer.prefill(cpu_q, prompt_q, 512)
+    errs = {"logits": rel_err(logits_g, logits_c),
+            **{k: rel_err(cache_g[k], cache_c[k]) for k in cache_c}}
+    if not (torch.isfinite(logits_g).all()
+            and max(errs.values()) <= MODEL_REL_TOL):
+        raise AssertionError(f"qwen3 model cuda vs cpu: {errs}")
+    log(f"model ({cfg12.num_layers} layers, d {cfg12.d_model}, "
+        f"{cfg12.n_heads} heads / {cfg12.n_kv} kv of {cfg12.head_dim}, vocab "
+        f"{cfg12.vocab}, f32, {prompt_q.shape[1]}-token prefill): cuda (K2) "
+        f"vs cpu (plain) max err / max magnitude "
+        + ", ".join(f"{k} {v:.2e}" for k, v in errs.items())
+        + f" (tolerance {MODEL_REL_TOL})")
+    del cpu_q, logits_c, cache_c
+    p128 = prompt_q[:, :128].cuda()
+    logits_128, _ = transformer.prefill(gpu_q, p128, 128)
+    logits_d, cache = transformer.prefill(gpu_q, p128[:, :64], 128)
+    for t in range(64, 128):
+        logits_d, cache = transformer.decode_step(gpu_q, cache,
+                                                  p128[:, t:t + 1], t)
+    diff = float((logits_d - logits_128).abs().max())
+    if not torch.allclose(logits_d, logits_128, atol=DECODE_TOL,
+                          rtol=DECODE_TOL):
+        raise AssertionError(f"qwen3: 64 decode steps vs 128-token prefill: "
+                             f"{diff}")
+    log(f"qwen3: 64-token prefill + 64 decode steps == 128-token prefill "
+        f"within {DECODE_TOL} (max abs diff {diff:.2e})")
+    del gpu_q, logits_g, cache_g, logits_d, logits_128, cache
+    torch.cuda.empty_cache()
+
+    # 13. serve qwen3-0.6b at full width (the main path of K2) ---------------
+    prefill_s.clear()
+    torch.cuda.reset_peak_memory_stats()
+    held_gib = torch.cuda.memory_allocated() / 2**30   # earlier phases' state
+    t0 = time.perf_counter()
+    qsrv = TimedServer("qwen3-0.6b", reduced=False, batch=4, cache_len=1024,
+                       seed=0, device="cuda")
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = qsrv.api.param_count(qsrv.params)
+    warm = qsrv.api.prefill(qsrv.params, {"tokens": prompt_q[:, :64].cuda()},
+                            1024)       # casts the weights to bf16 once
+    del warm
+    rng = np.random.default_rng(0)
+    qreqs = [Request(rid, rng.integers(0, full_q.vocab, size=512)
+                     .astype(np.int32), max_new=32) for rid in range(8)]
+    for req in qreqs:
+        qsrv.submit(req)
+    minplus.sweep_minplus.launches = 0
+    wkv6_mod.wkv6.launches = 0
+    flash_mod.flash_attention.launches = 0
+    qstats = qsrv.run()
+    torch.cuda.synchronize()
+    k2_launches = flash_mod.flash_attention.launches
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    if k2_launches != len(qreqs) * full_q.num_layers:
+        raise AssertionError(f"K2 launches {k2_launches} != "
+                             f"{len(qreqs) * full_q.num_layers}")
+    done = qstats["completed"]
+    if not (len(done) == len(qreqs) and all(
+            len(r.generated) == 32 and r.done
+            and all(0 <= t < full_q.vocab for t in r.generated)
+            for r in done)):
+        raise AssertionError(f"served {len(done)} of {len(qreqs)} requests")
+    check_logits, check_cache = qsrv.api.prefill(
+        qsrv.params, {"tokens": torch.as_tensor(qreqs[0].prompt[None],
+                                                device="cuda")}, 1024)
+    if not (torch.isfinite(check_logits).all()
+            and all(torch.isfinite(c).all() for c in check_cache.values())
+            and int(torch.argmax(check_logits[0, -1]))
+            == qreqs[0].generated[0]):
+        raise AssertionError("a fresh prefill of request 0 is not finite or "
+                             "disagrees with its first served token")
+    prefill_ms = [round(t * 1e3, 3) for t in prefill_s]
+    decode_s = qstats["seconds"] - sum(prefill_s)
+    log(f"serve qwen3-0.6b full width ({n_params} parameters, f32 params, "
+        f"bf16 compute; init {init_s:.2f} s): {len(done)} requests x "
+        f"{len(qreqs[0].prompt)} prompt tokens, {qstats['tokens']} decode "
+        f"tokens in {qstats['seconds']:.3f} s; prefill ms per request "
+        f"{prefill_ms}; decode {qstats['tokens'] / decode_s:.2f} tokens/s; "
+        f"K2 launches {k2_launches}; peak device memory {peak_gib:.2f} GiB, "
+        f"of which {held_gib:.2f} GiB was held before the server was built")
 
     log(json.dumps({"kernels": [{
         "name": "minplus_sweep",
@@ -610,6 +839,22 @@ def main() -> int:
         "library_ms": None,
         "shape": dict(zip(("B", "S", "H", "hd", "chunk"), SERVED_WKV)),
         "dtype": "bfloat16 r/k/v", "ms_f32_inputs": k3_ms32,
+    }, {
+        "name": "flash_attention_fwd",
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/flash/csrc/flash.cu",
+        "replaces": "src/repro/kernels/flash/kernel.py:29",
+        "launches": k2_launches,
+        "max_abs_err": k2_err,
+        **{key: timings["served"][key]
+           for key in ("ms", "plain_ms", "bound_ms", "bound_by",
+                       "library_ms")},
+        "shape": dict(zip(("B", "S", "T", "H", "KV", "hd", "causal"),
+                          SERVED_FLASH)),
+        "dtype": "bfloat16",
+        "ms_f32_inputs": timings["served"]["ms_f32_inputs"],
+        "bound_ms_f32": timings["served"]["bound_ms_f32"],
+        "long_2048": timings["2048"],
     }]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

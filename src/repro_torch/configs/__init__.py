@@ -1,14 +1,16 @@
 """Arch registry of the port: ``get_config(arch_id, reduced=...)``.
 
-Only the ``ssm`` family (``rwkv6-1.6b``) is ported; the reference's other
-architectures are ROADMAP Queue 1 item 10.
+The ``ssm`` family (``rwkv6-1.6b``) and the ``dense`` family
+(``qwen3-0.6b``) are ported; the reference's other architectures are
+ROADMAP Queue 1 item 10.
 """
 
 from repro_torch.models.common import ArchConfig
 
-from . import rwkv6_1_6b
+from . import qwen3_0_6b, rwkv6_1_6b
 
 _MODULES = {
+    "qwen3-0.6b": qwen3_0_6b,
     "rwkv6-1.6b": rwkv6_1_6b,
 }
 

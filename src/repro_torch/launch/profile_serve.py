@@ -1,7 +1,9 @@
 """Where a served request's time goes: one prefill and a run of greedy
-decode steps of the RWKV6 server's model, each under ``torch.profiler``.
+decode steps of the server's model, each under ``torch.profiler``.
 
     PYTHONPATH=src python -m repro_torch.launch.profile_serve --full
+    PYTHONPATH=src python -m repro_torch.launch.profile_serve \
+        --arch qwen3-0.6b --full
     PYTHONPATH=src python -m repro_torch.launch.profile_serve --device cpu
 
 Each window runs twice: once timed on the host clock (ending in a device
@@ -10,8 +12,9 @@ but not the kernels.  For each window it prints one JSON line: the
 unprofiled wall time, the device's busy time (the sum of its kernels'
 durations in the profiled run; the server runs on one stream, so they do
 not overlap), the device's idle share (1 - busy / unprofiled wall), the
-number of kernels, and the kernels that took the most device time.  Off
-the card the device fields are null.
+number of kernels, the kernels that took the most device time, and the
+launches of the port's own kernels (K2 ``flash_attention``, K3 ``wkv6``)
+in the timed run.  Off the card the device fields are null.
 """
 
 from __future__ import annotations
@@ -26,7 +29,12 @@ import torch
 from torch.autograd import DeviceType
 from torch.profiler import ProfilerActivity, profile
 
+from repro_torch.kernels.flash import flash_attention
+from repro_torch.kernels.rwkv6 import wkv6
 from repro_torch.launch.serve import BatchedServer
+
+#: the port's kernels on the serving paths, by the name a window reports
+KERNELS = {"flash_attention": flash_attention, "wkv6": wkv6}
 
 
 def _sync(dev):
@@ -39,10 +47,12 @@ def profiled(fn, dev, top: int = 8):
     first run's result, the window's numbers)."""
     on_card = dev.type == "cuda"
     _sync(dev)
+    before = {name: k.launches for name, k in KERNELS.items()}
     t0 = time.perf_counter()
     out = fn()
     _sync(dev)
     wall_ms = (time.perf_counter() - t0) * 1e3
+    launches = {name: k.launches - before[name] for name, k in KERNELS.items()}
     activities = [ProfilerActivity.CPU] + \
         ([ProfilerActivity.CUDA] if on_card else [])
     with profile(activities=activities) as prof:
@@ -62,6 +72,7 @@ def profiled(fn, dev, top: int = 8):
         "kernels": kernels if on_card else None,
         "top_kernels_ms": [[name[:80], us / 1e3]
                            for name, us in kernel_us.most_common(top)],
+        "launches": launches,
     }
 
 

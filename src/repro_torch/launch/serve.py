@@ -5,10 +5,13 @@ The port of ``repro/launch/serve.py``:
     PYTHONPATH=src python -m repro_torch.launch.serve --device cpu \
         --requests 4 --prompt-len 16 --gen 8           # reduced, on the CPU
     PYTHONPATH=src python -m repro_torch.launch.serve --full \
-        --prompt-len 512 --gen 32                      # rwkv6-1.6b, on a GPU
+        --prompt-len 512 --gen 32 --cache-len 1024     # qwen3-0.6b, on a GPU
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch rwkv6-1.6b \
+        --full --prompt-len 512 --gen 32
 
 A request queue, a prefill of each admitted request into its own
-single-row state, then a decode loop that retires finished sequences and
+single-row state (the KV cache of ``qwen3-0.6b``, the recurrent state of
+``rwkv6-1.6b``), then a decode loop that retires finished sequences and
 admits new ones into the freed slots (continuous batching); greedy
 sampling (``argmax``, the first index on ties).  Admission, retirement and
 the returned stats are the reference's.  The server runs on ``"cuda"``
@@ -112,7 +115,7 @@ class BatchedServer:
 
 def main(argv=None):
     ap = argparse.ArgumentParser()
-    ap.add_argument("--arch", default="rwkv6-1.6b")
+    ap.add_argument("--arch", default="qwen3-0.6b")
     ap.add_argument("--full", action="store_true",
                     help="the full-size config (default: reduced)")
     ap.add_argument("--device", default="cuda")

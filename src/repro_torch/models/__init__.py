@@ -1,3 +1,4 @@
 """Models of the port: VGG-16 (the paper's workload), RWKV6 (the ``ssm``
-family, served by ``launch/serve.py``), the shared pieces and the model
-registry.  The other language-model families are not ported yet."""
+family) and the dense transformer (``qwen3-0.6b``), both served by
+``launch/serve.py``, the shared pieces and the model registry.  The other
+language-model families are not ported yet."""

@@ -1,9 +1,13 @@
 """Shared model pieces — the port of ``repro/models/common.py``: the
-architecture config, the initializers, ``rms_norm`` and ``cross_entropy``.
+architecture config, the initializers, ``rms_norm``, RoPE,
+``decode_attention``, ``cross_entropy`` and the cache of compute-type casts
+that both language-model families keep.
 
-The rest of the reference module (RoPE, the attention paths,
-``chunked_linear_scan``, ``remat_wrap``) serves model families the port
-does not run yet (ROADMAP Queue 1 item 10).
+The reference's ``full_attention`` and ``chunked_attention`` have one
+counterpart here: a prefill's attention goes through
+``kernels/flash::flash_attention`` (K2).  The rest of the reference module
+(``chunked_linear_scan``, ``remat_wrap``, layer norm, the GELU MLP) serves
+model families the port does not run yet (ROADMAP Queue 1 item 10).
 """
 
 from __future__ import annotations
@@ -17,23 +21,43 @@ import torch
 
 @dataclasses.dataclass(frozen=True)
 class ArchConfig:
-    """The fields of the reference's config that the ported family (``ssm``:
-    RWKV6) reads, with the reference's defaults; the other families' fields
+    """The fields of the reference's config that the ported families
+    (``ssm``: RWKV6; ``dense``: the decoder-only transformer) read, under
+    the reference's names and with its defaults; the other families' fields
     come with the slice that first reads them (ROADMAP Queue 1 item 10).
     The reference's ``use_pallas`` switch has no counterpart: in the port
     the tensor's device picks the route (the kernel on CUDA, its plain
     version on the CPU)."""
     name: str
-    family: str                   # only "ssm" is ported
+    family: str                   # "ssm" or "dense" are ported
     num_layers: int
     d_model: int
     d_ff: int
     vocab: int
+    n_heads: int
+    n_kv: int
+    d_head: int = 0               # 0 -> d_model // n_heads
+    qk_norm: bool = False
+    tie_embeddings: bool = False
+    ffn_mult: int = 3             # 3 = SwiGLU (the only MLP ported)
+    use_rope: bool = True
+    rope_theta: float = 1e6
+    attn_chunk: int = 1024        # the reference's full/chunked switch;
+    #                               the port's K2 takes every length
+    sliding_window: int = 0       # >0: attention window (not ported)
     rwkv_head_dim: int = 64
     norm_eps: float = 1e-6
     param_dtype: Any = torch.float32
     compute_dtype: Any = torch.bfloat16
     scan_chunk: int = 256         # time-chunk of the RWKV linear scan
+
+    @property
+    def head_dim(self) -> int:
+        return self.d_head or self.d_model // self.n_heads
+
+    @property
+    def q_per_kv(self) -> int:
+        return self.n_heads // self.n_kv
 
 
 def dense_init(generator, shape, dtype, device, in_axis: int = -2):
@@ -58,6 +82,73 @@ def rms_norm(x: torch.Tensor, scale: torch.Tensor,
     x = x.float()
     x = x * torch.rsqrt(torch.mean(x * x, dim=-1, keepdim=True) + eps)
     return (x * scale.float()).to(dt)
+
+
+def rope_angles(positions: torch.Tensor, head_dim: int,
+                theta: float) -> torch.Tensor:
+    """positions (...,) integers -> (..., head_dim // 2) float32 angles."""
+    exps = torch.arange(0, head_dim, 2, dtype=torch.float32,
+                        device=positions.device) / head_dim
+    freqs = 1.0 / (theta ** exps)
+    return positions.float()[..., None] * freqs
+
+
+def rope_cos_sin(positions: torch.Tensor, head_dim: int, theta: float):
+    """cos and sin of :func:`rope_angles`, shaped (..., S, 1, head_dim // 2)
+    to broadcast over the heads; computed once per forward pass and shared
+    by every layer (the reference recomputes them per layer, the same
+    values)."""
+    ang = rope_angles(positions, head_dim, theta)[..., None, :]
+    return torch.cos(ang), torch.sin(ang)
+
+
+def apply_rope(x: torch.Tensor, cos: torch.Tensor,
+               sin: torch.Tensor) -> torch.Tensor:
+    """Rotate-half RoPE on split halves: x (..., S, n, hd), cos/sin from
+    :func:`rope_cos_sin`.  Computed in float32, cast back to ``x``'s
+    type."""
+    x1, x2 = torch.chunk(x.float(), 2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
+    return out.to(x.dtype)
+
+
+def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
+                     v_cache: torch.Tensor, pos: int) -> torch.Tensor:
+    """Single-token decode: q (B, 1, H, hd) against a fixed-size cache
+    (B, T, KV, hd); only entries ``t <= pos`` take part.  Scores and the
+    softmax in float32, the probabilities cast to q's type before the
+    product with v, as in the reference.  Plain torch: the reference
+    computes it outside any Pallas kernel."""
+    b, _, h, hd = q.shape
+    t, kv = k_cache.shape[1], k_cache.shape[2]
+    qg = q.reshape(b, 1, kv, h // kv, hd)
+    scores = torch.einsum("bqkgh,btkh->bkgqt", qg, k_cache).float()
+    scores = scores * (1.0 / math.sqrt(hd))
+    valid = torch.arange(t, device=q.device) <= pos
+    scores = torch.where(valid, scores, -1e30)
+    probs = torch.softmax(scores, dim=-1).to(q.dtype)
+    out = torch.einsum("bkgqt,btkh->bqkgh", probs, v_cache)
+    return out.reshape(b, 1, h, hd)
+
+
+class CastCache:
+    """Keeps each parameter's cast to a compute type, recomputed when the
+    parameter's storage, version or device changes.  The same values as
+    casting at every use, as the reference does; the inference entry
+    points run without autograd."""
+
+    def __init__(self):
+        self._casts = {}
+
+    def get(self, name, p, dtype):
+        if p.dtype == dtype:
+            return p
+        key = (p.data_ptr(), p._version, p.device, dtype)
+        hit = self._casts.get(name)
+        if hit is None or hit[0] != key:
+            hit = (key, p.detach().to(dtype))
+            self._casts[name] = hit
+        return hit[1]
 
 
 def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,

@@ -1,5 +1,6 @@
 """Uniform model API — the port of ``repro/models/registry.py`` for the
-families ported so far (``ssm``: RWKV6).
+families ported so far (``ssm``: RWKV6; ``dense``: the decoder-only
+transformer).
 
     api = get_model(cfg, device="cuda")
     model = api.init(generator)                         # on api.device
@@ -19,6 +20,7 @@ import torch
 
 from .._device import resolve_device
 from . import rwkv6 as rwkv_lib
+from . import transformer as tf_lib
 from .common import ArchConfig
 
 
@@ -44,6 +46,14 @@ def get_model(cfg: ArchConfig, device="cuda") -> ModelAPI:
             init=lambda g: rwkv_lib.init_params(cfg, g, dev),
             prefill=lambda m, b, n: rwkv_lib.prefill(m, b["tokens"], n),
             decode=lambda m, c, t, pos: rwkv_lib.decode_step(m, c, t, pos),
+        )
+    if cfg.family == "dense":
+        tf_lib.check_config(cfg)
+        return ModelAPI(
+            cfg=cfg, device=dev,
+            init=lambda g: tf_lib.init_params(cfg, g, dev),
+            prefill=lambda m, b, n: tf_lib.prefill(m, b["tokens"], n),
+            decode=lambda m, c, t, pos: tf_lib.decode_step(m, c, t, pos),
         )
     raise NotImplementedError(
         f"family {cfg.family!r} is not ported yet (ROADMAP Queue 1 item 10)")

@@ -31,7 +31,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..kernels.rwkv6 import wkv6
-from .common import ArchConfig, dense_init, embed_init, rms_norm
+from .common import ArchConfig, CastCache, dense_init, embed_init, rms_norm
 
 LORA_RANK = 32
 
@@ -77,24 +77,6 @@ def _heads(x, hd):
     return x.reshape(B, S, d // hd, hd)
 
 
-class _CastCache:
-    """Keeps each parameter's cast to a compute type, recomputed when the
-    parameter's storage, version or device changes."""
-
-    def __init__(self):
-        self._casts = {}
-
-    def get(self, name, p, dtype):
-        if p.dtype == dtype:
-            return p
-        key = (p.data_ptr(), p._version, p.device, dtype)
-        hit = self._casts.get(name)
-        if hit is None or hit[0] != key:
-            hit = (key, p.detach().to(dtype))
-            self._casts[name] = hit
-        return hit[1]
-
-
 class RWKV6Layer(nn.Module):
     """One RWKV6 block: ``time_mix``, ``channel_mix`` and ``forward`` (the
     reference's ``block_fwd``)."""
@@ -109,7 +91,7 @@ class RWKV6Layer(nn.Module):
         for name, shape in _MATRICES.items():
             self.register_parameter(name, nn.Parameter(torch.empty(
                 shape(d, ff), dtype=cfg.param_dtype, device=device)))
-        self._cast = _CastCache()
+        self._cast = CastCache()
 
     def w(self, name: str, dtype) -> torch.Tensor:
         """Parameter ``name`` in ``dtype``."""
@@ -207,7 +189,7 @@ class RWKV6(nn.Module):
                                                    device=device))
         self.lm_head = nn.Parameter(torch.empty((d, cfg.vocab), dtype=pd,
                                                 device=device))
-        self._cast = _CastCache()
+        self._cast = CastCache()
 
     def embed_tokens(self, tokens) -> torch.Tensor:
         return self.embed[tokens.long()].to(self.cfg.compute_dtype)

@@ -1,0 +1,264 @@
+"""Decoder-only transformer LM, dense family — the port of
+``repro/models/transformer.py`` for the configs the port runs
+(``qwen3-0.6b``).
+
+Per layer (the reference's ``block_fwd``):
+
+    h = rms_norm(x);  q, k, v = h Wq, h Wk, h Wv     (per-head reshape)
+    q, k = rms_norm(q), rms_norm(k)                   (qk-norm, per head)
+    q, k = rope(q), rope(k)
+    x = x + attention(q, k, v) Wo
+    x = x + SwiGLU(rms_norm(x))
+
+A prefill's attention, at every prompt length, goes through
+``kernels/flash::flash_attention`` (K2: the hand-written kernel on a CUDA
+tensor, the plain version on a CPU tensor).  It computes what the
+reference's ``full_attention`` (S <= ``attn_chunk``) and
+``chunked_attention`` (longer prompts) compute: the prefill starts at
+position 0 with as many keys as queries, so the start-aligned causal mask
+is the reference's.  K2 maps each query head to its kv head itself, so K
+and V are not repeated per query head.  A decode step attends through the
+plain ``decode_attention``, as in the reference.
+
+Each layer is a :class:`TransformerLayer` module holding the reference's
+per-layer parameters under the reference's names, matrices in its ``(in,
+out)`` orientation (used as ``x @ W``).  Parameters live in
+``cfg.param_dtype`` and are cast to the compute type at use (the cast is
+kept until the parameter changes, see ``CastCache``); the inference entry
+points :func:`prefill` and :func:`decode_step` run without autograd.  The
+head is tied to the embedding (``embed.T``).  Left out, as no ported config
+reads them: MoE layers, QKV biases, the GELU MLP, an untied head and
+sliding windows (a config that asks for one raises).
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from ..kernels.flash import flash_attention
+from .common import (ArchConfig, CastCache, apply_rope, decode_attention,
+                     dense_init, embed_init, rms_norm, rope_cos_sin)
+
+
+def _matrices(cfg: ArchConfig) -> dict:
+    """The per-layer matrices of the reference, by shape."""
+    d, hd, ff = cfg.d_model, cfg.head_dim, cfg.d_ff
+    H, KV = cfg.n_heads, cfg.n_kv
+    return {"wq": (d, H * hd), "wk": (d, KV * hd), "wv": (d, KV * hd),
+            "wo": (H * hd, d), "w_gate": (d, ff), "w_up": (d, ff),
+            "w_down": (ff, d)}
+
+
+def _vectors(cfg: ArchConfig) -> dict:
+    """The per-layer norm scales of the reference, by shape (all start at
+    one)."""
+    out = {"ln1": (cfg.d_model,), "ln2": (cfg.d_model,)}
+    if cfg.qk_norm:
+        out.update(q_norm=(cfg.head_dim,), k_norm=(cfg.head_dim,))
+    return out
+
+
+def check_config(cfg: ArchConfig) -> None:
+    """Raise for the reference's options this port leaves out."""
+    if cfg.sliding_window > 0:
+        raise NotImplementedError(
+            "sliding-window attention is not ported: K2 takes no window")
+    if not cfg.tie_embeddings or cfg.ffn_mult != 3:
+        raise NotImplementedError(
+            "only a tied head and the SwiGLU MLP are ported (ROADMAP Queue 1 "
+            "item 10)")
+
+
+class TransformerLayer(nn.Module):
+    """One block (the reference's ``block_fwd``)."""
+
+    def __init__(self, cfg: ArchConfig, device=None):
+        super().__init__()
+        self.cfg = cfg
+        for name, shape in {**_vectors(cfg), **_matrices(cfg)}.items():
+            self.register_parameter(name, nn.Parameter(torch.empty(
+                shape, dtype=cfg.param_dtype, device=device)))
+        self._cast = CastCache()
+
+    def w(self, name: str, dtype) -> torch.Tensor:
+        """Parameter ``name`` in ``dtype``."""
+        return self._cast.get(name, getattr(self, name), dtype)
+
+    def _qkv(self, x, cos, sin):
+        cfg = self.cfg
+        B, S, _ = x.shape
+        hd, dt = cfg.head_dim, x.dtype
+        q = (x @ self.w("wq", dt)).reshape(B, S, cfg.n_heads, hd)
+        k = (x @ self.w("wk", dt)).reshape(B, S, cfg.n_kv, hd)
+        v = (x @ self.w("wv", dt)).reshape(B, S, cfg.n_kv, hd)
+        if cfg.qk_norm:
+            q = rms_norm(q, self.q_norm, cfg.norm_eps)
+            k = rms_norm(k, self.k_norm, cfg.norm_eps)
+        if cfg.use_rope:
+            q = apply_rope(q, cos, sin)
+            k = apply_rope(k, cos, sin)
+        return q, k, v
+
+    def forward(self, x, cos=None, sin=None, *, cache=None, pos=None):
+        """x (B, S, d); cos/sin from ``rope_cos_sin`` at the positions of
+        ``x`` (None without RoPE).
+
+        Without ``cache`` (prefill, the sequence starting at position 0):
+        returns (x, (k, v)), the keys and values to store.  With ``cache``
+        = (k_cache, v_cache) of shape (B, T, KV, hd) and S == 1 (decode):
+        writes this token's k and v into the cache at ``pos`` in place and
+        returns (x, cache)."""
+        cfg = self.cfg
+        B, S, _ = x.shape
+        dt = x.dtype
+        q, k, v = self._qkv(rms_norm(x, self.ln1, cfg.norm_eps), cos, sin)
+        if cache is None:
+            attn = flash_attention(q, k, v, causal=True)
+            new = (k, v)
+        else:
+            k_cache, v_cache = cache
+            k_cache[:, pos:pos + 1] = k
+            v_cache[:, pos:pos + 1] = v
+            attn = decode_attention(q, k_cache, v_cache, pos)
+            new = cache
+        x = x + attn.reshape(B, S, cfg.n_heads * cfg.head_dim) @ \
+            self.w("wo", dt)
+        h = rms_norm(x, self.ln2, cfg.norm_eps)
+        h = F.silu(h @ self.w("w_gate", dt)) * (h @ self.w("w_up", dt))
+        return x + h @ self.w("w_down", dt), new
+
+
+class Transformer(nn.Module):
+    """The model: embedding, the layers, the final norm; the head is the
+    embedding transposed."""
+
+    def __init__(self, cfg: ArchConfig, device=None):
+        super().__init__()
+        check_config(cfg)
+        self.cfg = cfg
+        d, pd = cfg.d_model, cfg.param_dtype
+        self.embed = nn.Parameter(torch.empty((cfg.vocab, d), dtype=pd,
+                                              device=device))
+        self.layers = nn.ModuleList(TransformerLayer(cfg, device)
+                                    for _ in range(cfg.num_layers))
+        self.final_norm = nn.Parameter(torch.empty(d, dtype=pd,
+                                                   device=device))
+        self._cast = CastCache()
+
+    def embed_tokens(self, tokens) -> torch.Tensor:
+        """The reference's ``_embed``: rows of the table in the compute
+        type."""
+        return self.embed[tokens.long()].to(self.cfg.compute_dtype)
+
+    def logits(self, x) -> torch.Tensor:
+        """The reference's ``_unembed`` with a tied head."""
+        x = rms_norm(x, self.final_norm, self.cfg.norm_eps)
+        return x @ self._cast.get("embed", self.embed, x.dtype).T
+
+    def rope(self, positions):
+        """(cos, sin) at ``positions``, or (None, None) without RoPE."""
+        if not self.cfg.use_rope:
+            return None, None
+        return rope_cos_sin(positions, self.cfg.head_dim, self.cfg.rope_theta)
+
+
+def init_params(cfg: ArchConfig, generator: torch.Generator,
+                device) -> Transformer:
+    """The reference's initializer on ``device``, drawn from ``generator``
+    (which must live on that device).  ``jax.random`` streams cannot be
+    reproduced in torch; to start from the reference's own weights use
+    :func:`params_from_jax`."""
+    model = Transformer(cfg, device)
+    pd = cfg.param_dtype
+    with torch.no_grad():
+        model.embed.copy_(embed_init(generator, (cfg.vocab, cfg.d_model), pd,
+                                     device))
+        for layer in model.layers:
+            for name in _vectors(cfg):
+                getattr(layer, name).fill_(1.0)
+            for name, shape in _matrices(cfg).items():
+                getattr(layer, name).copy_(
+                    dense_init(generator, shape, pd, device))
+        model.final_norm.fill_(1.0)
+    return model
+
+
+def params_from_jax(tree, cfg: ArchConfig, device) -> Transformer:
+    """Carry the reference's ``init_params`` tree (numpy arrays; per-layer
+    parameters stacked on a leading ``L`` axis) into a model on
+    ``device``, in ``cfg.param_dtype``."""
+    model = Transformer(cfg, device)
+
+    def put(p, a):
+        p.copy_(torch.from_numpy(np.ascontiguousarray(a, np.float32)))
+
+    with torch.no_grad():
+        put(model.embed, tree["embed"])
+        put(model.final_norm, tree["final_norm"])
+        for i, layer in enumerate(model.layers):
+            for name, p in layer.named_parameters():
+                put(p, np.asarray(tree["layers"][name])[i])
+    return model
+
+
+def params_to_jax(model: Transformer) -> dict:
+    """The inverse of :func:`params_from_jax`: the reference's tree, as
+    float32 numpy arrays."""
+    arr = lambda p: p.detach().float().cpu().numpy()
+    names = [n for n, _ in model.layers[0].named_parameters()]
+    return {
+        "embed": arr(model.embed),
+        "layers": {n: np.stack([arr(getattr(layer, n))
+                                for layer in model.layers]) for n in names},
+        "final_norm": arr(model.final_norm),
+    }
+
+
+def make_cache(cfg: ArchConfig, batch: int, cache_len: int, device,
+               dtype=None) -> dict:
+    """Zeroed KV cache: k and v of shape (L, B, cache_len, KV, hd) in the
+    compute type."""
+    shape = (cfg.num_layers, batch, cache_len, cfg.n_kv, cfg.head_dim)
+    dtype = dtype or cfg.compute_dtype
+    return {"k": torch.zeros(shape, dtype=dtype, device=device),
+            "v": torch.zeros(shape, dtype=dtype, device=device)}
+
+
+@torch.no_grad()
+def prefill(model: Transformer, tokens, cache_len: int):
+    """Run the whole prompt from position 0, build the KV cache; returns
+    (last-position logits (B, 1, V), cache)."""
+    x = model.embed_tokens(tokens)
+    B, S = x.shape[:2]
+    if S > cache_len:
+        raise ValueError(f"a {S}-token prompt does not fit a cache of "
+                         f"{cache_len}")
+    cos, sin = model.rope(torch.arange(S, device=x.device))
+    cache = make_cache(model.cfg, B, cache_len, x.device)
+    for i, layer in enumerate(model.layers):
+        x, (k, v) = layer(x, cos, sin)
+        cache["k"][i, :, :S] = k
+        cache["v"][i, :, :S] = v
+    return model.logits(x[:, -1:]), cache
+
+
+@torch.no_grad()
+def decode_step(model: Transformer, cache: dict, token, pos: int):
+    """One token (B, 1) at position ``pos`` (the cache already holds
+    ``pos`` valid entries) through every layer; returns (logits, cache).
+    The cache is updated in place — the returned dict is ``cache`` — where
+    the reference returns a new one."""
+    x = model.embed_tokens(token)
+    cos, sin = model.rope(torch.tensor([pos], device=x.device))
+    for i, layer in enumerate(model.layers):
+        x, _ = layer(x, cos, sin, cache=(cache["k"][i], cache["v"][i]),
+                     pos=pos)
+    return model.logits(x), cache
+
+
+__all__ = ["Transformer", "TransformerLayer", "check_config", "decode_step",
+           "init_params", "make_cache", "params_from_jax", "params_to_jax",
+           "prefill"]

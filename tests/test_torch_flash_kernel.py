@@ -1,0 +1,207 @@
+"""K2's wrapper and CUDA kernel, held against the port's plain version.
+
+This file imports no JAX, so it runs on the card as well as here:
+
+    python -m pytest -q -m cuda tests/test_torch_flash_kernel.py   # on a GPU
+
+On the CPU the wrapper must compute the plain version and launch nothing,
+and the plain version must be the dense softmax attention it documents
+(checked against a float64 numpy loop over the query rows).  On a CUDA
+tensor the wrapper launches the kernel (counted) or raises.  The kernel is
+held within the reference's tolerances (atol = rtol = 2e-5 in float32,
+2e-2 in bfloat16) of the plain version on the card, at the reference's
+``FLASH_SWEEP`` shapes, the served layer shape of ``qwen3-0.6b`` and a
+2048-token causal prompt; those cases skip without a GPU.
+"""
+
+import math
+
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.configs import get_config
+from repro_torch.kernels.flash import attention_plain, flash_attention
+from repro_torch.models import transformer
+
+FLASH_SWEEP = [
+    # (B, S, T, H, KV, hd, causal), as in tests/test_kernels.py
+    (1, 64, 64, 2, 2, 32, True),
+    (2, 128, 128, 4, 2, 64, True),
+    (1, 200, 200, 4, 4, 64, True),          # non-multiple of the tile
+    (2, 128, 256, 8, 2, 128, False),        # cross lengths, GQA 4:1
+    (1, 96, 96, 8, 1, 64, True),            # MQA
+]
+MODEL_SHAPES = [
+    (1, 512, 512, 16, 8, 128, True),        # qwen3-0.6b, a served prefill
+    (1, 2048, 2048, 16, 8, 128, True),      # the reference's chunked branch
+]
+TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
+
+
+def inputs(B, S, T, H, KV, hd, dtype=torch.float32, device="cpu", seed=42):
+    rng = np.random.default_rng(seed)
+    return [torch.from_numpy(rng.standard_normal(s).astype(np.float32))
+            .to(device=device, dtype=dtype)
+            for s in ((B, S, H, hd), (B, T, KV, hd), (B, T, KV, hd))]
+
+
+def numpy_attention(q, k, v, causal):
+    """Row by row in float64: softmax over the allowed keys, then v."""
+    q, k, v = (t.double().numpy() for t in (q, k, v))
+    B, S, H, hd = q.shape
+    T, KV = k.shape[1], k.shape[2]
+    out = np.zeros(q.shape)
+    for b in range(B):
+        for h in range(H):
+            kh, vh = k[b, :, h // (H // KV)], v[b, :, h // (H // KV)]
+            for s in range(S):
+                n = min(s + 1, T) if causal else T
+                sc = kh[:n] @ q[b, s, h] / math.sqrt(hd)
+                p = np.exp(sc - sc.max())
+                out[b, s, h] = p @ vh[:n] / p.sum()
+    return out
+
+
+@pytest.fixture
+def gpu():
+    if not torch.cuda.is_available():
+        pytest.skip("no GPU visible: the CUDA kernel runs only on the card")
+    return torch.device("cuda")
+
+
+@pytest.mark.parametrize("B,S,T,H,KV,hd,causal",
+                         [(1, 9, 9, 4, 2, 8, True),
+                          (2, 5, 12, 2, 1, 4, True),
+                          (1, 12, 5, 3, 3, 4, True),
+                          (1, 7, 11, 4, 4, 8, False)])
+def test_plain_is_softmax_attention(B, S, T, H, KV, hd, causal):
+    """Start-aligned causal mask (S < T and S > T too), GQA by head
+    index, float32 arithmetic."""
+    q, k, v = inputs(B, S, T, H, KV, hd, seed=1)
+    got = attention_plain(q, k, v, causal=causal)
+    np.testing.assert_allclose(got.double().numpy(),
+                               numpy_attention(q, k, v, causal),
+                               atol=1e-6, rtol=1e-5)
+
+
+def test_wrapper_takes_plain_version_on_cpu_and_validates():
+    q, k, v = inputs(1, 40, 40, 4, 2, 32)
+    before = flash_attention.launches
+    assert torch.equal(flash_attention(q, k, v, causal=False),
+                       attention_plain(q, k, v, causal=False))
+    assert flash_attention.launches == before         # no kernel ran
+    out = flash_attention(q.bfloat16(), k.bfloat16(), v.bfloat16())
+    assert out.dtype == torch.bfloat16 and out.shape == q.shape
+    with pytest.raises(ValueError, match="not a multiple"):
+        flash_attention(*inputs(1, 8, 8, 3, 2, 16))
+    with pytest.raises(ValueError, match="do not match"):
+        flash_attention(q, k[..., :16], v)
+    with pytest.raises(ValueError, match="expected torch.float32"):
+        flash_attention(q, k.double(), v)
+    with pytest.raises(ValueError, match=r"\(B, S, H, hd\)"):
+        flash_attention(q[0], k, v)
+
+
+def test_prefill_attention_goes_through_the_wrapper(monkeypatch):
+    """Every layer of a prefill calls ``flash_attention`` once (on the CPU
+    it takes the plain version); a decode step does not."""
+    cfg = get_config("qwen3-0.6b", reduced=True)
+    model = transformer.init_params(cfg, torch.Generator().manual_seed(0),
+                                    "cpu")
+    calls = []
+
+    def spy(q, k, v, *, causal):
+        calls.append((tuple(q.shape), tuple(k.shape), causal))
+        return flash_attention(q, k, v, causal=causal)
+
+    monkeypatch.setattr(transformer, "flash_attention", spy)
+    _, cache = transformer.prefill(model, torch.arange(20)[None], 32)
+    transformer.decode_step(model, cache, torch.tensor([[3]]), 20)
+    assert calls == [((1, 20, 4, 16), (1, 20, 2, 16), True)] * cfg.num_layers
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,S,T,H,KV,hd,causal", FLASH_SWEEP + MODEL_SHAPES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["float32", "bfloat16"])
+def test_kernel_matches_plain_on_gpu(gpu, B, S, T, H, KV, hd, causal, dtype):
+    q, k, v = inputs(B, S, T, H, KV, hd, dtype, gpu)
+    before = flash_attention.launches
+    out = flash_attention(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    assert flash_attention.launches == before + 1
+    assert out.dtype == dtype and out.shape == q.shape
+    want = attention_plain(q, k, v, causal=causal)
+    torch.testing.assert_close(out.float(), want.float(), atol=TOL[dtype],
+                               rtol=TOL[dtype])
+
+
+@pytest.mark.cuda
+def test_kernel_refuses_what_it_cannot_take(gpu):
+    q, k, v = inputs(1, 32, 32, 2, 2, 48, device=gpu)
+    with pytest.raises(ValueError, match="head size 48"):
+        flash_attention(q, k, v)
+    q, k, v = inputs(1, 32, 32, 2, 2, 32, torch.float16, gpu)
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        flash_attention(q, k, v)
+    q, k, v = inputs(1, 32, 32, 2, 2, 32, device=gpu)
+    with pytest.raises(ValueError, match="expected torch.float32 on cuda"):
+        flash_attention(q, k.cpu(), v)
+
+
+@pytest.mark.cuda
+def test_model_prefill_on_gpu_matches_cpu(gpu):
+    """The reduced model's prefill on the card (through K2) against the
+    same weights on the CPU (plain), in float32 with TF32 off."""
+    cfg = get_config("qwen3-0.6b", reduced=True)
+    cfg = type(cfg)(**{**cfg.__dict__, "compute_dtype": torch.float32})
+    cpu = transformer.init_params(cfg, torch.Generator().manual_seed(0),
+                                  "cpu")
+    dev = transformer.Transformer(cfg, gpu)
+    dev.load_state_dict(cpu.state_dict())
+    tokens = torch.randint(0, cfg.vocab, (2, 40),
+                           generator=torch.Generator().manual_seed(1))
+    prev = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        before = flash_attention.launches
+        got, g_cache = transformer.prefill(dev, tokens.to(gpu), 48)
+        assert flash_attention.launches == before + cfg.num_layers
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = prev
+    want, w_cache = transformer.prefill(cpu, tokens, 48)
+    torch.testing.assert_close(got.cpu(), want, atol=1e-4, rtol=1e-4)
+    for name in ("k", "v"):
+        torch.testing.assert_close(g_cache[name].cpu(), w_cache[name],
+                                   atol=1e-4, rtol=1e-4)
+
+
+def test_bound_counts_the_causal_pairs():
+    """``chip_smoke.flash_bound_ms`` counts q, k, v read once and the
+    output written once, and 4 hd operations per query-key pair the mask
+    keeps: at the served shape in bfloat16 that leaves the bytes as the
+    bound, in float32 (no tensor cores) the operations."""
+    import importlib.util
+    from pathlib import Path
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", Path(__file__).resolve().parents[1] / "chip_smoke.py")
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    ms, by = smoke.flash_bound_ms(1, 512, 512, 16, 8, 128, True,
+                                  torch.bfloat16)
+    assert by == "bytes"
+    assert ms == pytest.approx(6_291_456 / smoke.HBM_BYTES_PER_S * 1e3)
+    ms, by = smoke.flash_bound_ms(1, 512, 512, 16, 8, 128, True,
+                                  torch.float32)
+    flops = 4 * 128 * (512 * 513 // 2) * 16
+    assert flops == 1_075_838_976
+    assert by == "operations"
+    assert ms == pytest.approx(flops / smoke.PEAK_OPS[torch.float32] * 1e3)
+    # start-aligned causal pairs with more queries than keys, and no mask
+    ms_c, _ = smoke.flash_bound_ms(1, 600, 400, 8, 8, 128, True,
+                                   torch.float32)
+    ms_n, _ = smoke.flash_bound_ms(1, 600, 400, 8, 8, 128, False,
+                                   torch.float32)
+    pairs_c = sum(min(s + 1, 400) for s in range(600))
+    assert ms_c / ms_n == pytest.approx(pairs_c / (600 * 400))

@@ -316,11 +316,12 @@ def test_init_params_is_seeded_and_shaped_like_reference():
 
 def test_unported_configs_and_families_raise():
     with pytest.raises(NotImplementedError, match="Queue 1 item 10"):
-        get_config("qwen3-0.6b")
-    cfg = dataclasses.replace(get_config("rwkv6-1.6b", reduced=True),
-                              family="dense")
-    with pytest.raises(NotImplementedError, match="Queue 1 item 10"):
-        get_model(cfg, device="cpu")
+        get_config("qwen3-moe-235b-a22b")
+    for family in ("moe", "hybrid"):
+        cfg = dataclasses.replace(get_config("rwkv6-1.6b", reduced=True),
+                                  family=family)
+        with pytest.raises(NotImplementedError, match="Queue 1 item 10"):
+            get_model(cfg, device="cpu")
 
 
 def test_cast_cache_follows_parameter_updates(tree):

@@ -23,10 +23,11 @@ from repro.launch.serve import BatchedServer as RefServer
 from repro.launch.serve import Request as RefRequest
 from repro.models import get_model as ref_get_model
 from test_torch_rwkv6 import reference_tree
+from test_torch_transformer import reference_tree as transformer_tree
 
 from repro_torch.configs import get_config
 from repro_torch.launch import serve
-from repro_torch.models import rwkv6
+from repro_torch.models import rwkv6, transformer
 from repro_torch.models.registry import get_model
 
 PROMPT_LENS = (16, 11, 16)
@@ -74,6 +75,42 @@ def served():
     for req in requests(serve.Request, pcfg.vocab):
         port.submit(req)
     return want, port.run()
+
+
+def test_qwen3_server_generates_the_reference_tokens():
+    """The same requests through both servers on the reduced ``qwen3-0.6b``
+    in float32: the KV caches live per slot, the prefill attention goes
+    through K2's wrapper (its plain version here)."""
+    rcfg = dataclasses.replace(ref_get_config("qwen3-0.6b", reduced=True),
+                               compute_dtype=jnp.float32)
+    pcfg = dataclasses.replace(get_config("qwen3-0.6b", reduced=True),
+                               compute_dtype=torch.float32)
+    tree = transformer_tree(rcfg, seed=2)
+
+    ref = RefServer("qwen3-0.6b", reduced=True, batch=2, cache_len=32)
+    api = ref_get_model(rcfg)
+    ref.cfg = rcfg
+    ref.api = dataclasses.replace(api,
+                                  prefill=jax.jit(api.prefill,
+                                                  static_argnums=2))
+    ref.decode = jax.jit(api.decode)
+    ref.params = jax.tree.map(jnp.asarray, tree)
+    for req in requests(RefRequest, rcfg.vocab):
+        ref.submit(req)
+    want = ref.run()
+
+    port = serve.BatchedServer(
+        "qwen3-0.6b", reduced=True, batch=2, cache_len=32, device="cpu",
+        params=transformer.params_from_jax(tree, pcfg, "cpu"))
+    port.cfg = pcfg
+    port.api = get_model(pcfg, device="cpu")
+    port.decode = port.api.decode
+    for req in requests(serve.Request, pcfg.vocab):
+        port.submit(req)
+    got = port.run()
+    assert summary(got) == summary(want)
+    assert len(got["completed"]) == len(PROMPT_LENS)
+    assert all(len(r.generated) == MAX_NEW for r in got["completed"])
 
 
 def test_server_generates_the_reference_tokens(served):
