@@ -7,7 +7,9 @@ server through ``repro_torch`` on the card, in phases; any failure raises
 and exits non-zero:
 
   1. device  require CUDA; print the card's name and power limit
-  2. build   build the min-plus kernel K1 from the checkout's sources
+  2. build   build K1 (min-plus), K3 (WKV6) and K2 (flash) from the
+             checkout's sources, one nvcc each, all started together; print
+             K1's ptxas -v
   3. kernel  hold K1 against its plain PyTorch version on the card, at the
              thresholds Algorithm 1 sweeps on the quickstart instance
              (VGG-16, 6 servers + 4 clients) and on a fleet instance
@@ -35,16 +37,22 @@ and exits non-zero:
              cache_len=1024): 8 requests of 512 prompt tokens, 32 new
              tokens each; K3 launched 8 x 24 = 192 times; prefill ms per
              request, decode tokens/s, peak device memory
- 10. build   K2, the flash-attention forward (prints ptxas -v)
+ 10. build   K2, the flash-attention forward: ptxas -v of both entries,
+             the tensor-core instructions (HMMA / HGMMA) in the bf16
+             kernel's SASS (cuobjdump; fails if there are none) and its
+             resident blocks per SM
  11. flash   hold K2 against its plain version on the card at the
              reference's FLASH_SWEEP shapes (a length of 200, cross lengths
-             128/256 with GQA 4:1, MQA), the served layer shape of
-             qwen3-0.6b (1 x 512 x 512, 16 heads, 8 kv heads of 128,
-             causal) and a 2048-token causal prompt (the reference's
-             chunked_attention branch): atol = rtol = 2e-5 in float32 and
-             2e-2 in bfloat16; then time K2, its plain version and
-             scaled_dot_product_attention (the library yardstick, never
-             called by the port) at the served shape, beside the bound
+             128/256 with GQA 4:1, MQA), a ragged 77-token shape at hd 16,
+             the served layer shape of qwen3-0.6b (1 x 512 x 512, 16 heads,
+             8 kv heads of 128, causal) and a 2048-token causal prompt (the
+             reference's chunked_attention branch): atol = rtol = 2e-5 in
+             float32 and 2e-2 in bfloat16; then time K2 (bf16 and float32
+             inputs), its plain version and scaled_dot_product_attention
+             (the library yardstick, never called by the port) at the
+             served and 2048-token shapes, beside the bound, and K2 on one
+             query tile per head against all the keys (the longest block's
+             chain alone)
  12. model   a 2-layer qwen3-0.6b at full width in float32 compute (TF32
              off): a 512-token prefill on cuda (through K2) matches the
              same weights on the CPU (plain) within 1e-3 relative to each
@@ -63,11 +71,13 @@ the JAX package ``repro``.
 
 from __future__ import annotations
 
+import concurrent.futures
 import contextlib
 import dataclasses
 import json
 import math
 import os
+import re
 import subprocess
 import sys
 import time
@@ -98,13 +108,14 @@ MODEL_REL_TOL = 1e-3          # phases 8, 12: cuda vs CPU, f32, TF32 off
 DECODE_TOL = 2e-3             # the reference's prefill-vs-decode contract
 #: K2 against its plain version: the reference's flash tolerances
 FLASH_TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
-#: the reference's FLASH_SWEEP (tests/test_kernels.py), the served layer
-#: shape of qwen3-0.6b and a 2048-token prompt, which the reference's
-#: transformer computes with chunked_attention: (B, S, T, H, KV, hd, causal)
+#: the reference's FLASH_SWEEP (tests/test_kernels.py) and a ragged shape
+#: at hd 16, the served layer shape of qwen3-0.6b and a 2048-token prompt,
+#: which the reference's transformer computes with chunked_attention:
+#: (B, S, T, H, KV, hd, causal)
 FLASH_SHAPES = [(1, 64, 64, 2, 2, 32, True), (2, 128, 128, 4, 2, 64, True),
                 (1, 200, 200, 4, 4, 64, True),
                 (2, 128, 256, 8, 2, 128, False),
-                (1, 96, 96, 8, 1, 64, True)]
+                (1, 96, 96, 8, 1, 64, True), (2, 77, 77, 4, 1, 16, True)]
 SERVED_FLASH = (1, 512, 512, 16, 8, 128, True)
 LONG_FLASH = (1, 2048, 2048, 16, 8, 128, True)
 
@@ -130,6 +141,27 @@ def cuda_ms(fn, min_seconds: float = 0.2) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def device_ms(fn, reps: int = 50) -> float:
+    """Mean device time per call of the kernels ``fn`` launches: the CUDA
+    kernel events of ``torch.profiler`` over ``reps`` calls, summed.  Unlike
+    ``cuda_ms`` it leaves out the gaps in which the device waits for the
+    host to dispatch the next launch."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    us = sum(e.time_range.elapsed_us() for e in prof.events()
+             if e.device_type == DeviceType.CUDA)
+    if us <= 0:
+        raise AssertionError("the profiler saw no device time")
+    return us / reps / 1e3
 
 
 @contextlib.contextmanager
@@ -368,6 +400,24 @@ def rel_err(got, want) -> float:
                  / want.abs().max().clamp_min(1e-30))
 
 
+def build_all(modules) -> dict:
+    """Build every kernel library at once (one nvcc per source, started
+    together); returns {library name: seconds}."""
+    def build(mod):
+        t0 = time.perf_counter()
+        mod._library()
+        return mod.LIB_NAME, time.perf_counter() - t0
+
+    with concurrent.futures.ThreadPoolExecutor(len(modules)) as pool:
+        return dict(pool.map(build, modules))
+
+
+def log_ptxas(_build, name):
+    for line in _build.build_log(name).splitlines():
+        if "registers" in line or "spill" in line or "Compiling" in line:
+            log("  ptxas:", line.strip())
+
+
 def main() -> int:
     # 1. device ----------------------------------------------------------
     if not torch.cuda.is_available():
@@ -391,17 +441,18 @@ def main() -> int:
     from repro_torch.kernels.minplus import kernel as minplus_kernel
     from repro_torch.kernels import rwkv6 as wkv6_mod
     from repro_torch.kernels.rwkv6 import kernel as wkv6_kernel
+    from repro_torch.kernels import flash as flash_mod
+    from repro_torch.kernels.flash import kernel as flash_kernel
     from repro_torch.models import vgg
     from repro_torch.pipeline import (SplitLearningExecutor,
                                       simulate_from_breakdown)
 
-    # 2. build -----------------------------------------------------------
+    # 2. build every kernel, in parallel --------------------------------------
     t0 = time.perf_counter()
-    minplus_kernel._library()
-    log(f"build: K1 in {time.perf_counter() - t0:.2f} s")
-    for line in _build.build_log(minplus_kernel.LIB_NAME).splitlines():
-        if "registers" in line or "spill" in line or "Compiling" in line:
-            log("  ptxas:", line.strip())
+    built = build_all([minplus_kernel, wkv6_kernel, flash_kernel])
+    log(f"build: K1, K3, K2 in parallel in {time.perf_counter() - t0:.2f} s ("
+        + ", ".join(f"{n} {t:.2f} s" for n, t in built.items()) + ")")
+    log_ptxas(_build, minplus_kernel.LIB_NAME)
 
     # 3. kernel ----------------------------------------------------------
     profile = vgg16_profile(work_units="bytes")
@@ -516,14 +567,12 @@ def main() -> int:
     log(f"train B=512 plan (b={plan.b}, q={plan.num_microbatches}, cuDNN "
         f"TF32 default): ms/round {[round(t, 3) for t in times]}, losses "
         f"{[round(v, 4) for v in losses]}")
+    del ex, ex_gpu, ex_cpu, batch
+    torch.cuda.empty_cache()
 
     # 6. build K3 -----------------------------------------------------------
-    t0 = time.perf_counter()
-    wkv6_kernel._library()
-    log(f"build: K3 in {time.perf_counter() - t0:.2f} s")
-    for line in _build.build_log(wkv6_kernel.LIB_NAME).splitlines():
-        if "registers" in line or "spill" in line or "Compiling" in line:
-            log("  ptxas:", line.strip())
+    log(f"build: K3 in {built[wkv6_kernel.LIB_NAME]:.2f} s (phase 2)")
+    log_ptxas(_build, wkv6_kernel.LIB_NAME)
 
     # 7. K3 against its plain versions ----------------------------------------
     # phases 7 and 8 compare in full float32: TF32 off for every matmul
@@ -622,6 +671,7 @@ def main() -> int:
             return out
 
     torch.cuda.reset_peak_memory_stats()
+    held_gib = torch.cuda.memory_allocated() / 2**30   # earlier phases' state
     t0 = time.perf_counter()
     srv = TimedServer("rwkv6-1.6b", reduced=False, batch=4, cache_len=1024,
                       seed=0, device="cuda")
@@ -667,21 +717,28 @@ def main() -> int:
         f"tokens in "
         f"{stats['seconds']:.3f} s; prefill ms per request {prefill_ms}; "
         f"decode {stats['tokens'] / decode_s:.2f} tokens/s; K3 launches "
-        f"{k3_launches}; peak device memory {peak_gib:.2f} GiB")
+        f"{k3_launches}; peak device memory {peak_gib:.2f} GiB, of which "
+        f"{held_gib:.2f} GiB was held before the server was built")
     del srv, stats, done, reqs, check_logits, check_state
     torch.cuda.empty_cache()
 
     # 10. build K2 -----------------------------------------------------------
-    from repro_torch.kernels import flash as flash_mod
-    from repro_torch.kernels.flash import kernel as flash_kernel
     from repro_torch.models import transformer
 
-    t0 = time.perf_counter()
-    flash_kernel._library()
-    log(f"build: K2 in {time.perf_counter() - t0:.2f} s")
-    for line in _build.build_log(flash_kernel.LIB_NAME).splitlines():
-        if "registers" in line or "spill" in line or "Compiling" in line:
-            log("  ptxas:", line.strip())
+    log(f"build: K2 in {built[flash_kernel.LIB_NAME]:.2f} s (phase 2)")
+    log_ptxas(_build, flash_kernel.LIB_NAME)
+    hmma = {int(re.search(r"ILi(\d+)E", name).group(1)): n
+            for name, n in _build.tensor_core_ops(
+                _build.sass(flash_kernel.LIB_NAME, flash_kernel.SOURCES),
+                "flash_fwd_mma_kernel").items()}
+    if sorted(hmma) != sorted(flash_kernel.HEAD_DIMS) or \
+            min(hmma.values()) == 0:
+        raise AssertionError(f"K2's bf16 kernel lacks tensor-core "
+                             f"instructions in its SASS: {hmma}")
+    k2_blocks = {hd: flash_kernel.blocks_per_sm(hd)
+                 for hd in flash_kernel.HEAD_DIMS}
+    log(f"K2 bf16 kernel SASS: tensor-core instructions (HMMA/HGMMA) by hd "
+        f"{hmma}; resident blocks per SM by hd {k2_blocks}")
 
     # 11. K2 against its plain version (TF32 still off) ----------------------
     k2_err = 0.0
@@ -698,12 +755,23 @@ def main() -> int:
             raise AssertionError(f"K2 {shape} differs from "
                                  "scaled_dot_product_attention")
         q32, k32, v32 = flash_inputs(*shape[:6], torch.float32, seed=5)
+        q_tile = q[:, :64].contiguous()
         timings[label] = {
             "ms": cuda_ms(lambda: flash_mod.flash_attention(q, k, v)),
             "plain_ms": cuda_ms(lambda: flash_mod.attention_plain(q, k, v)),
             "library_ms": cuda_ms(lambda: sdpa(q, k, v)),
             "ms_f32_inputs": cuda_ms(
                 lambda: flash_mod.flash_attention(q32, k32, v32)),
+            "chain_ms": cuda_ms(lambda: flash_mod.flash_attention(
+                q_tile, k, v, causal=False)),
+            "device_ms": device_ms(lambda: flash_mod.flash_attention(q, k, v)),
+            "plain_device_ms": device_ms(
+                lambda: flash_mod.attention_plain(q, k, v)),
+            "library_device_ms": device_ms(lambda: sdpa(q, k, v)),
+            "device_ms_f32_inputs": device_ms(
+                lambda: flash_mod.flash_attention(q32, k32, v32)),
+            "chain_device_ms": device_ms(lambda: flash_mod.flash_attention(
+                q_tile, k, v, causal=False)),
         }
         bound, by = flash_bound_ms(*shape, torch.bfloat16)
         bound32, by32 = flash_bound_ms(*shape, torch.float32)
@@ -714,8 +782,14 @@ def main() -> int:
             f"{t['plain_ms']:.4f} ms, scaled_dot_product_attention "
             f"{t['library_ms']:.4f} ms, bound {bound:.6f} ms ({by}); "
             f"f32: kernel {t['ms_f32_inputs']:.4f} ms, bound {bound32:.6f} "
-            f"ms ({by32})")
-    del q, k, v, q32, k32, v32, mine, lib
+            f"ms ({by32}); the longest block's chain alone (64 query rows "
+            f"x {shape[2]} keys per head, bf16) {t['chain_ms']:.4f} ms")
+        log(f"K2 {label}, device time per call (profiler): kernel bf16 "
+            f"{t['device_ms']:.4f} ms, f32 {t['device_ms_f32_inputs']:.4f} "
+            f"ms, plain {t['plain_device_ms']:.4f} ms, "
+            f"scaled_dot_product_attention {t['library_device_ms']:.4f} ms, "
+            f"chain alone {t['chain_device_ms']:.4f} ms")
+    del q, k, v, q32, k32, v32, q_tile, mine, lib
 
     # 12. model check: cuda (K2) vs CPU (plain), float32 ---------------------
     full_q = get_config("qwen3-0.6b")
@@ -854,6 +928,12 @@ def main() -> int:
         "dtype": "bfloat16",
         "ms_f32_inputs": timings["served"]["ms_f32_inputs"],
         "bound_ms_f32": timings["served"]["bound_ms_f32"],
+        **{key: timings["served"][key]
+           for key in ("chain_ms", "device_ms", "plain_device_ms",
+                       "library_device_ms", "device_ms_f32_inputs",
+                       "chain_device_ms")},
+        "sass_tensor_core_instructions": hmma,
+        "blocks_per_sm": k2_blocks,
         "long_2048": timings["2048"],
     }]}))
     print(json.dumps({"ok": True, "device": {

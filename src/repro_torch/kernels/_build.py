@@ -6,7 +6,10 @@ The build runs at first use, into ``build/repro_torch/`` at the root of the
 checkout, keyed by a hash of the sources and flags: a library built from
 other sources is never reused, and a second call in one process loads the
 cached handle.  The compiler's output (``-Xptxas -v``: registers, shared
-memory, spills per kernel) is kept beside the library as ``<name>.log``.
+memory, spills per kernel) is kept beside the library as ``<name>.log``;
+:func:`sass` disassembles a built library with the toolkit's ``cuobjdump``
+and :func:`tensor_core_ops` counts the tensor-core instructions of its
+kernels.
 """
 
 from __future__ import annotations
@@ -14,6 +17,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 from pathlib import Path
@@ -79,3 +83,31 @@ def build_log(name: str) -> str:
     """The compiler's output from the last build of ``name`` ("" if none)."""
     path = BUILD_DIR / f"{name}.log"
     return path.read_text() if path.exists() else ""
+
+
+def sass(name: str, sources) -> str:
+    """The SASS of the library built from ``sources`` (``cuobjdump -sass``
+    from the toolkit beside nvcc)."""
+    tool = Path(nvcc_path()).with_name("cuobjdump")
+    proc = subprocess.run([str(tool), "-sass",
+                           str(build_library(name, sources))],
+                          capture_output=True, text=True, check=True)
+    return proc.stdout
+
+
+def tensor_core_ops(sass_text: str, function: str) -> dict:
+    """{kernel: tensor-core instructions} for every kernel in ``sass_text``
+    (the output of :func:`sass`) whose mangled name contains ``function``:
+    the lines whose opcode is HMMA (``mma.sync``) or HGMMA (``wgmma``), with
+    any modifiers and predicate."""
+    op = re.compile(r"^\s*/\*[0-9a-f]+\*/\s+(?:@!?U?P\w+\s+)?HG?MMA\b")
+    counts, current = {}, None
+    for line in sass_text.splitlines():
+        head = re.match(r"\s*Function\s*:\s*(\S+)", line)
+        if head:
+            current = head.group(1) if function in head.group(1) else None
+            if current:
+                counts[current] = 0
+        elif current and op.match(line):
+            counts[current] += 1
+    return counts

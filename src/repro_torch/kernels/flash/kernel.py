@@ -5,11 +5,13 @@
 Pallas TPU kernel ``kernel.py::flash_attention_fwd``).  For tensors on the
 CPU it computes the plain version
 (:func:`~repro_torch.kernels.flash.ref.attention_plain`); for CUDA tensors
-it launches ``csrc/flash.cu`` or raises — it never falls back.  The kernel
-reads the model layout (B, S, H, hd) / (B, T, KV, hd) in place: K and V are
-not repeated per query head and nothing is padded on the host.  It is
-built at first use (``kernels/_build.py``) and launched on PyTorch's
-current stream without synchronising.
+it launches ``csrc/flash.cu`` or raises — it never falls back.  bfloat16
+inputs take the tensor-core kernel (``flash_fwd_mma_kernel``), float32
+inputs the exact float32 kernel on the CUDA cores.  The kernels read the
+model layout (B, S, H, hd) / (B, T, KV, hd) in place: K and V are not
+repeated per query head and nothing is padded on the host.  They are built
+at first use (``kernels/_build.py``) and launched on PyTorch's current
+stream without synchronising.
 """
 
 from __future__ import annotations
@@ -38,7 +40,27 @@ def _library() -> ctypes.CDLL:
         fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 7 \
             + [ctypes.c_float, ctypes.c_void_p]
         fn.restype = ctypes.c_int
+    lib.flash_fwd_bf16_blocks_per_sm.argtypes = [ctypes.c_int]
+    lib.flash_fwd_bf16_blocks_per_sm.restype = ctypes.c_int
     return lib
+
+
+def blocks_per_sm(hd: int) -> int:
+    """Blocks of the bfloat16 kernel resident on one SM at head size ``hd``
+    (CUDA's occupancy calculator, at the kernel's registers and shared
+    memory)."""
+    n = _library().flash_fwd_bf16_blocks_per_sm(hd)
+    if n < 0:
+        raise RuntimeError(f"occupancy query failed: CUDA error {-n}")
+    return n
+
+
+def aligned16(t: torch.Tensor) -> torch.Tensor:
+    """``t`` contiguous at a 16-byte aligned address (the bfloat16 kernel
+    copies 16 bytes at a time with cp.async); a view at another offset is
+    copied."""
+    t = t.contiguous()
+    return t if t.data_ptr() % 16 == 0 else t.clone()
 
 
 def flash_attention(q, k, v, *, causal: bool = True):
@@ -77,7 +99,7 @@ def flash_attention(q, k, v, *, causal: bool = True):
                          f"(one of {HEAD_DIMS})")
     if min(B, S, T) < 1:
         raise ValueError(f"empty attention: B {B}, S {S}, T {T}")
-    q, k, v = (t.contiguous() for t in (q, k, v))
+    q, k, v = (aligned16(t) for t in (q, k, v))
     out = torch.empty_like(q)
     fn = getattr(_library(), _ENTRY[dtype])
     with torch.cuda.device(dev):

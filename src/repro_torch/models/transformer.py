@@ -109,8 +109,8 @@ class TransformerLayer(nn.Module):
         Without ``cache`` (prefill, the sequence starting at position 0):
         returns (x, (k, v)), the keys and values to store.  With ``cache``
         = (k_cache, v_cache) of shape (B, T, KV, hd) and S == 1 (decode):
-        writes this token's k and v into the cache at ``pos`` in place and
-        returns (x, cache)."""
+        writes this token's k and v into the cache at ``min(pos, T - 1)``
+        in place (the reference's clamp) and returns (x, cache)."""
         cfg = self.cfg
         B, S, _ = x.shape
         dt = x.dtype
@@ -120,8 +120,11 @@ class TransformerLayer(nn.Module):
             new = (k, v)
         else:
             k_cache, v_cache = cache
-            k_cache[:, pos:pos + 1] = k
-            v_cache[:, pos:pos + 1] = v
+            # the reference's dynamic_update_slice clamps the start to
+            # T - 1; an empty slice at pos == T would drop the write
+            at = min(pos, k_cache.shape[1] - 1)
+            k_cache[:, at:at + 1] = k
+            v_cache[:, at:at + 1] = v
             attn = decode_attention(q, k_cache, v_cache, pos)
             new = cache
         x = x + attn.reshape(B, S, cfg.n_heads * cfg.head_dim) @ \

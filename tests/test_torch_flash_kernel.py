@@ -11,7 +11,10 @@ tensor the wrapper launches the kernel (counted) or raises.  The kernel is
 held within the reference's tolerances (atol = rtol = 2e-5 in float32,
 2e-2 in bfloat16) of the plain version on the card, at the reference's
 ``FLASH_SWEEP`` shapes, the served layer shape of ``qwen3-0.6b`` and a
-2048-token causal prompt; those cases skip without a GPU.
+2048-token causal prompt, and at the edges of the tensor-core kernel's
+tiles (a ragged length at hd 16, a non-causal cross shape with T not a
+multiple of 64, MQA over three query tiles); those cases skip without a
+GPU.
 """
 
 import math
@@ -21,7 +24,9 @@ import pytest
 import torch
 
 from repro_torch.configs import get_config
+from repro_torch.kernels import _build
 from repro_torch.kernels.flash import attention_plain, flash_attention
+from repro_torch.kernels.flash import kernel as flash_kernel
 from repro_torch.models import transformer
 
 FLASH_SWEEP = [
@@ -35,6 +40,12 @@ FLASH_SWEEP = [
 MODEL_SHAPES = [
     (1, 512, 512, 16, 8, 128, True),        # qwen3-0.6b, a served prefill
     (1, 2048, 2048, 16, 8, 128, True),      # the reference's chunked branch
+]
+#: the edges of the bfloat16 tensor-core kernel's 64 x 64 tiles
+MMA_EDGES = [
+    (2, 77, 77, 4, 1, 16, True),            # ragged S and T, hd 16
+    (1, 50, 100, 4, 2, 64, False),          # cross, T not a multiple of 64
+    (2, 130, 130, 8, 1, 128, True),         # MQA over three query tiles
 ]
 TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
 
@@ -122,7 +133,8 @@ def test_prefill_attention_goes_through_the_wrapper(monkeypatch):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("B,S,T,H,KV,hd,causal", FLASH_SWEEP + MODEL_SHAPES)
+@pytest.mark.parametrize("B,S,T,H,KV,hd,causal",
+                         FLASH_SWEEP + MODEL_SHAPES + MMA_EDGES)
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
                          ids=["float32", "bfloat16"])
 def test_kernel_matches_plain_on_gpu(gpu, B, S, T, H, KV, hd, causal, dtype):
@@ -135,6 +147,31 @@ def test_kernel_matches_plain_on_gpu(gpu, B, S, T, H, KV, hd, causal, dtype):
     want = attention_plain(q, k, v, causal=causal)
     torch.testing.assert_close(out.float(), want.float(), atol=TOL[dtype],
                                rtol=TOL[dtype])
+
+
+@pytest.mark.cuda
+def test_tensor_core_kernel_takes_a_misaligned_view(gpu):
+    """A q that starts 2 bytes into its storage is copied to an aligned
+    address before the 16-byte cp.async loads."""
+    q, k, v = inputs(1, 64, 64, 2, 2, 32, torch.bfloat16, gpu)
+    flat = torch.empty(q.numel() + 1, dtype=q.dtype, device=gpu)
+    view = flat[1:].view(q.shape)
+    view.copy_(q)
+    assert view.data_ptr() % 16 != 0
+    torch.testing.assert_close(flash_attention(view, k, v),
+                               flash_attention(q, k, v), atol=0, rtol=0)
+
+
+@pytest.mark.cuda
+def test_tensor_core_kernel_uses_hmma_and_two_blocks_per_sm(gpu):
+    """Every head size of the bfloat16 kernel compiles to tensor-core
+    instructions, and at hd 128 two blocks fit on one SM."""
+    counts = _build.tensor_core_ops(
+        _build.sass(flash_kernel.LIB_NAME, flash_kernel.SOURCES),
+        "flash_fwd_mma_kernel")
+    assert len(counts) == len(flash_kernel.HEAD_DIMS)
+    assert all(n > 0 for n in counts.values()), counts
+    assert flash_kernel.blocks_per_sm(128) >= 2
 
 
 @pytest.mark.cuda
@@ -175,6 +212,38 @@ def test_model_prefill_on_gpu_matches_cpu(gpu):
     for name in ("k", "v"):
         torch.testing.assert_close(g_cache[name].cpu(), w_cache[name],
                                    atol=1e-4, rtol=1e-4)
+
+
+def test_aligned16_copies_only_misaligned_views():
+    t = torch.arange(40, dtype=torch.bfloat16)
+    assert flash_kernel.aligned16(t) is t
+    view = t[1:33]
+    got = flash_kernel.aligned16(view)
+    assert got.data_ptr() % 16 == 0 and torch.equal(got, view)
+    cols = t[:32].view(4, 8)[:, :4]            # not contiguous
+    got = flash_kernel.aligned16(cols)
+    assert got.is_contiguous() and torch.equal(got, cols)
+
+
+def test_tensor_core_ops_counts_the_named_kernels():
+    text = """
+\tcode for sm_90a
+\t\tFunction : _ZN12_GLOBAL__N_120flash_fwd_mma_kernelILi16EEEvPK13__nv_bfloat16
+        /*0000*/                   LDC R1, c[0x0][0x28] ;       /* 0x00000a00ff017b82 */
+        /*0100*/                   HMMA.16816.F32.BF16 R20, R4, R8, RZ ;   /* 0x0 */
+        /*0110*/               @P0 HMMA.16816.F32.BF16 R24, R4, R10, R24 ;
+        /*0120*/                   LDSM.16.M88.4 R8, [R2] ;
+\t\tFunction : _ZN12_GLOBAL__N_120flash_fwd_f32_kernelILi16EEEvPKfS2_S2_Pfiiiiif
+        /*0000*/                   HMMA.1688.F32 R0, R2, R4, R0 ;
+\t\tFunction : _ZN12_GLOBAL__N_120flash_fwd_mma_kernelILi32EEEvPK13__nv_bfloat16
+        /*0000*/                   HGMMA.64x64x16.F32.BF16 R24, gdesc[UR4], R24 ;
+        /*0010*/                   FFMA R1, R2, R3, R1 ;  // HMMA in a comment
+"""
+    assert _build.tensor_core_ops(text, "flash_fwd_mma_kernel") == {
+        "_ZN12_GLOBAL__N_120flash_fwd_mma_kernelILi16EEEvPK13__nv_bfloat16": 2,
+        "_ZN12_GLOBAL__N_120flash_fwd_mma_kernelILi32EEEvPK13__nv_bfloat16": 1,
+    }
+    assert _build.tensor_core_ops(text, "nothing_of_the_kind") == {}
 
 
 def test_bound_counts_the_causal_pairs():

@@ -34,10 +34,10 @@ PROMPT_LENS = (16, 11, 16)
 MAX_NEW = 6
 
 
-def requests(make, vocab):
+def requests(make, vocab, prompt_lens=PROMPT_LENS):
     rng = np.random.default_rng(0)
     return [make(rid, rng.integers(0, vocab, size=n).astype(np.int32),
-                 max_new=MAX_NEW) for rid, n in enumerate(PROMPT_LENS)]
+                 max_new=MAX_NEW) for rid, n in enumerate(prompt_lens)]
 
 
 def summary(stats):
@@ -77,17 +77,17 @@ def served():
     return want, port.run()
 
 
-def test_qwen3_server_generates_the_reference_tokens():
+def qwen3_served(prompt_lens, cache_len):
     """The same requests through both servers on the reduced ``qwen3-0.6b``
-    in float32: the KV caches live per slot, the prefill attention goes
-    through K2's wrapper (its plain version here)."""
+    in float32, from the same weights; returns (reference stats, port
+    stats)."""
     rcfg = dataclasses.replace(ref_get_config("qwen3-0.6b", reduced=True),
                                compute_dtype=jnp.float32)
     pcfg = dataclasses.replace(get_config("qwen3-0.6b", reduced=True),
                                compute_dtype=torch.float32)
     tree = transformer_tree(rcfg, seed=2)
 
-    ref = RefServer("qwen3-0.6b", reduced=True, batch=2, cache_len=32)
+    ref = RefServer("qwen3-0.6b", reduced=True, batch=2, cache_len=cache_len)
     api = ref_get_model(rcfg)
     ref.cfg = rcfg
     ref.api = dataclasses.replace(api,
@@ -95,22 +95,39 @@ def test_qwen3_server_generates_the_reference_tokens():
                                                   static_argnums=2))
     ref.decode = jax.jit(api.decode)
     ref.params = jax.tree.map(jnp.asarray, tree)
-    for req in requests(RefRequest, rcfg.vocab):
+    for req in requests(RefRequest, rcfg.vocab, prompt_lens):
         ref.submit(req)
     want = ref.run()
 
     port = serve.BatchedServer(
-        "qwen3-0.6b", reduced=True, batch=2, cache_len=32, device="cpu",
-        params=transformer.params_from_jax(tree, pcfg, "cpu"))
+        "qwen3-0.6b", reduced=True, batch=2, cache_len=cache_len,
+        device="cpu", params=transformer.params_from_jax(tree, pcfg, "cpu"))
     port.cfg = pcfg
     port.api = get_model(pcfg, device="cpu")
     port.decode = port.api.decode
-    for req in requests(serve.Request, pcfg.vocab):
+    for req in requests(serve.Request, pcfg.vocab, prompt_lens):
         port.submit(req)
-    got = port.run()
+    return want, port.run()
+
+
+def test_qwen3_server_generates_the_reference_tokens():
+    """The KV caches live per slot, the prefill attention goes through K2's
+    wrapper (its plain version here)."""
+    want, got = qwen3_served(PROMPT_LENS, 32)
     assert summary(got) == summary(want)
     assert len(got["completed"]) == len(PROMPT_LENS)
     assert all(len(r.generated) == MAX_NEW for r in got["completed"])
+
+
+def test_qwen3_server_with_a_cache_len_prompt_matches_reference():
+    """A prompt of exactly ``cache_len`` tokens: its one decode step runs at
+    ``pos == cache_len``, where both write this token's k and v at the last
+    cache entry, then the slot retires."""
+    want, got = qwen3_served((32, 32, 32, 11), 32)
+    assert summary(got) == summary(want)
+    full = [r for r in got["completed"] if len(r.prompt) == 32]
+    assert len(full) == 3
+    assert all(len(r.generated) == 2 and r.done for r in full)
 
 
 def test_server_generates_the_reference_tokens(served):

@@ -16,9 +16,9 @@ within rtol = 3e-2 and atol = 3e-2 per layer, and through the whole model
 (prefill, decode step) atol = 3e-2 times the tensor's largest magnitude,
 as in ``tests/test_torch_rwkv6.py``: the frameworks round bfloat16 at
 different points, and the reference casts the attention probabilities to
-bfloat16 before the product with v where K2 keeps them in float32.  The
-reference's own prefill-vs-decode contract is 2e-3
-(``tests/test_models_smoke.py``).  The reference runs under ``jax.jit``,
+bfloat16 before the product with v where K2's plain version (what its
+wrapper runs on the CPU) keeps them in float32.  The reference's own
+prefill-vs-decode contract is 2e-3 (``tests/test_models_smoke.py``).  The reference runs under ``jax.jit``,
 compiled once per case.
 """
 
@@ -182,6 +182,27 @@ def test_decode_step_matches_reference(tree, prefills, dt):
     close(got, want, tol, scaled=scaled)
     for name in w_new:
         close(g_new[name], w_new[name], tol, scaled=scaled)
+
+
+def test_decode_step_after_a_full_cache_matches_reference(tree):
+    """A prompt of exactly ``cache_len`` tokens leaves the next decode step
+    at ``pos == cache_len``: the reference's ``dynamic_update_slice``
+    clamps the write to the last entry, and so must the port (float32)."""
+    rcfg, pcfg = configs("float32")
+    tokens, next_tok = tokens_of(CACHE, seed=7), tokens_of(1, seed=8)
+    logits, w_cache = ref_prefill(tree, jnp.asarray(tokens, jnp.int32), rcfg,
+                                  CACHE)
+    want, w_new = ref_decode_step(tree, w_cache,
+                                  jnp.asarray(next_tok, jnp.int32),
+                                  jnp.int32(CACHE), rcfg)
+    model = transformer.params_from_jax(tree, pcfg, "cpu")
+    got_p, cache = transformer.prefill(model, torch.from_numpy(tokens), CACHE)
+    close(got_p, logits, 1e-4)
+    got, g_new = transformer.decode_step(model, cache,
+                                         torch.from_numpy(next_tok), CACHE)
+    close(got, want, 1e-4)
+    for name in ("k", "v"):
+        close(g_new[name], w_new[name], 1e-4)
 
 
 def test_prompt_longer_than_attn_chunk_matches_chunked_reference(tree):
