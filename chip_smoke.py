@@ -20,19 +20,29 @@ and exits non-zero:
              no_pipeline and the Eq. (14) event-simulation gap
   5. train   one VGG-16 round on cuda matches the CPU (TF32 off); then a
              few rounds at the B=512 plan, timed
-  6. build   K3, the RWKV6 WKV scan (prints ptxas -v)
-  7. wkv6    hold K3 against its plain versions on the card at the
-             reference's WKV_SWEEP shapes, two odd chunks and the served
-             layer shape (1 x 512 tokens x 32 heads x 64, chunk 256):
-             atol = rtol = 1e-4 in float32 and 3e-2 in bfloat16 on y and
-             the final state; two halves with the state carried equal the
-             whole sequence; then time it
+  6. build   K3, the RWKV6 WKV scan (two passes: the states entering each
+             64-token tile, then every tile's outputs): ptxas -v, the
+             tensor-core instructions (HMMA) of each pass's bf16 and f32
+             kernel in the SASS (fails if any has none) and each pass's
+             resident blocks per SM
+  7. wkv6    hold K3 against its plain versions on the card (the chunked
+             and per-token ones, and wkv6_tiled_plain, the kernel's own
+             decomposition) at the reference's WKV_SWEEP shapes, two odd
+             chunks, tiles crossing chunks of 1, 2 and 31 with a ragged last
+             tile, the served layer shape (1 x 512 tokens x 32 heads x 64,
+             chunk 256) and a 511-token prompt (chunk 1): atol = rtol = 1e-4
+             in float32 and 3e-2 in bfloat16 on y and the final state; under
+             a decay strong enough to overflow the chunked form (log w about
+             -4.5), finite and within those of the other two; two halves
+             with the state carried equal the whole sequence; then time it
+             at the served and 511-token shapes by CUDA events and by the
+             profiler's device time
   8. model   a 2-layer rwkv6-1.6b at full width in float32 compute (TF32
-             off): a 512-token prefill on cuda (through K3) matches the
-             same weights on the CPU (plain) within 1e-3 relative to each
-             tensor's largest magnitude, on the logits and the WKV state;
-             64 decode steps after a 64-token prefill match a 128-token
-             prefill at the reference's 2e-3
+             off): 512- and 511-token prefills on cuda (through K3; chunk
+             256 and 1) match the same weights on the CPU (plain) within
+             1e-3 relative to each tensor's largest magnitude, on the logits
+             and the WKV state; 64 decode steps after a 64-token prefill
+             match a 128-token prefill at the reference's 2e-3
   9. serve   BatchedServer("rwkv6-1.6b", reduced=False, batch=4,
              cache_len=1024): 8 requests of 512 prompt tokens, 32 new
              tokens each; K3 launched 8 x 24 = 192 times; prefill ms per
@@ -67,10 +77,16 @@ and exits non-zero:
 The next-to-last line is a JSON object with the kernels' measurements; the
 last is ``{"ok": true, "device": {...}}``.  Imports nothing of JAX or of
 the JAX package ``repro``.
+
+    python3 chip_smoke.py --time-k3 [--src OTHER_CHECKOUT/src]
+
+only times K3 (phase 7's timings) with this checkout's ``repro_torch`` or
+another's, to compare two versions of the kernel in one run.
 """
 
 from __future__ import annotations
 
+import argparse
 import concurrent.futures
 import contextlib
 import dataclasses
@@ -104,6 +120,14 @@ WKV_SHAPES = [(1, 64, 1, 16, 16), (2, 128, 2, 32, 32), (1, 256, 4, 64, 64),
               (2, 96, 2, 8, 32), (1, 128, 2, 64, 128), (1, 62, 2, 64, 31),
               (1, 9, 2, 64, 1)]
 SERVED_WKV = (1, 512, 32, 64, 256)
+#: an odd-length prompt: the model's selection loop gives it chunk 1
+ODD_WKV = (1, 511, 32, 64, 1)
+#: K3's 64-token tiles across chunks of 1, 2 and 31, the last tile ragged
+WKV_CROSSING = [(1, 511, 2, 64, 1), (1, 130, 2, 64, 2), (1, 124, 2, 64, 31)]
+#: log w about -4.5 a token (log(-log w) centred at 1.5): the chunked form's
+#: k exp(-L) overflows float32 within a 64-token chunk
+STRONG_DECAY = 1.5
+STRONG_WKV = [(1, 256, 2, 64, 64), SERVED_WKV]
 MODEL_REL_TOL = 1e-3          # phases 8, 12: cuda vs CPU, f32, TF32 off
 DECODE_TOL = 2e-3             # the reference's prefill-vs-decode contract
 #: K2 against its plain version: the reference's flash tolerances
@@ -280,13 +304,13 @@ def all_thresholds(planner, b, max_s=1024):
     return (*dp._kernel_args(), ts)
 
 
-def wkv6_inputs(B, S, H, hd, dtype, seed=7):
+def wkv6_inputs(B, S, H, hd, dtype, seed=7, log_decay=-2.0):
     """K3's inputs at the reference's scales (tests/test_kernels.py),
-    drawn on the card."""
+    drawn on the card; ``log_decay`` centres log(-log w)."""
     g = torch.Generator(device="cuda").manual_seed(seed)
     n = lambda *shape: torch.randn(shape, generator=g, device="cuda")
     r, k, v = (n(B, S, H, hd).mul_(0.5).to(dtype) for _ in range(3))
-    logw = -torch.exp(n(B, S, H, hd) * 0.5 - 2.0)
+    logw = -torch.exp(n(B, S, H, hd) * 0.5 + log_decay)
     return r, k, v, logw, n(H, hd) * 0.3, n(B, H, hd, hd) * 0.2
 
 
@@ -317,29 +341,68 @@ def wkv6_bound_ms(B, S, H, hd, dtype) -> tuple:
             "bytes" if byte_s >= op_s else "operations")
 
 
-def check_wkv6(shape, dtype, wkv6_mod) -> float:
-    """Hold K3 against wkv6_chunked_plain and the per-token wkv6_plain on
-    the card; returns the largest absolute error against the chunked
-    plain version."""
+def check_wkv6(shape, dtype, wkv6_mod, log_decay=-2.0) -> float:
+    """Hold K3 against wkv6_chunked_plain, the per-token wkv6_plain and
+    wkv6_tiled_plain (the kernel's decomposition) on the card; returns the
+    largest absolute error against the first of them.  Under a strong decay
+    (``log_decay`` above 0) the chunked form overflows, so K3 is held to the
+    other two and must be finite."""
     B, S, H, hd, chunk = shape
-    args = wkv6_inputs(B, S, H, hd, dtype)
+    args = wkv6_inputs(B, S, H, hd, dtype, log_decay=log_decay)
     y, s = wkv6_mod.wkv6(*args, chunk=chunk)
     torch.cuda.synchronize()
     tol = WKV_TOL[dtype]
-    err = 0.0
-    for name, (y_p, s_p) in (
-            ("chunked plain", wkv6_mod.wkv6_chunked_plain(*args, chunk)),
-            ("per-token plain", wkv6_mod.wkv6_plain(*args))):
+    plains = [("per-token plain", wkv6_mod.wkv6_plain(*args)),
+              ("tiled plain", wkv6_mod.wkv6_tiled_plain(*args))]
+    if log_decay <= 0:
+        plains.insert(0, ("chunked plain",
+                          wkv6_mod.wkv6_chunked_plain(*args, chunk)))
+    if not (torch.isfinite(y).all() and torch.isfinite(s).all()):
+        raise AssertionError(f"K3 {shape} {dtype}: non-finite output")
+    err = None
+    for name, (y_p, s_p) in plains:
         for what, got, want in (("y", y, y_p), ("S_final", s, s_p)):
             if not torch.allclose(got, want, atol=tol, rtol=tol):
                 bad = float((got - want).abs().max())
                 raise AssertionError(f"K3 {shape} {dtype} {what} vs {name}: "
                                      f"max abs err {bad} > {tol}")
-            if name == "chunked plain":
-                err = max(err, float((got - want).abs().max()))
-    log(f"K3 (B,S,H,hd,chunk)={shape} {str(dtype)[6:]}: y and S_final "
-        f"within {tol} of both plain versions (max abs err {err:.3e})")
+        if err is None:
+            err = max(float((y - y_p).abs().max()),
+                      float((s - s_p).abs().max()))
+    log(f"K3 (B,S,H,hd,chunk)={shape} {str(dtype)[6:]}"
+        + (f" log w ~ -exp(N(0, 0.5) + {log_decay})" if log_decay > 0 else "")
+        + f": y and S_final within {tol} of "
+        + ", ".join(name for name, _ in plains)
+        + f" (max abs err vs {plains[0][0]} {err:.3e})")
     return err
+
+
+def time_k3(wkv6_mod) -> dict:
+    """K3 at the served layer shape and at a 511-token prompt (chunk 1):
+    CUDA events of back-to-back calls (``ms``) and the profiler's device
+    time per call (``device_ms``) with bf16 and f32 r/k/v, and the plain
+    chunked version by CUDA events."""
+    out = {}
+    for label, (B, S, H, hd, chunk) in (("served", SERVED_WKV),
+                                        ("odd_prompt", ODD_WKV)):
+        t = {}
+        for tag, dtype in (("", torch.bfloat16), ("_f32", torch.float32)):
+            args = wkv6_inputs(B, S, H, hd, dtype)
+            t["ms" + tag] = cuda_ms(lambda: wkv6_mod.wkv6(*args, chunk=chunk))
+            t["device_ms" + tag] = device_ms(
+                lambda: wkv6_mod.wkv6(*args, chunk=chunk))
+        args = wkv6_inputs(B, S, H, hd, torch.bfloat16)
+        t["plain_ms"] = cuda_ms(
+            lambda: wkv6_mod.wkv6_chunked_plain(*args, chunk))
+        t["bound_ms"], t["bound_by"] = wkv6_bound_ms(B, S, H, hd,
+                                                     torch.bfloat16)
+        log(f"K3 {label} {(B, S, H, hd, chunk)}: bf16 r/k/v {t['ms']:.4f} ms "
+            f"(device {t['device_ms']:.4f} ms), f32 r/k/v {t['ms_f32']:.4f} "
+            f"ms (device {t['device_ms_f32']:.4f} ms), plain chunked "
+            f"{t['plain_ms']:.4f} ms, bound {t['bound_ms']:.6f} ms "
+            f"({t['bound_by']})")
+        out[label] = t
+    return out
 
 
 def flash_inputs(B, S, T, H, KV, hd, dtype, seed=42):
@@ -418,7 +481,15 @@ def log_ptxas(_build, name):
             log("  ptxas:", line.strip())
 
 
-def main() -> int:
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--time-k3", action="store_true",
+                    help="only time K3 (time_k3) and print its JSON")
+    ap.add_argument("--src", help="import repro_torch from this directory "
+                    "(another checkout's src/) instead of this one's")
+    opts = ap.parse_args(argv)
+    if opts.src:
+        sys.path.insert(0, os.path.abspath(opts.src))
     # 1. device ----------------------------------------------------------
     if not torch.cuda.is_available():
         log("FAIL: torch.cuda.is_available() is False; this script needs "
@@ -430,6 +501,11 @@ def main() -> int:
     log(smi)
     log(f"torch {torch.__version__} cuda {torch.version.cuda} "
         f"device {torch.cuda.get_device_name(0)}")
+    if opts.time_k3:
+        from repro_torch.kernels import rwkv6 as wkv6_mod
+        log(f"repro_torch from {os.path.dirname(wkv6_mod.__file__)}")
+        log(json.dumps({"k3_times": time_k3(wkv6_mod), "card": smi}))
+        return 0
 
     from repro_torch.core import (breakdown, make_edge_network, no_pipeline,
                                   num_fills, ours, random_profile,
@@ -573,14 +649,30 @@ def main() -> int:
     # 6. build K3 -----------------------------------------------------------
     log(f"build: K3 in {built[wkv6_kernel.LIB_NAME]:.2f} s (phase 2)")
     log_ptxas(_build, wkv6_kernel.LIB_NAME)
+    k3_hmma = {
+        ("states" if "states" in name else "outputs")
+        + (" bf16" if "bfloat16" in name else " f32"): n
+        for name, n in _build.tensor_core_ops(
+            _build.sass(wkv6_kernel.LIB_NAME, wkv6_kernel.SOURCES),
+            "wkv6").items()}
+    if len(k3_hmma) != 4 or min(k3_hmma.values()) == 0:
+        raise AssertionError(f"K3's kernels lack tensor-core instructions in "
+                             f"their SASS: {k3_hmma}")
+    k3_blocks = {f"pass {p} {str(dt)[6:]}": wkv6_kernel.blocks_per_sm(p, dt)
+                 for p in (1, 2) for dt in (torch.bfloat16, torch.float32)}
+    log(f"K3 SASS: tensor-core instructions (HMMA) by kernel {k3_hmma}; "
+        f"resident blocks per SM {k3_blocks}")
 
     # 7. K3 against its plain versions ----------------------------------------
     # phases 7 and 8 compare in full float32: TF32 off for every matmul
     torch.backends.cuda.matmul.allow_tf32 = False
     k3_err = 0.0
-    for shape in WKV_SHAPES + [SERVED_WKV]:
+    for shape in WKV_SHAPES + WKV_CROSSING + [SERVED_WKV, ODD_WKV]:
         for dtype in (torch.float32, torch.bfloat16):
             k3_err = max(k3_err, check_wkv6(shape, dtype, wkv6_mod))
+    k3_strong_err = max(check_wkv6(shape, dtype, wkv6_mod, STRONG_DECAY)
+                        for shape in STRONG_WKV
+                        for dtype in (torch.float32, torch.bfloat16))
     B, S, H, hd, chunk = SERVED_WKV
     for dtype in (torch.float32, torch.bfloat16):
         r, k, v, lw, u, s0 = wkv6_inputs(B, S, H, hd, dtype, seed=11)
@@ -597,16 +689,7 @@ def main() -> int:
                                  "differ from the whole sequence")
     log(f"K3 state threading (2 x {h} tokens, state carried) equals the "
         f"whole {S}-token scan in float32 and bfloat16")
-    served_args = wkv6_inputs(B, S, H, hd, torch.bfloat16)
-    k3_ms = cuda_ms(lambda: wkv6_mod.wkv6(*served_args, chunk=chunk))
-    k3_plain = cuda_ms(lambda: wkv6_mod.wkv6_chunked_plain(*served_args,
-                                                           chunk))
-    args32 = wkv6_inputs(B, S, H, hd, torch.float32)
-    k3_ms32 = cuda_ms(lambda: wkv6_mod.wkv6(*args32, chunk=chunk))
-    k3_bound, k3_by = wkv6_bound_ms(B, S, H, hd, torch.bfloat16)
-    log(f"K3 served shape {SERVED_WKV}, bf16 r/k/v: kernel {k3_ms:.4f} ms "
-        f"(f32 r/k/v {k3_ms32:.4f} ms), plain {k3_plain:.4f} ms, bound "
-        f"{k3_bound:.6f} ms ({k3_by})")
+    k3_times = time_k3(wkv6_mod)
 
     # 8. model check: cuda (K3) vs CPU (plain), float32 ----------------------
     from repro_torch.configs import get_config
@@ -622,24 +705,30 @@ def main() -> int:
     gpu_model.load_state_dict(cpu_model.state_dict())
     prompt = torch.randint(0, full.vocab, (1, 512),
                            generator=torch.Generator().manual_seed(1))
-    before = wkv6_mod.wkv6.launches
-    logits_g, state_g = rwkv6.prefill(gpu_model, prompt.cuda())
-    torch.cuda.synchronize()
-    if wkv6_mod.wkv6.launches - before != cfg8.num_layers:
-        raise AssertionError("the cuda prefill did not go through K3")
-    logits_c, state_c = rwkv6.prefill(cpu_model, prompt)
-    errs = {"logits": rel_err(logits_g, logits_c),
-            **{k: rel_err(state_g[k], state_c[k]) for k in state_c}}
-    if not (torch.isfinite(logits_g).all()
-            and max(errs.values()) <= MODEL_REL_TOL):
-        raise AssertionError(f"model cuda vs cpu: {errs}")
-    log(f"model ({cfg8.num_layers} layers, d {cfg8.d_model}, "
-        f"{rwkv6.num_heads(cfg8)} heads, vocab {cfg8.vocab}, f32, "
-        f"{prompt.shape[1]}-token prefill): cuda (K3) vs cpu (plain) max err "
-        f"/ max magnitude "
-        + ", ".join(f"{k} {v:.2e}" for k, v in errs.items())
-        + f" (tolerance {MODEL_REL_TOL})")
-    del cpu_model, logits_c, state_c
+    # 512 tokens (chunk 256) and 511 (chunk 1: the kernel's tiles cross
+    # every chunk; the CPU's plain version steps token by token)
+    for tokens in (prompt, prompt[:, :511]):
+        before = wkv6_mod.wkv6.launches
+        logits_g, state_g = rwkv6.prefill(gpu_model, tokens.cuda())
+        torch.cuda.synchronize()
+        if wkv6_mod.wkv6.launches - before != cfg8.num_layers:
+            raise AssertionError("the cuda prefill did not go through K3")
+        logits_c, state_c = rwkv6.prefill(cpu_model, tokens)
+        errs = {"logits": rel_err(logits_g, logits_c),
+                **{k: rel_err(state_g[k], state_c[k]) for k in state_c}}
+        if not (torch.isfinite(logits_g).all()
+                and max(errs.values()) <= MODEL_REL_TOL):
+            raise AssertionError(f"model cuda vs cpu, {tokens.shape[1]} "
+                                 f"tokens: {errs}")
+        log(f"model ({cfg8.num_layers} layers, d {cfg8.d_model}, "
+            f"{rwkv6.num_heads(cfg8)} heads, vocab {cfg8.vocab}, f32, "
+            f"{tokens.shape[1]}-token prefill, chunk "
+            f"{rwkv6.wkv_chunk(cfg8, tokens.shape[1])}): cuda (K3) vs cpu "
+            f"(plain) max err / max magnitude "
+            + ", ".join(f"{k} {v:.2e}" for k, v in errs.items())
+            + f" (tolerance {MODEL_REL_TOL})")
+        del logits_c, state_c
+    del cpu_model
     p128 = prompt[:, :128].cuda()
     logits_128, _ = rwkv6.prefill(gpu_model, p128)
     logits_d, state = rwkv6.prefill(gpu_model, p128[:, :64])
@@ -908,11 +997,25 @@ def main() -> int:
         "replaces": "src/repro/kernels/rwkv6/kernel.py:27",
         "launches": k3_launches,
         "max_abs_err": k3_err,
-        "ms": k3_ms, "plain_ms": k3_plain,
-        "bound_ms": k3_bound, "bound_by": k3_by,
+        **{key: k3_times["served"][key]
+           for key in ("ms", "plain_ms", "bound_ms", "bound_by")},
         "library_ms": None,
         "shape": dict(zip(("B", "S", "H", "hd", "chunk"), SERVED_WKV)),
-        "dtype": "bfloat16 r/k/v", "ms_f32_inputs": k3_ms32,
+        "dtype": "bfloat16 r/k/v",
+        "device_ms": k3_times["served"]["device_ms"],
+        "ms_f32_inputs": k3_times["served"]["ms_f32"],
+        "device_ms_f32_inputs": k3_times["served"]["device_ms_f32"],
+        "odd_prompt_shape": dict(zip(("B", "S", "H", "hd", "chunk"),
+                                     ODD_WKV)),
+        "odd_prompt_ms": k3_times["odd_prompt"]["ms"],
+        "odd_prompt_device_ms": k3_times["odd_prompt"]["device_ms"],
+        "odd_prompt_device_ms_f32_inputs":
+            k3_times["odd_prompt"]["device_ms_f32"],
+        "odd_prompt_plain_ms": k3_times["odd_prompt"]["plain_ms"],
+        "odd_prompt_bound_ms": k3_times["odd_prompt"]["bound_ms"],
+        "strong_decay_max_abs_err": k3_strong_err,
+        "sass_tensor_core_instructions": k3_hmma,
+        "blocks_per_sm": k3_blocks,
     }, {
         "name": "flash_attention_fwd",
         "route": "cuda",

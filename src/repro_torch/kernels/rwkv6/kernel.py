@@ -5,9 +5,12 @@
 tensors on the CPU it computes the plain chunked version
 (:func:`~repro_torch.kernels.rwkv6.ref.wkv6_chunked_plain`); for CUDA
 tensors it launches ``csrc/wkv6.cu`` or raises — it never falls back.  The
-kernel reads the model layout (B, S, H, hd) in place, so nothing is
-transposed; it is built at first use (``kernels/_build.py``) and launched
-on PyTorch's current stream without synchronising.
+kernel's two passes (the state entering each 64-token tile, then every
+tile's outputs; :func:`~repro_torch.kernels.rwkv6.ref.wkv6_tiled_plain` is
+the same decomposition in plain PyTorch) read the model layout (B, S, H,
+hd) in place, so nothing is transposed; the library is built at first use
+(``kernels/_build.py``) and both passes are launched on PyTorch's current
+stream without synchronising.
 """
 
 from __future__ import annotations
@@ -18,12 +21,16 @@ from pathlib import Path
 import torch
 
 from .._build import load_library
+from ..flash.kernel import aligned16
 from .ref import wkv6_chunked_plain
 
 LIB_NAME = "repro_torch_wkv6"
 SOURCES = (Path(__file__).resolve().parent / "csrc" / "wkv6.cu",)
-#: head sizes the kernel takes: it splits 256 threads into hd key columns
+#: head sizes taken: the kernel reads 4-vectors of heads of at most 64, and
+#: the wrapper zero-pads heads of 1 and 2 to 4
 HEAD_DIMS = (1, 2, 4, 8, 16, 32, 64)
+#: tokens per tile of the kernel (its scratch holds one state per tile)
+TILE = 64
 
 _ENTRY = {torch.float32: "wkv6_f32", torch.bfloat16: "wkv6_bf16"}
 
@@ -32,10 +39,21 @@ def _library() -> ctypes.CDLL:
     lib = load_library(LIB_NAME, SOURCES)
     for name in _ENTRY.values():
         fn = getattr(lib, name)
-        fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 5 \
+        fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 4 \
             + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
+    lib.wkv6_blocks_per_sm.argtypes = [ctypes.c_int, ctypes.c_int]
+    lib.wkv6_blocks_per_sm.restype = ctypes.c_int
     return lib
+
+
+def blocks_per_sm(pass_: int, dtype=torch.bfloat16) -> int:
+    """Blocks of pass 1 (the states) or 2 (the outputs) of the ``dtype``
+    entry resident on one SM (CUDA's occupancy calculator)."""
+    n = _library().wkv6_blocks_per_sm(pass_, int(dtype == torch.bfloat16))
+    if n < 0:
+        raise RuntimeError(f"occupancy query failed: CUDA error {-n}")
+    return n
 
 
 def wkv6(r, k, v, logw, u, s0, *, chunk: int = 128):
@@ -45,7 +63,10 @@ def wkv6(r, k, v, logw, u, s0, *, chunk: int = 128):
     s0: (B, H, hd, hd).  logw, u and s0 are taken in float32.  Returns
     (y (B, S, H, hd) float32, S_final (B, H, hd, hd) float32) — a drop-in
     for ``models.rwkv6.wkv_chunked``.  ``S`` must be a multiple of
-    ``chunk``.  Every kernel launch adds one to ``wkv6.launches``.
+    ``chunk``, as the reference requires; the kernel takes its own 64-token
+    tiles whatever the chunk (the chunked form is exact for any tiling).
+    Each call adds one to ``wkv6.launches``: it counts scans, not the two
+    CUDA launches a scan makes.
     """
     B, S, H, hd = r.shape
     if chunk < 1 or S % chunk:
@@ -74,15 +95,25 @@ def wkv6(r, k, v, logw, u, s0, *, chunk: int = 128):
         if tuple(t.shape) != shape:
             raise ValueError(f"{name} has shape {tuple(t.shape)}, expected "
                              f"{shape}")
-    r, k, v, logw, u, s0 = (t.contiguous() for t in (r, k, v, logw, u, s0))
+    if hd < 4:      # zeros add nothing: k, v, r = 0 and log w = 0
+        pad = 4 - hd
+        r, k, v, logw, u = (torch.nn.functional.pad(t, (0, pad))
+                            for t in (r, k, v, logw, u))
+        s0 = torch.nn.functional.pad(s0, (0, pad, 0, pad))
+        y, s_out = wkv6(r, k, v, logw, u, s0, chunk=chunk)
+        return y[..., :hd].contiguous(), s_out[..., :hd, :hd].contiguous()
+    # the kernel reads 4-vectors
+    r, k, v, logw, u, s0 = (aligned16(t) for t in (r, k, v, logw, u, s0))
     y = torch.empty((B, S, H, hd), dtype=torch.float32, device=dev)
     s_out = torch.empty((B, H, hd, hd), dtype=torch.float32, device=dev)
+    scratch = torch.empty((B * H, -(-S // TILE), hd, hd),
+                          dtype=torch.float32, device=dev)
     fn = getattr(_library(), _ENTRY[dtype])
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = fn(r.data_ptr(), k.data_ptr(), v.data_ptr(), logw.data_ptr(),
                  u.data_ptr(), s0.data_ptr(), y.data_ptr(), s_out.data_ptr(),
-                 B, S, H, hd, int(chunk), stream)
+                 scratch.data_ptr(), B, S, H, hd, stream)
     if err != 0:
         raise RuntimeError(f"wkv6 kernel launch failed: CUDA error {err}")
     wkv6.launches += 1

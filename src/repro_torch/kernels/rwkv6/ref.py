@@ -13,9 +13,18 @@ L = cumsum(log w),
     y   = q S + tril(q k'^T, -1) v + (r . u . k) v
     S  <- exp(L_C) S + (k exp(L_C - L))^T v
 
-where q = r exp(L_{t-1}) and k' = k exp(-L).  All arithmetic is float32.
-Layouts: r/k/v/logw (B, S, H, hd); u (H, hd); s0 (B, H, hd, hd).  Both
-return (y (B, S, H, hd) float32, S_final (B, H, hd, hd) float32).
+where q = r exp(L_{t-1}) and k' = k exp(-L).
+
+``wkv6_tiled_plain`` is the decomposition the CUDA kernel computes, in
+plain PyTorch (used by the tests and ``chip_smoke.py``): tiles of ``tile``
+tokens that ignore the chunk, in two passes.  Pass 1 walks the tiles and
+keeps the state entering each; pass 2 computes every tile's outputs from
+its entering state, with the exponents taken relative to a boundary of
+``sub``-token sub-tiles so that no factor exceeds 1 (see its docstring).
+
+All arithmetic is float32.  Layouts: r/k/v/logw (B, S, H, hd); u (H, hd);
+s0 (B, H, hd, hd).  All return (y (B, S, H, hd) float32, S_final
+(B, H, hd, hd) float32).
 """
 
 from __future__ import annotations
@@ -63,3 +72,79 @@ def wkv6_chunked_plain(r, k, v, logw, u, s0, chunk: int):
         S_prev = (torch.exp(L[:, -1])[..., None] * S_prev
                   + torch.einsum("bThk,bThv->bhkv", kd, vc))
     return torch.cat(ys, dim=1), S_prev
+
+
+
+def _suffix(lw, dim: int = 1):
+    """Exclusive suffix sums along ``dim``: out[t] = sum of lw[t+1:], each
+    a sum of terms of one sign (never a difference of two cumsums, which
+    loses the small exponents that matter to cancellation)."""
+    inc = torch.flip(torch.cumsum(torch.flip(lw, [dim]), dim), [dim])
+    return torch.cat([inc.narrow(dim, 1, inc.shape[dim] - 1),
+                      torch.zeros_like(inc.narrow(dim, 0, 1))], dim)
+
+
+def wkv6_tiled_plain(r, k, v, logw, u, s0, tile: int = 64, sub: int = 16):
+    """The kernel's two passes over ``tile``-token tiles (the last one
+    ragged), whatever the chunk.
+
+    Pass 1, the state entering each tile, with G = the suffix sums of
+    log w within the tile (G_t = sum over t' > t) and tot their total:
+        S <- exp(tot) S + (k exp(G))^T v
+    Pass 2, each tile's outputs from its entering state S.  Within each
+    ``sub``-token sub-tile J: F = cumsum(log w) from the sub-tile's start,
+    F-_t = F_{t-1} (0 at the start), G = the suffix sums to its end and
+    tot_J their total.  For a query t in sub-tile I, with
+    q^ = r exp(F-) and Lam_I = sum of tot_J over J < I:
+        y = q^ (exp(Lam_I) S)                          earlier tiles
+          + sum_{J<I} (q^ (k exp(G) D_IJ)^T) v_J       earlier sub-tiles
+          + (sum_i r k exp(F-_t - F_tau)) v_tau         own sub-tile, tau < t
+          + (r . u . k) v                              the current token
+    where D_IJ = exp(sum of tot_J' for J < J' < I).  Every exponent is a
+    sum of log w over tokens, so for log w <= 0 no factor exceeds 1 and
+    nothing overflows, whatever the decay.
+    """
+    B, S, H, hd = r.shape
+    rf, kf, vf, lw = (t.float() for t in (r, k, v, logw))
+    uf = u.float()
+    starts = range(0, S, tile)
+    # pass 1
+    states, Sc = [], s0.float()
+    for t0 in starts:
+        states.append(Sc)
+        kc, vc, lc = (x[:, t0:t0 + tile] for x in (kf, vf, lw))
+        kt = kc * torch.exp(_suffix(lc))
+        Sc = (torch.exp(lc.sum(1))[..., None] * Sc
+              + torch.einsum("bthk,bthv->bhkv", kt, vc))
+    # pass 2
+    ys = []
+    for t0, St in zip(starts, states):
+        rc, kc, vc, lc = (x[:, t0:t0 + tile] for x in (rf, kf, vf, lw))
+        subs = [(a, min(a + sub, rc.shape[1]))
+                for a in range(0, rc.shape[1], sub)]
+        F = [torch.cumsum(lc[:, a:e], 1) for a, e in subs]
+        tot = [f[:, -1] for f in F]                       # (B, H, hd)
+        kg = [kc[:, a:e] * torch.exp(_suffix(lc[:, a:e])) for a, e in subs]
+        for I, (a, e) in enumerate(subs):
+            Fm = torch.cat([torch.zeros_like(F[I][:, :1]), F[I][:, :-1]], 1)
+            qh = rc[:, a:e] * torch.exp(Fm)
+            lam = sum(tot[:I], torch.zeros_like(tot[0]))
+            y = torch.einsum("bthk,bhkv->bthv", qh,
+                             torch.exp(lam)[..., None] * St)
+            for J in range(I):
+                D = torch.exp(sum(tot[J + 1:I], torch.zeros_like(tot[0])))
+                att = torch.einsum("bthk,bThk->bhtT", qh, kg[J] * D[:, None])
+                aJ, eJ = subs[J]
+                y = y + torch.einsum("bhtT,bThv->bthv", att, vc[:, aJ:eJ])
+            d = Fm[:, :, None] - F[I][:, None]             # (B, t, T, H, hd)
+            n = e - a
+            lower = torch.tril(torch.ones(n, n, dtype=torch.bool,
+                                          device=r.device), diagonal=-1)
+            d = torch.where(lower[None, :, :, None, None], d, -torch.inf)
+            att = torch.einsum("bthk,bThk,btThk->bhtT", rc[:, a:e],
+                               kc[:, a:e], torch.exp(d))
+            y = y + torch.einsum("bhtT,bThv->bthv", att, vc[:, a:e])
+            bonus = torch.einsum("bthk,bthk->bth", rc[:, a:e],
+                                 uf[None, None] * kc[:, a:e])
+            ys.append(y + bonus[..., None] * vc[:, a:e])
+    return torch.cat(ys, dim=1), Sc

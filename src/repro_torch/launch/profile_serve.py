@@ -14,7 +14,7 @@ durations in the profiled run; the server runs on one stream, so they do
 not overlap), the device's idle share (1 - busy / unprofiled wall), the
 number of kernels, the kernels that took the most device time, and the
 launches of the port's own kernels (K2 ``flash_attention``, K3 ``wkv6``)
-in the timed run.  Off the card the device fields are null.
+in the timed run with their device time in the profiled one.  Off the card the device fields are null.
 """
 
 from __future__ import annotations
@@ -35,6 +35,8 @@ from repro_torch.launch.serve import BatchedServer
 
 #: the port's kernels on the serving paths, by the name a window reports
 KERNELS = {"flash_attention": flash_attention, "wkv6": wkv6}
+#: what their CUDA kernels' names contain (K3 launches two a call)
+KERNEL_NAMES = {"flash_attention": "flash_fwd", "wkv6": "wkv6_"}
 
 
 def _sync(dev):
@@ -73,6 +75,10 @@ def profiled(fn, dev, top: int = 8):
         "top_kernels_ms": [[name[:80], us / 1e3]
                            for name, us in kernel_us.most_common(top)],
         "launches": launches,
+        "kernel_ms": {name: sum(us for k, us in kernel_us.items()
+                                if part in k) / 1e3
+                      for name, part in KERNEL_NAMES.items()}
+        if on_card else None,
     }
 
 

@@ -9,7 +9,9 @@ nothing; on a CUDA tensor it launches the kernel (counted) or raises.  The
 kernel is held within the reference's tolerances (atol = rtol = 1e-4 in
 float32, 3e-2 in bfloat16) of the plain chunked version on the card, at the
 reference's ``WKV_SWEEP`` shapes and at chunks the model's selection loop
-produces for other prompt lengths (31, 1); those cases skip without a GPU.
+produces for other prompt lengths (31, 1), at lengths whose 64-token tiles
+cross chunks and end ragged (511, 130, 124, 9), and under a decay strong
+enough to overflow the chunked form; those cases skip without a GPU.
 """
 
 import numpy as np
@@ -17,7 +19,8 @@ import pytest
 import torch
 
 from repro_torch.configs import get_config
-from repro_torch.kernels.rwkv6 import wkv6, wkv6_chunked_plain, wkv6_plain
+from repro_torch.kernels.rwkv6 import (wkv6, wkv6_chunked_plain, wkv6_plain,
+                                       wkv6_tiled_plain)
 from repro_torch.models import rwkv6
 
 WKV_SWEEP = [
@@ -29,15 +32,21 @@ WKV_SWEEP = [
     (1, 128, 2, 64, 128),
 ]
 ODD_CHUNKS = [(1, 62, 2, 64, 31), (1, 9, 2, 64, 1)]
+#: the kernel's 64-token tiles across chunks of 1, 2 and 31, with a ragged
+#: last tile, and a head of 2 (zero-padded to 4 by the wrapper)
+CROSSING = [(1, 511, 2, 64, 1), (1, 130, 2, 64, 1), (1, 130, 2, 64, 2),
+            (1, 9, 2, 64, 1), (1, 124, 2, 64, 31), (2, 70, 2, 2, 7)]
 TOL = {torch.float32: 1e-4, torch.bfloat16: 3e-2}
 
 
-def inputs(B, S, H, hd, dtype=torch.float32, device="cpu", seed=7):
-    """numpy-made inputs at the reference's scales."""
+def inputs(B, S, H, hd, dtype=torch.float32, device="cpu", seed=7,
+           log_decay=-2.0):
+    """numpy-made inputs at the reference's scales; ``log_decay`` centres
+    log(-log w)."""
     rng = np.random.default_rng(seed)
     f = lambda *s: torch.from_numpy(rng.normal(size=s).astype(np.float32))
     r, k, v = (f(B, S, H, hd) * 0.5 for _ in range(3))
-    logw = -torch.exp(f(B, S, H, hd) * 0.5 - 2.0)
+    logw = -torch.exp(f(B, S, H, hd) * 0.5 + log_decay)
     u, s0 = f(H, hd) * 0.3, f(B, H, hd, hd) * 0.2
     return [t.to(device=device, dtype=dtype) for t in (r, k, v)] + \
         [t.to(device) for t in (logw, u, s0)]
@@ -102,6 +111,48 @@ def test_kernel_matches_plain_on_gpu(gpu, B, S, H, hd, chunk, dtype):
     y_p, s_p = wkv6_chunked_plain(*x, chunk)
     close(y, y_p, TOL[dtype])
     close(s, s_p, TOL[dtype])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,S,H,hd,chunk", CROSSING)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["float32", "bfloat16"])
+def test_kernel_tiles_cross_chunks_on_gpu(gpu, B, S, H, hd, chunk, dtype):
+    x = inputs(B, S, H, hd, dtype, gpu)
+    y, s = wkv6(*x, chunk=chunk)
+    torch.cuda.synchronize()
+    for y_p, s_p in (wkv6_chunked_plain(*x, chunk), wkv6_tiled_plain(*x)):
+        close(y, y_p, TOL[dtype])
+        close(s, s_p, TOL[dtype])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["float32", "bfloat16"])
+def test_kernel_survives_strong_decay_on_gpu(gpu, dtype):
+    """log w about -4.5 a token: k exp(-L) of the chunked form overflows
+    float32 within a 64-token chunk; the kernel's exponents never exceed 0,
+    so it stays finite and agrees with the per-token recurrence."""
+    x = inputs(1, 256, 2, 64, dtype, gpu, log_decay=1.5)
+    y_c, _ = wkv6_chunked_plain(*x, 64)
+    assert not torch.isfinite(y_c).all()
+    y, s = wkv6(*x, chunk=64)
+    torch.cuda.synchronize()
+    assert torch.isfinite(y).all() and torch.isfinite(s).all()
+    y_p, s_p = wkv6_plain(*x)
+    close(y, y_p, TOL[dtype])
+    close(s, s_p, TOL[dtype])
+
+
+@pytest.mark.cuda
+def test_launches_count_scans_not_cuda_launches(gpu):
+    """Each call runs two passes on the card but counts one scan."""
+    x = inputs(1, 200, 2, 64, torch.bfloat16, gpu)
+    before = wkv6.launches
+    for chunk in (1, 8, 200):
+        wkv6(*x, chunk=chunk)
+    torch.cuda.synchronize()
+    assert wkv6.launches == before + 3
 
 
 @pytest.mark.cuda
