@@ -13,8 +13,15 @@ and exits non-zero:
   3. kernel  hold K1 against its plain PyTorch version on the card, at the
              thresholds Algorithm 1 sweeps on the quickstart instance
              (VGG-16, 6 servers + 4 clients) and on a fleet instance
-             (48 servers x 30 layers): float64 bitwise equal, float32
-             within rtol 1e-4 with matching finite masks, both modes
+             (48 servers x 30 layers), at their bottleneck calls (max mode
+             at t = inf) and at all their thresholds: float64
+             bitwise equal, float32 within rtol 1e-4 with matching finite
+             masks, both modes; timed by CUDA events and by the profiler's
+             device time, with the route each ran (a cluster of C blocks a
+             threshold, or tiles of T thresholds a block); the same checks
+             on a 96-server graph that no 16-block cluster holds (the tiled
+             route) and at thresholds under beta* on the fleet (no feasible
+             path; under every beta the sweep exits after one layer)
   4. plan    ours(B=512, b0=20) on cuda equals the same call on the CPU
              (cuts, placement, b, T_f, T_i, L_t) and launched K1;
              no_pipeline and the Eq. (14) event-simulation gap
@@ -78,10 +85,16 @@ The next-to-last line is a JSON object with the kernels' measurements; the
 last is ``{"ok": true, "device": {...}}``.  Imports nothing of JAX or of
 the JAX package ``repro``.
 
+    python3 chip_smoke.py --time-k1 [--src OTHER_CHECKOUT/src]
     python3 chip_smoke.py --time-k3 [--src OTHER_CHECKOUT/src]
 
-only times K3 (phase 7's timings) with this checkout's ``repro_torch`` or
-another's, to compare two versions of the kernel in one run.
+only time K1 (its six phase-3 shapes, both modes, by CUDA events, the
+profiler's device time and the host's time per call, and the planner's wall
+on the card; for a kernel with routes also the windows and bottleneck calls
+at every cluster size and the all-thresholds sweeps and a 96-server graph
+at every tile) or K3
+(phase 7's timings), with this checkout's ``repro_torch`` or another's, to
+compare two versions of a kernel in one run.
 """
 
 from __future__ import annotations
@@ -228,14 +241,16 @@ def layers_run(args, mode) -> torch.Tensor:
 
 
 def bound_ms(args, mode, dtype) -> tuple:
-    """(bound_ms, bound_by): each input read once and the output written
-    once over HBM bandwidth, vs the operations these inputs need (a
-    compare-select per edge per threshold to fold the mask, then an
+    """(bound_ms, bound_by): each input the mode reads read once and the
+    output written once over HBM bandwidth (the sum mode reads costs and
+    betas, the max mode betas only), vs the operations these inputs need
+    (a compare-select per edge per threshold to fold the mask, then an
     (+ or max) and a min per candidate per layer run) over the dtype's
     non-tensor-core peak."""
     Cc, Bc, Ss, Bs, sc, sb, K, ts = args
     esize = torch.tensor([], dtype=dtype).element_size()
-    elems = 2 * Cc.numel() + 2 * Ss.numel() + 2 * sc.numel() + 2 * ts.numel()
+    reads = (Cc.numel() + Ss.numel() + sc.numel()) * (mode == "sum")
+    elems = reads + Bc.numel() + Bs.numel() + sb.numel() + 2 * ts.numel()
     byte_s = elems * esize / HBM_BYTES_PER_S
     cands = Cc.numel() + Ss.numel()
     layers = int(layers_run(args, mode).sum())
@@ -245,9 +260,48 @@ def bound_ms(args, mode, dtype) -> tuple:
             "bytes" if byte_s >= op_s else "operations")
 
 
-def check_kernel(label, cpu_args, minplus):
-    """Hold K1 against sweep_plain on the card, both modes, both dtypes.
-    Returns the float64 sum-mode measurements at these inputs."""
+def k1_route(minplus, args) -> dict:
+    """The route K1's wrapper picks for these inputs (``launch_plan``):
+    {"launch_route": "cluster", "cluster": C} or {"launch_route": "tiled",
+    "tile": T}; "one block per threshold" for a kernel without routes."""
+    plan_fn = getattr(minplus.kernel, "launch_plan", None)
+    if plan_fn is None:
+        return {"launch_route": "one block per threshold"}
+    Cc, ts = args[0], args[7]
+    plan = plan_fn(ts.numel(), Cc.shape[0], Cc.shape[1], Cc.element_size(),
+                   torch.cuda.get_device_properties(0).multi_processor_count)
+    return ({"launch_route": "cluster", "cluster": plan.cluster}
+            if plan.route == "cluster" else {"launch_route": "tiled",
+                                             "tile": plan.tile})
+
+
+def host_ms(fn, reps: int = 200) -> float:
+    """Mean host time of one call of ``fn`` that only enqueues work: the
+    wrapper's Python and the launch, without waiting for the device."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    ms = (time.perf_counter() - t0) * 1e3 / reps
+    torch.cuda.synchronize()
+    return ms
+
+
+def time_k1_shape(args, mode, minplus) -> dict:
+    """K1 at these inputs: CUDA events of back-to-back calls (``ms``), the
+    profiler's device time per call (``device_ms``), the host's time to
+    make one call (``host_ms``), the route."""
+    call = lambda: minplus.sweep_minplus(*args, mode=mode)
+    return {"ms": cuda_ms(call), "device_ms": device_ms(call),
+            "host_ms": host_ms(call), **k1_route(minplus, args)}
+
+
+def check_kernel(label, cpu_args, minplus, timed=True):
+    """Hold K1 against sweep_plain on the card, both modes, both dtypes:
+    float64 bitwise, float32 within F32_RTOL with the same finite entries.
+    With ``timed``, returns the float64 sum-mode measurements at these
+    inputs, and the max mode's under "max_mode"."""
     out = {}
     for mode in ("sum", "max"):
         f64 = [a.cuda() if torch.is_tensor(a) else a for a in cpu_args]
@@ -272,19 +326,26 @@ def check_kernel(label, cpu_args, minplus):
         rel_max = float(rel.max()) if rel.numel() else 0.0
         if rel_max > F32_RTOL:
             raise AssertionError(f"K1 f32 {label}/{mode}: rel err {rel_max}")
-        ms = cuda_ms(lambda: minplus.sweep_minplus(*f64, mode=mode))
-        plain = cuda_ms(lambda: minplus.sweep_plain(*f64, mode=mode))
-        bnd, by = bound_ms(f64, mode, torch.float64)
         N, I1 = f64[0].shape[:2]
-        log(f"K1 {label} mode={mode} N={N} I+1={I1} K={f64[6]} "
-            f"S={f64[7].numel()}: f64 bitwise equal, f32 max rel err "
-            f"{rel_max:.3e}; kernel {ms:.4f} ms, plain {plain:.4f} ms, "
-            f"bound {bnd:.6f} ms ({by})")
+        head = (f"K1 {label} mode={mode} N={N} I+1={I1} K={f64[6]} "
+                f"S={f64[7].numel()} {k1_route(minplus, f64)} "
+                f"(f32 {k1_route(minplus, f32)}): f64 bitwise equal, f32 max "
+                f"rel err {rel_max:.3e}, {int(fin.sum())} finite")
+        if not timed:
+            log(head)
+            continue
+        t = time_k1_shape(f64, mode, minplus)
+        t["plain_ms"] = cuda_ms(lambda: minplus.sweep_plain(*f64, mode=mode))
+        t["bound_ms"], t["bound_by"] = bound_ms(f64, mode, torch.float64)
+        log(f"{head}; kernel {t['ms']:.4f} ms (device {t['device_ms']:.4f} "
+            f"ms), plain {t['plain_ms']:.4f} ms, bound {t['bound_ms']:.6f} ms "
+            f"({t['bound_by']})")
         if mode == "sum":
-            out = {"S": f64[7].numel(), "N": N, "I1": I1, "K": f64[6],
-                   "ms": ms, "plain_ms": plain, "bound_ms": bnd,
-                   "bound_by": by,
-                   "max_abs_err": float((got - want).abs().nan_to_num().max())}
+            out.update(S=f64[7].numel(), N=N, I1=I1, K=f64[6], **t,
+                       max_abs_err=float((got - want).abs().nan_to_num()
+                                         .max()))
+        else:
+            out["max_mode"] = t
     return out
 
 
@@ -292,6 +353,25 @@ def largest_window(calls):
     """The sum-mode call with the most thresholds (the phase-3 window)."""
     sums = [args for args, mode in calls if mode == "sum"]
     return max(sums, key=lambda a: a[7].numel())
+
+
+def bottleneck_call(calls):
+    """The first max-mode call (``min_bottleneck`` at t = inf: it runs
+    every layer)."""
+    return next(args for args, mode in calls if mode == "max")
+
+
+def big_graph(core) -> tuple:
+    """K1's inputs past the fleet: 96 servers, a graph no 16-block cluster
+    holds in float64 (the tiled route), over 256 of its thresholds."""
+    planner = core.Planner(core.random_profile(np.random.default_rng(2), 30),
+                           core.make_edge_network(num_servers=96,
+                                                  num_clients=4, seed=2,
+                                                  kappa=1 / 32.0,
+                                                  mem_range=(4 * 2**30,
+                                                             32 * 2**30)),
+                           device="cpu")
+    return all_thresholds(planner, 16, max_s=256)
 
 
 def all_thresholds(planner, b, max_s=1024):
@@ -302,6 +382,108 @@ def all_thresholds(planner, b, max_s=1024):
     ts = dp.all_betas()
     ts = ts[::max(1, -(-ts.numel() // max_s))]
     return (*dp._kernel_args(), ts)
+
+
+def k1_shapes(core, shortest_path) -> tuple:
+    """K1's inputs at its six timed shapes, recorded from the planner on
+    the CPU: the quickstart's window (the largest sum-mode call of
+    ours(VGG-16, 6 servers + 4 clients, B=512, b0=20)), its bottleneck
+    call (max mode at t = inf) and all its thresholds, and the same three
+    of the fleet (random_profile(30), 48 servers, b=16, B=128).  Returns
+    ({label: inputs}, {name: what the later checks reuse})."""
+    profile = core.vgg16_profile(work_units="bytes")
+    net = core.make_edge_network(num_servers=6, num_clients=4, seed=1,
+                                 kappa=1 / 32.0)
+    t0 = time.perf_counter()
+    with recording_sweeps(shortest_path) as calls:
+        plan_cpu = core.ours(profile, net, B=512, b0=20, device="cpu")
+    cpu_plan_s = time.perf_counter() - t0
+    fleet_prof = core.random_profile(np.random.default_rng(1), 30)
+    fleet_net = core.make_edge_network(num_servers=48, num_clients=4, seed=1,
+                                       kappa=1 / 32.0,
+                                       mem_range=(4 * 2**30, 32 * 2**30))
+    fleet_planner = core.Planner(fleet_prof, fleet_net, device="cpu")
+    with recording_sweeps(shortest_path) as fcalls:
+        fleet_cpu = fleet_planner.solve(16, 128)
+    shapes = {
+        "quickstart window": largest_window(calls),
+        "quickstart bottleneck": bottleneck_call(calls),
+        "quickstart all-thresholds": all_thresholds(
+            core.Planner(profile, net, device="cpu"), plan_cpu.b),
+        "fleet window": largest_window(fcalls),
+        "fleet bottleneck": bottleneck_call(fcalls),
+        "fleet all-thresholds": all_thresholds(fleet_planner, 16)}
+    return shapes, dict(profile=profile, net=net, plan_cpu=plan_cpu,
+                        cpu_plan_s=cpu_plan_s, fleet_prof=fleet_prof,
+                        fleet_net=fleet_net, fleet_planner=fleet_planner,
+                        fleet_cpu=fleet_cpu)
+
+
+def time_k1(minplus, core, shapes) -> dict:
+    """K1 alone at the six shapes in both modes (float64): CUDA events, the
+    profiler's device time and the host's time per call, with the route
+    that ran; the planner's wall time of the quickstart's ``ours`` on the
+    card.  For a kernel with routes, also the windows and bottleneck calls
+    at every cluster size the kernel takes, and the all-thresholds sweeps
+    and the 96-server graph (at 1 and 256 thresholds) at every tile."""
+    out = {}
+    for label, cpu_args in shapes.items():
+        f64 = [a.cuda() if torch.is_tensor(a) else a for a in cpu_args]
+        out[label] = {mode: time_k1_shape(f64, mode, minplus)
+                      for mode in ("sum", "max")}
+        log(f"K1 {label} S={f64[7].numel()}: " + "; ".join(
+            f"{mode} {t['launch_route']} "
+            f"{t.get('cluster', t.get('tile', ''))}: "
+            f"device {t['device_ms']:.4f} ms, events {t['ms']:.4f} ms, host "
+            f"{t['host_ms']:.4f} ms" for mode, t in out[label].items()))
+    profile = core.vgg16_profile(work_units="bytes")
+    net = core.make_edge_network(num_servers=6, num_clients=4, seed=1,
+                                 kappa=1 / 32.0)
+    walls = []
+    for _ in range(6):                    # the first is a warm-up
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        core.ours(profile, net, B=512, b0=20, device="cuda")
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+    out["planner_wall_s"] = walls[1:]
+    log(f"planner wall (ours, quickstart, cuda): {walls[1:]} s")
+    k = minplus.kernel
+    if not hasattr(k, "launch_plan"):
+        return out
+    big = big_graph(core)
+    sweeps = {label: shapes[label] for label in (
+        "quickstart window", "quickstart bottleneck", "fleet window",
+        "fleet bottleneck", "quickstart all-thresholds",
+        "fleet all-thresholds")}
+    sweeps["96-server window"] = (*big[:7], big[7][-1:])
+    sweeps["96-server all-thresholds"] = big
+    for label, cpu_args in sweeps.items():
+        f64 = [a.cuda() if torch.is_tensor(a) else a for a in cpu_args]
+        N, I1 = f64[0].shape[:2]
+        route = "tiled" if "thresholds" in label or "96" in label \
+            else "cluster"
+        plans = ([k.LaunchPlan("cluster", C, 0)
+                  for C in range(1, k.MAX_CLUSTER + 1)
+                  if k.cluster_fits(N, I1, C, 8)] if route == "cluster"
+                 else [k.LaunchPlan("tiled", 0, T) for T in k.TILES
+                       if k.tile_fits(N, I1, T, 8)])
+        res = torch.empty(f64[7].numel(), dtype=torch.float64, device="cuda")
+        sweep = {}
+        for plan in plans:
+            size = plan.cluster or plan.tile
+            try:
+                sweep[size] = {mode: device_ms(
+                    lambda: k.launch(plan, *f64[:7], f64[7], res, mode))
+                    for mode in ("sum", "max")}
+            except RuntimeError as err:          # a refused cluster size
+                sweep[size] = {"refused": str(err)}
+        log(f"K1 {label} S={f64[7].numel()} device ms by {route} size: "
+            + ", ".join(f"{c}: " + (f"sum {t['sum']:.4f} max {t['max']:.4f}"
+                                    if "sum" in t else "refused")
+                        for c, t in sweep.items()))
+        out.setdefault(label, {})[f"device_ms_by_{route}_size"] = sweep
+    return out
 
 
 def wkv6_inputs(B, S, H, hd, dtype, seed=7, log_decay=-2.0):
@@ -483,6 +665,8 @@ def log_ptxas(_build, name):
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--time-k1", action="store_true",
+                    help="only time K1 (time_k1) and print its JSON")
     ap.add_argument("--time-k3", action="store_true",
                     help="only time K3 (time_k3) and print its JSON")
     ap.add_argument("--src", help="import repro_torch from this directory "
@@ -501,15 +685,23 @@ def main(argv=None) -> int:
     log(smi)
     log(f"torch {torch.__version__} cuda {torch.version.cuda} "
         f"device {torch.cuda.get_device_name(0)}")
+    if opts.time_k1:
+        import repro_torch.core as core
+        from repro_torch.core import shortest_path
+        from repro_torch.kernels import minplus
+        log(f"repro_torch from {os.path.dirname(minplus.__file__)}")
+        shapes, _ = k1_shapes(core, shortest_path)
+        log(json.dumps({"k1_times": time_k1(minplus, core, shapes),
+                        "card": smi}))
+        return 0
     if opts.time_k3:
         from repro_torch.kernels import rwkv6 as wkv6_mod
         log(f"repro_torch from {os.path.dirname(wkv6_mod.__file__)}")
         log(json.dumps({"k3_times": time_k3(wkv6_mod), "card": smi}))
         return 0
 
-    from repro_torch.core import (breakdown, make_edge_network, no_pipeline,
-                                  num_fills, ours, random_profile,
-                                  vgg16_profile, Planner)
+    from repro_torch.core import (breakdown, no_pipeline, num_fills, ours,
+                                  Planner)
     from repro_torch.core import shortest_path
     from repro_torch.data import classification_batches
     from repro_torch.kernels import _build
@@ -531,29 +723,46 @@ def main(argv=None) -> int:
     log_ptxas(_build, minplus_kernel.LIB_NAME)
 
     # 3. kernel ----------------------------------------------------------
-    profile = vgg16_profile(work_units="bytes")
-    net = make_edge_network(num_servers=6, num_clients=4, seed=1,
-                            kappa=1 / 32.0)
-    t0 = time.perf_counter()
-    with recording_sweeps(shortest_path) as calls:
-        plan_cpu = ours(profile, net, B=512, b0=20, device="cpu")
-    cpu_plan_s = time.perf_counter() - t0
-    quick = check_kernel("quickstart window", largest_window(calls), minplus)
-    quick_all = check_kernel(
-        "quickstart all-thresholds",
-        all_thresholds(Planner(profile, net, device="cpu"), plan_cpu.b),
-        minplus)
+    import repro_torch.core as core
+    shapes, ctx = k1_shapes(core, shortest_path)
+    profile, net, plan_cpu = ctx["profile"], ctx["net"], ctx["plan_cpu"]
+    cpu_plan_s = ctx["cpu_plan_s"]
+    fleet_prof, fleet_net = ctx["fleet_prof"], ctx["fleet_net"]
+    fleet_planner, fleet_cpu = ctx["fleet_planner"], ctx["fleet_cpu"]
+    k1 = {label: check_kernel(label, args, minplus)
+          for label, args in shapes.items()}
+    quick = k1["quickstart window"]
+    # past the fleet: a graph no 16-block cluster holds in float64 (the
+    # tiled route), at one threshold and at 256
+    big = big_graph(core)
+    for label, args in (("96-server window", (*big[:7], big[7][-1:])),
+                        ("96-server all-thresholds", big)):
+        if k1_route(minplus, [a.cuda() if torch.is_tensor(a) else a
+                              for a in args])["launch_route"] != "tiled":
+            raise AssertionError(f"K1 {label}: expected the tiled route")
+        check_kernel(label, args, minplus, timed=False)
+    # under beta*: no feasible path; under every beta nothing is reachable
+    # and the sweep exits after its first layer
+    fdp = fleet_planner._dp(16, fleet_planner.default_K(None))
+    fargs = fdp._kernel_args()
+    beta_star = float(minplus.sweep_plain(
+        *fargs, torch.tensor([math.inf], dtype=torch.float64), mode="max")[0])
+    betas = fdp.all_betas()
+    under = torch.stack([betas[betas < beta_star].max(), betas.min() - 1.0])
+    for mode in ("sum", "max"):
+        ran = layers_run((*fargs, under), mode).tolist()
+        log(f"K1 fleet under beta* = {beta_star!r} ({mode}): layers run "
+            f"{ran} of {fdp.K - 1}")
+        if ran[1] != 1:
+            raise AssertionError("the threshold under every beta should "
+                                 "stop after one layer")
+    check_kernel("fleet under beta*", (*fargs, under), minplus, timed=False)
+    for mode in ("sum", "max"):
+        if not torch.isinf(minplus.sweep_minplus(
+                *[a.cuda() if torch.is_tensor(a) else a for a in fargs],
+                under.cuda(), mode=mode)).all():
+            raise AssertionError(f"K1 ({mode}) found a path under beta*")
 
-    fleet_prof = random_profile(np.random.default_rng(1), 30)
-    fleet_net = make_edge_network(num_servers=48, num_clients=4, seed=1,
-                                  kappa=1 / 32.0,
-                                  mem_range=(4 * 2**30, 32 * 2**30))
-    fleet_planner = Planner(fleet_prof, fleet_net, device="cpu")
-    with recording_sweeps(shortest_path) as fcalls:
-        fleet_cpu = fleet_planner.solve(16, 128)
-    fleet = check_kernel("fleet window", largest_window(fcalls), minplus)
-    fleet_all = check_kernel("fleet all-thresholds",
-                             all_thresholds(fleet_planner, 16), minplus)
     fleet_gpu = Planner(fleet_prof, fleet_net, device="cuda").solve(16, 128)
     assert (fleet_gpu.solution.cuts, fleet_gpu.solution.placement,
             fleet_gpu.objective) == (fleet_cpu.solution.cuts,
@@ -983,13 +1192,13 @@ def main(argv=None) -> int:
         "source": "src/repro_torch/kernels/minplus/csrc/minplus.cu",
         "replaces": "src/repro/kernels/minplus/kernel.py:43",
         "launches": launches,
-        "max_abs_err": max(r["max_abs_err"]
-                           for r in (quick, quick_all, fleet, fleet_all)),
-        "ms": quick["ms"], "plain_ms": quick["plain_ms"],
-        "bound_ms": quick["bound_ms"], "bound_by": quick["bound_by"],
+        "max_abs_err": max(r["max_abs_err"] for r in k1.values()),
+        **{key: quick[key] for key in ("ms", "plain_ms", "bound_ms",
+                                       "bound_by")},
         "library_ms": None,
-        "quickstart_all_thresholds": quick_all,
-        "fleet_window": fleet, "fleet_all_thresholds": fleet_all,
+        "device_ms": quick["device_ms"],
+        **{label.replace(" ", "_").replace("-", "_"): t
+           for label, t in k1.items()},
     }, {
         "name": "wkv6_scan",
         "route": "cuda",

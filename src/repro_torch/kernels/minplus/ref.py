@@ -6,6 +6,10 @@ graph and a batch of thresholds, returning only the best terminal value per
 threshold.  The wrapper uses it for tensors on the CPU, the tests hold it
 against the reference's ``sweep_ref`` / ``_LayeredDP.dist_at``, and
 ``chip_smoke.py`` holds the CUDA kernel against it on the card.
+``sweep_cluster_plain`` restates the same sweep as the CUDA kernel's
+cluster route decomposes it (per-block destination ranges, a dist
+all-gather per layer, a cluster-wide early exit, a final min); it is used by
+the tests and ``chip_smoke.py`` only.
 
 Every operation is ``+``, ``max``, ``min`` or a compare, so in float64 the
 result is exactly rounded whatever order the reductions take.
@@ -66,3 +70,60 @@ def _sweep_chunk(Ccom, Bcom, Sseg, Bseg, src_cost, src_beta, K, ts, mode):
         if not torch.isfinite(nd).any():
             break
     return best
+
+
+def cluster_ranges(N: int, C: int) -> list:
+    """The destination nodes ``[m0, m1)`` of each of the C blocks of one
+    threshold's cluster: ``[r N // C, (r + 1) N // C)``, as ``minplus.cu``
+    splits them (uneven when C does not divide N; empty when C > N)."""
+    return [(r * N // C, (r + 1) * N // C) for r in range(C)]
+
+
+def sweep_cluster_plain(Ccom, Bcom, Sseg, Bseg, src_cost, src_beta, K, ts,
+                        mode: str = "sum", C: int = 1) -> torch.Tensor:
+    """``sweep_plain`` computed as the cluster route computes it, one
+    threshold at a time: block r keeps the masked slices ``Vc[:, :, M_r]``
+    and ``Vs[:, M_r, :]``; each layer it computes ``A[:, M_r]`` from the
+    whole ``dist`` and its own rows ``dist'[M_r, :]``, and the rows of all
+    blocks are gathered into the next ``dist``; the sweep stops when no
+    block holds a finite state; each block keeps the best of its own
+    terminal rows, and the blocks' bests are reduced at the end."""
+    is_sum = mode == "sum"
+    op = torch.add if is_sum else torch.maximum
+    ts = torch.as_tensor(ts, dtype=Ccom.dtype, device=Ccom.device).reshape(-1)
+    inf = torch.tensor(float("inf"), dtype=Ccom.dtype, device=Ccom.device)
+    N, I1 = Ccom.shape[0], Ccom.shape[1]
+    I = I1 - 1
+    ranges = cluster_ranges(N, C)
+    out = torch.empty_like(ts)
+    for s, t in enumerate(ts):
+        Vc = [torch.where(Bcom[:, :, m0:m1] <= t,
+                          (Ccom if is_sum else Bcom)[:, :, m0:m1], inf)
+              for m0, m1 in ranges]
+        Vs = [torch.where(Bseg[:, m0:m1] <= t,
+                          (Sseg if is_sum else Bseg)[:, m0:m1], inf)
+              for m0, m1 in ranges]
+        dist = torch.full((N, I1), float("inf"), dtype=Ccom.dtype,
+                          device=Ccom.device)
+        dist[0] = torch.where(src_beta <= t, src_cost if is_sum else src_beta,
+                              inf)
+        bests = [inf] * C
+        for _k in range(2, K + 1):
+            rows, live = [], False
+            for r, (m0, m1) in enumerate(ranges):
+                A = op(dist[:, :, None], Vc[r]).amin(dim=0)     # (I1, M_r)
+                nd = op(A[:, :, None], Vs[r]).amin(dim=0)       # (M_r, I1)
+                rows.append(nd)
+                live = live or bool(torch.isfinite(nd).any())
+                own = nd[max(0, 1 - m0):, I]                    # m >= 1
+                if own.numel():
+                    bests[r] = torch.minimum(bests[r], own.amin())
+            dist = torch.cat(rows)                              # all-gather
+            if not live:
+                break
+        best = torch.where(src_beta[I] <= t,
+                           (src_cost if is_sum else src_beta)[I], inf)
+        for b in bests:
+            best = torch.minimum(best, b)
+        out[s] = best
+    return out

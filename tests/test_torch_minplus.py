@@ -4,8 +4,11 @@ The plain PyTorch version must equal the reference's numpy ``sweep_ref``
 and ``_LayeredDP.dist_at`` exactly in float64 (every operation is +, max,
 min or a compare), and fall within rtol 1e-4 of the Pallas kernel
 ``sweep_minplus`` in float32 (run in interpret mode on the CPU, as its own
-tests run it).  The CUDA kernel is held against the plain version on the
-card; that case skips without a GPU.
+tests run it).  ``sweep_cluster_plain``, the CUDA kernel's cluster
+decomposition, must equal ``sweep_ref`` exactly too, for clusters that split
+the nodes unevenly.  The wrapper's choice of route (``launch_plan``) is
+pure Python and is checked here.  The CUDA kernel is held against the plain
+version on the card; that case skips without a GPU.
 """
 
 import math
@@ -16,16 +19,24 @@ import torch
 
 pytest.importorskip("jax")
 
-from repro.core import build_graph
+from repro.core import build_graph, make_edge_network, vgg16_profile
 from repro.core.shortest_path import _LayeredDP
 from repro.kernels import minplus as ref_minplus
 from conftest import small_instance
 
 from repro_torch.kernels import _build
+from repro_torch.kernels.minplus import kernel as k1
 from repro_torch.kernels.minplus import sweep_minplus, sweep_plain
+from repro_torch.kernels.minplus.ref import (cluster_ranges,
+                                             sweep_cluster_plain)
 
 SEEDS = [0, 1, 5]
 MODES = ["sum", "max"]
+#: cluster sizes for the decomposition: one block, and splits of 7 (the
+#: quickstart's nodes) and 4 (the small instance's) that leave blocks
+#: uneven or empty
+CLUSTERS = [1, 2, 3, 16]
+MAX_SHARED = 232_448
 
 
 def _dp(seed, b=8, K=4):
@@ -40,6 +51,26 @@ def _np_args(dp):
 
 def _torch_args(dp, dtype=torch.float64, device="cpu"):
     return [torch.tensor(a, dtype=dtype, device=device) for a in _np_args(dp)]
+
+
+def _quickstart_dp(seed, b=4, K=7):
+    """The quickstart's graph (VGG-16, 6 servers + 4 clients) on the
+    network drawn from ``seed``."""
+    net = make_edge_network(num_servers=6, num_clients=4, seed=seed,
+                            kappa=1 / 32.0)
+    return _LayeredDP(build_graph(vgg16_profile(work_units="bytes"), net, b),
+                      K)
+
+
+def _window(dp):
+    """About 20 of the graph's thresholds, one under every beta (nothing
+    reachable), the neighbours of beta* and infinity."""
+    betas = dp.all_betas()
+    beta_star = float(sweep_plain(*_torch_args(dp), dp.K,
+                                  torch.tensor([math.inf]), mode="max")[0])
+    near = betas[np.searchsorted(betas, beta_star) - 1:][:2]
+    return np.concatenate([[betas[0] - 1.0], betas[::max(1, len(betas) // 16)],
+                           near, [math.inf]])
 
 
 @pytest.mark.parametrize("seed", SEEDS)
@@ -136,3 +167,94 @@ def test_kernel_matches_plain_on_gpu(mode):
     finite = np.isfinite(want)
     assert (finite == np.isfinite(got32.cpu().numpy())).all()
     assert np.allclose(got32.cpu().numpy()[finite], want[finite], rtol=1e-4)
+
+
+@pytest.mark.parametrize("C", CLUSTERS)
+@pytest.mark.parametrize("seed", SEEDS)
+@pytest.mark.parametrize("mode", MODES)
+@pytest.mark.parametrize("graph", ["quickstart", "small"])
+def test_cluster_decomposition_equals_reference_exactly(graph, mode, seed, C):
+    """Per-block destination ranges, a dist all-gather per layer, the
+    cluster-wide early exit and a final min give the reference's values bit
+    for bit in float64."""
+    dp = _quickstart_dp(seed) if graph == "quickstart" else _dp(seed)
+    ts = _window(dp)
+    got = sweep_cluster_plain(*_torch_args(dp), dp.K, torch.from_numpy(ts),
+                              mode=mode, C=C).numpy()
+    want = ref_minplus.sweep_ref(*_np_args(dp), dp.K, ts, mode=mode)
+    assert np.array_equal(got, want)
+    assert np.isinf(got[0]) and np.isfinite(got).any()
+
+
+@pytest.mark.parametrize("N,C", [(7, 1), (7, 2), (7, 3), (7, 16), (49, 13),
+                                 (49, 16), (4, 3)])
+def test_cluster_ranges_split_every_node_once(N, C):
+    ranges = cluster_ranges(N, C)
+    assert [m for m0, m1 in ranges for m in range(m0, m1)] == list(range(N))
+    sizes = [m1 - m0 for m0, m1 in ranges]
+    assert max(sizes) == -(-N // C) and max(sizes) - min(sizes) <= 1
+
+
+#: (S, N, I + 1, bytes per value, route, the plan's cluster or tile)
+ROUTES = {
+    "quickstart window f64": (1, 7, 17, 8, "cluster", 1),
+    "quickstart window f32": (1, 7, 17, 4, "cluster", 1),
+    "fleet window f64": (1, 49, 31, 8, "cluster", None),
+    "fleet window f32": (1, 49, 31, 4, "cluster", None),
+    "quickstart all-thresholds": (342, 7, 17, 8, "tiled", 4),
+    "fleet all-thresholds": (1013, 49, 31, 8, "tiled", 8),
+    "past the fleet": (1, 97, 31, 8, "tiled", 1),
+    "past the fleet, 256 thresholds": (256, 97, 31, 8, "tiled", 2),
+    "65 nodes": (4, 65, 31, 8, "cluster", 16),
+}
+
+
+@pytest.mark.parametrize("name", list(ROUTES))
+def test_launch_plan_picks_the_route_by_shape(name):
+    S, N, I1, esize, route, size = ROUTES[name]
+    plan = k1.launch_plan(S, N, I1, esize)
+    assert plan.route == route
+    if route == "cluster":
+        C = plan.cluster
+        assert plan.tile == 0 and 1 <= C <= min(N, 16) and S * C <= 132
+        assert 0 < k1.cluster_smem_bytes(N, I1, C, esize) <= MAX_SHARED
+        assert I1 * -(-N // C) * k1.PARTS <= k1.MAX_THREADS
+        assert k1.cluster_fits(N, I1, C, esize)
+        if size is not None:
+            assert C == size
+        # no smaller cluster has a slice within the target
+        assert all(k1.slice_bytes(N, I1, c, esize) > k1.SLICE_BYTES
+                   for c in range(1, C)) or C == size
+    else:
+        assert plan.cluster == 0 and plan.tile == size
+        assert k1.tiled_smem_bytes(N, I1, size, esize) \
+            == 2 * N * I1 * size * esize <= MAX_SHARED
+
+
+def test_launch_plan_fleet_cluster_fits_and_beats_smaller_slices():
+    plan = k1.launch_plan(1, 49, 31, 8)
+    assert 1 < plan.cluster <= 16
+    assert k1.cluster_smem_bytes(49, 31, plan.cluster, 8) <= MAX_SHARED
+    assert k1.slice_bytes(49, 31, plan.cluster, 8) <= k1.SLICE_BYTES
+    assert k1.slice_bytes(49, 31, plan.cluster - 1, 8) > k1.SLICE_BYTES
+    # as many thresholds as 132 SMs hold clusters of that size, then tiles
+    assert k1.launch_plan(132 // plan.cluster, 49, 31, 8).route == "cluster"
+    assert k1.launch_plan(132 // 7 + 1, 49, 31, 8).route == "tiled"
+
+
+@pytest.mark.parametrize("esize", [8, 4])
+def test_launch_plan_takes_every_graph_the_parent_kernel_took(esize):
+    """The parent design held dist and A of one threshold in one block:
+    every such graph still gets a route, at every S; a larger one raises."""
+    for N in (1, 2, 7, 49, 97, 181):
+        for I1 in (1, 2, 17, 31, 64, 81):
+            parent_ok = 2 * N * I1 * esize <= MAX_SHARED
+            for S in (1, 5, 342, 5000):
+                if parent_ok:
+                    plan = k1.launch_plan(S, N, I1, esize)
+                    assert (k1.cluster_fits(N, I1, plan.cluster, esize)
+                            if plan.route == "cluster"
+                            else k1.tile_fits(N, I1, plan.tile, esize))
+                else:
+                    with pytest.raises(ValueError, match="too large"):
+                        k1.launch_plan(S, N, I1, esize)
