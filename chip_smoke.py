@@ -25,8 +25,24 @@ and exits non-zero:
   4. plan    ours(B=512, b0=20) on cuda equals the same call on the CPU
              (cuts, placement, b, T_f, T_i, L_t) and launched K1;
              no_pipeline and the Eq. (14) event-simulation gap
-  5. train   one VGG-16 round on cuda matches the CPU (TF32 off); then a
-             few rounds at the B=512 plan, timed
+ 4b. sweep   K1's graph axis (many graphs in one launch) against its plain
+             version at the shapes Planner.solve_many launches, recorded
+             on the CPU: phases B (beta* per b) and C (every (b, t) pair)
+             of the quickstart's exhaustive_joint(B=512, b_step=4) and of
+             the fleet's b-sweep (B=128, b_step=16), and a case whose
+             groups do not fill whole tiles; float64 bitwise (also against
+             one one-graph call per graph), float32 within rtol 1e-4 with
+             matching finite masks, both modes; timed by the profiler's
+             device time and CUDA events beside the bound, the plain
+             version and the one-graph calls the launch replaces.  Then the
+             paper's comparison schemes on cuda equal to the CPU:
+             exhaustive_joint (2 K1 launches; wall on both devices),
+             rc_op / rp_oc(seed=7) (masked sweeps only, no K1 launch; ours
+             no worse), optimal (Fig. 7's gap) and the fluctuation report
+             (cv 0.2, 16 draws)
+  5. train   one VGG-16 round on cuda matches the CPU (TF32 off), also with
+             int8 and top-k link hooks; then a few rounds at the B=512
+             plan, timed
   6. build   K3, the RWKV6 WKV scan (two passes: the states entering each
              64-token tile, then every tile's outputs): ptxas -v, the
              tensor-core instructions (HMMA) of each pass's bf16 and f32
@@ -180,35 +196,60 @@ def cuda_ms(fn, min_seconds: float = 0.2) -> float:
     return start.elapsed_time(end) / reps
 
 
+#: idle seconds before and after the launches of a profiled session
+PROFILE_PAD_S = 0.02
+#: profiled sessions per ``device_ms`` call before CUDA events are used
+PROFILE_TRIES = 4
+#: device_ms calls, extra sessions run, and calls timed by CUDA events
+PROFILER_STATS = {"calls": 0, "retried_sessions": 0, "event_fallbacks": 0}
+
+
 def device_ms(fn, reps: int = 50) -> float:
     """Mean device time per call of the kernels ``fn`` launches: the CUDA
     kernel events of ``torch.profiler`` over ``reps`` calls, summed.  Unlike
     ``cuda_ms`` it leaves out the gaps in which the device waits for the
-    host to dispatch the next launch."""
+    host to dispatch the next launch.
+
+    A short session (50 launches of one 0.01 ms kernel and nothing else)
+    can come back with no device event at all.  Each session is padded
+    with idle time on both sides, one that saw no device time is run
+    again, and after ``PROFILE_TRIES`` such sessions the time is the CUDA
+    events' (``cuda_ms``).  Retries and fallbacks are logged and counted
+    in ``PROFILER_STATS``, which the run prints."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
+    PROFILER_STATS["calls"] += 1
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    us = sum(e.time_range.elapsed_us() for e in prof.events()
-             if e.device_type == DeviceType.CUDA)
-    if us <= 0:
-        raise AssertionError("the profiler saw no device time")
-    return us / reps / 1e3
+    for attempt in range(PROFILE_TRIES):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            time.sleep(PROFILE_PAD_S)
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+            time.sleep(PROFILE_PAD_S)
+        us = sum(e.time_range.elapsed_us() for e in prof.events()
+                 if e.device_type == DeviceType.CUDA)
+        if us > 0:
+            return us / reps / 1e3
+        PROFILER_STATS["retried_sessions"] += 1
+        log(f"profiler session {attempt + 1} of {PROFILE_TRIES} saw no "
+            "device time")
+    PROFILER_STATS["event_fallbacks"] += 1
+    log("the profiler saw no device time; timed by CUDA events instead")
+    return cuda_ms(fn)
 
 
 @contextlib.contextmanager
 def recording_sweeps(shortest_path):
-    """Record every K1 call Algorithm 1 makes (its actual inputs)."""
+    """Record every K1 call Algorithm 1 makes (its actual inputs, mode and
+    graph index)."""
     calls = []
     real = shortest_path.sweep_minplus
 
     def record(*args, **kw):
-        calls.append((args, kw.get("mode", "sum")))
+        calls.append((args, kw.get("mode", "sum"), kw.get("graph")))
         return real(*args, **kw)
 
     shortest_path.sweep_minplus = record
@@ -240,22 +281,26 @@ def layers_run(args, mode) -> torch.Tensor:
     return count
 
 
-def bound_ms(args, mode, dtype) -> tuple:
-    """(bound_ms, bound_by): each input the mode reads read once and the
-    output written once over HBM bandwidth (the sum mode reads costs and
-    betas, the max mode betas only), vs the operations these inputs need
-    (a compare-select per edge per threshold to fold the mask, then an
-    (+ or max) and a min per candidate per layer run) over the dtype's
+def bound_seconds(args, mode, dtype) -> tuple:
+    """(byte_s, op_s): each input the mode reads read once and the output
+    written once over HBM bandwidth (the sum mode reads costs and betas,
+    the max mode betas only); the operations these inputs need (a
+    compare-select per edge per threshold to fold the mask, then an (+ or
+    max) and a min per candidate per layer run) over the dtype's
     non-tensor-core peak."""
     Cc, Bc, Ss, Bs, sc, sb, K, ts = args
     esize = torch.tensor([], dtype=dtype).element_size()
     reads = (Cc.numel() + Ss.numel() + sc.numel()) * (mode == "sum")
     elems = reads + Bc.numel() + Bs.numel() + sb.numel() + 2 * ts.numel()
-    byte_s = elems * esize / HBM_BYTES_PER_S
     cands = Cc.numel() + Ss.numel()
     layers = int(layers_run(args, mode).sum())
     ops = ts.numel() * cands + 2 * cands * layers
-    op_s = ops / PEAK_OPS[dtype]
+    return elems * esize / HBM_BYTES_PER_S, ops / PEAK_OPS[dtype]
+
+
+def bound_ms(args, mode, dtype) -> tuple:
+    """(bound_ms, bound_by): the larger of ``bound_seconds``' two times."""
+    byte_s, op_s = bound_seconds(args, mode, dtype)
     return (max(byte_s, op_s) * 1e3,
             "bytes" if byte_s >= op_s else "operations")
 
@@ -349,16 +394,183 @@ def check_kernel(label, cpu_args, minplus, timed=True):
     return out
 
 
+def graph_groups(graph) -> dict:
+    """{graph index: positions of its thresholds} of a graph-axis call."""
+    groups: dict = {}
+    for s, g in enumerate(graph):
+        groups.setdefault(int(g), []).append(s)
+    return groups
+
+
+def graph_route(minplus, args, graph) -> dict:
+    """The route K1's wrapper picks for a launch over stacked graphs
+    (``launch_plan`` with the thresholds per graph)."""
+    Cc, ts = args[0], args[7]
+    counts = tuple(len(v) for _, v in sorted(graph_groups(graph).items()))
+    plan = minplus.kernel.launch_plan(
+        ts.numel(), Cc.shape[1], Cc.shape[2], Cc.element_size(),
+        torch.cuda.get_device_properties(0).multi_processor_count, counts)
+    return ({"launch_route": "cluster", "cluster": plan.cluster}
+            if plan.route == "cluster" else {"launch_route": "tiled",
+                                             "tile": plan.tile})
+
+
+def per_graph(args, graph):
+    """The same work as one one-graph call per graph (the launches the
+    graph axis replaces): [(one graph's inputs with its thresholds)]."""
+    Cc, Bc, Ss, Bs, sc, sb, K, ts = args
+    out = []
+    for g, pos in graph_groups(graph).items():
+        idx = torch.tensor(pos, device=ts.device)
+        out.append((Cc[g], Bc[g], Ss[g], Bs[g], sc[g], sb[g], K, ts[idx]))
+    return out
+
+
+def graph_bound_ms(args, mode, graph) -> tuple:
+    """(bound_ms, bound_by) of a graph-axis launch (float64): each graph it
+    names read once (the stacked graphs it does not name need no read)
+    with its thresholds, their int32 graph indices read once, and the work
+    of each threshold on its own graph (``bound_seconds``)."""
+    parts = [bound_seconds(one, mode, torch.float64)
+             for one in per_graph(args, graph)]
+    byte_s = sum(b for b, _ in parts) + 4 * len(graph) / HBM_BYTES_PER_S
+    op_s = sum(o for _, o in parts)
+    return (max(byte_s, op_s) * 1e3,
+            "bytes" if byte_s >= op_s else "operations")
+
+
+def check_graph_axis(label, cpu_args, graph, minplus) -> dict:
+    """Hold K1's graph axis against sweep_plain on the card, both modes,
+    both dtypes (float64 bitwise, also against one one-graph K1 call per
+    graph; float32 within F32_RTOL with the same finite entries); time it
+    in float64 by the profiler's device time and CUDA events beside the
+    bound, the plain version and the per-graph calls."""
+    out = {}
+    for mode in ("sum", "max"):
+        f64 = [a.cuda() if torch.is_tensor(a) else a for a in cpu_args]
+        call = lambda: minplus.sweep_minplus(*f64, mode=mode, graph=graph)
+        got = call()
+        want = minplus.sweep_plain(*f64, mode=mode, graph=graph)
+        loop = per_graph(f64, graph)
+        parts = [minplus.sweep_minplus(*one, mode=mode) for one in loop]
+        torch.cuda.synchronize()
+        one_by_one = torch.empty_like(got)
+        for pos, part in zip(graph_groups(graph).values(), parts):
+            one_by_one[torch.tensor(pos, device="cuda")] = part
+        for name, ref in (("plain", want), ("per-graph calls", one_by_one)):
+            if not torch.equal(got, ref):
+                bad = int((got != ref).sum())
+                raise AssertionError(f"K1 graph axis f64 {label}/{mode}: "
+                                     f"{bad} of {got.numel()} values differ "
+                                     f"from {name}")
+        if not torch.equal(got.cpu(), minplus.sweep_plain(
+                *cpu_args, mode=mode, graph=graph)):
+            raise AssertionError(f"K1 graph axis f64 {label}/{mode} differs "
+                                 "from the plain version on the CPU")
+        f32 = [a.float() if torch.is_tensor(a) else a for a in f64]
+        got32 = minplus.sweep_minplus(*f32, mode=mode, graph=graph).double()
+        fin = torch.isfinite(want)
+        if not torch.equal(fin, torch.isfinite(got32)):
+            raise AssertionError(f"K1 graph axis f32 {label}/{mode}: finite "
+                                 "masks differ")
+        rel = ((got32[fin] - want[fin]).abs()
+               / want[fin].abs().clamp_min(1e-300))
+        rel_max = float(rel.max()) if rel.numel() else 0.0
+        if rel_max > F32_RTOL:
+            raise AssertionError(f"K1 graph axis f32 {label}/{mode}: rel err "
+                                 f"{rel_max}")
+        if torch.equal(got32, want) and bool(fin.any()):
+            raise AssertionError(f"K1 graph axis f32 {label}/{mode}: the "
+                                 "float32 launch returned the float64 values")
+        loop_call = lambda: [minplus.sweep_minplus(*one, mode=mode)
+                             for one in loop]
+        t = {"G": f64[0].shape[0], "graphs": len(loop), "S": len(graph),
+             **graph_route(minplus, f64, graph),
+             "device_ms": device_ms(call), "ms": cuda_ms(call),
+             "host_ms": host_ms(call),
+             "plain_ms": cuda_ms(lambda: minplus.sweep_plain(
+                 *f64, mode=mode, graph=graph)),
+             "per_graph_launches": len(loop),
+             "per_graph_device_ms": device_ms(loop_call),
+             "per_graph_ms": cuda_ms(loop_call),
+             "f32_max_rel_err": rel_max, "finite": int(fin.sum())}
+        t["bound_ms"], t["bound_by"] = graph_bound_ms(f64, mode, graph)
+        if t["launch_route"] == "tiled":
+            t["device_ms_by_tile"] = tile_sweep(minplus, f64, mode, graph,
+                                                got)
+        log(f"K1 graph axis {label} mode={mode} G={t['G']} (graphs named "
+            f"{t['graphs']}) S={t['S']} N={f64[0].shape[1]} "
+            f"I+1={f64[0].shape[2]} {graph_route(minplus, f64, graph)}: f64 "
+            f"bitwise equal to plain and to {len(loop)} one-graph calls, f32 "
+            f"max rel err {rel_max:.3e}, {t['finite']} finite; one launch: "
+            f"device {t['device_ms']:.4f} ms, events {t['ms']:.4f} ms, host "
+            f"{t['host_ms']:.4f} ms; {len(loop)} one-graph launches: device "
+            f"{t['per_graph_device_ms']:.4f} ms, events "
+            f"{t['per_graph_ms']:.4f} ms; plain {t['plain_ms']:.4f} ms; "
+            f"bound {t['bound_ms']:.6f} ms ({t['bound_by']})"
+            + (f"; device ms by tile {t['device_ms_by_tile']}"
+               if "device_ms_by_tile" in t else ""))
+        out[mode] = t
+    return out
+
+
+def tile_sweep(minplus, args, mode, graph, want) -> dict:
+    """A tiled graph-axis launch at every tile T that fits (padded by
+    ``tile_slots`` as the wrapper pads): {T: device ms}; each result must
+    equal ``want`` bit for bit (float64)."""
+    k = minplus.kernel
+    Cc = args[0]
+    out = {}
+    for T in k.TILES:
+        if not k.tile_fits(Cc.shape[1], Cc.shape[2], T, 8):
+            continue
+        slots, slot_graph = k.tile_slots(graph, T)
+        slots = torch.tensor(slots, device="cuda")
+        ts_pad = torch.full((len(slot_graph),), -math.inf,
+                            dtype=torch.float64, device="cuda")
+        ts_pad[slots] = args[7]
+        res = torch.empty_like(ts_pad)
+        g = torch.tensor(slot_graph, dtype=torch.int32, device="cuda")
+        plan = k.LaunchPlan("tiled", 0, T)
+        run = lambda: k.launch(plan, *args[:7], ts_pad, res, mode, graph=g)
+        run()
+        torch.cuda.synchronize()
+        if not torch.equal(res[slots], want):
+            raise AssertionError(f"K1 graph axis at tile {T} differs")
+        out[T] = device_ms(run)
+    return out
+
+
+def ragged_graph_window(args, sizes, seed=0):
+    """``sizes[g]`` of graph g's candidate thresholds (its distinct finite
+    betas, spread evenly) on stacked graphs, in no order: (inputs,
+    graph index per threshold)."""
+    Cc, Bc, Ss, Bs, sc, sb, K = args[:7]
+    graph, ts = [], []
+    for g, n in enumerate(sizes):
+        betas = torch.cat([Bc[g].flatten(), Bs[g].flatten(), sb[g]])
+        betas = torch.unique(betas[torch.isfinite(betas)])
+        pick = torch.linspace(0, betas.numel() - 1, n).round().long()
+        graph += [g] * n
+        ts.append(betas[pick])
+    order = torch.randperm(len(graph),
+                           generator=torch.Generator().manual_seed(seed))
+    return ((Cc, Bc, Ss, Bs, sc, sb, K, torch.cat(ts)[order]),
+            [graph[q] for q in order.tolist()])
+
+
 def largest_window(calls):
     """The sum-mode call with the most thresholds (the phase-3 window)."""
-    sums = [args for args, mode in calls if mode == "sum"]
+    sums = [args for args, mode, graph in calls
+            if mode == "sum" and graph is None]
     return max(sums, key=lambda a: a[7].numel())
 
 
 def bottleneck_call(calls):
     """The first max-mode call (``min_bottleneck`` at t = inf: it runs
     every layer)."""
-    return next(args for args, mode in calls if mode == "max")
+    return next(args for args, mode, graph in calls
+                if mode == "max" and graph is None)
 
 
 def big_graph(core) -> tuple:
@@ -700,8 +912,11 @@ def main(argv=None) -> int:
         log(json.dumps({"k3_times": time_k3(wkv6_mod), "card": smi}))
         return 0
 
-    from repro_torch.core import (breakdown, no_pipeline, num_fills, ours,
-                                  Planner)
+    from repro_torch import obs
+    from repro_torch.compression import make_link_hooks
+    from repro_torch.core import (breakdown, evaluate_under_fluctuation,
+                                  exhaustive_joint, no_pipeline, num_fills,
+                                  optimal, ours, Planner, rc_op, rp_oc)
     from repro_torch.core import shortest_path
     from repro_torch.data import classification_batches
     from repro_torch.kernels import _build
@@ -809,6 +1024,117 @@ def main(argv=None) -> int:
         f"{float(sim.analytic)!r} "
         f"(gap {sim.rel_gap:.2e})")
 
+    # 4b. the b-sweep and the comparison baselines (Figs. 5-7) -------------
+    # K1's graph axis at the shapes Planner.solve_many launches, recorded
+    # from the planner on the CPU: the quickstart's exhaustive_joint(B=512,
+    # b_step=4) and the fleet's b-sweep (B=128, b_step=16: 8 graphs)
+    t0 = time.perf_counter()
+    with recording_sweeps(shortest_path) as qcalls:
+        ej_cpu = exhaustive_joint(profile, net, 512, b_step=4, device="cpu")
+    ej_cpu_s = time.perf_counter() - t0
+    with recording_sweeps(shortest_path) as fcalls:
+        exhaustive_joint(fleet_prof, fleet_net, 128, b_step=16, device="cpu")
+    graph_cases = {}
+    for tag, calls in (("quickstart b-sweep", qcalls),
+                       ("fleet b-sweep", fcalls)):
+        stacked = [(args, graph) for args, _, graph in calls
+                   if graph is not None]
+        if len(stacked) != 2:
+            raise AssertionError(f"{tag}: solve_many made {len(stacked)} "
+                                 "graph-axis K1 calls, expected 2")
+        graph_cases[f"{tag} phase B"] = stacked[0]
+        graph_cases[f"{tag} phase C"] = stacked[1]
+    # groups that do not fill whole tiles: the tiled route's padding
+    ragged = ragged_graph_window(qcalls[0][0], (37, 1, 9, 70, 2, 5, 44, 13))
+    tile = graph_route(minplus, ragged[0], ragged[1]).get("tile", 0)
+    if tile < 2 or all(len(v) % tile == 0
+                       for v in graph_groups(ragged[1]).values()):
+        raise AssertionError(f"the ragged case should take the tiled route "
+                             f"with groups that do not divide T={tile}")
+    graph_cases["quickstart ragged tiles"] = ragged
+    k1_graph = {label: check_graph_axis(label, args, graph, minplus)
+                for label, (args, graph) in graph_cases.items()}
+
+    def same_plan(a, b) -> bool:
+        return ((a.solution.cuts, a.solution.placement,
+                 *(getattr(a, k) for k in keys))
+                == (b.solution.cuts, b.solution.placement,
+                    *(getattr(b, k) for k in keys)))
+
+    minplus.sweep_minplus.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ej = exhaustive_joint(profile, net, 512, b_step=4, device="cuda")
+    torch.cuda.synchronize()
+    ej_s = time.perf_counter() - t0
+    ej_launches = minplus.sweep_minplus.launches
+    if not same_plan(ej, ej_cpu):
+        raise AssertionError(f"exhaustive_joint on cuda {ej} != cpu {ej_cpu}")
+    if ej_launches != 2:
+        raise AssertionError(f"exhaustive_joint made {ej_launches} K1 "
+                             "launches, expected 2 (phases B and C)")
+    log(f"exhaustive_joint(B=512, b_step=4): cuts={ej.solution.cuts} "
+        f"placement={ej.solution.placement} b={ej.b} L_t={float(ej.L_t)!r} "
+        f"(bit-equal to the CPU run); K1 launches={ej_launches}; wall "
+        f"{ej_s:.3f} s on cuda, {ej_cpu_s:.3f} s on cpu")
+    baselines = {}
+    with obs.enabled_scope() as reg:
+        for name, scheme in (("rc_op", rc_op), ("rp_oc", rp_oc)):
+            reg.reset()
+            minplus.sweep_minplus.launches = 0
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            got = scheme(profile, net, 512, seed=7, device="cuda")
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            launched = minplus.sweep_minplus.launches
+            masked = obs.counter("planner.masked_sweeps")
+            t0 = time.perf_counter()
+            want = scheme(profile, net, 512, seed=7, device="cpu")
+            wall_cpu = time.perf_counter() - t0
+            if not same_plan(got, want):
+                raise AssertionError(f"{name} on cuda {got} != cpu {want}")
+            if launched != 0 or masked == 0:
+                raise AssertionError(f"{name}: {launched} K1 launches, "
+                                     f"{masked} masked sweeps (expected 0 "
+                                     "and > 0)")
+            if not plan.L_t <= got.L_t * (1 + 1e-9):
+                raise AssertionError(f"ours L_t {plan.L_t} > {name} "
+                                     f"{got.L_t}")
+            baselines[name] = {"L_t": got.L_t, "b": got.b,
+                               "masked_sweeps": masked,
+                               "k1_launches": launched, "wall_s": wall,
+                               "cpu_wall_s": wall_cpu}
+            log(f"{name}(seed=7): cuts={got.solution.cuts} "
+                f"placement={got.solution.placement} b={got.b} "
+                f"L_t={float(got.L_t)!r} (bit-equal to the CPU run; ours "
+                f"{plan.L_t / got.L_t:.3f}x of it); planner.masked_sweeps "
+                f"{masked}, K1 launches {launched}; wall {wall:.3f} s on "
+                f"cuda, {wall_cpu:.3f} s on cpu")
+    obs.reset()
+    minplus.sweep_minplus.launches = 0
+    t0 = time.perf_counter()
+    opt = optimal(profile, net, 512, device="cuda")
+    torch.cuda.synchronize()
+    opt_s = time.perf_counter() - t0
+    opt_launches = minplus.sweep_minplus.launches
+    if not same_plan(opt, optimal(profile, net, 512, device="cpu")):
+        raise AssertionError("optimal on cuda differs from the CPU run")
+    gap = plan.L_t / opt.L_t - 1
+    log(f"optimal (exhaustive over b = 1..512): b={opt.b} "
+        f"L_t={float(opt.L_t)!r} (bit-equal to the CPU run), K1 launches "
+        f"{opt_launches}, wall {opt_s:.3f} s on cuda; Fig. 7's gap "
+        f"ours / optimal - 1 = {gap:.3e}")
+    fluct = evaluate_under_fluctuation(profile, net, plan, 0.2, draws=16,
+                                       seed=0)
+    fluct_cpu = evaluate_under_fluctuation(profile, net, plan_cpu, 0.2,
+                                           draws=16, seed=0)
+    if dataclasses.asdict(fluct) != dataclasses.asdict(fluct_cpu):
+        raise AssertionError(f"fluctuation report {fluct} != {fluct_cpu}")
+    log(f"fluctuation (cv 0.2, 16 draws, seed 0) of the cuda plan equals the "
+        f"CPU plan's: mean {fluct.mean_latency!r}, p95 "
+        f"{fluct.p95_latency!r}, degradation {fluct.degradation!r}")
+
     # 5. train -------------------------------------------------------------
     # the comparison runs in full float32: cuDNN convolutions default to
     # TF32 on the card, so TF32 is switched off for this phase
@@ -834,6 +1160,20 @@ def main(argv=None) -> int:
                 for a, b in zip(ex_gpu.full_params.parameters(),
                                 ex_cpu.full_params.parameters()))
     log(f"parameters after 2 rounds: max abs diff cuda vs cpu {pdiff:.3e}")
+    for codec in ("int8", "topk"):
+        ex_gpu = SplitLearningExecutor(small, profile, net, params=params,
+                                       hooks=make_link_hooks(codec),
+                                       device="cuda")
+        ex_cpu = SplitLearningExecutor(small, profile, net, params=params,
+                                       hooks=make_link_hooks(codec),
+                                       device="cpu")
+        lg = ex_gpu.train_round(rounds[0], lr=0.05, momentum=0.9)
+        lc = ex_cpu.train_round(rounds[0], lr=0.05, momentum=0.9)
+        if not (math.isfinite(lg) and abs(lg - lc) <= LOSS_RTOL * abs(lc)):
+            raise AssertionError(f"{codec} hooks: loss cuda {lg} vs cpu {lc}")
+        log(f"train round with {codec} link hooks (TF32 off): loss cuda "
+            f"{lg!r} cpu {lc!r} (rel {abs(lg - lc) / abs(lc):.2e}, tolerance "
+            f"{LOSS_RTOL})")
 
     torch.backends.cudnn.allow_tf32 = True     # PyTorch's defaults again
     ex = SplitLearningExecutor(plan, profile, net, seed=0, device="cuda")
@@ -1185,6 +1525,9 @@ def main(argv=None) -> int:
         f"{prefill_ms}; decode {qstats['tokens'] / decode_s:.2f} tokens/s; "
         f"K2 launches {k2_launches}; peak device memory {peak_gib:.2f} GiB, "
         f"of which {held_gib:.2f} GiB was held before the server was built")
+    log(f"profiler: {PROFILER_STATS['calls']} device_ms calls, "
+        f"{PROFILER_STATS['retried_sessions']} sessions with no device time "
+        f"run again, {PROFILER_STATS['event_fallbacks']} timed by CUDA events")
 
     log(json.dumps({"kernels": [{
         "name": "minplus_sweep",
@@ -1199,6 +1542,9 @@ def main(argv=None) -> int:
         "device_ms": quick["device_ms"],
         **{label.replace(" ", "_").replace("-", "_"): t
            for label, t in k1.items()},
+        "exhaustive_joint_launches": ej_launches,
+        "graph_axis": {label.replace(" ", "_"): t
+                       for label, t in k1_graph.items()},
     }, {
         "name": "wkv6_scan",
         "route": "cuda",

@@ -7,6 +7,7 @@ The port imports ``torch`` and numpy only; it never imports ``jax`` or
 anything of ``repro``.
 
 Entry points (``Planner``, ``bcd_solve``, ``ours``, ``no_pipeline``,
+``exhaustive_joint``, ``optimal``, ``rc_op``, ``rp_oc``,
 ``SplitLearningExecutor``) run on ``device="cuda"`` unless the caller passes
 ``device="cpu"``; without a GPU and without that explicit choice they raise.
 """

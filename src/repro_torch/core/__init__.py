@@ -1,6 +1,7 @@
 """The paper's contribution, ported: joint model splitting & placement
 (Algorithm 1, on the device through the min-plus kernel), closed-form
-micro-batching (Theorem 1) and their BCD combination (Algorithm 2).
+micro-batching (Theorem 1) and their BCD combination (Algorithm 2), with
+the paper's comparison schemes and its fluctuation model.
 """
 
 from .profiles import (ModelProfile, vgg16_profile, uniform_profile,
@@ -13,11 +14,13 @@ from .latency import (SplitSolution, fill_latency, pipeline_interval,
 from .msp_graph import GraphFactory, MSPGraph, build_graph, path_to_solution
 from .shortest_path import (DEFAULT_SOLVER, MSPResult, Planner, solve_msp,
                             brute_force_msp, enumerate_solutions)
-from .cost_model import CostModel, ClosedForm, resolve_cost_model
+from .cost_model import (CostModel, ClosedForm, resolve_cost_model,
+                         memoized_cost_model)
 from .microbatch import (MicrobatchResult, optimal_microbatch,
                          exhaustive_microbatch, feasibility_box)
-from .bcd import Plan, bcd_solve
-from .baselines import no_pipeline, ours
+from .bcd import Plan, bcd_solve, exhaustive_joint
+from .baselines import rc_op, rp_oc, no_pipeline, ours, optimal, SCHEMES
+from .fluctuation import FluctuationReport, evaluate_under_fluctuation
 
 __all__ = [
     "ModelProfile", "vgg16_profile", "uniform_profile", "random_profile",
@@ -28,7 +31,9 @@ __all__ = [
     "max_feasible_microbatch", "GraphFactory", "MSPGraph", "build_graph",
     "path_to_solution", "DEFAULT_SOLVER", "MSPResult", "Planner",
     "solve_msp", "brute_force_msp", "enumerate_solutions", "CostModel",
-    "ClosedForm", "resolve_cost_model", "MicrobatchResult",
-    "optimal_microbatch", "exhaustive_microbatch", "feasibility_box", "Plan",
-    "bcd_solve", "no_pipeline", "ours",
+    "ClosedForm", "resolve_cost_model", "memoized_cost_model",
+    "MicrobatchResult", "optimal_microbatch", "exhaustive_microbatch",
+    "feasibility_box", "Plan", "bcd_solve", "exhaustive_joint", "rc_op",
+    "rp_oc", "no_pipeline", "ours", "optimal", "SCHEMES",
+    "FluctuationReport", "evaluate_under_fluctuation",
 ]

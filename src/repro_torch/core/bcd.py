@@ -9,8 +9,9 @@ The port of ``repro/core/bcd.py`` (its closed-form path):
 
 then the exact 1-D refinement of b (``refine_b``).  Algorithm 1 runs on the
 planner's device; Theorem 1 and the objective are host-side closed forms.
-The simulated-makespan cost models and ``exhaustive_joint`` (which needs
-``Planner.solve_many``) are not ported yet.
+``exhaustive_joint`` is Fig. 7's optimum: Algorithm 1 at every b, as one
+``Planner.solve_many`` on the device.  The simulated-makespan cost models
+wait for the simulator's port.
 """
 
 from __future__ import annotations
@@ -23,12 +24,12 @@ import torch
 
 from .. import obs
 from . import latency as L
-from .cost_model import ClosedForm, resolve_cost_model
+from .cost_model import ClosedForm, memoized_cost_model, resolve_cost_model
 from .latency import SplitSolution
 from .microbatch import exhaustive_microbatch, optimal_microbatch
 from .network import EdgeNetwork
 from .profiles import ModelProfile
-from .shortest_path import Planner
+from .shortest_path import DEFAULT_SOLVER, Planner, solve_msp
 
 
 @dataclasses.dataclass
@@ -177,3 +178,47 @@ def _bcd_solve(profile, net, B, *, b0, theta, max_iters, K, memory_model,
                 L_t=T_f + L.num_fills(B, b) * T_i, iterations=iters,
                 history=history, solve_seconds=time.perf_counter() - t_start,
                 objective=obj, cost_model=cm.name)
+
+
+def exhaustive_joint(profile: ModelProfile, net: EdgeNetwork, B: int,
+                     K: int | None = None, memory_model: str = "paper",
+                     b_step: int = 1, solver: str | None = None,
+                     cost_model=None, device="cuda") -> Plan:
+    """Fig. 7's 'optimal scheme': exhaustive over b, Algorithm 1 per b.
+
+    With ``solver="batched"`` (default) the whole b-sweep runs through one
+    ``Planner`` on ``device`` as ``Planner.solve_many`` (every b stacked,
+    its parent-free phases one K1 launch each); with ``solver="scan"``
+    each b pays its own ``solve_msp``.  ``cost_model`` scores the per-b
+    plans (default ``ClosedForm``: Eq. 14)."""
+    t_start = time.perf_counter()
+    cm = memoized_cost_model(resolve_cost_model(cost_model, memory_model))
+    solver = solver or DEFAULT_SOLVER
+    bs = list(range(1, B + 1, b_step))
+    if solver == "batched":
+        planner = Planner(profile, net, memory_model, device)
+        msps = planner.solve_many(bs, B, K=K)
+    else:
+        msps = [solve_msp(profile, net, b, B, K=K, memory_model=memory_model,
+                          solver=solver, device=device) for b in bs]
+    live = [(b, msp) for b, msp in zip(bs, msps) if msp.feasible]
+    objs = cm.evaluate_many(profile, net,
+                            [(msp.solution, b) for b, msp in live], B)
+    best_plan = None
+    for (b, msp), obj in zip(live, objs):
+        if best_plan is None or obj < best_plan.objective:
+            best_plan = Plan(
+                solution=msp.solution, b=b, B=B,
+                T_f=L.fill_latency(profile, net, msp.solution, b),
+                T_i=L.pipeline_interval(profile, net, msp.solution, b),
+                L_t=L.total_latency(profile, net, msp.solution, b, B),
+                iterations=1, history=[],
+                solve_seconds=0.0, objective=obj, cost_model=cm.name)
+    if best_plan is None or math.isinf(best_plan.objective):
+        return Plan(solution=SplitSolution((profile.num_layers,), (0,)),
+                    b=0, B=B, T_f=math.inf, T_i=math.inf, L_t=math.inf,
+                    iterations=0, history=[], feasible=False,
+                    solve_seconds=time.perf_counter() - t_start,
+                    objective=math.inf, cost_model=cm.name)
+    return dataclasses.replace(best_plan,
+                               solve_seconds=time.perf_counter() - t_start)

@@ -68,6 +68,23 @@ class EdgeNetwork:
     def server_indices(self) -> range:
         return range(1, len(self.nodes))
 
+    def with_fluctuation(self, rng: np.random.Generator,
+                         cv: float) -> "EdgeNetwork":
+        """Gaussian multiplicative noise with coefficient-of-variation ``cv``
+        on rates and compute capabilities (Fig. 6's fluctuation model), drawn
+        from ``rng`` in the reference's order: the rate matrix, then each
+        node's speed."""
+        if cv <= 0:
+            return self
+        noise = np.maximum(rng.normal(1.0, cv, self.rate.shape), 0.05)
+        rate = self.rate * noise
+        nodes = [dataclasses.replace(
+            n, f=n.f * max(float(rng.normal(1.0, cv)), 0.05))
+            for n in self.nodes]
+        return EdgeNetwork(nodes=nodes, rate=rate,
+                           num_clients=self.num_clients,
+                           topology=self.topology)
+
 
 def shannon_rate(bandwidth_hz: float, power_w: float, distance_m: float,
                  gamma: float = 3.5, n0_dbm_hz: float = -174.0) -> float:

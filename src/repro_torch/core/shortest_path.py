@@ -26,8 +26,19 @@ the device.  Every operation is ``+``, ``max``, ``min`` or a compare and
 every argmin takes the *first* minimum, so the planner returns bit for bit
 the reference numpy planner's result on either device.
 
-Restricted DPs (the fixed-cut / fixed-placement masks of the RC+OP and
-RP+OC baselines), ``solve_many``, ``update`` and the jax backend are not
+Restrictions (the fixed cuts of RC+OP, the fixed placement of RP+OC) are
+per-layer masks (``_LayeredDP._masks``).  K1 folds one mask per threshold,
+the same for every layer, so a restricted DP's parent-free sweeps run the
+masked plain sweep on the planner's device instead, as the reference keeps
+them off its Pallas kernel; each is counted as ``planner.masked_sweeps``.
+
+``Planner.solve_many`` solves a whole micro-batch sweep at once (the
+b-sweep of ``exhaustive_joint``): the graphs of every b are stacked on a
+leading axis, and each phase is one sweep over all b — the full-graph and
+reconstruction sweeps in plain torch, the min-max sweep and the
+(b, threshold) window sweep as one K1 launch each (``graph=``).
+
+``Planner.update`` (warm replans) and the reference's jax backend are not
 ported yet.
 """
 
@@ -36,6 +47,7 @@ from __future__ import annotations
 import dataclasses
 import itertools
 import math
+from typing import Sequence
 
 import numpy as np
 import torch
@@ -43,6 +55,7 @@ import torch
 from .. import obs
 from .._device import resolve_device
 from ..kernels.minplus import sweep_minplus
+from ..kernels.minplus.ref import slices_per_chunk
 from . import latency as L
 from .latency import SplitSolution
 from .msp_graph import GraphFactory, MSPGraph
@@ -82,46 +95,70 @@ class _SweepResult:
         self.parents = parents
 
 
-def _sweep(Ccom, Bcom, Sseg, Bseg, src_cost, src_beta, K, ts) -> _SweepResult:
-    """Threshold-batched (+, min) layered-DP sweep with parent tracking.
+def _sweep(Ccom, Bcom, Sseg, Bseg, src_cost, src_beta, K, ts, *,
+           mode="sum", masks=None, want_parents=True) -> _SweepResult:
+    """Threshold-batched layered-DP sweep over the (k, n, i) DAG.
 
-    Tensor layouts (no leading slice axis: one graph, ``S = len(ts)``
-    thresholds):
+    Tensor layouts (a leading slice axis of size 1 broadcasts, size S runs
+    S independent instances — thresholds and/or per-b graphs):
 
-      Ccom/Bcom[n, i, m]  comm cost / bottleneck crossing cut i, n -> m
-      Sseg/Bseg[i, m, j]  segment (i, j] on node m
-      src_cost/src_beta[i]  client segment (0, i]
+      Ccom/Bcom[s, n, i, m]  comm cost / bottleneck crossing cut i, n -> m
+      Sseg/Bseg[s, i, m, j]  segment (i, j] on node m
+      src_cost/src_beta[s, i]  client segment (0, i]
 
-    Per layer:  A[s, i, m] = min over n of dist[s, n, i] + Ccom[n, i, m],
-    then  dist'[s, m, j] = min over i of A[s, i, m] + Sseg[i, m, j], over
-    edges with beta <= ts[s].  Ties break to the smallest n and then the
-    smallest i (the first minimum), as the reference's ``np.argmin`` does.
-    Results come back to the host: ``best_*`` as numpy arrays and the
-    per-layer parents as a list of ``(Ap, Sp)`` numpy pairs.
+    ``mode="sum"`` relaxes with (+, min) among edges with beta <= ts[s];
+    ``mode="max"`` with (max, min), the minimal path bottleneck.  Per
+    layer:  A[s, i, m] = min over n of dist[s, n, i] (+|max) Ccom[s, n, i,
+    m], then  dist'[s, m, j] = min over i of A[s, i, m] (+|max) Sseg[s, i,
+    m, j].  ``masks(k)`` gives layer k's restriction masks over (n, i, m)
+    and (i, m, j) (either may be None); masked candidates are set to inf
+    *after* the op, as the reference does.  Ties break to the smallest n
+    and then the smallest i (the first minimum), as the reference's
+    ``np.argmin`` does.  ``best_*`` stay on the device; with
+    ``want_parents`` the per-layer parents come back to the host as a list
+    of ``(Ap, Sp)`` numpy pairs.
     """
     S = ts.shape[0]
-    N, I1 = Ccom.shape[0], Ccom.shape[1]
+    N, I1 = Ccom.shape[1], Ccom.shape[2]
     I = I1 - 1
-    inf = torch.tensor(_INF, dtype=Ccom.dtype, device=Ccom.device)
+    dev = Ccom.device
+    inf = torch.tensor(_INF, dtype=Ccom.dtype, device=dev)
+    is_sum = mode == "sum"
+    op = torch.add if is_sum else torch.maximum
 
-    dist = torch.full((S, N, I1), _INF, dtype=Ccom.dtype, device=Ccom.device)
-    dist[:, 0, :] = torch.where(src_beta <= ts[:, None], src_cost, inf)
+    dist = torch.full((S, N, I1), _INF, dtype=Ccom.dtype, device=dev)
+    dist[:, 0, :] = torch.where(src_beta <= ts[:, None],
+                                src_cost if is_sum else src_beta, inf)
     fin0 = torch.isfinite(dist[:, 0, I])
     best_val = torch.where(fin0, dist[:, 0, I], inf)
     best_k = fin0.long()
-    best_m = torch.zeros(S, dtype=torch.long, device=Ccom.device)
+    best_m = torch.zeros(S, dtype=torch.long, device=dev)
     Aps, Sps = [], []
 
+    # the threshold mask is layer-independent: fold beta > t edges to inf
     t4 = ts[:, None, None, None]
-    Vc = torch.where(Bcom <= t4, Ccom, inf)
-    Vs = torch.where(Bseg <= t4, Sseg, inf)
+    Vc = torch.where(Bcom <= t4, Ccom if is_sum else Bcom, inf)
+    Vs = torch.where(Bseg <= t4, Sseg if is_sum else Bseg, inf)
     for k in range(2, K + 1):
+        mc, ms = masks(k) if masks is not None else (None, None)
         # stage 1: communication hop (n, i) -> node m across cut i
-        A, Ap = torch.min(dist[:, :, :, None] + Vc, dim=1)      # (S, I1, N)
+        cand_c = op(dist[:, :, :, None], Vc)                 # (S, N, I1, N)
+        if mc is not None:
+            cand_c.masked_fill_(~mc, _INF)
+        if want_parents:
+            A, Ap = torch.min(cand_c, dim=1)                 # (S, I1, N)
+            Aps.append(Ap)
+        else:
+            A = cand_c.amin(dim=1)
         # stage 2: extend with segment (i, j] on node m
-        nd, Sp = torch.min(A[:, :, :, None] + Vs, dim=1)        # (S, N, I1)
-        Aps.append(Ap)
-        Sps.append(Sp)
+        cand_s = op(A[:, :, :, None], Vs)                    # (S, I1, N, I1)
+        if ms is not None:
+            cand_s.masked_fill_(~ms, _INF)
+        if want_parents:
+            nd, Sp = torch.min(cand_s, dim=1)                # (S, N, I1)
+            Sps.append(Sp)
+        else:
+            nd = cand_s.amin(dim=1)
         dist = nd
         if N > 1:
             v, arg = torch.min(nd[:, 1:, I], dim=1)
@@ -137,8 +174,7 @@ def _sweep(Ccom, Bcom, Sseg, Bseg, src_cost, src_beta, K, ts) -> _SweepResult:
         Ap_all = torch.stack(Aps).cpu().numpy()
         Sp_all = torch.stack(Sps).cpu().numpy()
         parents = list(zip(Ap_all, Sp_all))
-    return _SweepResult(best_val.cpu().numpy(), best_k.cpu().numpy(),
-                        best_m.cpu().numpy(), parents)
+    return _SweepResult(best_val, best_k, best_m, parents)
 
 
 def _walk_parents(parents, s: int, k: int, m: int, j: int) -> list:
@@ -156,33 +192,64 @@ def _walk_parents(parents, s: int, k: int, m: int, j: int) -> list:
     return path
 
 
-def _betas_from_arrays(Bcom, Bseg, src_beta, lo=-_INF, hi=_INF) -> list:
+def _betas_from_arrays(Bcom, Bseg, src_beta, lo=-_INF, hi=_INF,
+                       mask_c=None, mask_s=None) -> list:
     """Finite candidate bottleneck values max(Bcom, Bseg) within [lo, hi].
 
-    ``max(a, b)`` is always one of its arguments, so the distinct edge-beta
-    value set is exactly
+    Unmasked, ``max(a, b)`` is always one of its arguments, so the distinct
+    edge-beta value set is exactly
 
         {Bcom[n,i,m]  : Bcom[n,i,m] >= min_j Bseg[i,m,j]}  |
         {Bseg[i,m,j]  : Bseg[i,m,j] >= min_n Bcom[n,i,m]}
 
-    — computed in O(N I N + I N I) without the dense O(N^2 I^2) max."""
+    — computed in O(N I N + I N I) without the dense O(N^2 I^2) max.
+    Masked (restricted) calls take the dense max over (n, i, m, j) in
+    chunks of source nodes, as the reference does."""
     def in_window(x):
         return (x >= lo) & (x <= hi) & torch.isfinite(x)
 
-    min_seg = Bseg.amin(dim=2)                       # (I1, N) over (i, m)
-    min_com = Bcom.amin(dim=0)                       # (I1, N) over (i, m)
-    return [src_beta[in_window(src_beta)],
-            Bcom[in_window(Bcom) & (Bcom >= min_seg[None])],
-            Bseg[in_window(Bseg) & (Bseg >= min_com[:, :, None])]]
+    vals = [src_beta[in_window(src_beta)]]
+    if mask_c is None and mask_s is None:
+        min_seg = Bseg.amin(dim=2)                   # (I1, N) over (i, m)
+        min_com = Bcom.amin(dim=0)                   # (I1, N) over (i, m)
+        return vals + [Bcom[in_window(Bcom) & (Bcom >= min_seg[None])],
+                       Bseg[in_window(Bseg) & (Bseg >= min_com[:, :, None])]]
+    N = Bcom.shape[0]
+    chunk = max(1, int(2 ** 22 // max(1, Bseg.numel())))
+    for n0 in range(0, N, chunk):
+        dense = torch.maximum(Bcom[n0:n0 + chunk, :, :, None], Bseg[None])
+        if mask_c is not None:
+            dense = dense.masked_fill(~mask_c[n0:n0 + chunk, :, :, None],
+                                      _INF)
+        if mask_s is not None:
+            dense = dense.masked_fill(~mask_s[None], _INF)
+        vals.append(dense[in_window(dense)])
+    return vals
 
 
 class _LayeredDP:
     """Two-stage DP over one MSPGraph, rebindable to a new micro-batch's
-    graph.  Its tensors are the graph's, on the graph's device."""
+    graph.  Its tensors are the graph's, on the graph's device.
 
-    def __init__(self, g: MSPGraph, K: int):
+    ``restrict_cuts`` / ``restrict_placement`` fix the path's cut layers or
+    its nodes (the RC+OP and RP+OC baselines); they become per-layer masks
+    (``_masks``), built once on the device and kept across rebinds.
+    """
+
+    def __init__(self, g: MSPGraph, K: int,
+                 restrict_cuts: Sequence[int] | None = None,
+                 restrict_placement: Sequence[int] | None = None):
         self.K = K
+        self.restrict_cuts = tuple(restrict_cuts) if restrict_cuts else None
+        self.restrict_placement = (tuple(restrict_placement)
+                                   if restrict_placement else None)
+        self._mask_cache: dict = {}
         self.rebind(g)
+
+    @property
+    def restricted(self) -> bool:
+        return (self.restrict_cuts is not None or
+                self.restrict_placement is not None)
 
     def rebind(self, g: MSPGraph) -> "_LayeredDP":
         self.g = g
@@ -200,10 +267,42 @@ class _LayeredDP:
         self._Sseg = g.seg_cost.permute(1, 0, 2).contiguous()
         self._Bseg = g.seg_beta.permute(1, 0, 2).contiguous()
         src_ok = torch.isfinite(g.src_cost)
+        if self.restrict_cuts is not None:
+            sel = torch.zeros_like(src_ok)
+            sel[self.restrict_cuts[0]] = True
+            src_ok = src_ok & sel
         self._src_cost = torch.where(src_ok, g.src_cost, _INF)
         self._src_beta = torch.where(src_ok, g.src_beta, _INF)
         self._dense_beta = None          # legacy dense edge betas, on demand
         return self
+
+    # -- restriction masks ---------------------------------------------------
+    def _masks(self, k: int):
+        """(comm mask over (n, i, m), seg mask over (i, m, j)) for layer k,
+        either None where that side is unrestricted."""
+        got = self._mask_cache.get(k)
+        if got is not None:
+            return got
+        I1, N = self.I + 1, self.N
+        dev = self._Ccom.device
+        mc = ms = None
+        if self.restrict_cuts is not None:
+            prev, cur = self.restrict_cuts[k - 2], self.restrict_cuts[k - 1]
+            mc = torch.zeros((N, I1, N), dtype=torch.bool, device=dev)
+            mc[:, prev, :] = True
+            ms = torch.zeros((I1, N, I1), dtype=torch.bool, device=dev)
+            ms[prev, :, cur] = True
+        if self.restrict_placement is not None:
+            pn = self.restrict_placement[k - 2]
+            cn = self.restrict_placement[k - 1]
+            mc2 = torch.zeros((N, I1, N), dtype=torch.bool, device=dev)
+            mc2[pn, :, cn] = True
+            mc = mc2 if mc is None else (mc & mc2)
+            ms2 = torch.zeros((I1, N, I1), dtype=torch.bool, device=dev)
+            ms2[:, cn, :] = True
+            ms = ms2 if ms is None else (ms & ms2)
+        self._mask_cache[k] = (mc, ms)
+        return mc, ms
 
     def _kernel_args(self):
         return (self._Ccom, self._Bcom, self._Sseg, self._Bseg,
@@ -214,17 +313,22 @@ class _LayeredDP:
                                device=self._Ccom.device).reshape(-1)
 
     # -- sweeps --------------------------------------------------------------
-    def sweep(self, ts) -> _SweepResult:
-        """Parent-tracking sweep at every threshold in ``ts``."""
-        return _sweep(*self._kernel_args(), self._ts(ts))
+    def sweep(self, ts, *, mode="sum", want_parents=True) -> _SweepResult:
+        """Plain-torch sweep at every threshold in ``ts``, masked when the
+        DP is restricted; with parents unless ``want_parents`` is False."""
+        return _sweep(*(x[None] for x in self._kernel_args()[:6]), self.K,
+                      self._ts(ts), mode=mode,
+                      masks=self._masks if self.restricted else None,
+                      want_parents=want_parents)
 
     def run(self, t: float):
         """Shortest path with all edge betas <= t. Returns (dist, path)."""
         out = self.sweep([t])
-        if out.best_k[0] == 0:
+        best_k = int(out.best_k[0])
+        if best_k == 0:
             return math.inf, None
-        path = _walk_parents(out.parents, 0, int(out.best_k[0]),
-                             int(out.best_m[0]), self.I)
+        path = _walk_parents(out.parents, 0, best_k, int(out.best_m[0]),
+                             self.I)
         return float(out.best_val[0]), path
 
     def run_dense(self, t: float):
@@ -252,10 +356,16 @@ class _LayeredDP:
         if math.isfinite(d0):
             best_val, best_state = d0, (1, 0, I)
         parents = []
-        ok = self._dense_beta <= t
         for k in range(2, self.K + 1):
             tmp = dist.T[:, :, None] + Ccom_inm          # (I1, N, N) [i,n,m]
             cand = tmp[:, :, :, None] + Sseg[:, None, :, :]   # (I1,N,N,I1)
+            ok = self._dense_beta <= t
+            if self.restricted:
+                mc, msk = self._masks(k)
+                if mc is not None:
+                    ok = ok & mc.permute(1, 0, 2)[:, :, :, None]
+                if msk is not None:
+                    ok = ok & msk[:, None, :, :]
             cand = torch.where(ok, cand, inf)
             nd, arg = torch.min(cand.reshape(I1 * N, N, I1), dim=0)
             parents.append(arg)                          # encodes i * N + n
@@ -281,21 +391,44 @@ class _LayeredDP:
         return best_val, path
 
     def dist_at(self, ts) -> torch.Tensor:
-        """dist(t) for every threshold in ``ts`` — one launch of K1."""
-        return sweep_minplus(*self._kernel_args(), self._ts(ts))
+        """dist(t) for every threshold in ``ts``: one launch of K1, or for a
+        restricted DP the masked plain sweep, in slice chunks that bound its
+        candidate tensors (chunking changes no value)."""
+        ts = self._ts(ts)
+        if not self.restricted:
+            return sweep_minplus(*self._kernel_args(), ts)
+        obs.inc("planner.masked_sweeps")
+        per = slices_per_chunk(self.N, self.I + 1)
+        return torch.cat([self.sweep(ts[c0:c0 + per],
+                                     want_parents=False).best_val
+                          for c0 in range(0, ts.shape[0], per)])
 
     def min_bottleneck(self) -> float:
         """beta* = min over feasible paths of the path bottleneck: K1 in
-        (max, min) mode at the single threshold inf."""
-        out = sweep_minplus(*self._kernel_args(), self._ts([_INF]),
-                            mode="max")
-        return float(out[0])
+        (max, min) mode at the single threshold inf (the masked plain sweep
+        for a restricted DP)."""
+        if not self.restricted:
+            out = sweep_minplus(*self._kernel_args(), self._ts([_INF]),
+                                mode="max")
+            return float(out[0])
+        obs.inc("planner.masked_sweeps")
+        out = self.sweep([_INF], mode="max", want_parents=False)
+        return float(out.best_val[0])
 
     # -- candidate thresholds ------------------------------------------------
     def betas_window(self, lo: float, hi: float) -> torch.Tensor:
         """Sorted distinct candidate bottleneck values within [lo, hi]."""
-        vals = _betas_from_arrays(self._Bcom, self._Bseg, self._src_beta,
-                                  lo, hi)
+        if not self.restricted:
+            vals = _betas_from_arrays(self._Bcom, self._Bseg, self._src_beta,
+                                      lo, hi)
+        else:
+            src = self._src_beta
+            vals = [src[(src >= lo) & (src <= hi) & torch.isfinite(src)]]
+            for k in range(2, self.K + 1):
+                mc, msk = self._masks(k)
+                vals += _betas_from_arrays(self._Bcom, self._Bseg,
+                                           self._src_beta, lo, hi,
+                                           mask_c=mc, mask_s=msk)[1:]
         return torch.unique(torch.cat(vals), sorted=True)
 
     def all_betas(self) -> torch.Tensor:
@@ -336,13 +469,14 @@ class Planner:
             obs.inc("planner.graph_cache_hit")
         return g
 
-    def _dp(self, b: int, K: int) -> _LayeredDP:
+    def _dp(self, b: int, K: int, rc=None, rp=None) -> _LayeredDP:
+        key = (K, rc, rp)
         g = self.graph(b)
-        dp = self._dps.get(K)
+        dp = self._dps.get(key)
         if dp is None:
             obs.inc("planner.dp_cache_miss")
-            dp = _LayeredDP(g, K)
-            self._dps[K] = dp
+            dp = _LayeredDP(g, K, rc, rp)
+            self._dps[key] = dp
         else:
             obs.inc("planner.dp_cache_hit")
             if dp.g is not g:
@@ -375,19 +509,23 @@ class Planner:
 
     # -- solvers ------------------------------------------------------------
     def solve(self, b: int, B: int, K: int | None = None,
+              restrict_cuts: Sequence[int] | None = None,
+              restrict_placement: Sequence[int] | None = None,
               solver: str | None = None) -> MSPResult:
         solver = solver or DEFAULT_SOLVER
         K = self.default_K(K)
+        rc = tuple(restrict_cuts) if restrict_cuts else None
+        rp = tuple(restrict_placement) if restrict_placement else None
         # Algorithm-1 solves are deterministic in these arguments, and the
         # BCD alternation re-requests the same (b, B) repeatedly
-        key = (b, B, K, solver)
+        key = (b, B, K, rc, rp, solver)
         hit = self._solved.get(key)
         if hit is not None:
             obs.inc("planner.solve_memo_hit")
             return hit
         obs.inc("planner.solve_memo_miss")
         with obs.span("planner.solve", b=b, B=B, solver=solver):
-            dp = self._dp(b, K)
+            dp = self._dp(b, K, rc, rp)
             g = self.graph(b)
             xi = L.num_fills(B, b)
             if solver == "scan":
@@ -482,8 +620,128 @@ class Planner:
         return self._finish(g, d_hat, p_hat, b, B, xi, sweeps, "batched")
 
 
+    # -- batched micro-batch sweep (exhaustive_joint's inner loop) ----------
+    def solve_many(self, bs: Sequence[int], B: int,
+                   K: int | None = None) -> list:
+        """Algorithm 1 for every micro-batch size in ``bs`` at once.
+
+        The graphs of every b are stacked on a leading axis, and each phase
+        runs once for all b: the full-graph runs, the beta* probes and the
+        reconstructions as stacked parent-tracking sweeps, the min-max
+        beta* sweep and the sweep over every (b, threshold) window pair as
+        one K1 launch each.  Results are bit-identical to ``[self.solve(b,
+        B, K, solver="batched") for b in bs]``."""
+        bs = list(bs)
+        with obs.span("planner.solve_many", n=len(bs), B=B):
+            results = self._solve_many(bs, B, K)
+        obs.inc("planner.dp_sweeps",
+                sum(r.thresholds_scanned for r in results))
+        return results
+
+    def _solve_many(self, bs: list, B: int, K: int | None = None) -> list:
+        K = self.default_K(K)
+        S = len(bs)
+        I = self.profile.num_layers
+        graphs = [self.graph(b) for b in bs]
+        # the stacked graphs, with the structural infs of ``rebind``
+        Ccom = torch.stack([g.comm_cost.permute(1, 0, 2) for g in graphs])
+        Bcom = torch.stack([g.comm_beta.permute(1, 0, 2) for g in graphs])
+        Sseg = torch.stack([g.seg_cost.permute(1, 0, 2) for g in graphs])
+        Bseg = torch.stack([g.seg_beta.permute(1, 0, 2) for g in graphs])
+        src_cost = torch.stack([g.src_cost for g in graphs])
+        src_beta = torch.stack([g.src_beta for g in graphs])
+        idx = torch.arange(Ccom.shape[1], device=self.device)
+        for V in (Ccom, Bcom):
+            V[:, :, :, 0] = _INF
+            V[:, idx, :, idx] = _INF
+        stack = (Ccom, Bcom, Sseg, Bseg, src_cost, src_beta)
+        xi = [L.num_fills(B, b) for b in bs]
+
+        def ts_of(values):
+            return torch.as_tensor(values, dtype=Ccom.dtype,
+                                   device=self.device).reshape(-1)
+
+        def stacked(sel, ts, **kw):
+            """Parent-tracking sweep of the selected graphs at ts."""
+            sel = torch.as_tensor(sel, device=self.device)
+            return _sweep(*(x[sel] for x in stack), K, ts_of(ts), **kw)
+
+        # phase A: full-graph runs for every b (one stacked sweep)
+        outA = _sweep(*stack, K, ts_of([_INF] * S))
+        valA, kA, mA = (outA.best_val.tolist(), outA.best_k.tolist(),
+                        outA.best_m.tolist())
+        paths_full = [_walk_parents(outA.parents, s, kA[s], mA[s], I)
+                      if kA[s] else None for s in range(S)]
+
+        results: list = [None] * S
+        live = []                               # slices still being solved
+        for s in range(S):
+            if xi[s] == 0 or paths_full[s] is None:
+                results[s] = self._finish(graphs[s], valA[s], paths_full[s],
+                                          bs[s], B, xi[s], 1, "batched")
+            else:
+                live.append(s)
+        if not live:
+            return results
+
+        # phase B: one K1 launch of (max, min) sweeps -> beta* per live b,
+        # then one stacked probe at beta* (parents -> the upper-bound path)
+        beta_star = sweep_minplus(*stack, K, ts_of([_INF] * len(live)),
+                                  mode="max", graph=live).tolist()
+        outP = stacked(live, beta_star)
+        valP, kP, mP = (outP.best_val.tolist(), outP.best_k.tolist(),
+                        outP.best_m.tolist())
+        paths_star, windows = [], []
+        for q, s in enumerate(live):
+            p_star = _walk_parents(outP.parents, q, kP[q], mP[q], I)
+            paths_star.append(p_star)
+            ub = min(valA[s] + xi[s] * _path_bottleneck(graphs[s],
+                                                        paths_full[s]),
+                     valP[q] + xi[s] * _path_bottleneck(graphs[s], p_star))
+            cap = (ub - valA[s]) / xi[s]
+            w = _betas_from_arrays(Bcom[s], Bseg[s], src_beta[s],
+                                   beta_star[q], cap * (1 + 1e-12) + 1e-12)
+            w = torch.unique(torch.cat(w), sorted=True)
+            if w.numel() == 0:
+                w = ts_of([beta_star[q]])
+            windows.append(w)
+
+        # phase C: ONE K1 launch over every (b, threshold) pair, then the
+        # argmin per b (first minimum: the smallest t)
+        slice_b = [s for s, w in zip(live, windows) for _ in range(w.numel())]
+        dvals = sweep_minplus(*stack, K, torch.cat(windows), graph=slice_b)
+        t_hat, pos = [], 0
+        for q, w in enumerate(windows):
+            H = dvals[pos:pos + w.numel()] + xi[live[q]] * w
+            t_hat.append(float(w[int(torch.argmin(H))]))
+            pos += w.numel()
+
+        # phase D: one stacked reconstruction sweep at the winners; slices
+        # whose winner IS beta* reuse the phase-B probe path (same sweep,
+        # same threshold), as the per-b solve does — which also keeps the
+        # 4-vs-5 sweep accounting identical to solve()
+        need = [q for q in range(len(live)) if t_hat[q] != beta_star[q]]
+        if need:
+            outR = stacked([live[q] for q in need], [t_hat[q] for q in need])
+            valR, kR, mR = (outR.best_val.tolist(), outR.best_k.tolist(),
+                            outR.best_m.tolist())
+        for r, q in enumerate(need):
+            s = live[q]
+            path = (_walk_parents(outR.parents, r, kR[r], mR[r], I)
+                    if kR[r] else None)
+            results[s] = self._finish(graphs[s], valR[r], path, bs[s], B,
+                                      xi[s], 5, "batched")
+        for q, s in enumerate(live):
+            if results[s] is None:                  # t_hat == beta*
+                results[s] = self._finish(graphs[s], valP[q], paths_star[q],
+                                          bs[s], B, xi[s], 4, "batched")
+        return results
+
+
 def solve_msp(profile: ModelProfile, net: EdgeNetwork, b: int, B: int,
               K: int | None = None, memory_model: str = "paper",
+              restrict_cuts: Sequence[int] | None = None,
+              restrict_placement: Sequence[int] | None = None,
               solver: str | None = None, planner: Planner | None = None,
               device="cuda") -> MSPResult:
     """Algorithm 1.  Returns the optimal (x, y) for fixed micro-batch b.
@@ -496,7 +754,8 @@ def solve_msp(profile: ModelProfile, net: EdgeNetwork, b: int, B: int,
             f"but solve_msp was called with {memory_model!r}")
     pl = planner if planner is not None else Planner(profile, net,
                                                      memory_model, device)
-    return pl.solve(b, B, K=K, solver=solver)
+    return pl.solve(b, B, K=K, restrict_cuts=restrict_cuts,
+                    restrict_placement=restrict_placement, solver=solver)
 
 
 def _path_edges(g: MSPGraph, path: list):

@@ -51,6 +51,16 @@
 //   instead of one per candidate (relax, unmask).  It takes any graph whose
 //   dist and A fit one block at T = 1, as the parent design did.
 //
+// Graph axis (both routes): the six graph tensors may carry a leading axis
+// of G graphs, and `graph` (int32, nullable) names the graph of every
+// threshold slot; a slot's graph is read at the graph's own element counts
+// (N (I + 1) N for Cc/Bc, (I + 1) N (I + 1) for Ss/Bs, I + 1 for sc/sb).
+// A cluster offsets its base pointers by graph[s]; a tiled block by the
+// graph of its first slot, since the wrapper pads each graph's thresholds
+// to whole tiles with -inf (kernel.py::tile_slots), under which no edge
+// passes and the sweep stops after its first layer.  So b-sweeps of many
+// graphs (Planner.solve_many) take one launch and copy no graph.
+//
 // Exactness: every operation is +, max, min or a compare -- no sum over
 // many terms and no multiply, so no FMA contraction can apply, and no
 // fmin/fmax NaN rule is relied on -- so the float64 instantiation is
@@ -116,6 +126,19 @@ struct FastDiv {
                  : x;
   }
 };
+
+// Element offsets of slot `slot`'s graph in stacked (G, ...) inputs: the
+// comm tensors, the segment tensors and the source vectors (all 0 for one
+// graph, graph == null).
+struct GraphOffsets {
+  size_t com, seg, src;
+};
+__device__ __forceinline__ GraphOffsets graph_offsets(const int* graph,
+                                                      int slot, int N,
+                                                      int I1) {
+  const size_t g = graph != nullptr ? __ldg(graph + slot) : 0;
+  return {g * N * I1 * N, g * I1 * N * I1, g * I1};
+}
 
 __host__ __device__ inline int cluster_span(int N, int C) {
   return (N + C - 1) / C;
@@ -217,6 +240,7 @@ sweep_cluster_kernel(const V* __restrict__ ts,
                      const V* __restrict__ Bs,
                      const V* __restrict__ sc,   // [i]
                      const V* __restrict__ sb,
+                     const int* __restrict__ graph,  // [S] or null
                      V* __restrict__ out, int N, int I1, int K) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const int C = CLUSTER ? static_cast<int>(cg::this_cluster().num_blocks())
@@ -224,6 +248,13 @@ sweep_cluster_kernel(const V* __restrict__ ts,
   const int rank = CLUSTER
       ? static_cast<int>(cg::this_cluster().block_rank()) : 0;
   const int s = blockIdx.x / C;
+  const GraphOffsets go = graph_offsets(graph, s, N, I1);
+  Cc += go.com;
+  Bc += go.com;
+  Ss += go.seg;
+  Bs += go.seg;
+  sc += go.src;
+  sb += go.src;
   const int NI = N * I1, I = I1 - 1;
   const int m0 = rank * N / C;
   const int M = (rank + 1) * N / C - m0;     // this block's destinations
@@ -489,6 +520,7 @@ sweep_tiled_kernel(const V* __restrict__ ts,
                    const V* __restrict__ Bs,
                    const V* __restrict__ sc,   // [i]
                    const V* __restrict__ sb,
+                   const int* __restrict__ graph,  // [S] or null
                    V* __restrict__ out, int S, int N, int I1, int K) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const int NI = N * I1, I = I1 - 1;
@@ -497,6 +529,14 @@ sweep_tiled_kernel(const V* __restrict__ ts,
 
   const V INF = inf_value<V>();
   const int s0 = blockIdx.x * T;
+  // the block's T slots share one graph (the wrapper pads to whole tiles)
+  const GraphOffsets go = graph_offsets(graph, s0, N, I1);
+  Cc += go.com;
+  Bc += go.com;
+  Ss += go.seg;
+  Bs += go.seg;
+  sc += go.src;
+  sb += go.src;
   const V* Vc = SUM ? Cc : Bc;
   const V* Vs = SUM ? Ss : Bs;
   const V* src = SUM ? sc : sb;
@@ -632,8 +672,9 @@ cudaError_t allow_kernel(const void* kernel, bool cluster) {
 
 template <typename V, bool SUM>
 int launch_cluster(const V* ts, const V* Cc, const V* Bc, const V* Ss,
-                   const V* Bs, const V* sc, const V* sb, V* out, int S,
-                   int N, int I1, int K, int C, cudaStream_t stream) {
+                   const V* Bs, const V* sc, const V* sb, const int* graph,
+                   V* out, int S, int N, int I1, int K, int C,
+                   cudaStream_t stream) {
   // every output needs its group of lanes, and every block destinations
   if (C < 1 || C > kMaxCluster || C > N ||
       I1 * cluster_span(N, C) * kParts > kClusterThreads)
@@ -646,8 +687,8 @@ int launch_cluster(const V* ts, const V* Cc, const V* Bc, const V* Ss,
     cudaError_t err = allow_kernel(reinterpret_cast<const void*>(kernel),
                                    false);
     if (err != cudaSuccess) return static_cast<int>(err);
-    kernel<<<S, threads, smem, stream>>>(ts, Cc, Bc, Ss, Bs, sc, sb, out, N,
-                                         I1, K);
+    kernel<<<S, threads, smem, stream>>>(ts, Cc, Bc, Ss, Bs, sc, sb, graph,
+                                         out, N, I1, K);
     return static_cast<int>(cudaGetLastError());
   }
   auto kernel = sweep_cluster_kernel<V, SUM, true>;
@@ -680,16 +721,17 @@ int launch_cluster(const V* ts, const V* Cc, const V* Bc, const V* Ss,
                                     threads, smem, clusters};
   }
   if (clusters < 1) return -1;
-  err = cudaLaunchKernelEx(&cfg, kernel, ts, Cc, Bc, Ss, Bs, sc, sb, out, N,
-                           I1, K);
+  err = cudaLaunchKernelEx(&cfg, kernel, ts, Cc, Bc, Ss, Bs, sc, sb, graph,
+                           out, N, I1, K);
   if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());
 }
 
 template <typename V, bool SUM, int T>
 int launch_tiled_t(const V* ts, const V* Cc, const V* Bc, const V* Ss,
-                   const V* Bs, const V* sc, const V* sb, V* out, int S,
-                   int N, int I1, int K, cudaStream_t stream) {
+                   const V* Bs, const V* sc, const V* sb, const int* graph,
+                   V* out, int S, int N, int I1, int K,
+                   cudaStream_t stream) {
   const size_t smem = tiled_smem_bytes(N, I1, T, sizeof(V));
   if (smem > kMaxSmem) return cudaErrorInvalidValue;
   auto kernel = sweep_tiled_kernel<V, SUM, T>;
@@ -697,49 +739,51 @@ int launch_tiled_t(const V* ts, const V* Cc, const V* Bc, const V* Ss,
                                  false);
   if (err != cudaSuccess) return static_cast<int>(err);
   kernel<<<(S + T - 1) / T, tiled_threads(N, I1), smem, stream>>>(
-      ts, Cc, Bc, Ss, Bs, sc, sb, out, S, N, I1, K);
+      ts, Cc, Bc, Ss, Bs, sc, sb, graph, out, S, N, I1, K);
   return static_cast<int>(cudaGetLastError());
 }
 
 template <typename V, bool SUM>
 int launch_tiled(const V* ts, const V* Cc, const V* Bc, const V* Ss,
-                 const V* Bs, const V* sc, const V* sb, V* out, int S, int N,
-                 int I1, int K, int T, cudaStream_t stream) {
+                 const V* Bs, const V* sc, const V* sb, const int* graph,
+                 V* out, int S, int N, int I1, int K, int T,
+                 cudaStream_t stream) {
   switch (T) {
-    case 1: return launch_tiled_t<V, SUM, 1>(ts, Cc, Bc, Ss, Bs, sc, sb, out,
-                                             S, N, I1, K, stream);
-    case 2: return launch_tiled_t<V, SUM, 2>(ts, Cc, Bc, Ss, Bs, sc, sb, out,
-                                             S, N, I1, K, stream);
-    case 4: return launch_tiled_t<V, SUM, 4>(ts, Cc, Bc, Ss, Bs, sc, sb, out,
-                                             S, N, I1, K, stream);
-    case 8: return launch_tiled_t<V, SUM, 8>(ts, Cc, Bc, Ss, Bs, sc, sb, out,
-                                             S, N, I1, K, stream);
+    case 1: return launch_tiled_t<V, SUM, 1>(ts, Cc, Bc, Ss, Bs, sc, sb,
+                                             graph, out, S, N, I1, K, stream);
+    case 2: return launch_tiled_t<V, SUM, 2>(ts, Cc, Bc, Ss, Bs, sc, sb,
+                                             graph, out, S, N, I1, K, stream);
+    case 4: return launch_tiled_t<V, SUM, 4>(ts, Cc, Bc, Ss, Bs, sc, sb,
+                                             graph, out, S, N, I1, K, stream);
+    case 8: return launch_tiled_t<V, SUM, 8>(ts, Cc, Bc, Ss, Bs, sc, sb,
+                                             graph, out, S, N, I1, K, stream);
     default: return cudaErrorInvalidValue;
   }
 }
 
 template <typename V>
 int launch(const void* ts, const void* Cc, const void* Bc, const void* Ss,
-           const void* Bs, const void* sc, const void* sb, void* out, int S,
-           int N, int I1, int K, int mode_sum, int cluster, int tile,
-           void* stream_ptr) {
+           const void* Bs, const void* sc, const void* sb, const void* graph,
+           void* out, int S, int N, int I1, int K, int mode_sum, int cluster,
+           int tile, void* stream_ptr) {
   const V* a[7] = {static_cast<const V*>(ts), static_cast<const V*>(Cc),
                    static_cast<const V*>(Bc), static_cast<const V*>(Ss),
                    static_cast<const V*>(Bs), static_cast<const V*>(sc),
                    static_cast<const V*>(sb)};
+  const int* g = static_cast<const int*>(graph);
   V* o = static_cast<V*>(out);
   cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
   if (cluster > 0)
     return mode_sum
-        ? launch_cluster<V, true>(a[0], a[1], a[2], a[3], a[4], a[5], a[6], o,
-                                  S, N, I1, K, cluster, stream)
+        ? launch_cluster<V, true>(a[0], a[1], a[2], a[3], a[4], a[5], a[6], g,
+                                  o, S, N, I1, K, cluster, stream)
         : launch_cluster<V, false>(a[0], a[1], a[2], a[3], a[4], a[5], a[6],
-                                   o, S, N, I1, K, cluster, stream);
+                                   g, o, S, N, I1, K, cluster, stream);
   return mode_sum
-      ? launch_tiled<V, true>(a[0], a[1], a[2], a[3], a[4], a[5], a[6], o, S,
-                              N, I1, K, tile, stream)
-      : launch_tiled<V, false>(a[0], a[1], a[2], a[3], a[4], a[5], a[6], o, S,
-                               N, I1, K, tile, stream);
+      ? launch_tiled<V, true>(a[0], a[1], a[2], a[3], a[4], a[5], a[6], g, o,
+                              S, N, I1, K, tile, stream)
+      : launch_tiled<V, false>(a[0], a[1], a[2], a[3], a[4], a[5], a[6], g, o,
+                               S, N, I1, K, tile, stream);
 }
 
 }  // namespace
@@ -748,19 +792,23 @@ extern "C" {
 
 // cluster > 0: the cluster route with that many blocks per threshold;
 // otherwise the tiled route with `tile` thresholds per block (1, 2, 4, 8).
+// graph: null for one graph, else the int32 graph of each of the S slots
+// (S a multiple of `tile` on the tiled route, each tile of one graph).
 int minplus_sweep_f64(const void* ts, const void* Cc, const void* Bc,
                       const void* Ss, const void* Bs, const void* sc,
-                      const void* sb, void* out, int S, int N, int I1, int K,
-                      int mode_sum, int cluster, int tile, void* stream) {
-  return launch<double>(ts, Cc, Bc, Ss, Bs, sc, sb, out, S, N, I1, K,
+                      const void* sb, const void* graph, void* out, int S,
+                      int N, int I1, int K, int mode_sum, int cluster,
+                      int tile, void* stream) {
+  return launch<double>(ts, Cc, Bc, Ss, Bs, sc, sb, graph, out, S, N, I1, K,
                         mode_sum, cluster, tile, stream);
 }
 
 int minplus_sweep_f32(const void* ts, const void* Cc, const void* Bc,
                       const void* Ss, const void* Bs, const void* sc,
-                      const void* sb, void* out, int S, int N, int I1, int K,
-                      int mode_sum, int cluster, int tile, void* stream) {
-  return launch<float>(ts, Cc, Bc, Ss, Bs, sc, sb, out, S, N, I1, K,
+                      const void* sb, const void* graph, void* out, int S,
+                      int N, int I1, int K, int mode_sum, int cluster,
+                      int tile, void* stream) {
+  return launch<float>(ts, Cc, Bc, Ss, Bs, sc, sb, graph, out, S, N, I1, K,
                        mode_sum, cluster, tile, stream);
 }
 

@@ -11,12 +11,20 @@ current stream without synchronising.
 :func:`launch_plan` picks the kernel's route from the shape alone: a
 cluster of C blocks per threshold holding the masked graph in shared
 memory when few thresholds are swept, else tiles of T thresholds per block.
+
+With ``graph=`` the inputs stack G graphs on a leading axis and one launch
+sweeps every threshold on its own graph (``Planner.solve_many``'s b-sweep):
+a cluster reads its threshold's graph in place; the tiled route's blocks
+each take T thresholds of one graph, so :func:`tile_slots` pads every
+graph's thresholds to whole tiles with -inf and the outputs of the padded
+slots are dropped.
 """
 
 from __future__ import annotations
 
 import ctypes
 import functools
+import math
 from dataclasses import dataclass
 from pathlib import Path
 
@@ -104,10 +112,13 @@ def tile_fits(N: int, I1: int, T: int, esize: int) -> bool:
 
 @functools.lru_cache(maxsize=256)
 def launch_plan(S: int, N: int, I1: int, esize: int,
-                sms: int = H100_SMS) -> LaunchPlan:
+                sms: int = H100_SMS, groups: tuple | None = None
+                ) -> LaunchPlan:
     """The route of a launch over ``S`` thresholds of a graph with ``N``
     nodes and ``I1`` cuts in ``esize``-byte floats, on a card of ``sms``
-    SMs.
+    SMs.  ``groups`` gives the thresholds per graph of a launch over
+    stacked graphs: a tile then counts the padded slots of
+    :func:`tile_slots`, ``sum(ceil(c / T))`` blocks.
 
     The cluster route takes C blocks per threshold, for C from the smallest
     cluster whose blocks' slices fit in shared memory and whose blocks'
@@ -137,8 +148,29 @@ def launch_plan(S: int, N: int, I1: int, esize: int,
             f"graph too large for one block's shared memory: "
             f"{tiled_smem_bytes(N, I1, 1, esize)} > {MAX_SHARED_BYTES} bytes "
             f"(N={N}, I+1={I1})")
-    T = next((T for T in fit if -(-S // T) <= sms), fit[-1])
+    T = next((T for T in fit
+              if sum(-(-c // T) for c in (groups or (S,))) <= sms), fit[-1])
     return LaunchPlan("tiled", 0, T)
+
+
+def tile_slots(graph, T: int) -> tuple:
+    """The tiled route's layout of thresholds on stacked graphs: the
+    thresholds of each graph (in order of graph, then of position) fill
+    whole tiles of ``T`` slots, the last one padded.  Returns ``(slots,
+    slot_graph)``: ``slots[s]`` is threshold s's slot, and ``slot_graph``
+    the graph of every slot (a multiple of ``T`` long; a padded slot takes
+    its tile's graph and a -inf threshold)."""
+    members: dict = {}
+    for s, g in enumerate(graph):
+        members.setdefault(int(g), []).append(s)
+    slots = [0] * len(graph)
+    slot_graph: list = []
+    for g in sorted(members):
+        for s in members[g]:
+            slots[s] = len(slot_graph)
+            slot_graph.append(g)
+        slot_graph += [g] * (-len(members[g]) % T)
+    return slots, slot_graph
 
 
 @functools.lru_cache(maxsize=None)
@@ -151,16 +183,23 @@ def _library() -> ctypes.CDLL:
     lib = load_library(LIB_NAME, SOURCES)
     for name in _ENTRY.values():
         fn = getattr(lib, name)
-        fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 7 \
+        fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 7 \
             + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
     return lib
 
 
-def _check(args, dtype, dev):
-    N, I1 = args["Ccom"].shape[0], args["Ccom"].shape[1]
+def _check(args, dtype, dev, stacked: bool):
+    """Device, dtype, shape and contiguity of the graph tensors (with a
+    leading graph axis when ``stacked``); returns (G, N, I + 1)."""
+    lead = tuple(args["Ccom"].shape[:1]) if stacked else ()
+    if stacked and args["Ccom"].dim() != 4:
+        raise ValueError(f"Ccom has shape {tuple(args['Ccom'].shape)}; with "
+                         "graph= it must be (G, N, I+1, N)")
+    N, I1 = args["Ccom"].shape[len(lead)], args["Ccom"].shape[len(lead) + 1]
     shapes = {"Ccom": (N, I1, N), "Bcom": (N, I1, N), "Sseg": (I1, N, I1),
               "Bseg": (I1, N, I1), "src_cost": (I1,), "src_beta": (I1,)}
+    shapes = {name: lead + shape for name, shape in shapes.items()}
     for name, t in args.items():
         if t.device != dev or t.dtype != dtype:
             raise ValueError(f"{name} is {t.dtype} on {t.device}; expected "
@@ -170,58 +209,103 @@ def _check(args, dtype, dev):
                              f"{shapes[name]}")
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
+    return (lead[0] if stacked else 1), N, I1
+
+
+def graph_index(graph, S: int, G: int) -> torch.Tensor:
+    """``graph`` as a CPU int64 tensor of S graph indices in [0, G)
+    (a CUDA tensor is copied to the host, which waits for it)."""
+    idx = torch.as_tensor(graph).reshape(-1).to("cpu", torch.int64)
+    if idx.numel() != S:
+        raise ValueError(f"graph has {idx.numel()} entries for {S} "
+                         "thresholds")
+    if S and (int(idx.min()) < 0 or int(idx.max()) >= G):
+        raise ValueError(f"graph indices must lie in [0, {G})")
+    return idx
 
 
 def sweep_minplus(Ccom, Bcom, Sseg, Bseg, src_cost, src_beta, K, ts, *,
-                  mode: str = "sum") -> torch.Tensor:
+                  mode: str = "sum", graph=None) -> torch.Tensor:
     """Best terminal DP value per threshold, as a tensor on the inputs'
     device in their dtype (float64 or float32).
 
     Layouts match the ``_LayeredDP`` buffers: ``Ccom/Bcom[n, i, m]``,
     ``Sseg/Bseg[i, m, j]``, ``src_cost/src_beta[i]``, structural masks
-    pre-folded; ``ts`` is a 1-D batch of thresholds.  Every launch adds one
-    to ``sweep_minplus.launches``.
+    pre-folded; ``ts`` is a 1-D batch of thresholds.  With ``graph`` (S
+    integers) every tensor carries a leading axis of G graphs and threshold
+    s runs on graph ``graph[s]``, exactly as a one-graph call on that graph
+    would.  Every launch adds one to ``sweep_minplus.launches``.
     """
     if mode not in ("sum", "max"):
         raise ValueError(f"mode must be 'sum' or 'max', got {mode!r}")
     dev = Ccom.device
     if dev.type == "cpu":
         return sweep_plain(Ccom, Bcom, Sseg, Bseg, src_cost, src_beta, K, ts,
-                           mode=mode)
+                           mode=mode, graph=graph)
     if dev.type != "cuda":
         raise ValueError(f"sweep_minplus runs on cpu or cuda, not {dev}")
     dtype = Ccom.dtype
     if dtype not in _ENTRY:
         raise TypeError(f"sweep_minplus takes float64 or float32, not {dtype}")
     ts = torch.as_tensor(ts, dtype=dtype, device=dev).reshape(-1)
-    _check(dict(Ccom=Ccom, Bcom=Bcom, Sseg=Sseg, Bseg=Bseg,
-                src_cost=src_cost, src_beta=src_beta), dtype, dev)
+    G, N, I1 = _check(dict(Ccom=Ccom, Bcom=Bcom, Sseg=Sseg, Bseg=Bseg,
+                           src_cost=src_cost, src_beta=src_beta), dtype, dev,
+                      stacked=graph is not None)
     if int(K) < 1:
         raise ValueError(f"K must be >= 1, got {K}")
-    out = torch.empty(ts.shape[0], dtype=dtype, device=dev)
-    if ts.shape[0] == 0:
+    S = ts.shape[0]
+    out = torch.empty(S, dtype=dtype, device=dev)
+    if S == 0:
         return out
-    plan = launch_plan(ts.shape[0], Ccom.shape[0], Ccom.shape[1],
-                       Ccom.element_size(),
-                       _sm_count(dev.index if dev.index is not None
-                                 else torch.cuda.current_device()))
-    launch(plan, Ccom, Bcom, Sseg, Bseg, src_cost, src_beta, K, ts, out,
-           mode)
-    return out
+    sms = _sm_count(dev.index if dev.index is not None
+                    else torch.cuda.current_device())
+    if graph is None:
+        plan = launch_plan(S, N, I1, Ccom.element_size(), sms)
+        launch(plan, Ccom, Bcom, Sseg, Bseg, src_cost, src_beta, K, ts, out,
+               mode)
+        return out
+    idx = graph_index(graph, S, G)
+    groups = tuple(int(c) for c in torch.bincount(idx) if c)
+    plan = launch_plan(S, N, I1, Ccom.element_size(), sms, groups)
+    if plan.route == "cluster":
+        launch(plan, Ccom, Bcom, Sseg, Bseg, src_cost, src_beta, K, ts, out,
+               mode, graph=_to_device(idx.tolist(), torch.int32, dev))
+        return out
+    slots, slot_graph = tile_slots(idx.tolist(), plan.tile)
+    slots = _to_device(slots, torch.int64, dev)
+    ts_pad = torch.full((len(slot_graph),), -math.inf, dtype=dtype,
+                        device=dev)
+    ts_pad[slots] = ts
+    out_pad = torch.empty_like(ts_pad)
+    launch(plan, Ccom, Bcom, Sseg, Bseg, src_cost, src_beta, K, ts_pad,
+           out_pad, mode, graph=_to_device(slot_graph, torch.int32, dev))
+    return out_pad[slots]
+
+
+def _to_device(values: list, dtype, dev) -> torch.Tensor:
+    """A host list as a device tensor, copied from pinned memory without
+    waiting: a copy from pageable memory would wait for every launch
+    queued before it."""
+    return torch.tensor(values, dtype=dtype).pin_memory().to(
+        dev, non_blocking=True)
 
 
 def launch(plan: LaunchPlan, Ccom, Bcom, Sseg, Bseg, src_cost, src_beta, K,
-           ts, out, mode: str) -> None:
+           ts, out, mode: str, graph=None) -> None:
     """Launch K1 by ``plan`` on checked CUDA inputs, writing ``out``; adds
-    one to ``sweep_minplus.launches``.  Raises if the launch is refused."""
+    one to ``sweep_minplus.launches``.  Raises if the launch is refused.
+    ``graph`` (int32 on the device) names each slot's graph of stacked
+    inputs; on the tiled route each tile's slots share one graph."""
     fn = getattr(_library(), _ENTRY[Ccom.dtype])
-    N, I1 = Ccom.shape[0], Ccom.shape[1]
+    N, I1 = Ccom.shape[-3], Ccom.shape[-2]
     with torch.cuda.device(Ccom.device):
         stream = torch.cuda.current_stream(Ccom.device).cuda_stream
         err = fn(ts.data_ptr(), Ccom.data_ptr(), Bcom.data_ptr(),
                  Sseg.data_ptr(), Bseg.data_ptr(), src_cost.data_ptr(),
-                 src_beta.data_ptr(), out.data_ptr(), ts.shape[0], N, I1,
-                 int(K), int(mode == "sum"), plan.cluster, plan.tile, stream)
+                 src_beta.data_ptr(),
+                 None if graph is None else graph.data_ptr(),
+                 out.data_ptr(), ts.shape[0], N, I1, int(K),
+                 int(mode == "sum"), plan.cluster, plan.tile, stream)
     if err == -1:
         smem = cluster_smem_bytes(N, I1, plan.cluster, Ccom.element_size())
         raise RuntimeError(f"minplus kernel launch refused: no cluster of "

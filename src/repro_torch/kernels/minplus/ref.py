@@ -2,7 +2,8 @@
 
 The same function as ``csrc/minplus.cu`` written with torch ops: the
 two-stage layered relaxation of ``repro_torch.core.shortest_path`` for one
-graph and a batch of thresholds, returning only the best terminal value per
+graph and a batch of thresholds (or, with ``graph=``, for stacked graphs
+and a graph per threshold), returning only the best terminal value per
 threshold.  The wrapper uses it for tensors on the CPU, the tests hold it
 against the reference's ``sweep_ref`` / ``_LayeredDP.dist_at``, and
 ``chip_smoke.py`` holds the CUDA kernel against it on the card.
@@ -26,15 +27,26 @@ def slices_per_chunk(N: int, I1: int) -> int:
 
 
 def sweep_plain(Ccom, Bcom, Sseg, Bseg, src_cost, src_beta, K, ts,
-                mode: str = "sum") -> torch.Tensor:
+                mode: str = "sum", graph=None) -> torch.Tensor:
     """Best terminal value per threshold, shape ``ts.shape``.
 
     Layouts: ``Ccom/Bcom[n, i, m]``, ``Sseg/Bseg[i, m, j]``,
     ``src_cost/src_beta[i]`` (structural masks pre-folded, as after
     ``_LayeredDP.rebind``).  ``mode="sum"`` is (+, min) shortest path among
     edges with beta <= t; ``mode="max"`` is (max, min) minimal bottleneck.
+    With ``graph`` (S graph indices) the tensors carry a leading axis of
+    graphs and threshold s is swept on graph ``graph[s]``.
     """
     ts = torch.as_tensor(ts, dtype=Ccom.dtype, device=Ccom.device).reshape(-1)
+    if graph is not None:
+        idx = torch.as_tensor(graph).reshape(-1).to("cpu", torch.int64)
+        out = torch.empty_like(ts)
+        for g in torch.unique(idx).tolist():
+            sel = torch.nonzero(idx == g).flatten().to(ts.device)
+            out[sel] = sweep_plain(Ccom[g], Bcom[g], Sseg[g], Bseg[g],
+                                   src_cost[g], src_beta[g], K, ts[sel],
+                                   mode)
+        return out
     N, I1 = Ccom.shape[0], Ccom.shape[1]
     per = slices_per_chunk(N, I1)
     out = torch.empty_like(ts)
@@ -80,23 +92,31 @@ def cluster_ranges(N: int, C: int) -> list:
 
 
 def sweep_cluster_plain(Ccom, Bcom, Sseg, Bseg, src_cost, src_beta, K, ts,
-                        mode: str = "sum", C: int = 1) -> torch.Tensor:
+                        mode: str = "sum", C: int = 1,
+                        graph=None) -> torch.Tensor:
     """``sweep_plain`` computed as the cluster route computes it, one
     threshold at a time: block r keeps the masked slices ``Vc[:, :, M_r]``
     and ``Vs[:, M_r, :]``; each layer it computes ``A[:, M_r]`` from the
     whole ``dist`` and its own rows ``dist'[M_r, :]``, and the rows of all
     blocks are gathered into the next ``dist``; the sweep stops when no
     block holds a finite state; each block keeps the best of its own
-    terminal rows, and the blocks' bests are reduced at the end."""
+    terminal rows, and the blocks' bests are reduced at the end.  With
+    ``graph`` a threshold's cluster reads graph ``graph[s]`` of the stacked
+    tensors in place, as the kernel offsets its base pointers."""
     is_sum = mode == "sum"
     op = torch.add if is_sum else torch.maximum
     ts = torch.as_tensor(ts, dtype=Ccom.dtype, device=Ccom.device).reshape(-1)
     inf = torch.tensor(float("inf"), dtype=Ccom.dtype, device=Ccom.device)
-    N, I1 = Ccom.shape[0], Ccom.shape[1]
+    N, I1 = Ccom.shape[-3], Ccom.shape[-2]
     I = I1 - 1
     ranges = cluster_ranges(N, C)
     out = torch.empty_like(ts)
+    stacked = (Ccom, Bcom, Sseg, Bseg, src_cost, src_beta)
     for s, t in enumerate(ts):
+        if graph is not None:
+            g = int(graph[s])
+            Ccom, Bcom, Sseg, Bseg, src_cost, src_beta = (x[g]
+                                                          for x in stacked)
         Vc = [torch.where(Bcom[:, :, m0:m1] <= t,
                           (Ccom if is_sum else Bcom)[:, :, m0:m1], inf)
               for m0, m1 in ranges]

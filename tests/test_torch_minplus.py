@@ -20,7 +20,7 @@ import torch
 pytest.importorskip("jax")
 
 from repro.core import build_graph, make_edge_network, vgg16_profile
-from repro.core.shortest_path import _LayeredDP
+from repro.core.shortest_path import _LayeredDP, _sweep
 from repro.kernels import minplus as ref_minplus
 from conftest import small_instance
 
@@ -258,3 +258,100 @@ def test_launch_plan_takes_every_graph_the_parent_kernel_took(esize):
                 else:
                     with pytest.raises(ValueError, match="too large"):
                         k1.launch_plan(S, N, I1, esize)
+
+
+# -- the graph axis: many graphs in one call ----------------------------------
+
+def _stacked(seeds, b=8, K=4):
+    """One graph per seed (the small instance's), stacked on a leading
+    axis, as numpy arrays and as the reference DPs."""
+    dps = [_dp(seed, b=b, K=K) for seed in seeds]
+    return dps, [np.stack(parts) for parts in zip(*map(_np_args, dps))]
+
+
+def _graph_window(dps, sizes):
+    """``sizes[g]`` thresholds of graph g, interleaved across the graphs:
+    (graph index per threshold, thresholds)."""
+    graph, ts = [], []
+    for g, (dp, n) in enumerate(zip(dps, sizes)):
+        w = _window(dp)
+        graph += [g] * n
+        ts += list(w[np.linspace(0, len(w) - 1, n).round().astype(int)])
+    order = np.random.default_rng(0).permutation(len(ts))
+    return np.asarray(graph)[order], np.asarray(ts)[order]
+
+
+@pytest.mark.parametrize("mode", MODES)
+@pytest.mark.parametrize("sizes", [(1, 1, 1), (5, 1, 9), (8, 3, 16)])
+def test_plain_graph_axis_equals_reference_gathered_sweep(sizes, mode):
+    """Threshold s on graph graph[s] equals the reference's ``_sweep`` over
+    the gathered leading slice axis (its ``Ccom[sel]``), bit for bit in
+    float64, for groups of uneven sizes in no order."""
+    dps, stacked = _stacked([0, 1, 5])
+    graph, ts = _graph_window(dps, sizes)
+    want = _sweep(*(a[graph] for a in stacked), dps[0].K, ts,
+                  mode=mode).best_val
+    args = [torch.from_numpy(a) for a in stacked]
+    got = sweep_plain(*args, dps[0].K, torch.from_numpy(ts), mode=mode,
+                      graph=torch.from_numpy(graph))
+    assert np.array_equal(got.numpy(), want)
+    assert torch.equal(sweep_minplus(*args, dps[0].K, torch.from_numpy(ts),
+                                     mode=mode, graph=graph.tolist()), got)
+    for C in (1, 3):
+        assert np.array_equal(sweep_cluster_plain(
+            *args, dps[0].K, torch.from_numpy(ts), mode=mode, C=C,
+            graph=graph).numpy(), want)
+
+
+@pytest.mark.parametrize("T", [1, 2, 4, 8])
+@pytest.mark.parametrize("graph", [[0, 0, 0], [2, 0, 1, 0, 2, 2, 0],
+                                   list(range(5)), [3] * 17, []])
+def test_tile_slots_pad_each_graph_to_whole_tiles(graph, T):
+    """Every threshold gets its own slot; every tile holds one graph; a
+    graph's tiles hold its thresholds in order; padding only ends a
+    graph's last tile."""
+    slots, slot_graph = k1.tile_slots(graph, T)
+    assert len(slot_graph) % T == 0
+    assert sorted(slots) == sorted(set(slots))
+    assert [slot_graph[q] for q in slots] == graph
+    for t0 in range(0, len(slot_graph), T):
+        assert len(set(slot_graph[t0:t0 + T])) == 1
+    counts = {g: graph.count(g) for g in set(graph)}
+    assert len(slot_graph) == sum(-(-c // T) * T for c in counts.values())
+    for g in counts:
+        mine = [slots[s] for s, h in enumerate(graph) if h == g]
+        assert mine == sorted(mine) and mine[-1] - mine[0] == len(mine) - 1
+
+
+def test_launch_plan_counts_padded_tiles_on_stacked_graphs():
+    """With stacked graphs a tile counts the padded slots: 128 graphs of 9
+    thresholds fill 132 SMs at no T (sum(ceil(9 / T)) > 132 for every T
+    up to 8), so T = 8 is taken; 8 graphs of 60 take T = 4 (120 tiles),
+    as 480 unstacked thresholds do; 300 graphs of one threshold take T = 8
+    where 300 unstacked thresholds take 4; a cluster needs no padding and
+    keeps its rule."""
+    assert k1.launch_plan(128 * 9, 7, 17, 8, 132, (9,) * 128).tile == 8
+    assert k1.launch_plan(480, 49, 31, 8, 132, (60,) * 8).tile == 4
+    assert k1.launch_plan(480, 49, 31, 8, 132).tile == 4
+    # 300 graphs of one threshold each: 300 tiles at every T
+    assert k1.launch_plan(300, 7, 17, 8, 132, (1,) * 300).tile == 8
+    assert k1.launch_plan(300, 7, 17, 8, 132).tile == 4
+    assert k1.launch_plan(128, 7, 17, 8, 132, (1,) * 128) == \
+        k1.launch_plan(128, 7, 17, 8, 132)
+    assert k1.launch_plan(8, 49, 31, 8, 132, (1,) * 8).route == "cluster"
+
+
+def test_graph_axis_argument_checks():
+    dps, stacked = _stacked([0, 1])
+    args = [torch.from_numpy(a) for a in stacked]
+    ts = torch.tensor([1.0, 2.0, math.inf], dtype=torch.float64)
+    with pytest.raises(ValueError, match="entries"):
+        k1.graph_index([0, 1], 3, 2)
+    with pytest.raises(ValueError, match=r"\[0, 2\)"):
+        k1.graph_index([0, 2, 1], 3, 2)
+    assert k1.graph_index(torch.tensor([1, 0, 1]), 3, 2).tolist() == [1, 0, 1]
+    got = sweep_minplus(*args, dps[0].K, ts, graph=[1, 0, 1])
+    want = torch.stack([sweep_plain(*[a[g] for a in args], dps[0].K,
+                                    ts[s:s + 1])[0]
+                        for s, g in enumerate([1, 0, 1])])
+    assert torch.equal(got, want)

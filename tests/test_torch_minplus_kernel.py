@@ -159,3 +159,68 @@ def test_launches_count_one_per_call_on_gpu(gpu):
     sweep_minplus(*a, torch.tensor([math.inf], device=gpu), mode="max")
     torch.cuda.synchronize()
     assert sweep_minplus.launches == before + 4
+
+
+def stacked_quickstart(bs=(1, 5, 9, 13, 17, 21, 25, 29)):
+    """The quickstart's graphs at several micro-batch sizes stacked on a
+    leading axis (as ``Planner.solve_many`` stacks them), with each
+    graph's candidate thresholds, on the CPU."""
+    planner = Planner(vgg16_profile(work_units="bytes"),
+                      make_edge_network(num_servers=6, num_clients=4, seed=1,
+                                        kappa=1 / 32.0), device="cpu")
+    K = planner.default_K(None)
+    parts, betas = [], []
+    for b in bs:
+        dp = planner._dp(b, K)
+        parts.append([a.clone() for a in dp._kernel_args()[:6]])
+        betas.append(dp.all_betas())
+    return [torch.stack(p) for p in zip(*parts)] + [K], betas
+
+
+def ragged_window(betas, sizes):
+    """``sizes[g]`` thresholds of graph g (one under every beta first),
+    in no order: (graph per threshold, thresholds)."""
+    graph, ts = [], []
+    for g, n in enumerate(sizes):
+        graph += [g] * n
+        ts.append(thresholds(betas[g], n))
+    order = torch.randperm(len(graph), generator=torch.Generator()
+                           .manual_seed(0))
+    return torch.tensor(graph)[order], torch.cat(ts)[order]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", MODES)
+@pytest.mark.parametrize("dtype", DTYPES, ids=["float64", "float32"])
+@pytest.mark.parametrize("name", ["beta-star", "ragged-tiles", "fleet-size"])
+def test_graph_axis_matches_plain_on_gpu(gpu, name, dtype, mode):
+    """Many graphs in one launch: one threshold per graph at t = inf (the
+    cluster route, as ``solve_many``'s phase B), groups of uneven sizes that
+    do not fill whole tiles (the tiled route with padding, as phase C), and
+    fleet-size graphs on both routes."""
+    if name == "fleet-size":
+        parts, betas = zip(*(random_args(49, 31, 6, seed=s)
+                             for s in range(3)))
+        args = [torch.stack(p) for p in zip(*(a[:6] for a in parts))] + [6]
+        cases = [ragged_window(betas, (1, 1, 1)),
+                 ragged_window(betas, (97, 3, 140))]
+    else:
+        args, betas = stacked_quickstart()
+        if name == "beta-star":
+            G = len(betas)
+            cases = [(torch.arange(G), torch.full((G,), math.inf,
+                                                  dtype=torch.float64))]
+        else:
+            cases = [ragged_window(betas, (37, 1, 9, 70, 2, 5, 44, 13))]
+    a = on(gpu, dtype, args)
+    for graph, ts in cases:
+        t = ts.to(device=gpu, dtype=dtype)
+        before = sweep_minplus.launches
+        got = sweep_minplus(*a, t, mode=mode, graph=graph)
+        torch.cuda.synchronize()
+        assert sweep_minplus.launches == before + 1
+        assert_matches(got, sweep_plain(*a, t, mode=mode, graph=graph), dtype)
+        one = torch.cat([sweep_minplus(*[x[g] if torch.is_tensor(x) else x
+                                         for x in a], t[s:s + 1], mode=mode)
+                         for s, g in enumerate(graph.tolist())])
+        assert_matches(got, one, dtype)
