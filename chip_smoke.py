@@ -40,6 +40,25 @@ and exits non-zero:
              rc_op / rp_oc(seed=7) (masked sweeps only, no K1 launch; ours
              no worse), optimal (Fig. 7's gap) and the fluctuation report
              (cv 0.2, 16 draws)
+  4c. replan warm replans, the batched device planner and the elastic
+             coordinator on the reference's planner benchmark fleet
+             (transformer_profile "bench30": 28 blocks, d_model 512, 8
+             heads, d_ff 2048, vocab 32000, seq 128; 24 servers + 4
+             clients, seed 1, kappa 1/32, f 1-10 TFLOP/s, memory 4-32 GiB;
+             B = 64): solve_many(b = 1..64, backend="device") in float64
+             equal to the CPU's and to backend="exact" on cuda, float32
+             within the reference's contract (feasibility, rtol 1e-4 on the
+             float64-repriced objective, b), 2 K1 launches a call (phases B
+             and C), walls of all three; K1's graph axis at the device
+             backend's phase B and C shapes (recorded on the CPU) against
+             its plain version, timed beside the bound; the 16 single-link
+             and straggler deltas of benchmarks/bench_planner.py at b = 8:
+             each warm solve on cuda equal to a cold solve on a fresh cuda
+             Planner and to the CPU's warm solve, 16 incremental hits, the
+             patched graph equal to a fresh assembly, warm and cold walls;
+             then ft.Coordinator on the quickstart (B = 512) through
+             RateChange(1, 2, 0.25), Straggler(6, 3.0) and NodeFailure(1),
+             each plan (solution, b, L_t) equal to the CPU coordinator's
   5. train   one VGG-16 round on cuda matches the CPU (TF32 off), also with
              int8 and top-k link hooks; then a few rounds at the B=512
              plan, timed
@@ -439,12 +458,14 @@ def graph_bound_ms(args, mode, graph) -> tuple:
             "bytes" if byte_s >= op_s else "operations")
 
 
-def check_graph_axis(label, cpu_args, graph, minplus) -> dict:
+def check_graph_axis(label, cpu_args, graph, minplus,
+                     time_f32=False) -> dict:
     """Hold K1's graph axis against sweep_plain on the card, both modes,
     both dtypes (float64 bitwise, also against one one-graph K1 call per
     graph; float32 within F32_RTOL with the same finite entries); time it
     in float64 by the profiler's device time and CUDA events beside the
-    bound, the plain version and the per-graph calls."""
+    bound, the plain version and the per-graph calls; with ``time_f32``
+    also the float32 launch's device time."""
     out = {}
     for mode in ("sum", "max"):
         f64 = [a.cuda() if torch.is_tensor(a) else a for a in cpu_args]
@@ -495,6 +516,9 @@ def check_graph_axis(label, cpu_args, graph, minplus) -> dict:
              "per_graph_ms": cuda_ms(loop_call),
              "f32_max_rel_err": rel_max, "finite": int(fin.sum())}
         t["bound_ms"], t["bound_by"] = graph_bound_ms(f64, mode, graph)
+        if time_f32:
+            t["device_ms_f32"] = device_ms(lambda: minplus.sweep_minplus(
+                *f32, mode=mode, graph=graph))
         if t["launch_route"] == "tiled":
             t["device_ms_by_tile"] = tile_sweep(minplus, f64, mode, graph,
                                                 got)
@@ -509,7 +533,9 @@ def check_graph_axis(label, cpu_args, graph, minplus) -> dict:
             f"{t['per_graph_ms']:.4f} ms; plain {t['plain_ms']:.4f} ms; "
             f"bound {t['bound_ms']:.6f} ms ({t['bound_by']})"
             + (f"; device ms by tile {t['device_ms_by_tile']}"
-               if "device_ms_by_tile" in t else ""))
+               if "device_ms_by_tile" in t else "")
+            + (f"; f32 launch device {t['device_ms_f32']:.4f} ms"
+               if time_f32 else ""))
         out[mode] = t
     return out
 
@@ -857,6 +883,66 @@ def rel_err(got, want) -> float:
                  / want.abs().max().clamp_min(1e-30))
 
 
+def bench30_instance(core) -> tuple:
+    """The reference's planner benchmark fleet
+    (``benchmarks/bench_planner.py::bench_instance(24, 28)``): a 30-layer
+    transformer profile on 24 servers and 4 clients."""
+    prof = core.transformer_profile(
+        "bench30", num_layers=28, d_model=512, n_heads=8, n_kv=8, d_ff=2048,
+        vocab=32000, seq_len=128)
+    net = core.make_edge_network(num_servers=24, num_clients=4, seed=1,
+                                 kappa=1 / 32.0, f_range=(1e12, 10e12),
+                                 mem_range=(4 * 2**30, 32 * 2**30))
+    return prof, net
+
+
+def replan_deltas(ft, n: int) -> list:
+    """The 16 deltas ``benchmarks/bench_planner.py::fleet_run`` replans
+    through: rate changes of 0.8 / 1.25 and stragglers of 1.5 / 1 / 1.5,
+    alternating, over the servers of an ``n``-node network."""
+    deltas = []
+    for k in range(16):
+        if k % 2 == 0:
+            deltas.append(ft.RateChange(n_from=1 + k % (n - 1),
+                                        n_to=1 + (k + 1) % (n - 1),
+                                        factor=0.8 if k % 4 else 1.25))
+        else:
+            deltas.append(ft.Straggler(node=1 + k % (n - 1),
+                                       slowdown=1.5 if k % 4 == 1
+                                       else 1 / 1.5))
+    return deltas
+
+
+def msp_key(r) -> tuple:
+    """What ``tests/conftest.py::same_msp_result`` compares."""
+    if not r.feasible:
+        return (False,)
+    return (True, r.objective, r.solution.cuts, r.solution.placement,
+            r.T_1, r.T_f, r.b)
+
+
+def f32_contract(want, got) -> bool:
+    """The reference's float32 contract for the device backend: the same
+    feasibility, the float64-repriced objective within rtol 1e-4, the same
+    b."""
+    if want.feasible != got.feasible:
+        return False
+    return not want.feasible or (
+        abs(got.objective - want.objective) <= F32_RTOL * abs(want.objective)
+        and got.b == want.b)
+
+
+def timed(fn, device: str):
+    """(fn(), wall seconds), the device synchronized on both sides."""
+    if device == "cuda":
+        torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    if device == "cuda":
+        torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
 def build_all(modules) -> dict:
     """Build every kernel library at once (one nvcc per source, started
     together); returns {library name: seconds}."""
@@ -1134,6 +1220,148 @@ def main(argv=None) -> int:
     log(f"fluctuation (cv 0.2, 16 draws, seed 0) of the cuda plan equals the "
         f"CPU plan's: mean {fluct.mean_latency!r}, p95 "
         f"{fluct.p95_latency!r}, degradation {fluct.degradation!r}")
+
+    # 4c. warm replans, the batched device planner, the coordinator -------
+    from repro_torch import ft
+    from repro_torch.core import planner_device
+    fprof, fnet = bench30_instance(core)
+    bs = list(range(1, 65))
+    exact_cpu, exact_cpu_s = timed(
+        lambda: Planner(fprof, fnet, device="cpu").solve_many(bs, 64), "cpu")
+    with recording_sweeps(planner_device) as dcalls:
+        dev_cpu = Planner(fprof, fnet, device="cpu").solve_many(
+            bs, 64, backend="device", dtype=torch.float64)
+    if [msp_key(r) for r in dev_cpu] != [msp_key(r) for r in exact_cpu]:
+        raise AssertionError("device backend (f64, cpu) != exact backend")
+    if [graph is None for _, _, graph in dcalls] != [False, False]:
+        raise AssertionError(f"device backend made {len(dcalls)} K1 calls, "
+                             "expected 2 graph-axis calls (phases B, C)")
+    k1_device = {
+        f"bench30 device backend phase {ph}": check_graph_axis(
+            f"bench30 device backend phase {ph}", args, graph, minplus,
+            time_f32=True)
+        for ph, (args, _, graph) in zip("BC", dcalls)}
+    backend_runs = {}
+    for name, kw in (("exact", {}),
+                     ("device_f64", dict(backend="device",
+                                         dtype=torch.float64)),
+                     ("device_f32", dict(backend="device",
+                                         dtype=torch.float32))):
+        pl = Planner(fprof, fnet, device="cuda")
+        walls, counts = [], []
+        for _ in range(3):        # the first call builds the graph caches
+            minplus.sweep_minplus.launches = 0
+            res, wall = timed(lambda: pl.solve_many(bs, 64, **kw), "cuda")
+            walls.append(wall)
+            counts.append(minplus.sweep_minplus.launches)
+        backend_runs[name] = {"results": res, "walls_s": walls,
+                              "k1_launches": counts}
+    want = [msp_key(r) for r in exact_cpu]
+    for name in ("exact", "device_f64"):
+        if [msp_key(r) for r in backend_runs[name]["results"]] != want:
+            raise AssertionError(f"solve_many {name} on cuda != exact cpu")
+    bad = [b for b, w, g in zip(bs, exact_cpu,
+                                backend_runs["device_f32"]["results"])
+           if not f32_contract(w, g)]
+    if bad:
+        raise AssertionError(f"device backend f32 misses the contract at "
+                             f"b = {bad}")
+    for name in ("device_f64", "device_f32"):
+        if backend_runs[name]["k1_launches"] != [2, 2, 2]:
+            raise AssertionError(f"{name}: K1 launches "
+                                 f"{backend_runs[name]['k1_launches']} per "
+                                 "call, expected 2 (phases B and C)")
+    f32_rel = max(abs(g.objective - w.objective) / abs(w.objective)
+                  for w, g in zip(exact_cpu,
+                                  backend_runs["device_f32"]["results"])
+                  if w.feasible)
+    log(f"solve_many(b = 1..64, B = 64) on the bench30 fleet (24 servers, "
+        f"30 layers; {sum(r.feasible for r in exact_cpu)} feasible b): "
+        f"device f64 equal to the CPU's and to the exact backend on cuda, "
+        f"f32 within the contract (max objective rel diff {f32_rel:.3e}); "
+        + "; ".join(f"{n} walls {[round(w, 4) for w in r['walls_s']]} s, "
+                    f"K1 launches {r['k1_launches']}"
+                    for n, r in backend_runs.items())
+        + f"; exact on cpu {exact_cpu_s:.4f} s")
+
+    deltas = replan_deltas(ft, len(fnet.nodes))
+    replans = {}
+    with obs.enabled_scope() as reg:
+        for dev in ("cuda", "cpu"):
+            pl = Planner(fprof, fnet, device=dev)
+            pl.solve(8, 64)                       # seeds the warm hint
+            reg.reset()
+            minplus.sweep_minplus.launches = 0
+            res, wall = timed(lambda: [pl.update(d).solve(8, 64)
+                                       for d in deltas], dev)
+            replans[dev] = {"results": res, "wall_s": wall, "planner": pl,
+                         "hits": obs.counter("planner.incremental_hits"),
+                         "cold_solves": obs.counter("planner.cold_solves"),
+                         "k1_launches": minplus.sweep_minplus.launches}
+    obs.reset()
+    cold_net, cold = fnet, []
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for d in deltas:
+        cold_net, _ = ft.Coordinator.preview(cold_net, None, d)
+        cold.append(Planner(fprof, cold_net, device="cuda").solve(8, 64))
+    torch.cuda.synchronize()
+    cold_s = time.perf_counter() - t0
+    for k, (w, c, p) in enumerate(zip(replans["cuda"]["results"], cold,
+                                      replans["cpu"]["results"])):
+        if not msp_key(w) == msp_key(c) == msp_key(p):
+            raise AssertionError(f"delta {k} ({deltas[k]}): warm cuda "
+                                 f"{msp_key(w)}, cold {msp_key(c)}, warm "
+                                 f"cpu {msp_key(p)}")
+    if replans["cuda"]["hits"] != 16 or replans["cpu"]["hits"] != 16:
+        raise AssertionError(f"incremental hits {replans['cuda']['hits']} "
+                             f"(cuda), {replans['cpu']['hits']} (cpu), "
+                             "expected 16")
+    patched = replans["cuda"]["planner"].graph(8)
+    fresh = core.GraphFactory(fprof, cold_net, device="cuda").graph(8)
+    on_cpu = replans["cpu"]["planner"].graph(8)
+    for name in ("comm_cost", "comm_beta", "seg_cost", "seg_beta",
+                 "src_cost", "src_beta"):
+        got = getattr(patched, name)
+        if not (torch.equal(got, getattr(fresh, name))
+                and torch.equal(got.cpu(), getattr(on_cpu, name))):
+            raise AssertionError(f"patched {name} != a fresh assembly")
+    log(f"warm replans (16 deltas of bench_planner.py, b = 8, B = 64): "
+        f"each equal to a cold solve on a fresh cuda Planner and to the "
+        f"CPU's warm solve; incremental hits {replans['cuda']['hits']}; the "
+        f"patched graph equal to a fresh assembly; warm "
+        f"{replans['cuda']['wall_s']:.4f} s on cuda "
+        f"({replans['cuda']['k1_launches']} K1 launches), "
+        f"{replans['cpu']['wall_s']:.4f} s on cpu; cold on cuda "
+        f"{cold_s:.4f} s")
+
+    coord_log = []
+    cc, coord_init_s = timed(
+        lambda: ft.Coordinator(profile, net, B=512, device="cuda"), "cuda")
+    cp = ft.Coordinator(profile, net, B=512, device="cpu")
+    minplus.sweep_minplus.launches = 0
+    for ev in (ft.RateChange(1, 2, 0.25),
+               ft.Straggler(len(net.nodes) - 1, 3.0), ft.NodeFailure(1)):
+        oc, wall = timed(lambda: cc.apply(ev), "cuda")
+        op = cp.apply(ev)
+        got = (cc.plan.solution.cuts, cc.plan.solution.placement, cc.plan.b,
+               cc.plan.L_t)
+        if got != (cp.plan.solution.cuts, cp.plan.solution.placement,
+                   cp.plan.b, cp.plan.L_t) or oc.action != op.action:
+            raise AssertionError(f"coordinator after {ev}: cuda {got} "
+                                 f"({oc.action}) != cpu {cp.plan} "
+                                 f"({op.action})")
+        coord_log.append({"event": repr(ev), "action": oc.action,
+                          "cuts": list(got[0]), "placement": list(got[1]),
+                          "b": got[2], "L_t": got[3], "wall_s": wall,
+                          "cpu_solve_s": op.solve_seconds})
+        log(f"coordinator {ev}: {oc.action}, cuts={got[0]} "
+            f"placement={got[1]} b={got[2]} L_t={float(got[3])!r} (equal to "
+            f"the CPU coordinator's); {wall:.4f} s on cuda, "
+            f"{op.solve_seconds:.4f} s on cpu")
+    coord_launches = minplus.sweep_minplus.launches
+    log(f"coordinator: built in {coord_init_s:.4f} s on cuda; K1 launches "
+        f"over the three events {coord_launches}")
 
     # 5. train -------------------------------------------------------------
     # the comparison runs in full float32: cuDNN convolutions default to
@@ -1544,7 +1772,23 @@ def main(argv=None) -> int:
            for label, t in k1.items()},
         "exhaustive_joint_launches": ej_launches,
         "graph_axis": {label.replace(" ", "_"): t
-                       for label, t in k1_graph.items()},
+                       for label, t in {**k1_graph, **k1_device}.items()},
+        "device_backend_launches": {
+            "float64": backend_runs["device_f64"]["k1_launches"],
+            "float32": backend_runs["device_f32"]["k1_launches"]},
+        "replan": {
+            "exact_backend_launches": backend_runs["exact"]["k1_launches"],
+            "solve_many_walls_s": {name: r["walls_s"]
+                                   for name, r in backend_runs.items()},
+            "solve_many_exact_cpu_s": exact_cpu_s,
+            "warm_replans_s": {dev: w["wall_s"]
+                               for dev, w in replans.items()},
+            "warm_k1_launches": replans["cuda"]["k1_launches"],
+            "cold_replans_cuda_s": cold_s,
+            "incremental_hits": replans["cuda"]["hits"],
+            "coordinator_init_s": coord_init_s,
+            "coordinator": coord_log,
+            "coordinator_k1_launches": coord_launches},
     }, {
         "name": "wkv6_scan",
         "route": "cuda",

@@ -5,7 +5,8 @@ the paper's comparison schemes and its fluctuation model.
 """
 
 from .profiles import (ModelProfile, vgg16_profile, uniform_profile,
-                       random_profile)
+                       random_profile, transformer_layer_flops,
+                       transformer_profile, flops_summary)
 from .network import Node, EdgeNetwork, make_edge_network, shannon_rate
 from .latency import (SplitSolution, fill_latency, pipeline_interval,
                       total_latency, memory_feasible, node_memory_usage,
@@ -24,6 +25,7 @@ from .fluctuation import FluctuationReport, evaluate_under_fluctuation
 
 __all__ = [
     "ModelProfile", "vgg16_profile", "uniform_profile", "random_profile",
+    "transformer_layer_flops", "transformer_profile", "flops_summary",
     "Node", "EdgeNetwork", "make_edge_network", "shannon_rate",
     "SplitSolution", "fill_latency", "pipeline_interval", "total_latency",
     "memory_feasible", "node_memory_usage", "num_fills", "breakdown",

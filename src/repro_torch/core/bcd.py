@@ -10,7 +10,8 @@ The port of ``repro/core/bcd.py`` (its closed-form path):
 then the exact 1-D refinement of b (``refine_b``).  Algorithm 1 runs on the
 planner's device; Theorem 1 and the objective are host-side closed forms.
 ``exhaustive_joint`` is Fig. 7's optimum: Algorithm 1 at every b, as one
-``Planner.solve_many`` on the device.  The simulated-makespan cost models
+``Planner.solve_many`` on the device (exact, or the batched device
+backend).  The simulated-makespan cost models
 wait for the simulator's port.
 """
 
@@ -183,21 +184,23 @@ def _bcd_solve(profile, net, B, *, b0, theta, max_iters, K, memory_model,
 def exhaustive_joint(profile: ModelProfile, net: EdgeNetwork, B: int,
                      K: int | None = None, memory_model: str = "paper",
                      b_step: int = 1, solver: str | None = None,
-                     cost_model=None, device="cuda") -> Plan:
+                     cost_model=None, device="cuda", backend: str = "exact",
+                     dtype=torch.float32) -> Plan:
     """Fig. 7's 'optimal scheme': exhaustive over b, Algorithm 1 per b.
 
     With ``solver="batched"`` (default) the whole b-sweep runs through one
     ``Planner`` on ``device`` as ``Planner.solve_many`` (every b stacked,
-    its parent-free phases one K1 launch each); with ``solver="scan"``
-    each b pays its own ``solve_msp``.  ``cost_model`` scores the per-b
-    plans (default ``ClosedForm``: Eq. 14)."""
+    its parent-free phases one K1 launch each) on ``backend`` ("exact", or
+    "device": the batched device planner in ``dtype``); with
+    ``solver="scan"`` each b pays its own ``solve_msp``.  ``cost_model``
+    scores the per-b plans (default ``ClosedForm``: Eq. 14)."""
     t_start = time.perf_counter()
     cm = memoized_cost_model(resolve_cost_model(cost_model, memory_model))
     solver = solver or DEFAULT_SOLVER
     bs = list(range(1, B + 1, b_step))
     if solver == "batched":
         planner = Planner(profile, net, memory_model, device)
-        msps = planner.solve_many(bs, B, K=K)
+        msps = planner.solve_many(bs, B, K=K, backend=backend, dtype=dtype)
     else:
         msps = [solve_msp(profile, net, b, B, K=K, memory_model=memory_model,
                           solver=solver, device=device) for b in bs]

@@ -90,12 +90,7 @@ class GraphFactory:
         self.I, self.N = I, N
         I1 = I + 1
 
-        def dev(a):
-            return torch.as_tensor(np.asarray(a), device=self.device)
-
-        def column(values):                       # (N, 1, 1) node constants
-            return dev(np.array(values, dtype=float)[:, None, None])
-
+        dev, column = self._dev, self._column
         self.f = column([n.f for n in net.nodes])
         self.kappa = column([n.kappa for n in net.nodes])
         self.t0 = column([n.t0 for n in net.nodes])
@@ -122,6 +117,75 @@ class GraphFactory:
         self.gb1 = dev(np.concatenate([[0.0], profile.grad_bytes])[:, None])
         self.rate = dev(net.rate)[None]                     # (1, N, N)
         self.rate_T = dev(net.rate.T)[None]
+
+    def _dev(self, a) -> torch.Tensor:
+        return torch.as_tensor(np.asarray(a), device=self.device)
+
+    def _column(self, values) -> torch.Tensor:
+        """(N, 1, 1) node constants on the device."""
+        return self._dev(np.array(values, dtype=float)[:, None, None])
+
+    # -- in-place patching (Planner.update) ---------------------------------
+    def patch_rate(self, net: EdgeNetwork) -> None:
+        """Rebind to a network whose ``rate`` matrix changed (same nodes).
+
+        Only the rate tensors are swapped; cached graphs stay valid except
+        for the comm entries of the changed link pair (:meth:`comm_pair`)."""
+        self.net = net
+        self.rate = self._dev(net.rate)[None]
+        self.rate_T = self._dev(net.rate.T)[None]
+
+    def patch_node_speed(self, net: EdgeNetwork) -> None:
+        """Rebind to a network whose node ``f`` vector changed (same nodes,
+        same rates) — the straggler mutation.  Cached graphs stay valid
+        except the seg row of the changed node (:meth:`seg_node`)."""
+        self.net = net
+        self.f = self._column([n.f for n in net.nodes])
+
+    def comm_pair(self, eff: np.ndarray, a: int, c: int):
+        """``(comm_cost[:, a, c], comm_beta[:, a, c])`` columns, shape
+        (I + 1,), for the *current* rate tensors: :meth:`graph`'s formula
+        chain restricted to one (n, m) pair, so a patched column is bitwise
+        equal to a fresh assembly.  Every divisor is a device tensor (torch
+        turns a division by a host scalar on the GPU into a product with
+        its reciprocal, which rounds differently)."""
+        e = self._dev(float(eff[a]))
+        fb = e * self.fb1[:, 0]          # (I1,) fwd bytes at cut i
+        gb = e * self.gb1[:, 0]          # (I1,) bwd bytes at cut i
+        # both byte volumes scale with eff of the *forward sender* a — the
+        # gradient flows back to a, whose effective batch sizes the tensor
+        r, rT = self.rate[0, a, c], self.rate_T[0, a, c]
+        inf = torch.tensor(np.inf, dtype=_F64, device=self.device)
+        zero = torch.zeros((), dtype=_F64, device=self.device)
+        tf = torch.where(fb == 0.0, zero, torch.where(r > 0, fb / r, inf))
+        tb = torch.where(gb == 0.0, zero, torch.where(rT > 0, gb / rT, inf))
+        cost = tf + tb
+        beta = torch.maximum(tf, tb)
+        cost[0] = np.inf
+        beta[0] = np.inf
+        if a == c:
+            cost[:] = np.inf
+            beta[:] = np.inf
+        return cost, beta
+
+    def seg_node(self, eff: np.ndarray, n: int):
+        """``(seg_cost[n], seg_beta[n])`` rows (I + 1, I + 1) for the
+        *current* node constants: :meth:`graph`'s segment formulas
+        restricted to one node, bitwise equal to a fresh assembly."""
+        inf = torch.tensor(np.inf, dtype=_F64, device=self.device)
+        e = self._dev(float(eff[n]))
+        kappa, f, t0, t1 = (x[n] for x in (self.kappa, self.f, self.t0,
+                                            self.t1))
+        fp = (e * kappa) * self.W_fp / f + t0
+        bp_w = (torch.clamp_min(e - self.b_th[n], 0.0) * kappa) * self.W_bp
+        bp = torch.where(bp_w == 0.0, t1, bp_w / f + t1)
+        if self.memory_model == "paper":
+            mem_ok = e * self.Mem_ps <= self.mem[n]
+        else:
+            mem_ok = e * self.Mem_act + self.Mem_static <= self.mem[n]
+        ok = self.tri & mem_ok
+        return (torch.where(ok, fp + bp, inf),
+                torch.where(ok, torch.maximum(fp, bp), inf))
 
     def effective_batch(self, b: int) -> np.ndarray:
         """Per-node effective micro-batch: Eq. (1) max share on the client

@@ -17,6 +17,7 @@ from __future__ import annotations
 import dataclasses
 import heapq
 import math
+from typing import Sequence
 
 import numpy as np
 
@@ -67,6 +68,21 @@ class EdgeNetwork:
 
     def server_indices(self) -> range:
         return range(1, len(self.nodes))
+
+    def degraded(self, failed: Sequence[int]) -> "EdgeNetwork":
+        """Return a copy with the given *server* indices removed (node
+        loss): the surviving nodes keep their order, so every index after a
+        failed one shifts down."""
+        failed = set(failed)
+        if 0 in failed:
+            raise ValueError("cannot fail the client tier")
+        keep = [i for i in range(len(self.nodes)) if i not in failed]
+        return EdgeNetwork(
+            nodes=[self.nodes[i] for i in keep],
+            rate=self.rate[np.ix_(keep, keep)].copy(),
+            num_clients=self.num_clients,
+            topology=self.topology,
+        )
 
     def with_fluctuation(self, rng: np.random.Generator,
                          cv: float) -> "EdgeNetwork":

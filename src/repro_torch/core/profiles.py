@@ -1,9 +1,10 @@
 """Per-layer workload profiles — the substrate of every latency equation.
 
-The port's copy of ``repro/core/profiles.py`` (the VGG-16, uniform and
-random profiles).  Profiles are closed-form host data: numpy float64 arrays,
-bit-equal to the reference's.  Per layer index ``i`` in ``[1, I]`` a profile
-stores *per-layer* (non-cumulative) per-sample quantities — FP/BP workload,
+The port's copy of ``repro/core/profiles.py`` (the VGG-16, transformer,
+uniform and random profiles).  Profiles are closed-form host data: numpy
+float64 arrays, bit-equal to the reference's.  Per layer index ``i`` in
+``[1, I]`` a profile stores *per-layer* (non-cumulative) per-sample
+quantities — FP/BP workload,
 activation / activation-gradient bytes (Eqs. 5, 9), parameter and optimizer
 bytes (Eq. 11) — and exposes cumulative views so that the
 "cumulative-difference" trick of Eqs. (3)/(8)/(11) is exact:
@@ -165,6 +166,80 @@ def vgg16_profile(dtype_bytes: int = 4, optimizer_mult: float = 1.0,
     return prof
 
 
+# ---------------------------------------------------------------------------
+# Transformer-family profiles
+# ---------------------------------------------------------------------------
+
+def transformer_layer_flops(d_model: int, n_heads: int, n_kv: int, d_ff: int,
+                            seq_len: int, d_head: int | None = None,
+                            moe_experts: int = 0, moe_top_k: int = 0,
+                            ffn_mult: int = 3) -> float:
+    """Per-token FP FLOPs of one transformer layer (matmul-dominant terms).
+
+    ``ffn_mult``: 3 for SwiGLU (gate/up/down), 2 for plain 2-matmul MLP.
+    MoE: only ``top_k`` experts are active per token (6*N_active convention).
+    """
+    d_head = d_head or d_model // n_heads
+    qkv = 2 * d_model * (n_heads + 2 * n_kv) * d_head
+    attn_out = 2 * n_heads * d_head * d_model
+    scores = 2 * 2 * n_heads * d_head * seq_len  # QK^T + AV, per token avg len
+    if moe_experts > 0:
+        ffn = moe_top_k * ffn_mult * 2 * d_model * d_ff
+        router = 2 * d_model * moe_experts
+        ffn += router
+    else:
+        ffn = ffn_mult * 2 * d_model * d_ff
+    return float(qkv + attn_out + scores + ffn)
+
+
+def transformer_profile(name: str, num_layers: int, d_model: int, n_heads: int,
+                        n_kv: int, d_ff: int, vocab: int, seq_len: int,
+                        dtype_bytes: int = 2, d_head: int | None = None,
+                        moe_experts: int = 0, moe_top_k: int = 0,
+                        optimizer_mult: float = 2.0, ffn_mult: int = 3,
+                        param_dtype_bytes: int = 4) -> ModelProfile:
+    """Profile of a decoder-only transformer as a chain of I = L + 2 'layers':
+
+      layer 1      = embedding (lookup; negligible FLOPs, big params)
+      layers 2..L+1 = transformer blocks
+      layer L+2    = final norm + LM head (2 * d * V FLOPs/token)
+
+    Per-sample quantities are per *sequence* (seq_len tokens), matching the
+    paper's per-data-sample accounting.
+    """
+    d_head = d_head or d_model // n_heads
+    blk_flops = transformer_layer_flops(
+        d_model, n_heads, n_kv, d_ff, seq_len, d_head, moe_experts, moe_top_k,
+        ffn_mult) * seq_len
+    if moe_experts > 0:
+        blk_params = ((n_heads + 2 * n_kv) * d_head * d_model +
+                      n_heads * d_head * d_model +
+                      moe_experts * ffn_mult * d_model * d_ff +
+                      d_model * moe_experts) * param_dtype_bytes
+    else:
+        blk_params = ((n_heads + 2 * n_kv) * d_head * d_model +
+                      n_heads * d_head * d_model +
+                      ffn_mult * d_model * d_ff) * param_dtype_bytes
+    act = d_model * seq_len * dtype_bytes  # boundary activation: (seq, d)
+
+    fp = [1e6] + [blk_flops] * num_layers + [2.0 * d_model * vocab * seq_len]
+    bp = [2e6] + [2.0 * blk_flops] * num_layers + [4.0 * d_model * vocab
+                                                   * seq_len]
+    acts = [act] * (num_layers + 1) + [vocab * seq_len * dtype_bytes]
+    grads = list(acts)
+    params = ([vocab * d_model * param_dtype_bytes] +
+              [blk_params] * num_layers +
+              [vocab * d_model * param_dtype_bytes])
+    opt = [p * optimizer_mult for p in params]
+    return ModelProfile(
+        name=name,
+        fp_work=np.array(fp), bp_work=np.array(bp),
+        act_bytes=np.array(acts), grad_bytes=np.array(grads),
+        param_bytes=np.array(params, dtype=float),
+        opt_bytes=np.array(opt, dtype=float),
+    )
+
+
 def uniform_profile(num_layers: int, fp: float = 1.0, bp: float = 2.0,
                     act: float = 1.0, param: float = 1.0,
                     name: str = "uniform") -> ModelProfile:
@@ -188,3 +263,12 @@ def random_profile(rng: np.random.Generator, num_layers: int,
         act_bytes=draw(1e6), grad_bytes=draw(1e6),
         param_bytes=draw(1e7), opt_bytes=draw(1e7),
     )
+
+
+def flops_summary(profile: ModelProfile) -> dict:
+    return {
+        "layers": profile.num_layers,
+        "fp_total": float(profile.w_cum()[-1]),
+        "bp_total": float(profile.rho_cum()[-1]),
+        "param_bytes": float(profile.param_cum()[-1]),
+    }

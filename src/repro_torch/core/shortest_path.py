@@ -38,8 +38,24 @@ leading axis, and each phase is one sweep over all b — the full-graph and
 reconstruction sweeps in plain torch, the min-max sweep and the
 (b, threshold) window sweep as one K1 launch each (``graph=``).
 
-``Planner.update`` (warm replans) and the reference's jax backend are not
-ported yet.
+Backends (``solve`` / ``solve_many``'s ``backend=``): ``"exact"`` (the
+default; the above, float64 throughout — the reference's ``"numpy"`` and
+``"pallas"``) and ``"device"`` (the reference's ``"jax"``): the batched
+device planner of :mod:`~repro_torch.core.planner_device`, which assembles
+the graphs from the factory's basis tensors in ``dtype`` (float32 by
+default, or float64, then bit-identical to ``"exact"``) and sweeps every
+(b, threshold) slice of a phase in one K1 launch.
+
+Warm replans: ``Planner.update(delta)`` applies a rate change or a
+straggler to the cached graphs in place (bitwise equal to a fresh
+assembly) and keeps each solved (b, B, K)'s hint — its path and lower
+bounds of dist(inf) and beta*, scaled by how far any edge can have shrunk.
+The next ``solve`` then runs ``_solve_warm``: the hinted path repriced
+gives an upper bound, and one window sweep between the bounds (plain torch
+keeping each layer's dist for up to 32 thresholds, else one K1 launch and
+one single-threshold stack sweep) plus a backtrace from the dist stack
+return the cold solve's result bit for bit.  A node failure or a snapshot
+rebuilds everything.
 """
 
 from __future__ import annotations
@@ -88,15 +104,17 @@ class MSPResult:
 # ---------------------------------------------------------------------------
 
 class _SweepResult:
-    __slots__ = ("best_val", "best_k", "best_m", "parents")
+    __slots__ = ("best_val", "best_k", "best_m", "parents", "stack")
 
-    def __init__(self, best_val, best_k, best_m, parents):
+    def __init__(self, best_val, best_k, best_m, parents, stack=None):
         self.best_val, self.best_k, self.best_m = best_val, best_k, best_m
         self.parents = parents
+        self.stack = stack          # per-layer dist tensors (want_stack)
 
 
 def _sweep(Ccom, Bcom, Sseg, Bseg, src_cost, src_beta, K, ts, *,
-           mode="sum", masks=None, want_parents=True) -> _SweepResult:
+           mode="sum", masks=None, want_parents=True,
+           want_stack=False) -> _SweepResult:
     """Threshold-batched layered-DP sweep over the (k, n, i) DAG.
 
     Tensor layouts (a leading slice axis of size 1 broadcasts, size S runs
@@ -116,7 +134,11 @@ def _sweep(Ccom, Bcom, Sseg, Bseg, src_cost, src_beta, K, ts, *,
     and then the smallest i (the first minimum), as the reference's
     ``np.argmin`` does.  ``best_*`` stay on the device; with
     ``want_parents`` the per-layer parents come back to the host as a list
-    of ``(Ap, Sp)`` numpy pairs.
+    of ``(Ap, Sp)`` numpy pairs.  ``want_stack`` keeps every layer's
+    ``dist`` on the device (``stack[k - 2]`` = dist after layer k, shape
+    (S, N, I+1)), so a path is rebuilt afterwards by
+    ``planner_device.backtrace_stack`` without tracking parents — the
+    warm-replan and device-backend reconstruction path.
     """
     S = ts.shape[0]
     N, I1 = Ccom.shape[1], Ccom.shape[2]
@@ -134,6 +156,7 @@ def _sweep(Ccom, Bcom, Sseg, Bseg, src_cost, src_beta, K, ts, *,
     best_k = fin0.long()
     best_m = torch.zeros(S, dtype=torch.long, device=dev)
     Aps, Sps = [], []
+    stack = [] if want_stack else None
 
     # the threshold mask is layer-independent: fold beta > t edges to inf
     t4 = ts[:, None, None, None]
@@ -160,6 +183,8 @@ def _sweep(Ccom, Bcom, Sseg, Bseg, src_cost, src_beta, K, ts, *,
         else:
             nd = cand_s.amin(dim=1)
         dist = nd
+        if want_stack:
+            stack.append(nd)
         if N > 1:
             v, arg = torch.min(nd[:, 1:, I], dim=1)
             upd = v < best_val
@@ -174,7 +199,13 @@ def _sweep(Ccom, Bcom, Sseg, Bseg, src_cost, src_beta, K, ts, *,
         Ap_all = torch.stack(Aps).cpu().numpy()
         Sp_all = torch.stack(Sps).cpu().numpy()
         parents = list(zip(Ap_all, Sp_all))
-    return _SweepResult(best_val, best_k, best_m, parents)
+    return _SweepResult(best_val, best_k, best_m, parents, stack)
+
+
+def stack_column(stack: list, s: int) -> np.ndarray:
+    """Slice ``s`` of a ``want_stack`` sweep's per-layer dist tensors as one
+    host array (layers, N, I+1): a single device-to-host copy."""
+    return torch.stack([layer[s] for layer in stack]).cpu().numpy()
 
 
 def _walk_parents(parents, s: int, k: int, m: int, j: int) -> list:
@@ -274,6 +305,7 @@ class _LayeredDP:
         self._src_cost = torch.where(src_ok, g.src_cost, _INF)
         self._src_beta = torch.where(src_ok, g.src_beta, _INF)
         self._dense_beta = None          # legacy dense edge betas, on demand
+        self._mirror = None              # host copy for backtraces, on demand
         return self
 
     # -- restriction masks ---------------------------------------------------
@@ -313,13 +345,24 @@ class _LayeredDP:
                                device=self._Ccom.device).reshape(-1)
 
     # -- sweeps --------------------------------------------------------------
-    def sweep(self, ts, *, mode="sum", want_parents=True) -> _SweepResult:
+    def sweep(self, ts, *, mode="sum", want_parents=True,
+              want_stack=False) -> _SweepResult:
         """Plain-torch sweep at every threshold in ``ts``, masked when the
-        DP is restricted; with parents unless ``want_parents`` is False."""
+        DP is restricted; with parents unless ``want_parents`` is False,
+        with the per-layer dist stack if ``want_stack``."""
         return _sweep(*(x[None] for x in self._kernel_args()[:6]), self.K,
                       self._ts(ts), mode=mode,
                       masks=self._masks if self.restricted else None,
-                      want_parents=want_parents)
+                      want_parents=want_parents, want_stack=want_stack)
+
+    def mirror(self) -> tuple:
+        """The bound float64 graph tensors in backtrace layout
+        (``planner_device.backtrace_stack``) as host numpy arrays, copied
+        once per bind."""
+        if self._mirror is None:
+            self._mirror = tuple(x.cpu().numpy()
+                                 for x in self._kernel_args()[:6])
+        return self._mirror
 
     def run(self, t: float):
         """Shortest path with all edge betas <= t. Returns (dist, path)."""
@@ -444,8 +487,12 @@ class Planner:
     on one device (``"cuda"`` unless the caller passes ``device="cpu"``).
 
     Holds the :class:`~repro_torch.core.msp_graph.GraphFactory` plus the DP
-    buffers, so repeated solves — BCD iterations, multi-start restarts —
-    share all structural work, and memoizes solve results.
+    buffers, so repeated solves — BCD iterations, multi-start restarts,
+    replans after :meth:`update` — share all structural work, and memoizes
+    solve results.  ``backend`` picks how the parent-free sweeps run:
+    ``"exact"`` (float64 through K1, the default) or ``"device"`` (the
+    batched device planner of :mod:`~repro_torch.core.planner_device`, in
+    ``dtype``).
     """
 
     def __init__(self, profile: ModelProfile, net: EdgeNetwork,
@@ -457,6 +504,10 @@ class Planner:
         self._graphs: dict = {}
         self._dps: dict = {}
         self._solved: dict = {}
+        self._epoch = 0                 # bumped by every update()
+        self._device_dps: dict = {}     # (K, dtype) -> DeviceDP
+        self._mirrors: dict = {}        # (b, dtype) -> host-mirror arrays
+        self._hints: dict = {}          # (b, B, K) -> warm-start hint
 
     # -- caches -------------------------------------------------------------
     def graph(self, b: int) -> MSPGraph:
@@ -488,6 +539,133 @@ class Planner:
             return K
         return min(1 + self.net.num_servers, self.profile.num_layers)
 
+    def _device_dp(self, K: int, dtype):
+        """The device backend's state for this factory (cached)."""
+        from .planner_device import DeviceDP
+        ddp = self._device_dps.get((K, dtype))
+        if ddp is None:
+            ddp = DeviceDP(self.factory, K, dtype)
+            self._device_dps[(K, dtype)] = ddp
+        return ddp
+
+    def _device_mirrors(self, bs: list, ddp) -> list:
+        """Host mirrors of the graphs the device backend ``ddp`` assembles
+        for every b in ``bs`` (cached; the missing ones in one call)."""
+        dt = ddp.dtype
+        missing = sorted({b for b in bs if (b, dt) not in self._mirrors})
+        if missing:
+            effs = np.stack([self.factory.effective_batch(b)
+                             for b in missing])
+            for b, m in zip(missing, ddp.mirrors(effs)):
+                self._mirrors[(b, dt)] = m
+        return [self._mirrors[(b, dt)] for b in bs]
+
+    # -- incremental updates ------------------------------------------------
+    def update(self, delta) -> "Planner":
+        """Apply a single-resource delta *in place* and invalidate exactly
+        what it touched — the warm-replan entry point.
+
+        ``delta`` is duck-typed against the ``ft`` events (the port's or the
+        reference's):
+
+          - ``RateChange``-like (``n_from``/``n_to``/``factor``): the rate
+            mutation is replayed float op for float op, the factory's rate
+            tensors are swapped, and each cached graph's comm columns for
+            the (n_from, n_to) **pair** (both directions use the link) are
+            re-assembled by ``GraphFactory.comm_pair`` — bitwise equal to a
+            fresh assembly on the mutated network.
+          - ``Straggler``-like (``node``/``slowdown``): the node-speed
+            mutation, patching that node's seg rows (``seg_node``) and, for
+            the client tier, the source vectors.
+          - ``NodeFailure``-like (``server``): renumbering — everything is
+            rebuilt on ``net.degraded([server])`` (shapes change).
+          - ``Resync``-like (``net``): full rebuild on the snapshot.
+
+        A patched graph is a new ``MSPGraph`` object sharing the patched
+        tensors, so a cached DP sees ``dp.g is not g`` and rebinds.  Warm
+        hints survive a patch with their lower bounds scaled by ``r_min`` —
+        the largest factor by which any edge weight may have *shrunk* (1 /
+        factor for a rate increase, the slowdown for a node speed-up, 1
+        otherwise) — so they still bound the new ``dist(inf)`` and
+        ``beta*`` from below and the next ``solve`` runs one windowed sweep
+        instead of a cold Algorithm 1 (``_solve_warm``).  Returns ``self``.
+        """
+        if hasattr(delta, "server"):                      # NodeFailure
+            obs.inc("planner.updates[rebuild]")
+            self._rebuild(self.net.degraded([delta.server]))
+            return self
+        if hasattr(delta, "factor"):                      # RateChange
+            obs.inc("planner.updates[rate]")
+            rate = self.net.rate.copy()
+            rate[delta.n_from, delta.n_to] *= delta.factor
+            self.net = dataclasses.replace(self.net, rate=rate)
+            self.factory.patch_rate(self.net)
+            u, v = int(delta.n_from), int(delta.n_to)
+            for b, g in list(self._graphs.items()):
+                eff = self.factory.effective_batch(b)
+                for (a, c) in {(u, v), (v, u)}:
+                    cost, beta = self.factory.comm_pair(eff, a, c)
+                    g.comm_cost[:, a, c] = cost
+                    g.comm_beta[:, a, c] = beta
+                self._graphs[b] = dataclasses.replace(g, net=self.net)
+            r_min = min(1.0, 1.0 / delta.factor) if delta.factor > 0 else 0.0
+            self._after_patch(r_min)
+            return self
+        if hasattr(delta, "slowdown"):                    # Straggler
+            obs.inc("planner.updates[speed]")
+            w = int(delta.node)
+            self.net = dataclasses.replace(
+                self.net,
+                nodes=[dataclasses.replace(n, f=n.f / delta.slowdown)
+                       if i == w else n
+                       for i, n in enumerate(self.net.nodes)])
+            self.factory.patch_node_speed(self.net)
+            for b, g in list(self._graphs.items()):
+                eff = self.factory.effective_batch(b)
+                sc, sb = self.factory.seg_node(eff, w)
+                g.seg_cost[w] = sc
+                g.seg_beta[w] = sb
+                kw = {"net": self.net}
+                if w == 0:
+                    kw["src_cost"] = sc[0].clone()
+                    kw["src_beta"] = sb[0].clone()
+                self._graphs[b] = dataclasses.replace(g, **kw)
+            r_min = min(1.0, float(delta.slowdown))
+            self._after_patch(r_min)
+            return self
+        if getattr(delta, "net", None) is not None:       # Resync snapshot
+            obs.inc("planner.updates[rebuild]")
+            self._rebuild(delta.net)
+            return self
+        raise TypeError(f"unsupported planner delta: {delta!r}")
+
+    def _after_patch(self, r_min: float) -> None:
+        """Invalidate what an in-place patch touched: solve memos, host
+        mirrors and the device backends' copies of rate / f.  Hints survive
+        with their lower bounds scaled by ``r_min``."""
+        self._epoch += 1
+        self._solved.clear()
+        self._mirrors.clear()
+        for ddp in self._device_dps.values():
+            ddp.refresh()
+        for h in self._hints.values():
+            h["lb_dist"] *= r_min
+            h["lb_beta"] *= r_min
+
+    def _rebuild(self, net: EdgeNetwork) -> None:
+        """Full invalidation (renumbering / snapshot): a new factory, every
+        cache dropped; hints die with the old node indices."""
+        self._epoch += 1
+        self.net = net
+        self.factory = GraphFactory(self.profile, net, self.memory_model,
+                                    self.device)
+        self._graphs.clear()
+        self._dps.clear()
+        self._solved.clear()
+        self._mirrors.clear()
+        self._device_dps.clear()
+        self._hints.clear()
+
     # -- result assembly ----------------------------------------------------
     def _finish(self, g: MSPGraph, dist, path, b, B, xi, sweeps, solver):
         profile, net = self.profile, self.net
@@ -511,14 +689,21 @@ class Planner:
     def solve(self, b: int, B: int, K: int | None = None,
               restrict_cuts: Sequence[int] | None = None,
               restrict_placement: Sequence[int] | None = None,
-              solver: str | None = None) -> MSPResult:
+              solver: str | None = None, backend: str = "exact",
+              dtype=torch.float32) -> MSPResult:
+        """One Algorithm-1 call.  ``backend="device"`` sweeps the threshold
+        window in ``dtype`` on graphs the device backend assembles (float32
+        by default); every other sweep, the result and its objective stay
+        float64."""
         solver = solver or DEFAULT_SOLVER
+        _check_backend(backend, dtype)
         K = self.default_K(K)
         rc = tuple(restrict_cuts) if restrict_cuts else None
         rp = tuple(restrict_placement) if restrict_placement else None
         # Algorithm-1 solves are deterministic in these arguments, and the
         # BCD alternation re-requests the same (b, B) repeatedly
-        key = (b, B, K, rc, rp, solver)
+        key = (b, B, K, rc, rp, solver, backend,
+               dtype if backend == "device" else None)
         hit = self._solved.get(key)
         if hit is not None:
             obs.inc("planner.solve_memo_hit")
@@ -531,7 +716,19 @@ class Planner:
             if solver == "scan":
                 res = self._solve_scan(dp, g, b, B, xi)
             elif solver == "batched":
-                res = self._solve_batched(dp, g, b, B, xi)
+                res = None
+                hint = (self._hints.get((b, B, K))
+                        if rc is None and rp is None and backend == "exact"
+                        else None)
+                if hint is not None and xi > 0:
+                    res = self._solve_warm(dp, g, b, B, xi, hint)
+                if res is not None:
+                    obs.inc("planner.incremental_hits")
+                else:
+                    if rc is None and rp is None:
+                        obs.inc("planner.cold_solves")
+                    res = self._solve_batched(dp, g, b, B, xi, backend,
+                                              dtype)
             else:
                 raise ValueError(
                     f"unknown solver {solver!r} (want 'scan'|'batched')")
@@ -587,9 +784,10 @@ class Planner:
         return self._finish(g, best_pair[0], best_pair[1], b, B, xi, sweeps,
                             "scan")
 
-    def _solve_batched(self, dp: _LayeredDP, g: MSPGraph, b, B,
-                       xi) -> MSPResult:
-        """Threshold-batched Algorithm 1 (see module docstring)."""
+    def _solve_batched(self, dp: _LayeredDP, g: MSPGraph, b, B, xi,
+                       backend="exact", dtype=torch.float32) -> MSPResult:
+        """Threshold-batched Algorithm 1 (see module docstring).  An
+        unrestricted exact solve leaves a warm-start hint for ``update``."""
         dist_full, path_full = dp.run(math.inf)
         sweeps = 1
         if xi == 0:
@@ -608,7 +806,7 @@ class Planner:
         window = dp.betas_window(beta_star, cap * (1 + 1e-12) + 1e-12)
         if window.numel() == 0:                # numerical corner: fall back
             window = dp._ts([beta_star])
-        dvals = dp.dist_at(window)
+        dvals = self._dist_window(dp, window, backend, dtype)
         sweeps += 1
         j = int(torch.argmin(dvals + xi * window))   # first minimum
         t_hat = float(window[j])
@@ -617,23 +815,103 @@ class Planner:
         else:
             d_hat, p_hat = dp.run(t_hat)
             sweeps += 1
+        if backend == "exact" and not dp.restricted and p_hat is not None:
+            self._hints[(b, B, dp.K)] = {"lb_dist": dist_full,
+                                         "lb_beta": beta_star,
+                                         "path": list(p_hat)}
         return self._finish(g, d_hat, p_hat, b, B, xi, sweeps, "batched")
 
+    def _dist_window(self, dp: _LayeredDP, window, backend: str,
+                     dtype) -> torch.Tensor:
+        """The window sweep, by backend: ``"exact"`` is ``dp.dist_at`` (one
+        float64 K1 launch); ``"device"`` is ``planner_device.
+        dist_at_device`` (one K1 launch on the device backend's graph in
+        ``dtype``).  A restricted DP runs the masked plain sweep under
+        either (``planner.masked_sweeps``), as the reference keeps it on
+        numpy under every backend."""
+        if backend == "device":
+            from .planner_device import dist_at_device
+            return dist_at_device(dp, window, self, dtype)
+        return dp.dist_at(window)
+
+    def _solve_warm(self, dp: _LayeredDP, g: MSPGraph, b, B, xi,
+                    hint: dict):
+        """Warm-started Algorithm 1 from a surviving hint — bit-identical to
+        the cold batched solve, in a fraction of its sweeps.
+
+        The hint carries a known-valid path (the previous optimum, repriced
+        here on the patched graph -> upper bound UB) and scaled lower bounds
+        ``lb_dist <= dist(inf)`` and ``lb_beta <= beta*``.  Every global
+        minimizer t of dist(t) + xi*t then lies in
+        ``[lb_beta, (UB - lb_dist) / xi]``: t >= beta* >= lb_beta, and
+        xi*t = OPT - dist(t) <= UB - dist(inf) <= UB - lb_dist.  The cold
+        solver's window is pruned by the same argument with its own bounds,
+        so both windows contain every global minimizer, the first-minimum
+        argmin lands on the same smallest minimizing threshold, and the
+        path rebuilt there is the cold solve's, with the same floats.
+
+        A window of at most 32 thresholds is swept once, in plain torch,
+        keeping each layer's dist; a larger one goes through K1
+        (``dp.dist_at``) and then one single-threshold stack sweep at the
+        winner.  The path is rebuilt from the stack by
+        ``planner_device.backtrace_stack``.  Returns None (the caller
+        solves cold) when the hinted path went infeasible or a numerical
+        corner empties the window."""
+        from .planner_device import backtrace_stack, reprice_dp_order
+
+        cost, beta_p = reprice_dp_order(g, hint["path"])
+        if not (math.isfinite(cost) and math.isfinite(beta_p)):
+            return None
+        ub = cost + xi * beta_p
+        cap = (ub - hint["lb_dist"]) / xi
+        window = dp.betas_window(hint["lb_beta"], cap * (1 + 1e-12) + 1e-12)
+        if window.numel() == 0:
+            return None
+        fused = window.numel() <= 32
+        if fused:
+            out = dp.sweep(window, want_parents=False, want_stack=True)
+            dvals = out.best_val
+        else:
+            dvals = dp.dist_at(window)
+        j = int(torch.argmin(dvals + xi * window))   # first minimum
+        t_hat = float(window[j])
+        if not math.isfinite(float(dvals[j])):
+            return None
+        if not fused:
+            out = dp.sweep([t_hat], want_parents=False, want_stack=True)
+            j = 0
+        best_k = int(out.best_k[j])
+        if best_k == 0:
+            return None
+        path = backtrace_stack(stack_column(out.stack, j), dp.mirror(),
+                               t_hat, best_k, int(out.best_m[j]), dp.I)
+        self._hints[(b, B, dp.K)]["path"] = list(path)
+        return self._finish(g, float(out.best_val[j]), path, b, B, xi,
+                            1 if fused else 2, "batched")
 
     # -- batched micro-batch sweep (exhaustive_joint's inner loop) ----------
-    def solve_many(self, bs: Sequence[int], B: int,
-                   K: int | None = None) -> list:
+    def solve_many(self, bs: Sequence[int], B: int, K: int | None = None,
+                   backend: str = "exact", dtype=torch.float32) -> list:
         """Algorithm 1 for every micro-batch size in ``bs`` at once.
 
-        The graphs of every b are stacked on a leading axis, and each phase
-        runs once for all b: the full-graph runs, the beta* probes and the
-        reconstructions as stacked parent-tracking sweeps, the min-max
-        beta* sweep and the sweep over every (b, threshold) window pair as
-        one K1 launch each.  Results are bit-identical to ``[self.solve(b,
-        B, K, solver="batched") for b in bs]``."""
+        ``backend="exact"``: the graphs of every b are stacked on a leading
+        axis, and each phase runs once for all b — the full-graph runs, the
+        beta* probes and the reconstructions as stacked parent-tracking
+        sweeps, the min-max beta* sweep and the sweep over every
+        (b, threshold) window pair as one K1 launch each.  Results are
+        bit-identical to ``[self.solve(b, B, K, solver="batched") for b in
+        bs]``.  ``backend="device"`` runs
+        :func:`~repro_torch.core.planner_device.solve_many_device` in
+        ``dtype`` (bit-identical in float64; float32 within the reference's
+        float32 contract)."""
+        _check_backend(backend, dtype)
         bs = list(bs)
-        with obs.span("planner.solve_many", n=len(bs), B=B):
-            results = self._solve_many(bs, B, K)
+        with obs.span("planner.solve_many", n=len(bs), B=B, backend=backend):
+            if backend == "device":
+                from .planner_device import solve_many_device
+                results = solve_many_device(self, bs, B, K, dtype)
+            else:
+                results = self._solve_many(bs, B, K)
         obs.inc("planner.dp_sweeps",
                 sum(r.thresholds_scanned for r in results))
         return results
@@ -736,6 +1014,18 @@ class Planner:
                 results[s] = self._finish(graphs[s], valP[q], paths_star[q],
                                           bs[s], B, xi[s], 4, "batched")
         return results
+
+
+BACKENDS = ("exact", "device")
+
+
+def _check_backend(backend: str, dtype) -> None:
+    if backend not in BACKENDS:
+        raise ValueError(f"unknown backend {backend!r} (want one of "
+                         f"{BACKENDS})")
+    if dtype not in (torch.float32, torch.float64):
+        raise ValueError(f"dtype must be torch.float32 or torch.float64, "
+                         f"not {dtype}")
 
 
 def solve_msp(profile: ModelProfile, net: EdgeNetwork, b: int, B: int,

@@ -15,8 +15,10 @@ import torch
 
 import repro_torch
 from repro_torch import obs
-from repro_torch.core import (Planner, bcd_solve, make_edge_network,
-                              no_pipeline, ours, uniform_profile)
+from repro_torch.core import (Planner, bcd_solve, exhaustive_joint,
+                              make_edge_network, no_pipeline, ours,
+                              uniform_profile)
+from repro_torch.ft import Coordinator
 from repro_torch.pipeline import SplitLearningExecutor
 from repro_torch.sim import FIFO, OneFOneB, resolve_policy
 
@@ -43,8 +45,8 @@ def test_port_imports_neither_jax_nor_repro(path):
 
 def test_scan_finds_every_port_module():
     names = {p.name for p in PORT_FILES}
-    assert {"shortest_path.py", "kernel.py", "executor.py",
-            "chip_smoke.py"} <= names
+    assert {"shortest_path.py", "planner_device.py", "coordinator.py",
+            "kernel.py", "executor.py", "chip_smoke.py"} <= names
 
 
 def test_default_device_raises_without_gpu(monkeypatch):
@@ -61,6 +63,26 @@ def test_default_device_raises_without_gpu(monkeypatch):
     with pytest.raises(RuntimeError, match="device='cpu'"):
         SplitLearningExecutor(plan, prof, net)
     assert repro_torch.resolve_device("cpu") == torch.device("cpu")
+
+
+@pytest.mark.parametrize("entry", ["coordinator", "solve_many_device",
+                                   "exhaustive_joint_device"])
+def test_replanning_entry_points_raise_without_gpu(entry, monkeypatch):
+    """The coordinator and the device backend run on cuda by default: they
+    raise without a GPU unless given device="cpu", and then run."""
+    prof = uniform_profile(4)
+    net = make_edge_network(2, 2, seed=0)
+    calls = {
+        "coordinator": lambda dev: Coordinator(prof, net, B=8, **dev).plan,
+        "solve_many_device": lambda dev: Planner(prof, net, **dev)
+        .solve_many([2, 4], 8, backend="device")[0],
+        "exhaustive_joint_device": lambda dev: exhaustive_joint(
+            prof, net, 8, backend="device", **dev),
+    }
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        calls[entry]({})
+    assert calls[entry]({"device": "cpu"}).feasible
 
 
 def test_planner_on_another_device_is_refused():
