@@ -59,6 +59,27 @@ and exits non-zero:
              then ft.Coordinator on the quickstart (B = 512) through
              RateChange(1, 2, 0.25), Straggler(6, 3.0) and NodeFailure(1),
              each plan (solution, b, L_t) equal to the CPU coordinator's
+ 4d. sim     the simulator's engines on the card (repro_torch.sim), on
+             instances rebuilt with the port's constructors: (a) the
+             quickstart plan (ours, B = 512) on the event and vectorized
+             engines under fifo / 1f1b / memory admission, on the constant
+             network and a Gauss-Markov scenario (cv 0.3, seed 0):
+             vectorized within 1e-9 of event, cuda within rtol 1e-12 of
+             the CPU, cross_validate ok at rtol 1e-6 on it and on
+             cross_validate_many(20); (b) the reference's engine-scaling
+             chain (100 nodes, one stage each, 10,000 micro-batches: 3.98 M
+             tasks) on the vectorized engine, fifo and 1f1b: Eq. (12)-(14)
+             within rtol 1e-6 under fifo (Eq. (12) under 1f1b, and 1f1b
+             against the event engine at 200 micro-batches), cuda within
+             1e-12 of the CPU, walls and peak device memory; (c) the
+             Gauss-Markov trace chain (8 nodes x 10,000): vectorized
+             against event on cuda within 1e-9, both walls; (d)
+             simulate_plans over the quickstart plan at b = 1..64: stacked
+             equal to 64 looped calls and to the CPU within 1e-12, both
+             walls; (e) simulate_with_replanning on the quickstart with a
+             Straggler and a RateChange: 2 replans, every segment's plan
+             equal to the CPU run's, the makespan within 1e-12, K1
+             launched (sim_replan_launches in the kernels line)
   5. train   one VGG-16 round on cuda matches the CPU (TF32 off), also with
              int8 and top-k link hooks; then a few rounds at the B=512
              plan, timed
@@ -116,9 +137,10 @@ and exits non-zero:
              tokens each; K2 launched 8 x 28 = 224 times; prefill ms per
              request, decode tokens/s, peak device memory
 
-The next-to-last line is a JSON object with the kernels' measurements; the
-last is ``{"ok": true, "device": {...}}``.  Imports nothing of JAX or of
-the JAX package ``repro``.
+A line ``{"sim": ..., "card": ...}`` carries phase 4d's walls, device busy
+times and peak memory.  The next-to-last line is a JSON object with the
+kernels' measurements; the last is ``{"ok": true, "device": {...}}``.
+Imports nothing of JAX or of the JAX package ``repro``.
 
     python3 chip_smoke.py --time-k1 [--src OTHER_CHECKOUT/src]
     python3 chip_smoke.py --time-k3 [--src OTHER_CHECKOUT/src]
@@ -223,11 +245,13 @@ PROFILE_TRIES = 4
 PROFILER_STATS = {"calls": 0, "retried_sessions": 0, "event_fallbacks": 0}
 
 
-def device_ms(fn, reps: int = 50) -> float:
+def device_ms(fn, reps: int = 50, host_events: bool = True) -> float:
     """Mean device time per call of the kernels ``fn`` launches: the CUDA
     kernel events of ``torch.profiler`` over ``reps`` calls, summed.  Unlike
     ``cuda_ms`` it leaves out the gaps in which the device waits for the
-    host to dispatch the next launch.
+    host to dispatch the next launch.  ``host_events=False`` traces the
+    device alone (a run of ~10^5 launches, whose host events would take the
+    profiler longer to collect than the run).
 
     A short session (50 launches of one 0.01 ms kernel and nothing else)
     can come back with no device event at all.  Each session is padded
@@ -241,8 +265,8 @@ def device_ms(fn, reps: int = 50) -> float:
     fn()
     torch.cuda.synchronize()
     for attempt in range(PROFILE_TRIES):
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
+        with profile(activities=[ProfilerActivity.CUDA]
+                     + [ProfilerActivity.CPU] * host_events) as prof:
             time.sleep(PROFILE_PAD_S)
             for _ in range(reps):
                 fn()
@@ -932,6 +956,280 @@ def f32_contract(want, got) -> bool:
         and got.b == want.b)
 
 
+#: phase 4d's tolerances: the reference's engine parity (compare_engines),
+#: cuda against the CPU, and Eq. (12)-(14) (cross_validate)
+SIM_ENGINE_TOL = 1e-9
+SIM_DEVICE_RTOL = 1e-12
+SIM_EQ14_RTOL = 1e-6
+
+
+def sim_gap(want, got) -> float:
+    """Largest relative gap between two float64 tensors (any devices)."""
+    w = want.detach().cpu().double()
+    g = got.detach().cpu().double()
+    if w.numel() == 0:
+        return 0.0
+    return float(((w - g).abs() / w.abs().clamp(min=1e-30)).max())
+
+
+def sim_device_gap(cuda_rep, cpu_rep) -> float:
+    """cuda against the CPU over ``mb_complete`` and, for a vectorized run,
+    the dense ``starts`` / ``ends``."""
+    gaps = [sim_gap(cpu_rep.mb_complete, cuda_rep.mb_complete)]
+    if cuda_rep.timeline is not None:
+        gaps += [sim_gap(cpu_rep.timeline.starts, cuda_rep.timeline.starts),
+                 sim_gap(cpu_rep.timeline.ends, cuda_rep.timeline.ends)]
+    return max(gaps)
+
+
+def scale_chain(core, num_nodes: int = 100, num_microbatches: int = 10_000,
+                b: int = 4) -> tuple:
+    """The reference's engine-scaling chain
+    (``benchmarks/sweep_grid.py::scale_instance``) from the port's own
+    constructors: ``num_nodes`` identical stages, one per node (f = 100,
+    no fixed latencies), links of 1e4 bytes/s, ``uniform_profile(fp=1,
+    bp=1, act=1)``.  Returns (profile, net, solution, b, Q)."""
+    S = num_nodes
+    prof = core.uniform_profile(S, fp=1.0, bp=1.0, act=1.0)
+    nodes = [core.Node("clients", f=100.0, t0=0.0, t1=0.0, b_th=0,
+                       is_client=True)]
+    nodes += [core.Node(f"s{i}", f=100.0, t0=0.0, t1=0.0, b_th=0)
+              for i in range(1, S)]
+    rate = np.full((S, S), 1e4)
+    np.fill_diagonal(rate, 0.0)
+    net = core.EdgeNetwork(nodes=nodes, rate=rate, num_clients=1)
+    sol = core.SplitSolution(cuts=tuple(range(1, S + 1)),
+                             placement=tuple(range(S)))
+    return prof, net, sol, b, num_microbatches
+
+
+def trace_chain(core, sim, num_nodes: int = 8,
+                num_microbatches: int = 10_000, cv: float = 0.3,
+                seed: int = 0) -> tuple:
+    """The reference's trace chain (``benchmarks/bench_sim.py::
+    trace_instance``): the scaling chain under a Gauss-Markov multiplier
+    trace on every node and link (``dt = horizon / 256``)."""
+    prof, net, sol, b, Q = scale_chain(core, num_nodes, num_microbatches)
+    horizon = 4.0 * (num_microbatches / 50.0 + num_nodes)
+    scen = sim.gauss_markov_scenario(net, cv, np.random.default_rng(seed),
+                                     dt=horizon / 256, horizon=horizon)
+    return prof, net, sol, b, Q, scen
+
+
+def sim_phase(core, minplus, profile, net, plan) -> dict:
+    """Phase 4d: the simulator's engines on the card (module docstring).
+    Raises on any failed check; returns the walls, the peak device memory
+    and K1's launches during the replanning run."""
+    from repro_torch import ft, sim
+    from repro_torch.core import latency as lat
+    out = {}
+    sol, b = plan.solution, plan.b
+    # (a) the quickstart plan: both engines, three policies, two networks
+    base = sim.simulate_plan(profile, net, sol, b, B=512, device="cuda")
+    L = base.L_t
+    gm = sim.gauss_markov_scenario(net, 0.3, np.random.default_rng(0),
+                                   dt=L / 16, horizon=4 * L)
+    quick = {}
+    for scen_name, scen in (("constant", None), ("gauss_markov", gm)):
+        for pol in ("fifo", "1f1b", "memory"):
+            runs = {(eng, dev): sim.simulate_plan(
+                profile, net, sol, b, B=512, scenario=scen, policy=pol,
+                engine=eng, device=dev)
+                for eng in ("event", "vectorized") for dev in ("cuda", "cpu")}
+            vec = runs["vectorized", "cuda"]
+            if vec.engine != "vectorized" or \
+                    vec.mb_complete.device.type != "cuda":
+                raise AssertionError(f"sim (a) {scen_name}/{pol}: the "
+                                     "vectorized run did not stay on cuda")
+            g_ev = sim_gap(runs["event", "cuda"].mb_complete,
+                           vec.mb_complete)
+            g_dev = max(sim_device_gap(runs[eng, "cuda"], runs[eng, "cpu"])
+                        for eng in ("event", "vectorized"))
+            if not (g_ev < SIM_ENGINE_TOL and g_dev <= SIM_DEVICE_RTOL):
+                raise AssertionError(
+                    f"sim (a) {scen_name}/{pol}: vectorized vs event "
+                    f"{g_ev:.3e}, cuda vs cpu {g_dev:.3e}")
+            quick[f"{scen_name}/{pol}"] = {
+                "L_t": vec.L_t, "event_gap": g_ev, "cpu_gap": g_dev,
+                "reason": vec.engine_reason}
+            log(f"sim (a) quickstart {scen_name}/{pol}: Q="
+                f"{vec.num_microbatches} L_t={vec.L_t!r}; vectorized vs "
+                f"event {g_ev:.3e}, cuda vs cpu {g_dev:.3e} "
+                f"({vec.engine_reason})")
+    cv = sim.cross_validate(profile, net, sol, b, 512, rtol=SIM_EQ14_RTOL,
+                            device="cuda")
+    many = sim.cross_validate_many(20, rtol=SIM_EQ14_RTOL, device="cuda")
+    if not (cv.ok and all(c.ok for c in many)):
+        raise AssertionError(f"sim (a) cross_validate: {cv.max_rel_err}, "
+                             f"{[c.max_rel_err for c in many]}")
+    log(f"sim (a) cross_validate ok at rtol {SIM_EQ14_RTOL}: quickstart "
+        f"{cv.max_rel_err:.3e}, cross_validate_many(20) worst "
+        f"{max(c.max_rel_err for c in many):.3e}")
+    out["quickstart"] = quick
+
+    # (b) the engine-scaling chain: 100 nodes x 10,000 micro-batches
+    prof_s, net_s, sol_s, b_s, Q_s = scale_chain(core)
+    eq = (lat.fill_latency(prof_s, net_s, sol_s, b_s),
+          lat.pipeline_interval(prof_s, net_s, sol_s, b_s),
+          lat.total_latency(prof_s, net_s, sol_s, b_s, b_s * Q_s))
+    scale = {}
+    for pol in ("fifo", "1f1b"):
+        def run(dev, Q=Q_s, pol=pol):
+            return sim.simulate_plan(prof_s, net_s, sol_s, b_s,
+                                     num_microbatches=Q, policy=pol,
+                                     engine="vectorized", device=dev)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        walls = []
+        for _ in range(2):
+            rep, wall = timed(lambda: run("cuda"), "cuda")
+            walls.append(wall)
+        peak = torch.cuda.max_memory_allocated()
+        # the device's busy time in one run (profiler, kernels summed)
+        busy_ms = device_ms(lambda: run("cuda"), reps=1, host_events=False)
+        cpu_rep, cpu_wall = timed(lambda: run("cpu"), "cpu")
+        g_dev = sim_device_gap(rep, cpu_rep)
+        got = (rep.T_f, rep.T_i, rep.L_t)
+        rel = [abs(g - w) / abs(w) for g, w in zip(got, eq)]
+        # Eq. (13)/(14) hold for FIFO admission; 1F1B's window on the last
+        # stage serializes its FP and BP, so only Eq. (12)'s fill holds
+        checked = rel if pol == "fifo" else rel[:1]
+        if not (g_dev <= SIM_DEVICE_RTOL
+                and max(checked) <= SIM_EQ14_RTOL):
+            raise AssertionError(f"sim (b) {pol}: cuda vs cpu {g_dev:.3e}, "
+                                 f"Eq. (12)-(14) rel {rel}")
+        entry = {"walls_s": walls, "cpu_wall_s": cpu_wall,
+                 "device_busy_ms": busy_ms,
+                 "idle_share": 1.0 - busy_ms / 1e3 / min(walls),
+                 "peak_mib": peak / 2**20, "cpu_gap": g_dev,
+                 "T_f": rep.T_f, "T_i": rep.T_i, "L_t": rep.L_t,
+                 "eq_rel": rel, "reason": rep.engine_reason}
+        if pol == "1f1b":
+            # the window path against the heap at 200 micro-batches
+            short = sim.compare_engines(prof_s, net_s, sol_s, b_s, 200,
+                                        policy=pol, device="cuda")
+            if not short < SIM_ENGINE_TOL:
+                raise AssertionError(f"sim (b) 1f1b: vectorized vs event at "
+                                     f"Q = 200 {short:.3e}")
+            entry["event_gap_q200"] = short
+        scale[pol] = entry
+        log(f"sim (b) scaling chain 100 nodes x {Q_s} micro-batches "
+            f"({Q_s * len(sim.build_visit_table(prof_s, net_s, sol_s, b_s))}"
+            f" tasks), {pol}: T_f={rep.T_f!r} T_i={rep.T_i!r} "
+            f"L_t={rep.L_t!r} (Eq. 12-14 rel {[f'{x:.2e}' for x in rel]}); "
+            f"cuda vs cpu {g_dev:.3e}; wall on cuda "
+            f"{[round(w, 4) for w in walls]} s (device busy "
+            f"{busy_ms:.2f} ms of it: idle share {entry['idle_share']:.3f}),"
+            f" on cpu {cpu_wall:.4f} s; peak device memory "
+            f"{peak / 2**20:.1f} MiB"
+            + (f"; vectorized vs event at Q = 200: "
+               f"{entry['event_gap_q200']:.3e}" if pol == "1f1b" else ""))
+        del rep, cpu_rep
+    out["scale_chain"] = scale
+
+    # (c) the Gauss-Markov trace chain: 8 nodes x 10,000 micro-batches
+    prof_t, net_t, sol_t, b_t, Q_t, scen_t = trace_chain(core, sim)
+    traced = {}
+    for pol in ("fifo", "1f1b"):
+        def run(eng, dev, pol=pol):
+            return sim.simulate_plan(prof_t, net_t, sol_t, b_t,
+                                     num_microbatches=Q_t, scenario=scen_t,
+                                     policy=pol, engine=eng, device=dev)
+        ev, ev_wall = timed(lambda: run("event", "cuda"), "cuda")
+        vec, vec_wall = timed(lambda: run("vectorized", "cuda"), "cuda")
+        busy_ms = device_ms(lambda: run("vectorized", "cuda"), reps=1,
+                            host_events=False)
+        vec_cpu, vec_cpu_wall = timed(lambda: run("vectorized", "cpu"),
+                                      "cpu")
+        g_ev = sim_gap(ev.mb_complete, vec.mb_complete)
+        g_dev = sim_device_gap(vec, vec_cpu)
+        if not (g_ev < SIM_ENGINE_TOL and g_dev <= SIM_DEVICE_RTOL):
+            raise AssertionError(f"sim (c) {pol}: vectorized vs event "
+                                 f"{g_ev:.3e}, cuda vs cpu {g_dev:.3e}")
+        traced[pol] = {"event_wall_s": ev_wall, "vectorized_wall_s": vec_wall,
+                       "device_busy_ms": busy_ms,
+                       "idle_share": 1.0 - busy_ms / 1e3 / vec_wall,
+                       "vectorized_cpu_wall_s": vec_cpu_wall,
+                       "event_gap": g_ev, "cpu_gap": g_dev,
+                       "reason": vec.engine_reason}
+        log(f"sim (c) trace chain 8 nodes x {Q_t}, Gauss-Markov cv 0.3, "
+            f"{pol}: L_t={vec.L_t!r}; vectorized vs event {g_ev:.3e}, cuda "
+            f"vs cpu {g_dev:.3e}; wall event {ev_wall:.3f} s, vectorized "
+            f"{vec_wall:.4f} s on cuda (device busy {busy_ms:.2f} ms: idle "
+            f"share {traced[pol]['idle_share']:.3f}; {vec_cpu_wall:.4f} s on "
+            f"cpu; {vec.engine_reason})")
+        del ev, vec, vec_cpu
+    out["trace_chain"] = traced
+
+    # (d) simulate_plans over 64 candidate plans (b = 1..64)
+    plans = [(sol, bb) for bb in range(1, 65)]
+    stacked_runs = {}
+    for pol in ("fifo", "1f1b"):
+        stacked, st_wall = timed(lambda: sim.simulate_plans(
+            profile, net, plans, B=512, policy=pol, device="cuda"), "cuda")
+        looped, lp_wall = timed(lambda: [sim.simulate_plan(
+            profile, net, s, bb, B=512, policy=pol, engine="auto",
+            device="cuda") for s, bb in plans], "cuda")
+        on_cpu = sim.simulate_plans(profile, net, plans, B=512, policy=pol,
+                                    device="cpu")
+        g_loop = max(sim_gap(lr.mb_complete, sr.mb_complete)
+                     for lr, sr in zip(looped, stacked))
+        g_dev = max(sim_gap(cr.mb_complete, sr.mb_complete)
+                    for cr, sr in zip(on_cpu, stacked))
+        if not all("stacked plan axis" in r.engine_reason for r in stacked):
+            raise AssertionError(f"sim (d) {pol}: not stacked: "
+                                 f"{stacked[0].engine_reason}")
+        if not (g_loop <= SIM_DEVICE_RTOL and g_dev <= SIM_DEVICE_RTOL):
+            raise AssertionError(f"sim (d) {pol}: stacked vs looped "
+                                 f"{g_loop:.3e}, cuda vs cpu {g_dev:.3e}")
+        stacked_runs[pol] = {"stacked_wall_s": st_wall,
+                             "looped_wall_s": lp_wall, "looped_gap": g_loop,
+                             "cpu_gap": g_dev}
+        log(f"sim (d) simulate_plans, 64 plans (b = 1..64, B = 512), {pol}: "
+            f"stacked vs looped {g_loop:.3e}, cuda vs cpu {g_dev:.3e}; wall "
+            f"stacked {st_wall:.4f} s, 64 looped calls {lp_wall:.4f} s")
+    out["simulate_plans"] = stacked_runs
+
+    # (e) simulated-time replanning on the quickstart (K1 on the card)
+    node = sol.placement[1]
+
+    def triggers():
+        return [sim.ReplanTrigger(0.4 * L, ft.Straggler(node, 6.0)),
+                sim.ReplanTrigger(0.9 * L, ft.RateChange(0, node, 0.5))]
+
+    minplus.sweep_minplus.launches = 0
+    rr, rr_wall = timed(lambda: sim.simulate_with_replanning(
+        profile, net, 512, triggers(), device="cuda"), "cuda")
+    k1_launches = minplus.sweep_minplus.launches
+    rc, rc_wall = timed(lambda: sim.simulate_with_replanning(
+        profile, net, 512, triggers(), device="cpu"), "cpu")
+
+    def seg_key(rep):
+        return [(s.plan.solution.cuts, s.plan.solution.placement, s.plan.b,
+                 s.completed, s.cutoff) for s in rep.segments]
+
+    if not (rr.num_replans == rc.num_replans == 2
+            and seg_key(rr) == seg_key(rc)
+            and abs(rr.makespan - rc.makespan)
+            <= SIM_DEVICE_RTOL * abs(rc.makespan) and k1_launches > 0):
+        raise AssertionError(f"sim (e): {rr.num_replans} replans, segments "
+                             f"{seg_key(rr)} vs cpu {seg_key(rc)}, makespan "
+                             f"{rr.makespan} vs {rc.makespan}, K1 launches "
+                             f"{k1_launches}")
+    out["replan"] = {"wall_s": rr_wall, "cpu_wall_s": rc_wall,
+                     "makespan": rr.makespan, "replans": rr.num_replans,
+                     "k1_launches": k1_launches,
+                     "segments": [list(map(list, k[:2])) + list(k[2:])
+                                  for k in seg_key(rr)]}
+    log(f"sim (e) simulate_with_replanning (quickstart, B = 512; "
+        f"Straggler({node}, 6) at 0.4 L_t, RateChange(0, {node}, 0.5) at "
+        f"0.9 L_t): {rr.num_replans} replans, segments {seg_key(rr)} equal "
+        f"to the CPU run's, makespan {rr.makespan!r} (undisturbed "
+        f"{L!r}); K1 launches {k1_launches}; wall {rr_wall:.3f} s on cuda, "
+        f"{rc_wall:.3f} s on cpu")
+    return out
+
+
 def timed(fn, device: str):
     """(fn(), wall seconds), the device synchronized on both sides."""
     if device == "cuda":
@@ -1363,6 +1661,9 @@ def main(argv=None) -> int:
     log(f"coordinator: built in {coord_init_s:.4f} s on cuda; K1 launches "
         f"over the three events {coord_launches}")
 
+    # 4d. sim: the simulator's engines on the card ---------------------------
+    sim_out = sim_phase(core, minplus, profile, net, plan)
+
     # 5. train -------------------------------------------------------------
     # the comparison runs in full float32: cuDNN convolutions default to
     # TF32 on the card, so TF32 is switched off for this phase
@@ -1753,6 +2054,7 @@ def main(argv=None) -> int:
         f"{prefill_ms}; decode {qstats['tokens'] / decode_s:.2f} tokens/s; "
         f"K2 launches {k2_launches}; peak device memory {peak_gib:.2f} GiB, "
         f"of which {held_gib:.2f} GiB was held before the server was built")
+    log(json.dumps({"sim": sim_out, "card": smi}))
     log(f"profiler: {PROFILER_STATS['calls']} device_ms calls, "
         f"{PROFILER_STATS['retried_sessions']} sessions with no device time "
         f"run again, {PROFILER_STATS['event_fallbacks']} timed by CUDA events")
@@ -1771,6 +2073,7 @@ def main(argv=None) -> int:
         **{label.replace(" ", "_").replace("-", "_"): t
            for label, t in k1.items()},
         "exhaustive_joint_launches": ej_launches,
+        "sim_replan_launches": sim_out["replan"]["k1_launches"],
         "graph_axis": {label.replace(" ", "_"): t
                        for label, t in {**k1_graph, **k1_device}.items()},
         "device_backend_launches": {

@@ -4,21 +4,193 @@ The port of ``repro/core/cost_model.py``'s protocol, its default
 :class:`ClosedForm` (the paper's Eqs. (12)-(14) objective with the
 Eq. (11)/C7-C8 memory predicate), bit-identical to the reference, and the
 per-solve memo :func:`memoized_cost_model` that ``exhaustive_joint`` wraps
-its model in.  The simulated-makespan models (``SimMakespan``,
-``DegradedTail``) wait for the simulator's port.
+its model in.
+
+The Eq. (11) claims source is here too: ``latency.memory_split`` ->
+:func:`stage_memory_claims` -> :func:`node_budget_windows`, which the
+simulator's ``MemoryBudgeted`` admission binds through, with
+:class:`DegradedTail` sizing the budgets for a degraded-memory tail.  Host
+float64 arithmetic in the reference's operation order, so the windows are
+equal (``==``).  The simulated-makespan model (``SimMakespan``) waits for
+ROADMAP Queue 1 item 4b.
 """
 
 from __future__ import annotations
 
+import dataclasses
+import math
+
+import numpy as np
+
 from .. import obs
 from . import latency as L
-from .latency import SplitSolution
+from .latency import SplitSolution, memory_split, memory_split_per_sample
 from .network import EdgeNetwork
 from .profiles import ModelProfile
 
-__all__ = ["CostModel", "ClosedForm", "resolve_cost_model",
-           "memoized_cost_model"]
+__all__ = ["CostModel", "ClosedForm", "StageClaim", "DegradedTail",
+           "stage_memory_claims", "node_budget_windows",
+           "node_budget_windows_many", "budget_feasible",
+           "resolve_cost_model", "memoized_cost_model"]
 
+
+# ---------------------------------------------------------------------------
+# The shared Eq. (11) claims source
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class StageClaim:
+    """Memory claim of one pipeline stage (chain position ``position``).
+
+    Holding ``w`` micro-batches live at this stage costs
+    ``static_bytes + w * act_bytes``.
+    """
+    position: int            # stage position j in the non-empty chain
+    submodel: int            # paper submodel index k
+    node: int                # hosting node index
+    static_bytes: float
+    act_bytes: float
+
+
+def stage_memory_claims(profile: ModelProfile, net: EdgeNetwork,
+                        sol: SplitSolution, b: int,
+                        memory_model: str = "refined") -> list:
+    """Per-stage :class:`StageClaim` list — Eq. (11) via
+    ``latency.memory_split``."""
+    claims = []
+    for j, (k, lo, hi, node) in enumerate(sol.segments()):
+        static, act = memory_split(profile, net, lo, hi, node, b,
+                                   memory_model)
+        claims.append(StageClaim(position=j, submodel=k, node=node,
+                                 static_bytes=static, act_bytes=act))
+    return claims
+
+
+@dataclasses.dataclass(frozen=True)
+class DegradedTail:
+    """Tail-sized node memory budgets for admission windows.
+
+    ``mem[n]`` replaces ``Node.mem`` for node ``n`` (``None`` or a node
+    beyond ``len(mem)``: the nominal budget).  :meth:`from_scenarios` sizes
+    it as the mean of the worst ``ceil((1 - alpha) * n_scen)``
+    per-scenario memory minima (``NetworkScenario.mem_mult``).
+    """
+
+    mem: tuple                   # per-node effective budget (None: nominal)
+    alpha: float = 0.95
+
+    @classmethod
+    def from_scenarios(cls, net: EdgeNetwork, scenarios,
+                       alpha: float = 0.95) -> "DegradedTail":
+        """Size budgets from a scenario distribution's ``mem_mult`` traces
+        (worst instant per scenario, lower-tail CVaR across scenarios)."""
+        if not 0.0 <= alpha < 1.0:
+            raise ValueError("need 0 <= alpha < 1")
+        scenarios = tuple(scenarios)
+        if not scenarios:
+            raise ValueError("need at least one scenario")
+        k = int(math.ceil((1.0 - alpha) * len(scenarios)))
+        mems = []
+        for i, node in enumerate(net.nodes):
+            worst_mult = sorted(
+                min(s.mem_mult[i].values) if i in s.mem_mult else 1.0
+                for s in scenarios)
+            mems.append(node.mem * float(sum(worst_mult[:k]) / k))
+        return cls(mem=tuple(mems), alpha=alpha)
+
+    def node_mem(self, net: EdgeNetwork, n: int) -> float:
+        if n < len(self.mem) and self.mem[n] is not None:
+            return self.mem[n]
+        return net.nodes[n].mem
+
+    def __repr__(self):
+        sized = [m for m in self.mem if m is not None]
+        return (f"DegradedTail(alpha={self.alpha}, nodes={len(self.mem)}, "
+                f"min_mem={min(sized):.4g})" if sized else
+                f"DegradedTail(alpha={self.alpha}, nominal)")
+
+
+def node_budget_windows(profile: ModelProfile, net: EdgeNetwork,
+                        sol: SplitSolution, b: int,
+                        memory_model: str = "refined",
+                        tail: DegradedTail | None = None) -> list:
+    """Per-stage admission windows derived from ``Node.mem``.
+
+    Co-located stages share their node's budget: the window is the largest
+    ``w`` with ``static_n + w * act_n <= mem_n``.  ``None`` means unbounded
+    (zero activation bytes); ``0`` means not even one live micro-batch
+    fits.  ``tail`` substitutes :class:`DegradedTail` budgets.
+    """
+    claims = stage_memory_claims(profile, net, sol, b, memory_model)
+    static_n: dict = {}
+    act_n: dict = {}
+    for c in claims:
+        static_n[c.node] = static_n.get(c.node, 0.0) + c.static_bytes
+        act_n[c.node] = act_n.get(c.node, 0.0) + c.act_bytes
+    windows = []
+    for c in claims:
+        mem = net.nodes[c.node].mem if tail is None \
+            else tail.node_mem(net, c.node)
+        free = mem - static_n[c.node]
+        act = act_n[c.node]
+        if act <= 0.0:
+            windows.append(None if free >= 0.0 else 0)
+        else:
+            windows.append(max(0, int(math.floor(free / act))))
+    return windows
+
+
+def node_budget_windows_many(profile: ModelProfile, net: EdgeNetwork,
+                             sol: SplitSolution, bs,
+                             memory_model: str = "refined",
+                             tail: DegradedTail | None = None) -> list:
+    """:func:`node_budget_windows` for many micro-batch sizes: one claims
+    pass (``latency.memory_split_per_sample``) serves every ``b``, with the
+    same multiplies in the same accumulation order (equal windows)."""
+    segs = list(sol.segments())
+    per = [(node, *memory_split_per_sample(profile, lo, hi, memory_model))
+           for _, lo, hi, node in segs]
+    M = net.num_clients
+    bs = list(bs)
+    b_arr = np.asarray(bs, dtype=np.intp)
+    share = b_arr - (M - 1) * (b_arr // M)        # client_max_share, batched
+    static_n: dict = {}
+    act_n: dict = {}
+    for node, static, per_sample in per:
+        eff = share if node == 0 else b_arr
+        static_n[node] = static_n.get(node, 0.0) + static
+        act_n[node] = act_n.get(node, 0.0) + eff * per_sample
+    cols = []
+    for node, _, _ in per:
+        mem = net.nodes[node].mem if tail is None \
+            else tail.node_mem(net, node)
+        free = mem - static_n[node]
+        act = act_n[node]
+        ws: list = [None] * len(bs)
+        for i in range(len(bs)):
+            a = float(act[i])
+            if a <= 0.0:
+                ws[i] = None if free >= 0.0 else 0
+            else:
+                ws[i] = max(0, int(math.floor(free / a)))
+        cols.append(ws)
+    return [[col[i] for col in cols] for i in range(len(bs))]
+
+
+def budget_feasible(profile: ModelProfile, net: EdgeNetwork,
+                    sol: SplitSolution, b: int,
+                    memory_model: str = "refined",
+                    tail: DegradedTail | None = None) -> bool:
+    """Window >= 1 everywhere: one live micro-batch per stage fits every
+    node's memory (monotone non-increasing in ``b``)."""
+    return all(w is None or w >= 1
+               for w in node_budget_windows(profile, net, sol, b,
+                                            memory_model, tail))
+
+
+# ---------------------------------------------------------------------------
+# The cost-model protocol
+# ---------------------------------------------------------------------------
 
 class CostModel:
     """Objective + memory-feasibility pair consumed by the planner stack.

@@ -7,7 +7,8 @@ Gaussian multiplicative noise of a given coefficient of variation and
 evaluates the fixed plan's analytical Eq. (14) latency on the host.
 
 ``mode="trace"`` (a time-varying scenario run through the discrete-event
-simulator) waits for the simulator's port and raises.
+simulator, ``sim.simulate_plan``) waits for ROADMAP Queue 1 item 4b and
+raises.
 """
 
 from __future__ import annotations
@@ -44,8 +45,9 @@ def evaluate_under_fluctuation(profile: ModelProfile, net: EdgeNetwork,
     ``net.with_fluctuation`` from ``numpy.random.default_rng(seed)``."""
     if mode == "trace":
         raise NotImplementedError(
-            "mode='trace' runs the plan in the discrete-event simulator, "
-            "which is not ported yet (ROADMAP Queue 1 item 4)")
+            "mode='trace' runs the plan in the discrete-event simulator "
+            "under sampled traces, which is not ported yet (ROADMAP "
+            "Queue 1 item 4b)")
     if mode != "iid":
         raise ValueError(f"unknown mode {mode!r}")
     rng = np.random.default_rng(seed)

@@ -50,6 +50,37 @@ class SplitSolution:
                 yield k, lo, hi, node
             lo = hi
 
+    def stage_of_layer(self, layer: int) -> int:
+        """1-based layer -> submodel index k."""
+        for k, lo, hi, _ in self.segments():
+            if lo < layer <= hi:
+                return k
+        raise ValueError(f"layer {layer} not covered")
+
+
+def validate_solution(sol: SplitSolution, profile: ModelProfile,
+                      net: EdgeNetwork) -> None:
+    """Raise ``ValueError`` (the reference's messages) unless ``sol`` is a
+    well-formed split/placement of ``profile`` over ``net`` (C4-C6, Eq. 21)."""
+    K, I = sol.K, profile.num_layers
+    if sol.cuts[-1] != I:
+        raise ValueError(f"last cut must equal I={I}, got {sol.cuts[-1]}")
+    if any(sol.cuts[k] > sol.cuts[k + 1] for k in range(K - 1)):
+        raise ValueError("cuts must be non-decreasing (C5)")
+    if any(c < 1 or c > I for c in sol.cuts):
+        raise ValueError("cuts out of range (C4)")
+    if sol.placement[0] != 0:
+        raise ValueError("submodel 1 must sit on the client tier (y_1,client=1)")
+    if any(p < 0 or p >= len(net.nodes) for p in sol.placement):
+        raise ValueError("placement out of range (C6)")
+    segs = list(sol.segments())
+    for (k1, _, _, n1), (k2, _, _, n2) in zip(segs, segs[1:]):
+        if n1 == n2:
+            raise ValueError(
+                f"consecutive submodels {k1},{k2} share node {n1} (Eq. 21 n != n')")
+    if len(segs) >= 2 and any(n == 0 for _, _, _, n in segs[1:]):
+        raise ValueError("server submodels cannot sit on the client tier")
+
 
 # ---------------------------------------------------------------------------
 # Eq. (1): client shares
@@ -255,6 +286,13 @@ def total_latency(profile: ModelProfile, net: EdgeNetwork, sol: SplitSolution,
     """Eq. (14): L_t = T_f + ceil((B-b)/b) * T_i."""
     return (fill_latency(profile, net, sol, b) +
             num_fills(B, b) * pipeline_interval(profile, net, sol, b))
+
+
+def no_pipeline_latency(profile: ModelProfile, net: EdgeNetwork,
+                        sol: SplitSolution, B: int) -> float:
+    """The 'No Pipeline' benchmark: the whole mini-batch goes through as one
+    micro-batch (b = B) — Eq. (14) degenerates to T_f(B)."""
+    return fill_latency(profile, net, sol, B)
 
 
 # ---------------------------------------------------------------------------

@@ -20,8 +20,8 @@ run on ``device`` (``"cuda"`` unless the caller passes ``"cpu"``).
 
 Replanning *policies* (``repro/ft/policy.py``: debounce, rate limits,
 cadence, tail-risk pre-spill) score candidates with the simulator and wait
-for its port; ``policy=None`` — apply every event at once, the reference's
-default — is the only one here.
+for ROADMAP Queue 1 item 6; ``policy=None`` — apply every event at once,
+the reference's default — is the only one here.
 """
 
 from __future__ import annotations
@@ -137,8 +137,8 @@ class Coordinator:
         if policy is not None:
             raise ValueError(
                 f"replan policy {policy!r} is not ported: the policies of "
-                "repro/ft/policy.py score candidates with the simulator, "
-                "which waits for its port (ROADMAP Queue 1 item 4); pass "
+                "repro/ft/policy.py, which score candidates with the "
+                "simulator, wait for ROADMAP Queue 1 item 6; pass "
                 "policy=None (apply every event)")
         if preview_cache_size < 1:
             raise ValueError("preview_cache_size must be >= 1")

@@ -23,16 +23,21 @@ from ..sim.policies import resolve_policy
 
 
 def memory_highwater(num_stages: int, num_microbatches: int,
-                     policy="1f1b") -> dict:
+                     policy="1f1b", *, bind=None) -> dict:
     """Closed-form activation high-water claim per 0-based stage position
-    (``policy``: "fifo"/"gpipe"/"1f1b" or an ``AdmissionPolicy``).
+    (``policy``: "fifo"/"gpipe"/"1f1b"/"memory" or an ``AdmissionPolicy``).
+    The plan-dependent ``"memory"`` policy needs its plan: pass
+    ``bind=(profile, net, sol, b)`` or a policy bound already.
 
     >>> memory_highwater(3, 12, "1f1b")
     {0: 3, 1: 2, 2: 1}
     >>> memory_highwater(3, 12, "gpipe")
     {0: 12, 1: 12, 2: 12}
     """
-    return resolve_policy(policy).stage_capacity(num_stages, num_microbatches)
+    pol = resolve_policy(policy)
+    if bind is not None:
+        pol = pol.bind(*bind)
+    return pol.stage_capacity(num_stages, num_microbatches)
 
 
 @dataclasses.dataclass

@@ -10,6 +10,7 @@
 import ast
 import pathlib
 
+import numpy as np
 import pytest
 import torch
 
@@ -20,7 +21,8 @@ from repro_torch.core import (Planner, bcd_solve, exhaustive_joint,
                               uniform_profile)
 from repro_torch.ft import Coordinator
 from repro_torch.pipeline import SplitLearningExecutor
-from repro_torch.sim import FIFO, OneFOneB, resolve_policy
+from repro_torch import sim
+from repro_torch.sim import FIFO, MemoryBudgeted, OneFOneB, resolve_policy
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + \
@@ -46,7 +48,8 @@ def test_port_imports_neither_jax_nor_repro(path):
 def test_scan_finds_every_port_module():
     names = {p.name for p in PORT_FILES}
     assert {"shortest_path.py", "planner_device.py", "coordinator.py",
-            "kernel.py", "executor.py", "chip_smoke.py"} <= names
+            "kernel.py", "executor.py", "chip_smoke.py", "engine.py",
+            "advance.py", "utilization.py"} <= names
 
 
 def test_default_device_raises_without_gpu(monkeypatch):
@@ -108,8 +111,46 @@ def test_obs_is_a_no_op_until_enabled():
 
 
 def test_admission_policies():
+    """``resolve_policy("memory")`` returns the memory-budgeted policy,
+    unbound: its windows need a plan (``bind``), which ``simulate_plan``
+    supplies."""
     assert OneFOneB().stage_capacity(4, 8) == {0: 4, 1: 3, 2: 2, 3: 1}
     assert FIFO().stage_capacity(3, 8) == {0: 8, 1: 8, 2: 8}
     assert isinstance(resolve_policy("gpipe"), FIFO)
+    pol = resolve_policy("memory")
+    assert isinstance(pol, MemoryBudgeted) and not pol.bound
+    assert resolve_policy("memory_budgeted").name == "memory"
+    with pytest.raises(RuntimeError, match="bind"):
+        pol.window(2, 0)
     with pytest.raises(ValueError, match="unknown admission policy"):
-        resolve_policy("memory")
+        resolve_policy("round-robin")
+
+
+@pytest.mark.parametrize("entry", ["simulate_plan", "simulate_plans",
+                                   "simulate_with_replanning",
+                                   "cross_validate", "compare_engines",
+                                   "PipelineSimulator"])
+def test_simulator_entry_points_raise_without_gpu(entry, monkeypatch):
+    """The simulator's entry points run on cuda by default: they raise
+    without a GPU unless given device="cpu", and then run."""
+    prof = uniform_profile(4)
+    net = make_edge_network(2, 2, seed=0)
+    sol = sim.random_chain_solution(np.random.default_rng(0), prof, net)
+    calls = {
+        "simulate_plan": lambda dev: sim.simulate_plan(
+            prof, net, sol, 2, B=8, engine="vectorized", **dev).L_t,
+        "simulate_plans": lambda dev: sim.simulate_plans(
+            prof, net, [(sol, 2), (sol, 4)], B=8, **dev)[0].L_t,
+        "simulate_with_replanning": lambda dev: sim.simulate_with_replanning(
+            prof, net, 8, [], **dev).makespan,
+        "cross_validate": lambda dev: sim.cross_validate(
+            prof, net, sol, 2, 8, **dev).L_t_sim,
+        "compare_engines": lambda dev: sim.compare_engines(
+            prof, net, sol, 2, 4, **dev) + 1.0,
+        "PipelineSimulator": lambda dev: sim.PipelineSimulator(
+            net, sim.build_tasks(prof, net, sol, 2, 4), **dev).run().L_t,
+    }
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        calls[entry]({})
+    assert calls[entry]({"device": "cpu"}) > 0
