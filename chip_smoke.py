@@ -80,6 +80,35 @@ and exits non-zero:
              Straggler and a RateChange: 2 replans, every segment's plan
              equal to the CPU run's, the makespan within 1e-12, K1
              launched (sim_replan_launches in the kernels line)
+ 4e. robust  planning scored by the simulator and by tail risk, the fuzz
+             campaign, the replan policies, Chrome traces and checkpoints,
+             each on cuda against the port's CPU result: (a) sim_refined
+             on the quickstart (B = 512, b0 = 20) equal to the CPU's plan,
+             objective within 1e-12, K1 launched; SimMakespan's
+             evaluate_many over the plan's whole feasible-b box (one
+             stacked simulate_plans) equal to looped evaluate; (b) the
+             trace-mode fluctuation report (cv 0.2, 16 draws, piecewise
+             and Gauss-Markov) equal to the CPU's; (c) run_fuzz(500,
+             seed=0) (the reference's standing campaign: vectorized engine
+             on the card, heap engine on the host) with every gap within
+             1e-9, the same vectorized / fallback counts as the CPU, and
+             every tests/corpus case replayed; (d) the reference's CVaR
+             selection grid (random_instance 3, 5, 9, 12 and the 4-server
+             paper network at B = 64; 16 fuzzed scenarios plus a crafted
+             first-hop outage): closed-form and RobustMakespan picks equal
+             to the CPU's, the robust pick's CVaR0.95 no worse on every
+             instance and better on one; bcd_solve(quickstart, B = 512,
+             RobustMakespan(n_scenarios=12)) equal to the CPU's, K1
+             launched; (e) bench_ft_policy.py's zoo (random_instance(3),
+             10 flap streams, solve downtime 0.05, remap 0.01) plus
+             AdaptiveCadence: reports equal to the CPU's, Hysteresis
+             <= 25% of Eager's replans with a mean no worse than Eager's
+             and a final objective no worse than RideOut's, K1 launched;
+             (f) write_chrome_trace of the quickstart plan's run valid and
+             equal to the CPU's; the executor's VGG-16 stage parameters
+             checkpointed from the card and restored onto it bitwise; a
+             coordinator NodeFailure charged estimate_restore_seconds of
+             that checkpoint (a rate change nothing)
   5. train   one VGG-16 round on cuda matches the CPU (TF32 off), also with
              int8 and top-k link hooks; then a few rounds at the B=512
              plan, timed
@@ -138,7 +167,8 @@ and exits non-zero:
              request, decode tokens/s, peak device memory
 
 A line ``{"sim": ..., "card": ...}`` carries phase 4d's walls, device busy
-times and peak memory.  The next-to-last line is a JSON object with the
+times and peak memory; ``{"robust": ..., "card": ...}`` phase 4e's walls,
+gaps, picks and K1 launches.  The next-to-last line is a JSON object with the
 kernels' measurements; the last is ``{"ok": true, "device": {...}}``.
 Imports nothing of JAX or of the JAX package ``repro``.
 
@@ -1230,6 +1260,405 @@ def sim_phase(core, minplus, profile, net, plan) -> dict:
     return out
 
 
+#: phase 4e: the reference's CVaR-selection grid (bench_robustness.py:99-108)
+#: and its policy zoo (bench_ft_policy.py::run_zoo)
+CVAR_SEEDS = (3, 5, 9, 12)
+CVAR_ALPHA = 0.95
+CVAR_SCENARIOS = 16
+FUZZ_TRIALS = 500
+ZOO_STREAMS = 10
+ZOO_SOLVE_DOWNTIME = 0.05
+ZOO_REMAP_PENALTY = 0.01
+
+
+def rel_gap(a: float, b: float) -> float:
+    """Relative gap of two floats (0 when equal, inf included)."""
+    if a == b:
+        return 0.0
+    return abs(a - b) / max(abs(b), 1e-30)
+
+
+def plan_gap(got, want) -> tuple:
+    """(same plan?, objective gap) of two ``core.Plan``s: cuts, placement,
+    b, iterations and the history's plans equal; the objectives (and the
+    history's) within a relative gap."""
+    same = ((got.solution.cuts, got.solution.placement, got.b,
+             got.iterations, got.feasible, got.cost_model)
+            == (want.solution.cuts, want.solution.placement, want.b,
+                want.iterations, want.feasible, want.cost_model)
+            and [h[1:] for h in got.history] == [h[1:] for h in want.history])
+    gap = max([rel_gap(got.objective, want.objective)]
+              + [rel_gap(g[0], w[0]) for g, w in zip(got.history,
+                                                     want.history)])
+    return same, gap
+
+
+def candidate_pool(core, prof, net, B, b_ref, K=3, cap=8):
+    """``bench_robustness.py::_candidate_pool``: the best closed-form b per
+    distinct placement, then the ``cap`` best placements."""
+    cm = core.ClosedForm()
+    b_choices = sorted({1, max(1, b_ref // 2), b_ref})
+    raw = [(sol, b) for sol in core.enumerate_solutions(prof, net, K)
+           for b in b_choices]
+    best: dict = {}
+    for (sol, b), v in zip(raw, cm.evaluate_many(prof, net, raw, B)):
+        if math.isfinite(v) and (sol.placement not in best
+                                 or v < best[sol.placement][0]):
+            best[sol.placement] = (v, sol, b)
+    ranked = sorted(best.values(), key=lambda t: t[0])[:cap]
+    return [(sol, b) for _v, sol, b in ranked], [v for v, _s, _b in ranked]
+
+
+def cvar_grid(core, sim):
+    """The reference's CVaR-selection grid: random_instance 3, 5, 9, 12 and
+    the 4-server paper network at B = 64."""
+    for seed in CVAR_SEEDS:
+        prof, net, _sol, b, B = sim.random_instance(seed)
+        yield f"random_{seed}", seed, prof, net, b, B
+    prof = core.vgg16_profile(work_units="bytes")
+    net = core.make_edge_network(num_servers=4, num_clients=4, seed=1,
+                                 kappa=1 / 32.0, bw_range_hz=(10e6, 50e6))
+    plan = core.bcd_solve(prof, net, B=64, device="cpu")
+    yield "paper_4srv", 1, prof, net, max(1, plan.b), 64
+
+
+def cvar_select(core, sim, seed, prof, net, b_ref, B, device):
+    """One instance of ``bench_robustness.py::run_cvar`` on ``device``:
+    (closed pick, robust pick, robust objectives, closed CVaR, robust
+    CVaR, the closed pick's worst-blocked resource)."""
+    cands, closed_vals = candidate_pool(core, prof, net, B, b_ref)
+    ci = min(range(len(cands)), key=lambda i: closed_vals[i])
+    c_sol, c_b = cands[ci]
+    cfg = sim.FuzzConfig(families=("adversarial", "outage", "degradation",
+                                   "flapping"))
+    scens = list(sim.scenario_distribution(
+        net, CVAR_SCENARIOS, seed=seed, profile=prof, sol=c_sol, b=c_b,
+        num_microbatches=max(1, B // c_b), config=cfg))
+    width = sim.simulate_plan(prof, net, c_sol, c_b, B=B, engine="auto",
+                              device=device).L_t
+    if len(c_sol.placement) > 1 and math.isfinite(width):
+        a, c = c_sol.placement[0], c_sol.placement[1]
+        scens.append(sim.NetworkScenario().with_outage(
+            a, c, 0.1 * width, 1.1 * width, both_directions=True))
+    robust = sim.RobustMakespan(scenarios=scens, alpha=CVAR_ALPHA,
+                                risk_aversion=1.0, device=device)
+    r_vals = robust.evaluate_many(prof, net, cands, B)
+    ri = min(range(len(cands)), key=lambda i: r_vals[i])
+    c_rep = sim.score_plan(prof, net, c_sol, c_b, B=B, scenarios=scens,
+                           alpha=CVAR_ALPHA, device=device)
+    r_rep = sim.score_plan(prof, net, *cands[ri], B=B, scenarios=scens,
+                           alpha=CVAR_ALPHA, attribution=False,
+                           device=device)
+    top = c_rep.top_blocked(1)
+    return {"candidates": len(cands), "closed": ci, "robust": ri,
+            "robust_values": r_vals, "closed_cvar": c_rep.cvar,
+            "robust_cvar": r_rep.cvar, "closed_nominal": c_rep.nominal,
+            "closed_b": c_b, "robust_b": cands[ri][1],
+            "top_blocked": repr(top[0][0]) if top else ""}
+
+
+def zoo(ft, sim, device):
+    """``bench_ft_policy.py::run_zoo`` (full corpus) plus AdaptiveCadence,
+    on ``device``: the reports and the launches of K1 are the caller's."""
+    prof, net, _sol, _b, B = sim.random_instance(3)
+    streams = [sim.fuzz_event_stream(np.random.default_rng(1000 + s), net,
+                                     horizon=4.0, max_events=5,
+                                     allow_failure=False, flap_fraction=0.75)
+               for s in range(ZOO_STREAMS)]
+    policies = {
+        "eager": lambda: None,
+        "ride_out": ft.RideOut,
+        "periodic_0.5": lambda: ft.Periodic(0.5),
+        "hysteresis": lambda: ft.RateLimited(ft.Hysteresis(0.25,
+                                                           cooldown=0.3)),
+        "cvar_pre_spill": lambda: ft.CVaRPreSpill(bound=1.5, n_scenarios=4,
+                                                  device=device),
+        "adaptive": ft.AdaptiveCadence,
+    }
+    return ft.evaluate_policies(prof, net, B, streams, policies, alpha=0.9,
+                                remap_penalty=ZOO_REMAP_PENALTY,
+                                solve_downtime=ZOO_SOLVE_DOWNTIME,
+                                attribution=True, device=device)
+
+
+def zoo_row(r) -> dict:
+    return {**r.row(), "makespans": list(r.makespans),
+            "final_objectives": list(r.final_objectives),
+            "blocked": {repr(k): v for k, v in (r.blocked or {}).items()}}
+
+
+def planning_phase(core, minplus, profile, net, plan, out_dir) -> dict:
+    """Phase 4e: planning scored by the simulator and by tail risk, the
+    fuzz campaign, the replan policies, the Chrome trace and a checkpoint,
+    on the card against the port's CPU results (module docstring).
+    Raises on any failed check; returns walls, gaps and K1's launches."""
+    from repro_torch import checkpoint, ft, obs, sim
+    from repro_torch.pipeline import SplitLearningExecutor
+    out = {}
+    k1 = minplus.sweep_minplus
+
+    # (a) simulator-scored planning on the quickstart
+    k1.launches = 0
+    got, wall = timed(lambda: core.sim_refined(profile, net, 512, b0=20,
+                                               device="cuda"), "cuda")
+    launches = k1.launches
+    want, cpu_wall = timed(lambda: core.sim_refined(profile, net, 512, b0=20,
+                                                    device="cpu"), "cpu")
+    same, gap = plan_gap(got, want)
+    if not (same and gap <= SIM_DEVICE_RTOL and launches > 0):
+        raise AssertionError(f"4e (a) sim_refined: cuda {got} vs cpu {want} "
+                             f"(objective gap {gap:.3e}, K1 launches "
+                             f"{launches})")
+    cm = core.SimMakespan(device="cuda")
+    box = [b for b, ok in zip(range(1, 513), cm.memory_feasible_many(
+        profile, net, got.solution, range(1, 513))) if ok]
+    cands = [(got.solution, b) for b in box]
+    many, many_wall = timed(lambda: cm.evaluate_many(profile, net, cands,
+                                                     512), "cuda")
+    looped, loop_wall = timed(lambda: [cm.evaluate(profile, net, s, b, 512)
+                                       for s, b in cands], "cuda")
+    cpu_many = core.SimMakespan(device="cpu").evaluate_many(profile, net,
+                                                            cands, 512)
+    many_busy = device_ms(lambda: cm.evaluate_many(profile, net, cands, 512),
+                          reps=1, host_events=False)
+    reasons = sorted({r.engine_reason for r in sim.simulate_plans(
+        profile, net, cands, B=512, policy=cm.policy, device="cuda")})
+    g_loop = max(rel_gap(a, b) for a, b in zip(many, looped))
+    g_dev = max(rel_gap(a, b) for a, b in zip(many, cpu_many))
+    if not (g_loop == 0.0 and g_dev <= SIM_DEVICE_RTOL):
+        raise AssertionError(f"4e (a) SimMakespan over {len(box)} b: "
+                             f"stacked vs looped {g_loop:.3e}, cuda vs cpu "
+                             f"{g_dev:.3e}")
+    out["sim_refined"] = {
+        "cuts": list(got.solution.cuts),
+        "placement": list(got.solution.placement), "b": got.b,
+        "objective": got.objective, "L_t": got.L_t, "wall_s": wall,
+        "cpu_wall_s": cpu_wall, "k1_launches": launches,
+        "box": len(box), "evaluate_many_wall_s": many_wall,
+        "evaluate_many_busy_ms": many_busy,
+        "evaluate_many_idle_share": 1.0 - many_busy / 1e3 / many_wall,
+        "engine_reasons": reasons, "looped_wall_s": loop_wall,
+        "looped_gap": g_loop, "cpu_gap": g_dev}
+    log(f"4e (a) sim_refined (quickstart, B = 512): cuts={got.solution.cuts} "
+        f"placement={got.solution.placement} b={got.b} objective "
+        f"{got.objective!r} (equal to the CPU's); K1 launches {launches}; "
+        f"wall {wall:.3f} s on cuda, {cpu_wall:.3f} s on cpu; "
+        f"SimMakespan.evaluate_many over the feasible box ({len(box)} b, "
+        f"one simulate_plans: {reasons}) {many_wall:.3f} s (device busy "
+        f"{many_busy:.2f} ms) vs {len(box)} looped evaluate {loop_wall:.3f} "
+        f"s: gap {g_loop:.3e}, cuda vs cpu {g_dev:.3e}")
+
+    # (b) the fluctuation report in trace mode
+    fluct = {}
+    for model in ("piecewise", "gauss_markov"):
+        rep, f_wall = timed(lambda: core.evaluate_under_fluctuation(
+            profile, net, got, 0.2, draws=16, mode="trace",
+            trace_model=model, device="cuda"), "cuda")
+        ref = core.evaluate_under_fluctuation(
+            profile, net, want, 0.2, draws=16, mode="trace",
+            trace_model=model, device="cpu")
+        if dataclasses.asdict(rep) != dataclasses.asdict(ref):
+            raise AssertionError(f"4e (b) {model}: cuda {rep} vs cpu {ref}")
+        fluct[model] = {**dataclasses.asdict(rep), "wall_s": f_wall}
+        log(f"4e (b) fluctuation, trace mode ({model}, cv 0.2, 16 draws): "
+            f"mean {rep.mean_latency!r}, p95 {rep.p95_latency!r}, "
+            f"degradation {rep.degradation!r} (equal to the CPU's); wall "
+            f"{f_wall:.3f} s")
+    out["fluctuation"] = fluct
+
+    # (c) the fuzz campaign (vectorized on the card, heap on the host)
+    fz, fz_wall = timed(lambda: sim.run_fuzz(FUZZ_TRIALS, seed=0,
+                                             device="cuda"), "cuda")
+    fz_cpu, fz_cpu_wall = timed(lambda: sim.run_fuzz(FUZZ_TRIALS, seed=0,
+                                                     device="cpu"), "cpu")
+    if not (fz.ok and fz.max_gap <= SIM_ENGINE_TOL and fz.vectorized > 0
+            and (fz.vectorized, fz.event_fallback)
+            == (fz_cpu.vectorized, fz_cpu.event_fallback)):
+        raise AssertionError(f"4e (c) run_fuzz({FUZZ_TRIALS}): "
+                             f"{len(fz.failures)} failures, max gap "
+                             f"{fz.max_gap:.3e}, {fz.vectorized} / "
+                             f"{fz.event_fallback} vs cpu "
+                             f"{fz_cpu.vectorized} / {fz_cpu.event_fallback}")
+    corpus = sim.load_corpus(os.path.join(
+        os.path.dirname(os.path.abspath(__file__)), "tests", "corpus"))
+    if not corpus:
+        raise AssertionError("4e (c): tests/corpus holds no case")
+    replayed = {}
+    for path, case in corpus:
+        res = sim.check_parity(case, device="cuda")
+        ok = res.ok if case.scenario.drains() else \
+            (res.engine == "event" and res.gap == 0.0)
+        if not ok:
+            raise AssertionError(f"4e (c) corpus {path}: {res}")
+        replayed[os.path.basename(path)] = {"engine": res.engine,
+                                            "gap": res.gap}
+    out["fuzz"] = {"trials": FUZZ_TRIALS, "vectorized": fz.vectorized,
+                   "event_fallback": fz.event_fallback,
+                   "max_gap": fz.max_gap, "cpu_max_gap": fz_cpu.max_gap,
+                   "wall_s": fz_wall, "cpu_wall_s": fz_cpu_wall,
+                   "corpus": replayed}
+    log(f"4e (c) run_fuzz({FUZZ_TRIALS}, seed=0): {fz.vectorized} "
+        f"vectorized on cuda, {fz.event_fallback} event fallbacks, 0 "
+        f"failures, max gap {fz.max_gap:.3e} (cpu {fz_cpu.max_gap:.3e}); "
+        f"wall {fz_wall:.3f} s (all on cpu {fz_cpu_wall:.3f} s); corpus "
+        f"replayed on cuda: {replayed}")
+
+    # (d) CVaR plan selection, the reference's grid and acceptance
+    grid = {}
+    for name, seed, prof, gnet, b_ref, B in cvar_grid(core, sim):
+        row, g_wall = timed(lambda: cvar_select(core, sim, seed, prof, gnet,
+                                                b_ref, B, "cuda"), "cuda")
+        ref = cvar_select(core, sim, seed, prof, gnet, b_ref, B, "cpu")
+        g = max(rel_gap(a, b) for a, b in zip(row["robust_values"],
+                                              ref["robust_values"]))
+        if (row["closed"], row["robust"]) != (ref["closed"], ref["robust"]) \
+                or g > SIM_DEVICE_RTOL:
+            raise AssertionError(
+                f"4e (d) {name}: picks cuda ({row['closed']}, "
+                f"{row['robust']}) vs cpu ({ref['closed']}, "
+                f"{ref['robust']}); robust objectives cuda "
+                f"{row['robust_values']} vs cpu {ref['robust_values']}")
+        row.update(wall_s=g_wall, cpu_gap=g)
+        grid[name] = row
+        log(f"4e (d) {name}: {row['candidates']} candidates; closed pick "
+            f"{row['closed']} (b {row['closed_b']}) CVaR0.95 "
+            f"{row['closed_cvar']!r}, robust pick {row['robust']} (b "
+            f"{row['robust_b']}) CVaR0.95 {row['robust_cvar']!r} (equal "
+            f"picks on the CPU, objectives within {g:.3e}); closed pick's "
+            f"worst-blocked {row['top_blocked']}; wall {g_wall:.3f} s")
+    rows = list(grid.values())
+    if not (all(r["robust_cvar"] <= r["closed_cvar"] * (1 + 1e-9)
+                for r in rows)
+            and any(r["robust_cvar"] < r["closed_cvar"] * (1 - 1e-9)
+                    for r in rows)):
+        raise AssertionError(f"4e (d) acceptance: {rows}")
+    k1.launches = 0
+    robust_cm = sim.RobustMakespan(n_scenarios=12, device="cuda")
+    rb, rb_wall = timed(lambda: core.bcd_solve(profile, net, 512,
+                                               cost_model=robust_cm,
+                                               device="cuda"), "cuda")
+    rb_launches = k1.launches
+    rb_busy = device_ms(lambda: core.bcd_solve(
+        profile, net, 512, cost_model=sim.RobustMakespan(n_scenarios=12,
+                                                         device="cuda"),
+        device="cuda"), reps=1, host_events=False)
+    rb_cpu, rb_cpu_wall = timed(lambda: core.bcd_solve(
+        profile, net, 512, cost_model=sim.RobustMakespan(n_scenarios=12,
+                                                         device="cpu"),
+        device="cpu"), "cpu")
+    same, rb_gap = plan_gap(rb, rb_cpu)
+    if not (same and rb_gap <= SIM_DEVICE_RTOL and rb_launches > 0):
+        raise AssertionError(f"4e (d) robust bcd_solve: cuda {rb} vs cpu "
+                             f"{rb_cpu} (gap {rb_gap:.3e}), K1 launches "
+                             f"{rb_launches}")
+    out["cvar"] = {"grid": grid, "strict_wins": sum(
+        r["robust_cvar"] < r["closed_cvar"] * (1 - 1e-9) for r in rows),
+        "robust_bcd": {"cuts": list(rb.solution.cuts),
+                       "placement": list(rb.solution.placement), "b": rb.b,
+                       "objective": rb.objective, "cpu_gap": rb_gap,
+                       "wall_s": rb_wall, "cpu_wall_s": rb_cpu_wall,
+                       "busy_ms": rb_busy,
+                       "idle_share": 1.0 - rb_busy / 1e3 / rb_wall,
+                       "k1_launches": rb_launches}}
+    log(f"4e (d) acceptance: robust CVaR0.95 <= closed on all {len(rows)} "
+        f"instances, < on {out['cvar']['strict_wins']}; bcd_solve(quickstart"
+        f", B = 512, RobustMakespan(n_scenarios=12)): cuts={rb.solution.cuts}"
+        f" placement={rb.solution.placement} b={rb.b} objective "
+        f"{rb.objective!r} (cpu gap {rb_gap:.3e}); K1 launches "
+        f"{rb_launches}; wall {rb_wall:.3f} s on cuda (device busy "
+        f"{rb_busy:.2f} ms), {rb_cpu_wall:.3f} s on cpu")
+
+    # (e) the policy zoo
+    k1.launches = 0
+    reps, z_wall = timed(lambda: zoo(ft, sim, "cuda"), "cuda")
+    z_launches = k1.launches
+    cpu_reps, z_cpu_wall = timed(lambda: zoo(ft, sim, "cpu"), "cpu")
+    for name, r in reps.items():
+        c = cpu_reps[name]
+        if (r.replans, r.suppressed, r.final_objectives, r.downtime,
+                r.eval_errors) != (c.replans, c.suppressed,
+                                   c.final_objectives, c.downtime,
+                                   c.eval_errors) or max(
+                rel_gap(a, b) for a, b in zip(r.makespans, c.makespans)) \
+                > SIM_DEVICE_RTOL:
+            raise AssertionError(f"4e (e) {name}: cuda {r} vs cpu {c}")
+    eager, ride, hyst = reps["eager"], reps["ride_out"], reps["hysteresis"]
+    if not (eager.replans > 0 and hyst.replans <= 0.25 * eager.replans
+            and hyst.mean <= eager.mean * (1 + 1e-9)
+            and np.mean(hyst.final_objectives)
+            <= np.mean(ride.final_objectives) * (1 + 1e-9)
+            and z_launches > 0):
+        raise AssertionError(f"4e (e) acceptance: eager {eager.row()}, "
+                             f"hysteresis {hyst.row()}, ride-out "
+                             f"{ride.row()}, K1 launches {z_launches}")
+    out["zoo"] = {"policies": {n: zoo_row(r) for n, r in reps.items()},
+                  "wall_s": z_wall, "cpu_wall_s": z_cpu_wall,
+                  "k1_launches": z_launches}
+    for n, r in reps.items():
+        log(f"4e (e) zoo {n}: mean {r.mean!r} cvar0.9 {r.cvar!r} replans "
+            f"{r.replans} suppressed {r.suppressed} final objective "
+            f"{float(np.mean(r.final_objectives))!r}")
+    log(f"4e (e) zoo ({ZOO_STREAMS} flap streams, 6 policies): equal to the "
+        f"CPU's; hysteresis {hyst.replans} replans vs eager {eager.replans}; "
+        f"K1 launches {z_launches}; wall {z_wall:.3f} s on cuda, "
+        f"{z_cpu_wall:.3f} s on cpu")
+
+    # (f) Chrome trace and checkpoint
+    traces = {}
+    for dev in ("cuda", "cpu"):
+        rep = sim.simulate_plan(profile, net, plan.solution, plan.b, B=512,
+                                engine="vectorized", device=dev)
+        path = sim.write_chrome_trace(
+            rep.records, os.path.join(out_dir, f"trace_{dev}.json"),
+            counter_tracks=True, flow_events=True)
+        with open(path) as f:
+            traces[dev] = json.load(f)
+    errs = obs.validate_chrome_trace(traces["cuda"])
+    if errs or traces["cuda"] != traces["cpu"]:
+        raise AssertionError(f"4e (f) trace: {errs[:3]}, equal to cpu "
+                             f"{traces['cuda'] == traces['cpu']}")
+    ex = SplitLearningExecutor(plan, profile, net, seed=0, device="cuda")
+    tree = [[dict(m.state_dict()) for m in stage]
+            for stage in ex.stage_params()]
+    like = [[{k: torch.zeros_like(v) for k, v in m.items()} for m in stage]
+            for stage in tree]
+    ckpt_dir = os.path.join(out_dir, "ckpt")
+    store = checkpoint.CheckpointStore(ckpt_dir, keep=1)
+    _, save_wall = timed(lambda: (store.save(1, tree), store.wait()), "cuda")
+    (back, meta), restore_wall = timed(
+        lambda: store.restore_latest(like, device="cuda"), "cuda")
+    flat = [(m1[k], m2[k]) for s1, s2 in zip(tree, back)
+            for m1, m2 in zip(s1, s2) for k in m1]
+    if not (all(b.device.type == "cuda" and torch.equal(a, b)
+                for a, b in flat) and meta["step"] == 1):
+        raise AssertionError("4e (f) checkpoint: restore is not bitwise")
+    estimate = checkpoint.estimate_restore_seconds(ckpt_dir)
+    coord = ft.Coordinator(profile, net, 512, device="cuda",
+                           restore_cost=lambda: checkpoint.
+                           estimate_restore_seconds(ckpt_dir))
+    failed = coord.apply(ft.NodeFailure(1))
+    moved = coord.apply(ft.RateChange(0, 1, 0.5))
+    if not (failed.restore_seconds == estimate > 0
+            and moved.restore_seconds == 0.0):
+        raise AssertionError(f"4e (f) restore charge {failed.restore_seconds}"
+                             f" vs estimate {estimate}, rate change "
+                             f"{moved.restore_seconds}")
+    n_events = len(traces["cuda"]["traceEvents"])
+    out["trace_checkpoint"] = {
+        "trace_events": n_events, "leaves": len(flat),
+        "bytes": meta["bytes"], "save_wall_s": save_wall,
+        "restore_wall_s": restore_wall, "estimate_s": estimate}
+    log(f"4e (f) Chrome trace of the quickstart plan's run: {n_events} "
+        f"events, valid, equal to the CPU's; checkpoint of the executor's "
+        f"{len(tree)} VGG-16 stages ({len(flat)} tensors, {meta['bytes']} "
+        f"bytes) saved from cuda in {save_wall:.3f} s, restored onto it "
+        f"bitwise in {restore_wall:.3f} s; NodeFailure charged "
+        f"{failed.restore_seconds!r} s (= estimate_restore_seconds), the "
+        f"rate change 0")
+    del ex, tree, back, like, flat
+    return out
+
+
 def timed(fn, device: str):
     """(fn(), wall seconds), the device synchronized on both sides."""
     if device == "cuda":
@@ -1664,6 +2093,15 @@ def main(argv=None) -> int:
     # 4d. sim: the simulator's engines on the card ---------------------------
     sim_out = sim_phase(core, minplus, profile, net, plan)
 
+    # 4e. planning by the simulator and by tail risk, fuzz, policies ----------
+    t0 = time.perf_counter()
+    robust_out = planning_phase(
+        core, minplus, profile, net, plan,
+        os.path.join(os.path.dirname(os.path.abspath(__file__)), "build",
+                     "smoke_4e"))
+    robust_out["phase_wall_s"] = time.perf_counter() - t0
+    log(f"4e: phase wall {robust_out['phase_wall_s']:.2f} s")
+
     # 5. train -------------------------------------------------------------
     # the comparison runs in full float32: cuDNN convolutions default to
     # TF32 on the card, so TF32 is switched off for this phase
@@ -2055,6 +2493,7 @@ def main(argv=None) -> int:
         f"K2 launches {k2_launches}; peak device memory {peak_gib:.2f} GiB, "
         f"of which {held_gib:.2f} GiB was held before the server was built")
     log(json.dumps({"sim": sim_out, "card": smi}))
+    log(json.dumps({"robust": robust_out, "card": smi}))
     log(f"profiler: {PROFILER_STATS['calls']} device_ms calls, "
         f"{PROFILER_STATS['retried_sessions']} sessions with no device time "
         f"run again, {PROFILER_STATS['event_fallbacks']} timed by CUDA events")
@@ -2074,6 +2513,10 @@ def main(argv=None) -> int:
            for label, t in k1.items()},
         "exhaustive_joint_launches": ej_launches,
         "sim_replan_launches": sim_out["replan"]["k1_launches"],
+        "sim_refined_launches": robust_out["sim_refined"]["k1_launches"],
+        "robust_bcd_launches":
+            robust_out["cvar"]["robust_bcd"]["k1_launches"],
+        "policy_zoo_launches": robust_out["zoo"]["k1_launches"],
         "graph_axis": {label.replace(" ", "_"): t
                        for label, t in {**k1_graph, **k1_device}.items()},
         "device_backend_launches": {

@@ -15,12 +15,16 @@ from .latency import (SplitSolution, fill_latency, pipeline_interval,
 from .msp_graph import GraphFactory, MSPGraph, build_graph, path_to_solution
 from .shortest_path import (DEFAULT_SOLVER, MSPResult, Planner, solve_msp,
                             brute_force_msp, enumerate_solutions)
-from .cost_model import (CostModel, ClosedForm, resolve_cost_model,
+from .cost_model import (CostModel, ClosedForm, SimMakespan, StageClaim,
+                         DegradedTail, stage_memory_claims,
+                         node_budget_windows, node_budget_windows_many,
+                         budget_feasible, resolve_cost_model,
                          memoized_cost_model)
 from .microbatch import (MicrobatchResult, optimal_microbatch,
                          exhaustive_microbatch, feasibility_box)
 from .bcd import Plan, bcd_solve, exhaustive_joint
-from .baselines import rc_op, rp_oc, no_pipeline, ours, optimal, SCHEMES
+from .baselines import (rc_op, rp_oc, no_pipeline, ours, sim_refined,
+                        optimal, SCHEMES)
 from .fluctuation import FluctuationReport, evaluate_under_fluctuation
 
 __all__ = [
@@ -33,9 +37,11 @@ __all__ = [
     "max_feasible_microbatch", "GraphFactory", "MSPGraph", "build_graph",
     "path_to_solution", "DEFAULT_SOLVER", "MSPResult", "Planner",
     "solve_msp", "brute_force_msp", "enumerate_solutions", "CostModel",
-    "ClosedForm", "resolve_cost_model", "memoized_cost_model",
+    "ClosedForm", "SimMakespan", "StageClaim", "DegradedTail",
+    "stage_memory_claims", "node_budget_windows", "node_budget_windows_many",
+    "budget_feasible", "resolve_cost_model", "memoized_cost_model",
     "MicrobatchResult", "optimal_microbatch", "exhaustive_microbatch",
     "feasibility_box", "Plan", "bcd_solve", "exhaustive_joint", "rc_op",
-    "rp_oc", "no_pipeline", "ours", "optimal", "SCHEMES",
+    "rp_oc", "no_pipeline", "ours", "sim_refined", "optimal", "SCHEMES",
     "FluctuationReport", "evaluate_under_fluctuation",
 ]

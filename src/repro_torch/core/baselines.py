@@ -8,8 +8,8 @@
   Ours        BCD (Algorithm 2) with a multi-start over b0
 
 The random draws are the reference's: a ``numpy.random.Generator`` seeded
-alike, called in the same order.  ``sim_refined`` (the simulator-scored
-BCD) waits for the simulator's port, so ``SCHEMES`` holds the other four.
+alike, called in the same order.  ``sim_refined`` is the simulator-scored
+BCD (``SimMakespan``, memory-budgeted admission).
 """
 
 from __future__ import annotations
@@ -20,7 +20,7 @@ import numpy as np
 
 from . import latency as L
 from .bcd import Plan, bcd_solve, exhaustive_joint
-from .cost_model import resolve_cost_model
+from .cost_model import SimMakespan, resolve_cost_model
 from .latency import SplitSolution
 from .microbatch import optimal_microbatch
 from .network import EdgeNetwork
@@ -167,6 +167,25 @@ def ours(profile: ModelProfile, net: EdgeNetwork, B: int, *, b0: int = 20,
     return plan
 
 
+def sim_refined(profile: ModelProfile, net: EdgeNetwork, B: int, *,
+                b0: int = 20, theta: float = 0.01, K: int | None = None,
+                memory_model: str = "paper", restarts: bool = False,
+                solver: str | None = None, cost_model=None,
+                policy="memory", engine: str = "auto",
+                device="cuda") -> Plan:
+    """Sim-in-the-loop BCD: Algorithm 2 whose iterate selection and final
+    micro-batch refinement minimize the *measured* makespan of
+    ``sim.simulate_plan`` (``SimMakespan(policy=policy)``, memory-budgeted
+    by default) instead of the closed form.  Algorithm 1 and the simulator
+    both run on ``device``.  Restarts default off — each one pays an
+    O(B)-simulation refinement scan."""
+    cm = cost_model or SimMakespan(policy=policy, engine=engine,
+                                   device=device)
+    return ours(profile, net, B, b0=b0, theta=theta, K=K,
+                memory_model=memory_model, restarts=restarts, solver=solver,
+                cost_model=cm, device=device)
+
+
 def optimal(profile: ModelProfile, net: EdgeNetwork, B: int,
             K: int | None = None, b_step: int = 1,
             memory_model: str = "paper", solver: str | None = None,
@@ -179,6 +198,7 @@ def optimal(profile: ModelProfile, net: EdgeNetwork, B: int,
 
 SCHEMES = {
     "ours": ours,
+    "sim_refined": sim_refined,
     "rc_op": rc_op,
     "rp_oc": rp_oc,
     "no_pipeline": no_pipeline,

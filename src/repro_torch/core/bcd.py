@@ -1,6 +1,6 @@
 """Algorithm 2 — BCD over (MSP) and (micro-batch size).
 
-The port of ``repro/core/bcd.py`` (its closed-form path):
+The port of ``repro/core/bcd.py``:
 
     b^0 = init;  repeat:
         (x, y, T_1) <- Algorithm 1 with b fixed          (core.shortest_path)
@@ -8,11 +8,13 @@ The port of ``repro/core/bcd.py`` (its closed-form path):
     until |L_t^tau - L_t^(tau-1)| < theta  or  max_iters
 
 then the exact 1-D refinement of b (``refine_b``).  Algorithm 1 runs on the
-planner's device; Theorem 1 and the objective are host-side closed forms.
+planner's device; Theorem 1 is a host-side closed form.  The objective is
+pluggable (``cost_model=``): the default ``ClosedForm`` is Eq. (14), while
+``SimMakespan`` / ``sim.RobustMakespan`` score the iterates and the final
+micro-batch refinement with the simulator on their own device.
 ``exhaustive_joint`` is Fig. 7's optimum: Algorithm 1 at every b, as one
 ``Planner.solve_many`` on the device (exact, or the batched device
-backend).  The simulated-makespan cost models
-wait for the simulator's port.
+backend).
 """
 
 from __future__ import annotations
@@ -72,8 +74,15 @@ def bcd_solve(profile: ModelProfile, net: EdgeNetwork, B: int,
     then re-runs Algorithm 1 once at the refined b.  ``planner`` (graph
     factory + DP buffers) is shared across every BCD iteration; pass one in
     to amortize it across restarts — it must live on ``device``.
+
+    ``cost_model`` selects the objective (``core.cost_model``): the default
+    ``ClosedForm`` is the paper's Eq. (14); any other model (``SimMakespan``,
+    ``sim.RobustMakespan``) keeps the closed-form alternation for candidate
+    generation, warm-starts from the closed-form plan re-scored under it,
+    and decides which iterate is kept and how b is refined.
     """
-    with obs.span("bcd.solve", B=B, b0=b0):
+    with obs.span("bcd.solve", B=B, b0=b0,
+                  cost_model=getattr(cost_model, "name", cost_model)):
         return _bcd_solve(profile, net, B, b0=b0, theta=theta,
                           max_iters=max_iters, K=K,
                           memory_model=memory_model, refine_b=refine_b,
@@ -84,11 +93,10 @@ def bcd_solve(profile: ModelProfile, net: EdgeNetwork, B: int,
 def _bcd_solve(profile, net, B, *, b0, theta, max_iters, K, memory_model,
                refine_b, solver, planner, cost_model, device) -> Plan:
     t_start = time.perf_counter()
-    cm = resolve_cost_model(cost_model, memory_model)
-    if not isinstance(cm, ClosedForm):
-        raise NotImplementedError(
-            f"bcd_solve runs the closed-form path only; {cm!r} waits for the "
-            "simulator's port")
+    # per-solve memo: iterate scores repeat once the alternation stabilizes,
+    # and the warm start and refinement sweeps revisit the same candidates
+    # (ClosedForm passes through unwrapped)
+    cm = memoized_cost_model(resolve_cost_model(cost_model, memory_model))
     if planner is None:
         planner = Planner(profile, net, memory_model, device)
     elif planner.memory_model != memory_model:
@@ -110,33 +118,99 @@ def _bcd_solve(profile, net, B, *, b0, theta, max_iters, K, memory_model,
                     solve_seconds=time.perf_counter() - t_start,
                     feasible=False, objective=math.inf, cost_model=cm.name)
 
-    iters = 0
-    for tau in range(1, max_iters + 1):
-        iters = tau
-        obs.inc("bcd.iterations")
-        with obs.span("bcd.iterate", tau=tau, b=b):
-            msp = planner.solve(b, B, K=K, solver=solver)
-            if not msp.feasible:
-                # shrink b: memory may be the blocker at this size
-                if b > 1:
-                    b = max(1, b // 2)
-                    continue
-                return infeasible_plan(tau)
-            mb = optimal_microbatch(profile, net, msp.solution, B,
-                                    msp.T_1, memory_model=memory_model,
-                                    cost_model=cm)
-            if mb.b > 0:
-                b = mb.b
-            obj = cm.evaluate(profile, net, msp.solution, b, B)
-        # ties move forward, tracking the paper's always-move alternation
-        if best is None or obj <= best[2]:
-            best = (msp.solution, b, obj)
-        history.append((best[2], best[1], best[0].cuts, best[0].placement))
-        # theta acts RELATIVE to the current latency scale; the equality leg
-        # catches obj == prev_obj == inf, where the subtraction gives NaN
-        if prev_obj == obj or abs(prev_obj - obj) < theta * max(obj, 1e-12):
-            break
-        prev_obj = obj
+    if isinstance(cm, ClosedForm):
+        iters = 0
+        for tau in range(1, max_iters + 1):
+            iters = tau
+            obs.inc("bcd.iterations")
+            with obs.span("bcd.iterate", tau=tau, b=b):
+                msp = planner.solve(b, B, K=K, solver=solver)
+                if not msp.feasible:
+                    # shrink b: memory may be the blocker at this size
+                    if b > 1:
+                        b = max(1, b // 2)
+                        continue
+                    return infeasible_plan(tau)
+                mb = optimal_microbatch(profile, net, msp.solution, B,
+                                        msp.T_1, memory_model=memory_model,
+                                        cost_model=cm)
+                if mb.b > 0:
+                    b = mb.b
+                obj = cm.evaluate(profile, net, msp.solution, b, B)
+            # ties move forward, tracking the paper's always-move alternation
+            if best is None or obj <= best[2]:
+                best = (msp.solution, b, obj)
+            history.append((best[2], best[1], best[0].cuts,
+                            best[0].placement))
+            # theta acts RELATIVE to the current latency scale; the equality
+            # leg catches obj == prev_obj == inf, where the subtraction
+            # gives NaN
+            if prev_obj == obj or \
+                    abs(prev_obj - obj) < theta * max(obj, 1e-12):
+                break
+            prev_obj = obj
+    else:
+        # warm start: the closed-form plan on the same planner, re-scored
+        # under this model — the result is never worse than it on the
+        # model's own metric
+        seed = bcd_solve(profile, net, B, b0=b0, theta=theta,
+                         max_iters=max_iters, K=K, memory_model=memory_model,
+                         refine_b=refine_b, solver=solver, planner=planner,
+                         device=device)
+        if not (seed.feasible and seed.b > 0):
+            seed = None
+        # the iterates are closed-form work, generated objective-free up to
+        # the first repeated (solution, b) (the alternation's fixed point);
+        # one evaluate_many then scores the seed and every iterate, and the
+        # stopping rule is replayed over those scores — the interleaved
+        # loop's plan, history and iteration count exactly
+        iters = 0
+        iterates: list = []             # (tau, solution, b) per scored tau
+        infeasible_at = None            # tau of a b == 1 infeasible solve
+        for tau in range(1, max_iters + 1):
+            iters = tau
+            obs.inc("bcd.iterations")
+            with obs.span("bcd.iterate", tau=tau, b=b):
+                msp = planner.solve(b, B, K=K, solver=solver)
+                if not msp.feasible:
+                    if b > 1:
+                        b = max(1, b // 2)
+                        continue
+                    infeasible_at = tau
+                    break
+                mb = optimal_microbatch(profile, net, msp.solution, B,
+                                        msp.T_1, memory_model=memory_model,
+                                        cost_model=cm)
+                if mb.b > 0:
+                    b = mb.b
+            iterates.append((tau, msp.solution, b))
+            if len(iterates) >= 2 and iterates[-1][1:] == iterates[-2][1:]:
+                break
+        cands = ([(seed.solution, seed.b)] if seed is not None else []) \
+            + [(s, bb) for _, s, bb in iterates]
+        objs = cm.evaluate_many(profile, net, cands, B)
+        if seed is not None:
+            best = (seed.solution, seed.b, objs[0])
+            history.append((best[2], best[1], best[0].cuts,
+                            best[0].placement))
+            objs = objs[1:]
+        stopped = False
+        for (tau, i_sol, i_b), obj in zip(iterates, objs):
+            # under a measured metric a closed-form step may regress: the
+            # incumbent survives it (ties move forward)
+            if best is None or obj <= best[2]:
+                best = (i_sol, i_b, obj)
+            history.append((best[2], best[1], best[0].cuts,
+                            best[0].placement))
+            if prev_obj == obj or \
+                    abs(prev_obj - obj) < theta * max(obj, 1e-12):
+                iters = tau
+                stopped = True
+                break
+            prev_obj = obj
+        if infeasible_at is not None and not stopped:
+            # the interleaved loop would have given up exactly here
+            return infeasible_plan(infeasible_at)
     if best is None:
         return infeasible_plan(iters)
     sol, b, obj = best

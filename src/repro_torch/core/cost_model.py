@@ -1,18 +1,19 @@
 """Cost models — the pluggable objective/feasibility seam of the planner.
 
-The port of ``repro/core/cost_model.py``'s protocol, its default
+The port of ``repro/core/cost_model.py``: the protocol, its default
 :class:`ClosedForm` (the paper's Eqs. (12)-(14) objective with the
-Eq. (11)/C7-C8 memory predicate), bit-identical to the reference, and the
-per-solve memo :func:`memoized_cost_model` that ``exhaustive_joint`` wraps
-its model in.
+Eq. (11)/C7-C8 memory predicate), bit-identical to the reference,
+:class:`SimMakespan` (the measured makespan of ``sim.simulate_plan`` under
+an admission policy, memory-budgeted by default, on the model's device),
+and the per-solve memo :func:`memoized_cost_model` that ``bcd_solve`` and
+``exhaustive_joint`` wrap their model in.
 
 The Eq. (11) claims source is here too: ``latency.memory_split`` ->
 :func:`stage_memory_claims` -> :func:`node_budget_windows`, which the
 simulator's ``MemoryBudgeted`` admission binds through, with
 :class:`DegradedTail` sizing the budgets for a degraded-memory tail.  Host
 float64 arithmetic in the reference's operation order, so the windows are
-equal (``==``).  The simulated-makespan model (``SimMakespan``) waits for
-ROADMAP Queue 1 item 4b.
+equal (``==``).
 """
 
 from __future__ import annotations
@@ -23,12 +24,14 @@ import math
 import numpy as np
 
 from .. import obs
+from .._device import resolve_device
 from . import latency as L
 from .latency import SplitSolution, memory_split, memory_split_per_sample
 from .network import EdgeNetwork
 from .profiles import ModelProfile
 
-__all__ = ["CostModel", "ClosedForm", "StageClaim", "DegradedTail",
+__all__ = ["CostModel", "ClosedForm", "SimMakespan", "StageClaim",
+           "DegradedTail",
            "stage_memory_claims", "node_budget_windows",
            "node_budget_windows_many", "budget_feasible",
            "resolve_cost_model", "memoized_cost_model"]
@@ -240,6 +243,95 @@ class ClosedForm(CostModel):
 
     def __repr__(self):
         return f"ClosedForm(memory_model={self.memory_model!r})"
+
+
+class SimMakespan(CostModel):
+    """Measured makespan: ``sim.simulate_plan`` under an admission policy.
+
+    The simulated timeline charges the reentrant/co-location idle time the
+    closed form idealizes away, and the admission ``policy`` bounds live
+    activations — ``"memory"`` (``sim.policies.MemoryBudgeted``, the
+    default) derives the windows from ``Node.mem`` via
+    :func:`node_budget_windows`, so the objective and the feasibility
+    predicate consume the same claims.  ``engine="auto"`` uses the
+    vectorized engine wherever it is exact and falls back to the heap event
+    loop.  ``repro_torch.sim`` is imported at call time, so ``core`` imports
+    without it.  ``device`` (``"cuda"`` unless the caller passes ``"cpu"``)
+    is where the simulator runs.
+    """
+
+    name = "sim_makespan"
+
+    def __init__(self, policy="memory", engine: str = "auto",
+                 memory_model: str = "refined",
+                 tail: DegradedTail | None = None, device="cuda"):
+        # one memory model for the feasibility predicate and the executed
+        # admission windows: a "memory" policy name is built with this
+        # model's memory_model and tail, and a pre-built MemoryBudgeted
+        # donates its own
+        if isinstance(policy, str) and \
+                policy.lower() in ("memory", "memory_budgeted"):
+            from ..sim.policies import MemoryBudgeted  # deferred
+            policy = MemoryBudgeted(memory_model, tail=tail)
+        elif getattr(policy, "name", None) == "memory":
+            memory_model = policy.memory_model
+            tail = policy.tail
+        self.policy = policy
+        self.engine = engine
+        self.memory_model = memory_model
+        self.tail = tail
+        self.device = resolve_device(device)
+
+    def evaluate(self, profile, net, sol, b, B) -> float:
+        if b < 1 or not self.memory_feasible(profile, net, sol, b):
+            return math.inf
+        from ..sim.engine import simulate_plan  # deferred: no hard dep
+        with obs.span("cost_model.sim_evaluate", b=b, B=B):
+            rep = simulate_plan(profile, net, sol, b, B=B, policy=self.policy,
+                                engine=self.engine, device=self.device)
+        return rep.L_t
+
+    def evaluate_many(self, profile, net, cands, B) -> list:
+        """One ``sim.simulate_plans`` call for every memory-feasible
+        candidate (the engine's stacked plan axis); equal to looping
+        :meth:`evaluate`."""
+        from ..sim.engine import simulate_plans  # deferred: no hard dep
+        out = [math.inf] * len(cands)
+        by_sol: dict = {}
+        for i, (sol, b) in enumerate(cands):
+            if b >= 1:
+                by_sol.setdefault((sol.cuts, sol.placement), []).append(i)
+        live = []
+        for idxs in by_sol.values():
+            sol = cands[idxs[0]][0]
+            oks = self.memory_feasible_many(profile, net, sol,
+                                            [cands[i][1] for i in idxs])
+            live.extend(i for i, ok in zip(idxs, oks) if ok)
+        live.sort()
+        if not live:
+            return out
+        with obs.span("cost_model.sim_evaluate_many", n=len(live), B=B):
+            reps = simulate_plans(profile, net, [cands[i] for i in live],
+                                  B=B, policy=self.policy,
+                                  engine=self.engine, device=self.device)
+        for i, rep in zip(live, reps):
+            out[i] = rep.L_t
+        return out
+
+    def memory_feasible(self, profile, net, sol, b) -> bool:
+        return budget_feasible(profile, net, sol, b, self.memory_model,
+                               self.tail)
+
+    def memory_feasible_many(self, profile, net, sol, bs) -> list:
+        wss = node_budget_windows_many(profile, net, sol, bs,
+                                       self.memory_model, self.tail)
+        return [all(w is None or w >= 1 for w in ws) for ws in wss]
+
+    def __repr__(self):
+        extra = "" if self.tail is None else f", tail={self.tail!r}"
+        return (f"SimMakespan(policy={getattr(self.policy, 'name', self.policy)!r}, "
+                f"engine={self.engine!r}, "
+                f"memory_model={self.memory_model!r}{extra})")
 
 
 class _MemoCostModel(CostModel):

@@ -18,10 +18,11 @@ hints kept), so a replan after a single-link event is a warm re-sweep, not
 a cold Algorithm 1.  The planner, every preview planner and the BCD solves
 run on ``device`` (``"cuda"`` unless the caller passes ``"cpu"``).
 
-Replanning *policies* (``repro/ft/policy.py``: debounce, rate limits,
-cadence, tail-risk pre-spill) score candidates with the simulator and wait
-for ROADMAP Queue 1 item 6; ``policy=None`` — apply every event at once,
-the reference's default — is the only one here.
+A replanning *policy* (``ft.policy``: debounce, rate limits, cadence,
+tail-risk pre-spill) sits between an event's arrival and the solve:
+``deliver`` consults ``policy.decide`` and either replans (``apply``) or
+absorbs the event (``absorb``: the network mutates, the incumbent plan
+rides out).  ``policy=None`` — apply every event at once — is the default.
 """
 
 from __future__ import annotations
@@ -95,6 +96,7 @@ class ReplanOutcome:
     ride_out_latency: float | None = None  # incumbent on the mutated net
     #                              (inf: riding out impossible; None: unknown)
     net_changed: bool = True     # did coord.net mutate (Resync: no)
+    decision: object = None      # PolicyDecision when routed via deliver()
 
     @property
     def new_latency(self) -> float:
@@ -112,6 +114,7 @@ class ReplanOutcome:
             "sim_time": self.sim_time,
             "restore_seconds": self.restore_seconds,
             "ride_out_latency": self.ride_out_latency,
+            "reason": None if self.decision is None else self.decision.reason,
         }
 
 
@@ -120,8 +123,11 @@ class Coordinator:
 
     ``cost_model`` (default: closed form) is threaded through every replan.
     ``restore_cost`` is the checkpoint-restore charge of a ``NodeFailure``:
-    seconds, or a zero-argument callable queried at failure time; it lands
-    on ``ReplanOutcome.restore_seconds``.
+    seconds, or a zero-argument callable queried at failure time (e.g.
+    ``lambda: checkpoint.estimate_restore_seconds(ckpt_dir)``); it lands
+    on ``ReplanOutcome.restore_seconds``.  ``policy`` is the replan policy
+    ``deliver`` consults (``ft.policy``: an instance, a name, or ``None``
+    for eager).
 
     Every full replan also scores the *ride-out* candidate — the old
     ``(solution, b)`` carried onto the mutated network (placement indices
@@ -134,12 +140,7 @@ class Coordinator:
                  microbatch_gain_threshold: float = 0.95, cost_model=None,
                  restore_cost=0.0, policy=None,
                  preview_cache_size: int = 8, device="cuda"):
-        if policy is not None:
-            raise ValueError(
-                f"replan policy {policy!r} is not ported: the policies of "
-                "repro/ft/policy.py, which score candidates with the "
-                "simulator, wait for ROADMAP Queue 1 item 6; pass "
-                "policy=None (apply every event)")
+        from .policy import resolve_replan_policy
         if preview_cache_size < 1:
             raise ValueError("preview_cache_size must be >= 1")
         self.profile = profile
@@ -149,6 +150,7 @@ class Coordinator:
         self.mb_gain_threshold = microbatch_gain_threshold
         self.cost_model = resolve_cost_model(cost_model)
         self.restore_cost = restore_cost
+        self.policy = resolve_replan_policy(policy)
         # ONE Planner serves every replan of this coordinator's lifetime:
         # events route through Planner.update (in-place graph patches + warm
         # hints), so an adopted replan after a single-link event costs a
@@ -165,11 +167,32 @@ class Coordinator:
                               planner=self.planner, device=self.device)
         self.events: list = []
 
-    # -- event delivery -------------------------------------------------------
+    # -- event delivery (policy seam) -----------------------------------------
     def deliver(self, event, *, sim_time: float | None = None) -> ReplanOutcome:
-        """Route one event through the replan policy; with no policy (the
-        only one ported) this *is* ``apply``."""
-        return self.apply(event, sim_time=sim_time)
+        """Route one event through the replan policy: consult
+        ``policy.decide`` and either ``apply`` (full treatment) or
+        ``absorb`` (mutate the network, keep the incumbent plan); the
+        policy's ``observe`` sees the outcome.  With no policy this *is*
+        ``apply``."""
+        if self.policy is None:
+            return self.apply(event, sim_time=sim_time)
+        t = 0.0 if sim_time is None else sim_time
+        with obs.span("ft.policy.decide", policy=self.policy.name,
+                      event=type(event).__name__):
+            decision = self.policy.decide(event, t, self)
+        obs.inc("ft.policy.decisions[%s]"
+                % ("replan" if decision.replan else "absorb"))
+        logger.info("policy %s: %s -> %s (%s)", self.policy.name,
+                    type(event).__name__,
+                    "replan" if decision.replan else "absorb", decision.reason)
+        if decision.replan:
+            outcome = self.apply(event, sim_time=sim_time,
+                                 cost_model=decision.cost_model)
+        else:
+            outcome = self.absorb(event, sim_time=sim_time)
+        outcome.decision = decision
+        self.policy.observe(outcome, t)
+        return outcome
 
     # -- event application ----------------------------------------------------
     def apply(self, event, *, sim_time: float | None = None,

@@ -1,14 +1,19 @@
 """Process-local counter/span registry — zero overhead when disabled.
 
-A minimal copy of ``repro/obs/registry.py``: instrumented call sites go
-through the module-level :func:`inc` / ``spans.span`` entry points, which
-cost one global load plus a branch while telemetry is off and allocate
-nothing.  Counter names are dotted strings (``"planner.solve_memo_hit"``).
+The port of ``repro/obs/registry.py``: instrumented call sites go through
+the module-level :func:`inc` / ``spans.span`` entry points, which cost one
+global load plus a branch while telemetry is off and allocate nothing.
+Counter names are dotted strings (``"planner.solve_memo_hit"``);
+histogram-style tallies embed the bucket in the name
+(``"sim.engine_reason[vectorized: ...]"``).  :func:`dump` writes the
+counters and a per-span-name rollup as JSON.
 """
 
 from __future__ import annotations
 
 import contextlib
+import json
+import os
 
 
 class Registry:
@@ -22,6 +27,10 @@ class Registry:
 
     def inc(self, name: str, n=1) -> None:
         self.counters[name] = self.counters.get(name, 0) + n
+
+    def snapshot(self) -> dict:
+        """A point-in-time copy of the counters."""
+        return dict(self.counters)
 
     def reset(self) -> None:
         self.counters.clear()
@@ -77,3 +86,19 @@ def counter(name: str):
 def reset() -> None:
     """Clear all counters and recorded spans (the enabled flag is kept)."""
     _REGISTRY.reset()
+
+
+def dump(path: str) -> str:
+    """Write the registry (counters + per-span-name rollup) as JSON."""
+    from .spans import span_summary
+    counters = _REGISTRY.counters
+    payload = {
+        "counters": {k: counters[k] for k in sorted(counters, key=str)},
+        "spans": span_summary(),
+    }
+    d = os.path.dirname(path)
+    if d:
+        os.makedirs(d, exist_ok=True)
+    with open(path, "w") as f:
+        json.dump(payload, f, indent=2, default=str)
+    return path

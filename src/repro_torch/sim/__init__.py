@@ -11,9 +11,14 @@ memory-budgeted windows of Eq. (11)); ``scenario`` time-varying capacity
 traces, straggler windows, link outages and replan triggers; ``validate``
 cross-checks the simulated T_f/T_i/L_t against Eqs. (12)-(14) and the two
 engines against each other.  ``simulate_with_replanning`` drives the
-port's coordinator from simulated time.  Every entry point runs on
-``device="cuda"`` unless given ``"cpu"``.  The fuzzer and the robustness
-scores wait for ROADMAP Queue 1 item 5, Chrome-trace export for item 6.
+port's coordinator from simulated time.  ``fuzz`` composes failure
+families into seeded scenarios and replays them through both engines (the
+differential oracle, with a shrinker and the shared JSON corpus);
+``robustness`` scores plans by their tail across a fuzzed scenario
+distribution (CVaR) and threads that score into the planner as
+``RobustMakespan``.  ``events.write_chrome_trace`` exports a timeline to
+Perfetto.  Every entry point runs on ``device="cuda"`` unless given
+``"cpu"``.
 """
 
 from .events import (Task, Timeline, TraceRecord, VisitTable,
@@ -34,6 +39,15 @@ from .validate import (CrossCheck, cross_validate, cross_validate_many,
                        compare_engines, compare_utilization,
                        random_chain_solution, random_instance,
                        random_reentrant_solution)
+from .fuzz import (ALL_FAMILIES, FuzzCase, FuzzConfig, FuzzSummary,
+                   ParityResult, check_parity, fuzz_case, fuzz_event_stream,
+                   fuzz_scenario, fuzz_scenario_weighted, load_case,
+                   load_corpus, run_fuzz, save_case, shrink_case)
+from .robustness import (RobustMakespan, RobustnessReport, cvar,
+                         scenario_distribution,
+                         importance_scenario_distribution,
+                         memory_occupancy_overflow, score_plan,
+                         score_plans)
 
 __all__ = [
     "Task", "Timeline", "TraceRecord", "VisitTable", "write_chrome_trace",
@@ -49,4 +63,11 @@ __all__ = [
     "CrossCheck", "cross_validate", "cross_validate_many", "compare_engines",
     "compare_utilization",
     "random_chain_solution", "random_instance", "random_reentrant_solution",
+    "ALL_FAMILIES", "FuzzCase", "FuzzConfig", "FuzzSummary", "ParityResult",
+    "check_parity", "fuzz_case", "fuzz_event_stream", "fuzz_scenario",
+    "fuzz_scenario_weighted", "load_case", "load_corpus", "run_fuzz",
+    "save_case", "shrink_case",
+    "RobustMakespan", "RobustnessReport", "cvar", "scenario_distribution",
+    "importance_scenario_distribution", "memory_occupancy_overflow",
+    "score_plan", "score_plans",
 ]

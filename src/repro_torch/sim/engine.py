@@ -922,10 +922,9 @@ def simulate_with_replanning(profile: ModelProfile, net: EdgeNetwork, B: int,
     merged and fired in time order.
 
     Each trigger's event is **delivered** to the coordinator
-    (``Coordinator.deliver``), which replans (the port's coordinator has
-    no replan policy that could *absorb* the event instead).  For an
-    adopted replan: micro-batches fully drained by then are banked,
-    in-flight ones are discarded (they re-run after the remap), and the
+    (``Coordinator.deliver``), whose replan policy (``ft.policy``; eager
+    when none) either replans or *absorbs* it.  For an adopted replan:
+    micro-batches fully drained by then are banked, in-flight ones are discarded (they re-run after the remap), and the
     remaining samples resume at ``trigger.time + remap_penalty +
     solve_downtime + outcome.restore_seconds`` under the new plan — a
     ``NodeFailure`` additionally pays the checkpoint-restore charge the
@@ -946,9 +945,8 @@ def simulate_with_replanning(profile: ModelProfile, net: EdgeNetwork, B: int,
     ``policy``/``engine``/``device`` are forwarded to each segment's
     ``simulate_plan`` (``policy`` here is the *admission* policy —
     FIFO/1F1B/memory — not the replan policy); ``device`` also builds the
-    coordinator (``"cuda"``: its replans launch the min-plus kernel).  The
-    port's coordinator runs the eager default (no replan policy); a named
-    replan policy among ``coordinator_kwargs`` raises there.
+    coordinator (``"cuda"``: its replans launch the min-plus kernel).  A
+    replan policy reaches the run through a pre-built ``coordinator``.
 
     ``scenario`` capacity traces are keyed by node/link index; a
     ``NodeFailure`` renumbers the network's indices, so combining the two

@@ -14,8 +14,8 @@ connected by precedence edges.  Two representations exist:
 Executing either produces a timeline — eager ``TraceRecord`` lists from the
 heap engine, a dense ``Timeline`` (start/end float64 tensors on the run's
 device) from the vectorized engine.  The table itself is host data: it is
-structure, read once per run.  Chrome-trace export waits for the port of
-``obs/trace.py`` (ROADMAP Queue 1 item 6).
+structure, read once per run.  :func:`write_chrome_trace` exports a
+timeline's records as a Chrome/Perfetto trace.
 
 Resource keys mirror the aggregation of Eq. (13) / C9-C16:
 
@@ -31,6 +31,8 @@ serializes — exactly the per-node sums of the analytical bottleneck.
 from __future__ import annotations
 
 import dataclasses
+import json
+import os
 
 import numpy as np
 import torch
@@ -168,8 +170,58 @@ def write_chrome_trace(records, path: str, *, time_scale: float = 1e6,
                        counter_tracks: bool = False,
                        flow_events: bool = False,
                        wall_spans=None) -> str:
-    """Chrome-trace export of a timeline.  Not ported: it renders through
-    ``obs/trace.py``, which is ROADMAP Queue 1 item 6."""
-    raise NotImplementedError(
-        "write_chrome_trace renders through obs/trace.py, which is not "
-        "ported yet (ROADMAP Queue 1 item 6)")
+    """Write the timeline as a Chrome-trace JSON (ts/dur in microseconds).
+
+    One "thread" per resource; each record becomes a complete ("X") event.
+    Load the file at chrome://tracing or https://ui.perfetto.dev.
+
+    Optional extras (all on pid ``obs.SIM_PID`` except the last):
+
+    * ``counter_tracks`` — per-resource "C" counter tracks showing
+      instantaneous occupancy (pipeline bubbles render as dips), plus a
+      pipeline-wide active-task counter.
+    * ``flow_events`` — "s"/"f" flow arrows linking each micro-batch's
+      forward transfer on a hop to its backward transfer on the reverse
+      hop, making the round trip visible.
+    * ``wall_spans`` — finished ``obs.span()`` records (e.g.
+      ``obs.wall_spans()``); rendered as wall-clock solver tracks on their
+      own process (pid ``obs.SOLVER_PID``) next to the simulated-time
+      pipeline tracks.
+    """
+    from ..obs import trace as obs_trace
+
+    resources = sorted({r.resource for r in records},
+                       key=lambda res: (KINDS.index(res[0]), res[1:]))
+    tid_of = {res: i for i, res in enumerate(resources)}
+    pid = obs_trace.SIM_PID
+    events: list = [{"ph": "M", "name": "process_name", "pid": pid, "tid": 0,
+                     "args": {"name": "pipeline (simulated time)"}}]
+    events += [{"ph": "M", "name": "thread_name", "pid": pid, "tid": tid,
+                "args": {"name": resource_label(res)}}
+               for res, tid in tid_of.items()]
+    for r in records:
+        events.append({
+            "name": f"mb{r.microbatch} k{r.stage} {r.kind}",
+            "ph": "X", "pid": pid, "tid": tid_of[r.resource],
+            "ts": r.start * time_scale,
+            "dur": max(r.end - r.start, 0.0) * time_scale,
+            "args": {"microbatch": r.microbatch, "stage": r.stage,
+                     "kind": r.kind},
+        })
+    if counter_tracks:
+        events += obs_trace.utilization_counter_events(
+            records, pid=pid, time_scale=time_scale,
+            label_of=resource_label)
+    if flow_events:
+        events += obs_trace.microbatch_flow_events(
+            records, tid_of, pid=pid, time_scale=time_scale)
+    if wall_spans:
+        events += obs_trace.solver_span_events(
+            wall_spans, pid=obs_trace.SOLVER_PID, time_scale=time_scale)
+    out = {"traceEvents": events, "displayTimeUnit": "ms"}
+    d = os.path.dirname(path)
+    if d:
+        os.makedirs(d, exist_ok=True)
+    with open(path, "w") as f:
+        json.dump(out, f, default=str)
+    return path

@@ -6,8 +6,8 @@ restricted Algorithm 1 (RC+OP's fixed cuts, RP+OC's fixed placement, both
 solvers), ``Planner.solve_many`` (the stacked b-sweep), ``exhaustive_joint``
 (Fig. 7's optimum), ``rc_op`` / ``rp_oc`` (whose random draws come from a
 ``numpy.random.Generator`` seeded and called as the reference calls it),
-``optimal``, ``evaluate_under_fluctuation`` (Fig. 6, iid mode) and the
-per-solve cost-model memo.
+``optimal``, ``sim_refined``, ``evaluate_under_fluctuation`` (Fig. 6, iid
+and trace modes) and the per-solve cost-model memo.
 """
 
 import dataclasses
@@ -224,16 +224,20 @@ def test_random_baselines_match_reference(seed, draw_seed, scheme):
 def test_schemes_and_baselines_on_the_quickstart_instance():
     """rc_op / rp_oc(seed=7) on VGG-16 over 6 servers + 4 clients equal the
     reference, and ``ours`` is no worse than either (the reference's
-    ``test_ours_beats_random_baselines``)."""
+    ``test_ours_beats_random_baselines``); ``SCHEMES`` is the reference's,
+    ``sim_refined`` included."""
     (rp, rn), (tp, tn) = _quickstart()
-    assert set(T.SCHEMES) == {"ours", "rc_op", "rp_oc", "no_pipeline"}
-    assert set(T.SCHEMES) < set(R.SCHEMES)
+    assert list(T.SCHEMES) == list(R.SCHEMES)
     ours = T.SCHEMES["ours"](tp, tn, B=512, b0=20, device="cpu")
     for scheme in ("rc_op", "rp_oc"):
         r = getattr(R, scheme)(rp, rn, B=512, seed=7)
         p = T.SCHEMES[scheme](tp, tn, B=512, seed=7, device="cpu")
         assert _plan_fields(p) == _plan_fields(r)
         assert ours.L_t <= p.L_t * (1 + 1e-9)
+    r = R.SCHEMES["sim_refined"](rp, rn, B=512)
+    p = T.SCHEMES["sim_refined"](tp, tn, B=512, device="cpu")
+    assert _plan_fields(p) == _plan_fields(r)
+    assert (p.solution, p.b) == (ours.solution, ours.b)
 
 
 @pytest.mark.parametrize("cv", [0.0, 0.1, 0.3])
@@ -256,10 +260,21 @@ def test_fluctuation_iid_matches_reference(seed, cv):
 
 
 def test_fluctuation_trace_mode_waits_for_the_simulator():
-    (_, _), (tp, tn) = _instances(0)
+    """Trace mode runs the plan in the simulator under sampled traces and
+    equals the reference (both trace models); an unknown mode still
+    raises."""
+    (rp, rn), (tp, tn) = _instances(0)
+    r_plan = R.ours(rp, rn, 48, b0=8)
     plan = T.ours(tp, tn, 48, b0=8, device="cpu")
-    with pytest.raises(NotImplementedError, match="Queue 1 item 4"):
-        T.evaluate_under_fluctuation(tp, tn, plan, 0.2, mode="trace")
+    for trace_model in ("piecewise", "gauss_markov"):
+        want = R.evaluate_under_fluctuation(rp, rn, r_plan, 0.2, draws=8,
+                                            mode="trace",
+                                            trace_model=trace_model)
+        got = T.evaluate_under_fluctuation(tp, tn, plan, 0.2, draws=8,
+                                           mode="trace",
+                                           trace_model=trace_model,
+                                           device="cpu")
+        assert dataclasses.asdict(got) == dataclasses.asdict(want)
     with pytest.raises(ValueError, match="unknown mode"):
         T.evaluate_under_fluctuation(tp, tn, plan, 0.2, mode="nope")
 

@@ -7,8 +7,7 @@ from the same numpy-seeded instance: after every event the plans are equal
 (``==`` on the solution, b, L_t and the objective), and so are the
 outcome's action and the mutated network.  Also the port's own rules:
 ``preview_cached`` memoisation and invalidation, the ride-out remap across
-a failure, and a named replan policy raising (the policies wait for the
-simulator's port).
+a failure, and a named replan policy routed through ``deliver``.
 """
 
 import math
@@ -313,17 +312,34 @@ def test_preview_cache_invalidated_by_mutation_and_bounded():
 
 
 def test_deliver_is_apply_and_named_policies_raise():
+    """Without a policy ``deliver`` is ``apply``; a named policy resolves
+    as the reference's and makes the reference's decisions; a bad name, a
+    non-policy and a zero preview cache still raise."""
     ref, port = _coords()
     re, te = _event("RateChange", 1, 2, 0.5)
     ro, to = ref.deliver(re), port.deliver(te)
     assert _same_plan(ref.plan, port.plan) and ro.action == to.action
+    assert to.decision is None and to.log_record()["reason"] is None
+    for policy in ("hysteresis", "eager", "ride_out", "adaptive"):
+        rc, tc = _coords(policy=policy)
+        assert tc.policy.name == rc.policy.name
+        for ev in (("RateChange", 1, 2, 0.9), ("RateChange", 1, 2, 0.5),
+                   ("Straggler", 2, 3.0), ("NodeFailure", 3)):
+            re, te = _event(*ev)
+            ro = rc.deliver(re, sim_time=1.0)
+            to = tc.deliver(te, sim_time=1.0)
+            assert (to.decision.replan, to.decision.reason, to.action) == \
+                (ro.decision.replan, ro.decision.reason, ro.action)
+            assert _same_plan(rc.plan, tc.plan)
     (_, _), (tp, tn) = _instance()
-    for policy in ("hysteresis", "eager", object()):
-        with pytest.raises(ValueError, match="simulator"):
-            T_ft.Coordinator(tp, tn, B=B, policy=policy, device="cpu")
+    with pytest.raises(ValueError, match="unknown replan policy"):
+        T_ft.Coordinator(tp, tn, B=B, policy="debounce", device="cpu")
+    with pytest.raises(TypeError, match="ReplanPolicy"):
+        T_ft.Coordinator(tp, tn, B=B, policy=object(), device="cpu")
     with pytest.raises(ValueError, match="preview_cache_size"):
         T_ft.Coordinator(tp, tn, B=B, preview_cache_size=0, device="cpu")
     with pytest.raises(TypeError):
         port.apply(object())
     assert set(to.log_record()) >= {"event", "action", "old_latency",
-                                    "new_latency", "ride_out_latency"}
+                                    "new_latency", "ride_out_latency",
+                                    "reason"}

@@ -49,7 +49,10 @@ def test_scan_finds_every_port_module():
     names = {p.name for p in PORT_FILES}
     assert {"shortest_path.py", "planner_device.py", "coordinator.py",
             "kernel.py", "executor.py", "chip_smoke.py", "engine.py",
-            "advance.py", "utilization.py"} <= names
+            "advance.py", "utilization.py", "fuzz.py", "robustness.py",
+            "policy.py", "adaptive.py", "trace.py", "store.py"} <= names
+    assert ROOT / "src" / "repro_torch" / "checkpoint" / "store.py" in \
+        PORT_FILES
 
 
 def test_default_device_raises_without_gpu(monkeypatch):
@@ -149,6 +152,47 @@ def test_simulator_entry_points_raise_without_gpu(entry, monkeypatch):
             prof, net, sol, 2, 4, **dev) + 1.0,
         "PipelineSimulator": lambda dev: sim.PipelineSimulator(
             net, sim.build_tasks(prof, net, sol, 2, 4), **dev).run().L_t,
+    }
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        calls[entry]({})
+    assert calls[entry]({"device": "cpu"}) > 0
+
+
+@pytest.mark.parametrize("entry", ["sim_refined", "SimMakespan",
+                                   "RobustMakespan", "run_fuzz",
+                                   "evaluate_policies", "tune_policies",
+                                   "restore_checkpoint"])
+def test_planning_and_policy_entry_points_raise_without_gpu(
+        entry, monkeypatch, tmp_path):
+    """The simulator-scored planners, the fuzzer, the policy harnesses and
+    the checkpoint restore run on cuda by default: they raise without a
+    GPU unless given device="cpu", and then run."""
+    from repro_torch.checkpoint import restore_checkpoint, save_checkpoint
+    from repro_torch.core import SimMakespan, sim_refined
+    from repro_torch.ft import Hysteresis, evaluate_policies, tune_policies
+    prof = uniform_profile(4)
+    net = make_edge_network(2, 2, seed=0)
+    sol = sim.random_chain_solution(np.random.default_rng(0), prof, net)
+    streams = [sim.fuzz_event_stream(np.random.default_rng(s), net,
+                                     horizon=1.0, max_events=2,
+                                     allow_failure=False) for s in (1, 2)]
+    save_checkpoint(str(tmp_path), 1, {"w": torch.ones(2, 3)})
+    calls = {
+        "sim_refined": lambda dev: sim_refined(prof, net, 8, **dev).L_t,
+        "SimMakespan": lambda dev: SimMakespan(**dev).evaluate(
+            prof, net, sol, 2, 8),
+        "RobustMakespan": lambda dev: sim.RobustMakespan(
+            n_scenarios=2, **dev).evaluate(prof, net, sol, 2, 8),
+        "run_fuzz": lambda dev: sim.run_fuzz(2, **dev).trials,
+        "evaluate_policies": lambda dev: evaluate_policies(
+            prof, net, 8, streams, {"h": Hysteresis}, **dev)["h"].mean,
+        "tune_policies": lambda dev: tune_policies(
+            prof, net, 8, streams, configs={"h": Hysteresis},
+            min_streams=1, cache=False, **dev).score,
+        "restore_checkpoint": lambda dev: float(restore_checkpoint(
+            str(tmp_path), 1, {"w": np.zeros((2, 3), np.float32)},
+            **dev)[0]["w"].sum()),
     }
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="device='cpu'"):

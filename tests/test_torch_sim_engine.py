@@ -869,11 +869,25 @@ def test_time_varying_scenarios_on_the_paper_plan(paper_plans, maker):
 
 
 def test_write_chrome_trace_waits_for_item_6(paper_plans, tmp_path):
-    _, (tp, tn, tplan) = paper_plans
-    rep = TS.simulate_plan(tp, tn, tplan.solution, tplan.b, B=tplan.B,
-                           device=CPU)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 6"):
-        TS.write_chrome_trace(rep.records, str(tmp_path / "trace.json"))
+    """Chrome-trace export is ported: the paper plan's trace (event and
+    vectorized runs, counter tracks and flow events) equals the
+    reference's JSON and validates."""
+    import json
+    (rp, rn, rplan), (tp, tn, tplan) = paper_plans
+    for engine in ("event", "vectorized"):
+        r = RS.simulate_plan(rp, rn, rplan.solution, rplan.b, B=rplan.B,
+                             engine=engine)
+        t = TS.simulate_plan(tp, tn, tplan.solution, tplan.b, B=tplan.B,
+                             engine=engine, device=CPU)
+        kw = dict(counter_tracks=True, flow_events=True)
+        rpath = RS.write_chrome_trace(r.records, str(tmp_path / "r.json"),
+                                      **kw)
+        tpath = TS.write_chrome_trace(t.records, str(tmp_path / "t.json"),
+                                      **kw)
+        with open(rpath) as f, open(tpath) as g:
+            want, got = json.load(f), json.load(g)
+        assert got == want
+        assert obs.validate_chrome_trace(got) == []
 
 
 # ---------------------------------------------------------------------------

@@ -184,13 +184,29 @@ def test_trigger_after_the_drain_ends_the_run(paper):
 
 def test_prebuilt_coordinator_and_named_replan_policy(paper):
     """A replan policy reaches ``simulate_with_replanning`` through a
-    pre-built coordinator; the port's coordinator refuses a named one
-    (ROADMAP item 6)."""
+    pre-built coordinator (``policy=`` there is the admission policy), as
+    an instance or by name; both runs equal the reference's (a small rate
+    change is absorbed: the segment is cut with no downtime)."""
     prof, net, plan, _ = paper[1]
-    with pytest.raises(ValueError, match="item 6"):
-        T_ft.Coordinator(prof, net, plan.B, device=CPU, policy="debounce")
     coord = T_ft.Coordinator(prof, net, plan.B, device=CPU)
     rep = TS.simulate_with_replanning(prof, net, plan.B, [],
                                       coordinator=coord, device=CPU)
     assert rep.coordinator is coord
     assert math.isfinite(rep.makespan)
+    for named in (False, True):
+        reps = []
+        for (prof, net, plan, L), S, ft, kw in zip(
+                paper, (RS, TS), (R_ft, T_ft), ({}, {"device": CPU})):
+            node = plan.solution.placement[1]
+            trigs = [S.ReplanTrigger(0.3 * L, ft.RateChange(0, node, 0.9)),
+                     S.ReplanTrigger(0.6 * L, ft.Straggler(node, 6.0))]
+            c = ft.Coordinator(prof, net, plan.B,
+                               policy="hysteresis" if named
+                               else ft.Hysteresis(0.25), **kw)
+            reps.append(S.simulate_with_replanning(
+                prof, net, plan.B, trigs, coordinator=c,
+                remap_penalty=0.001, solve_downtime=0.002, **kw))
+        _assert_same_run(*reps)
+        assert [o.decision.reason for o in reps[1].outcomes] == \
+            [o.decision.reason for o in reps[0].outcomes]
+        assert (reps[1].num_suppressed, reps[1].num_replans) == (1, 1)
