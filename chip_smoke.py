@@ -3,13 +3,13 @@
     python3 chip_smoke.py
 
 Runs the paper's plan-and-train loop, the RWKV6 server and the Qwen3
-server through ``repro_torch`` on the card, in phases; any failure raises
-and exits non-zero:
+server, and trains both language models, through ``repro_torch`` on the
+card, in phases; any failure raises and exits non-zero:
 
   1. device  require CUDA; print the card's name and power limit
-  2. build   build K1 (min-plus), K3 (WKV6) and K2 (flash) from the
-             checkout's sources, one nvcc each, all started together; print
-             K1's ptxas -v
+  2. build   build K1 (min-plus), K3 (WKV6), K2 (flash), K2' (flash
+             backward) and K3' (WKV6 backward) from the checkout's sources,
+             one nvcc each, all started together; print K1's ptxas -v
   3. kernel  hold K1 against its plain PyTorch version on the card, at the
              thresholds Algorithm 1 sweeps on the quickstart instance
              (VGG-16, 6 servers + 4 clients) and on a fleet instance
@@ -165,15 +165,55 @@ and exits non-zero:
              cache_len=1024): 8 requests of 512 prompt tokens, 32 new
              tokens each; K2 launched 8 x 28 = 224 times; prefill ms per
              request, decode tokens/s, peak device memory
+ 14. build   K2' and K3' (built in phase 2): their ptxas -v
+ 15. flash'  K2' against flash_bwd_plain and against autograd through
+             attention_plain (float32 on the same inputs), and K2's
+             log-sum-exp against attention_lse_plain, at the FLASH_SWEEP
+             shapes, the ragged 77-token shape at hd 16 and qwen3-0.6b's
+             training layer (4 x 512 x 512, 16 heads / 8 kv heads of 128,
+             causal): atol = rtol = 1e-4 for float32 inputs, 3e-2 for
+             bfloat16; the autograd route (FlashAttention) equals the
+             direct call; then K2' timed at the training layer (CUDA
+             events, profiler device time) beside its bound, the plain
+             version and scaled_dot_product_attention's backward (device
+             time of its backward kernels: the library yardstick)
+ 16. wkv6'   K3' against wkv6_bwd_plain and against autograd through the
+             chunked plain version, with a nonzero s0 and a gradient on the
+             final state, at the WKV_SWEEP shapes, tiles crossing chunks
+             with a ragged last tile, head sizes 1 and 2 (padded to 4, via
+             the autograd route) and rwkv6-1.6b's training layer (4 x 512
+             tokens, 32 heads of 64); under a strong decay (log w about
+             -4.5) against autograd through the per-token version; 1e-4
+             float32, 3e-2 bfloat16 r/k/v; the autograd route (WKV6)
+             equals the direct call; then K3' timed at the training layer
+ 17. grads   a 2-layer qwen3-0.6b and a 2-layer rwkv6-1.6b at full width
+             in float32 compute with TF32 off (matmul and cuDNN): the loss
+             and every gradient over 2 micro-batches of 1 x 256 tokens on
+             cuda (K2/K2', K3/K3') match the same weights on the CPU
+             (plain) within 1e-3 of each tensor's largest magnitude, under
+             remat none and layer; K2'/K3' launched layers x micro-batches
+             times, K2/K3 once more per layer and micro-batch under layer
+ 18. train   train("qwen3-0.6b", reduced=False) and train("rwkv6-1.6b",
+             reduced=False): full width and depth, bf16 compute, AdamW,
+             batch 8 x 512 tokens in 2 micro-batches, 4 steps; every loss
+             finite and the last below the first; K2 / K2' (K3 / K3')
+             launched 2 x and 1 x layers x micro-batches x steps (remat
+             "layer" runs each forward kernel again in the backward); step
+             time, tokens/s, peak device memory and the device's idle
+             share over one more step (profiler); then a restart from a
+             checkpoint on the reduced configs, its losses within 1e-3 of
+             an uninterrupted run
 
 A line ``{"sim": ..., "card": ...}`` carries phase 4d's walls, device busy
 times and peak memory; ``{"robust": ..., "card": ...}`` phase 4e's walls,
-gaps, picks and K1 launches.  The next-to-last line is a JSON object with the
+gaps, picks and K1 launches; ``{"train": ..., "card": ...}`` phases 17
+and 18's gaps, losses, step times, memory, idle shares and launches.  The next-to-last line is a JSON object with the
 kernels' measurements; the last is ``{"ok": true, "device": {...}}``.
 Imports nothing of JAX or of the JAX package ``repro``.
 
     python3 chip_smoke.py --time-k1 [--src OTHER_CHECKOUT/src]
     python3 chip_smoke.py --time-k3 [--src OTHER_CHECKOUT/src]
+    python3 chip_smoke.py --grads
 
 only time K1 (its six phase-3 shapes, both modes, by CUDA events, the
 profiler's device time and the host's time per call, and the planner's wall
@@ -181,7 +221,8 @@ on the card; for a kernel with routes also the windows and bottleneck calls
 at every cluster size and the all-thresholds sweeps and a 96-server graph
 at every tile) or K3
 (phase 7's timings), with this checkout's ``repro_torch`` or another's, to
-compare two versions of a kernel in one run.
+compare two versions of a kernel in one run; ``--grads`` builds and checks
+K2' and K3' alone (phases 14-16).
 """
 
 from __future__ import annotations
@@ -937,6 +978,481 @@ def rel_err(got, want) -> float:
                  / want.abs().max().clamp_min(1e-30))
 
 
+#: K2' and K3' against their plain versions: atol = rtol, float32 and
+#: bfloat16 inputs (the plain versions in float32 on the same inputs)
+GRAD_TOL = {torch.float32: 1e-4, torch.bfloat16: 3e-2}
+#: qwen3-0.6b's training layer (B 4 per micro-batch, 512 tokens, 16 heads /
+#: 8 kv heads of 128, causal) and rwkv6-1.6b's (4 x 512 tokens, 32 heads of
+#: 64, chunk 256)
+TRAIN_FLASH = (4, 512, 512, 16, 8, 128, True)
+TRAIN_WKV = (4, 512, 32, 64, 256)
+#: K3' at head sizes 1 and 2 (zero-padded to 4 around the kernel) and at
+#: a strong decay (log w about -4.5) held to autograd through the
+#: per-token recurrence, at lengths it steps through quickly
+WKV_GRAD_PADDED = [(1, 64, 2, 1, 16), (2, 64, 2, 2, 32)]
+WKV_GRAD_STRONG = [(1, 64, 2, 64, 64), (1, 130, 2, 64, 2)]
+
+
+def flash_bwd_bound_ms(B, S, T, H, KV, hd, causal, dtype) -> tuple:
+    """(bound_ms, bound_by) of K2': q, k, v, o, do and lse read once and dq,
+    dk, dv written once over HBM bandwidth, vs the five hd-deep products
+    (q k^T, dO v^T, P^T dO, dS^T q, dS k: 2 hd operations a pair each)
+    over the pairs the mask keeps, at the type's peak."""
+    esize = torch.tensor([], dtype=dtype).element_size()
+    byte_s = (esize * (4 * B * S * H * hd + 4 * B * T * KV * hd)
+              + 4 * B * H * S) / HBM_BYTES_PER_S
+    pairs = sum(min(s + 1, T) for s in range(S)) if causal else S * T
+    op_s = 5 * 2 * hd * pairs * B * H / PEAK_OPS[dtype]
+    return (max(byte_s, op_s) * 1e3,
+            "bytes" if byte_s >= op_s else "operations")
+
+
+def wkv6_bwd_bound_ms(B, S, H, hd, dtype) -> tuple:
+    """(bound_ms, bound_by) of K3': r, k, v, log w, dy, u, s0 and dS_final
+    read once and dr, dk, dv, dlog w, du and ds0 written once over HBM
+    bandwidth, vs the float32 operations of the per-token walk (S_{t-1} dy
+    and the state update forward, G v, G^T k and the G update backward:
+    10 hd^2 a token and head) over the non-tensor-core float32 peak."""
+    esize = torch.tensor([], dtype=dtype).element_size()
+    elems = B * S * H * hd
+    byte_s = (elems * (3 * esize + 4 + 4) + H * hd * 4
+              + 2 * B * H * hd * hd * 4
+              + elems * (3 * esize + 4) + H * hd * 4
+              + B * H * hd * hd * 4) / HBM_BYTES_PER_S
+    op_s = 10 * hd * hd * B * S * H / PEAK_OPS[torch.float32]
+    return (max(byte_s, op_s) * 1e3,
+            "bytes" if byte_s >= op_s else "operations")
+
+
+def max_rel(got, want) -> float:
+    """max over the tensors of max |got - want| / max |want|."""
+    return max(rel_err(g, w) for g, w in zip(got, want))
+
+
+def check_grads(label, got, want, tol) -> float:
+    """Every tensor of ``got`` within atol = rtol = ``tol`` of ``want`` (in
+    float32) and finite; returns the largest absolute error."""
+    err = 0.0
+    for i, (g, w) in enumerate(zip(got, want)):
+        g, w = g.float(), w.float()
+        if not (torch.isfinite(g).all() and torch.allclose(
+                g, w, atol=tol, rtol=tol)):
+            bad = float((g - w).abs().max())
+            raise AssertionError(f"{label} gradient {i}: max abs err {bad} "
+                                 f"> {tol}")
+        err = max(err, float((g - w).abs().max()))
+    return err
+
+
+def check_flash_grad(shape, dtype, flash_mod, flash_kernel) -> float:
+    """Hold K2' against flash_bwd_plain and against autograd through
+    attention_plain (float32 on the same inputs), K2's log-sum-exp against
+    attention_lse_plain, and the autograd route (FlashAttention) against
+    the direct call; returns the largest absolute error."""
+    B, S, T, H, KV, hd, causal = shape
+    q, k, v = flash_inputs(B, S, T, H, KV, hd, dtype)
+    do = flash_inputs(B, S, S, H, H, hd, dtype, seed=43)[0]
+    tol = GRAD_TOL[dtype]
+    out, lse = flash_kernel._forward(q, k, v, causal, True)
+    lse_want = flash_mod.attention_lse_plain(q, k, causal=causal)
+    if not torch.allclose(lse, lse_want, atol=FLASH_TOL[torch.float32],
+                          rtol=FLASH_TOL[torch.float32]):
+        raise AssertionError(f"K2 lse {shape} {dtype}: max abs err "
+                             f"{float((lse - lse_want).abs().max())}")
+    got = flash_mod.flash_attention_bwd(q, k, v, out, do, lse, causal=causal)
+    torch.cuda.synchronize()
+    plain = flash_mod.flash_bwd_plain(q.float(), k.float(), v.float(),
+                                      out.float(), do.float(), lse,
+                                      causal=causal)
+    err = check_grads(f"K2' {shape} {dtype} vs flash_bwd_plain", got, plain,
+                      tol)
+    leaves = [t.float().requires_grad_() for t in (q, k, v)]
+    ref = flash_mod.attention_plain(*leaves, causal=causal)
+    auto = torch.autograd.grad(ref, leaves, do.float())
+    err_auto = check_grads(f"K2' {shape} {dtype} vs autograd", got, auto,
+                           tol)
+    leaves = [t.detach().clone().requires_grad_() for t in (q, k, v)]
+    via_fn = torch.autograd.grad(
+        flash_mod.flash_attention(*leaves, causal=causal), leaves, do)
+    for a, b in zip(via_fn, got):
+        if not torch.equal(a, b):
+            raise AssertionError(f"K2' {shape} {dtype}: FlashAttention's "
+                                 "backward differs from flash_attention_bwd")
+    log(f"K2' (B,S,T,H,KV,hd,causal)={shape} {str(dtype)[6:]}: dq, dk, dv "
+        f"within {tol} of flash_bwd_plain (max abs err {err:.3e}) and of "
+        f"autograd through attention_plain ({err_auto:.3e}; rel "
+        f"{max_rel(got, auto):.2e}); lse within "
+        f"{FLASH_TOL[torch.float32]}")
+    return max(err, err_auto)
+
+
+def sdpa_bwd(q, k, v, do):
+    """The library yardstick of K2': the backward of one
+    scaled_dot_product_attention call on (B, H, S, hd) leaves (its backward
+    kernels only; the forward runs once, outside the timed function)."""
+    leaves = [t.transpose(1, 2).detach().clone().requires_grad_()
+              for t in (q, k, v)]
+    out = torch.nn.functional.scaled_dot_product_attention(
+        *leaves, is_causal=True, enable_gqa=True)
+    g = do.transpose(1, 2).contiguous()
+    return lambda: torch.autograd.grad(out, leaves, g, retain_graph=True)
+
+
+def time_flash_grad(flash_mod, flash_kernel) -> dict:
+    """K2' at qwen3-0.6b's training layer: CUDA events of back-to-back calls
+    and the profiler's device time (bf16 and f32 inputs), the plain
+    version, and the backward of scaled_dot_product_attention (device time
+    of its backward kernels), beside the bound."""
+    B, S, T, H, KV, hd, causal = TRAIN_FLASH
+    t = {}
+    for tag, dtype in (("", torch.bfloat16), ("_f32", torch.float32)):
+        q, k, v = flash_inputs(B, S, T, H, KV, hd, dtype, seed=5)
+        do = flash_inputs(B, S, S, H, H, hd, dtype, seed=6)[0]
+        out, lse = flash_kernel._forward(q, k, v, causal, True)
+        call = lambda: flash_mod.flash_attention_bwd(q, k, v, out, do, lse,
+                                                     causal=causal)
+        t["ms" + tag] = cuda_ms(call)
+        t["device_ms" + tag] = device_ms(call)
+        if dtype == torch.bfloat16:
+            t["plain_ms"] = cuda_ms(lambda: flash_mod.flash_bwd_plain(
+                q, k, v, out, do, lse, causal=causal))
+            lib = sdpa_bwd(q, k, v, do)
+            t["library_ms"] = cuda_ms(lib)
+            t["library_device_ms"] = device_ms(lib)
+    t["bound_ms"], t["bound_by"] = flash_bwd_bound_ms(*TRAIN_FLASH,
+                                                      torch.bfloat16)
+    t["bound_ms_f32"], t["bound_by_f32"] = flash_bwd_bound_ms(
+        *TRAIN_FLASH, torch.float32)
+    log(f"K2' training layer {TRAIN_FLASH}, bf16: kernel {t['ms']:.4f} ms "
+        f"(device {t['device_ms']:.4f} ms), plain {t['plain_ms']:.4f} ms, "
+        f"scaled_dot_product_attention's backward {t['library_ms']:.4f} ms "
+        f"(device {t['library_device_ms']:.4f} ms), bound "
+        f"{t['bound_ms']:.6f} ms ({t['bound_by']}); f32: kernel "
+        f"{t['ms_f32']:.4f} ms (device {t['device_ms_f32']:.4f} ms), bound "
+        f"{t['bound_ms_f32']:.6f} ms ({t['bound_by_f32']})")
+    return t
+
+
+def wkv6_grad_inputs(B, S, H, hd, dtype, log_decay=-2.0):
+    """K3's inputs (nonzero s0) and the output gradients dy and dS_final,
+    drawn on the card."""
+    args = wkv6_inputs(B, S, H, hd, dtype, log_decay=log_decay)
+    g = torch.Generator(device="cuda").manual_seed(8)
+    dy = torch.randn((B, S, H, hd), generator=g, device="cuda") * 0.5
+    ds = torch.randn((B, H, hd, hd), generator=g, device="cuda") * 0.2
+    return args, dy, ds
+
+
+def check_wkv6_grad(shape, dtype, wkv6_mod, log_decay=-2.0) -> float:
+    """Hold K3' against wkv6_bwd_plain and against autograd through the
+    chunked plain version (under a strong decay, ``log_decay`` > 0, through
+    the per-token one: the chunked form overflows), and the autograd route
+    (WKV6) against the direct call; returns the largest absolute error.
+    Head sizes 1 and 2 go through the autograd route only (``wkv6`` pads
+    them to 4 around the kernels)."""
+    B, S, H, hd, chunk = shape
+    args, dy, ds = wkv6_grad_inputs(B, S, H, hd, dtype, log_decay)
+    tol = GRAD_TOL[dtype]
+    f32 = [t.float() for t in args]
+    leaves = [t.clone().requires_grad_() for t in f32]
+    if log_decay > 0:
+        y, s_fin = wkv6_mod.wkv6_plain(*leaves)
+    else:
+        y, s_fin = wkv6_mod.wkv6_chunked_plain(*leaves, chunk)
+    auto = torch.autograd.grad((y, s_fin), leaves, (dy, ds))
+    leaves = [t.detach().clone().requires_grad_() for t in args]
+    y, s_fin = wkv6_mod.wkv6(*leaves, chunk=chunk)
+    via_fn = torch.autograd.grad((y, s_fin), leaves, (dy, ds))
+    torch.cuda.synchronize()
+    if hd < 4:
+        err = check_grads(f"K3' {shape} {dtype} (padded) vs autograd",
+                          via_fn, auto, tol)
+        log(f"K3' (B,S,H,hd,chunk)={shape} {str(dtype)[6:]}, head padded "
+            f"to 4: dr, dk, dv, dlogw, du, ds0 within {tol} of autograd "
+            f"through the chunked plain version (max abs err {err:.3e})")
+        return err
+    got = wkv6_mod.wkv6_bwd(*args, dy, ds)
+    torch.cuda.synchronize()
+    for a, b in zip(via_fn, got):
+        if not torch.equal(a, b):
+            raise AssertionError(f"K3' {shape} {dtype}: WKV6's backward "
+                                 "differs from wkv6_bwd")
+    plain = wkv6_mod.wkv6_bwd_plain(*f32, dy, ds)
+    err = check_grads(f"K3' {shape} {dtype} vs wkv6_bwd_plain", got, plain,
+                      tol)
+    err_auto = check_grads(f"K3' {shape} {dtype} vs autograd", got, auto,
+                           tol)
+    log(f"K3' (B,S,H,hd,chunk)={shape} {str(dtype)[6:]}"
+        + (f" log w ~ -exp(N(0, 0.5) + {log_decay})" if log_decay > 0 else "")
+        + f": dr, dk, dv, dlogw, du, ds0 within {tol} of wkv6_bwd_plain "
+        f"(max abs err {err:.3e}) and of autograd through the "
+        + ("per-token" if log_decay > 0 else "chunked")
+        + f" plain version ({err_auto:.3e}; rel {max_rel(got, auto):.2e})")
+    return max(err, err_auto)
+
+
+def time_wkv6_grad(wkv6_mod, wkv6_kernel) -> dict:
+    """K3' at rwkv6-1.6b's training layer, from the forward's states: CUDA
+    events and the profiler's device time (bf16 and f32 r/k/v) and the
+    plain version, beside the bound."""
+    B, S, H, hd, chunk = TRAIN_WKV
+    t = {}
+    for tag, dtype in (("", torch.bfloat16), ("_f32", torch.float32)):
+        args, dy, ds = wkv6_grad_inputs(B, S, H, hd, dtype)
+        states = wkv6_kernel._launch(*args)[2]
+        call = lambda: wkv6_mod.wkv6_bwd(*args, dy, ds, states=states)
+        t["ms" + tag] = cuda_ms(call)
+        t["device_ms" + tag] = device_ms(call)
+        if dtype == torch.bfloat16:
+            t["plain_ms"] = cuda_ms(
+                lambda: wkv6_mod.wkv6_bwd_plain(*args, dy, ds))
+    t["bound_ms"], t["bound_by"] = wkv6_bwd_bound_ms(B, S, H, hd,
+                                                     torch.bfloat16)
+    log(f"K3' training layer {TRAIN_WKV}: bf16 r/k/v {t['ms']:.4f} ms "
+        f"(device {t['device_ms']:.4f} ms), f32 {t['ms_f32']:.4f} ms "
+        f"(device {t['device_ms_f32']:.4f} ms), plain {t['plain_ms']:.4f} "
+        f"ms, bound {t['bound_ms']:.6f} ms ({t['bound_by']})")
+    return t
+
+
+def grad_kernel_phases(flash_mod, flash_kernel, wkv6_mod,
+                       wkv6_kernel) -> dict:
+    """Phases 15 and 16: K2' and K3' against their plain versions, then
+    timed.  TF32 is off for every float32 product."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    out = {"k2_bwd_err": 0.0, "k3_bwd_err": 0.0}
+    for shape in FLASH_SHAPES + [TRAIN_FLASH]:
+        for dtype in (torch.float32, torch.bfloat16):
+            out["k2_bwd_err"] = max(out["k2_bwd_err"], check_flash_grad(
+                shape, dtype, flash_mod, flash_kernel))
+    out["k2_bwd_times"] = time_flash_grad(flash_mod, flash_kernel)
+    for shape in WKV_SHAPES + WKV_CROSSING + WKV_GRAD_PADDED + [TRAIN_WKV]:
+        for dtype in (torch.float32, torch.bfloat16):
+            out["k3_bwd_err"] = max(out["k3_bwd_err"], check_wkv6_grad(
+                shape, dtype, wkv6_mod))
+    out["k3_bwd_strong_err"] = max(
+        check_wkv6_grad(shape, dtype, wkv6_mod, STRONG_DECAY)
+        for shape in WKV_GRAD_STRONG
+        for dtype in (torch.float32, torch.bfloat16))
+    out["k3_bwd_times"] = time_wkv6_grad(wkv6_mod, wkv6_kernel)
+    return out
+
+
+#: phase 17: 2-layer models at full width, 2 micro-batches of 1 x 256
+#: tokens, cuda (K2/K2', K3/K3') vs CPU (plain) in float32, TF32 off
+GRAD_MODEL = {"batch": 2, "seq": 256, "microbatches": 2}
+#: phase 18: the trainer at full width and depth (bf16 compute, AdamW)
+TRAIN_RUN = {"steps": 4, "batch": 8, "seq": 512, "microbatches": 2,
+             "lr": 1e-3}
+#: phase 18's restart on the reduced configs: the resumed losses against
+#: an uninterrupted run (the embedding's backward sums with atomics on the
+#: card, so the runs may differ in the last bits, and bf16 rounds them)
+RESTART_RTOL = 1e-3
+
+
+def reset_launches(*counters):
+    for c in counters:
+        c.launches = 0
+
+
+def model_grad_phase(flash_mod, wkv6_mod) -> dict:
+    """Phase 17: a 2-layer qwen3-0.6b and a 2-layer rwkv6-1.6b at full
+    width in float32 compute with TF32 off (matmul and cuDNN): the mean
+    loss and every parameter's gradient over 2 micro-batches on cuda
+    (through K2/K2' or K3/K3') match the same weights on the CPU (plain)
+    within 1e-3 of each tensor's largest magnitude, under remat none and
+    layer; K2'/K3' launch layers x micro-batches times, the forward kernel
+    once more per layer and micro-batch under "layer"."""
+    from repro_torch.configs import get_config
+    from repro_torch.data import token_lm_batches
+    from repro_torch.models import rwkv6, transformer
+    from repro_torch.pipeline.executor import microbatch_grads
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    out = {}
+    kinds = (("qwen3-0.6b", transformer, transformer.Transformer,
+              flash_mod.flash_attention, flash_mod.flash_attention_bwd),
+             ("rwkv6-1.6b", rwkv6, rwkv6.RWKV6, wkv6_mod.wkv6,
+              wkv6_mod.wkv6_bwd))
+    for arch, lib, cls, fwd, bwd in kinds:
+        for remat in ("none", "layer"):
+            cfg = dataclasses.replace(get_config(arch), num_layers=2,
+                                      compute_dtype=torch.float32,
+                                      remat=remat)
+            cpu_model = lib.init_params(cfg, torch.Generator().manual_seed(0),
+                                        "cpu")
+            gpu_model = cls(cfg, "cuda")
+            gpu_model.load_state_dict(cpu_model.state_dict())
+            b = next(token_lm_batches(batch=GRAD_MODEL["batch"],
+                                      seq_len=GRAD_MODEL["seq"],
+                                      vocab=cfg.vocab, seed=2))
+            q = GRAD_MODEL["microbatches"]
+            runs = {}
+            for route, dev, model in (("kernel", "cuda", gpu_model),
+                                      ("plain", "cpu", cpu_model)):
+                batch = {k: torch.as_tensor(v, device=dev)
+                         for k, v in b.items()}
+                reset_launches(fwd, bwd)
+                loss, grads = microbatch_grads(
+                    lambda _p, mb: lib.loss_fn(model, mb),
+                    list(model.parameters()), batch, q)
+                if route == "kernel":
+                    torch.cuda.synchronize()
+                    launches = {"forward": fwd.launches,
+                                "backward": bwd.launches}
+                runs[route] = (loss, grads)
+            want = {"forward": cfg.num_layers * q
+                    * (2 if remat == "layer" else 1),
+                    "backward": cfg.num_layers * q}
+            if launches != want:
+                raise AssertionError(f"{arch} remat {remat}: launches "
+                                     f"{launches} != {want}")
+            names = [n for n, _ in gpu_model.named_parameters()]
+            errs = {"loss": rel_err(runs["kernel"][0], runs["plain"][0])}
+            errs.update({n: rel_err(g, c) for n, g, c in
+                         zip(names, runs["kernel"][1], runs["plain"][1])})
+            worst = max(errs, key=errs.get)
+            if not (math.isfinite(float(runs["kernel"][0]))
+                    and errs[worst] <= MODEL_REL_TOL):
+                raise AssertionError(f"{arch} remat {remat}: cuda vs cpu "
+                                     f"{worst} {errs[worst]}")
+            log(f"model grads {arch} (2 layers, full width, f32, TF32 off, "
+                f"remat {remat}, {q} micro-batches of "
+                f"{GRAD_MODEL['batch'] // q} x {GRAD_MODEL['seq']}): loss "
+                f"cuda {float(runs['kernel'][0])!r} cpu "
+                f"{float(runs['plain'][0])!r}; {len(names)} gradients, max "
+                f"err / max magnitude {errs[worst]:.2e} ({worst}; tolerance "
+                f"{MODEL_REL_TOL}); launches {launches}")
+            out[f"{arch}_{remat}"] = {"max_rel_err": errs[worst],
+                                      "loss_rel_err": errs["loss"],
+                                      "launches": launches}
+            del cpu_model, gpu_model, runs
+            torch.cuda.empty_cache()
+    torch.backends.cudnn.allow_tf32 = True
+    return out
+
+
+def train_phase(flash_mod, wkv6_mod, minplus, out_dir) -> dict:
+    """Phase 18: ``train`` at full width and depth for both families (bf16
+    compute, AdamW, remat "layer"): every loss finite, the last below the
+    first; K2/K2' (qwen3) and K3/K3' (rwkv6) launched as remat "layer"
+    implies (the forward kernel twice per layer and micro-batch: once in
+    the forward, once recomputed in the backward); step time, tokens/s,
+    peak device memory, and the device's idle share over one more step
+    (profiler).  Then a restart from a checkpoint on the reduced configs."""
+    import shutil
+    from repro_torch.configs import get_config
+    from repro_torch.data import token_lm_batches
+    from repro_torch.launch import train as train_mod
+    from repro_torch.launch.profile_serve import profiled
+    from repro_torch.models.registry import get_model
+    from repro_torch.optim import get_optimizer
+    counters = (flash_mod.flash_attention, flash_mod.flash_attention_bwd,
+                wkv6_mod.wkv6, wkv6_mod.wkv6_bwd, minplus.sweep_minplus)
+    step_s = []
+    factory = train_mod.make_train_step
+
+    def timed_factory(*a, **kw):
+        step = factory(*a, **kw)
+
+        def timed(*args):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            res = step(*args)
+            torch.cuda.synchronize()
+            step_s.append(time.perf_counter() - t0)
+            return res
+        return timed
+
+    run = TRAIN_RUN
+    tokens = run["batch"] * run["seq"]
+    out = {}
+    train_mod.make_train_step = timed_factory
+    try:
+        for arch, fwd, bwd in (("qwen3-0.6b", flash_mod.flash_attention,
+                                flash_mod.flash_attention_bwd),
+                               ("rwkv6-1.6b", wkv6_mod.wkv6,
+                                wkv6_mod.wkv6_bwd)):
+            cfg = get_config(arch)
+            step_s.clear()
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            reset_launches(*counters)
+            t0 = time.perf_counter()
+            losses = train_mod.train(
+                arch, reduced=False, steps=run["steps"], batch=run["batch"],
+                seq=run["seq"], microbatches=run["microbatches"],
+                optimizer="adamw", lr=run["lr"], log_every=1, seed=0,
+                device="cuda")
+            torch.cuda.synchronize()
+            wall_s = time.perf_counter() - t0
+            launches = {c.__name__: c.launches for c in counters}
+            peak_gib = torch.cuda.max_memory_allocated() / 2**30
+            per_step = cfg.num_layers * run["microbatches"]
+            want = {fwd.__name__: 2 * per_step * run["steps"],
+                    bwd.__name__: per_step * run["steps"]}
+            if any(launches[k] != v for k, v in want.items()):
+                raise AssertionError(f"train {arch}: launches {launches}, "
+                                     f"expected {want}")
+            if not (all(math.isfinite(v) for v in losses)
+                    and losses[-1] < losses[0]):
+                raise AssertionError(f"train {arch}: losses {losses}")
+            # one more step, profiled, on a fresh model and optimizer
+            api = get_model(cfg, "cuda")
+            model = api.init(torch.Generator(device="cuda").manual_seed(0))
+            opt = get_optimizer("adamw", lr=run["lr"])
+            state = opt.init(dict(model.named_parameters()))
+            step = factory(cfg, opt, run["microbatches"], "cuda")
+            b = next(token_lm_batches(batch=run["batch"],
+                                      seq_len=run["seq"], vocab=cfg.vocab,
+                                      seed=0))
+            b = {k: torch.as_tensor(v, device="cuda") for k, v in b.items()}
+            step(model, state, b)                                # warm-up
+            idle = profiled(lambda: step(model, state, b),
+                            torch.device("cuda"))[1]
+            n_params = api.param_count(model)
+            del api, model, opt, state, step
+            out[arch] = {
+                "losses": losses, "step_s": step_s[:],
+                "tokens_per_s": [tokens / t for t in step_s],
+                "wall_s": wall_s, "peak_gib": peak_gib,
+                "launches": launches, "idle": idle, "params": n_params}
+            log(f"train {arch} full width ({cfg.num_layers} layers, "
+                f"{out[arch]['params']} parameters, bf16 compute, AdamW lr "
+                f"{run['lr']}, remat {cfg.remat}; batch {run['batch']} x "
+                f"{run['seq']} tokens in {run['microbatches']} micro-batches"
+                f"): losses {[round(v, 4) for v in losses]}; step s "
+                f"{[round(t, 4) for t in step_s]} (tokens/s "
+                f"{[round(tokens / t) for t in step_s]}); peak device memory "
+                f"{peak_gib:.2f} GiB; launches {launches}; one more step "
+                f"profiled: wall {idle['wall_ms']:.1f} ms, device busy "
+                f"{idle['device_busy_ms']:.1f} ms, idle share "
+                f"{idle['device_idle_share']:.3f}")
+            torch.cuda.empty_cache()
+    finally:
+        train_mod.make_train_step = factory
+    # a restart from a checkpoint, on the reduced configs
+    kw = dict(reduced=True, batch=4, seq=64, microbatches=2, lr=2e-3,
+              log_every=100, device="cuda")
+    out["restart"] = {}
+    for arch in ("qwen3-0.6b", "rwkv6-1.6b"):
+        ckpt = os.path.join(out_dir, arch)
+        shutil.rmtree(ckpt, ignore_errors=True)
+        whole = train_mod.train(arch, steps=6, **kw)
+        first = train_mod.train(arch, steps=4, ckpt_dir=ckpt, ckpt_every=2,
+                                **kw)
+        rest = train_mod.train(arch, steps=6, ckpt_dir=ckpt, **kw)
+        gap = max(abs(a - b) / abs(b) for a, b in zip(first + rest, whole))
+        if not (len(rest) == 2 and gap <= RESTART_RTOL):
+            raise AssertionError(f"restart {arch}: {first} + {rest} vs "
+                                 f"{whole}")
+        log(f"restart {arch} (reduced, on the card): 4 steps, checkpoint "
+            f"at step 3, relaunch resumed at step 4; losses within "
+            f"{gap:.2e} of an uninterrupted run (tolerance {RESTART_RTOL})")
+        out["restart"][arch] = gap
+    return out
+
+
 def bench30_instance(core) -> tuple:
     """The reference's planner benchmark fleet
     (``benchmarks/bench_planner.py::bench_instance(24, 28)``): a 30-layer
@@ -1682,6 +2198,15 @@ def build_all(modules) -> dict:
         return dict(pool.map(build, modules))
 
 
+def bwd_libraries(flash_kernel, wkv6_kernel) -> list:
+    """K2' and K3' as ``build_all`` entries (their own libraries)."""
+    from types import SimpleNamespace
+    return [SimpleNamespace(LIB_NAME=flash_kernel.BWD_LIB_NAME,
+                            _library=flash_kernel._bwd_library),
+            SimpleNamespace(LIB_NAME=wkv6_kernel.BWD_LIB_NAME,
+                            _library=wkv6_kernel._bwd_library)]
+
+
 def log_ptxas(_build, name):
     for line in _build.build_log(name).splitlines():
         if "registers" in line or "spill" in line or "Compiling" in line:
@@ -1694,6 +2219,9 @@ def main(argv=None) -> int:
                     help="only time K1 (time_k1) and print its JSON")
     ap.add_argument("--time-k3", action="store_true",
                     help="only time K3 (time_k3) and print its JSON")
+    ap.add_argument("--grads", action="store_true",
+                    help="only build and check K2' and K3' (phases 14-16) "
+                    "and print their JSON")
     ap.add_argument("--src", help="import repro_torch from this directory "
                     "(another checkout's src/) instead of this one's")
     opts = ap.parse_args(argv)
@@ -1724,6 +2252,20 @@ def main(argv=None) -> int:
         log(f"repro_torch from {os.path.dirname(wkv6_mod.__file__)}")
         log(json.dumps({"k3_times": time_k3(wkv6_mod), "card": smi}))
         return 0
+    if opts.grads:
+        from repro_torch.kernels import _build
+        from repro_torch.kernels import flash as flash_mod
+        from repro_torch.kernels import rwkv6 as wkv6_mod
+        from repro_torch.kernels.flash import kernel as flash_kernel
+        from repro_torch.kernels.rwkv6 import kernel as wkv6_kernel
+        built = build_all([flash_kernel, wkv6_kernel]
+                          + bwd_libraries(flash_kernel, wkv6_kernel))
+        log("build: " + ", ".join(f"{n} {t:.2f} s" for n, t in built.items()))
+        for name in (flash_kernel.BWD_LIB_NAME, wkv6_kernel.BWD_LIB_NAME):
+            log_ptxas(_build, name)
+        log(json.dumps({"grads": grad_kernel_phases(
+            flash_mod, flash_kernel, wkv6_mod, wkv6_kernel), "card": smi}))
+        return 0
 
     from repro_torch import obs
     from repro_torch.compression import make_link_hooks
@@ -1745,8 +2287,10 @@ def main(argv=None) -> int:
 
     # 2. build every kernel, in parallel --------------------------------------
     t0 = time.perf_counter()
-    built = build_all([minplus_kernel, wkv6_kernel, flash_kernel])
-    log(f"build: K1, K3, K2 in parallel in {time.perf_counter() - t0:.2f} s ("
+    built = build_all([minplus_kernel, wkv6_kernel, flash_kernel]
+                      + bwd_libraries(flash_kernel, wkv6_kernel))
+    log(f"build: K1, K3, K2, K2', K3' in parallel in "
+        f"{time.perf_counter() - t0:.2f} s ("
         + ", ".join(f"{n} {t:.2f} s" for n, t in built.items()) + ")")
     log_ptxas(_build, minplus_kernel.LIB_NAME)
 
@@ -2492,8 +3036,34 @@ def main(argv=None) -> int:
         f"{prefill_ms}; decode {qstats['tokens'] / decode_s:.2f} tokens/s; "
         f"K2 launches {k2_launches}; peak device memory {peak_gib:.2f} GiB, "
         f"of which {held_gib:.2f} GiB was held before the server was built")
+    del qsrv, qstats, done, qreqs, check_logits, check_cache
+    torch.cuda.empty_cache()
+
+    # 14. build K2' and K3' ----------------------------------------------------
+    for name in (flash_kernel.BWD_LIB_NAME, wkv6_kernel.BWD_LIB_NAME):
+        log(f"build: {name} in {built[name]:.2f} s (phase 2)")
+        log_ptxas(_build, name)
+
+    # 15, 16. K2' and K3' against their plain versions, timed -----------------
+    grads = grad_kernel_phases(flash_mod, flash_kernel, wkv6_mod, wkv6_kernel)
+
+    # 17. model gradients: cuda (K2/K2', K3/K3') vs CPU (plain), float32 ------
+    model_grads = model_grad_phase(flash_mod, wkv6_mod)
+
+    # 18. train both families at full width (the main path of K2' and K3') ---
+    trained = train_phase(
+        flash_mod, wkv6_mod, minplus,
+        os.path.join(os.path.dirname(os.path.abspath(__file__)), "build",
+                     "smoke_18"))
+    if not all(trained[a]["launches"][k.__name__] > 0 for a, k in (
+            ("qwen3-0.6b", flash_mod.flash_attention_bwd),
+            ("rwkv6-1.6b", wkv6_mod.wkv6_bwd))):
+        raise AssertionError("the training runs did not launch K2' and K3'")
+
     log(json.dumps({"sim": sim_out, "card": smi}))
     log(json.dumps({"robust": robust_out, "card": smi}))
+    log(json.dumps({"train": {"model_grads": model_grads, **trained,
+                              "run": TRAIN_RUN}, "card": smi}))
     log(f"profiler: {PROFILER_STATS['calls']} device_ms calls, "
         f"{PROFILER_STATS['retried_sessions']} sessions with no device time "
         f"run again, {PROFILER_STATS['event_fallbacks']} timed by CUDA events")
@@ -2561,6 +3131,7 @@ def main(argv=None) -> int:
         "strong_decay_max_abs_err": k3_strong_err,
         "sass_tensor_core_instructions": k3_hmma,
         "blocks_per_sm": k3_blocks,
+        "train_launches": trained["rwkv6-1.6b"]["launches"]["wkv6"],
     }, {
         "name": "flash_attention_fwd",
         "route": "cuda",
@@ -2583,6 +3154,36 @@ def main(argv=None) -> int:
         "sass_tensor_core_instructions": hmma,
         "blocks_per_sm": k2_blocks,
         "long_2048": timings["2048"],
+        "train_launches": trained["qwen3-0.6b"]["launches"][
+            "flash_attention"],
+    }, {
+        "name": "flash_attention_bwd",
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/flash/csrc/flash_bwd.cu",
+        "replaces": "src/repro/kernels/flash/kernel.py:29",
+        "launches": trained["qwen3-0.6b"]["launches"]["flash_attention_bwd"],
+        "max_abs_err": grads["k2_bwd_err"],
+        **{key: grads["k2_bwd_times"][key]
+           for key in ("ms", "device_ms", "plain_ms", "bound_ms", "bound_by",
+                       "library_ms", "library_device_ms", "ms_f32",
+                       "device_ms_f32", "bound_ms_f32")},
+        "shape": dict(zip(("B", "S", "T", "H", "KV", "hd", "causal"),
+                          TRAIN_FLASH)),
+        "dtype": "bfloat16",
+    }, {
+        "name": "wkv6_scan_bwd",
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/rwkv6/csrc/wkv6_bwd.cu",
+        "replaces": "src/repro/kernels/rwkv6/kernel.py:27",
+        "launches": trained["rwkv6-1.6b"]["launches"]["wkv6_bwd"],
+        "max_abs_err": grads["k3_bwd_err"],
+        "strong_decay_max_abs_err": grads["k3_bwd_strong_err"],
+        **{key: grads["k3_bwd_times"][key]
+           for key in ("ms", "device_ms", "plain_ms", "bound_ms", "bound_by",
+                       "ms_f32", "device_ms_f32")},
+        "library_ms": None,
+        "shape": dict(zip(("B", "S", "H", "hd", "chunk"), TRAIN_WKV)),
+        "dtype": "bfloat16 r/k/v",
     }]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,0 +1,146 @@
+"""Config substrate — the part of ``repro/configs/base.py`` that the
+trainer's policy reads (``launch/steps.py::default_optimizer_name``), for
+the ported families (``dense``: the decoder-only transformer; ``ssm``:
+RWKV6): the assigned input shapes, the per-layer FLOP helpers, the
+planner's per-arch workload profile and the parameter estimate.
+
+``count_params`` is the reference's estimate from that profile (fp32
+parameter bytes / 4), not the model's parameter count: it counts every
+attention layer's q/k/v/o as (H + 2 KV) hd d x 2 and every RWKV layer as
+6 d^2 + 2 d d_ff, leaves out norms and LoRAs, and counts a tied embedding
+twice (qwen3-0.6b: 810,287,104 against 596,049,920 real parameters;
+rwkv6-1.6b: 1,577,058,304 against 1,580,795,904).  Other families raise
+(ROADMAP Queue 1 item 10).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+
+from repro_torch.core.profiles import ModelProfile
+from repro_torch.models.common import ArchConfig
+
+#: families whose profile is ported
+PORTED_FAMILIES = ("dense", "ssm")
+
+
+@dataclasses.dataclass(frozen=True)
+class ShapeSpec:
+    name: str
+    kind: str             # train | prefill | decode
+    seq_len: int
+    global_batch: int
+
+
+SHAPES = {
+    "train_4k": ShapeSpec("train_4k", "train", 4_096, 256),
+    "prefill_32k": ShapeSpec("prefill_32k", "prefill", 32_768, 32),
+    "decode_32k": ShapeSpec("decode_32k", "decode", 32_768, 128),
+    "long_500k": ShapeSpec("long_500k", "decode", 524_288, 1),
+}
+
+SHAPE_NAMES = tuple(SHAPES)
+
+
+def supports_shape(cfg: ArchConfig, shape: str) -> bool:
+    """long_500k needs sub-quadratic attention: ssm (and hybrid) only."""
+    if shape == "long_500k":
+        return cfg.family in ("ssm", "hybrid")
+    return True
+
+
+def _check_family(cfg: ArchConfig) -> None:
+    if cfg.family not in PORTED_FAMILIES:
+        raise NotImplementedError(
+            f"family {cfg.family!r} is not ported yet (ROADMAP Queue 1 item "
+            f"10); ported: {', '.join(PORTED_FAMILIES)}")
+
+
+def layer_kind(cfg: ArchConfig, i: int) -> str:
+    """The reference's ``ArchConfig.layer_kind`` for the ported families:
+    'rwkv' for ssm, 'attn' for dense."""
+    _check_family(cfg)
+    return "rwkv" if cfg.family == "ssm" else "attn"
+
+
+# ---------------------------------------------------------------------------
+# Workload profiles for the planner (per-layer FLOPs / boundary bytes)
+# ---------------------------------------------------------------------------
+
+def _attn_layer_flops(cfg: ArchConfig, seq: int) -> float:
+    hd = cfg.head_dim
+    qkv = 2 * cfg.d_model * (cfg.n_heads + 2 * cfg.n_kv) * hd
+    out = 2 * cfg.n_heads * hd * cfg.d_model
+    scores = 2 * 2 * cfg.n_heads * hd * (seq / 2)   # causal average
+    return float((qkv + out + scores) * seq)
+
+
+def _ffn_layer_flops(cfg: ArchConfig, seq: int) -> float:
+    per_tok = cfg.ffn_mult * 2 * cfg.d_model * cfg.d_ff
+    return float(per_tok * seq)
+
+
+def _rwkv_layer_flops(cfg: ArchConfig, seq: int) -> float:
+    d, ff, hd = cfg.d_model, cfg.d_ff, cfg.rwkv_head_dim
+    per_tok = (5 * 2 * d * d        # r/k/v/g/o projections
+               + 2 * d * 64 * 2     # decay LoRA
+               + 4 * d * hd         # WKV state update + readout
+               + 2 * 2 * d * ff + 2 * d * d)   # channel mix
+    return float(per_tok * seq)
+
+
+def arch_profile(cfg: ArchConfig, shape_name: str = "train_4k",
+                 dtype_bytes: int = 2, optimizer_mult: float | None = None
+                 ) -> ModelProfile:
+    """Per-layer (embedding + blocks + head) profile for the MSP planner.
+
+    ``optimizer_mult`` (sigma bytes per param byte): None picks the same
+    policy as the trainer — AdamW (2.0 = 8 B/param) below 100B params,
+    Adafactor (~0.025) above (launch/steps.py).
+    """
+    _check_family(cfg)
+    if optimizer_mult is None:
+        probe = arch_profile(cfg, shape_name, dtype_bytes, 2.0)
+        n = float(probe.param_cum()[-1]) / 4.0
+        optimizer_mult = 0.025 if n >= 100e9 else 2.0
+    seq = SHAPES[shape_name].seq_len
+    act = float(cfg.d_model * seq * dtype_bytes)
+    fp, bp, acts, grads, params, opt = [], [], [], [], [], []
+
+    def add(flops, pbytes, a=act):
+        fp.append(flops)
+        bp.append(2.0 * flops)
+        acts.append(a)
+        grads.append(a)
+        params.append(float(pbytes))
+        opt.append(float(pbytes) * optimizer_mult)
+
+    pd = 4  # param bytes (fp32 masters)
+    add(1e6, cfg.vocab * cfg.d_model * pd)          # embedding
+    for i in range(cfg.num_layers):
+        if layer_kind(cfg, i) == "attn":
+            fl = _attn_layer_flops(cfg, seq)
+            pb = (cfg.n_heads + 2 * cfg.n_kv) * cfg.head_dim * cfg.d_model \
+                * pd * 2
+            fl += _ffn_layer_flops(cfg, seq)
+            pb += cfg.ffn_mult * cfg.d_model * cfg.d_ff * pd
+        else:  # rwkv
+            fl = _rwkv_layer_flops(cfg, seq)
+            pb = 6 * cfg.d_model * cfg.d_model * pd
+            pb += 2 * cfg.d_model * cfg.d_ff * pd
+        add(fl, pb)
+    add(2.0 * cfg.d_model * cfg.vocab * seq,
+        cfg.vocab * cfg.d_model * pd,
+        a=float(cfg.vocab * seq * dtype_bytes))     # head
+    return ModelProfile(
+        name=cfg.name, fp_work=np.array(fp), bp_work=np.array(bp),
+        act_bytes=np.array(acts), grad_bytes=np.array(grads),
+        param_bytes=np.array(params), opt_bytes=np.array(opt))
+
+
+def count_params(cfg: ArchConfig) -> int:
+    """The reference's parameter estimate (see the module docstring)."""
+    prof = arch_profile(cfg)
+    return int(prof.param_cum()[-1] // 4)

@@ -12,9 +12,10 @@ from .latency import (SplitSolution, fill_latency, pipeline_interval,
                       total_latency, memory_feasible, node_memory_usage,
                       num_fills, breakdown, client_shares, client_max_share,
                       memory_split, max_feasible_microbatch)
-from .msp_graph import GraphFactory, MSPGraph, build_graph, path_to_solution
+from .msp_graph import (GraphFactory, MSPGraph, build_graph, graph_stats,
+                        path_to_solution)
 from .shortest_path import (DEFAULT_SOLVER, MSPResult, Planner, solve_msp,
-                            brute_force_msp, enumerate_solutions)
+                            brute_force_msp, enumerate_solutions, path_cost)
 from .cost_model import (CostModel, ClosedForm, SimMakespan, StageClaim,
                          DegradedTail, stage_memory_claims,
                          node_budget_windows, node_budget_windows_many,
@@ -35,7 +36,8 @@ __all__ = [
     "memory_feasible", "node_memory_usage", "num_fills", "breakdown",
     "client_shares", "client_max_share", "memory_split",
     "max_feasible_microbatch", "GraphFactory", "MSPGraph", "build_graph",
-    "path_to_solution", "DEFAULT_SOLVER", "MSPResult", "Planner",
+    "graph_stats", "path_to_solution", "path_cost", "DEFAULT_SOLVER",
+    "MSPResult", "Planner",
     "solve_msp", "brute_force_msp", "enumerate_solutions", "CostModel",
     "ClosedForm", "SimMakespan", "StageClaim", "DegradedTail",
     "stage_memory_claims", "node_budget_windows", "node_budget_windows_many",

@@ -67,6 +67,13 @@ class MSPGraph:
     def N(self) -> int:
         return len(self.net.nodes)
 
+    def edge_cost(self, n: int, i: int, m: int, j: int) -> float:
+        """Full edge weight (comm across cut i) + (head segment (i,j] on m)."""
+        return float(self.comm_cost[i, n, m] + self.seg_cost[m, i, j])
+
+    def edge_beta(self, n: int, i: int, m: int, j: int) -> float:
+        return float(max(self.comm_beta[i, n, m], self.seg_beta[m, i, j]))
+
 
 class GraphFactory:
     """b-independent precomputation for MSP graph assembly.
@@ -242,6 +249,16 @@ def build_graph(profile: ModelProfile, net: EdgeNetwork, b: int,
                 memory_model: str = "paper", device="cuda") -> MSPGraph:
     """One-shot graph build (delegates to :class:`GraphFactory`)."""
     return GraphFactory(profile, net, memory_model, device).graph(b)
+
+
+def graph_stats(g: MSPGraph) -> dict:
+    """Vertex/edge counts of the *paper's* explicit graph (Eqs. 20-21),
+    for complexity reporting (Theorem 3)."""
+    I, N = g.I, g.N
+    vertices = sum(i for i in range(1, I + 1)) * N  # ranges x nodes
+    finite = int(torch.isfinite(g.seg_cost).sum())
+    return {"paper_vertices": vertices, "paper_edges_upper": finite * (N - 1),
+            "state_edges": finite}
 
 
 def path_to_solution(path: list) -> SplitSolution:

@@ -1070,6 +1070,18 @@ def _path_bottleneck(g: MSPGraph, path: list) -> float:
     return beta
 
 
+def path_cost(g: MSPGraph, path: list) -> float:
+    """Sum of the edge weights along [(node, end_layer), ...], client
+    first: the client segment's cost plus every edge after it."""
+    (n0, i0) = path[0]
+    c = float(g.src_cost[i0])
+    prev_n, prev_i = n0, i0
+    for (n, i) in path[1:]:
+        c += g.edge_cost(prev_n, prev_i, n, i)
+        prev_n, prev_i = n, i
+    return c
+
+
 # ---------------------------------------------------------------------------
 # Brute-force verifiers (tests)
 # ---------------------------------------------------------------------------

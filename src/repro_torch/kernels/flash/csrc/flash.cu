@@ -88,6 +88,11 @@
 // the 16 threads of a row are 16 lanes of one warp, so the row max and
 // row sum are shuffles.
 //
+// Both entries optionally write each query row's log-sum-exp of its masked,
+// scaled scores (m + log l, in natural units; the bf16 kernel keeps m in
+// log2 units and converts) to a float32 (B, H, S) array, which the backward
+// K2' (flash_bwd.cu) reads to recompute P; serving passes a null pointer.
+//
 // Built by nvcc into a plain-C shared library and called through ctypes
 // (src/repro_torch/kernels/_build.py); each entry point returns
 // cudaGetLastError() after the launch.
@@ -122,8 +127,8 @@ template <int HD>
 __global__ void __launch_bounds__(NT)
 flash_fwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
                      const float* __restrict__ v, float* __restrict__ o,
-                     int S, int T_len, int H, int KV, int causal,
-                     float scale) {
+                     float* __restrict__ lse, int S, int T_len, int H,
+                     int KV, int causal, float scale) {
   constexpr int LD = HD + 1;       // padded row of the Q and K tiles
   constexpr int DJ = HD / 16;      // output columns per thread
   extern __shared__ float smem[];
@@ -243,6 +248,8 @@ flash_fwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
 #pragma unroll
       for (int j = 0; j < DJ; ++j)
         ob[(size_t)r * qrow + tx + 16 * j] = acc[i][j] / den;
+      if (lse != nullptr && tx == 0)
+        lse[((size_t)b * H + h) * S + r] = m[i] + logf(den);
     }
   }
 }
@@ -257,6 +264,7 @@ constexpr int MMA_WARPS = 4;
 constexpr int MMA_NT = 32 * MMA_WARPS;   // threads per block
 constexpr int PAD = 8;                   // bf16 elements of padding per row
 constexpr float LOG2E = 1.4426950408889634f;
+constexpr float LN2 = 0.6931471805599453f;
 
 template <int HD>
 constexpr size_t mma_smem_bytes() {      // Q, 2 stages of K and of V
@@ -350,9 +358,9 @@ __device__ __forceinline__ void load_tile(uint32_t dst, const bf16* src,
 template <int HD>
 __global__ void __launch_bounds__(MMA_NT, 2)
 flash_fwd_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                     const bf16* __restrict__ v, bf16* __restrict__ o, int S,
-                     int T_len, int H, int KV, int causal,
-                     float scale_log2) {
+                     const bf16* __restrict__ v, bf16* __restrict__ o,
+                     float* __restrict__ lse, int S, int T_len, int H,
+                     int KV, int causal, float scale_log2) {
   constexpr int LDS = HD + PAD;    // shared row, in elements
   constexpr int KD = HD / 16;      // k-steps of q k^T
   constexpr int NS = BK / 8;       // 8-key tiles of the scores
@@ -524,6 +532,9 @@ flash_fwd_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     const int r = row0 + g + 8 * i;
     if (r < S) {
       const float inv = 1.f / fmaxf(l[i], 1e-30f);
+      if (lse != nullptr && t == 0)   // m is in log2 units
+        lse[((size_t)b * H + h) * S + r] =
+            (m[i] + log2f(fmaxf(l[i], 1e-30f))) * LN2;
       bf16* orow = ob + (size_t)r * qrow + 2 * t;
 #pragma unroll
       for (int d = 0; d < ND; ++d)
@@ -539,9 +550,9 @@ flash_fwd_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 // ---------------------------------------------------------------------------
 
 template <int HD>
-int launch_f32(const void* q, const void* k, const void* v, void* o, int B,
-               int S, int T_len, int H, int KV, int causal, float scale,
-               void* stream) {
+int launch_f32(const void* q, const void* k, const void* v, void* o,
+               void* lse, int B, int S, int T_len, int H, int KV,
+               int causal, float scale, void* stream) {
   const size_t bytes = smem_bytes<HD>();
   cudaError_t err = cudaFuncSetAttribute(
       flash_fwd_f32_kernel<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -549,15 +560,15 @@ int launch_f32(const void* q, const void* k, const void* v, void* o, int B,
   if (err != cudaSuccess) return (int)err;
   dim3 grid(B * H, (S + BQ - 1) / BQ);
   flash_fwd_f32_kernel<HD><<<grid, NT, bytes, (cudaStream_t)stream>>>(
-      (const float*)q, (const float*)k, (const float*)v, (float*)o, S, T_len,
-      H, KV, causal, scale);
+      (const float*)q, (const float*)k, (const float*)v, (float*)o,
+      (float*)lse, S, T_len, H, KV, causal, scale);
   return (int)cudaGetLastError();
 }
 
 template <int HD>
-int launch_bf16(const void* q, const void* k, const void* v, void* o, int B,
-                int S, int T_len, int H, int KV, int causal, float scale,
-                void* stream) {
+int launch_bf16(const void* q, const void* k, const void* v, void* o,
+                void* lse, int B, int S, int T_len, int H, int KV,
+                int causal, float scale, void* stream) {
   const size_t bytes = mma_smem_bytes<HD>();
   cudaError_t err = cudaFuncSetAttribute(
       flash_fwd_mma_kernel<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -565,8 +576,8 @@ int launch_bf16(const void* q, const void* k, const void* v, void* o, int B,
   if (err != cudaSuccess) return (int)err;
   dim3 grid(B * H, (S + BQ - 1) / BQ);
   flash_fwd_mma_kernel<HD><<<grid, MMA_NT, bytes, (cudaStream_t)stream>>>(
-      (const bf16*)q, (const bf16*)k, (const bf16*)v, (bf16*)o, S, T_len, H,
-      KV, causal, scale * LOG2E);
+      (const bf16*)q, (const bf16*)k, (const bf16*)v, (bf16*)o, (float*)lse,
+      S, T_len, H, KV, causal, scale * LOG2E);
   return (int)cudaGetLastError();
 }
 
@@ -595,45 +606,48 @@ extern "C" {
 // q, o: (B, S, H, hd); k, v: (B, T, KV, hd); all contiguous, in the entry's
 // type (the bf16 entry's pointers 16-byte aligned).  H is a multiple of
 // KV; hd is 16, 32, 64 or 128; causal is 0 or 1; scale is 1 / sqrt(hd).
+// lse, when not null: (B, H, S) float32, the log-sum-exp of each query
+// row's masked, scaled scores (m + log l), which the backward (K2',
+// flash_bwd.cu) reads; serving passes null.
 int flash_fwd_f32(const void* q, const void* k, const void* v, void* o,
-                  int B, int S, int T, int H, int KV, int hd, int causal,
-                  float scale, void* stream) {
+                  void* lse, int B, int S, int T, int H, int KV, int hd,
+                  int causal, float scale, void* stream) {
   if (!valid(B, S, T, H, KV)) return (int)cudaErrorInvalidValue;
   switch (hd) {
     case 16:
-      return launch_f32<16>(q, k, v, o, B, S, T, H, KV, causal, scale,
-                            stream);
+      return launch_f32<16>(q, k, v, o, lse, B, S, T, H, KV, causal,
+                            scale, stream);
     case 32:
-      return launch_f32<32>(q, k, v, o, B, S, T, H, KV, causal, scale,
-                            stream);
+      return launch_f32<32>(q, k, v, o, lse, B, S, T, H, KV, causal,
+                            scale, stream);
     case 64:
-      return launch_f32<64>(q, k, v, o, B, S, T, H, KV, causal, scale,
-                            stream);
+      return launch_f32<64>(q, k, v, o, lse, B, S, T, H, KV, causal,
+                            scale, stream);
     case 128:
-      return launch_f32<128>(q, k, v, o, B, S, T, H, KV, causal, scale,
-                             stream);
+      return launch_f32<128>(q, k, v, o, lse, B, S, T, H, KV, causal,
+                             scale, stream);
     default:
       return (int)cudaErrorInvalidValue;
   }
 }
 
 int flash_fwd_bf16(const void* q, const void* k, const void* v, void* o,
-                   int B, int S, int T, int H, int KV, int hd, int causal,
-                   float scale, void* stream) {
+                   void* lse, int B, int S, int T, int H, int KV, int hd,
+                   int causal, float scale, void* stream) {
   if (!valid(B, S, T, H, KV)) return (int)cudaErrorInvalidValue;
   switch (hd) {
     case 16:
-      return launch_bf16<16>(q, k, v, o, B, S, T, H, KV, causal, scale,
-                             stream);
+      return launch_bf16<16>(q, k, v, o, lse, B, S, T, H, KV, causal,
+                             scale, stream);
     case 32:
-      return launch_bf16<32>(q, k, v, o, B, S, T, H, KV, causal, scale,
-                             stream);
+      return launch_bf16<32>(q, k, v, o, lse, B, S, T, H, KV, causal,
+                             scale, stream);
     case 64:
-      return launch_bf16<64>(q, k, v, o, B, S, T, H, KV, causal, scale,
-                             stream);
+      return launch_bf16<64>(q, k, v, o, lse, B, S, T, H, KV, causal,
+                             scale, stream);
     case 128:
-      return launch_bf16<128>(q, k, v, o, B, S, T, H, KV, causal, scale,
-                              stream);
+      return launch_bf16<128>(q, k, v, o, lse, B, S, T, H, KV, causal,
+                              scale, stream);
     default:
       return (int)cudaErrorInvalidValue;
   }

@@ -12,6 +12,13 @@ model layout (B, S, H, hd) / (B, T, KV, hd) in place: K and V are not
 repeated per query head and nothing is padded on the host.  They are built
 at first use (``kernels/_build.py``) and launched on PyTorch's current
 stream without synchronising.
+
+Training: when grad is enabled and an input requires grad, a CUDA call goes
+through :class:`FlashAttention`, whose forward also writes each query
+row's log-sum-exp and whose backward launches K2' (``csrc/flash_bwd.cu``,
+:func:`flash_attention_bwd`; plain version
+:func:`~repro_torch.kernels.flash.ref.flash_bwd_plain`).  On CPU tensors
+``flash_attention`` is autograd through ``attention_plain``.
 """
 
 from __future__ import annotations
@@ -23,25 +30,39 @@ from pathlib import Path
 import torch
 
 from .._build import load_library
-from .ref import attention_plain
+from .ref import attention_lse_plain, attention_plain, flash_bwd_plain
 
 LIB_NAME = "repro_torch_flash"
 SOURCES = (Path(__file__).resolve().parent / "csrc" / "flash.cu",)
+BWD_LIB_NAME = "repro_torch_flash_bwd"
+BWD_SOURCES = (Path(__file__).resolve().parent / "csrc" / "flash_bwd.cu",)
 #: head sizes the kernel takes (a template parameter of the kernel)
 HEAD_DIMS = (16, 32, 64, 128)
 
 _ENTRY = {torch.float32: "flash_fwd_f32", torch.bfloat16: "flash_fwd_bf16"}
+_BWD_ENTRY = {torch.float32: "flash_bwd_f32",
+              torch.bfloat16: "flash_bwd_bf16"}
 
 
 def _library() -> ctypes.CDLL:
     lib = load_library(LIB_NAME, SOURCES)
     for name in _ENTRY.values():
         fn = getattr(lib, name)
-        fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 7 \
+        fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 7 \
             + [ctypes.c_float, ctypes.c_void_p]
         fn.restype = ctypes.c_int
     lib.flash_fwd_bf16_blocks_per_sm.argtypes = [ctypes.c_int]
     lib.flash_fwd_bf16_blocks_per_sm.restype = ctypes.c_int
+    return lib
+
+
+def _bwd_library() -> ctypes.CDLL:
+    lib = load_library(BWD_LIB_NAME, BWD_SOURCES)
+    for name in _BWD_ENTRY.values():
+        fn = getattr(lib, name)
+        fn.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 7 \
+            + [ctypes.c_float, ctypes.c_void_p]
+        fn.restype = ctypes.c_int
     return lib
 
 
@@ -63,14 +84,9 @@ def aligned16(t: torch.Tensor) -> torch.Tensor:
     return t if t.data_ptr() % 16 == 0 else t.clone()
 
 
-def flash_attention(q, k, v, *, causal: bool = True):
-    """softmax(q k^T / sqrt(hd), mask) v in model layout.
-
-    q: (B, S, H, hd); k, v: (B, T, KV, hd) with H a multiple of KV, all of
-    one type (float32 or bfloat16 on the card).  The causal mask keeps
-    ``kpos <= qpos`` counted from 0.  Returns (B, S, H, hd) in q's type.
-    Every kernel launch adds one to ``flash_attention.launches``.
-    """
+def _check(q, k, v) -> tuple:
+    """Validate the shapes, devices and types; returns
+    (B, S, T, H, KV, hd)."""
     if q.dim() != 4 or k.dim() != 4 or v.dim() != 4:
         raise ValueError("flash_attention takes (B, S, H, hd) q and "
                          "(B, T, KV, hd) k and v")
@@ -87,31 +103,128 @@ def flash_attention(q, k, v, *, causal: bool = True):
         if t.device != dev or t.dtype != dtype:
             raise ValueError(f"{name} is {t.dtype} on {t.device}; expected "
                              f"{dtype} on {dev}")
-    if dev.type == "cpu":
-        return attention_plain(q, k, v, causal=causal)
-    if dev.type != "cuda":
+    if dev.type not in ("cpu", "cuda"):
         raise ValueError(f"flash_attention runs on cpu or cuda, not {dev}")
-    if dtype not in _ENTRY:
-        raise TypeError(f"flash_attention takes float32 or bfloat16, "
-                        f"not {dtype}")
-    if hd not in HEAD_DIMS:
-        raise ValueError(f"head size {hd} not taken by the kernel "
-                         f"(one of {HEAD_DIMS})")
-    if min(B, S, T) < 1:
-        raise ValueError(f"empty attention: B {B}, S {S}, T {T}")
+    if dev.type == "cuda":
+        if dtype not in _ENTRY:
+            raise TypeError(f"flash_attention takes float32 or bfloat16, "
+                            f"not {dtype}")
+        if hd not in HEAD_DIMS:
+            raise ValueError(f"head size {hd} not taken by the kernel "
+                             f"(one of {HEAD_DIMS})")
+        if min(B, S, T) < 1:
+            raise ValueError(f"empty attention: B {B}, S {S}, T {T}")
+    return B, S, T, H, KV, hd
+
+
+def _forward(q, k, v, causal: bool, with_lse: bool):
+    """(out, lse or None) of K2 on CUDA tensors (checked by ``_check``)."""
+    B, S, H, hd = q.shape
+    T, KV = k.shape[1], k.shape[2]
+    dev = q.device
     q, k, v = (aligned16(t) for t in (q, k, v))
     out = torch.empty_like(q)
-    fn = getattr(_library(), _ENTRY[dtype])
+    lse = (torch.empty((B, H, S), dtype=torch.float32, device=dev)
+           if with_lse else None)
+    fn = getattr(_library(), _ENTRY[q.dtype])
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                 None if lse is None else lse.data_ptr(),
                  B, S, T, H, KV, hd, int(bool(causal)),
                  1.0 / math.sqrt(hd), stream)
     if err != 0:
         raise RuntimeError(f"flash_attention kernel launch failed: CUDA "
                            f"error {err}")
     flash_attention.launches += 1
-    return out
+    return out, lse
+
+
+def flash_attention(q, k, v, *, causal: bool = True):
+    """softmax(q k^T / sqrt(hd), mask) v in model layout.
+
+    q: (B, S, H, hd); k, v: (B, T, KV, hd) with H a multiple of KV, all of
+    one type (float32 or bfloat16 on the card).  The causal mask keeps
+    ``kpos <= qpos`` counted from 0.  Returns (B, S, H, hd) in q's type.
+    On CUDA tensors that need a gradient it goes through
+    :class:`FlashAttention` (K2 with its log-sum-exp, K2' in the backward).
+    Every forward kernel launch adds one to ``flash_attention.launches``.
+    """
+    _check(q, k, v)
+    if q.device.type == "cpu":
+        return attention_plain(q, k, v, causal=causal)
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                    or v.requires_grad):
+        return FlashAttention.apply(q, k, v, causal)
+    return _forward(q, k, v, causal, False)[0]
 
 
 flash_attention.launches = 0
+
+
+def flash_attention_bwd(q, k, v, o, do, lse, *, causal: bool = True):
+    """K2': (dq, dk, dv) of ``flash_attention`` at the output gradient
+    ``do``, from the forward's output ``o`` and log-sum-exp ``lse``
+    ((B, H, S) float32); each in its input's type.  CPU tensors take the
+    plain version (:func:`~repro_torch.kernels.flash.ref.flash_bwd_plain`);
+    CUDA tensors launch ``csrc/flash_bwd.cu`` (three kernels: D, dk/dv, dq)
+    or raise.  Each call adds one to ``flash_attention_bwd.launches``."""
+    B, S, T, H, KV, hd = _check(q, k, v)
+    dtype, dev = q.dtype, q.device
+    for name, t in (("o", o), ("do", do)):
+        if tuple(t.shape) != (B, S, H, hd) or t.device != dev:
+            raise ValueError(f"{name} {tuple(t.shape)} on {t.device} does "
+                             f"not match q {tuple(q.shape)} on {dev}")
+    if tuple(lse.shape) != (B, H, S):
+        raise ValueError(f"lse has shape {tuple(lse.shape)}, expected "
+                         f"{(B, H, S)}")
+    if dev.type == "cpu":
+        return flash_bwd_plain(q, k, v, o, do, lse, causal=causal)
+    q, k, v, o, do = (aligned16(t.to(dtype)) for t in (q, k, v, o, do))
+    lse = lse.to(torch.float32).contiguous()
+    dq, dk, dv = (torch.empty(t.shape, dtype=dtype, device=dev)
+                  for t in (q, k, v))
+    D = torch.empty((B, H, S), dtype=torch.float32, device=dev)
+    fn = getattr(_bwd_library(), _BWD_ENTRY[dtype])
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+                 do.data_ptr(), lse.data_ptr(), dq.data_ptr(), dk.data_ptr(),
+                 dv.data_ptr(), D.data_ptr(), B, S, T, H, KV, hd,
+                 int(bool(causal)), 1.0 / math.sqrt(hd), stream)
+    if err != 0:
+        raise RuntimeError(f"flash_attention_bwd kernel launch failed: CUDA "
+                           f"error {err}")
+    flash_attention_bwd.launches += 1
+    return dq, dk, dv
+
+
+flash_attention_bwd.launches = 0
+
+
+class FlashAttention(torch.autograd.Function):
+    """Attention with a hand-written backward: the forward keeps q, k, v,
+    the output and its log-sum-exp (K2 on CUDA tensors; the plain
+    versions on CPU tensors) and the backward is
+    :func:`flash_attention_bwd` (K2' on CUDA tensors)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal: bool = True):
+        _check(q, k, v)
+        if q.device.type == "cpu":
+            out = attention_plain(q, k, v, causal=causal)
+            lse = attention_lse_plain(q, k, causal=causal)
+        else:
+            q, k, v = (aligned16(t) for t in (q, k, v))
+            out, lse = _forward(q, k, v, causal, True)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.causal = causal
+        return out
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, out, lse = ctx.saved_tensors
+        grads = flash_attention_bwd(q, k, v, out, do, lse,
+                                    causal=ctx.causal)
+        return tuple(g if need else None for g, need
+                     in zip(grads, ctx.needs_input_grad)) + (None,)

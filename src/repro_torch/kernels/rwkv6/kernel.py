@@ -11,6 +11,17 @@ the same decomposition in plain PyTorch) read the model layout (B, S, H,
 hd) in place, so nothing is transposed; the library is built at first use
 (``kernels/_build.py``) and both passes are launched on PyTorch's current
 stream without synchronising.
+
+Training: when grad is enabled and an input requires grad, a CUDA call goes
+through :class:`WKV6`, which keeps the forward's pass-1 scratch (the state
+entering each 64-token tile) for its backward, K3' (``csrc/wkv6_bwd.cu``,
+:func:`wkv6_bwd`; plain version
+:func:`~repro_torch.kernels.rwkv6.ref.wkv6_bwd_plain`).  That scratch is
+(B * H, ceil(S / 64), hd, hd) float32: 16.8 MB per layer and micro-batch at
+rwkv6-1.6b's training shape (4 x 512 tokens, 32 heads of 64), held until
+the layer's backward (under ``remat="layer"`` only for the layer being
+recomputed).  On CPU tensors ``wkv6`` is autograd through the chunked
+plain version.
 """
 
 from __future__ import annotations
@@ -22,17 +33,23 @@ import torch
 
 from .._build import load_library
 from ..flash.kernel import aligned16
-from .ref import wkv6_chunked_plain
+from .ref import wkv6_bwd_plain, wkv6_chunked_plain
 
 LIB_NAME = "repro_torch_wkv6"
 SOURCES = (Path(__file__).resolve().parent / "csrc" / "wkv6.cu",)
+BWD_LIB_NAME = "repro_torch_wkv6_bwd"
+BWD_SOURCES = (Path(__file__).resolve().parent / "csrc" / "wkv6_bwd.cu",)
 #: head sizes taken: the kernel reads 4-vectors of heads of at most 64, and
 #: the wrapper zero-pads heads of 1 and 2 to 4
 HEAD_DIMS = (1, 2, 4, 8, 16, 32, 64)
 #: tokens per tile of the kernel (its scratch holds one state per tile)
 TILE = 64
 
+#: head sizes the backward takes (the wrapper pads smaller heads to 4)
+BWD_HEAD_DIMS = (4, 8, 16, 32, 64)
+
 _ENTRY = {torch.float32: "wkv6_f32", torch.bfloat16: "wkv6_bf16"}
+_BWD_ENTRY = {torch.float32: "wkv6_bwd_f32", torch.bfloat16: "wkv6_bwd_bf16"}
 
 
 def _library() -> ctypes.CDLL:
@@ -44,6 +61,16 @@ def _library() -> ctypes.CDLL:
         fn.restype = ctypes.c_int
     lib.wkv6_blocks_per_sm.argtypes = [ctypes.c_int, ctypes.c_int]
     lib.wkv6_blocks_per_sm.restype = ctypes.c_int
+    return lib
+
+
+def _bwd_library() -> ctypes.CDLL:
+    lib = load_library(BWD_LIB_NAME, BWD_SOURCES)
+    for name in _BWD_ENTRY.values():
+        fn = getattr(lib, name)
+        fn.argtypes = [ctypes.c_void_p] * 14 + [ctypes.c_int] * 4 \
+            + [ctypes.c_void_p]
+        fn.restype = ctypes.c_int
     return lib
 
 
@@ -65,8 +92,10 @@ def wkv6(r, k, v, logw, u, s0, *, chunk: int = 128):
     for ``models.rwkv6.wkv_chunked``.  ``S`` must be a multiple of
     ``chunk``, as the reference requires; the kernel takes its own 64-token
     tiles whatever the chunk (the chunked form is exact for any tiling).
-    Each call adds one to ``wkv6.launches``: it counts scans, not the two
-    CUDA launches a scan makes.
+    On CUDA tensors that need a gradient it goes through :class:`WKV6`
+    (K3 keeping its tile states, K3' in the backward).  Each call adds one
+    to ``wkv6.launches``: it counts scans, not the two CUDA launches a scan
+    makes.
     """
     B, S, H, hd = r.shape
     if chunk < 1 or S % chunk:
@@ -102,13 +131,27 @@ def wkv6(r, k, v, logw, u, s0, *, chunk: int = 128):
         s0 = torch.nn.functional.pad(s0, (0, pad, 0, pad))
         y, s_out = wkv6(r, k, v, logw, u, s0, chunk=chunk)
         return y[..., :hd].contiguous(), s_out[..., :hd, :hd].contiguous()
+    if torch.is_grad_enabled() and any(
+            t.requires_grad for t in (r, k, v, logw, u, s0)):
+        return WKV6.apply(r, k, v, logw, u, s0)
+    return _launch(r, k, v, logw, u, s0)[:2]
+
+
+wkv6.launches = 0
+
+
+def _launch(r, k, v, logw, u, s0):
+    """K3 on checked CUDA inputs (hd >= 4): (y, S_final, states), states
+    the pass-1 scratch (B * H, ceil(S / 64), hd, hd) float32."""
+    B, S, H, hd = r.shape
+    dev = r.device
     # the kernel reads 4-vectors
     r, k, v, logw, u, s0 = (aligned16(t) for t in (r, k, v, logw, u, s0))
     y = torch.empty((B, S, H, hd), dtype=torch.float32, device=dev)
     s_out = torch.empty((B, H, hd, hd), dtype=torch.float32, device=dev)
     scratch = torch.empty((B * H, -(-S // TILE), hd, hd),
                           dtype=torch.float32, device=dev)
-    fn = getattr(_library(), _ENTRY[dtype])
+    fn = getattr(_library(), _ENTRY[r.dtype])
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = fn(r.data_ptr(), k.data_ptr(), v.data_ptr(), logw.data_ptr(),
@@ -117,7 +160,88 @@ def wkv6(r, k, v, logw, u, s0, *, chunk: int = 128):
     if err != 0:
         raise RuntimeError(f"wkv6 kernel launch failed: CUDA error {err}")
     wkv6.launches += 1
-    return y, s_out
+    return y, s_out, scratch
 
 
-wkv6.launches = 0
+def wkv6_bwd(r, k, v, logw, u, s0, dy, ds_final, *, states=None):
+    """K3': (dr, dk, dv, dlogw, du, ds0) of :func:`wkv6` at the output
+    gradients ``dy`` (B, S, H, hd) and ``ds_final`` (B, H, hd, hd); dr, dk
+    and dv in r's type, the rest float32, du summed over the batch.  CPU
+    tensors take the plain version
+    (:func:`~repro_torch.kernels.rwkv6.ref.wkv6_bwd_plain`); CUDA tensors
+    launch ``csrc/wkv6_bwd.cu`` or raise.  ``states`` is K3's pass-1
+    scratch from the forward of the same inputs; without it one K3 launch
+    recomputes it.  Each call adds one to ``wkv6_bwd.launches``."""
+    B, S, H, hd = r.shape
+    dtype, dev = r.dtype, r.device
+    f32 = torch.float32
+    logw, u, s0, dy, ds_final = (t.to(dtype=f32)
+                                 for t in (logw, u, s0, dy, ds_final))
+    if dev.type == "cpu":
+        dr, dk, dv, dlw, du, ds0 = wkv6_bwd_plain(r, k, v, logw, u, s0, dy,
+                                                  ds_final)
+        return dr.to(dtype), dk.to(dtype), dv.to(dtype), dlw, du, ds0
+    if dev.type != "cuda":
+        raise ValueError(f"wkv6_bwd runs on cpu or cuda, not {dev}")
+    if dtype not in _BWD_ENTRY:
+        raise TypeError(f"wkv6_bwd takes float32 or bfloat16 r/k/v, not "
+                        f"{dtype}")
+    if hd not in BWD_HEAD_DIMS:
+        raise ValueError(f"head size {hd} not taken by the backward kernel "
+                         f"(one of {BWD_HEAD_DIMS})")
+    shapes = {"k": (k, dtype, (B, S, H, hd)), "v": (v, dtype, (B, S, H, hd)),
+              "logw": (logw, f32, (B, S, H, hd)), "u": (u, f32, (H, hd)),
+              "s0": (s0, f32, (B, H, hd, hd)),
+              "dy": (dy, f32, (B, S, H, hd)),
+              "ds_final": (ds_final, f32, (B, H, hd, hd))}
+    for name, (t, want_dtype, shape) in shapes.items():
+        if t.device != dev or t.dtype != want_dtype or \
+                tuple(t.shape) != shape:
+            raise ValueError(f"{name} is {t.dtype} {tuple(t.shape)} on "
+                             f"{t.device}; expected {want_dtype} {shape} on "
+                             f"{dev}")
+    if states is None:
+        states = _launch(r, k, v, logw, u, s0)[2]
+    r, k, v, logw, u, dy, ds_final = (
+        aligned16(t) for t in (r, k, v, logw, u, dy, ds_final))
+    states = aligned16(states)
+    dr, dk, dv, dlw = (torch.empty((B, S, H, hd), dtype=f32, device=dev)
+                       for _ in range(4))
+    du = torch.empty((B, H, hd), dtype=f32, device=dev)
+    ds0 = torch.empty((B, H, hd, hd), dtype=f32, device=dev)
+    fn = getattr(_bwd_library(), _BWD_ENTRY[dtype])
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = fn(r.data_ptr(), k.data_ptr(), v.data_ptr(), logw.data_ptr(),
+                 u.data_ptr(), dy.data_ptr(), ds_final.data_ptr(),
+                 states.data_ptr(), dr.data_ptr(), dk.data_ptr(),
+                 dv.data_ptr(), dlw.data_ptr(), du.data_ptr(),
+                 ds0.data_ptr(), B, S, H, hd, stream)
+    if err != 0:
+        raise RuntimeError(f"wkv6_bwd kernel launch failed: CUDA error "
+                           f"{err}")
+    wkv6_bwd.launches += 1
+    return dr.to(dtype), dk.to(dtype), dv.to(dtype), dlw, du.sum(0), ds0
+
+
+wkv6_bwd.launches = 0
+
+
+class WKV6(torch.autograd.Function):
+    """The scan with a hand-written backward: the forward (K3) keeps its
+    pass-1 scratch, the state entering each 64-token tile, and the
+    backward is :func:`wkv6_bwd` (K3') from it.  CUDA tensors with hd >= 4
+    (``wkv6`` pads smaller heads before it applies this)."""
+
+    @staticmethod
+    def forward(ctx, r, k, v, logw, u, s0):
+        y, s_out, states = _launch(r, k, v, logw, u, s0)
+        ctx.save_for_backward(r, k, v, logw, u, s0, states)
+        return y, s_out
+
+    @staticmethod
+    def backward(ctx, dy, ds_final):
+        r, k, v, logw, u, s0, states = ctx.saved_tensors
+        grads = wkv6_bwd(r, k, v, logw, u, s0, dy, ds_final, states=states)
+        return tuple(g if need else None
+                     for g, need in zip(grads, ctx.needs_input_grad))

@@ -25,6 +25,23 @@ its entering state, with the exponents taken relative to a boundary of
 All arithmetic is float32.  Layouts: r/k/v/logw (B, S, H, hd); u (H, hd);
 s0 (B, H, hd, hd).  All return (y (B, S, H, hd) float32, S_final
 (B, H, hd, hd) float32).
+
+``wkv6_bwd_plain`` is the backward K3' computes (``csrc/wkv6_bwd.cu``):
+the reverse walk of the recurrence with G_t = dL/dS_t (G_T = dS_final),
+
+    dr_t = (S_{t-1} + diag(u) k_t v_t^T) dy_t
+    dk_t = G_t v_t + u o r_t (v_t . dy_t)
+    dv_t = G_t^T k_t + (sum_i r_t u k_t) dy_t
+    G_{t-1} = diag(w_t) G_t + r_t dy_t^T,   ds0 = G_0
+    du = sum_t r_t o k_t (v_t . dy_t)
+
+and dlogw from running sums instead of a per-token product of S and G:
+with A_t = r_t o (S_{t-1} dy_t) and B_t = k_t o (G_t v_t),
+
+    dlogw_t = sum_j (S_T o dS_final)[:, j] + sum_{tau>t} A_tau - sum_{s>=t} B_s
+
+(since w_t S_{t-1} = S_t - k_t v_t^T).  The forward walk that gives
+S_{t-1} dy_t never divides by w, which under a strong decay overflows.
 """
 
 from __future__ import annotations
@@ -148,3 +165,37 @@ def wkv6_tiled_plain(r, k, v, logw, u, s0, tile: int = 64, sub: int = 16):
                                  uf[None, None] * kc[:, a:e])
             ys.append(y + bonus[..., None] * vc[:, a:e])
     return torch.cat(ys, dim=1), Sc
+
+
+def wkv6_bwd_plain(r, k, v, logw, u, s0, dy, ds_final):
+    """(dr, dk, dv, dlogw, du, ds0) of the scan at the output gradients
+    ``dy`` (B, S, H, hd) and ``ds_final`` (B, H, hd, hd), all float32; du
+    is summed over the batch, as u is shared."""
+    rf, kf, vf, lw, dyf = (t.float() for t in (r, k, v, logw, dy))
+    w = torch.exp(lw)
+    uf = u.float()
+    Sc = s0.float()
+    a = []                                   # S_{t-1} dy_t
+    for t in range(r.shape[1]):
+        a.append(torch.einsum("bhkv,bhv->bhk", Sc, dyf[:, t]))
+        Sc = (w[:, t][..., None] * Sc
+              + torch.einsum("bhk,bhv->bhkv", kf[:, t], vf[:, t]))
+    G = ds_final.float()
+    c = (Sc * G).sum(-1)                     # P_T
+    du = torch.zeros_like(Sc[..., 0])
+    dr, dk, dv, dlw = [], [], [], []
+    for t in reversed(range(r.shape[1])):
+        rt, kt, vt, dyt = rf[:, t], kf[:, t], vf[:, t], dyf[:, t]
+        vdy = (vt * dyt).sum(-1, keepdim=True)
+        gv = torch.einsum("bhkv,bhv->bhk", G, vt)
+        bt = kt * gv
+        dr.append(a[t] + uf * kt * vdy)
+        dk.append(gv + uf * rt * vdy)
+        dv.append(torch.einsum("bhkv,bhk->bhv", G, kt)
+                  + (rt * uf * kt).sum(-1, keepdim=True) * dyt)
+        dlw.append(c - bt)
+        c = c + rt * a[t] - bt
+        du = du + rt * kt * vdy
+        G = w[:, t][..., None] * G + torch.einsum("bhk,bhv->bhkv", rt, dyt)
+    grads = [torch.stack(x[::-1], dim=1) for x in (dr, dk, dv, dlw)]
+    return (*grads, du.sum(0), G)

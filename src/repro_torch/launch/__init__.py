@@ -1,1 +1,2 @@
-"""Entry points of the port: ``serve`` (continuous-batching server)."""
+"""Entry points of the port: ``train`` (the language-model trainer),
+``steps`` (its step factories) and ``serve`` (continuous-batching server)."""

@@ -1,22 +1,24 @@
 """Shared model pieces — the port of ``repro/models/common.py``: the
 architecture config, the initializers, ``rms_norm``, RoPE,
-``decode_attention``, ``cross_entropy`` and the cache of compute-type casts
-that both language-model families keep.
+``decode_attention``, ``cross_entropy``, ``remat_wrap`` and the cache of
+compute-type casts that both language-model families keep.
 
 The reference's ``full_attention`` and ``chunked_attention`` have one
-counterpart here: a prefill's attention goes through
-``kernels/flash::flash_attention`` (K2).  The rest of the reference module
-(``chunked_linear_scan``, ``remat_wrap``, layer norm, the GELU MLP) serves
-model families the port does not run yet (ROADMAP Queue 1 item 10).
+counterpart here: attention over a whole sequence (a prefill, a training
+step) goes through ``kernels/flash::flash_attention`` (K2, and K2' for its
+gradient).  Layer norm and the GELU MLP wait for the dense options (ROADMAP
+Queue 1 item 9), ``chunked_linear_scan`` for the Mamba family (item 10).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 from typing import Any
 
 import torch
+from torch.utils import checkpoint as torch_checkpoint
 
 
 @dataclasses.dataclass(frozen=True)
@@ -50,6 +52,8 @@ class ArchConfig:
     param_dtype: Any = torch.float32
     compute_dtype: Any = torch.bfloat16
     scan_chunk: int = 256         # time-chunk of the RWKV linear scan
+    remat: str = "layer"          # none | layer | dots (see remat_wrap)
+    train_microbatches: int = 0   # 0 = auto (launch/steps.py policy)
 
     @property
     def head_dim(self) -> int:
@@ -132,10 +136,16 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
 
 
 class CastCache:
-    """Keeps each parameter's cast to a compute type, recomputed when the
-    parameter's storage, version or device changes.  The same values as
-    casting at every use, as the reference does; the inference entry
-    points run without autograd."""
+    """Each parameter's cast to a compute type, the same values as casting
+    at every use (as the reference does).
+
+    Under autograd (grad enabled and the parameter requiring grad) the cast
+    is made anew at every use and nothing is kept: it stays on the graph,
+    so the parameter gets its gradient, and no graph outlives its forward
+    (a kept cast would tie one micro-batch's graph to the next).  Otherwise
+    (the inference entry points, under ``torch.no_grad()``) the cast is
+    kept and made again only when the parameter's storage, version or
+    device changes — an optimizer step in place bumps the version."""
 
     def __init__(self):
         self._casts = {}
@@ -143,12 +153,46 @@ class CastCache:
     def get(self, name, p, dtype):
         if p.dtype == dtype:
             return p
+        if p.requires_grad and torch.is_grad_enabled():
+            return p.to(dtype)
         key = (p.data_ptr(), p._version, p.device, dtype)
         hit = self._casts.get(name)
         if hit is None or hit[0] != key:
             hit = (key, p.detach().to(dtype))
             self._casts[name] = hit
         return hit[1]
+
+
+#: the products "dots" keeps (the reference's
+#: checkpoint_dots_with_no_batch_dims: matrix products without a batch
+#: dimension; batched products such as attention's are recomputed)
+_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+
+
+def _save_dots(ctx, op, *args, **kwargs):
+    return (torch_checkpoint.CheckpointPolicy.MUST_SAVE if op in _DOTS
+            else torch_checkpoint.CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+def remat_wrap(fn, mode: str):
+    """``fn`` under the reference's rematerialisation policy: ``"none"``
+    keeps every activation, ``"layer"`` keeps only the inputs and recomputes
+    the rest in the backward (``torch.utils.checkpoint``), ``"dots"`` keeps
+    the outputs of matrix products without a batch dimension and recomputes
+    the rest (selective checkpointing).  Recomputation runs the forward
+    kernels (K2, K3) again in the backward."""
+    if mode == "none":
+        return fn
+    if mode == "layer":
+        return functools.partial(torch_checkpoint.checkpoint, fn,
+                                 use_reentrant=False)
+    if mode == "dots":
+        context = functools.partial(
+            torch_checkpoint.create_selective_checkpoint_contexts,
+            _save_dots)
+        return functools.partial(torch_checkpoint.checkpoint, fn,
+                                 use_reentrant=False, context_fn=context)
+    raise ValueError(mode)
 
 
 def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,

@@ -4,11 +4,11 @@ transformer).
 
     api = get_model(cfg, device="cuda")
     model = api.init(generator)                         # on api.device
+    loss = api.loss(model, batch)                       # batch: dict of tensors
     logits, cache = api.prefill(model, batch, cache_len)
     logits, cache = api.decode(model, cache, token, pos)
 
-The reference's ``loss`` (training) is not ported yet (ROADMAP Queue 1
-item 10).
+The other families (MoE, hybrid, VLM, audio) are ROADMAP Queue 1 item 10.
 """
 
 from __future__ import annotations
@@ -29,6 +29,7 @@ class ModelAPI:
     cfg: ArchConfig
     device: torch.device
     init: Callable            # (generator) -> model on device
+    loss: Callable            # (model, batch) -> scalar (with grad)
     prefill: Callable         # (model, batch, cache_len) -> (logits, cache)
     decode: Callable          # (model, cache, token, pos) -> (logits, cache)
 
@@ -44,6 +45,7 @@ def get_model(cfg: ArchConfig, device="cuda") -> ModelAPI:
         return ModelAPI(
             cfg=cfg, device=dev,
             init=lambda g: rwkv_lib.init_params(cfg, g, dev),
+            loss=rwkv_lib.loss_fn,
             prefill=lambda m, b, n: rwkv_lib.prefill(m, b["tokens"], n),
             decode=lambda m, c, t, pos: rwkv_lib.decode_step(m, c, t, pos),
         )
@@ -52,6 +54,7 @@ def get_model(cfg: ArchConfig, device="cuda") -> ModelAPI:
         return ModelAPI(
             cfg=cfg, device=dev,
             init=lambda g: tf_lib.init_params(cfg, g, dev),
+            loss=tf_lib.loss_fn,
             prefill=lambda m, b, n: tf_lib.prefill(m, b["tokens"], n),
             decode=lambda m, c, t, pos: tf_lib.decode_step(m, c, t, pos),
         )

@@ -20,10 +20,16 @@ out)`` orientation (used as ``x @ W``).  Parameters live in
 the reference.  The cast of a matrix is computed once and kept (the same
 values as casting at every use) until the parameter is changed or moved;
 the inference entry points :func:`prefill` and :func:`decode_step` run
-without autograd.
+without autograd (under autograd every use casts anew, see ``CastCache``).
+Training (:func:`forward_hidden`, :func:`loss_fn`, the reference's) runs
+each layer under ``remat_wrap(cfg.remat)``, the scan through ``wkv6``'s
+autograd route (K3 forward, K3' backward, on CUDA); the head is the untied
+``lm_head``.
 """
 
 from __future__ import annotations
+
+import functools
 
 import numpy as np
 import torch
@@ -31,7 +37,8 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..kernels.rwkv6 import wkv6
-from .common import ArchConfig, CastCache, dense_init, embed_init, rms_norm
+from .common import (ArchConfig, CastCache, cross_entropy, dense_init,
+                     embed_init, remat_wrap, rms_norm)
 
 LORA_RANK = 32
 
@@ -275,6 +282,29 @@ def _stack_states(states) -> dict:
             "shift_cm": torch.stack(cm)}
 
 
+def _layer_train(layer, x):
+    return layer(x)[0]
+
+
+def forward_hidden(model: RWKV6, tokens) -> torch.Tensor:
+    """Token ids (B, S) -> final hidden states (B, S, d), every layer under
+    ``remat_wrap(cfg.remat)``; differentiable (the training forward)."""
+    x = model.embed_tokens(tokens)
+    for layer in model.layers:
+        x = remat_wrap(functools.partial(_layer_train, layer),
+                       model.cfg.remat)(x)
+    return x
+
+
+def loss_fn(model: RWKV6, batch: dict) -> torch.Tensor:
+    """Mean next-token cross entropy of ``batch`` ({tokens, labels}, (B, S)
+    each, tensors or arrays) — the reference's ``loss_fn``."""
+    dev = model.embed.device
+    x = forward_hidden(model, torch.as_tensor(batch["tokens"], device=dev))
+    return cross_entropy(model.logits(x),
+                         torch.as_tensor(batch["labels"], device=dev))
+
+
 @torch.no_grad()
 def prefill(model: RWKV6, tokens, cache_len: int = 0):
     """Returns (last logits (B, 1, V), state).  ``cache_len`` is unused:
@@ -299,6 +329,7 @@ def decode_step(model: RWKV6, state: dict, token, pos=None):
     return model.logits(x), _stack_states(states)
 
 
-__all__ = ["LORA_RANK", "RWKV6", "RWKV6Layer", "decode_step", "init_params",
-           "init_state", "num_heads", "params_from_jax", "params_to_jax",
-           "prefill", "wkv_chunk"]
+__all__ = ["LORA_RANK", "RWKV6", "RWKV6Layer", "decode_step",
+           "forward_hidden", "init_params", "init_state", "loss_fn",
+           "num_heads", "params_from_jax", "params_to_jax", "prefill",
+           "wkv_chunk"]

@@ -20,12 +20,18 @@ is the reference's.  K2 maps each query head to its kv head itself, so K
 and V are not repeated per query head.  A decode step attends through the
 plain ``decode_attention``, as in the reference.
 
+Training (:func:`forward_hidden`, :func:`loss_fn`, the reference's
+``forward_hidden`` / ``loss_fn``) runs the same layers from position 0
+with grad: each layer under ``remat_wrap(cfg.remat)``, attention through
+``flash_attention``'s autograd route (K2 forward, K2' backward, on CUDA).
+
 Each layer is a :class:`TransformerLayer` module holding the reference's
 per-layer parameters under the reference's names, matrices in its ``(in,
 out)`` orientation (used as ``x @ W``).  Parameters live in
-``cfg.param_dtype`` and are cast to the compute type at use (the cast is
-kept until the parameter changes, see ``CastCache``); the inference entry
-points :func:`prefill` and :func:`decode_step` run without autograd.  The
+``cfg.param_dtype`` and are cast to the compute type at use (outside
+autograd the cast is kept until the parameter changes, see
+``CastCache``); the inference entry points :func:`prefill` and
+:func:`decode_step` run without autograd.  The
 head is tied to the embedding (``embed.T``).  Left out, as no ported config
 reads them: MoE layers, QKV biases, the GELU MLP, an untied head and
 sliding windows (a config that asks for one raises).
@@ -33,14 +39,17 @@ sliding windows (a config that asks for one raises).
 
 from __future__ import annotations
 
+import functools
+
 import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
 
 from ..kernels.flash import flash_attention
-from .common import (ArchConfig, CastCache, apply_rope, decode_attention,
-                     dense_init, embed_init, rms_norm, rope_cos_sin)
+from .common import (ArchConfig, CastCache, apply_rope, cross_entropy,
+                     decode_attention, dense_init, embed_init, remat_wrap,
+                     rms_norm, rope_cos_sin)
 
 
 def _matrices(cfg: ArchConfig) -> dict:
@@ -230,6 +239,30 @@ def make_cache(cfg: ArchConfig, batch: int, cache_len: int, device,
             "v": torch.zeros(shape, dtype=dtype, device=device)}
 
 
+def _layer_train(layer, x, cos, sin):
+    return layer(x, cos, sin)[0]
+
+
+def forward_hidden(model: Transformer, tokens) -> torch.Tensor:
+    """Token ids (B, S) -> final hidden states (B, S, d), every layer under
+    ``remat_wrap(cfg.remat)``; differentiable (the training forward)."""
+    x = model.embed_tokens(tokens)
+    cos, sin = model.rope(torch.arange(x.shape[1], device=x.device))
+    for layer in model.layers:
+        x = remat_wrap(functools.partial(_layer_train, layer),
+                       model.cfg.remat)(x, cos, sin)
+    return x
+
+
+def loss_fn(model: Transformer, batch: dict) -> torch.Tensor:
+    """Mean next-token cross entropy of ``batch`` ({tokens, labels}, (B, S)
+    each, tensors or arrays) — the reference's ``loss_fn``."""
+    dev = model.embed.device
+    x = forward_hidden(model, torch.as_tensor(batch["tokens"], device=dev))
+    return cross_entropy(model.logits(x),
+                         torch.as_tensor(batch["labels"], device=dev))
+
+
 @torch.no_grad()
 def prefill(model: Transformer, tokens, cache_len: int):
     """Run the whole prompt from position 0, build the KV cache; returns
@@ -263,5 +296,5 @@ def decode_step(model: Transformer, cache: dict, token, pos: int):
 
 
 __all__ = ["Transformer", "TransformerLayer", "check_config", "decode_step",
-           "init_params", "make_cache", "params_from_jax", "params_to_jax",
-           "prefill"]
+           "forward_hidden", "init_params", "loss_fn", "make_cache",
+           "params_from_jax", "params_to_jax", "prefill"]

@@ -1,17 +1,34 @@
-"""Submodel (stage) construction from cut layers — the VGG half of
-``repro/pipeline/stage.py``.  A stage is an ``nn.Module`` over a slice of
-the full model's layer modules (shared, not copied), so updating a stage
-updates the model.  The stacked-scan transformer stages are not ported yet.
+"""Submodel (stage) construction from cut layers — the port of
+``repro/pipeline/stage.py``.
+
+Two parameter layouts, as in the reference:
+  - *list-per-layer* (VGG): a stage is an ``nn.Module`` over a slice of the
+    full model's layer modules (shared, not copied), so updating a stage
+    updates the model;
+  - *stacked* (the language models): per-layer parameters stacked on a
+    leading ``L`` axis, a dict in the reference's layout
+    (``params_to_jax``'s ``"layers"``); a stage takes its ``[lo:hi]`` slice
+    and runs its own block of layers.  The SPMD pipeline that shards stages
+    across devices waits for ROADMAP Queue 1 item 11.
 """
 
 from __future__ import annotations
 
+import functools
 from typing import Sequence
 
 import torch
 from torch import nn
+from torch.func import functional_call
 
+from .._device import resolve_device
+from ..models import transformer as tf_lib
 from ..models import vgg as vgg_lib
+from ..models.common import ArchConfig, remat_wrap, rope_cos_sin
+
+# ---------------------------------------------------------------------------
+# VGG (list-per-layer) stages — the paper's edge-SL submodels
+# ---------------------------------------------------------------------------
 
 
 class VGGStage(nn.Module):
@@ -25,6 +42,17 @@ class VGGStage(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return vgg_lib.forward(self.layers, x)
+
+    @staticmethod
+    def init(lo: int, hi: int, generator: torch.Generator,
+             device="cuda") -> nn.ModuleList:
+        """The counterpart of the reference's ``VGGStage(lo, hi).init(rng)``:
+        layers [lo, hi) of a whole-model ``vgg.init_params(generator)``
+        (drawn on the CPU), on ``device`` (``"cuda"`` unless the caller
+        passes ``"cpu"``)."""
+        dev = resolve_device(device)
+        layers = vgg_lib.init_params(generator)
+        return nn.ModuleList(layers[i].to(dev) for i in range(lo, hi))
 
 
 def vgg_stages_from_cuts(cuts: Sequence[int], params) -> list:
@@ -46,3 +74,50 @@ def _spans(cuts: Sequence[int]) -> list:
             spans.append((lo, hi))
             lo = hi
     return spans
+
+
+# ---------------------------------------------------------------------------
+# Stacked transformer stages
+# ---------------------------------------------------------------------------
+
+def stack_stage_params(layer_params: dict, num_stages: int) -> dict:
+    """(L, ...) stacked layers -> (num_stages, L / num_stages, ...)."""
+    def resh(x):
+        L = x.shape[0]
+        if L % num_stages:
+            raise ValueError(f"{L} layers do not split into {num_stages} "
+                             "stages")
+        return x.reshape((num_stages, L // num_stages) + tuple(x.shape[1:]))
+    return {k: resh(v) for k, v in layer_params.items()}
+
+
+def unstack_stage_params(stage_params: dict) -> dict:
+    """The inverse of :func:`stack_stage_params`."""
+    return {k: x.reshape((x.shape[0] * x.shape[1],) + tuple(x.shape[2:]))
+            for k, x in stage_params.items()}
+
+
+def _block(layer, cfg, params, x):
+    cos = sin = None
+    if cfg.use_rope:
+        cos, sin = rope_cos_sin(torch.arange(x.shape[1], device=x.device),
+                                cfg.head_dim, cfg.rope_theta)
+    return functional_call(layer, params, (x, cos, sin))[0]
+
+
+def transformer_stage_fn(cfg: ArchConfig):
+    """Returns ``f(stage_layers, x)`` running one stage's block of
+    :class:`~repro_torch.models.transformer.TransformerLayer`s, from
+    position 0, each under ``remat_wrap(cfg.remat)``: ``stage_layers`` is a
+    dict of (n, ...) stacked tensors (a slice of
+    :func:`stack_stage_params`), x is (B, S, d)."""
+    layer = tf_lib.TransformerLayer(cfg, device="meta")
+    body = remat_wrap(functools.partial(_block, layer, cfg), cfg.remat)
+
+    def stage_fn(stage_layers: dict, x: torch.Tensor) -> torch.Tensor:
+        n = next(iter(stage_layers.values())).shape[0]
+        for i in range(n):
+            x = body({k: v[i] for k, v in stage_layers.items()}, x)
+        return x
+
+    return stage_fn

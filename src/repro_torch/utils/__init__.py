@@ -1,0 +1,8 @@
+"""Tree helpers of the port (the reference's ``utils/hlo.py`` waits for
+ROADMAP Queue 1 item 11)."""
+
+from .treemath import (global_norm, tree_add, tree_bytes, tree_leaves,
+                       tree_map, tree_scale)
+
+__all__ = ["global_norm", "tree_add", "tree_bytes", "tree_leaves",
+           "tree_map", "tree_scale"]

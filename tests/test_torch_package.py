@@ -198,3 +198,52 @@ def test_planning_and_policy_entry_points_raise_without_gpu(
     with pytest.raises(RuntimeError, match="device='cpu'"):
         calls[entry]({})
     assert calls[entry]({"device": "cpu"}) > 0
+
+
+@pytest.mark.parametrize("entry", ["train", "make_train_step", "loss",
+                                   "make_prefill_step", "make_decode_step",
+                                   "VGGStage.init"])
+def test_training_entry_points_raise_without_gpu(entry, monkeypatch):
+    """The trainer, the step factories, ``ModelAPI.loss`` (through
+    ``get_model``) and a VGG stage's init run on cuda by default: they
+    raise without a GPU unless given device="cpu", and then run."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch import steps
+    from repro_torch.launch.train import train
+    from repro_torch.models.registry import get_model
+    from repro_torch.optim import get_optimizer
+    from repro_torch.pipeline import VGGStage
+    cfg = get_config("qwen3-0.6b", reduced=True)
+    batch = {"tokens": np.zeros((2, 4), np.int32),
+             "labels": np.ones((2, 4), np.int32)}
+
+    def loss(dev):
+        api = get_model(cfg, **dev)
+        model = api.init(torch.Generator().manual_seed(0))
+        return float(api.loss(model, batch).detach())
+
+    calls = {
+        "train": lambda dev: train("qwen3-0.6b", steps=1, batch=2, seq=4,
+                                   microbatches=1, **dev)[0],
+        "make_train_step": lambda dev: steps.make_train_step(
+            cfg, get_optimizer("sgd"), 1, **dev) is not None,
+        "loss": loss,
+        "make_prefill_step": lambda dev: steps.make_prefill_step(
+            cfg, 8, **dev) is not None,
+        "make_decode_step": lambda dev: steps.make_decode_step(
+            cfg, **dev) is not None,
+        "VGGStage.init": lambda dev: len(VGGStage.init(
+            14, 16, torch.Generator().manual_seed(0), **dev)),
+    }
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        calls[entry]({})
+    assert calls[entry]({"device": "cpu"}) > 0
+
+
+def test_scan_finds_the_training_modules():
+    names = {p.relative_to(ROOT / "src" / "repro_torch").as_posix()
+             for p in PORT_FILES if "src" in p.parts}
+    assert {"launch/train.py", "launch/steps.py", "optim/optimizers.py",
+            "utils/treemath.py", "configs/base.py",
+            "configs/vgg16_sl.py"} <= names

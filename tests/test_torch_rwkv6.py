@@ -325,12 +325,22 @@ def test_unported_configs_and_families_raise():
 
 
 def test_cast_cache_follows_parameter_updates(tree):
+    """Outside autograd (the inference entry points) a cast is kept until
+    the parameter changes; under autograd every use casts anew, on the
+    graph, so the parameter gets its gradient and nothing is kept."""
     _, pcfg = configs("bfloat16")
     layer = rwkv6.params_from_jax(tree, pcfg, "cpu").layers[0]
-    w1 = layer.w("wr", torch.bfloat16)
-    assert w1.dtype == torch.bfloat16 and layer.w("wr", torch.bfloat16) is w1
     with torch.no_grad():
+        w1 = layer.w("wr", torch.bfloat16)
+        assert w1.dtype == torch.bfloat16 and \
+            layer.w("wr", torch.bfloat16) is w1
         layer.wr.mul_(2.0)
-    w2 = layer.w("wr", torch.bfloat16)
-    assert torch.equal(w2, layer.wr.detach().to(torch.bfloat16))
+        w2 = layer.w("wr", torch.bfloat16)
+        assert torch.equal(w2, layer.wr.detach().to(torch.bfloat16))
     assert layer.w("wr", torch.float32) is layer.wr
+    w3 = layer.w("wr", torch.bfloat16)
+    assert w3 is not w2 and w3.grad_fn is not None
+    assert torch.equal(w3.detach(), w2)
+    w3.float().sum().backward()
+    assert layer.wr.grad is not None and torch.equal(
+        layer.wr.grad, torch.ones_like(layer.wr))
