@@ -165,7 +165,11 @@ card, in phases; any failure raises and exits non-zero:
              cache_len=1024): 8 requests of 512 prompt tokens, 32 new
              tokens each; K2 launched 8 x 28 = 224 times; prefill ms per
              request, decode tokens/s, peak device memory
- 14. build   K2' and K3' (built in phase 2): their ptxas -v
+ 14. build   K2' and K3' (built in phase 2): their ptxas -v, the
+             tensor-core instructions (HMMA / HGMMA) in the SASS of the
+             bf16 dk/dv and dq kernels of K2' at every head size and of the
+             passes B1 and B2 of K3' (both entries; fails if any has none),
+             and each one's resident blocks per SM
  15. flash'  K2' against flash_bwd_plain and against autograd through
              attention_plain (float32 on the same inputs), and K2's
              log-sum-exp against attention_lse_plain, at the FLASH_SWEEP
@@ -176,16 +180,19 @@ card, in phases; any failure raises and exits non-zero:
              direct call; then K2' timed at the training layer (CUDA
              events, profiler device time) beside its bound, the plain
              version and scaled_dot_product_attention's backward (device
-             time of its backward kernels: the library yardstick)
- 16. wkv6'   K3' against wkv6_bwd_plain and against autograd through the
-             chunked plain version, with a nonzero s0 and a gradient on the
+             time of its backward kernels: the library yardstick), with
+             each kernel's share of the device time
+ 16. wkv6'   K3' against wkv6_bwd_plain, wkv6_bwd_tiled_plain (the
+             kernel's own decomposition) and autograd through the chunked
+             plain version, with a nonzero s0 and a gradient on the
              final state, at the WKV_SWEEP shapes, tiles crossing chunks
              with a ragged last tile, head sizes 1 and 2 (padded to 4, via
              the autograd route) and rwkv6-1.6b's training layer (4 x 512
              tokens, 32 heads of 64); under a strong decay (log w about
              -4.5) against autograd through the per-token version; 1e-4
              float32, 3e-2 bfloat16 r/k/v; the autograd route (WKV6)
-             equals the direct call; then K3' timed at the training layer
+             equals the direct call; then K3' timed at the training
+             layer, with each pass's share of the device time
  17. grads   a 2-layer qwen3-0.6b and a 2-layer rwkv6-1.6b at full width
              in float32 compute with TF32 off (matmul and cuDNN): the loss
              and every gradient over 2 micro-batches of 1 x 256 tokens on
@@ -207,8 +214,9 @@ card, in phases; any failure raises and exits non-zero:
 A line ``{"sim": ..., "card": ...}`` carries phase 4d's walls, device busy
 times and peak memory; ``{"robust": ..., "card": ...}`` phase 4e's walls,
 gaps, picks and K1 launches; ``{"train": ..., "card": ...}`` phases 17
-and 18's gaps, losses, step times, memory, idle shares and launches.  The next-to-last line is a JSON object with the
-kernels' measurements; the last is ``{"ok": true, "device": {...}}``.
+and 18's gaps, losses, step times, memory, idle shares and launches.
+The next-to-last line is a JSON object with the kernels' measurements;
+the last is ``{"ok": true, "device": {...}}``.
 Imports nothing of JAX or of the JAX package ``repro``.
 
     python3 chip_smoke.py --time-k1 [--src OTHER_CHECKOUT/src]
@@ -250,6 +258,8 @@ sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)),
 HBM_BYTES_PER_S = 3.35e12
 PEAK_OPS = {torch.float64: 34e12, torch.float32: 67e12,
             torch.bfloat16: 989e12}
+#: TF32 on the tensor cores, where K3' does its products
+PEAK_TF32 = 495e12
 F32_RTOL = 1e-4
 LOSS_RTOL = 1e-4
 #: K3 against its plain versions: the reference's WKV tolerances
@@ -316,13 +326,15 @@ PROFILE_TRIES = 4
 PROFILER_STATS = {"calls": 0, "retried_sessions": 0, "event_fallbacks": 0}
 
 
-def device_ms(fn, reps: int = 50, host_events: bool = True) -> float:
+def device_ms(fn, reps: int = 50, host_events: bool = True,
+              split: dict = None) -> float:
     """Mean device time per call of the kernels ``fn`` launches: the CUDA
     kernel events of ``torch.profiler`` over ``reps`` calls, summed.  Unlike
     ``cuda_ms`` it leaves out the gaps in which the device waits for the
     host to dispatch the next launch.  ``host_events=False`` traces the
     device alone (a run of ~10^5 launches, whose host events would take the
-    profiler longer to collect than the run).
+    profiler longer to collect than the run).  A ``split`` dict receives
+    each kernel's share, {kernel name: ms per call}.
 
     A short session (50 launches of one 0.01 ms kernel and nothing else)
     can come back with no device event at all.  Each session is padded
@@ -343,9 +355,15 @@ def device_ms(fn, reps: int = 50, host_events: bool = True) -> float:
                 fn()
             torch.cuda.synchronize()
             time.sleep(PROFILE_PAD_S)
-        us = sum(e.time_range.elapsed_us() for e in prof.events()
-                 if e.device_type == DeviceType.CUDA)
+        kernels = [e for e in prof.events()
+                   if e.device_type == DeviceType.CUDA]
+        us = sum(e.time_range.elapsed_us() for e in kernels)
         if us > 0:
+            if split is not None:
+                for e in kernels:
+                    name = re.search(r"\w+(?=<|\(|$)", e.name).group(0)
+                    split[name] = (split.get(name, 0.0)
+                                   + e.time_range.elapsed_us() / reps / 1e3)
             return us / reps / 1e3
         PROFILER_STATS["retried_sessions"] += 1
         log(f"profiler session {attempt + 1} of {PROFILE_TRIES} saw no "
@@ -978,6 +996,9 @@ def rel_err(got, want) -> float:
                  / want.abs().max().clamp_min(1e-30))
 
 
+#: True when ``--src`` imports another checkout's repro_torch (an older one
+#: may lack a plain version added since: phase 16 then skips that check)
+OTHER_SRC = False
 #: K2' and K3' against their plain versions: atol = rtol, float32 and
 #: bfloat16 inputs (the plain versions in float32 on the same inputs)
 GRAD_TOL = {torch.float32: 1e-4, torch.bfloat16: 3e-2}
@@ -1010,16 +1031,19 @@ def flash_bwd_bound_ms(B, S, T, H, KV, hd, causal, dtype) -> tuple:
 def wkv6_bwd_bound_ms(B, S, H, hd, dtype) -> tuple:
     """(bound_ms, bound_by) of K3': r, k, v, log w, dy, u, s0 and dS_final
     read once and dr, dk, dv, dlog w, du and ds0 written once over HBM
-    bandwidth, vs the float32 operations of the per-token walk (S_{t-1} dy
-    and the state update forward, G v, G^T k and the G update backward:
-    10 hd^2 a token and head) over the non-tensor-core float32 peak."""
+    bandwidth, vs the operations of the per-token walk (S_{t-1} dy and the
+    state update forward, G v, G^T k and the G update backward: 10 hd^2 a
+    token and head) as TF32 products on the tensor cores, where K3' does
+    them: one each for bf16 r/k/v, three (3xTF32) for float32, whose exact
+    products still beat the 67 TFLOP/s of the CUDA cores."""
     esize = torch.tensor([], dtype=dtype).element_size()
     elems = B * S * H * hd
     byte_s = (elems * (3 * esize + 4 + 4) + H * hd * 4
               + 2 * B * H * hd * hd * 4
               + elems * (3 * esize + 4) + H * hd * 4
               + B * H * hd * hd * 4) / HBM_BYTES_PER_S
-    op_s = 10 * hd * hd * B * S * H / PEAK_OPS[torch.float32]
+    op_s = (10 * hd * hd * B * S * H * (1 if dtype == torch.bfloat16 else 3)
+            / PEAK_TF32)
     return (max(byte_s, op_s) * 1e3,
             "bytes" if byte_s >= op_s else "operations")
 
@@ -1112,7 +1136,8 @@ def time_flash_grad(flash_mod, flash_kernel) -> dict:
         call = lambda: flash_mod.flash_attention_bwd(q, k, v, out, do, lse,
                                                      causal=causal)
         t["ms" + tag] = cuda_ms(call)
-        t["device_ms" + tag] = device_ms(call)
+        t["device_split" + tag] = {}
+        t["device_ms" + tag] = device_ms(call, split=t["device_split" + tag])
         if dtype == torch.bfloat16:
             t["plain_ms"] = cuda_ms(lambda: flash_mod.flash_bwd_plain(
                 q, k, v, out, do, lse, causal=causal))
@@ -1129,7 +1154,9 @@ def time_flash_grad(flash_mod, flash_kernel) -> dict:
         f"(device {t['library_device_ms']:.4f} ms), bound "
         f"{t['bound_ms']:.6f} ms ({t['bound_by']}); f32: kernel "
         f"{t['ms_f32']:.4f} ms (device {t['device_ms_f32']:.4f} ms), bound "
-        f"{t['bound_ms_f32']:.6f} ms ({t['bound_by_f32']})")
+        f"{t['bound_ms_f32']:.6f} ms ({t['bound_by_f32']}); by kernel "
+        f"(device ms): bf16 {t['device_split']}, f32 "
+        f"{t['device_split_f32']}")
     return t
 
 
@@ -1144,9 +1171,10 @@ def wkv6_grad_inputs(B, S, H, hd, dtype, log_decay=-2.0):
 
 
 def check_wkv6_grad(shape, dtype, wkv6_mod, log_decay=-2.0) -> float:
-    """Hold K3' against wkv6_bwd_plain and against autograd through the
-    chunked plain version (under a strong decay, ``log_decay`` > 0, through
-    the per-token one: the chunked form overflows), and the autograd route
+    """Hold K3' against wkv6_bwd_plain, wkv6_bwd_tiled_plain (its own
+    decomposition) and autograd through the chunked plain version (under a
+    strong decay, ``log_decay`` > 0, through the per-token one: the chunked
+    form overflows), and the autograd route
     (WKV6) against the direct call; returns the largest absolute error.
     Head sizes 1 and 2 go through the autograd route only (``wkv6`` pads
     them to 4 around the kernels)."""
@@ -1180,15 +1208,22 @@ def check_wkv6_grad(shape, dtype, wkv6_mod, log_decay=-2.0) -> float:
     plain = wkv6_mod.wkv6_bwd_plain(*f32, dy, ds)
     err = check_grads(f"K3' {shape} {dtype} vs wkv6_bwd_plain", got, plain,
                       tol)
+    tiled = getattr(wkv6_mod, "wkv6_bwd_tiled_plain", None)
+    if tiled is None and not OTHER_SRC:
+        raise AssertionError("repro_torch has no wkv6_bwd_tiled_plain")
+    err_tiled = float("nan") if tiled is None else check_grads(
+        f"K3' {shape} {dtype} vs wkv6_bwd_tiled_plain", got,
+        tiled(*f32, dy, ds), tol)
     err_auto = check_grads(f"K3' {shape} {dtype} vs autograd", got, auto,
                            tol)
     log(f"K3' (B,S,H,hd,chunk)={shape} {str(dtype)[6:]}"
         + (f" log w ~ -exp(N(0, 0.5) + {log_decay})" if log_decay > 0 else "")
         + f": dr, dk, dv, dlogw, du, ds0 within {tol} of wkv6_bwd_plain "
-        f"(max abs err {err:.3e}) and of autograd through the "
+        f"(max abs err {err:.3e}), of wkv6_bwd_tiled_plain ({err_tiled:.3e}) "
+        "and of autograd through the "
         + ("per-token" if log_decay > 0 else "chunked")
         + f" plain version ({err_auto:.3e}; rel {max_rel(got, auto):.2e})")
-    return max(err, err_auto)
+    return max(err, err_tiled, err_auto)
 
 
 def time_wkv6_grad(wkv6_mod, wkv6_kernel) -> dict:
@@ -1202,7 +1237,8 @@ def time_wkv6_grad(wkv6_mod, wkv6_kernel) -> dict:
         states = wkv6_kernel._launch(*args)[2]
         call = lambda: wkv6_mod.wkv6_bwd(*args, dy, ds, states=states)
         t["ms" + tag] = cuda_ms(call)
-        t["device_ms" + tag] = device_ms(call)
+        t["device_split" + tag] = {}
+        t["device_ms" + tag] = device_ms(call, split=t["device_split" + tag])
         if dtype == torch.bfloat16:
             t["plain_ms"] = cuda_ms(
                 lambda: wkv6_mod.wkv6_bwd_plain(*args, dy, ds))
@@ -1211,7 +1247,9 @@ def time_wkv6_grad(wkv6_mod, wkv6_kernel) -> dict:
     log(f"K3' training layer {TRAIN_WKV}: bf16 r/k/v {t['ms']:.4f} ms "
         f"(device {t['device_ms']:.4f} ms), f32 {t['ms_f32']:.4f} ms "
         f"(device {t['device_ms_f32']:.4f} ms), plain {t['plain_ms']:.4f} "
-        f"ms, bound {t['bound_ms']:.6f} ms ({t['bound_by']})")
+        f"ms, bound {t['bound_ms']:.6f} ms ({t['bound_by']}); by kernel "
+        f"(device ms): bf16 {t['device_split']}, f32 "
+        f"{t['device_split_f32']}")
     return t
 
 
@@ -2207,6 +2245,40 @@ def bwd_libraries(flash_kernel, wkv6_kernel) -> list:
                             _library=wkv6_kernel._bwd_library)]
 
 
+def bwd_sass_and_occupancy(_build, flash_kernel, wkv6_kernel) -> tuple:
+    """Phase 14: the tensor-core instructions (HMMA/HGMMA) in the SASS of
+    the bf16 kernels of K2' (dk/dv and dq at every head size) and of K3'
+    (its passes B1 and B2, both entries), and each one's resident blocks
+    per SM;
+    raises if a kernel has no tensor-core instruction."""
+    k2 = {("dkdv" if "dkdv" in name else "dq") + " hd "
+          + re.search(r"ILi(\d+)E", name).group(1): n
+          for name, n in _build.tensor_core_ops(
+              _build.sass(flash_kernel.BWD_LIB_NAME, flash_kernel.BWD_SOURCES),
+              "_mma_kernel").items()}
+    if len(k2) != 2 * len(flash_kernel.HEAD_DIMS) or min(k2.values()) == 0:
+        raise AssertionError(f"K2' bf16 kernels lack tensor-core "
+                             f"instructions in their SASS: {k2}")
+    k2_blocks = {f"{kern} hd {hd}": flash_kernel.blocks_per_sm(hd, kern)
+                 for kern in ("dkdv", "dq") for hd in flash_kernel.HEAD_DIMS}
+    k3 = {("B1" if "states" in name else "B2")
+          + (" bf16" if "bfloat16" in name else " f32"): n
+          for name, n in _build.tensor_core_ops(
+              _build.sass(wkv6_kernel.BWD_LIB_NAME, wkv6_kernel.BWD_SOURCES),
+              "wkv6_bwd").items() if "du_kernel" not in name}
+    if len(k3) != 4 or min(k3.values()) == 0:
+        raise AssertionError(f"K3' kernels lack tensor-core instructions "
+                             f"in their SASS: {k3}")
+    k3_blocks = {f"B{p} {str(dt)[6:]}":
+                 wkv6_kernel.blocks_per_sm(p, dt, backward=True)
+                 for p in (1, 2) for dt in (torch.bfloat16, torch.float32)}
+    log(f"K2' SASS: tensor-core instructions (HMMA/HGMMA) by kernel {k2}; "
+        f"resident blocks per SM {k2_blocks}")
+    log(f"K3' SASS: tensor-core instructions (HMMA) by kernel {k3}; "
+        f"resident blocks per SM {k3_blocks}")
+    return k2, k2_blocks, k3, k3_blocks
+
+
 def log_ptxas(_build, name):
     for line in _build.build_log(name).splitlines():
         if "registers" in line or "spill" in line or "Compiling" in line:
@@ -2226,6 +2298,8 @@ def main(argv=None) -> int:
                     "(another checkout's src/) instead of this one's")
     opts = ap.parse_args(argv)
     if opts.src:
+        global OTHER_SRC
+        OTHER_SRC = True
         sys.path.insert(0, os.path.abspath(opts.src))
     # 1. device ----------------------------------------------------------
     if not torch.cuda.is_available():
@@ -3039,10 +3113,12 @@ def main(argv=None) -> int:
     del qsrv, qstats, done, qreqs, check_logits, check_cache
     torch.cuda.empty_cache()
 
-    # 14. build K2' and K3' ----------------------------------------------------
+    # 14. build K2' and K3' --------------------------------------------------
     for name in (flash_kernel.BWD_LIB_NAME, wkv6_kernel.BWD_LIB_NAME):
         log(f"build: {name} in {built[name]:.2f} s (phase 2)")
         log_ptxas(_build, name)
+    k2b_hmma, k2b_blocks, k3b_hmma, k3b_blocks = bwd_sass_and_occupancy(
+        _build, flash_kernel, wkv6_kernel)
 
     # 15, 16. K2' and K3' against their plain versions, timed -----------------
     grads = grad_kernel_phases(flash_mod, flash_kernel, wkv6_mod, wkv6_kernel)
@@ -3160,30 +3236,36 @@ def main(argv=None) -> int:
         "name": "flash_attention_bwd",
         "route": "cuda",
         "source": "src/repro_torch/kernels/flash/csrc/flash_bwd.cu",
-        "replaces": "src/repro/kernels/flash/kernel.py:29",
+        "replaces": "src/repro/models/common.py:212-289",
         "launches": trained["qwen3-0.6b"]["launches"]["flash_attention_bwd"],
         "max_abs_err": grads["k2_bwd_err"],
         **{key: grads["k2_bwd_times"][key]
            for key in ("ms", "device_ms", "plain_ms", "bound_ms", "bound_by",
                        "library_ms", "library_device_ms", "ms_f32",
-                       "device_ms_f32", "bound_ms_f32")},
+                       "device_ms_f32", "bound_ms_f32", "device_split",
+                       "device_split_f32")},
         "shape": dict(zip(("B", "S", "T", "H", "KV", "hd", "causal"),
                           TRAIN_FLASH)),
         "dtype": "bfloat16",
+        "sass_tensor_core_instructions": k2b_hmma,
+        "blocks_per_sm": k2b_blocks,
     }, {
         "name": "wkv6_scan_bwd",
         "route": "cuda",
         "source": "src/repro_torch/kernels/rwkv6/csrc/wkv6_bwd.cu",
-        "replaces": "src/repro/kernels/rwkv6/kernel.py:27",
+        "replaces": "src/repro/models/rwkv6.py:97-131",
         "launches": trained["rwkv6-1.6b"]["launches"]["wkv6_bwd"],
         "max_abs_err": grads["k3_bwd_err"],
         "strong_decay_max_abs_err": grads["k3_bwd_strong_err"],
         **{key: grads["k3_bwd_times"][key]
            for key in ("ms", "device_ms", "plain_ms", "bound_ms", "bound_by",
-                       "ms_f32", "device_ms_f32")},
+                       "ms_f32", "device_ms_f32", "device_split",
+                       "device_split_f32")},
         "library_ms": None,
         "shape": dict(zip(("B", "S", "H", "hd", "chunk"), TRAIN_WKV)),
         "dtype": "bfloat16 r/k/v",
+        "sass_tensor_core_instructions": k3b_hmma,
+        "blocks_per_sm": k3b_blocks,
     }]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

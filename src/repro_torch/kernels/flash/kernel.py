@@ -63,14 +63,21 @@ def _bwd_library() -> ctypes.CDLL:
         fn.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 7 \
             + [ctypes.c_float, ctypes.c_void_p]
         fn.restype = ctypes.c_int
+    lib.flash_bwd_bf16_blocks_per_sm.argtypes = [ctypes.c_int] * 2
+    lib.flash_bwd_bf16_blocks_per_sm.restype = ctypes.c_int
     return lib
 
 
-def blocks_per_sm(hd: int) -> int:
-    """Blocks of the bfloat16 kernel resident on one SM at head size ``hd``
+def blocks_per_sm(hd: int, kernel: str = "fwd") -> int:
+    """Blocks of a bfloat16 kernel resident on one SM at head size ``hd``
     (CUDA's occupancy calculator, at the kernel's registers and shared
-    memory)."""
-    n = _library().flash_fwd_bf16_blocks_per_sm(hd)
+    memory): the forward (``"fwd"``), or the backward's dk/dv
+    (``"dkdv"``) or dq (``"dq"``) kernel."""
+    if kernel == "fwd":
+        n = _library().flash_fwd_bf16_blocks_per_sm(hd)
+    else:
+        n = _bwd_library().flash_bwd_bf16_blocks_per_sm(
+            hd, ("dkdv", "dq").index(kernel))
     if n < 0:
         raise RuntimeError(f"occupancy query failed: CUDA error {-n}")
     return n
@@ -167,8 +174,11 @@ def flash_attention_bwd(q, k, v, o, do, lse, *, causal: bool = True):
     ``do``, from the forward's output ``o`` and log-sum-exp ``lse``
     ((B, H, S) float32); each in its input's type.  CPU tensors take the
     plain version (:func:`~repro_torch.kernels.flash.ref.flash_bwd_plain`);
-    CUDA tensors launch ``csrc/flash_bwd.cu`` (three kernels: D, dk/dv, dq)
-    or raise.  Each call adds one to ``flash_attention_bwd.launches``."""
+    CUDA tensors launch ``csrc/flash_bwd.cu`` or raise: three kernels, D
+    (rowsum(do o o)), dk/dv (a block per kv head and 64-key tile) and dq
+    (a block per query head and 64-row tile), on the tensor cores for
+    bfloat16 and on the CUDA cores for float32.  Each call adds one to
+    ``flash_attention_bwd.launches``."""
     B, S, T, H, KV, hd = _check(q, k, v)
     dtype, dev = q.dtype, q.device
     for name, t in (("o", o), ("do", do)):

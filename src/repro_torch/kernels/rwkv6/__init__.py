@@ -6,12 +6,14 @@ CUDA tensors and the plain chunked version ``wkv6_chunked_plain`` on CPU
 tensors; ``wkv6_plain`` is the per-token recurrence, the oracle of both,
 and ``wkv6_tiled_plain`` the kernel's decomposition in plain PyTorch.  With
 grad it goes through ``WKV6``, whose backward is ``wkv6_bwd`` (K3',
-``csrc/wkv6_bwd.cu``; plain version ``wkv6_bwd_plain``).
+``csrc/wkv6_bwd.cu``; plain versions ``wkv6_bwd_plain``, the per-token
+reverse walk, and ``wkv6_bwd_tiled_plain``, the kernel's decomposition).
 """
 
 from .kernel import WKV6, wkv6, wkv6_bwd
-from .ref import (wkv6_bwd_plain, wkv6_chunked_plain, wkv6_plain,
-                  wkv6_tiled_plain)
+from .ref import (wkv6_bwd_plain, wkv6_bwd_tiled_plain, wkv6_chunked_plain,
+                  wkv6_plain, wkv6_tiled_plain)
 
 __all__ = ["WKV6", "wkv6", "wkv6_bwd", "wkv6_bwd_plain",
-           "wkv6_chunked_plain", "wkv6_plain", "wkv6_tiled_plain"]
+           "wkv6_bwd_tiled_plain", "wkv6_chunked_plain", "wkv6_plain",
+           "wkv6_tiled_plain"]

@@ -15,8 +15,10 @@ stream without synchronising.
 Training: when grad is enabled and an input requires grad, a CUDA call goes
 through :class:`WKV6`, which keeps the forward's pass-1 scratch (the state
 entering each 64-token tile) for its backward, K3' (``csrc/wkv6_bwd.cu``,
-:func:`wkv6_bwd`; plain version
-:func:`~repro_torch.kernels.rwkv6.ref.wkv6_bwd_plain`).  That scratch is
+:func:`wkv6_bwd`; plain versions
+:func:`~repro_torch.kernels.rwkv6.ref.wkv6_bwd_plain`, the per-token walk,
+and :func:`~repro_torch.kernels.rwkv6.ref.wkv6_bwd_tiled_plain`, the
+kernel's tiled decomposition).  That scratch is
 (B * H, ceil(S / 64), hd, hd) float32: 16.8 MB per layer and micro-batch at
 rwkv6-1.6b's training shape (4 x 512 tokens, 32 heads of 64), held until
 the layer's backward (under ``remat="layer"`` only for the layer being
@@ -68,16 +70,23 @@ def _bwd_library() -> ctypes.CDLL:
     lib = load_library(BWD_LIB_NAME, BWD_SOURCES)
     for name in _BWD_ENTRY.values():
         fn = getattr(lib, name)
-        fn.argtypes = [ctypes.c_void_p] * 14 + [ctypes.c_int] * 4 \
+        fn.argtypes = [ctypes.c_void_p] * 16 + [ctypes.c_int] * 4 \
             + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
+    lib.wkv6_bwd_blocks_per_sm.argtypes = [ctypes.c_int, ctypes.c_int]
+    lib.wkv6_bwd_blocks_per_sm.restype = ctypes.c_int
     return lib
 
 
-def blocks_per_sm(pass_: int, dtype=torch.bfloat16) -> int:
+def blocks_per_sm(pass_: int, dtype=torch.bfloat16, *,
+                  backward: bool = False) -> int:
     """Blocks of pass 1 (the states) or 2 (the outputs) of the ``dtype``
-    entry resident on one SM (CUDA's occupancy calculator)."""
-    n = _library().wkv6_blocks_per_sm(pass_, int(dtype == torch.bfloat16))
+    entry resident on one SM (CUDA's occupancy calculator); with
+    ``backward``, of the backward K3': pass 1 is B1 (the gradient states),
+    pass 2 is B2 (the tiles)."""
+    lib, fn = ((_bwd_library(), "wkv6_bwd_blocks_per_sm") if backward
+               else (_library(), "wkv6_blocks_per_sm"))
+    n = getattr(lib, fn)(pass_, int(dtype == torch.bfloat16))
     if n < 0:
         raise RuntimeError(f"occupancy query failed: CUDA error {-n}")
     return n
@@ -169,7 +178,12 @@ def wkv6_bwd(r, k, v, logw, u, s0, dy, ds_final, *, states=None):
     and dv in r's type, the rest float32, du summed over the batch.  CPU
     tensors take the plain version
     (:func:`~repro_torch.kernels.rwkv6.ref.wkv6_bwd_plain`); CUDA tensors
-    launch ``csrc/wkv6_bwd.cu`` or raise.  ``states`` is K3's pass-1
+    launch ``csrc/wkv6_bwd.cu`` or raise: three kernels, B1 (G at each
+    64-token tile's end, into a float32 scratch of (B * H, ceil(S / 64),
+    hd, hd): 16.8 MB at rwkv6-1.6b's training layer, freed after the call),
+    B2 (every tile's gradients at once) and B3 (du over the batch and the
+    tiles); :func:`~repro_torch.kernels.rwkv6.ref.wkv6_bwd_tiled_plain` is
+    the same decomposition in plain PyTorch.  ``states`` is K3's pass-1
     scratch from the forward of the same inputs; without it one K3 launch
     recomputes it.  Each call adds one to ``wkv6_bwd.launches``."""
     B, S, H, hd = r.shape
@@ -202,26 +216,33 @@ def wkv6_bwd(r, k, v, logw, u, s0, dy, ds_final, *, states=None):
                              f"{dev}")
     if states is None:
         states = _launch(r, k, v, logw, u, s0)[2]
+    want = (B * H, -(-S // TILE), hd, hd)
+    if states.device != dev or states.dtype != f32 or \
+            tuple(states.shape) != want:
+        raise ValueError(f"states is {states.dtype} {tuple(states.shape)} on "
+                         f"{states.device}; expected {f32} {want} on {dev} "
+                         "(K3's pass-1 scratch)")
     r, k, v, logw, u, dy, ds_final = (
         aligned16(t) for t in (r, k, v, logw, u, dy, ds_final))
     states = aligned16(states)
-    dr, dk, dv, dlw = (torch.empty((B, S, H, hd), dtype=f32, device=dev)
-                       for _ in range(4))
-    du = torch.empty((B, H, hd), dtype=f32, device=dev)
+    dr, dk, dv = (torch.empty((B, S, H, hd), dtype=dtype, device=dev)
+                  for _ in range(3))
+    dlw = torch.empty((B, S, H, hd), dtype=f32, device=dev)
+    du = torch.empty((H, hd), dtype=f32, device=dev)
     ds0 = torch.empty((B, H, hd, hd), dtype=f32, device=dev)
+    gscratch = torch.empty_like(states)
+    du_part = torch.empty(states.shape[:2] + (hd,), dtype=f32, device=dev)
     fn = getattr(_bwd_library(), _BWD_ENTRY[dtype])
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        err = fn(r.data_ptr(), k.data_ptr(), v.data_ptr(), logw.data_ptr(),
-                 u.data_ptr(), dy.data_ptr(), ds_final.data_ptr(),
-                 states.data_ptr(), dr.data_ptr(), dk.data_ptr(),
-                 dv.data_ptr(), dlw.data_ptr(), du.data_ptr(),
-                 ds0.data_ptr(), B, S, H, hd, stream)
+        err = fn(*(t.data_ptr() for t in (
+            r, k, v, logw, u, dy, ds_final, states, dr, dk, dv, dlw, du,
+            ds0, gscratch, du_part)), B, S, H, hd, stream)
     if err != 0:
         raise RuntimeError(f"wkv6_bwd kernel launch failed: CUDA error "
                            f"{err}")
     wkv6_bwd.launches += 1
-    return dr.to(dtype), dk.to(dtype), dv.to(dtype), dlw, du.sum(0), ds0
+    return dr, dk, dv, dlw, du, ds0
 
 
 wkv6_bwd.launches = 0

@@ -42,6 +42,13 @@ with A_t = r_t o (S_{t-1} dy_t) and B_t = k_t o (G_t v_t),
 
 (since w_t S_{t-1} = S_t - k_t v_t^T).  The forward walk that gives
 S_{t-1} dy_t never divides by w, which under a strong decay overflows.
+
+``wkv6_bwd_tiled_plain`` is the same backward in the decomposition the
+CUDA kernel computes: the gradient state at each tile's end by a reverse
+walk over the tiles (pass B1), then every tile from its entering state and
+that gradient state (pass B2), with dlogw from c_t = rowsum(S_t o G_t) at
+the tile's end and the recursion c_{t-1} = c_t + A_t - B_t inside it (see
+its docstring).
 """
 
 from __future__ import annotations
@@ -101,6 +108,21 @@ def _suffix(lw, dim: int = 1):
                       torch.zeros_like(inc.narrow(dim, 0, 1))], dim)
 
 
+def _tile_states(k, v, lw, s0, tile: int):
+    """Pass 1 of the tiled forward: the state entering each ``tile``-token
+    tile (a list) and the final state, with G = the suffix sums of log w
+    within the tile and tot their total:
+        S <- exp(tot) S + (k exp(G))^T v"""
+    states, Sc = [], s0.float()
+    for t0 in range(0, k.shape[1], tile):
+        states.append(Sc)
+        kc, vc, lc = (x[:, t0:t0 + tile] for x in (k, v, lw))
+        kt = kc * torch.exp(_suffix(lc))
+        Sc = (torch.exp(lc.sum(1))[..., None] * Sc
+              + torch.einsum("bthk,bthv->bhkv", kt, vc))
+    return states, Sc
+
+
 def wkv6_tiled_plain(r, k, v, logw, u, s0, tile: int = 64, sub: int = 16):
     """The kernel's two passes over ``tile``-token tiles (the last one
     ragged), whatever the chunk.
@@ -125,14 +147,7 @@ def wkv6_tiled_plain(r, k, v, logw, u, s0, tile: int = 64, sub: int = 16):
     rf, kf, vf, lw = (t.float() for t in (r, k, v, logw))
     uf = u.float()
     starts = range(0, S, tile)
-    # pass 1
-    states, Sc = [], s0.float()
-    for t0 in starts:
-        states.append(Sc)
-        kc, vc, lc = (x[:, t0:t0 + tile] for x in (kf, vf, lw))
-        kt = kc * torch.exp(_suffix(lc))
-        Sc = (torch.exp(lc.sum(1))[..., None] * Sc
-              + torch.einsum("bthk,bthv->bhkv", kt, vc))
+    states, Sc = _tile_states(kf, vf, lw, s0, tile)
     # pass 2
     ys = []
     for t0, St in zip(starts, states):
@@ -199,3 +214,132 @@ def wkv6_bwd_plain(r, k, v, logw, u, s0, dy, ds_final):
         G = w[:, t][..., None] * G + torch.einsum("bhk,bhv->bhkv", rt, dyt)
     grads = [torch.stack(x[::-1], dim=1) for x in (dr, dk, dv, dlw)]
     return (*grads, du.sum(0), G)
+
+
+def _prefix(lw, dim: int = 1):
+    """Exclusive prefix sums along ``dim``: out[t] = sum of lw[:t]."""
+    inc = torch.cumsum(lw, dim)
+    return torch.cat([torch.zeros_like(inc.narrow(dim, 0, 1)),
+                      inc.narrow(dim, 0, inc.shape[dim] - 1)], dim)
+
+
+def _pairs(Fm_late, F_early, later: bool):
+    """exp(F-_late - F_early) of every (t, s) pair of a sub-tile, shape
+    (B, t, s, H, hd), where the later token is s (``later``) or t; 0 off
+    the strict triangle.  Both are local sums from the sub-tile's start, so
+    each exponent is the sum of log w strictly between the two tokens."""
+    n = Fm_late.shape[1]
+    if later:      # s > t: exp(F-_s - F_t)
+        d = Fm_late[:, None] - F_early[:, :, None]
+        keep = torch.triu(torch.ones(n, n, dtype=torch.bool,
+                                     device=d.device), diagonal=1)
+    else:          # s < t: exp(F-_t - F_s)
+        d = Fm_late[:, :, None] - F_early[:, None]
+        keep = torch.tril(torch.ones(n, n, dtype=torch.bool,
+                                     device=d.device), diagonal=-1)
+    return torch.exp(torch.where(keep[None, :, :, None, None], d,
+                                 -torch.inf))
+
+
+def wkv6_bwd_tiled_plain(r, k, v, logw, u, s0, dy, ds_final,
+                         tile: int = 64, sub: int = 16):
+    """(dr, dk, dv, dlogw, du, ds0) as :func:`wkv6_bwd_plain`, in the
+    decomposition K3' computes over ``tile``-token tiles (the last one
+    ragged) of ``sub``-token sub-tiles.
+
+    Pass B1, the gradient state G at each tile's end, walking the tiles
+    from last to first from G = dS_final, with F- the exclusive prefix sums
+    of log w over the tile and tot their total:
+        G <- exp(tot) G + (r exp(F-))^T dy;   the last G is ds0.
+    Pass B2, each tile from the state S entering it (the forward's pass 1)
+    and G at its end.  Within sub-tile J: F = cumsum(log w) from its start,
+    F-_t = F_{t-1} (0 at the start), tot_J its total.  A forward walk over
+    the sub-tiles, S at each one's start:
+        a_t = exp(F-_t) o (S_J dy_t)
+              + sum_{s<t in J} (dy_t . v_s) k_s exp(F-_t - F_s)
+        S_{J+1} = exp(tot_J) S_J + (k exp(tot_J - F))^T v
+    then a backward walk, G at each one's end:
+        g_t = exp(tot_J - F_t) o (G_J v_t)
+              + sum_{s>t in J} (dy_s . v_t) r_s exp(F-_s - F_t)
+        dv_t = (k_t exp(tot_J - F_t)) G_J
+               + sum_{s>t in J} (sum_i r_s k_t exp(F-_s - F_t)) dy_s
+               + (r . u . k)_t dy_t
+        G_{J-1} = exp(tot_J) G_J + (r exp(F-))^T dy
+    and dr = a + u k (v . dy), dk = g + u r (v . dy), A = r o a,
+    B = k o g, dlogw_t = c_t - B_t with c at the tile's end rowsum(S o G)
+    (the last sub-tile's S, B1's G) and c_{t-1} = c_t + A_t - B_t.  Every
+    exponent is a sum of log w over tokens, none spanning two sub-tiles as
+    a difference: exact under any decay.
+    """
+    B, S, H, hd = r.shape
+    rf, kf, vf, lw, dyf = (t.float() for t in (r, k, v, logw, dy))
+    uf = u.float()
+    starts = list(range(0, S, tile))
+    states, _ = _tile_states(kf, vf, lw, s0, tile)
+    cut = lambda x, a, e: x[:, a:e]
+    # pass B1
+    G, g_ends = ds_final.float(), [None] * len(starts)
+    for j in reversed(range(len(starts))):
+        g_ends[j] = G
+        t0 = starts[j]
+        rc, lc, yc = (cut(x, t0, t0 + tile) for x in (rf, lw, dyf))
+        G = (torch.exp(lc.sum(1))[..., None] * G
+             + torch.einsum("bthk,bthv->bhkv", rc * torch.exp(_prefix(lc)),
+                            yc))
+    ds0 = G
+    # pass B2
+    outs = {name: [] for name in ("dr", "dk", "dv", "dlw")}
+    du = torch.zeros_like(uf)
+    for t0, S_in, G_end in zip(starts, states, g_ends):
+        rc, kc, vc, lc, yc = (cut(x, t0, t0 + tile)
+                              for x in (rf, kf, vf, lw, dyf))
+        subs = [(a, min(a + sub, rc.shape[1]))
+                for a in range(0, rc.shape[1], sub)]
+        F = [torch.cumsum(lc[:, a:e], 1) for a, e in subs]
+        Fm = [_prefix(lc[:, a:e]) for a, e in subs]
+        tot = [f[:, -1] for f in F]
+        part = lambda x, J: x[:, subs[J][0]:subs[J][1]]
+        M = [torch.einsum("bthj,bshj->bhts", part(yc, J), part(vc, J))
+             for J in range(len(subs))]
+        # forward walk
+        a_, S_ = [], S_in
+        for J in range(len(subs)):
+            kJ, vJ, yJ = part(kc, J), part(vc, J), part(yc, J)
+            cross = torch.exp(Fm[J]) * torch.einsum("bthj,bhij->bthi", yJ,
+                                                   S_)
+            own = torch.einsum("bhts,bshi,btshi->bthi", M[J], kJ,
+                               _pairs(Fm[J], F[J], later=False))
+            a_.append(cross + own)
+            S_ = (torch.exp(tot[J])[..., None] * S_
+                  + torch.einsum("bshi,bshj->bhij",
+                                 kJ * torch.exp(tot[J][:, None] - F[J]), vJ))
+        c_end = (S_ * G_end).sum(-1)
+        # backward walk
+        g_, dv_, G_ = [None] * len(subs), [None] * len(subs), G_end
+        for J in reversed(range(len(subs))):
+            rJ, kJ, vJ, yJ = (part(x, J) for x in (rc, kc, vc, yc))
+            decay = torch.exp(tot[J][:, None] - F[J])
+            pairs = _pairs(Fm[J], F[J], later=True)
+            g_[J] = (decay * torch.einsum("bthj,bhij->bthi", vJ, G_)
+                     + torch.einsum("bhst,bshi,btshi->bthi", M[J], rJ,
+                                    pairs))
+            att = torch.einsum("bshi,bthi,btshi->bhst", rJ, kJ, pairs)
+            bonus = (rJ * uf * kJ).sum(-1, keepdim=True)
+            dv_[J] = (torch.einsum("bthi,bhij->bthj", kJ * decay, G_)
+                      + torch.einsum("bhst,bshj->bthj", att, yJ)
+                      + bonus * yJ)
+            G_ = (torch.exp(tot[J])[..., None] * G_
+                  + torch.einsum("bshi,bshj->bhij", rJ * torch.exp(Fm[J]),
+                                 yJ))
+        a_, g_, dv_ = (torch.cat(x, 1) for x in (a_, g_, dv_))
+        vdy = (vc * yc).sum(-1, keepdim=True)
+        A_, B_ = rc * a_, kc * g_
+        # dlogw_t = c_end + sum_{s>t} (A_s - B_s) - B_t
+        outs["dlw"].append(c_end[:, None] + _suffix(A_ - B_) - B_)
+        outs["dr"].append(a_ + uf * kc * vdy)
+        outs["dk"].append(g_ + uf * rc * vdy)
+        outs["dv"].append(dv_)
+        du = du + (rc * kc * vdy).sum((0, 1))
+    dr, dk, dv, dlw = (torch.cat(outs[x], 1) for x in ("dr", "dk", "dv",
+                                                       "dlw"))
+    return dr, dk, dv, dlw, du, ds0

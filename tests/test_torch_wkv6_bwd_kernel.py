@@ -14,7 +14,9 @@ gives r, k, v, log w, u and s0 their gradients, also at head sizes 1 and 2
 (padded to 4); K3' is held to ``wkv6_bwd_plain`` within atol = rtol = 1e-4
 for float32 r/k/v and 3e-2 for bfloat16, with a nonzero s0 and a gradient
 on the final state, at the ``WKV_SWEEP`` shapes, tiles crossing chunks
-with a ragged last tile, and rwkv6-1.6b's training layer.
+with a ragged last tile, and rwkv6-1.6b's training layer.  On any
+machine: ``chip_smoke.wkv6_bwd_bound_ms`` counts K3''s products at the
+tensor cores' TF32 rate.
 """
 
 import numpy as np
@@ -113,3 +115,38 @@ def test_cuda_autograd_goes_through_both_kernels(hd, gpu):
     for g, w in zip(grads, want):
         assert torch.allclose(g, w, atol=1e-4, rtol=1e-4)
     assert WKV6 is not None
+
+
+@pytest.mark.cuda
+def test_kernel_rejects_states_of_another_shape(gpu):
+    args, dy, ds = inputs(1, 128, 2, 16, device=gpu)
+    states = torch.zeros((2, 1, 16, 16), device=gpu)   # one tile, not two
+    with pytest.raises(ValueError, match="states"):
+        wkv6_bwd(*args, dy, ds, states=states)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+def test_bound_counts_tensor_core_products(dtype):
+    """``chip_smoke.wkv6_bwd_bound_ms`` counts K3''s products at the TF32
+    tensor-core rate (three TF32 products each for float32), so at
+    rwkv6-1.6b's training layer the bytes moved are the bound (for
+    bfloat16 r/k/v, below the per-token walk's time on the CUDA cores)."""
+    import importlib.util
+    from pathlib import Path
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", Path(__file__).resolve().parents[1] / "chip_smoke.py")
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    B, S, H, hd = 4, 512, 32, 64
+    es = torch.tensor([], dtype=dtype).element_size()
+    elems = B * S * H * hd
+    moved = (elems * (6 * es + 12) + 2 * H * hd * 4
+             + 3 * B * H * hd * hd * 4)
+    ms, by = smoke.wkv6_bwd_bound_ms(B, S, H, hd, dtype)
+    assert by == "bytes"
+    assert ms == pytest.approx(moved / smoke.HBM_BYTES_PER_S * 1e3)
+    ops = 10 * hd * hd * B * S * H
+    assert ops * 3 / smoke.PEAK_TF32 * 1e3 < ms
+    if dtype == torch.bfloat16:
+        assert ms < ops / smoke.PEAK_OPS[torch.float32] * 1e3
