@@ -3,8 +3,10 @@
     python3 chip_smoke.py
 
 Runs the paper's plan-and-train loop, the RWKV6 server and the Qwen3
-server, and trains both language models, through ``repro_torch`` on the
-card, in phases; any failure raises and exits non-zero:
+server, trains both language models, and serves the dense configs with
+their options (QKV biases, the GELU MLP, an untied head, sliding windows),
+through ``repro_torch`` on the card, in phases; any failure raises and
+exits non-zero:
 
   1. device  require CUDA; print the card's name and power limit
   2. build   build K1 (min-plus), K3 (WKV6), K2 (flash), K2' (flash
@@ -210,11 +212,39 @@ card, in phases; any failure raises and exits non-zero:
              share over one more step (profiler); then a restart from a
              checkpoint on the reduced configs, its losses within 1e-3 of
              an uninterrupted run
+ 19. window  K2 and K2' with a sliding window (1, 7, 64, 100, 4096) against
+             their plain versions: K2 at the causal FLASH_SWEEP shapes, the
+             ragged hd-16 one, the served qwen3 layer and 2048 tokens (f32
+             2e-5, bf16 2e-2); K2' and K2's lse at the causal FLASH_SWEEP
+             shapes and the training layer (f32 1e-4, bf16 3e-2), no NaN in
+             any output or lse, the autograd route equal to the direct
+             call; head size 8 (zero-padded to 16) with and without a
+             window; then K2 (served, 2048) and K2' (training layer) timed
+             at window 128 beside the bound over the pairs inside the
+             window, the unwindowed call, the plain version and SDPA given
+             the same boolean mask (its backend named)
+ 20. dense   a 2-layer qwen1.5-4b and llama3-8b at full width in f32 (TF32
+             off), each as published and with sliding_window 100 and
+             ffn_mult 2 together: a 512-token prefill on cuda (K2) against
+             the CPU on the logits and KV cache, and the loss and every gradient
+             (bq / bk / bv, b_up / b_down, lm_head among them) over 2
+             micro-batches of 1 x 256 tokens (K2 / K2' launched layers x
+             micro-batches times), within 1e-3 of each tensor's largest
+             magnitude
+ 21. serve   BatchedServer("qwen1.5-4b") and ("llama3-8b"), reduced=False:
+             full width and depth; ("command-r-35b", num_layers=8): full
+             width, 8 of 40 layers (40 in f32 are ~121 GB); f32 params,
+             bf16 compute, batch 4, cache_len 1024, 8 requests of 512
+             prompt tokens and 32 new tokens each; K2 launched 8 x layers
+             times (320, 256, 64); prefill ms per request, decode tokens/s,
+             peak device memory; each model freed before the next
 
 A line ``{"sim": ..., "card": ...}`` carries phase 4d's walls, device busy
 times and peak memory; ``{"robust": ..., "card": ...}`` phase 4e's walls,
 gaps, picks and K1 launches; ``{"train": ..., "card": ...}`` phases 17
-and 18's gaps, losses, step times, memory, idle shares and launches.
+and 18's gaps, losses, step times, memory, idle shares and launches;
+``{"dense": ..., "card": ...}`` phases 19-21's errors, windowed times,
+gaps, serving numbers and launches.
 The next-to-last line is a JSON object with the kernels' measurements;
 the last is ``{"ok": true, "device": {...}}``.
 Imports nothing of JAX or of the JAX package ``repro``.
@@ -222,6 +252,7 @@ Imports nothing of JAX or of the JAX package ``repro``.
     python3 chip_smoke.py --time-k1 [--src OTHER_CHECKOUT/src]
     python3 chip_smoke.py --time-k3 [--src OTHER_CHECKOUT/src]
     python3 chip_smoke.py --grads
+    python3 chip_smoke.py --dense
 
 only time K1 (its six phase-3 shapes, both modes, by CUDA events, the
 profiler's device time and the host's time per call, and the planner's wall
@@ -230,7 +261,8 @@ at every cluster size and the all-thresholds sweeps and a 96-server graph
 at every tile) or K3
 (phase 7's timings), with this checkout's ``repro_torch`` or another's, to
 compare two versions of a kernel in one run; ``--grads`` builds and checks
-K2' and K3' alone (phases 14-16).
+K2' and K3' alone (phases 14-16); ``--dense`` builds K2 and K2' and runs
+phases 19-21 alone.
 """
 
 from __future__ import annotations
@@ -361,7 +393,9 @@ def device_ms(fn, reps: int = 50, host_events: bool = True,
         if us > 0:
             if split is not None:
                 for e in kernels:
-                    name = re.search(r"\w+(?=<|\(|$)", e.name).group(0)
+                    # a kernel's base name; a copy or memset keeps its own
+                    m = re.search(r"\w+(?=<|\(|$)", e.name)
+                    name = m.group(0) if m else e.name
                     split[name] = (split.get(name, 0.0)
                                    + e.time_range.elapsed_us() / reps / 1e3)
             return us / reps / 1e3
@@ -946,38 +980,54 @@ def flash_inputs(B, S, T, H, KV, hd, dtype, seed=42):
             for shape in ((B, S, H, hd), (B, T, KV, hd), (B, T, KV, hd))]
 
 
-def flash_bound_ms(B, S, T, H, KV, hd, causal, dtype) -> tuple:
+def mask_pairs(S, T, causal, window=0) -> int:
+    """The query-key pairs the mask keeps: all S T, or under the
+    start-aligned causal mask kpos <= qpos, and under a window > 0 only
+    kpos > qpos - window besides."""
+    total = 0
+    for s in range(S):
+        hi = min(s, T - 1) if causal else T - 1
+        lo = max(0, s - window + 1) if window > 0 else 0
+        total += max(0, hi - lo + 1)
+    return total
+
+
+def flash_bound_ms(B, S, T, H, KV, hd, causal, dtype, window=0) -> tuple:
     """(bound_ms, bound_by) of K2: q, k and v read once and the output
     written once over HBM bandwidth, vs the operations of the query-key
     pairs the mask keeps (2 hd for the score, 2 hd for its share of p v;
-    under the causal mask only the pairs kpos <= qpos, not whole tiles) over
-    the type's peak (bfloat16 on the tensor cores, float32 outside them)."""
+    under the causal mask only the pairs kpos <= qpos, and under a window
+    only those inside it, not whole tiles) over the type's peak (bfloat16
+    on the tensor cores, float32 outside them)."""
     esize = torch.tensor([], dtype=dtype).element_size()
     byte_s = esize * (2 * B * S * H * hd + 2 * B * T * KV * hd) \
         / HBM_BYTES_PER_S
-    pairs = sum(min(s + 1, T) for s in range(S)) if causal else S * T
+    pairs = mask_pairs(S, T, causal, window)
     op_s = 4 * hd * pairs * B * H / PEAK_OPS[dtype]
     return (max(byte_s, op_s) * 1e3,
             "bytes" if byte_s >= op_s else "operations")
 
 
-def check_flash(shape, dtype, flash_mod) -> float:
-    """Hold K2 against attention_plain on the card; returns the largest
-    absolute error."""
+def check_flash(shape, dtype, flash_mod, window=0) -> float:
+    """Hold K2 against attention_plain on the card (with a sliding
+    ``window`` > 0, both take it); returns the largest absolute error."""
     B, S, T, H, KV, hd, causal = shape
     q, k, v = flash_inputs(B, S, T, H, KV, hd, dtype)
-    out = flash_mod.flash_attention(q, k, v, causal=causal)
+    out = flash_mod.flash_attention(q, k, v, causal=causal, window=window)
     torch.cuda.synchronize()
-    want = flash_mod.attention_plain(q, k, v, causal=causal)
+    want = flash_mod.attention_plain(q, k, v, causal=causal, window=window)
     tol = FLASH_TOL[dtype]
     err = float((out.float() - want.float()).abs().max())
-    if not (out.dtype == dtype and torch.isfinite(out).all()
+    if not (out.dtype == dtype and out.shape == q.shape
+            and torch.isfinite(out).all()
             and torch.allclose(out.float(), want.float(), atol=tol,
                                rtol=tol)):
-        raise AssertionError(f"K2 {shape} {dtype}: max abs err {err} > "
-                             f"{tol}")
-    log(f"K2 (B,S,T,H,KV,hd,causal)={shape} {str(dtype)[6:]}: within {tol} "
-        f"of the plain version (max abs err {err:.3e})")
+        raise AssertionError(f"K2 {shape} window {window} {dtype}: max abs "
+                             f"err {err} > {tol}")
+    log(f"K2 (B,S,T,H,KV,hd,causal)={shape}"
+        + (f" window {window}" if window else "")
+        + f" {str(dtype)[6:]}: within {tol} of the plain version (max abs "
+        f"err {err:.3e})")
     return err
 
 
@@ -1014,15 +1064,17 @@ WKV_GRAD_PADDED = [(1, 64, 2, 1, 16), (2, 64, 2, 2, 32)]
 WKV_GRAD_STRONG = [(1, 64, 2, 64, 64), (1, 130, 2, 64, 2)]
 
 
-def flash_bwd_bound_ms(B, S, T, H, KV, hd, causal, dtype) -> tuple:
+def flash_bwd_bound_ms(B, S, T, H, KV, hd, causal, dtype,
+                       window=0) -> tuple:
     """(bound_ms, bound_by) of K2': q, k, v, o, do and lse read once and dq,
     dk, dv written once over HBM bandwidth, vs the five hd-deep products
     (q k^T, dO v^T, P^T dO, dS^T q, dS k: 2 hd operations a pair each)
-    over the pairs the mask keeps, at the type's peak."""
+    over the pairs the mask keeps (inside the window, if any), at the
+    type's peak."""
     esize = torch.tensor([], dtype=dtype).element_size()
     byte_s = (esize * (4 * B * S * H * hd + 4 * B * T * KV * hd)
               + 4 * B * H * S) / HBM_BYTES_PER_S
-    pairs = sum(min(s + 1, T) for s in range(S)) if causal else S * T
+    pairs = mask_pairs(S, T, causal, window)
     op_s = 5 * 2 * hd * pairs * B * H / PEAK_OPS[dtype]
     return (max(byte_s, op_s) * 1e3,
             "bytes" if byte_s >= op_s else "operations")
@@ -1068,56 +1120,62 @@ def check_grads(label, got, want, tol) -> float:
     return err
 
 
-def check_flash_grad(shape, dtype, flash_mod, flash_kernel) -> float:
+def check_flash_grad(shape, dtype, flash_mod, flash_kernel,
+                     window=0) -> float:
     """Hold K2' against flash_bwd_plain and against autograd through
     attention_plain (float32 on the same inputs), K2's log-sum-exp against
-    attention_lse_plain, and the autograd route (FlashAttention) against
-    the direct call; returns the largest absolute error."""
+    attention_lse_plain (finite: with a ``window`` a row's first key tiles
+    may hold none of its keys), and the autograd route (FlashAttention)
+    against the direct call; returns the largest absolute error."""
     B, S, T, H, KV, hd, causal = shape
     q, k, v = flash_inputs(B, S, T, H, KV, hd, dtype)
     do = flash_inputs(B, S, S, H, H, hd, dtype, seed=43)[0]
     tol = GRAD_TOL[dtype]
-    out, lse = flash_kernel._forward(q, k, v, causal, True)
-    lse_want = flash_mod.attention_lse_plain(q, k, causal=causal)
-    if not torch.allclose(lse, lse_want, atol=FLASH_TOL[torch.float32],
-                          rtol=FLASH_TOL[torch.float32]):
-        raise AssertionError(f"K2 lse {shape} {dtype}: max abs err "
+    tag = f"{shape}" + (f" window {window}" if window else "") + \
+        f" {str(dtype)[6:]}"
+    out, lse = flash_kernel._forward(q, k, v, causal, True, window)
+    lse_want = flash_mod.attention_lse_plain(q, k, causal=causal,
+                                             window=window)
+    if not (torch.isfinite(lse).all() and torch.allclose(
+            lse, lse_want, atol=FLASH_TOL[torch.float32],
+            rtol=FLASH_TOL[torch.float32])):
+        raise AssertionError(f"K2 lse {tag}: max abs err "
                              f"{float((lse - lse_want).abs().max())}")
-    got = flash_mod.flash_attention_bwd(q, k, v, out, do, lse, causal=causal)
+    got = flash_mod.flash_attention_bwd(q, k, v, out, do, lse, causal=causal,
+                                        window=window)
     torch.cuda.synchronize()
     plain = flash_mod.flash_bwd_plain(q.float(), k.float(), v.float(),
                                       out.float(), do.float(), lse,
-                                      causal=causal)
-    err = check_grads(f"K2' {shape} {dtype} vs flash_bwd_plain", got, plain,
-                      tol)
+                                      causal=causal, window=window)
+    err = check_grads(f"K2' {tag} vs flash_bwd_plain", got, plain, tol)
     leaves = [t.float().requires_grad_() for t in (q, k, v)]
-    ref = flash_mod.attention_plain(*leaves, causal=causal)
+    ref = flash_mod.attention_plain(*leaves, causal=causal, window=window)
     auto = torch.autograd.grad(ref, leaves, do.float())
-    err_auto = check_grads(f"K2' {shape} {dtype} vs autograd", got, auto,
-                           tol)
+    err_auto = check_grads(f"K2' {tag} vs autograd", got, auto, tol)
     leaves = [t.detach().clone().requires_grad_() for t in (q, k, v)]
     via_fn = torch.autograd.grad(
-        flash_mod.flash_attention(*leaves, causal=causal), leaves, do)
+        flash_mod.flash_attention(*leaves, causal=causal, window=window),
+        leaves, do)
     for a, b in zip(via_fn, got):
         if not torch.equal(a, b):
-            raise AssertionError(f"K2' {shape} {dtype}: FlashAttention's "
-                                 "backward differs from flash_attention_bwd")
-    log(f"K2' (B,S,T,H,KV,hd,causal)={shape} {str(dtype)[6:]}: dq, dk, dv "
+            raise AssertionError(f"K2' {tag}: FlashAttention's backward "
+                                 "differs from flash_attention_bwd")
+    log(f"K2' (B,S,T,H,KV,hd,causal)={tag}: dq, dk, dv "
         f"within {tol} of flash_bwd_plain (max abs err {err:.3e}) and of "
-        f"autograd through attention_plain ({err_auto:.3e}; rel "
-        f"{max_rel(got, auto):.2e}); lse within "
+        f"autograd through attention_plain ({err_auto:.3e}); lse within "
         f"{FLASH_TOL[torch.float32]}")
     return max(err, err_auto)
 
 
-def sdpa_bwd(q, k, v, do):
+def sdpa_bwd(q, k, v, do, mask=None):
     """The library yardstick of K2': the backward of one
     scaled_dot_product_attention call on (B, H, S, hd) leaves (its backward
-    kernels only; the forward runs once, outside the timed function)."""
+    kernels only; the forward runs once, outside the timed function), with
+    the causal mask or a boolean ``mask``."""
     leaves = [t.transpose(1, 2).detach().clone().requires_grad_()
               for t in (q, k, v)]
     out = torch.nn.functional.scaled_dot_product_attention(
-        *leaves, is_causal=True, enable_gqa=True)
+        *leaves, attn_mask=mask, is_causal=mask is None, enable_gqa=True)
     g = do.transpose(1, 2).contiguous()
     return lambda: torch.autograd.grad(out, leaves, g, retain_graph=True)
 
@@ -1488,6 +1546,354 @@ def train_phase(flash_mod, wkv6_mod, minplus, out_dir) -> dict:
             f"at step 3, relaunch resumed at step 4; losses within "
             f"{gap:.2e} of an uninterrupted run (tolerance {RESTART_RTOL})")
         out["restart"][arch] = gap
+    return out
+
+
+#: phase 19: the windows K2 and K2' are held to their plain versions at (1
+#: and 7: inside a 64-key tile; 64: one tile; 100: off the tiles; 4096:
+#: longer than every prompt, no effect) and the window they are timed at
+WINDOWS = (1, 7, 64, 100, 4096)
+TIMED_WINDOW = 128
+#: command-r-35b's reduced head size, which the kernels are not built for:
+#: the wrappers zero-pad it to 16
+PADDED_FLASH = (1, 512, 512, 8, 2, 8, True)
+
+
+def window_mask(S, T, window, device="cuda"):
+    """(S, T) bool of the pairs the causal mask and ``window`` keep."""
+    qpos = torch.arange(S, device=device)[:, None]
+    kpos = torch.arange(T, device=device)[None, :]
+    return (kpos <= qpos) & (kpos > qpos - window)
+
+
+def sdpa_masked(q, k, v, mask):
+    """scaled_dot_product_attention on the (B, H, S, hd) views with a
+    boolean mask (GQA inside the call): K2's library yardstick under a
+    window."""
+    return torch.nn.functional.scaled_dot_product_attention(
+        q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+        attn_mask=mask, enable_gqa=True)
+
+
+def sdpa_backend(kernels) -> str:
+    """Which of SDPA's backends ran, from its CUDA kernels' names."""
+    names = " ".join(kernels).lower()
+    if "flash" in names:
+        return "flash"
+    if "fmha" in names or "efficient" in names or "mem_eff" in names:
+        return "efficient"
+    return "math"
+
+
+def time_window(flash_mod, flash_kernel) -> dict:
+    """K2 (bf16) at the served and 2048-token shapes and K2' (bf16) at the
+    training layer, at window TIMED_WINDOW: CUDA events and the profiler's
+    device time beside the window-aware bound, the plain version, the
+    unwindowed call and SDPA given the same boolean mask (which backend
+    ran, from its kernels' names)."""
+    w = TIMED_WINDOW
+    out = {"window": w}
+    for label, shape in (("served", SERVED_FLASH), ("2048", LONG_FLASH)):
+        B, S, T, H, KV, hd, causal = shape
+        q, k, v = flash_inputs(*shape[:6], torch.bfloat16, seed=5)
+        mask = window_mask(S, T, w)
+        call = lambda: flash_mod.flash_attention(q, k, v, window=w)
+        lib = lambda: sdpa_masked(q, k, v, mask)
+        if not torch.allclose(call().float(), lib().transpose(1, 2).float(),
+                              atol=2e-2, rtol=2e-2):
+            raise AssertionError(f"K2 {shape} window {w} differs from "
+                                 "scaled_dot_product_attention")
+        split = {}
+        t = {"ms": cuda_ms(call), "device_ms": device_ms(call),
+             "plain_ms": cuda_ms(lambda: flash_mod.attention_plain(
+                 q, k, v, window=w)),
+             "library_ms": cuda_ms(lib),
+             "library_device_ms": device_ms(lib, split=split),
+             "unwindowed_device_ms": device_ms(
+                 lambda: flash_mod.flash_attention(q, k, v))}
+        t["library_kernels"] = sorted(split)
+        t["library_backend"] = sdpa_backend(split)
+        t["bound_ms"], t["bound_by"] = flash_bound_ms(
+            *shape, torch.bfloat16, window=w)
+        t["pairs"] = mask_pairs(S, T, causal, w)
+        out[label] = t
+        log(f"K2 {label} {shape} window {w}, bf16: kernel {t['ms']:.4f} ms "
+            f"(device {t['device_ms']:.4f}; unwindowed "
+            f"{t['unwindowed_device_ms']:.4f}), plain {t['plain_ms']:.4f} "
+            f"ms, SDPA with the mask {t['library_ms']:.4f} ms (device "
+            f"{t['library_device_ms']:.4f}; backend {t['library_backend']}: "
+            f"{t['library_kernels']}), bound {t['bound_ms']:.6f} ms "
+            f"({t['bound_by']}, {t['pairs']} pairs)")
+    B, S, T, H, KV, hd, causal = TRAIN_FLASH
+    q, k, v = flash_inputs(B, S, T, H, KV, hd, torch.bfloat16, seed=5)
+    do = flash_inputs(B, S, S, H, H, hd, torch.bfloat16, seed=6)[0]
+    o, lse = flash_kernel._forward(q, k, v, causal, True, w)
+    call = lambda: flash_mod.flash_attention_bwd(q, k, v, o, do, lse,
+                                                 window=w)
+    lib = sdpa_bwd(q, k, v, do, window_mask(S, T, w))
+    split, lib_split = {}, {}
+    t = {"ms": cuda_ms(call), "device_ms": device_ms(call, split=split),
+         "plain_ms": cuda_ms(lambda: flash_mod.flash_bwd_plain(
+             q, k, v, o, do, lse, window=w)),
+         "library_ms": cuda_ms(lib),
+         "library_device_ms": device_ms(lib, split=lib_split)}
+    o0, lse0 = flash_kernel._forward(q, k, v, causal, True)
+    t["unwindowed_device_ms"] = device_ms(
+        lambda: flash_mod.flash_attention_bwd(q, k, v, o0, do, lse0))
+    t["device_split"] = split
+    t["library_backend"] = sdpa_backend(lib_split)
+    t["bound_ms"], t["bound_by"] = flash_bwd_bound_ms(
+        *TRAIN_FLASH, torch.bfloat16, window=w)
+    out["train_bwd"] = t
+    log(f"K2' training layer {TRAIN_FLASH} window {w}, bf16: kernel "
+        f"{t['ms']:.4f} ms (device {t['device_ms']:.4f}; unwindowed "
+        f"{t['unwindowed_device_ms']:.4f}; by kernel {split}), plain "
+        f"{t['plain_ms']:.4f} ms, SDPA's backward with the mask "
+        f"{t['library_ms']:.4f} ms (device {t['library_device_ms']:.4f}; "
+        f"backend {t['library_backend']}), bound {t['bound_ms']:.6f} ms "
+        f"({t['bound_by']})")
+    return out
+
+
+def window_phase(flash_mod, flash_kernel) -> dict:
+    """Phase 19: K2 and K2' with a sliding window against their plain
+    versions (TF32 off), the padded head size, then timed."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    causal_shapes = [s for s in FLASH_SHAPES if s[6]]
+    out = {"k2_err": 0.0, "k2_bwd_err": 0.0, "padded_err": 0.0,
+           "windows": WINDOWS}
+    for shape in causal_shapes + [SERVED_FLASH, LONG_FLASH]:
+        for window in WINDOWS:
+            for dtype in (torch.float32, torch.bfloat16):
+                out["k2_err"] = max(out["k2_err"], check_flash(
+                    shape, dtype, flash_mod, window))
+    for shape in causal_shapes + [TRAIN_FLASH]:
+        for window in WINDOWS:
+            for dtype in (torch.float32, torch.bfloat16):
+                out["k2_bwd_err"] = max(out["k2_bwd_err"], check_flash_grad(
+                    shape, dtype, flash_mod, flash_kernel, window))
+    for window in (0, 100):
+        for dtype in (torch.float32, torch.bfloat16):
+            out["padded_err"] = max(
+                out["padded_err"],
+                check_flash(PADDED_FLASH, dtype, flash_mod, window),
+                check_flash_grad(PADDED_FLASH, dtype, flash_mod, flash_kernel,
+                                 window))
+    out["times"] = time_window(flash_mod, flash_kernel)
+    return out
+
+
+#: phase 20: 2-layer models at full width, f32, TF32 off, each as published
+#: and with a window of 100 and the GELU MLP together (the float32 CPU side
+#: of one run takes 15-30 s there, most of it the 128-152k vocabulary's
+#: head: one run per option would double the phase)
+DENSE_ARCHS = ("qwen1.5-4b", "llama3-8b")
+DENSE_VARIANTS = {"as published": {},
+                  "window 100, gelu mlp": {"sliding_window": 100,
+                                           "ffn_mult": 2}}
+
+
+def dense_model_phase(flash_mod) -> dict:
+    """Phase 20: a 2-layer qwen1.5-4b and llama3-8b at full width in float32
+    compute with TF32 off, each also with ``sliding_window`` 100 and
+    ``ffn_mult`` 2: a 512-token prefill on cuda (K2) against the same
+    weights on the CPU (plain) on the logits and the KV cache, and the loss
+    and every gradient over 2 micro-batches of 1 x 256 tokens (K2 / K2',
+    remat none: each launched layers x micro-batches times), within 1e-3
+    of each tensor's largest magnitude."""
+    from repro_torch.configs import get_config
+    from repro_torch.data import token_lm_batches
+    from repro_torch.models import transformer
+    from repro_torch.pipeline.executor import microbatch_grads
+    torch.backends.cuda.matmul.allow_tf32 = False
+    fwd, bwd = flash_mod.flash_attention, flash_mod.flash_attention_bwd
+    q = GRAD_MODEL["microbatches"]
+    out = {}
+    for arch in DENSE_ARCHS:
+        for variant, change in DENSE_VARIANTS.items():
+            t0 = time.perf_counter()
+            cfg = dataclasses.replace(get_config(arch), num_layers=2,
+                                      compute_dtype=torch.float32,
+                                      remat="none", **change)
+            gpu_model = transformer.init_params(
+                cfg, torch.Generator(device="cuda").manual_seed(0), "cuda")
+            cpu_model = transformer.Transformer(cfg, "cpu")
+            cpu_model.load_state_dict(gpu_model.state_dict())
+            prompt = torch.randint(0, cfg.vocab, (1, 512),
+                                   generator=torch.Generator().manual_seed(1))
+            reset_launches(fwd, bwd)
+            logits_g, cache_g = transformer.prefill(gpu_model, prompt.cuda(),
+                                                    512)
+            torch.cuda.synchronize()
+            if fwd.launches != cfg.num_layers:
+                raise AssertionError(f"{arch} {variant}: the cuda prefill "
+                                     f"launched K2 {fwd.launches} times")
+            logits_c, cache_c = transformer.prefill(cpu_model, prompt, 512)
+            errs = {"logits": rel_err(logits_g, logits_c),
+                    **{f"cache {n}": rel_err(cache_g[n], cache_c[n])
+                       for n in cache_c}}
+            if not (torch.isfinite(logits_g).all()
+                    and max(errs.values()) <= MODEL_REL_TOL):
+                raise AssertionError(f"{arch} {variant} prefill cuda vs cpu: "
+                                     f"{errs}")
+            del logits_g, cache_g, logits_c, cache_c
+            b = next(token_lm_batches(batch=GRAD_MODEL["batch"],
+                                      seq_len=GRAD_MODEL["seq"],
+                                      vocab=cfg.vocab, seed=2))
+            runs = {}
+            for route, dev, model in (("kernel", "cuda", gpu_model),
+                                      ("plain", "cpu", cpu_model)):
+                batch = {n: torch.as_tensor(x, device=dev)
+                         for n, x in b.items()}
+                reset_launches(fwd, bwd)
+                runs[route] = microbatch_grads(
+                    lambda _p, mb: transformer.loss_fn(model, mb),
+                    list(model.parameters()), batch, q)
+                if route == "kernel":
+                    torch.cuda.synchronize()
+                    launches = {"forward": fwd.launches,
+                                "backward": bwd.launches}
+            want = cfg.num_layers * q
+            if launches != {"forward": want, "backward": want}:
+                raise AssertionError(f"{arch} {variant}: launches {launches}"
+                                     f" != {want} each")
+            names = [n for n, _ in gpu_model.named_parameters()]
+            gerrs = {"loss": rel_err(runs["kernel"][0], runs["plain"][0])}
+            gerrs.update({n: rel_err(g, c) for n, g, c in
+                          zip(names, runs["kernel"][1], runs["plain"][1])})
+            worst = max(gerrs, key=gerrs.get)
+            if not (math.isfinite(float(runs["kernel"][0]))
+                    and gerrs[worst] <= MODEL_REL_TOL):
+                raise AssertionError(f"{arch} {variant} grads cuda vs cpu: "
+                                     f"{worst} {gerrs[worst]}")
+            named = {n: gerrs[n] for n in gerrs
+                     if n.split(".")[-1] in ("bq", "bk", "bv", "b_up",
+                                             "b_down", "lm_head")}
+            out[f"{arch} {variant}"] = {
+                "prefill_launches": cfg.num_layers,
+                "prefill_max_rel_err": max(errs.values()),
+                "grads_max_rel_err": gerrs[worst], "worst": worst,
+                "loss_rel_err": gerrs["loss"], "launches": launches,
+                "option_grads_max_rel_err": max(named.values(), default=None),
+                "wall_s": time.perf_counter() - t0}
+            log(f"dense model {arch} {variant} (2 layers, d {cfg.d_model}, "
+                f"{cfg.n_heads} heads / {cfg.n_kv} kv of {cfg.head_dim}, d_ff "
+                f"{cfg.d_ff}, vocab {cfg.vocab}, window "
+                f"{cfg.sliding_window}, ffn_mult {cfg.ffn_mult}, qkv_bias "
+                f"{cfg.qkv_bias}, tied {cfg.tie_embeddings}; f32, TF32 off): "
+                f"512-token prefill cuda (K2) vs cpu "
+                + ", ".join(f"{n} {e:.2e}" for n, e in errs.items())
+                + f"; loss and {len(names)} gradients over {q} micro-batches "
+                f"of {GRAD_MODEL['batch'] // q} x {GRAD_MODEL['seq']}: loss "
+                f"cuda {float(runs['kernel'][0])!r} cpu "
+                f"{float(runs['plain'][0])!r}, max err / max magnitude "
+                f"{gerrs[worst]:.2e} ({worst}); "
+                + ", ".join(f"{n} {e:.2e}" for n, e in named.items())
+                + f" (tolerance {MODEL_REL_TOL}); launches {launches}; "
+                f"{out[f'{arch} {variant}']['wall_s']:.1f} s")
+            del gpu_model, cpu_model, runs
+            torch.cuda.empty_cache()
+    return out
+
+
+#: phase 21: (arch, layers served); command-r-35b's 40 layers in f32 (~121
+#: GB with its tied 8.4 GB embedding) do not fit one 80 GB card, 8 do
+DENSE_SERVE = (("qwen1.5-4b", None), ("llama3-8b", None),
+               ("command-r-35b", 8))
+
+
+def serve_phase(server_cls, request_cls, flash_mod, counters,
+                runs=DENSE_SERVE) -> dict:
+    """Phases 13 and 21: BatchedServer at full width for each (arch, layers
+    or None for all) of ``runs`` (phase 21: qwen1.5-4b and llama3-8b at full
+    depth, command-r-35b at 8 of its 40 layers): f32 parameters, bf16
+    compute, 4 slots, cache_len 1024, 8 requests of 512 prompt tokens and 32
+    new tokens each; K2 launched 8 x layers times, a fresh prefill of
+    request 0 finite and giving its first served token; prefill ms per
+    request, decode tokens/s and peak device memory.  Each model is freed
+    before the next is built."""
+    from repro_torch.configs import get_config
+    prefill_s = []
+
+    class TimedServer(server_cls):
+        """Records each prefill's time; admission and decoding unchanged."""
+
+        def _prefill_one(self, req):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            res = super()._prefill_one(req)
+            torch.cuda.synchronize()
+            prefill_s.append(time.perf_counter() - t0)
+            return res
+
+    out = {}
+    for arch, layers in runs:
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        held_gib = torch.cuda.memory_allocated() / 2**30
+        t0 = time.perf_counter()
+        srv = TimedServer(arch, reduced=False, batch=4, cache_len=1024,
+                          seed=0, device="cuda", num_layers=layers)
+        torch.cuda.synchronize()
+        init_s = time.perf_counter() - t0
+        cfg = srv.cfg
+        n_params = srv.api.param_count(srv.params)
+        rng = np.random.default_rng(0)
+        reqs = [request_cls(rid, rng.integers(0, cfg.vocab, size=512)
+                            .astype(np.int32), max_new=32)
+                for rid in range(8)]
+        warm = srv.api.prefill(srv.params, {"tokens": torch.as_tensor(
+            reqs[0].prompt[None, :64], device="cuda")}, 1024)
+        del warm                          # casts the weights to bf16 once
+        for req in reqs:
+            srv.submit(req)
+        prefill_s.clear()
+        reset_launches(*counters)
+        stats = srv.run()
+        torch.cuda.synchronize()
+        launches = {c.__name__: c.launches for c in counters}
+        peak_gib = torch.cuda.max_memory_allocated() / 2**30
+        if launches[flash_mod.flash_attention.__name__] != \
+                len(reqs) * cfg.num_layers:
+            raise AssertionError(f"serve {arch}: launches {launches}, K2 "
+                                 f"expected {len(reqs) * cfg.num_layers}")
+        done = stats["completed"]
+        if not (len(done) == len(reqs) and all(
+                len(r.generated) == 32 and r.done
+                and all(0 <= t < cfg.vocab for t in r.generated)
+                for r in done)):
+            raise AssertionError(f"serve {arch}: served {len(done)} of "
+                                 f"{len(reqs)} requests")
+        logits, cache = srv.api.prefill(
+            srv.params, {"tokens": torch.as_tensor(reqs[0].prompt[None],
+                                                   device="cuda")}, 1024)
+        if not (torch.isfinite(logits).all()
+                and all(torch.isfinite(c).all() for c in cache.values())
+                and int(torch.argmax(logits[0, -1])) == reqs[0].generated[0]):
+            raise AssertionError(f"serve {arch}: a fresh prefill of request "
+                                 "0 is not finite or disagrees with its "
+                                 "first served token")
+        decode_s = stats["seconds"] - sum(prefill_s)
+        out[arch] = {
+            "layers": cfg.num_layers,
+            "layers_published": get_config(arch).num_layers,
+            "params": n_params, "init_s": init_s,
+            "prefill_ms": [t * 1e3 for t in prefill_s],
+            "decode_tokens": stats["tokens"], "seconds": stats["seconds"],
+            "decode_tok_per_s": stats["tokens"] / decode_s,
+            "peak_gib": peak_gib, "held_gib": held_gib,
+            "launches": launches}
+        log(f"serve {arch} full width, {cfg.num_layers} of "
+            f"{out[arch]['layers_published']} layers ({n_params} parameters, "
+            f"f32 params, bf16 compute; init {init_s:.2f} s): {len(done)} "
+            f"requests x 512 prompt tokens, {stats['tokens']} decode tokens "
+            f"in {stats['seconds']:.3f} s; prefill ms per request "
+            f"{[round(t * 1e3, 3) for t in prefill_s]}; decode "
+            f"{out[arch]['decode_tok_per_s']:.2f} tokens/s; launches "
+            f"{launches}; peak device memory {peak_gib:.2f} GiB, of which "
+            f"{held_gib:.2f} GiB was held before the server was built")
+        del srv, stats, done, reqs, logits, cache
+        torch.cuda.empty_cache()
     return out
 
 
@@ -2252,11 +2658,13 @@ def bwd_sass_and_occupancy(_build, flash_kernel, wkv6_kernel) -> tuple:
     per SM;
     raises if a kernel has no tensor-core instruction."""
     k2 = {("dkdv" if "dkdv" in name else "dq") + " hd "
-          + re.search(r"ILi(\d+)E", name).group(1): n
+          + re.search(r"ILi(\d+)E", name).group(1)
+          + (" window" if "Lb1E" in name else ""): n
           for name, n in _build.tensor_core_ops(
               _build.sass(flash_kernel.BWD_LIB_NAME, flash_kernel.BWD_SOURCES),
               "_mma_kernel").items()}
-    if len(k2) != 2 * len(flash_kernel.HEAD_DIMS) or min(k2.values()) == 0:
+    # dk/dv twice a head size (without and with the window's terms), dq once
+    if len(k2) != 3 * len(flash_kernel.HEAD_DIMS) or min(k2.values()) == 0:
         raise AssertionError(f"K2' bf16 kernels lack tensor-core "
                              f"instructions in their SASS: {k2}")
     k2_blocks = {f"{kern} hd {hd}": flash_kernel.blocks_per_sm(hd, kern)
@@ -2294,6 +2702,10 @@ def main(argv=None) -> int:
     ap.add_argument("--grads", action="store_true",
                     help="only build and check K2' and K3' (phases 14-16) "
                     "and print their JSON")
+    ap.add_argument("--dense", action="store_true",
+                    help="only build K2 and K2' and run phases 19-21 (the "
+                    "window, the dense models, the dense servers) and "
+                    "print their JSON")
     ap.add_argument("--src", help="import repro_torch from this directory "
                     "(another checkout's src/) instead of this one's")
     opts = ap.parse_args(argv)
@@ -2339,6 +2751,32 @@ def main(argv=None) -> int:
             log_ptxas(_build, name)
         log(json.dumps({"grads": grad_kernel_phases(
             flash_mod, flash_kernel, wkv6_mod, wkv6_kernel), "card": smi}))
+        return 0
+    if opts.dense:
+        from repro_torch.kernels import _build
+        from repro_torch.kernels import flash as flash_mod
+        from repro_torch.kernels import minplus
+        from repro_torch.kernels import rwkv6 as wkv6_mod
+        from repro_torch.kernels.flash import kernel as flash_kernel
+        from repro_torch.kernels.rwkv6 import kernel as wkv6_kernel
+        from repro_torch.launch.serve import BatchedServer, Request
+        built = build_all([flash_kernel]
+                          + bwd_libraries(flash_kernel, wkv6_kernel)[:1])
+        log("build: " + ", ".join(f"{n} {t:.2f} s" for n, t in built.items()))
+        for name in (flash_kernel.LIB_NAME, flash_kernel.BWD_LIB_NAME):
+            log_ptxas(_build, name)
+        t0 = time.perf_counter()
+        window = window_phase(flash_mod, flash_kernel)
+        t1 = time.perf_counter()
+        models = dense_model_phase(flash_mod)
+        t2 = time.perf_counter()
+        served = serve_phase(
+            BatchedServer, Request, flash_mod,
+            (flash_mod.flash_attention, wkv6_mod.wkv6, minplus.sweep_minplus))
+        log(f"phase walls: 19 {t1 - t0:.1f} s, 20 {t2 - t1:.1f} s, 21 "
+            f"{time.perf_counter() - t2:.1f} s")
+        log(json.dumps({"dense": {"window": window, "models": models,
+                                  "serve": served}, "card": smi}))
         return 0
 
     from repro_torch import obs
@@ -3059,59 +3497,11 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
 
     # 13. serve qwen3-0.6b at full width (the main path of K2) ---------------
-    prefill_s.clear()
-    torch.cuda.reset_peak_memory_stats()
-    held_gib = torch.cuda.memory_allocated() / 2**30   # earlier phases' state
-    t0 = time.perf_counter()
-    qsrv = TimedServer("qwen3-0.6b", reduced=False, batch=4, cache_len=1024,
-                       seed=0, device="cuda")
-    torch.cuda.synchronize()
-    init_s = time.perf_counter() - t0
-    n_params = qsrv.api.param_count(qsrv.params)
-    warm = qsrv.api.prefill(qsrv.params, {"tokens": prompt_q[:, :64].cuda()},
-                            1024)       # casts the weights to bf16 once
-    del warm
-    rng = np.random.default_rng(0)
-    qreqs = [Request(rid, rng.integers(0, full_q.vocab, size=512)
-                     .astype(np.int32), max_new=32) for rid in range(8)]
-    for req in qreqs:
-        qsrv.submit(req)
-    minplus.sweep_minplus.launches = 0
-    wkv6_mod.wkv6.launches = 0
-    flash_mod.flash_attention.launches = 0
-    qstats = qsrv.run()
-    torch.cuda.synchronize()
-    k2_launches = flash_mod.flash_attention.launches
-    peak_gib = torch.cuda.max_memory_allocated() / 2**30
-    if k2_launches != len(qreqs) * full_q.num_layers:
-        raise AssertionError(f"K2 launches {k2_launches} != "
-                             f"{len(qreqs) * full_q.num_layers}")
-    done = qstats["completed"]
-    if not (len(done) == len(qreqs) and all(
-            len(r.generated) == 32 and r.done
-            and all(0 <= t < full_q.vocab for t in r.generated)
-            for r in done)):
-        raise AssertionError(f"served {len(done)} of {len(qreqs)} requests")
-    check_logits, check_cache = qsrv.api.prefill(
-        qsrv.params, {"tokens": torch.as_tensor(qreqs[0].prompt[None],
-                                                device="cuda")}, 1024)
-    if not (torch.isfinite(check_logits).all()
-            and all(torch.isfinite(c).all() for c in check_cache.values())
-            and int(torch.argmax(check_logits[0, -1]))
-            == qreqs[0].generated[0]):
-        raise AssertionError("a fresh prefill of request 0 is not finite or "
-                             "disagrees with its first served token")
-    prefill_ms = [round(t * 1e3, 3) for t in prefill_s]
-    decode_s = qstats["seconds"] - sum(prefill_s)
-    log(f"serve qwen3-0.6b full width ({n_params} parameters, f32 params, "
-        f"bf16 compute; init {init_s:.2f} s): {len(done)} requests x "
-        f"{len(qreqs[0].prompt)} prompt tokens, {qstats['tokens']} decode "
-        f"tokens in {qstats['seconds']:.3f} s; prefill ms per request "
-        f"{prefill_ms}; decode {qstats['tokens'] / decode_s:.2f} tokens/s; "
-        f"K2 launches {k2_launches}; peak device memory {peak_gib:.2f} GiB, "
-        f"of which {held_gib:.2f} GiB was held before the server was built")
-    del qsrv, qstats, done, qreqs, check_logits, check_cache
-    torch.cuda.empty_cache()
+    served_q = serve_phase(
+        BatchedServer, Request, flash_mod,
+        (flash_mod.flash_attention, wkv6_mod.wkv6, minplus.sweep_minplus),
+        (("qwen3-0.6b", None),))
+    k2_launches = served_q["qwen3-0.6b"]["launches"]["flash_attention"]
 
     # 14. build K2' and K3' --------------------------------------------------
     for name in (flash_kernel.BWD_LIB_NAME, wkv6_kernel.BWD_LIB_NAME):
@@ -3136,10 +3526,28 @@ def main(argv=None) -> int:
             ("rwkv6-1.6b", wkv6_mod.wkv6_bwd))):
         raise AssertionError("the training runs did not launch K2' and K3'")
 
+    # 19. K2 and K2' with a sliding window; the padded head size ------------
+    t0 = time.perf_counter()
+    window = window_phase(flash_mod, flash_kernel)
+    # 20. dense models with each option: cuda (K2/K2') vs CPU, float32 ------
+    t1 = time.perf_counter()
+    dense_models = dense_model_phase(flash_mod)
+    # 21. serve the dense configs at full width (K2's main path) ------------
+    t2 = time.perf_counter()
+    dense_served = serve_phase(
+        BatchedServer, Request, flash_mod,
+        (flash_mod.flash_attention, wkv6_mod.wkv6, minplus.sweep_minplus))
+    dense_walls = {"19": t1 - t0, "20": t2 - t1,
+                   "21": time.perf_counter() - t2}
+    window_runs = [r for name, r in dense_models.items() if "window" in name]
+
     log(json.dumps({"sim": sim_out, "card": smi}))
     log(json.dumps({"robust": robust_out, "card": smi}))
     log(json.dumps({"train": {"model_grads": model_grads, **trained,
                               "run": TRAIN_RUN}, "card": smi}))
+    log(json.dumps({"dense": {"window": window, "models": dense_models,
+                              "serve": dense_served,
+                              "phase_walls_s": dense_walls}, "card": smi}))
     log(f"profiler: {PROFILER_STATS['calls']} device_ms calls, "
         f"{PROFILER_STATS['retried_sessions']} sessions with no device time "
         f"run again, {PROFILER_STATS['event_fallbacks']} timed by CUDA events")
@@ -3232,6 +3640,16 @@ def main(argv=None) -> int:
         "long_2048": timings["2048"],
         "train_launches": trained["qwen3-0.6b"]["launches"][
             "flash_attention"],
+        "window": {
+            "windows_checked": WINDOWS, "max_abs_err": window["k2_err"],
+            "padded_hd8_max_abs_err": window["padded_err"],
+            "served": window["times"]["served"],
+            "long_2048": window["times"]["2048"],
+            "launches": sum(r["prefill_launches"] + r["launches"]["forward"]
+                            for r in window_runs)},
+        "dense_serve_launches": {
+            arch: r["launches"]["flash_attention"]
+            for arch, r in dense_served.items()},
     }, {
         "name": "flash_attention_bwd",
         "route": "cuda",
@@ -3249,6 +3667,10 @@ def main(argv=None) -> int:
         "dtype": "bfloat16",
         "sass_tensor_core_instructions": k2b_hmma,
         "blocks_per_sm": k2b_blocks,
+        "window": {
+            "windows_checked": WINDOWS, "max_abs_err": window["k2_bwd_err"],
+            "train_layer": window["times"]["train_bwd"],
+            "launches": sum(r["launches"]["backward"] for r in window_runs)},
     }, {
         "name": "wkv6_scan_bwd",
         "route": "cuda",

@@ -1,16 +1,20 @@
 """Arch registry of the port: ``get_config(arch_id, reduced=...)``.
 
 The ``ssm`` family (``rwkv6-1.6b``) and the ``dense`` family
-(``qwen3-0.6b``) are ported; the reference's other architectures are
-ROADMAP Queue 1 item 10.
+(``qwen3-0.6b``, ``llama3-8b``, ``qwen1.5-4b``, ``command-r-35b``) are
+ported, under the reference's ids; the reference's other architectures
+(MoE, hybrid, VLM, audio) are ROADMAP Queue 1 item 10.
 """
 
 from repro_torch.models.common import ArchConfig
 
-from . import qwen3_0_6b, rwkv6_1_6b
+from . import command_r_35b, llama3_8b, qwen1_5_4b, qwen3_0_6b, rwkv6_1_6b
 
 _MODULES = {
     "qwen3-0.6b": qwen3_0_6b,
+    "command-r-35b": command_r_35b,
+    "llama3-8b": llama3_8b,
+    "qwen1.5-4b": qwen1_5_4b,
     "rwkv6-1.6b": rwkv6_1_6b,
 }
 

@@ -7,9 +7,10 @@ planner's per-arch workload profile and the parameter estimate.
 ``count_params`` is the reference's estimate from that profile (fp32
 parameter bytes / 4), not the model's parameter count: it counts every
 attention layer's q/k/v/o as (H + 2 KV) hd d x 2 and every RWKV layer as
-6 d^2 + 2 d d_ff, leaves out norms and LoRAs, and counts a tied embedding
-twice (qwen3-0.6b: 810,287,104 against 596,049,920 real parameters;
-rwkv6-1.6b: 1,577,058,304 against 1,580,795,904).  Other families raise
+6 d^2 + 2 d d_ff, leaves out norms, biases and LoRAs, and counts the head
+whether tied or not (qwen3-0.6b: 810,287,104 against 596,049,920 real
+parameters; rwkv6-1.6b: 1,577,058,304 against 1,580,795,904;
+command-r-35b: 33,051,115,520 against 30,283,538,432).  Other families raise
 (ROADMAP Queue 1 item 10).
 """
 

@@ -10,21 +10,36 @@
 // with an online softmax over the key tiles: a running max m, a running
 // sum l and an accumulator acc, all float32, rescaled by exp(m_old - m_new)
 // at each tile, and out = acc / max(l, 1e-30) cast to q's type.  The causal
-// mask keeps kpos <= qpos, both counted from 0; keys at kpos >= T are
-// masked; masked scores are -1e30, as in the TPU kernel.
+// mask keeps kpos <= qpos, both counted from 0; a sliding window > 0 also
+// keeps only kpos > qpos - window (the reference's full_attention /
+// chunked_attention, src/repro/models/common.py:235-236,276-277; the TPU
+// kernel takes no window); keys at kpos >= T are masked; masked scores are
+// -1e30, as in the TPU kernel.
 //
 // Common to both entries:
 // - Grid (B * H, ceil(S / 64)): one block per (batch x head, 64-row query
 //   tile).  The TPU grid's sequential key-block axis becomes a loop inside
 //   the block, so m, l and acc stay in registers for the whole row tile.
 //   Query tiles are taken in reverse order, so the blocks with the most
-//   key tiles under the causal mask are scheduled first.
+//   key tiles under the causal mask are scheduled first.  Under a window
+//   every query tile from the window's width on walks the same number of
+//   key tiles, so the order matters only for the first few; it is kept.
 // - The kernel reads the model layout (B, S, H, hd) for q and
 //   (B, T, KV, hd) for k/v in place: the kv head of query head h is
 //   h / (H / KV), so K and V are never repeated per query head, and the
 //   ragged edges (rows past S, keys past T) are masked here, with no
 //   padding on the host.
 // - Key tiles wholly above the diagonal are skipped, as in the TPU kernel.
+//   Under a window the key loop also starts at the tile holding the first
+//   key inside the window of the query tile's first row,
+//   max(0, q0 - window + 1) rounded down to a key tile: the tiles before
+//   it are skipped.  The tiles after it may still be wholly outside the
+//   window of the tile's later rows (with a window under 64 a row's first
+//   visited tile can be).  Such a row has no kept key yet: its running max
+//   stays -1e30, and its probabilities are taken against 0 in place of the
+//   max, so each masked score gives exp(-1e30) = 0, not exp(0) = 1.  The row
+//   then adds nothing to l or acc until its first kept key (its diagonal
+//   is always visited), and its lse is that of the kept keys alone.
 //
 // bfloat16 entry (the served type): flash_fwd_mma_kernel, on the tensor
 // cores, with FlashAttention-2's register-resident softmax.
@@ -74,8 +89,11 @@
 //   32 rows per warp (128-row blocks) spills at hd 128 and halves the
 //   blocks at the served shape; issuing tile j + 1's q k^T beside tile j's
 //   softmax (K one tile ahead of V) gained nothing.
-// - ptxas -v (sm_90a, CUDA 12.8): 206 registers at hd 128 (146, 114, 92 at
-//   hd 64, 32, 16), no spills; 128 HMMA in the hd 128 kernel's SASS.
+// - ptxas -v (sm_90a, CUDA 12.8): 210 registers at hd 128 (147, 124, 102 at
+//   hd 64, 32, 16; 206, 146, 114, 92 before the window's terms), no spills;
+//   128 HMMA in the hd 128 kernel's SASS.  At window 128 the served shape
+//   takes 0.0084 ms of device time (0.0146 without a window) and 2048
+//   tokens 0.0238 (0.0693): PERF.md, section 6.
 //
 // float32 entry: flash_fwd_f32_kernel, float32 FMAs on the CUDA cores (an
 // exact float32 route: rounding the operands to bf16 or TF32 would break
@@ -128,7 +146,7 @@ __global__ void __launch_bounds__(NT)
 flash_fwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
                      const float* __restrict__ v, float* __restrict__ o,
                      float* __restrict__ lse, int S, int T_len, int H,
-                     int KV, int causal, float scale) {
+                     int KV, int causal, int window, float scale) {
   constexpr int LD = HD + 1;       // padded row of the Q and K tiles
   constexpr int DJ = HD / 16;      // output columns per thread
   extern __shared__ float smem[];
@@ -162,7 +180,8 @@ flash_fwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
   }
 
   const int k_end = causal ? min(T_len, q0 + BQ) : T_len;
-  for (int k0 = 0; k0 < k_end; k0 += BK) {
+  const int k_begin = window > 0 ? max(0, q0 - window + 1) / BK * BK : 0;
+  for (int k0 = k_begin; k0 < k_end; k0 += BK) {
     __syncthreads();  // Q is loaded; the last tile's K, V, P are read
     for (int e = tid; e < BK * HD; e += NT) {
       const int r = e / HD, d = e % HD;
@@ -199,7 +218,8 @@ flash_fwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
 #pragma unroll
       for (int j = 0; j < CJ; ++j) {
         const int kpos = k0 + tx + 16 * j;
-        const bool ok = kpos < T_len && (!causal || kpos <= qpos);
+        const bool ok = kpos < T_len && (!causal || kpos <= qpos) &&
+                        (window <= 0 || kpos > qpos - window);
         s[i][j] = ok ? s[i][j] * scale : NEG_INF;
         mx = fmaxf(mx, s[i][j]);
       }
@@ -208,10 +228,12 @@ flash_fwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
         mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off, 16));
       const float m_new = fmaxf(m[i], mx);
       const float alpha = expf(m[i] - m_new);
+      // a row with no kept key yet takes its probabilities against 0
+      const float m_sub = m_new == NEG_INF ? 0.f : m_new;
       float sum = 0.f;
 #pragma unroll
       for (int j = 0; j < CJ; ++j) {
-        const float p = expf(s[i][j] - m_new);
+        const float p = expf(s[i][j] - m_sub);
         sum += p;
         Ps[(ty + 16 * i) * LDP + tx + 16 * j] = p;
       }
@@ -354,13 +376,14 @@ __device__ __forceinline__ void load_tile(uint32_t dst, const bf16* src,
 }
 
 // Grid (B * H, ceil(S / 64)): block (bh, y) takes query tile
-// ceil(S / 64) - 1 - y (the longest causal key range first).
+// ceil(S / 64) - 1 - y (the longest causal key range first; under a window
+// the ranges are equal from the window's width on).
 template <int HD>
 __global__ void __launch_bounds__(MMA_NT, 2)
 flash_fwd_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                      const bf16* __restrict__ v, bf16* __restrict__ o,
                      float* __restrict__ lse, int S, int T_len, int H,
-                     int KV, int causal, float scale_log2) {
+                     int KV, int causal, int window, float scale_log2) {
   constexpr int LDS = HD + PAD;    // shared row, in elements
   constexpr int KD = HD / 16;      // k-steps of q k^T
   constexpr int NS = BK / 8;       // 8-key tiles of the scores
@@ -385,7 +408,9 @@ flash_fwd_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   const bf16* vb = v + (size_t)b * T_len * krow + (size_t)kvh * HD;
   bf16* ob = o + (size_t)b * S * qrow + (size_t)h * HD;
   const int k_end = causal ? min(T_len, q0 + BQ) : T_len;
-  const int n_tiles = (k_end + BK - 1) / BK;
+  // the first key tile holding a key inside the window of row q0
+  const int k_begin = window > 0 ? max(0, q0 - window + 1) / BK * BK : 0;
+  const int n_tiles = (k_end - k_begin + BK - 1) / BK;
   const int row0 = q0 + 16 * warp;                // this warp's first row
   // each lane's row address in the ldmatrix of Q, K and V (bytes)
   const uint32_t q_lane =
@@ -398,8 +423,8 @@ flash_fwd_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
       sizeof(bf16);
 
   load_tile<HD>(Qs, qb, qrow, q0, S, tid);
-  load_tile<HD>(Ks, kb, krow, 0, T_len, tid);
-  load_tile<HD>(Vs, vb, krow, 0, T_len, tid);
+  load_tile<HD>(Ks, kb, krow, k_begin, T_len, tid);
+  load_tile<HD>(Vs, vb, krow, k_begin, T_len, tid);
   cp_async_commit();
 
   // rows g and g + 8 of the warp's 16: acc[j] holds columns 8 j + 2 t, +1;
@@ -412,7 +437,7 @@ flash_fwd_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   uint32_t qf[KD][4];
 
   for (int j = 0; j < n_tiles; ++j) {
-    const int k0 = j * BK, st = j % 2;
+    const int k0 = k_begin + j * BK, st = j % 2;
     if (j + 1 < n_tiles) {              // tile j + 1 into the other stage
       load_tile<HD>(Ks + (1 - st) * STAGE, kb, krow, k0 + BK, T_len, tid);
       load_tile<HD>(Vs + (1 - st) * STAGE, vb, krow, k0 + BK, T_len, tid);
@@ -448,15 +473,19 @@ flash_fwd_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
       }
     }
 
-    // mask, row max of the raw scores over the quad (the scale is > 0)
-    if (k0 + BK > T_len || (causal && k0 + BK - 1 > row0)) {
+    // mask, row max of the raw scores over the quad (the scale is > 0);
+    // the window masks keys at or below qpos - window of the warp's rows
+    if (k0 + BK > T_len || (causal && k0 + BK - 1 > row0) ||
+        (window > 0 && k0 <= row0 + 15 - window)) {
 #pragma unroll
       for (int n = 0; n < NS; ++n)
 #pragma unroll
         for (int e = 0; e < 4; ++e) {
           const int kpos = k0 + 8 * n + 2 * t + e % 2;
           const int qpos = row0 + g + 8 * (e / 2);
-          if (kpos >= T_len || (causal && kpos > qpos)) s[n][e] = NEG_INF;
+          if (kpos >= T_len || (causal && kpos > qpos) ||
+              (window > 0 && kpos <= qpos - window))
+            s[n][e] = NEG_INF;
         }
     }
     float mx[2] = {NEG_INF, NEG_INF};
@@ -470,11 +499,17 @@ flash_fwd_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     for (int i = 0; i < 2; ++i) {
       mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 1));
       mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 2));
-      const float m_new = fmaxf(m[i], mx[i] * scale_log2);
+      // a row with every score of the tile masked keeps its max
+      const float m_new =
+          mx[i] == NEG_INF ? m[i] : fmaxf(m[i], mx[i] * scale_log2);
       alpha[i] = m_new > m[i] ? ex2(m[i] - m_new) : 1.f;
       m[i] = m_new;
       l[i] *= alpha[i];
     }
+    // a row with no kept key yet takes its probabilities against 0:
+    // 2^(-1e30 scale_log2) = 0 for each masked score
+    const float m_sub[2] = {m[0] == NEG_INF ? 0.f : m[0],
+                            m[1] == NEG_INF ? 0.f : m[1]};
     // rescale acc only when a row max of the warp moved (late tiles rarely)
     if (__any_sync(0xffffffffu, alpha[0] != 1.f || alpha[1] != 1.f)) {
 #pragma unroll
@@ -491,10 +526,10 @@ flash_fwd_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     uint32_t pa[BK / 16][4];
 #pragma unroll
     for (int n = 0; n < NS; ++n) {
-      const float p0 = ex2(fmaf(s[n][0], scale_log2, -m[0]));
-      const float p1 = ex2(fmaf(s[n][1], scale_log2, -m[0]));
-      const float p2 = ex2(fmaf(s[n][2], scale_log2, -m[1]));
-      const float p3 = ex2(fmaf(s[n][3], scale_log2, -m[1]));
+      const float p0 = ex2(fmaf(s[n][0], scale_log2, -m_sub[0]));
+      const float p1 = ex2(fmaf(s[n][1], scale_log2, -m_sub[0]));
+      const float p2 = ex2(fmaf(s[n][2], scale_log2, -m_sub[1]));
+      const float p3 = ex2(fmaf(s[n][3], scale_log2, -m_sub[1]));
       l[0] += p0 + p1;
       l[1] += p2 + p3;
       pa[n / 2][2 * (n % 2)] = pack_bf16(p0, p1);
@@ -552,7 +587,7 @@ flash_fwd_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 template <int HD>
 int launch_f32(const void* q, const void* k, const void* v, void* o,
                void* lse, int B, int S, int T_len, int H, int KV,
-               int causal, float scale, void* stream) {
+               int causal, int window, float scale, void* stream) {
   const size_t bytes = smem_bytes<HD>();
   cudaError_t err = cudaFuncSetAttribute(
       flash_fwd_f32_kernel<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -561,14 +596,14 @@ int launch_f32(const void* q, const void* k, const void* v, void* o,
   dim3 grid(B * H, (S + BQ - 1) / BQ);
   flash_fwd_f32_kernel<HD><<<grid, NT, bytes, (cudaStream_t)stream>>>(
       (const float*)q, (const float*)k, (const float*)v, (float*)o,
-      (float*)lse, S, T_len, H, KV, causal, scale);
+      (float*)lse, S, T_len, H, KV, causal, window, scale);
   return (int)cudaGetLastError();
 }
 
 template <int HD>
 int launch_bf16(const void* q, const void* k, const void* v, void* o,
                 void* lse, int B, int S, int T_len, int H, int KV,
-                int causal, float scale, void* stream) {
+                int causal, int window, float scale, void* stream) {
   const size_t bytes = mma_smem_bytes<HD>();
   cudaError_t err = cudaFuncSetAttribute(
       flash_fwd_mma_kernel<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -577,7 +612,7 @@ int launch_bf16(const void* q, const void* k, const void* v, void* o,
   dim3 grid(B * H, (S + BQ - 1) / BQ);
   flash_fwd_mma_kernel<HD><<<grid, MMA_NT, bytes, (cudaStream_t)stream>>>(
       (const bf16*)q, (const bf16*)k, (const bf16*)v, (bf16*)o, (float*)lse,
-      S, T_len, H, KV, causal, scale * LOG2E);
+      S, T_len, H, KV, causal, window, scale * LOG2E);
   return (int)cudaGetLastError();
 }
 
@@ -594,9 +629,9 @@ int blocks_per_sm() {
   return err == cudaSuccess ? n : -(int)err;
 }
 
-bool valid(int B, int S, int T_len, int H, int KV) {
+bool valid(int B, int S, int T_len, int H, int KV, int window) {
   return B >= 1 && S >= 1 && T_len >= 1 && KV >= 1 && H % KV == 0 &&
-         (S + BQ - 1) / BQ <= 65535;
+         window >= 0 && (S + BQ - 1) / BQ <= 65535;
 }
 
 }  // namespace
@@ -605,27 +640,29 @@ extern "C" {
 
 // q, o: (B, S, H, hd); k, v: (B, T, KV, hd); all contiguous, in the entry's
 // type (the bf16 entry's pointers 16-byte aligned).  H is a multiple of
-// KV; hd is 16, 32, 64 or 128; causal is 0 or 1; scale is 1 / sqrt(hd).
+// KV; hd is 16, 32, 64 or 128 (a smaller head size is zero-padded by the
+// wrapper, which passes the true scale); causal is 0 or 1; window >= 0 (0:
+// none; > 0: keep kpos > qpos - window); scale is 1 / sqrt(hd).
 // lse, when not null: (B, H, S) float32, the log-sum-exp of each query
 // row's masked, scaled scores (m + log l), which the backward (K2',
 // flash_bwd.cu) reads; serving passes null.
 int flash_fwd_f32(const void* q, const void* k, const void* v, void* o,
                   void* lse, int B, int S, int T, int H, int KV, int hd,
-                  int causal, float scale, void* stream) {
-  if (!valid(B, S, T, H, KV)) return (int)cudaErrorInvalidValue;
+                  int causal, int window, float scale, void* stream) {
+  if (!valid(B, S, T, H, KV, window)) return (int)cudaErrorInvalidValue;
   switch (hd) {
     case 16:
       return launch_f32<16>(q, k, v, o, lse, B, S, T, H, KV, causal,
-                            scale, stream);
+                            window, scale, stream);
     case 32:
       return launch_f32<32>(q, k, v, o, lse, B, S, T, H, KV, causal,
-                            scale, stream);
+                            window, scale, stream);
     case 64:
       return launch_f32<64>(q, k, v, o, lse, B, S, T, H, KV, causal,
-                            scale, stream);
+                            window, scale, stream);
     case 128:
       return launch_f32<128>(q, k, v, o, lse, B, S, T, H, KV, causal,
-                             scale, stream);
+                             window, scale, stream);
     default:
       return (int)cudaErrorInvalidValue;
   }
@@ -633,21 +670,21 @@ int flash_fwd_f32(const void* q, const void* k, const void* v, void* o,
 
 int flash_fwd_bf16(const void* q, const void* k, const void* v, void* o,
                    void* lse, int B, int S, int T, int H, int KV, int hd,
-                   int causal, float scale, void* stream) {
-  if (!valid(B, S, T, H, KV)) return (int)cudaErrorInvalidValue;
+                   int causal, int window, float scale, void* stream) {
+  if (!valid(B, S, T, H, KV, window)) return (int)cudaErrorInvalidValue;
   switch (hd) {
     case 16:
       return launch_bf16<16>(q, k, v, o, lse, B, S, T, H, KV, causal,
-                             scale, stream);
+                             window, scale, stream);
     case 32:
       return launch_bf16<32>(q, k, v, o, lse, B, S, T, H, KV, causal,
-                             scale, stream);
+                             window, scale, stream);
     case 64:
       return launch_bf16<64>(q, k, v, o, lse, B, S, T, H, KV, causal,
-                             scale, stream);
+                             window, scale, stream);
     case 128:
       return launch_bf16<128>(q, k, v, o, lse, B, S, T, H, KV, causal,
-                              scale, stream);
+                              window, scale, stream);
     default:
       return (int)cudaErrorInvalidValue;
   }

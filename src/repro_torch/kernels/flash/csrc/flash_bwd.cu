@@ -8,8 +8,10 @@
 // the same equations in plain PyTorch.
 //
 // Per (batch b, query head h), with s = q k^T * scale (scale = 1/sqrt(hd)),
-// the causal mask kpos <= qpos (both from 0) and keys past T masked, and
-// lse the forward's log-sum-exp of each query row (flash.cu writes it):
+// the causal mask kpos <= qpos (both from 0), under a sliding window > 0
+// also kpos > qpos - window (the reference's mask, common.py:235-236,
+// 276-277), keys past T masked, and lse the forward's log-sum-exp of each
+// query row over the kept keys (flash.cu writes it):
 //   P  = exp(s - lse)                    (the forward's probabilities)
 //   D  = rowsum(dO o o)                  (one value per query row)
 //   dP = dO v^T,   dS = P o (dP - D)
@@ -25,12 +27,17 @@
 //   64-key tile, keeping dk and dv for the whole call and walking the
 //   query heads of its kv head and, under the causal mask, the query tiles
 //   at or after its key tile (blockIdx.y = 0, the key tile with the most
-//   query tiles, first).  A kv head's query heads are summed inside the
-//   block: no atomics, and the result does not depend on the order blocks
-//   run in;
+//   query tiles, first); under a window only those before
+//   min(S, k0 + 63 + window), the last query that sees one of its keys.  A
+//   kv head's query heads are summed inside the block: no atomics, and the
+//   result does not depend on the order blocks run in;
 // - a dq kernel, grid (B * H, ceil(S / 64)): one block per query head and
 //   64-row query tile, walking the key tiles the mask keeps (the longest
-//   query tiles first), with dq in registers.
+//   query tiles first; under a window from the tile holding the window's
+//   first key of the tile's first row, max(0, q0 - window + 1) rounded
+//   down to a tile), with dq in registers.
+// Every masked pair's P and dS are 0 by a select, so a row or key that
+// sees nothing in a tile adds nothing.
 // s = q k^T and dP = dO v^T are computed in both: seven products in place
 // of five, the price of a deterministic dq (FlashAttention-2 adds dq into a
 // float32 buffer with atomics).
@@ -77,11 +84,14 @@
 // step is the latency of its ldmatrix -> mma -> exp2 -> mma sequence.
 // Splitting those blocks' query heads over blocks (with a deterministic
 // sum of the partial dk, dv) is the next step.
-// - ptxas -v (sm_90a, CUDA 12.8), bf16 dk/dv / dq: 248 / 247 registers
-//   at hd 128 (186 / 151 at 64, 130 / 108 at 32, 104 / 80 at 16), no
+// - ptxas -v (sm_90a, CUDA 12.8), bf16 dk/dv / dq: 248 / 248 registers
+//   at hd 128 (186 / 152 at 64, 130 / 123 at 32, 104 / 100 at 16), no
 //   spills; 256 / 192 HMMA in the hd-128 kernels' SASS.  The dq kernel
 //   takes its 64 keys as two halves of 32: over all 64 at once it spilled
-//   at hd 128.
+//   at hd 128.  The windowed dk/dv kernel (WINDOW true) takes 255
+//   registers at hd 128 with 44 bytes of spill stores (190, 143, 132 at 64,
+//   32, 16).  At window 128 the training layer takes 0.068 ms (dk/dv 0.034,
+//   dq 0.028; 0.104 without a window): PERF.md, section 6.
 //
 // Built by nvcc into the plain-C shared library repro_torch_flash_bwd and
 // called through ctypes (src/repro_torch/kernels/_build.py); the entry
@@ -181,7 +191,7 @@ template <int HD>
 __device__ __forceinline__ void score_tiles(
     const float* Qs, const float* dOs, const float* Ks, const float* Vs,
     const float* Ls, const float* Ds, float* Ps, float* dSs, int q0, int k0,
-    int S, int T_len, int causal, float scale) {
+    int S, int T_len, int causal, int window, float scale) {
   constexpr int LD = HD + 1;
   const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
   float s[RI][CJ], dp[RI][CJ];
@@ -216,7 +226,9 @@ __device__ __forceinline__ void score_tiles(
 #pragma unroll
     for (int j = 0; j < CJ; ++j) {
       const int c = tx + 16 * j, kpos = k0 + c;
-      const bool ok = qpos < S && kpos < T_len && (!causal || kpos <= qpos);
+      const bool ok = qpos < S && kpos < T_len &&
+                      (!causal || kpos <= qpos) &&
+                      (window <= 0 || kpos > qpos - window);
       const float p = ok ? expf(s[i][j] * scale - Ls[r]) : 0.f;
       Ps[r * LDP + c] = p;
       dSs[r * LDP + c] = p * (dp[i][j] - Ds[r]);
@@ -239,7 +251,7 @@ flash_bwd_dkdv_f32_kernel(const float* __restrict__ q,
                           const float* __restrict__ lse,
                           const float* __restrict__ D, float* __restrict__ dk,
                           float* __restrict__ dv, int S, int T_len, int H,
-                          int KV, int causal, float scale) {
+                          int KV, int causal, int window, float scale) {
   constexpr int LD = HD + 1;
   constexpr int DJ = HD / 16;
   extern __shared__ float smem[];
@@ -267,14 +279,16 @@ flash_bwd_dkdv_f32_kernel(const float* __restrict__ q,
     for (int j = 0; j < DJ; ++j) adk[i][j] = adv[i][j] = 0.f;
 
   // under the causal mask the query tiles before the key tile see none of
-  // its keys (BQ == BK: query tile index >= key tile index)
+  // its keys (BQ == BK: query tile index >= key tile index); under a window
+  // no query at or past k0 + 63 + window sees one
   const int q_start = causal ? k0 : 0;
+  const int q_end = window > 0 ? min(S, k0 + BK - 1 + window) : S;
   for (int g = 0; g < G; ++g) {
     const int h = kvh * G + g;
     const size_t qoff = (size_t)b * S * qrow + (size_t)h * HD;
     const float* lb = lse + ((size_t)b * H + h) * S;
     const float* db = D + ((size_t)b * H + h) * S;
-    for (int q0 = q_start; q0 < S; q0 += BQ) {
+    for (int q0 = q_start; q0 < q_end; q0 += BQ) {
       __syncthreads();             // the last tile's Q, dO, P, dS are read
       load_tile_f32<HD>(Qs, q + qoff, qrow, q0, S);
       load_tile_f32<HD>(dOs, dO + qoff, qrow, q0, S);
@@ -284,7 +298,7 @@ flash_bwd_dkdv_f32_kernel(const float* __restrict__ q,
       }
       __syncthreads();
       score_tiles<HD>(Qs, dOs, Ks, Vs, Ls, Ds, Ps, dSs, q0, k0, S, T_len,
-                      causal, scale);
+                      causal, window, scale);
       __syncthreads();
       // dv += P^T dO, dk += dS^T Q over the tile's query rows
 #pragma unroll 4
@@ -335,7 +349,7 @@ flash_bwd_dq_f32_kernel(const float* __restrict__ q,
                         const float* __restrict__ lse,
                         const float* __restrict__ D, float* __restrict__ dq,
                         int S, int T_len, int H, int KV, int causal,
-                        float scale) {
+                        int window, float scale) {
   constexpr int LD = HD + 1;
   constexpr int DJ = HD / 16;
   extern __shared__ float smem[];
@@ -371,13 +385,14 @@ flash_bwd_dq_f32_kernel(const float* __restrict__ q,
     for (int j = 0; j < DJ; ++j) adq[i][j] = 0.f;
 
   const int k_end = causal ? min(T_len, q0 + BQ) : T_len;
-  for (int k0 = 0; k0 < k_end; k0 += BK) {
+  const int k_begin = window > 0 ? max(0, q0 - window + 1) / BK * BK : 0;
+  for (int k0 = k_begin; k0 < k_end; k0 += BK) {
     __syncthreads();               // the last tile's K and dS are read
     load_tile_f32<HD>(Ks, k + koff, krow, k0, T_len);
     load_tile_f32<HD>(Vs, v + koff, krow, k0, T_len);
     __syncthreads();
     score_tiles<HD>(Qs, dOs, Ks, Vs, Ls, Ds, Ps, dSs, q0, k0, S, T_len,
-                    causal, scale);
+                    causal, window, scale);
     __syncthreads();
     // dq += dS K over the tile's keys
 #pragma unroll 4
@@ -591,8 +606,11 @@ __device__ __forceinline__ void mma_at(float (&acc)[HD / 8][4],
 
 // Grid (B * KV, ceil(T / 64)).  Warp w owns keys k0 + 16 w .. + 15; the
 // block walks (query head g of the kv head, query tile) steps, step j + 1's
-// Q, dO, lse and D loading by cp.async while step j computes.
-template <int HD>
+// Q, dO, lse and D loading by cp.async while step j computes.  WINDOW
+// (window > 0) is a template argument: the window's terms are compiled out
+// of the unwindowed kernel, which at hd 128 would otherwise spill (255
+// registers, 32 bytes; without them 248 and none).
+template <int HD, bool WINDOW>
 __global__ void __launch_bounds__(MMA_NT, 2)
 flash_bwd_dkdv_mma_kernel(const bf16* __restrict__ q,
                           const bf16* __restrict__ k,
@@ -601,7 +619,7 @@ flash_bwd_dkdv_mma_kernel(const bf16* __restrict__ q,
                           const float* __restrict__ lse,
                           const float* __restrict__ D, bf16* __restrict__ dk,
                           bf16* __restrict__ dv, int S, int T_len, int H,
-                          int KV, int causal, float scale) {
+                          int KV, int causal, int window, float scale) {
   constexpr int LDS = HD + PAD;
   constexpr int ND = HD / 8;       // 8-column tiles of dk and dv
   constexpr uint32_t TILE_B = 64 * LDS * sizeof(bf16);
@@ -621,9 +639,11 @@ flash_bwd_dkdv_mma_kernel(const bf16* __restrict__ q,
   const size_t koff = (size_t)b * T_len * krow + (size_t)kvh * HD;
   const float scale_log2 = scale * LOG2E;
   // under the causal mask the query tiles before the key tile see none of
-  // its keys (BQ == BK): the walk starts at the key tile
+  // its keys (BQ == BK): the walk starts at the key tile; under a window it
+  // ends before the first query past every key's window
   const int q_start = causal ? k0 : 0;
-  const int nq = (S - q_start + BQ - 1) / BQ;     // query tiles a head
+  const int q_end = WINDOW ? min(S, k0 + BK - 1 + window) : S;
+  const int nq = max(0, (q_end - q_start + BQ - 1) / BQ);  // tiles a head
   const int steps = G * nq;
 
   auto load_step = [&](int j) {    // step j's tiles into stage j % 2
@@ -673,6 +693,8 @@ flash_bwd_dkdv_mma_kernel(const bf16* __restrict__ q,
     for (int h2 = 0; h2 < 2; ++h2) {
       const int c0 = 32 * h2;                 // first query column
       if (causal && k0 + 16 * warp > q0 + c0 + 31) continue;
+      // nor when every query of the half is past every key's window
+      if (WINDOW && q0 + c0 - window >= k0 + 16 * warp + 15) continue;
       // s^T = K Q^T and dP^T = V dO^T: 16 keys x 32 queries
       float s[4][4], dp[4][4];
 #pragma unroll
@@ -694,7 +716,8 @@ flash_bwd_dkdv_mma_kernel(const bf16* __restrict__ q,
           const int qc = c + e % 2, kpos = kr0 + 8 * (e / 2);
           const int qpos = q0 + qc;
           const bool ok = qpos < S && kpos < T_len &&
-                          (!causal || kpos <= qpos);
+                          (!causal || kpos <= qpos) &&
+                          (!WINDOW || kpos > qpos - window);
           const float pe = ex2(fmaf(s[n][e], scale_log2, -Lt[qc] * LOG2E));
           p[e] = ok ? pe : 0.f;
           ds[e] = p[e] * (dp[n][e] - Dt[qc]);
@@ -742,7 +765,7 @@ flash_bwd_dq_mma_kernel(const bf16* __restrict__ q,
                         const float* __restrict__ lse,
                         const float* __restrict__ D, bf16* __restrict__ dq,
                         int S, int T_len, int H, int KV, int causal,
-                        float scale) {
+                        int window, float scale) {
   constexpr int LDS = HD + PAD;
   constexpr int ND = HD / 8;
   constexpr uint32_t TILE_B = 64 * LDS * sizeof(bf16);
@@ -762,13 +785,15 @@ flash_bwd_dq_mma_kernel(const bf16* __restrict__ q,
   const size_t koff = (size_t)b * T_len * krow + (size_t)kvh * HD;
   const float scale_log2 = scale * LOG2E;
   const int k_end = causal ? min(T_len, q0 + BQ) : T_len;
-  const int n_tiles = (k_end + BK - 1) / BK;
+  // the first key tile holding a key inside the window of row q0
+  const int k_begin = window > 0 ? max(0, q0 - window + 1) / BK * BK : 0;
+  const int n_tiles = (k_end - k_begin + BK - 1) / BK;
   const int row0 = q0 + 16 * warp;           // this warp's first row
 
   load_tile<HD>(Qs, q + qoff, qrow, q0, S, tid);
   load_tile<HD>(dOs, dO + qoff, qrow, q0, S, tid);
-  load_tile<HD>(Ks, k + koff, krow, 0, T_len, tid);
-  load_tile<HD>(Vs, v + koff, krow, 0, T_len, tid);
+  load_tile<HD>(Ks, k + koff, krow, k_begin, T_len, tid);
+  load_tile<HD>(Vs, v + koff, krow, k_begin, T_len, tid);
   cp_async_commit();
 
   // this lane's rows g, g + 8: lse in log2 units and D
@@ -791,7 +816,7 @@ flash_bwd_dq_mma_kernel(const bf16* __restrict__ q,
   const uint32_t ga = dOs + 16 * warp * LDS * sizeof(bf16) + a_lane<LDS>(lane);
 
   for (int j = 0; j < n_tiles; ++j) {
-    const int kt0 = j * BK, st = j % 2;
+    const int kt0 = k_begin + j * BK, st = j % 2;
     if (j + 1 < n_tiles) {
       load_tile<HD>(Ks + (1 - st) * TILE_B, k + koff, krow, kt0 + BK, T_len,
                     tid);
@@ -810,6 +835,8 @@ flash_bwd_dq_mma_kernel(const bf16* __restrict__ q,
     for (int h2 = 0; h2 < 2; ++h2) {
       const int c0 = 32 * h2;                 // first key of the half
       if (causal && kt0 + c0 > row0 + 15) continue;
+      // nor one whose keys are all at or below every row's window edge
+      if (window > 0 && kt0 + c0 + 31 <= row0 - window) continue;
       // s = Q K^T and dP = dO V^T: 16 rows x 32 keys
       float s[4][4], dp[4][4];
 #pragma unroll
@@ -828,7 +855,8 @@ flash_bwd_dq_mma_kernel(const bf16* __restrict__ q,
           const int kpos = kt0 + c0 + 8 * n + 2 * t + e % 2;
           const int qpos = row0 + g + 8 * (e / 2);
           const bool ok = qpos < S && kpos < T_len &&
-                          (!causal || kpos <= qpos);
+                          (!causal || kpos <= qpos) &&
+                          (window <= 0 || kpos > qpos - window);
           const float pe = ex2(fmaf(s[n][e], scale_log2, -l2[e / 2]));
           ds[e] = ok ? pe * (dp[n][e] - dd[e / 2]) : 0.f;
         }
@@ -875,7 +903,7 @@ template <int HD>
 int launch_f32(const void* q, const void* k, const void* v, const void* o,
                const void* dO, const void* lse, void* dq, void* dk, void* dv,
                void* D, int B, int S, int T_len, int H, int KV, int causal,
-               float scale, void* stream) {
+               int window, float scale, void* stream) {
   const cudaStream_t st = (cudaStream_t)stream;
   const size_t bytes = f32_smem_bytes<HD>();
   cudaError_t err = cudaFuncSetAttribute(
@@ -891,14 +919,14 @@ int launch_f32(const void* q, const void* k, const void* v, const void* o,
       <<<dim3(B * KV, (T_len + BK - 1) / BK), NT, bytes, st>>>(
           (const float*)q, (const float*)k, (const float*)v,
           (const float*)dO, (const float*)lse, (const float*)D, (float*)dk,
-          (float*)dv, S, T_len, H, KV, causal, scale);
+          (float*)dv, S, T_len, H, KV, causal, window, scale);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   flash_bwd_dq_f32_kernel<HD>
       <<<dim3(B * H, (S + BQ - 1) / BQ), NT, bytes, st>>>(
           (const float*)q, (const float*)k, (const float*)v,
           (const float*)dO, (const float*)lse, (const float*)D, (float*)dq,
-          S, T_len, H, KV, causal, scale);
+          S, T_len, H, KV, causal, window, scale);
   return (int)cudaGetLastError();
 }
 
@@ -906,8 +934,12 @@ template <int HD>
 cudaError_t allow_mma_smem() {
   const int bytes = (int)mma_smem_bytes<HD>();
   cudaError_t err = cudaFuncSetAttribute(
-      flash_bwd_dkdv_mma_kernel<HD>,
+      flash_bwd_dkdv_mma_kernel<HD, false>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(flash_bwd_dkdv_mma_kernel<HD, true>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               bytes);
   return err != cudaSuccess ? err : cudaFuncSetAttribute(
       flash_bwd_dq_mma_kernel<HD>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
@@ -917,24 +949,30 @@ template <int HD>
 int launch_bf16(const void* q, const void* k, const void* v, const void* o,
                 const void* dO, const void* lse, void* dq, void* dk, void* dv,
                 void* D, int B, int S, int T_len, int H, int KV, int causal,
-                float scale, void* stream) {
+                int window, float scale, void* stream) {
   const cudaStream_t st = (cudaStream_t)stream;
   const size_t bytes = mma_smem_bytes<HD>();
   cudaError_t err = allow_mma_smem<HD>();
   if (err == cudaSuccess) err = launch_dot<bf16, HD>(o, dO, D, B, S, H, st);
   if (err != cudaSuccess) return (int)err;
-  flash_bwd_dkdv_mma_kernel<HD>
-      <<<dim3(B * KV, (T_len + BK - 1) / BK), MMA_NT, bytes, st>>>(
-          (const bf16*)q, (const bf16*)k, (const bf16*)v, (const bf16*)dO,
-          (const float*)lse, (const float*)D, (bf16*)dk, (bf16*)dv, S,
-          T_len, H, KV, causal, scale);
+  const dim3 grid(B * KV, (T_len + BK - 1) / BK);
+  if (window > 0)
+    flash_bwd_dkdv_mma_kernel<HD, true><<<grid, MMA_NT, bytes, st>>>(
+        (const bf16*)q, (const bf16*)k, (const bf16*)v, (const bf16*)dO,
+        (const float*)lse, (const float*)D, (bf16*)dk, (bf16*)dv, S, T_len,
+        H, KV, causal, window, scale);
+  else
+    flash_bwd_dkdv_mma_kernel<HD, false><<<grid, MMA_NT, bytes, st>>>(
+        (const bf16*)q, (const bf16*)k, (const bf16*)v, (const bf16*)dO,
+        (const float*)lse, (const float*)D, (bf16*)dk, (bf16*)dv, S, T_len,
+        H, KV, causal, window, scale);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   flash_bwd_dq_mma_kernel<HD>
       <<<dim3(B * H, (S + BQ - 1) / BQ), MMA_NT, bytes, st>>>(
           (const bf16*)q, (const bf16*)k, (const bf16*)v, (const bf16*)dO,
           (const float*)lse, (const float*)D, (bf16*)dq, S, T_len, H, KV,
-          causal, scale);
+          causal, window, scale);
   return (int)cudaGetLastError();
 }
 
@@ -945,7 +983,7 @@ int blocks_per_sm(int which) {
   if (err == cudaSuccess)
     err = which == 0
               ? cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-                    &n, flash_bwd_dkdv_mma_kernel<HD>, MMA_NT,
+                    &n, flash_bwd_dkdv_mma_kernel<HD, false>, MMA_NT,
                     mma_smem_bytes<HD>())
               : cudaOccupancyMaxActiveBlocksPerMultiprocessor(
                     &n, flash_bwd_dq_mma_kernel<HD>, MMA_NT,
@@ -953,9 +991,10 @@ int blocks_per_sm(int which) {
   return err == cudaSuccess ? n : -(int)err;
 }
 
-bool valid(int B, int S, int T_len, int H, int KV) {
+bool valid(int B, int S, int T_len, int H, int KV, int window) {
   return B >= 1 && S >= 1 && T_len >= 1 && KV >= 1 && H % KV == 0 &&
-         (S + BQ - 1) / BQ <= 65535 && (T_len + BK - 1) / BK <= 65535;
+         window >= 0 && (S + BQ - 1) / BQ <= 65535 &&
+         (T_len + BK - 1) / BK <= 65535;
 }
 
 }  // namespace
@@ -965,17 +1004,20 @@ extern "C" {
 // q, o, dO, dq: (B, S, H, hd); k, v, dk, dv: (B, T, KV, hd); all
 // contiguous and 16-byte aligned, in the entry's type.  lse: (B, H, S)
 // float32 from the forward; D: a float32 scratch of B * H * S.  H is a
-// multiple of KV; hd is 16, 32, 64 or 128; causal is 0 or 1; scale is
-// 1 / sqrt(hd).
+// multiple of KV; hd is 16, 32, 64 or 128 (a smaller head size is
+// zero-padded by the wrapper, which passes the true scale); causal is 0 or
+// 1; window >= 0 (0: none; > 0: keep kpos > qpos - window), as in the
+// forward that wrote lse; scale is 1 / sqrt(hd).
 int flash_bwd_f32(const void* q, const void* k, const void* v, const void* o,
                   const void* dO, const void* lse, void* dq, void* dk,
                   void* dv, void* D, int B, int S, int T, int H, int KV,
-                  int hd, int causal, float scale, void* stream) {
-  if (!valid(B, S, T, H, KV)) return (int)cudaErrorInvalidValue;
+                  int hd, int causal, int window, float scale,
+                  void* stream) {
+  if (!valid(B, S, T, H, KV, window)) return (int)cudaErrorInvalidValue;
 #define FLASH_BWD_F32(HD_)                                                   \
   case HD_:                                                                  \
     return launch_f32<HD_>(q, k, v, o, dO, lse, dq, dk, dv, D, B, S, T, H,   \
-                           KV, causal, scale, stream);
+                           KV, causal, window, scale, stream);
   switch (hd) {
     FLASH_BWD_F32(16)
     FLASH_BWD_F32(32)
@@ -990,12 +1032,13 @@ int flash_bwd_f32(const void* q, const void* k, const void* v, const void* o,
 int flash_bwd_bf16(const void* q, const void* k, const void* v,
                    const void* o, const void* dO, const void* lse, void* dq,
                    void* dk, void* dv, void* D, int B, int S, int T, int H,
-                   int KV, int hd, int causal, float scale, void* stream) {
-  if (!valid(B, S, T, H, KV)) return (int)cudaErrorInvalidValue;
+                   int KV, int hd, int causal, int window, float scale,
+                   void* stream) {
+  if (!valid(B, S, T, H, KV, window)) return (int)cudaErrorInvalidValue;
 #define FLASH_BWD_BF16(HD_)                                                  \
   case HD_:                                                                  \
     return launch_bf16<HD_>(q, k, v, o, dO, lse, dq, dk, dv, D, B, S, T, H,  \
-                            KV, causal, scale, stream);
+                            KV, causal, window, scale, stream);
   switch (hd) {
     FLASH_BWD_BF16(16)
     FLASH_BWD_BF16(32)

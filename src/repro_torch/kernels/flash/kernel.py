@@ -9,9 +9,15 @@ it launches ``csrc/flash.cu`` or raises — it never falls back.  bfloat16
 inputs take the tensor-core kernel (``flash_fwd_mma_kernel``), float32
 inputs the exact float32 kernel on the CUDA cores.  The kernels read the
 model layout (B, S, H, hd) / (B, T, KV, hd) in place: K and V are not
-repeated per query head and nothing is padded on the host.  They are built
-at first use (``kernels/_build.py``) and launched on PyTorch's current
-stream without synchronising.
+repeated per query head.  A head size the kernels are not built for (one of
+``HEAD_DIMS``) is zero-padded on the host to the next one, the kernels
+given the true scale 1/sqrt(hd), and the outputs sliced back (zero columns
+add nothing to q k^T, and give zero output and gradient columns); a head
+size above 128 raises.  ``window`` > 0 is the reference's sliding window
+(keys ``kpos > qpos - window`` kept, beside the causal mask), taken by both
+kernels and both plain versions.  The kernels are built at first use
+(``kernels/_build.py``) and launched on PyTorch's current stream without
+synchronising.
 
 Training: when grad is enabled and an input requires grad, a CUDA call goes
 through :class:`FlashAttention`, whose forward also writes each query
@@ -48,7 +54,7 @@ def _library() -> ctypes.CDLL:
     lib = load_library(LIB_NAME, SOURCES)
     for name in _ENTRY.values():
         fn = getattr(lib, name)
-        fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 7 \
+        fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 8 \
             + [ctypes.c_float, ctypes.c_void_p]
         fn.restype = ctypes.c_int
     lib.flash_fwd_bf16_blocks_per_sm.argtypes = [ctypes.c_int]
@@ -60,7 +66,7 @@ def _bwd_library() -> ctypes.CDLL:
     lib = load_library(BWD_LIB_NAME, BWD_SOURCES)
     for name in _BWD_ENTRY.values():
         fn = getattr(lib, name)
-        fn.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 7 \
+        fn.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 8 \
             + [ctypes.c_float, ctypes.c_void_p]
         fn.restype = ctypes.c_int
     lib.flash_bwd_bf16_blocks_per_sm.argtypes = [ctypes.c_int] * 2
@@ -91,8 +97,26 @@ def aligned16(t: torch.Tensor) -> torch.Tensor:
     return t if t.data_ptr() % 16 == 0 else t.clone()
 
 
-def _check(q, k, v) -> tuple:
-    """Validate the shapes, devices and types; returns
+def kernel_head_dim(hd: int) -> int:
+    """The head size the kernels run ``hd`` at: the least of ``HEAD_DIMS``
+    not below it (``hd`` itself when the kernels are built for it)."""
+    for size in HEAD_DIMS:
+        if hd <= size:
+            return size
+    raise ValueError(f"head size {hd} not taken by the kernel (at most "
+                     f"{HEAD_DIMS[-1]}; smaller ones are zero-padded to one "
+                     f"of {HEAD_DIMS})")
+
+
+def _pad_hd(tensors, hd_kernel: int) -> list:
+    """Each (..., hd) tensor zero-padded to (..., hd_kernel)."""
+    return [t if t.shape[-1] == hd_kernel else
+            torch.nn.functional.pad(t, (0, hd_kernel - t.shape[-1]))
+            for t in tensors]
+
+
+def _check(q, k, v, causal: bool = True, window: int = 0) -> tuple:
+    """Validate the shapes, devices, types and the window; returns
     (B, S, T, H, KV, hd)."""
     if q.dim() != 4 or k.dim() != 4 or v.dim() != 4:
         raise ValueError("flash_attention takes (B, S, H, hd) q and "
@@ -112,24 +136,29 @@ def _check(q, k, v) -> tuple:
                              f"{dtype} on {dev}")
     if dev.type not in ("cpu", "cuda"):
         raise ValueError(f"flash_attention runs on cpu or cuda, not {dev}")
+    if int(window) != window or window < 0:
+        raise ValueError(f"window {window!r}: expected an integer >= 0 "
+                         "(0: none)")
+    if window > 0 and not causal:
+        raise ValueError("a sliding window is taken only with the causal "
+                         "mask (the model's attention is causal)")
     if dev.type == "cuda":
         if dtype not in _ENTRY:
             raise TypeError(f"flash_attention takes float32 or bfloat16, "
                             f"not {dtype}")
-        if hd not in HEAD_DIMS:
-            raise ValueError(f"head size {hd} not taken by the kernel "
-                             f"(one of {HEAD_DIMS})")
+        kernel_head_dim(hd)
         if min(B, S, T) < 1:
             raise ValueError(f"empty attention: B {B}, S {S}, T {T}")
     return B, S, T, H, KV, hd
 
 
-def _forward(q, k, v, causal: bool, with_lse: bool):
+def _forward(q, k, v, causal: bool, with_lse: bool, window: int = 0):
     """(out, lse or None) of K2 on CUDA tensors (checked by ``_check``)."""
     B, S, H, hd = q.shape
     T, KV = k.shape[1], k.shape[2]
     dev = q.device
-    q, k, v = (aligned16(t) for t in (q, k, v))
+    hd_k = kernel_head_dim(hd)
+    q, k, v = (aligned16(t) for t in _pad_hd((q, k, v), hd_k))
     out = torch.empty_like(q)
     lse = (torch.empty((B, H, S), dtype=torch.float32, device=dev)
            if with_lse else None)
@@ -138,48 +167,53 @@ def _forward(q, k, v, causal: bool, with_lse: bool):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
                  None if lse is None else lse.data_ptr(),
-                 B, S, T, H, KV, hd, int(bool(causal)),
+                 B, S, T, H, KV, hd_k, int(bool(causal)), int(window),
                  1.0 / math.sqrt(hd), stream)
     if err != 0:
         raise RuntimeError(f"flash_attention kernel launch failed: CUDA "
                            f"error {err}")
     flash_attention.launches += 1
+    if hd_k != hd:
+        out = out[..., :hd].contiguous()
     return out, lse
 
 
-def flash_attention(q, k, v, *, causal: bool = True):
+def flash_attention(q, k, v, *, causal: bool = True, window: int = 0):
     """softmax(q k^T / sqrt(hd), mask) v in model layout.
 
     q: (B, S, H, hd); k, v: (B, T, KV, hd) with H a multiple of KV, all of
     one type (float32 or bfloat16 on the card).  The causal mask keeps
-    ``kpos <= qpos`` counted from 0.  Returns (B, S, H, hd) in q's type.
-    On CUDA tensors that need a gradient it goes through
+    ``kpos <= qpos`` counted from 0; ``window`` > 0 (with ``causal`` only)
+    also keeps only ``kpos > qpos - window``.  Returns (B, S, H, hd) in q's
+    type.  On CUDA tensors that need a gradient it goes through
     :class:`FlashAttention` (K2 with its log-sum-exp, K2' in the backward).
     Every forward kernel launch adds one to ``flash_attention.launches``.
     """
-    _check(q, k, v)
+    _check(q, k, v, causal, window)
     if q.device.type == "cpu":
-        return attention_plain(q, k, v, causal=causal)
+        return attention_plain(q, k, v, causal=causal, window=window)
     if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
                                     or v.requires_grad):
-        return FlashAttention.apply(q, k, v, causal)
-    return _forward(q, k, v, causal, False)[0]
+        return FlashAttention.apply(q, k, v, causal, window)
+    return _forward(q, k, v, causal, False, window)[0]
 
 
 flash_attention.launches = 0
 
 
-def flash_attention_bwd(q, k, v, o, do, lse, *, causal: bool = True):
+def flash_attention_bwd(q, k, v, o, do, lse, *, causal: bool = True,
+                        window: int = 0):
     """K2': (dq, dk, dv) of ``flash_attention`` at the output gradient
     ``do``, from the forward's output ``o`` and log-sum-exp ``lse``
-    ((B, H, S) float32); each in its input's type.  CPU tensors take the
+    ((B, H, S) float32, of the same ``causal`` and ``window``); each in its
+    input's type.  CPU tensors take the
     plain version (:func:`~repro_torch.kernels.flash.ref.flash_bwd_plain`);
     CUDA tensors launch ``csrc/flash_bwd.cu`` or raise: three kernels, D
     (rowsum(do o o)), dk/dv (a block per kv head and 64-key tile) and dq
     (a block per query head and 64-row tile), on the tensor cores for
     bfloat16 and on the CUDA cores for float32.  Each call adds one to
     ``flash_attention_bwd.launches``."""
-    B, S, T, H, KV, hd = _check(q, k, v)
+    B, S, T, H, KV, hd = _check(q, k, v, causal, window)
     dtype, dev = q.dtype, q.device
     for name, t in (("o", o), ("do", do)):
         if tuple(t.shape) != (B, S, H, hd) or t.device != dev:
@@ -189,8 +223,11 @@ def flash_attention_bwd(q, k, v, o, do, lse, *, causal: bool = True):
         raise ValueError(f"lse has shape {tuple(lse.shape)}, expected "
                          f"{(B, H, S)}")
     if dev.type == "cpu":
-        return flash_bwd_plain(q, k, v, o, do, lse, causal=causal)
-    q, k, v, o, do = (aligned16(t.to(dtype)) for t in (q, k, v, o, do))
+        return flash_bwd_plain(q, k, v, o, do, lse, causal=causal,
+                               window=window)
+    hd_k = kernel_head_dim(hd)
+    q, k, v, o, do = (aligned16(t) for t in _pad_hd(
+        [t.to(dtype) for t in (q, k, v, o, do)], hd_k))
     lse = lse.to(torch.float32).contiguous()
     dq, dk, dv = (torch.empty(t.shape, dtype=dtype, device=dev)
                   for t in (q, k, v))
@@ -200,12 +237,15 @@ def flash_attention_bwd(q, k, v, o, do, lse, *, causal: bool = True):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
                  do.data_ptr(), lse.data_ptr(), dq.data_ptr(), dk.data_ptr(),
-                 dv.data_ptr(), D.data_ptr(), B, S, T, H, KV, hd,
-                 int(bool(causal)), 1.0 / math.sqrt(hd), stream)
+                 dv.data_ptr(), D.data_ptr(), B, S, T, H, KV, hd_k,
+                 int(bool(causal)), int(window), 1.0 / math.sqrt(hd),
+                 stream)
     if err != 0:
         raise RuntimeError(f"flash_attention_bwd kernel launch failed: CUDA "
                            f"error {err}")
     flash_attention_bwd.launches += 1
+    if hd_k != hd:
+        dq, dk, dv = (t[..., :hd].contiguous() for t in (dq, dk, dv))
     return dq, dk, dv
 
 
@@ -219,22 +259,22 @@ class FlashAttention(torch.autograd.Function):
     :func:`flash_attention_bwd` (K2' on CUDA tensors)."""
 
     @staticmethod
-    def forward(ctx, q, k, v, causal: bool = True):
-        _check(q, k, v)
+    def forward(ctx, q, k, v, causal: bool = True, window: int = 0):
+        _check(q, k, v, causal, window)
         if q.device.type == "cpu":
-            out = attention_plain(q, k, v, causal=causal)
-            lse = attention_lse_plain(q, k, causal=causal)
+            out = attention_plain(q, k, v, causal=causal, window=window)
+            lse = attention_lse_plain(q, k, causal=causal, window=window)
         else:
             q, k, v = (aligned16(t) for t in (q, k, v))
-            out, lse = _forward(q, k, v, causal, True)
+            out, lse = _forward(q, k, v, causal, True, window)
         ctx.save_for_backward(q, k, v, out, lse)
-        ctx.causal = causal
+        ctx.causal, ctx.window = causal, window
         return out
 
     @staticmethod
     def backward(ctx, do):
         q, k, v, out, lse = ctx.saved_tensors
         grads = flash_attention_bwd(q, k, v, out, do, lse,
-                                    causal=ctx.causal)
+                                    causal=ctx.causal, window=ctx.window)
         return tuple(g if need else None for g, need
-                     in zip(grads, ctx.needs_input_grad)) + (None,)
+                     in zip(grads, ctx.needs_input_grad)) + (None, None)

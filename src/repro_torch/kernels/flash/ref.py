@@ -7,9 +7,11 @@ port of ``repro/kernels/flash/ref.py::attention_ref``):
 
 with the scores, the softmax and the product with v in float32 and the
 result cast to q's type.  The causal mask keeps ``kpos <= qpos`` with both
-counted from 0 (start-aligned, as the Pallas kernel masks); masked scores
-are filled with -1e30, as in the Pallas kernel and the reference's
-``full_attention``.  GQA maps query head h to kv head ``h // (H // KV)``.
+counted from 0 (start-aligned, as the Pallas kernel masks); a sliding
+``window`` > 0 also keeps only ``kpos > qpos - window`` (the reference's
+``full_attention`` / ``chunked_attention``, ``models/common.py:235-236,
+276-277``); masked scores are filled with -1e30, as in the Pallas kernel and
+the reference's ``full_attention``.  GQA maps query head h to kv head ``h // (H // KV)``.
 Layouts: q (B, S, H, hd); k, v (B, T, KV, hd); returns (B, S, H, hd).
 
 ``attention_lse_plain`` is the forward's second output (the log-sum-exp of
@@ -32,7 +34,20 @@ import torch
 NEG_INF = -1e30
 
 
-def _scores(q, k, causal):
+def _mask(S, T, causal, window, device):
+    """(S, T) bool of the query-key pairs kept, or None when all are."""
+    qpos = torch.arange(S, device=device)[:, None]
+    kpos = torch.arange(T, device=device)[None, :]
+    mask = None
+    if causal:
+        mask = kpos <= qpos
+    if window > 0:
+        inside = kpos > qpos - window
+        mask = inside if mask is None else mask & inside
+    return mask
+
+
+def _scores(q, k, causal, window):
     """(B, H, S, T) float32 masked, scaled scores and the GQA group."""
     B, S, H, hd = q.shape
     T, KV = k.shape[1], k.shape[2]
@@ -43,39 +58,37 @@ def _scores(q, k, causal):
     kf = k.float().repeat_interleave(g, dim=2)
     scores = torch.einsum("bshd,bthd->bhst", q.float(), kf)
     scores = scores * (1.0 / math.sqrt(hd))
-    if causal:
-        qpos = torch.arange(S, device=q.device)
-        kpos = torch.arange(T, device=q.device)
-        mask = kpos[None, :] <= qpos[:, None]
+    mask = _mask(S, T, causal, window, q.device)
+    if mask is not None:
         scores = torch.where(mask, scores, NEG_INF)
     return scores, g
 
 
-def attention_plain(q, k, v, *, causal: bool = True):
-    scores, g = _scores(q, k, causal)
+def attention_plain(q, k, v, *, causal: bool = True, window: int = 0):
+    scores, g = _scores(q, k, causal, window)
     vf = v.float().repeat_interleave(g, dim=2)
     probs = torch.softmax(scores, dim=-1)
     return torch.einsum("bhst,bthd->bshd", probs, vf).to(q.dtype)
 
 
-def attention_lse_plain(q, k, *, causal: bool = True):
+def attention_lse_plain(q, k, *, causal: bool = True, window: int = 0):
     """(B, H, S) float32: logsumexp of each row's masked, scaled scores."""
-    return torch.logsumexp(_scores(q, k, causal)[0], dim=-1)
+    return torch.logsumexp(_scores(q, k, causal, window)[0], dim=-1)
 
 
-def flash_bwd_plain(q, k, v, o, do, lse, *, causal: bool = True):
+def flash_bwd_plain(q, k, v, o, do, lse, *, causal: bool = True,
+                    window: int = 0):
     """(dq, dk, dv) of ``attention_plain`` at the output gradient ``do``,
     from the forward's output ``o`` and log-sum-exp ``lse``; each in its
     input's type."""
     B, S, H, hd = q.shape
     T, KV = k.shape[1], k.shape[2]
-    scores, g = _scores(q, k, causal)
+    scores, g = _scores(q, k, causal, window)
     scale = 1.0 / math.sqrt(hd)
     p = torch.exp(scores - lse.float()[..., None])          # (B, H, S, T)
-    if causal:
-        qpos = torch.arange(S, device=q.device)
-        kpos = torch.arange(T, device=q.device)
-        p = torch.where(kpos[None, :] <= qpos[:, None], p, 0.0)
+    mask = _mask(S, T, causal, window, q.device)
+    if mask is not None:
+        p = torch.where(mask, p, 0.0)
     dof = do.float()
     D = (dof * o.float()).sum(-1).transpose(1, 2)           # (B, H, S)
     kf = k.float().repeat_interleave(g, dim=2)

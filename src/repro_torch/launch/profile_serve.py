@@ -4,6 +4,10 @@ decode steps of the server's model, each under ``torch.profiler``.
     PYTHONPATH=src python -m repro_torch.launch.profile_serve --full
     PYTHONPATH=src python -m repro_torch.launch.profile_serve \
         --arch qwen3-0.6b --full
+    PYTHONPATH=src python -m repro_torch.launch.profile_serve \
+        --arch llama3-8b --full
+
+``--arch`` takes every ported config (``repro_torch.configs.ARCH_IDS``).
     PYTHONPATH=src python -m repro_torch.launch.profile_serve --device cpu
 
 Each window runs twice: once timed on the host clock (ending in a device

@@ -8,10 +8,16 @@ The port of ``repro/launch/serve.py``:
         --prompt-len 512 --gen 32 --cache-len 1024     # qwen3-0.6b, on a GPU
     PYTHONPATH=src python -m repro_torch.launch.serve --arch rwkv6-1.6b \
         --full --prompt-len 512 --gen 32
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch llama3-8b \
+        --full --prompt-len 512 --gen 32 --cache-len 1024
+    PYTHONPATH=src python -m repro_torch.launch.serve \
+        --arch command-r-35b --full --layers 8 --prompt-len 512 --gen 32
 
-A request queue, a prefill of each admitted request into its own
-single-row state (the KV cache of ``qwen3-0.6b``, the recurrent state of
-``rwkv6-1.6b``), then a decode loop that retires finished sequences and
+``--arch`` takes every ported config (``repro_torch.configs.ARCH_IDS``:
+the dense ``qwen3-0.6b``, ``llama3-8b``, ``qwen1.5-4b`` and
+``command-r-35b``, and ``rwkv6-1.6b``).  A request queue, a prefill of
+each admitted request into its own single-row state (the KV cache of a
+dense model, the recurrent state of ``rwkv6-1.6b``), then a decode loop that retires finished sequences and
 admits new ones into the freed slots (continuous batching); greedy
 sampling (``argmax``, the first index on ties).  Admission, retirement and
 the returned stats are the reference's.  The server runs on ``"cuda"``
@@ -42,11 +48,17 @@ class Request:
 
 
 class BatchedServer:
+    """``num_layers`` cuts the config's depth (its widths unchanged): a
+    model whose full depth does not fit one card, such as
+    ``command-r-35b``, is served at the layers that do."""
+
     def __init__(self, arch: str, *, reduced: bool = True, batch: int = 4,
                  cache_len: int = 128, seed: int = 0, device="cuda",
-                 params=None):
+                 params=None, num_layers: int | None = None):
         self.device = resolve_device(device)
         self.cfg = get_config(arch, reduced=reduced)
+        if num_layers is not None:
+            self.cfg = dataclasses.replace(self.cfg, num_layers=num_layers)
         self.api = get_model(self.cfg, self.device)
         self.batch = batch
         self.cache_len = cache_len
@@ -124,9 +136,12 @@ def main(argv=None):
     ap.add_argument("--prompt-len", type=int, default=16)
     ap.add_argument("--gen", type=int, default=24)
     ap.add_argument("--cache-len", type=int, default=128)
+    ap.add_argument("--layers", type=int, default=None,
+                    help="cut the config to this many layers")
     args = ap.parse_args(argv)
     srv = BatchedServer(args.arch, reduced=not args.full, batch=args.batch,
-                        cache_len=args.cache_len, device=args.device)
+                        cache_len=args.cache_len, device=args.device,
+                        num_layers=args.layers)
     rng = np.random.default_rng(0)
     for rid in range(args.requests):
         srv.submit(Request(rid, rng.integers(

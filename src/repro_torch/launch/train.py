@@ -4,6 +4,10 @@
         --reduced --steps 50 --batch 32 --seq 128 --device cpu
     PYTHONPATH=src python -m repro_torch.launch.train --arch rwkv6-1.6b \
         --full --steps 4 --batch 8 --seq 512 --microbatches 2 --ckpt CKPT
+    PYTHONPATH=src python -m repro_torch.launch.train --arch qwen1.5-4b \
+        --reduced --steps 16 --batch 16 --seq 32 --device cpu
+
+``--arch`` takes every ported config (``repro_torch.configs.ARCH_IDS``).
 
 Runs the real loop: synthetic LM data -> micro-batched train step (Q from
 --microbatches) -> optimizer -> periodic async checkpoints -> restart from

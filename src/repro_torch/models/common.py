@@ -1,13 +1,14 @@
 """Shared model pieces — the port of ``repro/models/common.py``: the
-architecture config, the initializers, ``rms_norm``, RoPE,
-``decode_attention``, ``cross_entropy``, ``remat_wrap`` and the cache of
-compute-type casts that both language-model families keep.
+architecture config, the initializers, ``rms_norm``, ``layer_norm``,
+``gelu_mlp``, RoPE, ``decode_attention``, ``cross_entropy``, ``remat_wrap``
+and the cache of compute-type casts that both language-model families keep.
 
-The reference's ``full_attention`` and ``chunked_attention`` have one
-counterpart here: attention over a whole sequence (a prefill, a training
-step) goes through ``kernels/flash::flash_attention`` (K2, and K2' for its
-gradient).  Layer norm and the GELU MLP wait for the dense options (ROADMAP
-Queue 1 item 9), ``chunked_linear_scan`` for the Mamba family (item 10).
+The reference's ``full_attention`` and ``chunked_attention`` (with their
+causal mask and sliding window) have one counterpart here: attention over a
+whole sequence (a prefill, a training step) goes through
+``kernels/flash::flash_attention`` (K2, and K2' for its gradient).
+``chunked_linear_scan`` waits for the Mamba family (ROADMAP Queue 1 item
+10).
 """
 
 from __future__ import annotations
@@ -18,14 +19,16 @@ import math
 from typing import Any
 
 import torch
+import torch.nn.functional as F
 from torch.utils import checkpoint as torch_checkpoint
 
 
 @dataclasses.dataclass(frozen=True)
 class ArchConfig:
     """The fields of the reference's config that the ported families
-    (``ssm``: RWKV6; ``dense``: the decoder-only transformer) read, under
-    the reference's names and with its defaults; the other families' fields
+    (``ssm``: RWKV6; ``dense``: the decoder-only transformer, with its QKV
+    biases, GELU MLP, untied head and sliding window) read, under the
+    reference's names and with its defaults; the other families' fields
     come with the slice that first reads them (ROADMAP Queue 1 item 10).
     The reference's ``use_pallas`` switch has no counterpart: in the port
     the tensor's device picks the route (the kernel on CUDA, its plain
@@ -40,13 +43,15 @@ class ArchConfig:
     n_kv: int
     d_head: int = 0               # 0 -> d_model // n_heads
     qk_norm: bool = False
+    qkv_bias: bool = False
+    attn_out_bias: bool = False   # declared, never read (as the reference)
     tie_embeddings: bool = False
-    ffn_mult: int = 3             # 3 = SwiGLU (the only MLP ported)
+    ffn_mult: int = 3             # 3 = SwiGLU, 2 = plain GELU MLP
     use_rope: bool = True
     rope_theta: float = 1e6
     attn_chunk: int = 1024        # the reference's full/chunked switch;
     #                               the port's K2 takes every length
-    sliding_window: int = 0       # >0: attention window (not ported)
+    sliding_window: int = 0       # >0: attention window
     rwkv_head_dim: int = 64
     norm_eps: float = 1e-6
     param_dtype: Any = torch.float32
@@ -86,6 +91,26 @@ def rms_norm(x: torch.Tensor, scale: torch.Tensor,
     x = x.float()
     x = x * torch.rsqrt(torch.mean(x * x, dim=-1, keepdim=True) + eps)
     return (x * scale.float()).to(dt)
+
+
+def layer_norm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
+               eps: float = 1e-5) -> torch.Tensor:
+    """Layer norm computed in float32 and cast back to ``x``'s type."""
+    dt = x.dtype
+    x = x.float()
+    mu = torch.mean(x, dim=-1, keepdim=True)
+    var = torch.mean(torch.square(x - mu), dim=-1, keepdim=True)
+    y = (x - mu) * torch.rsqrt(var + eps)
+    return (y * scale.float() + bias.float()).to(dt)
+
+
+def gelu_mlp(x: torch.Tensor, w_up: torch.Tensor, b_up: torch.Tensor,
+             w_down: torch.Tensor, b_down: torch.Tensor) -> torch.Tensor:
+    """The plain two-matrix MLP: tanh-approximate GELU of ``x w_up +
+    b_up``, then ``w_down`` and ``b_down``; in ``x``'s type (the weights
+    are given in it)."""
+    h = F.gelu(x @ w_up + b_up, approximate="tanh")
+    return h @ w_down + b_down
 
 
 def rope_angles(positions: torch.Tensor, head_dim: int,

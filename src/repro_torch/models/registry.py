@@ -1,6 +1,8 @@
 """Uniform model API — the port of ``repro/models/registry.py`` for the
-families ported so far (``ssm``: RWKV6; ``dense``: the decoder-only
-transformer).
+families ported so far (``ssm``: RWKV6, ``rwkv6-1.6b``; ``dense``: the
+decoder-only transformer, ``qwen3-0.6b``, ``llama3-8b``, ``qwen1.5-4b`` and
+``command-r-35b``, with QKV biases, the GELU MLP, an untied head and
+sliding windows).
 
     api = get_model(cfg, device="cuda")
     model = api.init(generator)                         # on api.device
@@ -50,7 +52,6 @@ def get_model(cfg: ArchConfig, device="cuda") -> ModelAPI:
             decode=lambda m, c, t, pos: rwkv_lib.decode_step(m, c, t, pos),
         )
     if cfg.family == "dense":
-        tf_lib.check_config(cfg)
         return ModelAPI(
             cfg=cfg, device=dev,
             init=lambda g: tf_lib.init_params(cfg, g, dev),

@@ -1,24 +1,31 @@
 """Decoder-only transformer LM, dense family — the port of
-``repro/models/transformer.py`` for the configs the port runs
-(``qwen3-0.6b``).
+``repro/models/transformer.py`` for the dense configs (``qwen3-0.6b``,
+``llama3-8b``, ``qwen1.5-4b``, ``command-r-35b``).
 
 Per layer (the reference's ``block_fwd``):
 
-    h = rms_norm(x);  q, k, v = h Wq, h Wk, h Wv     (per-head reshape)
+    h = rms_norm(x);  q, k, v = h Wq (+ bq), h Wk (+ bk), h Wv (+ bv)
     q, k = rms_norm(q), rms_norm(k)                   (qk-norm, per head)
     q, k = rope(q), rope(k)
     x = x + attention(q, k, v) Wo
-    x = x + SwiGLU(rms_norm(x))
+    x = x + MLP(rms_norm(x))
+
+with the reference's options: QKV biases (``qkv_bias``, added in the
+compute type before the per-head reshape), the MLP SwiGLU (``ffn_mult``
+3) or the two-matrix GELU MLP with biases (any other ``ffn_mult``, as in
+the reference), and a sliding attention window (``sliding_window`` > 0).
 
 A prefill's attention, at every prompt length, goes through
 ``kernels/flash::flash_attention`` (K2: the hand-written kernel on a CUDA
-tensor, the plain version on a CPU tensor).  It computes what the
-reference's ``full_attention`` (S <= ``attn_chunk``) and
+tensor, the plain version on a CPU tensor) with the config's window.  It
+computes what the reference's ``full_attention`` (S <= ``attn_chunk``) and
 ``chunked_attention`` (longer prompts) compute: the prefill starts at
 position 0 with as many keys as queries, so the start-aligned causal mask
 is the reference's.  K2 maps each query head to its kv head itself, so K
 and V are not repeated per query head.  A decode step attends through the
-plain ``decode_attention``, as in the reference.
+plain ``decode_attention`` over the whole cache, as in the reference,
+which leaves the window out there too (``ROADMAP.md`` Queue 3, deliberate
+differences: the port keeps the reference's behaviour).
 
 Training (:func:`forward_hidden`, :func:`loss_fn`, the reference's
 ``forward_hidden`` / ``loss_fn``) runs the same layers from position 0
@@ -31,10 +38,10 @@ out)`` orientation (used as ``x @ W``).  Parameters live in
 ``cfg.param_dtype`` and are cast to the compute type at use (outside
 autograd the cast is kept until the parameter changes, see
 ``CastCache``); the inference entry points :func:`prefill` and
-:func:`decode_step` run without autograd.  The
-head is tied to the embedding (``embed.T``).  Left out, as no ported config
-reads them: MoE layers, QKV biases, the GELU MLP, an untied head and
-sliding windows (a config that asks for one raises).
+:func:`decode_step` run without autograd.  The head is the embedding
+transposed when ``tie_embeddings``, else its own ``lm_head`` of shape (d,
+vocab).  ``attn_out_bias`` is carried and, as in the reference, never read.
+Other families (MoE, VLM, ...) raise (ROADMAP Queue 1 item 10).
 """
 
 from __future__ import annotations
@@ -48,17 +55,26 @@ from torch import nn
 
 from ..kernels.flash import flash_attention
 from .common import (ArchConfig, CastCache, apply_rope, cross_entropy,
-                     decode_attention, dense_init, embed_init, remat_wrap,
-                     rms_norm, rope_cos_sin)
+                     decode_attention, dense_init, embed_init, gelu_mlp,
+                     remat_wrap, rms_norm, rope_cos_sin)
+
+
+def _swiglu(cfg: ArchConfig) -> bool:
+    """SwiGLU (``ffn_mult`` 3) or the GELU MLP (any other), as the
+    reference picks."""
+    return cfg.ffn_mult == 3
 
 
 def _matrices(cfg: ArchConfig) -> dict:
     """The per-layer matrices of the reference, by shape."""
     d, hd, ff = cfg.d_model, cfg.head_dim, cfg.d_ff
     H, KV = cfg.n_heads, cfg.n_kv
-    return {"wq": (d, H * hd), "wk": (d, KV * hd), "wv": (d, KV * hd),
-            "wo": (H * hd, d), "w_gate": (d, ff), "w_up": (d, ff),
-            "w_down": (ff, d)}
+    out = {"wq": (d, H * hd), "wk": (d, KV * hd), "wv": (d, KV * hd),
+           "wo": (H * hd, d)}
+    if _swiglu(cfg):
+        out["w_gate"] = (d, ff)
+    out.update(w_up=(d, ff), w_down=(ff, d))
+    return out
 
 
 def _vectors(cfg: ArchConfig) -> dict:
@@ -70,15 +86,25 @@ def _vectors(cfg: ArchConfig) -> dict:
     return out
 
 
+def _biases(cfg: ArchConfig) -> dict:
+    """The per-layer biases of the reference, by shape (all start at
+    zero): q, k and v with ``qkv_bias``, the GELU MLP's two."""
+    hd, H, KV = cfg.head_dim, cfg.n_heads, cfg.n_kv
+    out = {}
+    if cfg.qkv_bias:
+        out.update(bq=(H * hd,), bk=(KV * hd,), bv=(KV * hd,))
+    if not _swiglu(cfg):
+        out.update(b_up=(cfg.d_ff,), b_down=(cfg.d_model,))
+    return out
+
+
 def check_config(cfg: ArchConfig) -> None:
-    """Raise for the reference's options this port leaves out."""
-    if cfg.sliding_window > 0:
+    """Raise for a config this module does not build: every option of the
+    reference's dense family is ported; the other families are not."""
+    if cfg.family != "dense":
         raise NotImplementedError(
-            "sliding-window attention is not ported: K2 takes no window")
-    if not cfg.tie_embeddings or cfg.ffn_mult != 3:
-        raise NotImplementedError(
-            "only a tied head and the SwiGLU MLP are ported (ROADMAP Queue 1 "
-            "item 10)")
+            f"family {cfg.family!r} is not ported yet (ROADMAP Queue 1 item "
+            "10); the transformer builds the dense family")
 
 
 class TransformerLayer(nn.Module):
@@ -87,7 +113,8 @@ class TransformerLayer(nn.Module):
     def __init__(self, cfg: ArchConfig, device=None):
         super().__init__()
         self.cfg = cfg
-        for name, shape in {**_vectors(cfg), **_matrices(cfg)}.items():
+        for name, shape in {**_vectors(cfg), **_biases(cfg),
+                            **_matrices(cfg)}.items():
             self.register_parameter(name, nn.Parameter(torch.empty(
                 shape, dtype=cfg.param_dtype, device=device)))
         self._cast = CastCache()
@@ -100,9 +127,14 @@ class TransformerLayer(nn.Module):
         cfg = self.cfg
         B, S, _ = x.shape
         hd, dt = cfg.head_dim, x.dtype
-        q = (x @ self.w("wq", dt)).reshape(B, S, cfg.n_heads, hd)
-        k = (x @ self.w("wk", dt)).reshape(B, S, cfg.n_kv, hd)
-        v = (x @ self.w("wv", dt)).reshape(B, S, cfg.n_kv, hd)
+        q, k, v = (x @ self.w(n, dt) for n in ("wq", "wk", "wv"))
+        if cfg.qkv_bias:
+            q = q + self.w("bq", dt)
+            k = k + self.w("bk", dt)
+            v = v + self.w("bv", dt)
+        q = q.reshape(B, S, cfg.n_heads, hd)
+        k = k.reshape(B, S, cfg.n_kv, hd)
+        v = v.reshape(B, S, cfg.n_kv, hd)
         if cfg.qk_norm:
             q = rms_norm(q, self.q_norm, cfg.norm_eps)
             k = rms_norm(k, self.k_norm, cfg.norm_eps)
@@ -110,6 +142,14 @@ class TransformerLayer(nn.Module):
             q = apply_rope(q, cos, sin)
             k = apply_rope(k, cos, sin)
         return q, k, v
+
+    def _ffn(self, h):
+        dt = h.dtype
+        if _swiglu(self.cfg):
+            h = F.silu(h @ self.w("w_gate", dt)) * (h @ self.w("w_up", dt))
+            return h @ self.w("w_down", dt)
+        return gelu_mlp(h, *(self.w(n, dt) for n in
+                             ("w_up", "b_up", "w_down", "b_down")))
 
     def forward(self, x, cos=None, sin=None, *, cache=None, pos=None):
         """x (B, S, d); cos/sin from ``rope_cos_sin`` at the positions of
@@ -125,7 +165,8 @@ class TransformerLayer(nn.Module):
         dt = x.dtype
         q, k, v = self._qkv(rms_norm(x, self.ln1, cfg.norm_eps), cos, sin)
         if cache is None:
-            attn = flash_attention(q, k, v, causal=True)
+            attn = flash_attention(q, k, v, causal=True,
+                                   window=cfg.sliding_window)
             new = (k, v)
         else:
             k_cache, v_cache = cache
@@ -138,14 +179,12 @@ class TransformerLayer(nn.Module):
             new = cache
         x = x + attn.reshape(B, S, cfg.n_heads * cfg.head_dim) @ \
             self.w("wo", dt)
-        h = rms_norm(x, self.ln2, cfg.norm_eps)
-        h = F.silu(h @ self.w("w_gate", dt)) * (h @ self.w("w_up", dt))
-        return x + h @ self.w("w_down", dt), new
+        return x + self._ffn(rms_norm(x, self.ln2, cfg.norm_eps)), new
 
 
 class Transformer(nn.Module):
     """The model: embedding, the layers, the final norm; the head is the
-    embedding transposed."""
+    embedding transposed (``tie_embeddings``) or ``lm_head``."""
 
     def __init__(self, cfg: ArchConfig, device=None):
         super().__init__()
@@ -158,6 +197,9 @@ class Transformer(nn.Module):
                                     for _ in range(cfg.num_layers))
         self.final_norm = nn.Parameter(torch.empty(d, dtype=pd,
                                                    device=device))
+        if not cfg.tie_embeddings:
+            self.lm_head = nn.Parameter(torch.empty((d, cfg.vocab), dtype=pd,
+                                                    device=device))
         self._cast = CastCache()
 
     def embed_tokens(self, tokens) -> torch.Tensor:
@@ -166,9 +208,12 @@ class Transformer(nn.Module):
         return self.embed[tokens.long()].to(self.cfg.compute_dtype)
 
     def logits(self, x) -> torch.Tensor:
-        """The reference's ``_unembed`` with a tied head."""
+        """The reference's ``_unembed``: the final norm, then the tied head
+        (``embed.T``) or ``lm_head``."""
         x = rms_norm(x, self.final_norm, self.cfg.norm_eps)
-        return x @ self._cast.get("embed", self.embed, x.dtype).T
+        if self.cfg.tie_embeddings:
+            return x @ self._cast.get("embed", self.embed, x.dtype).T
+        return x @ self._cast.get("lm_head", self.lm_head, x.dtype)
 
     def rope(self, positions):
         """(cos, sin) at ``positions``, or (None, None) without RoPE."""
@@ -191,10 +236,15 @@ def init_params(cfg: ArchConfig, generator: torch.Generator,
         for layer in model.layers:
             for name in _vectors(cfg):
                 getattr(layer, name).fill_(1.0)
+            for name in _biases(cfg):
+                getattr(layer, name).zero_()
             for name, shape in _matrices(cfg).items():
                 getattr(layer, name).copy_(
                     dense_init(generator, shape, pd, device))
         model.final_norm.fill_(1.0)
+        if not cfg.tie_embeddings:
+            model.lm_head.copy_(dense_init(generator, (cfg.d_model,
+                                                       cfg.vocab), pd, device))
     return model
 
 
@@ -210,6 +260,8 @@ def params_from_jax(tree, cfg: ArchConfig, device) -> Transformer:
     with torch.no_grad():
         put(model.embed, tree["embed"])
         put(model.final_norm, tree["final_norm"])
+        if not cfg.tie_embeddings:
+            put(model.lm_head, tree["lm_head"])
         for i, layer in enumerate(model.layers):
             for name, p in layer.named_parameters():
                 put(p, np.asarray(tree["layers"][name])[i])
@@ -221,12 +273,15 @@ def params_to_jax(model: Transformer) -> dict:
     float32 numpy arrays."""
     arr = lambda p: p.detach().float().cpu().numpy()
     names = [n for n, _ in model.layers[0].named_parameters()]
-    return {
+    tree = {
         "embed": arr(model.embed),
         "layers": {n: np.stack([arr(getattr(layer, n))
                                 for layer in model.layers]) for n in names},
         "final_norm": arr(model.final_norm),
     }
+    if not model.cfg.tie_embeddings:
+        tree["lm_head"] = arr(model.lm_head)
+    return tree
 
 
 def make_cache(cfg: ArchConfig, batch: int, cache_len: int, device,

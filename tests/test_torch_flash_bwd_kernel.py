@@ -13,7 +13,10 @@ without a GPU): a CUDA call that needs a gradient goes through
 and gives q, k and v their gradients; K2' is held to ``flash_bwd_plain``
 (float32 on the same inputs) within atol = rtol = 1e-4 for float32 inputs
 and 3e-2 for bfloat16, at the ``FLASH_SWEEP`` shapes, a ragged shape at hd
-16 and qwen3-0.6b's training layer.
+16 and qwen3-0.6b's training layer; with a sliding window (1, 7, 64, 100
+and one longer than S) at the causal ones, K2's log-sum-exp over the kept
+keys within 2e-5 and free of NaN; and at head size 8 (zero-padded to 16 by
+the wrapper) through the autograd route.
 """
 
 import numpy as np
@@ -36,6 +39,7 @@ SHAPES = [
     (4, 512, 512, 16, 8, 128, True),        # qwen3-0.6b's training layer
 ]
 TOL = {torch.float32: 1e-4, torch.bfloat16: 3e-2}
+WINDOWS = (1, 7, 64, 100, 4096)
 
 
 def inputs(B, S, T, H, KV, hd, dtype=torch.float32, device="cpu", seed=42):
@@ -81,6 +85,20 @@ def test_cpu_route_is_the_plain_version_and_launches_nothing(shape):
     assert (flash_attention.launches, flash_attention_bwd.launches) == before
 
 
+@pytest.mark.parametrize("window", [1, 7, 100])
+def test_cpu_windowed_route_is_the_plain_version(window):
+    q, k, v, do = inputs(2, 77, 77, 4, 1, 16)
+    out = attention_plain(q, k, v, causal=True, window=window)
+    lse = attention_lse_plain(q, k, causal=True, window=window)
+    want = flash_bwd_plain(q, k, v, out, do, lse, causal=True, window=window)
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    auto = torch.autograd.grad(FlashAttention.apply(*leaves, True, window),
+                               leaves, do)
+    assert all(torch.equal(a, b) for a, b in zip(auto, want))
+    assert all(torch.equal(a, b) for a, b in zip(
+        flash_attention_bwd(q, k, v, out, do, lse, window=window), want))
+
+
 def test_bwd_rejects_mismatched_shapes():
     q, k, v, do = inputs(1, 8, 8, 2, 1, 16)
     lse = attention_lse_plain(q, k)
@@ -113,6 +131,53 @@ def test_kernel_matches_plain_backward(shape, dtype, gpu):
     for g, w in zip(got, want):
         assert g.dtype == dtype and torch.isfinite(g).all()
         assert torch.allclose(g.float(), w, atol=tol, rtol=tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("window", WINDOWS)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=str)
+@pytest.mark.parametrize("shape", [s for s in SHAPES if s[6]], ids=str)
+def test_windowed_kernel_matches_plain_backward(shape, dtype, window, gpu):
+    q, k, v, do = inputs(*shape[:6], dtype=dtype, device=gpu)
+    prev = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        out, lse = flash_kernel._forward(q, k, v, True, True, window)
+        want_lse = attention_lse_plain(q, k, causal=True, window=window)
+        assert torch.isfinite(lse).all()
+        torch.testing.assert_close(lse, want_lse, atol=2e-5, rtol=2e-5)
+        got = flash_attention_bwd(q, k, v, out, do, lse, causal=True,
+                                  window=window)
+        want = flash_bwd_plain(*(t.float() for t in (q, k, v, out, do)),
+                               lse, causal=True, window=window)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = prev
+    tol = TOL[dtype]
+    for g, w in zip(got, want):
+        assert g.dtype == dtype and torch.isfinite(g).all()
+        assert torch.allclose(g.float(), w, atol=tol, rtol=tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("window", [0, 7])
+def test_padded_head_size_through_autograd(window, gpu):
+    """Head size 8 (command-r-35b's reduced config): the forward and the
+    backward kernels run at 16 with zero columns, the gradients are sliced
+    back; float32, against autograd through the plain version."""
+    q, k, v, do = inputs(2, 100, 100, 8, 2, 8, device=gpu)
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    n = flash_attention_bwd.launches
+    got = torch.autograd.grad(
+        flash_attention(*leaves, causal=True, window=window), leaves, do)
+    assert flash_attention_bwd.launches == n + 1
+    ref = [t.clone().requires_grad_() for t in (q, k, v)]
+    want = torch.autograd.grad(
+        attention_plain(*ref, causal=True, window=window), ref, do)
+    for g, w in zip(got, want):
+        assert g.shape == w.shape
+        assert torch.allclose(g, w, atol=TOL[torch.float32],
+                              rtol=TOL[torch.float32])
 
 
 @pytest.mark.cuda

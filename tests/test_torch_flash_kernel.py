@@ -13,8 +13,11 @@ held within the reference's tolerances (atol = rtol = 2e-5 in float32,
 ``FLASH_SWEEP`` shapes, the served layer shape of ``qwen3-0.6b`` and a
 2048-token causal prompt, and at the edges of the tensor-core kernel's
 tiles (a ragged length at hd 16, a non-causal cross shape with T not a
-multiple of 64, MQA over three query tiles); those cases skip without a
-GPU.
+multiple of 64, MQA over three query tiles); with a sliding window (1, 7,
+64, 100 and one longer than S) at the causal shapes, where a row's first
+key tile can lie wholly outside its window (no NaN may appear); and at head
+sizes the kernel is not built for (8 and 48, zero-padded by the wrapper);
+those cases skip without a GPU.
 """
 
 import math
@@ -48,6 +51,9 @@ MMA_EDGES = [
     (2, 130, 130, 8, 1, 128, True),         # MQA over three query tiles
 ]
 TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
+WINDOWS = (1, 7, 64, 100, 4096)
+#: the causal shapes above: the window is taken with the causal mask only
+WINDOW_SHAPES = [s for s in FLASH_SWEEP + MODEL_SHAPES + MMA_EDGES if s[6]]
 
 
 def inputs(B, S, T, H, KV, hd, dtype=torch.float32, device="cpu", seed=42):
@@ -122,14 +128,15 @@ def test_prefill_attention_goes_through_the_wrapper(monkeypatch):
                                     "cpu")
     calls = []
 
-    def spy(q, k, v, *, causal):
-        calls.append((tuple(q.shape), tuple(k.shape), causal))
-        return flash_attention(q, k, v, causal=causal)
+    def spy(q, k, v, *, causal, window=0):
+        calls.append((tuple(q.shape), tuple(k.shape), causal, window))
+        return flash_attention(q, k, v, causal=causal, window=window)
 
     monkeypatch.setattr(transformer, "flash_attention", spy)
     _, cache = transformer.prefill(model, torch.arange(20)[None], 32)
     transformer.decode_step(model, cache, torch.tensor([[3]]), 20)
-    assert calls == [((1, 20, 4, 16), (1, 20, 2, 16), True)] * cfg.num_layers
+    assert calls == [((1, 20, 4, 16), (1, 20, 2, 16), True, 0)] * \
+        cfg.num_layers
 
 
 @pytest.mark.cuda
@@ -176,8 +183,10 @@ def test_tensor_core_kernel_uses_hmma_and_two_blocks_per_sm(gpu):
 
 @pytest.mark.cuda
 def test_kernel_refuses_what_it_cannot_take(gpu):
-    q, k, v = inputs(1, 32, 32, 2, 2, 48, device=gpu)
-    with pytest.raises(ValueError, match="head size 48"):
+    """A head size above the largest built one (smaller ones are
+    zero-padded), another type, a mix of devices."""
+    q, k, v = inputs(1, 32, 32, 2, 2, 160, device=gpu)
+    with pytest.raises(ValueError, match="head size 160"):
         flash_attention(q, k, v)
     q, k, v = inputs(1, 32, 32, 2, 2, 32, torch.float16, gpu)
     with pytest.raises(TypeError, match="float32 or bfloat16"):
@@ -212,6 +221,52 @@ def test_model_prefill_on_gpu_matches_cpu(gpu):
     for name in ("k", "v"):
         torch.testing.assert_close(g_cache[name].cpu(), w_cache[name],
                                    atol=1e-4, rtol=1e-4)
+
+
+def test_kernel_head_dim_pads_to_the_next_built_size():
+    sizes = (1, 8, 16, 17, 48, 64, 100, 128)
+    assert [flash_kernel.kernel_head_dim(hd) for hd in sizes] == \
+        [16, 16, 16, 32, 64, 64, 128, 128]
+    with pytest.raises(ValueError, match="head size 160"):
+        flash_kernel.kernel_head_dim(160)
+    q, k, v = inputs(1, 4, 4, 2, 2, 8)
+    padded = flash_kernel._pad_hd((q, k, v), 16)
+    assert all(t.shape[-1] == 16 and torch.equal(t[..., :8], u)
+               and not t[..., 8:].any() for t, u in zip(padded, (q, k, v)))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("window", WINDOWS)
+@pytest.mark.parametrize("B,S,T,H,KV,hd,causal", WINDOW_SHAPES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["float32", "bfloat16"])
+def test_windowed_kernel_matches_plain_on_gpu(gpu, B, S, T, H, KV, hd,
+                                              causal, dtype, window):
+    q, k, v = inputs(B, S, T, H, KV, hd, dtype, gpu)
+    before = flash_attention.launches
+    out = flash_attention(q, k, v, causal=True, window=window)
+    torch.cuda.synchronize()
+    assert flash_attention.launches == before + 1
+    want = attention_plain(q, k, v, causal=True, window=window)
+    assert torch.isfinite(out).all()
+    torch.testing.assert_close(out.float(), want.float(), atol=TOL[dtype],
+                               rtol=TOL[dtype])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("window", [0, 7])
+@pytest.mark.parametrize("hd", [8, 48])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["float32", "bfloat16"])
+def test_padded_head_size_matches_plain_on_gpu(gpu, hd, dtype, window):
+    """command-r-35b's reduced head size (8) and one between built sizes
+    (48) go through the kernel zero-padded, at the true scale."""
+    q, k, v = inputs(2, 100, 100, 8, 2, hd, dtype, gpu)
+    out = flash_attention(q, k, v, causal=True, window=window)
+    assert out.shape == q.shape and out.is_contiguous()
+    want = attention_plain(q, k, v, causal=True, window=window)
+    torch.testing.assert_close(out.float(), want.float(), atol=TOL[dtype],
+                               rtol=TOL[dtype])
 
 
 def test_aligned16_copies_only_misaligned_views():
@@ -274,3 +329,28 @@ def test_bound_counts_the_causal_pairs():
                                    torch.float32)
     pairs_c = sum(min(s + 1, 400) for s in range(600))
     assert ms_c / ms_n == pytest.approx(pairs_c / (600 * 400))
+
+
+def test_bound_counts_the_pairs_inside_the_window():
+    """Under a sliding window the bounds of K2 and K2' count only the pairs
+    the window keeps: row s sees min(s + 1, window) keys."""
+    import importlib.util
+    from pathlib import Path
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", Path(__file__).resolve().parents[1] / "chip_smoke.py")
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    assert smoke.mask_pairs(512, 512, True, 128) == \
+        128 * 129 // 2 + (512 - 128) * 128 == 57_408
+    assert smoke.mask_pairs(512, 512, True, 4096) == \
+        smoke.mask_pairs(512, 512, True) == 512 * 513 // 2
+    assert smoke.mask_pairs(600, 400, True, 7) == \
+        sum(max(0, min(s, 399) - max(0, s - 6) + 1) for s in range(600))
+    # float32 operations bind at the served shape: the bound scales with
+    # the pairs
+    for bound in (smoke.flash_bound_ms, smoke.flash_bwd_bound_ms):
+        full, _ = bound(1, 512, 512, 16, 8, 128, True, torch.float32)
+        win, by = bound(1, 512, 512, 16, 8, 128, True, torch.float32,
+                        window=128)
+        assert by == "operations"
+        assert win / full == pytest.approx(57_408 / (512 * 513 // 2))

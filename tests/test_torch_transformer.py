@@ -317,10 +317,31 @@ def test_init_params_is_seeded_and_shaped_like_reference():
                                     {"tie_embeddings": False},
                                     {"ffn_mult": 2}])
 def test_unported_options_raise(change):
-    cfg = dataclasses.replace(get_config("qwen3-0.6b", reduced=True),
-                              **change)
-    with pytest.raises(NotImplementedError):
-        get_model(cfg, device="cpu")
+    """The three dense options this test once pinned as unported are
+    ported: each builds and runs (prefill, a decode step, the loss with
+    its gradients; ``tests/test_torch_dense_options.py`` holds them to the
+    reference).  A family still unported raises, naming its queue item."""
+    base = get_config("qwen3-0.6b", reduced=True)
+    cfg = dataclasses.replace(base, **change)
+    api = get_model(cfg, device="cpu")
+    model = api.init(torch.Generator().manual_seed(0))
+    names = {n for n, _ in model.named_parameters()}
+    assert ("lm_head" in names) == (not cfg.tie_embeddings)
+    assert ("layers.0.b_up" in names) == (cfg.ffn_mult != 3)
+    tokens = torch.from_numpy(tokens_of(PROMPT))
+    logits, cache = api.prefill(model, {"tokens": tokens}, CACHE)
+    logits_d, _ = api.decode(model, cache, tokens[:, :1], PROMPT)
+    loss = api.loss(model, {"tokens": tokens, "labels": tokens})
+    grads = torch.autograd.grad(loss, list(model.parameters()))
+    assert logits.shape == logits_d.shape == (2, 1, cfg.vocab)
+    assert all(torch.isfinite(t).all() for t in (logits, logits_d, loss))
+    assert all(torch.isfinite(g).all() for g in grads)
+    for family in ("moe", "vlm"):
+        with pytest.raises(NotImplementedError, match="Queue 1 item 10"):
+            get_model(dataclasses.replace(cfg, family=family), device="cpu")
+        with pytest.raises(NotImplementedError, match="Queue 1 item 10"):
+            transformer.Transformer(dataclasses.replace(cfg, family=family),
+                                    device="cpu")
 
 
 def test_prompt_longer_than_cache_raises():
