@@ -3,10 +3,10 @@
     python3 chip_smoke.py
 
 Runs the paper's plan-and-train loop, the RWKV6 server and the Qwen3
-server, trains both language models, and serves the dense configs with
-their options (QKV biases, the GELU MLP, an untied head, sliding windows),
-through ``repro_torch`` on the card, in phases; any failure raises and
-exits non-zero:
+server, trains both language models, serves the dense configs with their
+options (QKV biases, the GELU MLP, an untied head, sliding windows), and
+the MoE configs and the VLM backbone, through ``repro_torch`` on the card,
+in phases; any failure raises and exits non-zero:
 
   1. device  require CUDA; print the card's name and power limit
   2. build   build K1 (min-plus), K3 (WKV6), K2 (flash), K2' (flash
@@ -238,13 +238,39 @@ exits non-zero:
              prompt tokens and 32 new tokens each; K2 launched 8 x layers
              times (320, 256, 64); prefill ms per request, decode tokens/s,
              peak device memory; each model freed before the next
+ 22. moe k2  K2 (f32 2e-5, bf16 2e-2) and K2' (bf16, batch 4, 3e-2)
+             against their plain versions at the layer shapes of
+             granite-moe-3b (24 / 8 heads of 64), qwen3-moe-235b (64 / 4 of
+             128) and internvl2-1b (14 / 2 of 64, 256 patches + 512
+             tokens); K2 timed there and at phase 21's dense serving layers
+             (20 / 20, 32 / 8, 64 / 8 of 128) by CUDA events and the
+             profiler's device time beside the bound, the plain version and
+             scaled_dot_product_attention
+ 23. moe     a 2-layer granite-moe-3b and internvl2-1b and a 1-layer
+             qwen3-moe-235b at full width in f32 (TF32 off): a 512-token
+             prefill (internvl2-1b's after 256 seeded patch embeddings) on
+             cuda (K2) against the CPU on the logits and KV cache; for the
+             first two the loss and every gradient (router, experts, bq /
+             bk / bv, the patch path) over 2 micro-batches of 1 x 256
+             tokens, and 2 Adafactor steps of granite-moe-3b (parameters
+             and stacked optimizer state), all within 1e-3; every MoE
+             call's top-K sets compared with the card's on the CPU: a
+             differing token must sit at a near-tie (K-th and (K+1)-th
+             probabilities within 1e-5) and then takes the card's picks,
+             so every output stays compared; counted and printed
+ 24. serve   BatchedServer at full width: granite-moe-3b-a800m and
+             internvl2-1b at full depth, qwen3-moe-235b-a22b at 4 of its 94
+             layers (94 in f32 are ~940 GB); as phase 21 (8 requests of 512
+             prompt tokens, internvl2-1b's after zero patch embeddings, 32
+             new tokens each); K2 launched 8 x layers times (256, 192, 32)
 
 A line ``{"sim": ..., "card": ...}`` carries phase 4d's walls, device busy
 times and peak memory; ``{"robust": ..., "card": ...}`` phase 4e's walls,
 gaps, picks and K1 launches; ``{"train": ..., "card": ...}`` phases 17
 and 18's gaps, losses, step times, memory, idle shares and launches;
 ``{"dense": ..., "card": ...}`` phases 19-21's errors, windowed times,
-gaps, serving numbers and launches.
+gaps, serving numbers and launches; ``{"moe": ..., "card": ...}`` phases
+22-24's errors, times, routing counts, gaps, serving numbers and launches.
 The next-to-last line is a JSON object with the kernels' measurements;
 the last is ``{"ok": true, "device": {...}}``.
 Imports nothing of JAX or of the JAX package ``repro``.
@@ -253,6 +279,7 @@ Imports nothing of JAX or of the JAX package ``repro``.
     python3 chip_smoke.py --time-k3 [--src OTHER_CHECKOUT/src]
     python3 chip_smoke.py --grads
     python3 chip_smoke.py --dense
+    python3 chip_smoke.py --moe
 
 only time K1 (its six phase-3 shapes, both modes, by CUDA events, the
 profiler's device time and the host's time per call, and the planner's wall
@@ -262,7 +289,7 @@ at every tile) or K3
 (phase 7's timings), with this checkout's ``repro_torch`` or another's, to
 compare two versions of a kernel in one run; ``--grads`` builds and checks
 K2' and K3' alone (phases 14-16); ``--dense`` builds K2 and K2' and runs
-phases 19-21 alone.
+phases 19-21 alone, ``--moe`` phases 22-24.
 """
 
 from __future__ import annotations
@@ -1804,14 +1831,15 @@ DENSE_SERVE = (("qwen1.5-4b", None), ("llama3-8b", None),
 
 def serve_phase(server_cls, request_cls, flash_mod, counters,
                 runs=DENSE_SERVE) -> dict:
-    """Phases 13 and 21: BatchedServer at full width for each (arch, layers
-    or None for all) of ``runs`` (phase 21: qwen1.5-4b and llama3-8b at full
-    depth, command-r-35b at 8 of its 40 layers): f32 parameters, bf16
-    compute, 4 slots, cache_len 1024, 8 requests of 512 prompt tokens and 32
-    new tokens each; K2 launched 8 x layers times, a fresh prefill of
-    request 0 finite and giving its first served token; prefill ms per
-    request, decode tokens/s and peak device memory.  Each model is freed
-    before the next is built."""
+    """Phases 13, 21 and 24: BatchedServer at full width for each (arch,
+    layers or None for all) of ``runs`` (phase 21: qwen1.5-4b and llama3-8b
+    at full depth, command-r-35b at 8 of its 40 layers; phase 24: MOE_SERVE):
+    f32 parameters, bf16 compute, 4 slots, cache_len 1024, 8 requests of
+    512 prompt tokens (a VLM's after its zero patch embeddings) and 32 new
+    tokens each; K2 launched 8 x layers times, a fresh prefill of request 0
+    finite and giving its first served token; prefill ms per request,
+    decode tokens/s and peak device memory.  Each model is freed before the
+    next is built."""
     from repro_torch.configs import get_config
     prefill_s = []
 
@@ -1842,8 +1870,8 @@ def serve_phase(server_cls, request_cls, flash_mod, counters,
         reqs = [request_cls(rid, rng.integers(0, cfg.vocab, size=512)
                             .astype(np.int32), max_new=32)
                 for rid in range(8)]
-        warm = srv.api.prefill(srv.params, {"tokens": torch.as_tensor(
-            reqs[0].prompt[None, :64], device="cuda")}, 1024)
+        warm = srv.api.prefill(srv.params,
+                               srv.prefill_batch(reqs[0].prompt[:64]), 1024)
         del warm                          # casts the weights to bf16 once
         for req in reqs:
             srv.submit(req)
@@ -1865,8 +1893,7 @@ def serve_phase(server_cls, request_cls, flash_mod, counters,
             raise AssertionError(f"serve {arch}: served {len(done)} of "
                                  f"{len(reqs)} requests")
         logits, cache = srv.api.prefill(
-            srv.params, {"tokens": torch.as_tensor(reqs[0].prompt[None],
-                                                   device="cuda")}, 1024)
+            srv.params, srv.prefill_batch(reqs[0].prompt), 1024)
         if not (torch.isfinite(logits).all()
                 and all(torch.isfinite(c).all() for c in cache.values())
                 and int(torch.argmax(logits[0, -1])) == reqs[0].generated[0]):
@@ -1877,6 +1904,7 @@ def serve_phase(server_cls, request_cls, flash_mod, counters,
         out[arch] = {
             "layers": cfg.num_layers,
             "layers_published": get_config(arch).num_layers,
+            "patch_tokens": cfg.patch_tokens,
             "params": n_params, "init_s": init_s,
             "prefill_ms": [t * 1e3 for t in prefill_s],
             "decode_tokens": stats["tokens"], "seconds": stats["seconds"],
@@ -1886,7 +1914,10 @@ def serve_phase(server_cls, request_cls, flash_mod, counters,
         log(f"serve {arch} full width, {cfg.num_layers} of "
             f"{out[arch]['layers_published']} layers ({n_params} parameters, "
             f"f32 params, bf16 compute; init {init_s:.2f} s): {len(done)} "
-            f"requests x 512 prompt tokens, {stats['tokens']} decode tokens "
+            f"requests x 512 prompt tokens"
+            + (f" after {cfg.patch_tokens} patch positions"
+               if cfg.patch_tokens else "")
+            + f", {stats['tokens']} decode tokens "
             f"in {stats['seconds']:.3f} s; prefill ms per request "
             f"{[round(t * 1e3, 3) for t in prefill_s]}; decode "
             f"{out[arch]['decode_tok_per_s']:.2f} tokens/s; launches "
@@ -1895,6 +1926,394 @@ def serve_phase(server_cls, request_cls, flash_mod, counters,
         del srv, stats, done, reqs, logits, cache
         torch.cuda.empty_cache()
     return out
+
+
+#: phases 22-24: the MoE configs and the VLM backbone (Queue 1 item 10)
+MOE_ARCHS = ("granite-moe-3b-a800m", "qwen3-moe-235b-a22b", "internvl2-1b")
+#: phase 22 also times K2 at the dense serving layers of phase 21
+DENSE_TIMED = ("qwen1.5-4b", "llama3-8b", "command-r-35b")
+#: phase 23: (arch, layers, the loss and gradients too): 2-layer
+#: granite-moe-3b and internvl2-1b; qwen3-moe-235b's f32 layer is ~10 GB
+#: (with ~5 GB of embedding and untied head, and a host copy of both), so
+#: one layer and the prefill only
+MOE_MODELS = (("granite-moe-3b-a800m", 2, True), ("internvl2-1b", 2, True),
+              ("qwen3-moe-235b-a22b", 1, False))
+#: a token's top-K set may differ between the card and the CPU only where
+#: its K-th and (K+1)-th router probabilities are this close
+NEAR_TIE = 1e-5
+#: phase 24: (arch, layers served); qwen3-moe-235b's 94 layers in f32 are
+#: ~940 GB, 4 with their bf16 casts ~66 GB
+MOE_SERVE = (("granite-moe-3b-a800m", None), ("internvl2-1b", None),
+             ("qwen3-moe-235b-a22b", 4))
+MOE_PROMPT = 512
+
+
+def layer_shape(cfg, batch=1, prompt=MOE_PROMPT) -> tuple:
+    """(B, S, T, H, KV, hd, causal) of a prefill's attention: the prompt
+    after the config's patch positions."""
+    S = prompt + cfg.patch_tokens
+    return (batch, S, S, cfg.n_heads, cfg.n_kv, cfg.head_dim, True)
+
+
+def time_flash_shape(flash_mod, shape) -> dict:
+    """K2 (bf16) at ``shape``: CUDA events and the profiler's device time
+    beside the bound, the plain version and scaled_dot_product_attention
+    (checked against it first)."""
+    q, k, v = flash_inputs(*shape[:6], torch.bfloat16, seed=5)
+    call = lambda: flash_mod.flash_attention(q, k, v)
+    lib = lambda: sdpa(q, k, v)
+    if not torch.allclose(call().float(), lib().transpose(1, 2).float(),
+                          atol=2e-2, rtol=2e-2):
+        raise AssertionError(f"K2 {shape} differs from "
+                             "scaled_dot_product_attention")
+    t = {"ms": cuda_ms(call), "device_ms": device_ms(call),
+         "plain_ms": cuda_ms(lambda: flash_mod.attention_plain(q, k, v)),
+         "library_ms": cuda_ms(lib), "library_device_ms": device_ms(lib)}
+    t["bound_ms"], t["bound_by"] = flash_bound_ms(*shape, torch.bfloat16)
+    return t
+
+
+def moe_flash_phase(flash_mod, flash_kernel) -> dict:
+    """Phase 22: K2 (f32 and bf16) and K2' (bf16, batch 4) against their
+    plain versions (TF32 off) at the layer shapes of granite-moe-3b (24 /
+    8 heads of 64), qwen3-moe-235b (64 / 4 of 128) and internvl2-1b (14 /
+    2 of 64 over 256 patches + 512 tokens); then K2 timed at those and at
+    phase 21's dense serving layers."""
+    from repro_torch.configs import get_config
+    torch.backends.cuda.matmul.allow_tf32 = False
+    out = {"k2_err": 0.0, "k2_bwd_err": 0.0, "times": {}}
+    for arch in MOE_ARCHS:
+        shape = layer_shape(get_config(arch))
+        for dtype in (torch.float32, torch.bfloat16):
+            out["k2_err"] = max(out["k2_err"],
+                                check_flash(shape, dtype, flash_mod))
+        out["k2_bwd_err"] = max(out["k2_bwd_err"], check_flash_grad(
+            layer_shape(get_config(arch), batch=4), torch.bfloat16,
+            flash_mod, flash_kernel))
+    for arch in MOE_ARCHS + DENSE_TIMED:
+        shape = layer_shape(get_config(arch))
+        t = out["times"][arch] = {"shape": shape,
+                                  **time_flash_shape(flash_mod, shape)}
+        log(f"K2 {arch} layer {shape}, bf16: kernel {t['ms']:.4f} ms "
+            f"(device {t['device_ms']:.4f}), plain {t['plain_ms']:.4f} ms, "
+            f"scaled_dot_product_attention {t['library_ms']:.4f} ms (device "
+            f"{t['library_device_ms']:.4f}), bound {t['bound_ms']:.6f} ms "
+            f"({t['bound_by']})")
+    return out
+
+
+class RoutingProbe:
+    """Stands in for ``models/moe.py::route`` while a model runs.  Recording
+    (the card's run), it keeps each call's top-K picks and kept slots.
+    Replaying (the same calls on the CPU, in the same order), it compares
+    each token's top-K set with the card's: a token whose set differs must
+    sit at a near-tie (its K-th and (K+1)-th probabilities within
+    NEAR_TIE), and takes the card's picks, so the run goes on with the
+    card's routing and every output stays comparable; then the kept slots
+    must equal the card's.  ``stats`` counts calls, tokens, the tokens
+    that differed and their gaps."""
+
+    def __init__(self, moe):
+        self.moe = moe
+        self.route = moe.route
+        self.calls = []
+        self.replay = None
+        self.stats = {"calls": 0, "tokens": 0, "differing_tokens": 0,
+                      "gaps": []}
+
+    @contextlib.contextmanager
+    def recording(self):
+        self.calls.clear()
+        self.replay = None
+        self.moe.route = self
+        try:
+            yield self
+        finally:
+            self.moe.route = self.route
+
+    @contextlib.contextmanager
+    def replaying(self):
+        self.replay = iter(self.calls)
+        self.moe.route = self
+        try:
+            yield self
+        finally:
+            self.moe.route = self.route
+            self.replay = None
+
+    def __call__(self, logits, C, E, K):
+        r = self.route(logits, C, E, K)
+        if self.replay is None:
+            self.calls.append((r.idx.cpu(), r.keep.cpu(), r.slot.cpu()))
+            return r
+        idx, keep, slot = next(self.replay)
+        same = torch.equal(torch.sort(r.idx, -1).values,
+                           torch.sort(idx, -1).values)
+        self.stats["calls"] += 1
+        self.stats["tokens"] += idx.shape[0] * idx.shape[1]
+        if not same:
+            probs = torch.softmax(logits, dim=-1)
+            top = torch.topk(probs, K + 1, dim=-1).values
+            gap = top[..., K - 1] - top[..., K]
+            differ = (torch.sort(r.idx, -1).values
+                      != torch.sort(idx, -1).values).any(-1)
+            gaps = gap[differ].tolist()
+            self.stats["differing_tokens"] += len(gaps)
+            self.stats["gaps"] += gaps
+            if max(gaps) >= NEAR_TIE:
+                raise AssertionError(f"routing: {len(gaps)} tokens' top-{K} "
+                                     f"sets differ from the card's with "
+                                     f"gaps {gaps} (a near-tie is under "
+                                     f"{NEAR_TIE})")
+            idx = idx.to(r.idx.device)
+            r = self.moe.assign(idx, self.moe.gates_of(logits, idx), C, E)
+        if not (torch.equal(r.keep, keep) and torch.equal(r.slot, slot)):
+            raise AssertionError("routing: the kept slots differ from the "
+                                 "card's for the same top-K sets")
+        return r
+
+
+def moe_model_phase(flash_mod) -> dict:
+    """Phase 23: a 2-layer granite-moe-3b and internvl2-1b and a 1-layer
+    qwen3-moe-235b at full width in float32 compute with TF32 off: a
+    512-token prefill (internvl2-1b's after 256 seeded patch embeddings) on
+    cuda (K2) against the same weights on the CPU on the logits and the KV
+    cache; for the first two also the loss and every gradient over 2
+    micro-batches of 1 x 256 tokens (K2 / K2', remat none: each launched
+    layers x micro-batches times), and for granite-moe-3b 2 Adafactor
+    steps of the trainer (``adafactor_steps``); each within 1e-3 of each
+    tensor's largest magnitude.  Every MoE call's
+    routing on the CPU is held to the card's (``RoutingProbe``)."""
+    from repro_torch.configs import get_config
+    from repro_torch.data import token_lm_batches
+    from repro_torch.models import moe, transformer
+    from repro_torch.pipeline.executor import microbatch_grads
+    torch.backends.cuda.matmul.allow_tf32 = False
+    fwd, bwd = flash_mod.flash_attention, flash_mod.flash_attention_bwd
+    q = GRAD_MODEL["microbatches"]
+    out = {}
+    for arch, layers, with_grads in MOE_MODELS:
+        t0 = time.perf_counter()
+        probe = RoutingProbe(moe)
+        cfg = dataclasses.replace(get_config(arch), num_layers=layers,
+                                  compute_dtype=torch.float32, remat="none")
+        gpu_model = transformer.init_params(
+            cfg, torch.Generator(device="cuda").manual_seed(0), "cuda")
+        cpu_model = transformer.Transformer(cfg, "cpu")
+        cpu_model.load_state_dict(gpu_model.state_dict())
+        gen = torch.Generator().manual_seed(1)
+        prompt = torch.randint(0, cfg.vocab, (1, MOE_PROMPT), generator=gen)
+        patches = None
+        if cfg.patch_tokens:
+            patches = torch.randn((1, cfg.patch_tokens, cfg.d_model),
+                                  generator=gen)
+        cache_len = MOE_PROMPT + cfg.patch_tokens
+        with probe.recording():
+            reset_launches(fwd, bwd)
+            logits_g, cache_g = transformer.prefill(
+                gpu_model, prompt.cuda(), cache_len,
+                None if patches is None else patches.cuda())
+            torch.cuda.synchronize()
+        if fwd.launches != layers:
+            raise AssertionError(f"{arch}: the cuda prefill launched K2 "
+                                 f"{fwd.launches} times")
+        with probe.replaying():
+            logits_c, cache_c = transformer.prefill(cpu_model, prompt,
+                                                    cache_len, patches)
+        errs = {"logits": rel_err(logits_g, logits_c),
+                **{f"cache {n}": rel_err(cache_g[n], cache_c[n])
+                   for n in cache_c}}
+        if not (torch.isfinite(logits_g).all()
+                and max(errs.values()) <= MODEL_REL_TOL):
+            raise AssertionError(f"{arch} prefill cuda vs cpu: {errs}")
+        del logits_g, cache_g, logits_c, cache_c
+        row = {"layers": layers, "prefill_launches": layers,
+               "prefill_max_rel_err": max(errs.values()),
+               "prefill_errs": errs}
+        if with_grads:
+            b = next(token_lm_batches(batch=GRAD_MODEL["batch"],
+                                      seq_len=GRAD_MODEL["seq"],
+                                      vocab=cfg.vocab, seed=2))
+            if cfg.patch_tokens:
+                b["patch_embeds"] = torch.randn(
+                    (GRAD_MODEL["batch"], cfg.patch_tokens, cfg.d_model),
+                    generator=gen).numpy()
+            runs = {}
+            for route, dev, model in (("kernel", "cuda", gpu_model),
+                                      ("plain", "cpu", cpu_model)):
+                batch = {n: torch.as_tensor(x, device=dev)
+                         for n, x in b.items()}
+                ctx = probe.recording() if dev == "cuda" \
+                    else probe.replaying()
+                with ctx:
+                    reset_launches(fwd, bwd)
+                    runs[route] = microbatch_grads(
+                        lambda _p, mb: transformer.loss_fn(model, mb),
+                        list(model.parameters()), batch, q)
+                    if dev == "cuda":
+                        torch.cuda.synchronize()
+                        launches = {"forward": fwd.launches,
+                                    "backward": bwd.launches}
+            want = layers * q
+            if launches != {"forward": want, "backward": want}:
+                raise AssertionError(f"{arch}: launches {launches} != "
+                                     f"{want} each")
+            names = [n for n, _ in gpu_model.named_parameters()]
+            gerrs = {"loss": rel_err(runs["kernel"][0], runs["plain"][0])}
+            gerrs.update({n: rel_err(g, c) for n, g, c in
+                          zip(names, runs["kernel"][1], runs["plain"][1])})
+            worst = max(gerrs, key=gerrs.get)
+            if not (math.isfinite(float(runs["kernel"][0]))
+                    and gerrs[worst] <= MODEL_REL_TOL):
+                raise AssertionError(f"{arch} grads cuda vs cpu: {worst} "
+                                     f"{gerrs[worst]}")
+            row.update(grads_max_rel_err=gerrs[worst], worst=worst,
+                       loss_rel_err=gerrs["loss"], launches=launches,
+                       loss=float(runs["kernel"][0]),
+                       option_grads_rel_err={
+                           n: e for n, e in gerrs.items()
+                           if n.split(".")[-1] in ("router", "w_gate",
+                                                   "w_up", "w_down", "bq",
+                                                   "bk", "bv")})
+            del runs
+        if with_grads and cfg.moe_experts:
+            row["adafactor"] = adafactor_steps(cfg, gpu_model, cpu_model,
+                                               probe, fwd, bwd)
+        row["routing"] = {k: v for k, v in probe.stats.items()
+                          if k != "gaps"}
+        row["routing"]["near_tie_gaps"] = probe.stats["gaps"]
+        row["wall_s"] = time.perf_counter() - t0
+        out[arch] = row
+        log(f"moe/vlm model {arch} ({layers} layers, d {cfg.d_model}, "
+            f"{cfg.n_heads} heads / {cfg.n_kv} kv of {cfg.head_dim}, d_ff "
+            f"{cfg.d_ff}, experts {cfg.moe_experts} top {cfg.moe_top_k}, "
+            f"patches {cfg.patch_tokens}, vocab {cfg.vocab}; f32, TF32 off): "
+            f"{MOE_PROMPT}-token prefill cuda (K2) vs cpu "
+            + ", ".join(f"{n} {e:.2e}" for n, e in errs.items())
+            + (f"; loss and {len(gerrs) - 1} gradients over {q} "
+               f"micro-batches: max err / max magnitude "
+               f"{row['grads_max_rel_err']:.2e} ({row['worst']}), "
+               + ", ".join(f"{n} {e:.2e}" for n, e in
+                           row["option_grads_rel_err"].items())
+               + f"; launches {row['launches']}" if with_grads else "")
+            + (f"; adafactor {row['adafactor']}" if "adafactor" in row
+               else "")
+            + f"; routing {row['routing']} (tolerance {MODEL_REL_TOL}); "
+            f"{row['wall_s']:.1f} s")
+        del gpu_model, cpu_model
+        torch.cuda.empty_cache()
+    return out
+
+
+def adafactor_steps(cfg, gpu_model, cpu_model, probe, fwd, bwd,
+                    steps=2) -> dict:
+    """``steps`` Adafactor steps of the trainer (``make_train_step``, 2
+    micro-batches of 1 x 256 tokens) on cuda, each held to the CPU: from
+    the card's parameters before the step, the CPU's loss and gradients
+    (in the optimizer's layout, stacked over the layers) against the
+    card's, and the CPU's Adafactor update on the card's gradients and
+    state against the card's parameters and state after the step; each
+    within 1e-3 of each tensor's largest magnitude.  The update is held
+    on the same gradients: Adafactor scales each row and column of a
+    matrix by its own gradient's rms, so a column whose gradient is
+    rounding noise (an expert's unit that one token reached with a
+    near-zero value) takes a full-size step in the noise's direction, on
+    any two devices (a float32 and a float64 CPU run differ by 0.9% after
+    one step)."""
+    from repro_torch.data import token_lm_batches
+    from repro_torch.launch.steps import (init_optimizer, make_train_step,
+                                          optimizer_tree)
+    from repro_torch.models import transformer
+    from repro_torch.optim import get_optimizer
+    from repro_torch.pipeline.executor import microbatch_grads
+    from repro_torch.utils import tree_map
+    q = GRAD_MODEL["microbatches"]
+    stream = token_lm_batches(batch=GRAD_MODEL["batch"],
+                              seq_len=GRAD_MODEL["seq"], vocab=cfg.vocab,
+                              seed=4)
+    opt = get_optimizer("adafactor", lr=1e-3)
+    seen = []
+
+    def update(params, grads, state):
+        seen.append(tree_map(lambda g: g.detach().cpu(), grads))
+        return opt.update(params, grads, state)
+
+    step = make_train_step(cfg, dataclasses.replace(opt, update=update), q,
+                           device="cuda")
+    state = init_optimizer(opt, gpu_model)
+    to_cpu = lambda tree: tree_map(lambda t: t.detach().cpu().clone(), tree)
+    errs, losses, launches = {}, [], {"forward": 0, "backward": 0}
+    for k in range(steps):
+        b = next(stream)
+        before = {n: p.detach().cpu().clone()
+                  for n, p in gpu_model.named_parameters()}
+        state_before = to_cpu(state)
+        with probe.recording():
+            reset_launches(fwd, bwd)
+            gpu_model, state, loss = step(gpu_model, state, b)
+            torch.cuda.synchronize()
+            launches = {"forward": launches["forward"] + fwd.launches,
+                        "backward": launches["backward"] + bwd.launches}
+        with torch.no_grad():
+            for n, p in cpu_model.named_parameters():
+                p.copy_(before[n])
+        named = dict(cpu_model.named_parameters())
+        with probe.replaying():
+            loss_c, grads = microbatch_grads(
+                lambda _p, mb: transformer.loss_fn(cpu_model, mb),
+                list(named.values()),
+                {n: torch.as_tensor(x) for n, x in b.items()}, q)
+        grads = optimizer_tree(dict(zip(named, grads)), opt)
+        tree = optimizer_tree(before, opt)
+        _, state_c = opt.update(tree, seen[-1], state_before)
+        after = to_cpu(optimizer_tree(dict(gpu_model.named_parameters()),
+                                      opt))
+        losses.append((float(loss), float(loss_c)))
+        errs[f"loss {k}"] = abs(losses[-1][0] - losses[-1][1]) \
+            / abs(losses[-1][1])
+        for label, got, want in (("grad", seen[-1], grads),
+                                 ("param", after, tree),
+                                 ("state", to_cpu(state["f"]),
+                                  state_c["f"])):
+            for path, g, w in tree_pairs(got, want):
+                errs[f"{label} {k} {path}"] = rel_err(g, w)
+    want = cfg.num_layers * q * steps
+    if launches != {"forward": want, "backward": want}:
+        raise AssertionError(f"adafactor steps: launches {launches}")
+    worst = max(errs, key=errs.get)
+    if not (all(math.isfinite(a) for a, _ in losses)
+            and errs[worst] <= MODEL_REL_TOL):
+        raise AssertionError(f"adafactor steps cuda vs cpu: {worst} "
+                             f"{errs[worst]}")
+    return {"steps": steps, "losses_cuda_cpu": losses,
+            "max_rel_err": errs[worst], "worst": worst,
+            "launches": launches, "compared": len(errs)}
+
+
+def tree_pairs(a, b, path=""):
+    """(path, leaf of a, leaf of b) over two trees of one structure."""
+    if isinstance(a, dict):
+        for k in sorted(a):
+            yield from tree_pairs(a[k], b[k], f"{path}/{k}" if path else k)
+    else:
+        yield path, a, b
+
+
+def moe_phases(flash_mod, flash_kernel, server_cls, request_cls,
+               counters) -> dict:
+    """Phases 22-24, timed."""
+    t0 = time.perf_counter()
+    flash = moe_flash_phase(flash_mod, flash_kernel)
+    t1 = time.perf_counter()
+    models = moe_model_phase(flash_mod)
+    t2 = time.perf_counter()
+    served = serve_phase(server_cls, request_cls, flash_mod, counters,
+                         MOE_SERVE)
+    walls = {"22": t1 - t0, "23": t2 - t1, "24": time.perf_counter() - t2}
+    log("phase walls: " + ", ".join(f"{k} {v:.1f} s"
+                                    for k, v in walls.items()))
+    return {"flash": flash, "models": models, "serve": served,
+            "phase_walls_s": walls}
 
 
 def bench30_instance(core) -> tuple:
@@ -2706,6 +3125,10 @@ def main(argv=None) -> int:
                     help="only build K2 and K2' and run phases 19-21 (the "
                     "window, the dense models, the dense servers) and "
                     "print their JSON")
+    ap.add_argument("--moe", action="store_true",
+                    help="only build K2 and K2' and run phases 22-24 (K2 "
+                    "and K2' at the MoE and VLM layer shapes, the MoE and "
+                    "VLM models, their servers) and print their JSON")
     ap.add_argument("--src", help="import repro_torch from this directory "
                     "(another checkout's src/) instead of this one's")
     opts = ap.parse_args(argv)
@@ -2777,6 +3200,22 @@ def main(argv=None) -> int:
             f"{time.perf_counter() - t2:.1f} s")
         log(json.dumps({"dense": {"window": window, "models": models,
                                   "serve": served}, "card": smi}))
+        return 0
+    if opts.moe:
+        from repro_torch.kernels import _build
+        from repro_torch.kernels import flash as flash_mod
+        from repro_torch.kernels import minplus
+        from repro_torch.kernels import rwkv6 as wkv6_mod
+        from repro_torch.kernels.flash import kernel as flash_kernel
+        from repro_torch.kernels.rwkv6 import kernel as wkv6_kernel
+        from repro_torch.launch.serve import BatchedServer, Request
+        built = build_all([flash_kernel]
+                          + bwd_libraries(flash_kernel, wkv6_kernel)[:1])
+        log("build: " + ", ".join(f"{n} {t:.2f} s" for n, t in built.items()))
+        log(json.dumps({"moe": moe_phases(
+            flash_mod, flash_kernel, BatchedServer, Request,
+            (flash_mod.flash_attention, wkv6_mod.wkv6,
+             minplus.sweep_minplus)), "card": smi}))
         return 0
 
     from repro_torch import obs
@@ -3540,6 +3979,11 @@ def main(argv=None) -> int:
     dense_walls = {"19": t1 - t0, "20": t2 - t1,
                    "21": time.perf_counter() - t2}
     window_runs = [r for name, r in dense_models.items() if "window" in name]
+    # 22-24. the MoE configs and the VLM backbone (K2's and K2''s main path)
+    moe_out = moe_phases(
+        flash_mod, flash_kernel, BatchedServer, Request,
+        (flash_mod.flash_attention, wkv6_mod.wkv6, minplus.sweep_minplus))
+    moe_models = moe_out["models"]
 
     log(json.dumps({"sim": sim_out, "card": smi}))
     log(json.dumps({"robust": robust_out, "card": smi}))
@@ -3548,6 +3992,7 @@ def main(argv=None) -> int:
     log(json.dumps({"dense": {"window": window, "models": dense_models,
                               "serve": dense_served,
                               "phase_walls_s": dense_walls}, "card": smi}))
+    log(json.dumps({"moe": moe_out, "card": smi}))
     log(f"profiler: {PROFILER_STATS['calls']} device_ms calls, "
         f"{PROFILER_STATS['retried_sessions']} sessions with no device time "
         f"run again, {PROFILER_STATS['event_fallbacks']} timed by CUDA events")
@@ -3650,6 +4095,20 @@ def main(argv=None) -> int:
         "dense_serve_launches": {
             arch: r["launches"]["flash_attention"]
             for arch, r in dense_served.items()},
+        "dense_serve_layers": {
+            arch: moe_out["flash"]["times"][arch] for arch in DENSE_TIMED},
+        "moe_vlm": {
+            "max_abs_err": moe_out["flash"]["k2_err"],
+            "layers": {arch: moe_out["flash"]["times"][arch]
+                       for arch in MOE_ARCHS},
+            "model_launches": {
+                arch: r["prefill_launches"]
+                + r.get("launches", {}).get("forward", 0)
+                + r.get("adafactor", {}).get("launches", {}).get(
+                    "forward", 0) for arch, r in moe_models.items()},
+            "serve_launches": {
+                arch: r["launches"]["flash_attention"]
+                for arch, r in moe_out["serve"].items()}},
     }, {
         "name": "flash_attention_bwd",
         "route": "cuda",
@@ -3671,6 +4130,12 @@ def main(argv=None) -> int:
             "windows_checked": WINDOWS, "max_abs_err": window["k2_bwd_err"],
             "train_layer": window["times"]["train_bwd"],
             "launches": sum(r["launches"]["backward"] for r in window_runs)},
+        "moe_vlm": {
+            "max_abs_err": moe_out["flash"]["k2_bwd_err"],
+            "model_launches": {
+                arch: r.get("launches", {}).get("backward", 0)
+                + r.get("adafactor", {}).get("launches", {}).get(
+                    "backward", 0) for arch, r in moe_models.items()}},
     }, {
         "name": "wkv6_scan_bwd",
         "route": "cuda",

@@ -1,8 +1,9 @@
 """Config substrate — the part of ``repro/configs/base.py`` that the
 trainer's policy reads (``launch/steps.py::default_optimizer_name``), for
-the ported families (``dense``: the decoder-only transformer; ``ssm``:
-RWKV6): the assigned input shapes, the per-layer FLOP helpers, the
-planner's per-arch workload profile and the parameter estimate.
+the ported families (``dense``: the decoder-only transformer; ``moe``: the
+same with experts; ``vlm``: its backbone; ``ssm``: RWKV6): the assigned
+input shapes, the per-layer FLOP helpers, the planner's per-arch workload
+profile and the parameter estimate.
 
 ``count_params`` is the reference's estimate from that profile (fp32
 parameter bytes / 4), not the model's parameter count: it counts every
@@ -10,8 +11,11 @@ attention layer's q/k/v/o as (H + 2 KV) hd d x 2 and every RWKV layer as
 6 d^2 + 2 d d_ff, leaves out norms, biases and LoRAs, and counts the head
 whether tied or not (qwen3-0.6b: 810,287,104 against 596,049,920 real
 parameters; rwkv6-1.6b: 1,577,058,304 against 1,580,795,904;
-command-r-35b: 33,051,115,520 against 30,283,538,432).  Other families raise
-(ROADMAP Queue 1 item 10).
+command-r-35b: 33,051,115,520 against 30,283,538,432).  A layer counts
+its experts when the reference's ``is_moe_layer`` says so (its model puts
+them in every layer; the published configs set ``moe_every`` 1, where the
+two agree; ROADMAP Queue 3).  Other families raise (ROADMAP Queue 1 item
+10).
 """
 
 from __future__ import annotations
@@ -24,7 +28,7 @@ from repro_torch.core.profiles import ModelProfile
 from repro_torch.models.common import ArchConfig
 
 #: families whose profile is ported
-PORTED_FAMILIES = ("dense", "ssm")
+PORTED_FAMILIES = ("dense", "moe", "vlm", "ssm")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -61,7 +65,7 @@ def _check_family(cfg: ArchConfig) -> None:
 
 def layer_kind(cfg: ArchConfig, i: int) -> str:
     """The reference's ``ArchConfig.layer_kind`` for the ported families:
-    'rwkv' for ssm, 'attn' for dense."""
+    'rwkv' for ssm, 'attn' for the transformer's (dense, moe, vlm)."""
     _check_family(cfg)
     return "rwkv" if cfg.family == "ssm" else "attn"
 
@@ -79,7 +83,11 @@ def _attn_layer_flops(cfg: ArchConfig, seq: int) -> float:
 
 
 def _ffn_layer_flops(cfg: ArchConfig, seq: int) -> float:
-    per_tok = cfg.ffn_mult * 2 * cfg.d_model * cfg.d_ff
+    if cfg.moe_experts:
+        per_tok = (cfg.moe_top_k * cfg.ffn_mult * 2 * cfg.d_model * cfg.d_ff
+                   + 2 * cfg.d_model * cfg.moe_experts)
+    else:
+        per_tok = cfg.ffn_mult * 2 * cfg.d_model * cfg.d_ff
     return float(per_tok * seq)
 
 
@@ -125,8 +133,14 @@ def arch_profile(cfg: ArchConfig, shape_name: str = "train_4k",
             fl = _attn_layer_flops(cfg, seq)
             pb = (cfg.n_heads + 2 * cfg.n_kv) * cfg.head_dim * cfg.d_model \
                 * pd * 2
-            fl += _ffn_layer_flops(cfg, seq)
-            pb += cfg.ffn_mult * cfg.d_model * cfg.d_ff * pd
+            if cfg.is_moe_layer(i):
+                fl += _ffn_layer_flops(cfg, seq)
+                pb += cfg.moe_experts * cfg.ffn_mult * cfg.d_model \
+                    * cfg.d_ff * pd
+            else:
+                fl += _ffn_layer_flops(
+                    dataclasses.replace(cfg, moe_experts=0), seq)
+                pb += cfg.ffn_mult * cfg.d_model * cfg.d_ff * pd
         else:  # rwkv
             fl = _rwkv_layer_flops(cfg, seq)
             pb = 6 * cfg.d_model * cfg.d_model * pd

@@ -6,6 +6,8 @@ decode steps of the server's model, each under ``torch.profiler``.
         --arch qwen3-0.6b --full
     PYTHONPATH=src python -m repro_torch.launch.profile_serve \
         --arch llama3-8b --full
+    PYTHONPATH=src python -m repro_torch.launch.profile_serve \
+        --arch granite-moe-3b-a800m --full
 
 ``--arch`` takes every ported config (``repro_torch.configs.ARCH_IDS``).
     PYTHONPATH=src python -m repro_torch.launch.profile_serve --device cpu
@@ -33,6 +35,7 @@ import torch
 from torch.autograd import DeviceType
 from torch.profiler import ProfilerActivity, profile
 
+from repro_torch.configs import get_config
 from repro_torch.kernels.flash import flash_attention
 from repro_torch.kernels.rwkv6 import wkv6
 from repro_torch.launch.serve import BatchedServer
@@ -89,17 +92,19 @@ def profiled(fn, dev, top: int = 8):
 def profile_serve(arch: str = "rwkv6-1.6b", *, reduced: bool = True,
                   prompt_len: int = 512, steps: int = 16, seed: int = 0,
                   device="cuda") -> dict:
-    """Profile one prefill of ``prompt_len`` tokens and ``steps`` greedy
-    decode steps after it (one request, as the server runs each slot),
-    after one warm-up of each (the weights' casts, library handles)."""
-    srv = BatchedServer(arch, reduced=reduced, batch=1,
-                        cache_len=prompt_len + steps + 1, seed=seed,
+    """Profile one prefill of ``prompt_len`` tokens (after a VLM's patch
+    embeddings) and ``steps`` greedy decode steps after it from the
+    server's ``pos`` (one request, as the server runs each slot), after one
+    warm-up of each (the weights' casts, library handles)."""
+    srv = BatchedServer(arch, reduced=reduced, batch=1, seed=seed,
+                        cache_len=prompt_len + steps + 1 + get_config(
+                            arch, reduced=reduced).patch_tokens,
                         device=device)
     dev, api, model = srv.device, srv.api, srv.params
     rng = np.random.default_rng(seed)
-    tokens = torch.as_tensor(rng.integers(0, srv.cfg.vocab,
-                                          size=(1, prompt_len)), device=dev)
-    batch = {"tokens": tokens}
+    batch = srv.prefill_batch(rng.integers(0, srv.cfg.vocab,
+                                           size=prompt_len))
+    tokens = batch["tokens"]
     _, state = api.prefill(model, batch, srv.cache_len)
     api.decode(model, state, tokens[:, :1], prompt_len)
 

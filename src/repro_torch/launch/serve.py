@@ -12,16 +12,35 @@ The port of ``repro/launch/serve.py``:
         --full --prompt-len 512 --gen 32 --cache-len 1024
     PYTHONPATH=src python -m repro_torch.launch.serve \
         --arch command-r-35b --full --layers 8 --prompt-len 512 --gen 32
+    PYTHONPATH=src python -m repro_torch.launch.serve \
+        --arch granite-moe-3b-a800m --full --prompt-len 512 --gen 32 \
+        --cache-len 1024
+    PYTHONPATH=src python -m repro_torch.launch.serve \
+        --arch qwen3-moe-235b-a22b --full --layers 4 --prompt-len 512 \
+        --gen 32 --cache-len 1024
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch internvl2-1b \
+        --full --prompt-len 512 --gen 32 --cache-len 1024
 
 ``--arch`` takes every ported config (``repro_torch.configs.ARCH_IDS``:
 the dense ``qwen3-0.6b``, ``llama3-8b``, ``qwen1.5-4b`` and
-``command-r-35b``, and ``rwkv6-1.6b``).  A request queue, a prefill of
-each admitted request into its own single-row state (the KV cache of a
-dense model, the recurrent state of ``rwkv6-1.6b``), then a decode loop that retires finished sequences and
+``command-r-35b``, the MoE ``granite-moe-3b-a800m`` and
+``qwen3-moe-235b-a22b``, the VLM ``internvl2-1b``, and ``rwkv6-1.6b``).  A
+request queue, a prefill of each admitted request into its own single-row
+state (the KV cache of a transformer, the recurrent state of
+``rwkv6-1.6b``), then a decode loop that retires finished sequences and
 admits new ones into the freed slots (continuous batching); greedy
 sampling (``argmax``, the first index on ties).  Admission, retirement and
 the returned stats are the reference's.  The server runs on ``"cuda"``
 unless the caller passes ``device="cpu"``; without a GPU it raises.
+
+A VLM request's prefill takes zero patch embeddings (1, ``patch_tokens``,
+d) in the compute type before its prompt, as the reference's server does.
+Like the reference's, the server then decodes from ``pos =
+len(prompt)``, which leaves the ``patch_tokens`` patch positions out: the
+first decode step writes into cache slot ``len(prompt)``, over a prompt
+token's keys, and attends over the slots up to it.  The port keeps this
+for parity (ROADMAP Queue 3); the model itself decodes right at ``pos =
+patch_tokens + len(prompt)``.
 """
 
 from __future__ import annotations
@@ -73,12 +92,21 @@ class BatchedServer:
     def submit(self, req: Request):
         self.queue.append(req)
 
+    def prefill_batch(self, prompt) -> dict:
+        """The prefill's batch for one prompt (P,): its tokens (1, P) and,
+        for a VLM, zero patch embeddings in the compute type."""
+        batch = {"tokens": torch.as_tensor(np.asarray(prompt)[None, :],
+                                           device=self.device)}
+        if self.cfg.family == "vlm":
+            batch["patch_embeds"] = torch.zeros(
+                (1, self.cfg.patch_tokens, self.cfg.d_model),
+                dtype=self.cfg.compute_dtype, device=self.device)
+        return batch
+
     def _prefill_one(self, req: Request):
         """Prefill a single request into a fresh single-row state."""
-        tokens = torch.as_tensor(np.asarray(req.prompt)[None, :],
-                                 device=self.device)
-        logits, cache = self.api.prefill(self.params, {"tokens": tokens},
-                                         self.cache_len)
+        logits, cache = self.api.prefill(
+            self.params, self.prefill_batch(req.prompt), self.cache_len)
         tok = int(torch.argmax(logits[0, -1]))
         return tok, cache, len(req.prompt)
 

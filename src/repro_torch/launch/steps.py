@@ -4,9 +4,15 @@ of ``repro/launch/steps.py``.
 ``train_step`` does micro-batched gradient accumulation
 (``pipeline/executor.py::microbatch_grads``) — the single-device
 counterpart of the paper's micro-batching (Theorem 1 picks Q) — followed by
-the optimizer update, in place.  ``prefill_step`` / ``decode_step`` are the
-serving entries.  Every factory runs on ``"cuda"`` unless the caller passes
-``device="cpu"``; without a GPU it raises.
+the optimizer update, in place.  The update sees the tree
+:func:`optimizer_tree` gives: the model's named parameters for an
+elementwise optimizer, and for Adafactor the reference's layout, each
+per-layer parameter stacked over the layers, as the reference's
+``make_train_step`` hands its optimizer the stacked tree (Adafactor
+factors and clips each whole leaf, so the layout changes its update).
+``prefill_step`` / ``decode_step`` are the serving entries.  Every factory
+runs on ``"cuda"`` unless the caller passes ``device="cpu"``; without a GPU
+it raises.
 """
 
 from __future__ import annotations
@@ -15,7 +21,7 @@ from typing import Callable
 
 import torch
 
-from repro_torch.models.common import ArchConfig
+from repro_torch.models.common import ArchConfig, lookup, nest_layers
 from repro_torch.models.registry import get_model
 from repro_torch.optim import Optimizer
 from repro_torch.pipeline.executor import microbatch_grads
@@ -45,14 +51,39 @@ def default_microbatches(cfg: ArchConfig, global_batch: int) -> int:
     return max(q, 1)
 
 
+def optimizer_tree(named: dict, optimizer: Optimizer) -> dict:
+    """The tree ``optimizer`` updates, from a model's named tensors
+    (parameters or their gradients): the named tensors themselves for an
+    elementwise optimizer (the layout changes no bit of its update), else
+    the reference's layout, top-level tensors as they are and each
+    per-layer name stacked over the layers (a copy)."""
+    if optimizer.elementwise:
+        return named
+    with torch.no_grad():
+        return nest_layers(named, torch.stack)
+
+
+def init_optimizer(optimizer: Optimizer, model) -> dict:
+    """``optimizer``'s state for ``model``, in :func:`optimizer_tree`'s
+    layout (Adafactor's moments stacked over the layers, as the
+    reference's)."""
+    return optimizer.init(optimizer_tree(dict(model.named_parameters()),
+                                         optimizer))
+
+
 def make_train_step(cfg: ArchConfig, optimizer: Optimizer,
                     num_microbatches: int, device="cuda") -> Callable:
     """``train_step(model, opt_state, batch) -> (model, opt_state, loss)``:
     the mean loss and gradients over ``num_microbatches`` micro-batches of
-    ``batch`` ({tokens, labels}, (B, S) each), then one optimizer update of
-    the model's parameters in place; ``opt_state`` comes from
-    ``optimizer.init(dict(model.named_parameters()))``.  ``loss`` is a 0-d float32
-    tensor on the device."""
+    ``batch`` ({tokens, labels}, (B, S) each; and ``patch_embeds`` for a
+    VLM), then one optimizer update of the model's parameters in place;
+    ``opt_state`` comes from :func:`init_optimizer`.  ``loss`` is a 0-d
+    float32 tensor on the device.
+
+    For Adafactor the update runs on stacked copies of the per-layer
+    parameters and gradients and writes the result back: while it runs it
+    holds one more copy of the per-layer parameters, and while the
+    gradients are stacked, two copies of them."""
     api = get_model(cfg, device)
 
     def train_step(model, opt_state, batch):
@@ -62,8 +93,16 @@ def make_train_step(cfg: ArchConfig, optimizer: Optimizer,
         loss, grads = microbatch_grads(lambda _p, mb: api.loss(model, mb),
                                        list(params.values()), batch,
                                        num_microbatches)
-        _, opt_state = optimizer.update(params, dict(zip(params, grads)),
-                                        opt_state)
+        grads = dict(zip(params, grads))
+        tree = optimizer_tree(params, optimizer)
+        grads = optimizer_tree(grads, optimizer)
+        _, opt_state = optimizer.update(tree, grads, opt_state)
+        if tree is not params:
+            with torch.no_grad():
+                for name, p in params.items():
+                    new = lookup(tree, name)
+                    if new is not p:
+                        p.copy_(new)
         return model, opt_state, loss
 
     return train_step

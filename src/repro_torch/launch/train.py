@@ -6,8 +6,17 @@
         --full --steps 4 --batch 8 --seq 512 --microbatches 2 --ckpt CKPT
     PYTHONPATH=src python -m repro_torch.launch.train --arch qwen1.5-4b \
         --reduced --steps 16 --batch 16 --seq 32 --device cpu
+    PYTHONPATH=src python -m repro_torch.launch.train \
+        --arch granite-moe-3b-a800m --reduced --steps 16 --batch 16 \
+        --seq 32 --optimizer adafactor --device cpu
 
-``--arch`` takes every ported config (``repro_torch.configs.ARCH_IDS``).
+``--arch`` takes every ported config (``repro_torch.configs.ARCH_IDS``:
+the dense, MoE and VLM transformers and ``rwkv6-1.6b``).  A VLM batch
+carries zero patch embeddings (batch, ``patch_tokens``, d) in float32, as
+the reference's trainer gives it; the loss is taken on the text.
+The optimizer's state is in ``launch/steps.py::optimizer_tree``'s layout
+(Adafactor's stacked over the layers, as the reference's), and a
+checkpoint holds it so.
 
 Runs the real loop: synthetic LM data -> micro-batched train step (Q from
 --microbatches) -> optimizer -> periodic async checkpoints -> restart from
@@ -33,7 +42,7 @@ from repro_torch._device import resolve_device
 from repro_torch.checkpoint import CheckpointStore
 from repro_torch.configs import get_config
 from repro_torch.data import token_lm_batches
-from repro_torch.launch.steps import make_train_step
+from repro_torch.launch.steps import init_optimizer, make_train_step
 from repro_torch.models.registry import get_model
 from repro_torch.optim import get_optimizer
 
@@ -52,7 +61,7 @@ def train(arch: str, *, reduced: bool = True, steps: int = 50,
     opt = get_optimizer(optimizer, lr=lr)
     model = api.init(torch.Generator(device=dev).manual_seed(seed))
     params = dict(model.named_parameters())
-    opt_state = opt.init(params)
+    opt_state = init_optimizer(opt, model)
     step0 = 0
     store = CheckpointStore(ckpt_dir) if ckpt_dir else None
     if store is not None:
@@ -76,6 +85,9 @@ def train(arch: str, *, reduced: bool = True, steps: int = 50,
     for step in range(step0, steps):
         b = next(data)
         batch_dev = {k: torch.as_tensor(v, device=dev) for k, v in b.items()}
+        if cfg.family == "vlm":
+            batch_dev["patch_embeds"] = torch.zeros(
+                (batch, cfg.patch_tokens, cfg.d_model), device=dev)
         model, opt_state, loss = step_fn(model, opt_state, batch_dev)
         losses.append(float(loss))
         if step % log_every == 0:

@@ -9,6 +9,10 @@ whole sequence (a prefill, a training step) goes through
 ``kernels/flash::flash_attention`` (K2, and K2' for its gradient).
 ``chunked_linear_scan`` waits for the Mamba family (ROADMAP Queue 1 item
 10).
+
+:func:`nest_layers` and :func:`lookup` carry a model's named tensors
+(``layers.<i>.<name>``) to and from the reference's layout, where each
+per-layer tensor is stacked over the layers on a leading ``L`` axis.
 """
 
 from __future__ import annotations
@@ -27,14 +31,16 @@ from torch.utils import checkpoint as torch_checkpoint
 class ArchConfig:
     """The fields of the reference's config that the ported families
     (``ssm``: RWKV6; ``dense``: the decoder-only transformer, with its QKV
-    biases, GELU MLP, untied head and sliding window) read, under the
-    reference's names and with its defaults; the other families' fields
-    come with the slice that first reads them (ROADMAP Queue 1 item 10).
+    biases, GELU MLP, untied head and sliding window; ``moe``: the same
+    with a mixture-of-experts FFN; ``vlm``: the transformer with patch
+    embeddings prepended) read, under the reference's names and with its
+    defaults; the other families' fields (hybrid, audio) come with the
+    slice that first reads them (ROADMAP Queue 1 item 10).
     The reference's ``use_pallas`` switch has no counterpart: in the port
     the tensor's device picks the route (the kernel on CUDA, its plain
     version on the CPU)."""
     name: str
-    family: str                   # "ssm" or "dense" are ported
+    family: str                   # "ssm", "dense", "moe", "vlm" are ported
     num_layers: int
     d_model: int
     d_ff: int
@@ -47,6 +53,14 @@ class ArchConfig:
     attn_out_bias: bool = False   # declared, never read (as the reference)
     tie_embeddings: bool = False
     ffn_mult: int = 3             # 3 = SwiGLU, 2 = plain GELU MLP
+    # MoE
+    moe_experts: int = 0
+    moe_top_k: int = 0
+    moe_every: int = 1            # see is_moe_layer
+    capacity_factor: float = 1.25
+    moe_ff_chunks: int = 1        # the expert FFN in this many ff slices
+    # vlm
+    patch_tokens: int = 0         # stub ViT patch embeddings, prepended
     use_rope: bool = True
     rope_theta: float = 1e6
     attn_chunk: int = 1024        # the reference's full/chunked switch;
@@ -67,6 +81,50 @@ class ArchConfig:
     @property
     def q_per_kv(self) -> int:
         return self.n_heads // self.n_kv
+
+    def is_moe_layer(self, i: int) -> bool:
+        """The reference's test, which its profile reads; its model (and
+        the port's) puts experts in every layer once ``moe_experts`` > 0,
+        whatever ``moe_every`` says (ROADMAP Queue 3)."""
+        return self.moe_experts > 0 and \
+            (i % self.moe_every) == (self.moe_every - 1)
+
+
+def nest_layers(named: dict, stack) -> dict:
+    """A model's named tensors (``embed``, ``layers.<i>.<name>``,
+    ``layers.<i>.moe.<name>``, ...) -> the reference's tree: top-level
+    names as they are, each per-layer name nested by its dots under
+    ``"layers"`` and stacked over the layers in order with ``stack`` (a
+    list -> tensor function: ``torch.stack``, ``np.stack``)."""
+    tree, per_layer = {}, {}
+    for name, t in named.items():
+        parts = name.split(".")
+        if parts[0] == "layers":
+            per_layer.setdefault(tuple(parts[2:]), []).append(t)
+        else:
+            tree[name] = t
+    layers = {}
+    for path, ts in per_layer.items():
+        node = layers
+        for key in path[:-1]:
+            node = node.setdefault(key, {})
+        node[path[-1]] = stack(ts)
+    if layers:
+        tree["layers"] = layers
+    return tree
+
+
+def lookup(tree: dict, name: str):
+    """The entry of the reference's tree holding the named tensor ``name``
+    (:func:`nest_layers`' layout): ``layers.<i>.<path>`` gives row ``i``
+    of the stacked ``tree["layers"][path]``."""
+    parts = name.split(".")
+    if parts[0] != "layers":
+        return tree[name]
+    node = tree["layers"]
+    for key in parts[2:]:
+        node = node[key]
+    return node[int(parts[1])]
 
 
 def dense_init(generator, shape, dtype, device, in_axis: int = -2):

@@ -1,0 +1,252 @@
+"""Mixture-of-Experts FFN with per-row sort-based capacity dispatch — the
+port of ``repro/models/moe.py`` (``granite-moe-3b-a800m``,
+``qwen3-moe-235b-a22b``).
+
+Routing runs per batch row, as in the reference: the router's logits
+(``x @ router`` in the compute type, then float32), a softmax, the top K
+experts of each token with their gates renormalized to sum to one
+(:func:`gates_of`), the (token, pick) pairs sorted stably by expert, each
+pair's position among its expert's pairs, and a capacity of C slots per
+expert (:func:`expert_capacity`): a pair past it is dropped (the residual
+keeps the token alive) and goes to a trash slot ``E * C``.  Inside an expert the
+pairs are in token order, so which tokens overflow depends only on each
+token's top-K set.  The kept pairs fill a dense (B, E, C, d) dispatch
+buffer; the expert SwiGLU runs on it as three batched products over the
+experts (in ``moe_ff_chunks`` slices of d_ff, accumulated in the
+reference's order, when that divides d_ff); the combine sums each token's
+kept outputs, each times its gate, in ascending expert order.
+
+The reference has two combines, a scatter over experts (S <= 8192) and a
+gather over pairs (longer rows); the gather sums in that order, the
+scatter leaves the sum over experts to XLA's reduction (an ulp apart at
+K = 8).  The port has one, :func:`combine`: each token's K pairs ordered
+by expert, gathered from the buffer and added one pick at a time, as the
+gather route — deterministic (no atomics) and O(S * K * d) in memory at
+every S.  In training the gradient reaches x through the dispatch and the
+router through the gates, as ``jax.grad`` of the reference's does.
+
+Every step is a PyTorch op: the reference reaches no Pallas kernel here.
+Its sharding hints (``_maybe_constrain``, ``_experts_shardable``, the
+``PartitionSpec`` layouts of the buffer) lay the experts out over a TPU
+mesh; one card has no counterpart, and they wait for the SPMD pipeline
+(ROADMAP Queue 1 item 11).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from .common import ArchConfig, CastCache, dense_init
+
+
+def _shapes(cfg: ArchConfig) -> dict:
+    """The MoE parameters of one layer, by shape, in the reference's
+    ``init_moe_params`` order."""
+    d, ff, E = cfg.d_model, cfg.d_ff, cfg.moe_experts
+    return {"router": (d, E), "w_gate": (E, d, ff), "w_up": (E, d, ff),
+            "w_down": (E, ff, d)}
+
+
+class MoEFFN(nn.Module):
+    """The MoE FFN of one layer: ``router`` (d, E), ``w_gate`` and
+    ``w_up`` (E, d, ff), ``w_down`` (E, ff, d), in ``cfg.param_dtype``
+    and cast to the compute type at use (see ``CastCache``)."""
+
+    def __init__(self, cfg: ArchConfig, device=None):
+        super().__init__()
+        self.cfg = cfg
+        for name, shape in _shapes(cfg).items():
+            self.register_parameter(name, nn.Parameter(torch.empty(
+                shape, dtype=cfg.param_dtype, device=device)))
+        self._cast = CastCache()
+
+    def w(self, name: str, dtype) -> torch.Tensor:
+        return self._cast.get(name, getattr(self, name), dtype)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return moe_ffn(self, x)
+
+
+def init_moe_params(moe: MoEFFN, generator: torch.Generator) -> None:
+    """The reference's initializer, drawn into ``moe`` in place: each
+    matrix a truncated normal over sqrt(fan_in) (d for the router,
+    ``w_gate`` and ``w_up``; ff for ``w_down``)."""
+    cfg = moe.cfg
+    with torch.no_grad():
+        for name, shape in _shapes(cfg).items():
+            p = getattr(moe, name)
+            p.copy_(dense_init(generator, shape, cfg.param_dtype, p.device))
+
+
+def expert_capacity(tokens_per_row: int, cfg: ArchConfig) -> int:
+    """Slots per expert: ceil(K S / E * cf) rounded up to a multiple of 4,
+    at least 4 (the reference's float expression, so the ceil lands the
+    same way)."""
+    c = math.ceil(cfg.moe_top_k * tokens_per_row / cfg.moe_experts
+                  * cfg.capacity_factor)
+    return max(4, -(-c // 4) * 4)
+
+
+@dataclasses.dataclass
+class Routing:
+    """One call's routing, per batch row.  ``idx`` / ``gates`` (B, S, K):
+    each token's top-K experts and renormalized gates (float32), in top-k
+    order.  Over the S * K (token, pick) pairs sorted stably by expert (B,
+    S * K): ``expert``, ``token``, ``gate``, ``keep`` (position < C) and
+    ``slot`` (``e * C + position``, or ``E * C`` when dropped)."""
+    idx: torch.Tensor
+    gates: torch.Tensor
+    expert: torch.Tensor
+    token: torch.Tensor
+    gate: torch.Tensor
+    keep: torch.Tensor
+    slot: torch.Tensor
+    C: int
+    E: int
+
+
+def route(logits: torch.Tensor, C: int, E: int, K: int) -> Routing:
+    """The reference's ``_route_row`` over every row: logits (B, S, E)
+    float32 -> :class:`Routing`: the top K of the softmax, their gates
+    (:func:`gates_of`), then :func:`assign`."""
+    idx = torch.topk(torch.softmax(logits, dim=-1), K, dim=-1).indices
+    return assign(idx, gates_of(logits, idx), C, E)
+
+
+def gates_of(logits: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """The gates of the picks ``idx`` (B, S, K): the softmax over the
+    picked logits.  That is the reference's top-K probabilities divided
+    by their sum (the softmax's normalizer cancels; the sum is at least
+    K / E, so its 1e-9 floor never binds), with one difference under
+    grad: the logit of an expert no token picked gets an exactly zero
+    gradient, where the reference's form leaves rounding noise.  Adafactor
+    scales each router column by its own gradient's rms, and would blow
+    that noise up to a full-size update."""
+    return torch.softmax(torch.gather(logits, -1, idx), dim=-1)
+
+
+def assign(idx: torch.Tensor, gates: torch.Tensor, C: int,
+           E: int) -> Routing:
+    """Each token's K picks ``idx`` (B, S, K) with their gates ->
+    :class:`Routing`: the pairs sorted stably by expert, each pair's
+    position in its expert, kept below C, and its slot."""
+    B, S, K = idx.shape
+    dev = idx.device
+    flat_e = idx.reshape(B, S * K)
+    flat_t = torch.arange(S, device=dev).repeat_interleave(K)
+    order = torch.argsort(flat_e, dim=-1, stable=True)
+    expert = torch.gather(flat_e, 1, order)
+    token = flat_t[order]
+    gate = torch.gather(gates.reshape(B, S * K), 1, order)
+    experts = torch.arange(E, device=dev).expand(B, E)
+    first = torch.searchsorted(expert, experts.contiguous(), side="left")
+    pos = torch.arange(S * K, device=dev) - torch.gather(first, 1, expert)
+    keep = pos < C
+    slot = torch.where(keep, expert * C + pos, E * C)
+    return Routing(idx, gates, expert, token, gate, keep, slot, C, E)
+
+
+def _rows(r: Routing) -> torch.Tensor:
+    return torch.arange(r.slot.shape[0], device=r.slot.device)[:, None]
+
+
+def dispatch(x: torch.Tensor, r: Routing):
+    """x (B, S, d) -> (buf (B, E, C, d), tok_slot (B, E, C), w_slot (B,
+    E, C)): each slot's token's row of x, its token (S where empty) and its
+    gate (float32; 0 where empty), as the reference's ``_route_row``."""
+    B, S, d = x.shape
+    EC = r.E * r.C
+    rows = _rows(r)
+    buf = x.new_zeros((B, EC + 1, d)).index_put(
+        (rows, r.slot), x[rows, r.token])
+    tok = torch.full((B, EC + 1), S, dtype=torch.int32,
+                     device=x.device).index_put(
+        (rows, r.slot), r.token.to(torch.int32))
+    w = torch.zeros((B, EC + 1), dtype=torch.float32,
+                    device=x.device).index_put((rows, r.slot),
+                                               r.gate.float())
+    return (buf[:, :-1].reshape(B, r.E, r.C, d),
+            tok[:, :-1].reshape(B, r.E, r.C), w[:, :-1].reshape(B, r.E, r.C))
+
+
+def combine(out: torch.Tensor, r: Routing) -> torch.Tensor:
+    """out (B, E, C, d) -> y (B, S, d): each token's kept outputs times
+    their gates (in out's type), summed from zero in ascending expert
+    order, one of its K picks at a time."""
+    B, E, C, d = out.shape
+    S = r.idx.shape[1]
+    K = r.idx.shape[2]
+    flat = out.reshape(B, E * C, d)
+    # the pairs in (token, expert) order: a stable sort by token keeps
+    # each token's pairs in the expert order they are sorted in
+    by_token = torch.argsort(r.token, dim=-1, stable=True)
+    slot, keep, gate = (torch.gather(a, 1, by_token).reshape(B, S, K)
+                        for a in (r.slot, r.keep, r.gate))
+    rows = torch.arange(B, device=out.device)[:, None]
+    slot = slot.clamp_max(E * C - 1)
+    y = out.new_zeros((B, S, d))
+    for k in range(K):
+        contrib = flat[rows, slot[..., k]] * gate[..., k, None].to(out.dtype)
+        y = y + torch.where(keep[..., k, None], contrib,
+                            torch.zeros((), dtype=out.dtype,
+                                        device=out.device))
+    return y
+
+
+def _experts(moe: MoEFFN, buf: torch.Tensor) -> torch.Tensor:
+    """The expert SwiGLU on the dispatch buffer (B, E, C, d), in
+    ``moe_ff_chunks`` slices of d_ff when that divides it."""
+    cfg, dt = moe.cfg, buf.dtype
+    wg, wu, wd = (moe.w(n, dt) for n in ("w_gate", "w_up", "w_down"))
+
+    def ffn(g, u, dn):
+        h = F.silu(torch.einsum("becd,edf->becf", buf, g))
+        h = h * torch.einsum("becd,edf->becf", buf, u)
+        return torch.einsum("becf,efd->becd", h, dn)
+
+    n = max(1, cfg.moe_ff_chunks)
+    if n > 1 and cfg.d_ff % n == 0:
+        f = cfg.d_ff // n
+        acc = torch.zeros_like(buf)
+        for i in range(n):
+            s = slice(i * f, (i + 1) * f)
+            acc = acc + ffn(wg[..., s], wu[..., s], wd[:, s])
+        return acc
+    return ffn(wg, wu, wd)
+
+
+def router_logits(moe: MoEFFN, x: torch.Tensor) -> torch.Tensor:
+    """x (B, S, d) -> float32 logits (B, S, E): the product in x's type,
+    as the reference's."""
+    return (x @ moe.w("router", x.dtype)).float()
+
+
+def moe_ffn(moe: MoEFFN, x: torch.Tensor) -> torch.Tensor:
+    """x (B, S, d) -> (B, S, d)."""
+    cfg = moe.cfg
+    C = expert_capacity(x.shape[1], cfg)
+    r = route(router_logits(moe, x), C, cfg.moe_experts, cfg.moe_top_k)
+    buf, _, _ = dispatch(x, r)
+    return combine(_experts(moe, buf), r)
+
+
+def aux_load_balance_loss(logits: torch.Tensor, gate_idx: torch.Tensor,
+                          cfg: ArchConfig) -> torch.Tensor:
+    """Switch-style auxiliary loss: E * sum_e (mean router probability of
+    e) * (share of the picks that went to e)."""
+    E = cfg.moe_experts
+    probs = torch.softmax(logits.float(), dim=-1)
+    me = probs.reshape(-1, E).mean(0)
+    ce = torch.bincount(gate_idx.reshape(-1), minlength=E).float()
+    ce = ce / torch.clamp_min(ce.sum(), 1.0)
+    return E * torch.sum(me * ce)
+
+
+__all__ = ["MoEFFN", "Routing", "assign", "aux_load_balance_loss", "combine",
+           "dispatch", "expert_capacity", "gates_of", "init_moe_params",
+           "moe_ffn", "route", "router_logits"]

@@ -2,7 +2,10 @@
 families ported so far (``ssm``: RWKV6, ``rwkv6-1.6b``; ``dense``: the
 decoder-only transformer, ``qwen3-0.6b``, ``llama3-8b``, ``qwen1.5-4b`` and
 ``command-r-35b``, with QKV biases, the GELU MLP, an untied head and
-sliding windows).
+sliding windows; ``moe``: the transformer with a mixture of experts,
+``granite-moe-3b-a800m`` and ``qwen3-moe-235b-a22b``; ``vlm``: the
+transformer after patch embeddings, ``internvl2-1b``, whose prefill reads
+``batch["patch_embeds"]``).
 
     api = get_model(cfg, device="cuda")
     model = api.init(generator)                         # on api.device
@@ -10,7 +13,7 @@ sliding windows).
     logits, cache = api.prefill(model, batch, cache_len)
     logits, cache = api.decode(model, cache, token, pos)
 
-The other families (MoE, hybrid, VLM, audio) are ROADMAP Queue 1 item 10.
+The other families (hybrid, audio) are ROADMAP Queue 1 item 10.
 """
 
 from __future__ import annotations
@@ -23,6 +26,7 @@ import torch
 from .._device import resolve_device
 from . import rwkv6 as rwkv_lib
 from . import transformer as tf_lib
+from . import vlm as vlm_lib
 from .common import ArchConfig
 
 
@@ -51,13 +55,22 @@ def get_model(cfg: ArchConfig, device="cuda") -> ModelAPI:
             prefill=lambda m, b, n: rwkv_lib.prefill(m, b["tokens"], n),
             decode=lambda m, c, t, pos: rwkv_lib.decode_step(m, c, t, pos),
         )
-    if cfg.family == "dense":
+    if cfg.family in ("dense", "moe"):
         return ModelAPI(
             cfg=cfg, device=dev,
             init=lambda g: tf_lib.init_params(cfg, g, dev),
             loss=tf_lib.loss_fn,
             prefill=lambda m, b, n: tf_lib.prefill(m, b["tokens"], n),
             decode=lambda m, c, t, pos: tf_lib.decode_step(m, c, t, pos),
+        )
+    if cfg.family == "vlm":
+        return ModelAPI(
+            cfg=cfg, device=dev,
+            init=lambda g: vlm_lib.init_params(cfg, g, dev),
+            loss=vlm_lib.loss_fn,
+            prefill=lambda m, b, n: vlm_lib.prefill(
+                m, b["tokens"], b["patch_embeds"], n),
+            decode=lambda m, c, t, pos: vlm_lib.decode_step(m, c, t, pos),
         )
     raise NotImplementedError(
         f"family {cfg.family!r} is not ported yet (ROADMAP Queue 1 item 10)")

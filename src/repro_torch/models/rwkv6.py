@@ -38,7 +38,7 @@ from torch import nn
 
 from ..kernels.rwkv6 import wkv6
 from .common import (ArchConfig, CastCache, cross_entropy, dense_init,
-                     embed_init, remat_wrap, rms_norm)
+                     embed_init, lookup, nest_layers, remat_wrap, rms_norm)
 
 LORA_RANK = 32
 
@@ -238,27 +238,16 @@ def params_from_jax(tree, cfg: ArchConfig, device) -> RWKV6:
         p.copy_(torch.from_numpy(np.ascontiguousarray(a, np.float32)))
 
     with torch.no_grad():
-        put(model.embed, tree["embed"])
-        put(model.final_norm, tree["final_norm"])
-        put(model.lm_head, tree["lm_head"])
-        for i, layer in enumerate(model.layers):
-            for name, p in layer.named_parameters():
-                put(p, np.asarray(tree["layers"][name])[i])
+        for name, p in model.named_parameters():
+            put(p, lookup(tree, name))
     return model
 
 
 def params_to_jax(model: RWKV6) -> dict:
     """The inverse of :func:`params_from_jax`: the reference's tree, as
     float32 numpy arrays."""
-    arr = lambda p: p.detach().float().cpu().numpy()
-    names = [n for n, _ in model.layers[0].named_parameters()]
-    return {
-        "embed": arr(model.embed),
-        "layers": {n: np.stack([arr(getattr(layer, n))
-                                for layer in model.layers]) for n in names},
-        "final_norm": arr(model.final_norm),
-        "lm_head": arr(model.lm_head),
-    }
+    return nest_layers({n: p.detach().float().cpu().numpy()
+                        for n, p in model.named_parameters()}, np.stack)
 
 
 def init_state(cfg: ArchConfig, batch: int, device) -> dict:

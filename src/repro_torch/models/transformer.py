@@ -1,6 +1,9 @@
-"""Decoder-only transformer LM, dense family — the port of
-``repro/models/transformer.py`` for the dense configs (``qwen3-0.6b``,
-``llama3-8b``, ``qwen1.5-4b``, ``command-r-35b``).
+"""Decoder-only transformer LM — the port of
+``repro/models/transformer.py``: the dense configs (``qwen3-0.6b``,
+``llama3-8b``, ``qwen1.5-4b``, ``command-r-35b``), the MoE configs
+(``granite-moe-3b-a800m``, ``qwen3-moe-235b-a22b``: experts in every
+layer) and the LM backbone of the VLM (``internvl2-1b``, with patch
+embeddings prepended by ``models/vlm.py``).
 
 Per layer (the reference's ``block_fwd``):
 
@@ -8,12 +11,15 @@ Per layer (the reference's ``block_fwd``):
     q, k = rms_norm(q), rms_norm(k)                   (qk-norm, per head)
     q, k = rope(q), rope(k)
     x = x + attention(q, k, v) Wo
-    x = x + MLP(rms_norm(x))
+    x = x + FFN(rms_norm(x))
 
 with the reference's options: QKV biases (``qkv_bias``, added in the
-compute type before the per-head reshape), the MLP SwiGLU (``ffn_mult``
-3) or the two-matrix GELU MLP with biases (any other ``ffn_mult``, as in
-the reference), and a sliding attention window (``sliding_window`` > 0).
+compute type before the per-head reshape), the FFN a SwiGLU
+(``ffn_mult`` 3), the two-matrix GELU MLP with biases (any other
+``ffn_mult``, as in the reference) or, once ``moe_experts`` > 0, the
+mixture of experts of ``models/moe.py`` in every layer (a ``moe``
+submodule; the reference's model, too, leaves ``moe_every`` to its
+profile), and a sliding attention window (``sliding_window`` > 0).
 
 A prefill's attention, at every prompt length, goes through
 ``kernels/flash::flash_attention`` (K2: the hand-written kernel on a CUDA
@@ -27,21 +33,27 @@ plain ``decode_attention`` over the whole cache, as in the reference,
 which leaves the window out there too (``ROADMAP.md`` Queue 3, deliberate
 differences: the port keeps the reference's behaviour).
 
+Patch embeddings (``extra_embeds``, (B, P, d)), cast to the compute type,
+are prepended to the token embeddings by :func:`forward_hidden` and
+:func:`prefill`, as the reference's ``_embed`` does; :func:`loss_fn` reads
+them from ``batch["patch_embeds"]`` and leaves their P positions out of
+the loss.
+
 Training (:func:`forward_hidden`, :func:`loss_fn`, the reference's
 ``forward_hidden`` / ``loss_fn``) runs the same layers from position 0
 with grad: each layer under ``remat_wrap(cfg.remat)``, attention through
 ``flash_attention``'s autograd route (K2 forward, K2' backward, on CUDA).
 
 Each layer is a :class:`TransformerLayer` module holding the reference's
-per-layer parameters under the reference's names, matrices in its ``(in,
-out)`` orientation (used as ``x @ W``).  Parameters live in
-``cfg.param_dtype`` and are cast to the compute type at use (outside
-autograd the cast is kept until the parameter changes, see
+per-layer parameters under the reference's names (the experts under
+``moe.``), matrices in its ``(in, out)`` orientation (used as ``x @ W``).
+Parameters live in ``cfg.param_dtype`` and are cast to the compute type at
+use (outside autograd the cast is kept until the parameter changes, see
 ``CastCache``); the inference entry points :func:`prefill` and
 :func:`decode_step` run without autograd.  The head is the embedding
 transposed when ``tie_embeddings``, else its own ``lm_head`` of shape (d,
 vocab).  ``attn_out_bias`` is carried and, as in the reference, never read.
-Other families (MoE, VLM, ...) raise (ROADMAP Queue 1 item 10).
+The hybrid and audio families raise (ROADMAP Queue 1 item 10).
 """
 
 from __future__ import annotations
@@ -54,9 +66,13 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..kernels.flash import flash_attention
+from . import moe as moe_lib
 from .common import (ArchConfig, CastCache, apply_rope, cross_entropy,
                      decode_attention, dense_init, embed_init, gelu_mlp,
-                     remat_wrap, rms_norm, rope_cos_sin)
+                     lookup, nest_layers, remat_wrap, rms_norm, rope_cos_sin)
+
+#: the families this module builds
+FAMILIES = ("dense", "moe", "vlm")
 
 
 def _swiglu(cfg: ArchConfig) -> bool:
@@ -66,11 +82,14 @@ def _swiglu(cfg: ArchConfig) -> bool:
 
 
 def _matrices(cfg: ArchConfig) -> dict:
-    """The per-layer matrices of the reference, by shape."""
+    """The per-layer matrices of the reference, by shape (the experts'
+    are ``moe_lib.MoEFFN``'s)."""
     d, hd, ff = cfg.d_model, cfg.head_dim, cfg.d_ff
     H, KV = cfg.n_heads, cfg.n_kv
     out = {"wq": (d, H * hd), "wk": (d, KV * hd), "wv": (d, KV * hd),
            "wo": (H * hd, d)}
+    if cfg.moe_experts > 0:
+        return out
     if _swiglu(cfg):
         out["w_gate"] = (d, ff)
     out.update(w_up=(d, ff), w_down=(ff, d))
@@ -93,18 +112,19 @@ def _biases(cfg: ArchConfig) -> dict:
     out = {}
     if cfg.qkv_bias:
         out.update(bq=(H * hd,), bk=(KV * hd,), bv=(KV * hd,))
-    if not _swiglu(cfg):
+    if not _swiglu(cfg) and cfg.moe_experts == 0:
         out.update(b_up=(cfg.d_ff,), b_down=(cfg.d_model,))
     return out
 
 
 def check_config(cfg: ArchConfig) -> None:
     """Raise for a config this module does not build: every option of the
-    reference's dense family is ported; the other families are not."""
-    if cfg.family != "dense":
+    reference's dense, MoE and VLM families is ported; the hybrid and audio
+    families are not."""
+    if cfg.family not in FAMILIES:
         raise NotImplementedError(
             f"family {cfg.family!r} is not ported yet (ROADMAP Queue 1 item "
-            "10); the transformer builds the dense family")
+            f"10); the transformer builds {', '.join(FAMILIES)}")
 
 
 class TransformerLayer(nn.Module):
@@ -117,6 +137,8 @@ class TransformerLayer(nn.Module):
                             **_matrices(cfg)}.items():
             self.register_parameter(name, nn.Parameter(torch.empty(
                 shape, dtype=cfg.param_dtype, device=device)))
+        if cfg.moe_experts > 0:
+            self.moe = moe_lib.MoEFFN(cfg, device)
         self._cast = CastCache()
 
     def w(self, name: str, dtype) -> torch.Tensor:
@@ -145,6 +167,8 @@ class TransformerLayer(nn.Module):
 
     def _ffn(self, h):
         dt = h.dtype
+        if self.cfg.moe_experts > 0:
+            return self.moe(h)
         if _swiglu(self.cfg):
             h = F.silu(h @ self.w("w_gate", dt)) * (h @ self.w("w_up", dt))
             return h @ self.w("w_down", dt)
@@ -202,10 +226,14 @@ class Transformer(nn.Module):
                                                     device=device))
         self._cast = CastCache()
 
-    def embed_tokens(self, tokens) -> torch.Tensor:
+    def embed_tokens(self, tokens, extra_embeds=None) -> torch.Tensor:
         """The reference's ``_embed``: rows of the table in the compute
-        type."""
-        return self.embed[tokens.long()].to(self.cfg.compute_dtype)
+        type, after ``extra_embeds`` (B, P, d) in it when given."""
+        x = self.embed[tokens.long()].to(self.cfg.compute_dtype)
+        if extra_embeds is None:
+            return x
+        extra = torch.as_tensor(extra_embeds, device=x.device)
+        return torch.cat([extra.to(x.dtype), x], dim=1)
 
     def logits(self, x) -> torch.Tensor:
         """The reference's ``_unembed``: the final norm, then the tied head
@@ -241,6 +269,8 @@ def init_params(cfg: ArchConfig, generator: torch.Generator,
             for name, shape in _matrices(cfg).items():
                 getattr(layer, name).copy_(
                     dense_init(generator, shape, pd, device))
+            if cfg.moe_experts > 0:
+                moe_lib.init_moe_params(layer.moe, generator)
         model.final_norm.fill_(1.0)
         if not cfg.tie_embeddings:
             model.lm_head.copy_(dense_init(generator, (cfg.d_model,
@@ -258,30 +288,16 @@ def params_from_jax(tree, cfg: ArchConfig, device) -> Transformer:
         p.copy_(torch.from_numpy(np.ascontiguousarray(a, np.float32)))
 
     with torch.no_grad():
-        put(model.embed, tree["embed"])
-        put(model.final_norm, tree["final_norm"])
-        if not cfg.tie_embeddings:
-            put(model.lm_head, tree["lm_head"])
-        for i, layer in enumerate(model.layers):
-            for name, p in layer.named_parameters():
-                put(p, np.asarray(tree["layers"][name])[i])
+        for name, p in model.named_parameters():
+            put(p, lookup(tree, name))
     return model
 
 
 def params_to_jax(model: Transformer) -> dict:
     """The inverse of :func:`params_from_jax`: the reference's tree, as
-    float32 numpy arrays."""
-    arr = lambda p: p.detach().float().cpu().numpy()
-    names = [n for n, _ in model.layers[0].named_parameters()]
-    tree = {
-        "embed": arr(model.embed),
-        "layers": {n: np.stack([arr(getattr(layer, n))
-                                for layer in model.layers]) for n in names},
-        "final_norm": arr(model.final_norm),
-    }
-    if not model.cfg.tie_embeddings:
-        tree["lm_head"] = arr(model.lm_head)
-    return tree
+    float32 numpy arrays (the experts under ``layers["moe"]``)."""
+    return nest_layers({n: p.detach().float().cpu().numpy()
+                        for n, p in model.named_parameters()}, np.stack)
 
 
 def make_cache(cfg: ArchConfig, batch: int, cache_len: int, device,
@@ -298,10 +314,12 @@ def _layer_train(layer, x, cos, sin):
     return layer(x, cos, sin)[0]
 
 
-def forward_hidden(model: Transformer, tokens) -> torch.Tensor:
-    """Token ids (B, S) -> final hidden states (B, S, d), every layer under
+def forward_hidden(model: Transformer, tokens,
+                   extra_embeds=None) -> torch.Tensor:
+    """Token ids (B, S) -> final hidden states (B, P + S, d), after the P
+    ``extra_embeds`` when given, every layer under
     ``remat_wrap(cfg.remat)``; differentiable (the training forward)."""
-    x = model.embed_tokens(tokens)
+    x = model.embed_tokens(tokens, extra_embeds)
     cos, sin = model.rope(torch.arange(x.shape[1], device=x.device))
     for layer in model.layers:
         x = remat_wrap(functools.partial(_layer_train, layer),
@@ -311,21 +329,27 @@ def forward_hidden(model: Transformer, tokens) -> torch.Tensor:
 
 def loss_fn(model: Transformer, batch: dict) -> torch.Tensor:
     """Mean next-token cross entropy of ``batch`` ({tokens, labels}, (B, S)
-    each, tensors or arrays) — the reference's ``loss_fn``."""
+    each, tensors or arrays; and ``patch_embeds`` (B, P, d), whose
+    positions the loss leaves out) — the reference's ``loss_fn``."""
     dev = model.embed.device
-    x = forward_hidden(model, torch.as_tensor(batch["tokens"], device=dev))
+    patches = batch.get("patch_embeds")
+    x = forward_hidden(model, torch.as_tensor(batch["tokens"], device=dev),
+                       patches)
+    if patches is not None:
+        x = x[:, patches.shape[1]:]
     return cross_entropy(model.logits(x),
                          torch.as_tensor(batch["labels"], device=dev))
 
 
 @torch.no_grad()
-def prefill(model: Transformer, tokens, cache_len: int):
-    """Run the whole prompt from position 0, build the KV cache; returns
-    (last-position logits (B, 1, V), cache)."""
-    x = model.embed_tokens(tokens)
+def prefill(model: Transformer, tokens, cache_len: int, extra_embeds=None):
+    """Run the whole prompt (after the P ``extra_embeds``, when given) from
+    position 0, build the KV cache; returns (last-position logits (B, 1,
+    V), cache).  The prompt's P + S positions must fit ``cache_len``."""
+    x = model.embed_tokens(tokens, extra_embeds)
     B, S = x.shape[:2]
     if S > cache_len:
-        raise ValueError(f"a {S}-token prompt does not fit a cache of "
+        raise ValueError(f"a {S}-position prompt does not fit a cache of "
                          f"{cache_len}")
     cos, sin = model.rope(torch.arange(S, device=x.device))
     cache = make_cache(model.cfg, B, cache_len, x.device)

@@ -21,6 +21,12 @@ returns the same trees, so the caller's modules see the step.  The state is
 a dict of tensors (the step count a 0-d int32 tensor), which
 ``checkpoint/store.py`` saves as it is.  Moments live in the parameters'
 type (Adafactor's in float32).
+
+SGD, momentum and AdamW are elementwise: how the parameters are grouped
+into leaves changes no bit of their update.  Adafactor is not: it factors
+every leaf of two or more dimensions and clips by the rms of the whole
+leaf, so the caller hands it the reference's leaves (``elementwise`` is
+False; ``launch/steps.py::optimizer_tree``).
 """
 
 from __future__ import annotations
@@ -39,6 +45,7 @@ class Optimizer:
     init: Callable            # params -> opt_state
     update: Callable          # (params, grads, opt_state) -> (params, state)
     state_bytes_per_param: float
+    elementwise: bool = True  # the update of each entry reads only it
 
 
 def _tree_zeros(params):
@@ -147,7 +154,7 @@ def adafactor(lr: float = 1e-3, decay: float = 0.8, eps: float = 1e-30,
             p.copy_(p - lr * u)
         return params, {"f": state["f"], "t": t}
 
-    return Optimizer("adafactor", init, update, 0.1)
+    return Optimizer("adafactor", init, update, 0.1, elementwise=False)
 
 
 _FACTORIES = {"sgd": sgd, "momentum": momentum, "adamw": adamw,

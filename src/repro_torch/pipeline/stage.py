@@ -25,6 +25,7 @@ from .._device import resolve_device
 from ..models import transformer as tf_lib
 from ..models import vgg as vgg_lib
 from ..models.common import ArchConfig, remat_wrap, rope_cos_sin
+from ..utils.treemath import tree_map
 
 # ---------------------------------------------------------------------------
 # VGG (list-per-layer) stages — the paper's edge-SL submodels
@@ -81,20 +82,33 @@ def _spans(cuts: Sequence[int]) -> list:
 # ---------------------------------------------------------------------------
 
 def stack_stage_params(layer_params: dict, num_stages: int) -> dict:
-    """(L, ...) stacked layers -> (num_stages, L / num_stages, ...)."""
+    """(L, ...) stacked layers -> (num_stages, L / num_stages, ...), over
+    every leaf of the (possibly nested: ``"moe"``) dict."""
     def resh(x):
         L = x.shape[0]
         if L % num_stages:
             raise ValueError(f"{L} layers do not split into {num_stages} "
                              "stages")
         return x.reshape((num_stages, L // num_stages) + tuple(x.shape[1:]))
-    return {k: resh(v) for k, v in layer_params.items()}
+    return tree_map(resh, layer_params)
 
 
 def unstack_stage_params(stage_params: dict) -> dict:
     """The inverse of :func:`stack_stage_params`."""
-    return {k: x.reshape((x.shape[0] * x.shape[1],) + tuple(x.shape[2:]))
-            for k, x in stage_params.items()}
+    return tree_map(lambda x: x.reshape((x.shape[0] * x.shape[1],)
+                                        + tuple(x.shape[2:])), stage_params)
+
+
+def _named(tree: dict, prefix: str = "") -> dict:
+    """A nested dict of tensors -> {dotted name: tensor}, the names
+    ``named_parameters`` gives a layer's parameters (``moe.router``)."""
+    out = {}
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            out.update(_named(v, f"{prefix}{k}."))
+        else:
+            out[prefix + k] = v
+    return out
 
 
 def _block(layer, cfg, params, x):
@@ -110,14 +124,16 @@ def transformer_stage_fn(cfg: ArchConfig):
     :class:`~repro_torch.models.transformer.TransformerLayer`s, from
     position 0, each under ``remat_wrap(cfg.remat)``: ``stage_layers`` is a
     dict of (n, ...) stacked tensors (a slice of
-    :func:`stack_stage_params`), x is (B, S, d)."""
+    :func:`stack_stage_params`, the experts nested under ``"moe"``), x is
+    (B, S, d)."""
     layer = tf_lib.TransformerLayer(cfg, device="meta")
     body = remat_wrap(functools.partial(_block, layer, cfg), cfg.remat)
 
     def stage_fn(stage_layers: dict, x: torch.Tensor) -> torch.Tensor:
-        n = next(iter(stage_layers.values())).shape[0]
+        named = _named(stage_layers)
+        n = next(iter(named.values())).shape[0]
         for i in range(n):
-            x = body({k: v[i] for k, v in stage_layers.items()}, x)
+            x = body({k: v[i] for k, v in named.items()}, x)
         return x
 
     return stage_fn

@@ -42,7 +42,7 @@ from repro.models import transformer as R
 
 from repro_torch.configs import get_config
 from repro_torch.models import transformer
-from repro_torch.models.common import gelu_mlp, layer_norm
+from repro_torch.models.common import gelu_mlp, layer_norm, nest_layers
 
 TOL = 1e-4
 LOSS_RTOL = 1e-5
@@ -152,13 +152,10 @@ def check_serving(rcfg, pcfg, tree, prompt=PROMPT, cache_len=CACHE,
 
 
 def port_grads(model) -> dict:
-    """The model's gradients in the reference's tree layout."""
-    out = {n: p.grad.numpy() for n, p in model.named_parameters()
-           if not n.startswith("layers.")}
-    names = [n for n, _ in model.layers[0].named_parameters()]
-    out["layers"] = {n: np.stack([getattr(layer, n).grad.numpy()
-                                  for layer in model.layers]) for n in names}
-    return out
+    """The model's gradients in the reference's tree layout (the experts'
+    nested under ``layers["moe"]``)."""
+    return nest_layers({n: p.grad.numpy()
+                        for n, p in model.named_parameters()}, np.stack)
 
 
 def check_training(rcfg, pcfg, tree, S=32, seed=5):

@@ -316,8 +316,8 @@ def test_init_params_is_seeded_and_shaped_like_reference():
 
 def test_unported_configs_and_families_raise():
     with pytest.raises(NotImplementedError, match="Queue 1 item 10"):
-        get_config("qwen3-moe-235b-a22b")
-    for family in ("moe", "hybrid"):
+        get_config("jamba-1.5-large-398b")
+    for family in ("hybrid", "audio"):
         cfg = dataclasses.replace(get_config("rwkv6-1.6b", reduced=True),
                                   family=family)
         with pytest.raises(NotImplementedError, match="Queue 1 item 10"):

@@ -320,23 +320,37 @@ def test_unported_options_raise(change):
     """The three dense options this test once pinned as unported are
     ported: each builds and runs (prefill, a decode step, the loss with
     its gradients; ``tests/test_torch_dense_options.py`` holds them to the
-    reference).  A family still unported raises, naming its queue item."""
+    reference).  So are the MoE and VLM families it once pinned
+    (``tests/test_torch_moe_models.py`` and ``tests/test_torch_vlm.py``
+    hold them to the reference).  A family still unported (hybrid, audio)
+    raises, naming its queue item."""
     base = get_config("qwen3-0.6b", reduced=True)
     cfg = dataclasses.replace(base, **change)
-    api = get_model(cfg, device="cpu")
-    model = api.init(torch.Generator().manual_seed(0))
-    names = {n for n, _ in model.named_parameters()}
-    assert ("lm_head" in names) == (not cfg.tie_embeddings)
-    assert ("layers.0.b_up" in names) == (cfg.ffn_mult != 3)
-    tokens = torch.from_numpy(tokens_of(PROMPT))
-    logits, cache = api.prefill(model, {"tokens": tokens}, CACHE)
-    logits_d, _ = api.decode(model, cache, tokens[:, :1], PROMPT)
-    loss = api.loss(model, {"tokens": tokens, "labels": tokens})
-    grads = torch.autograd.grad(loss, list(model.parameters()))
-    assert logits.shape == logits_d.shape == (2, 1, cfg.vocab)
-    assert all(torch.isfinite(t).all() for t in (logits, logits_d, loss))
-    assert all(torch.isfinite(g).all() for g in grads)
-    for family in ("moe", "vlm"):
+    runs = {"dense": cfg,
+            "moe": get_config("granite-moe-3b-a800m", reduced=True),
+            "vlm": get_config("internvl2-1b", reduced=True)}
+    for family, run in runs.items():
+        api = get_model(run, device="cpu")
+        model = api.init(torch.Generator().manual_seed(0))
+        names = {n for n, _ in model.named_parameters()}
+        assert ("lm_head" in names) == (not run.tie_embeddings)
+        assert ("layers.0.b_up" in names) == (run.ffn_mult != 3)
+        assert ("layers.0.moe.router" in names) == (family == "moe")
+        tokens = torch.from_numpy(tokens_of(PROMPT) % run.vocab)
+        batch = {"tokens": tokens, "labels": tokens}
+        if family == "vlm":
+            batch["patch_embeds"] = torch.randn(
+                (2, run.patch_tokens, run.d_model),
+                generator=torch.Generator().manual_seed(1))
+        logits, cache = api.prefill(model, batch, CACHE + run.patch_tokens)
+        logits_d, _ = api.decode(model, cache, tokens[:, :1],
+                                 PROMPT + run.patch_tokens)
+        loss = api.loss(model, batch)
+        grads = torch.autograd.grad(loss, list(model.parameters()))
+        assert logits.shape == logits_d.shape == (2, 1, run.vocab), family
+        assert all(torch.isfinite(t).all() for t in (logits, logits_d, loss))
+        assert all(torch.isfinite(g).all() for g in grads)
+    for family in ("hybrid", "audio"):
         with pytest.raises(NotImplementedError, match="Queue 1 item 10"):
             get_model(dataclasses.replace(cfg, family=family), device="cpu")
         with pytest.raises(NotImplementedError, match="Queue 1 item 10"):
