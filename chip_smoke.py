@@ -3,10 +3,11 @@
     python3 chip_smoke.py
 
 Runs the paper's plan-and-train loop, the RWKV6 server and the Qwen3
-server, trains both language models, serves the dense configs with their
-options (QKV biases, the GELU MLP, an untied head, sliding windows), and
-the MoE configs and the VLM backbone, through ``repro_torch`` on the card,
-in phases; any failure raises and exits non-zero:
+server, trains both language models, and serves the dense configs with
+their options (QKV biases, the GELU MLP, an untied head, sliding windows),
+the MoE configs, the VLM backbone and the hybrid and audio families,
+through ``repro_torch`` on the card, in phases; any failure raises and
+exits non-zero:
 
   1. device  require CUDA; print the card's name and power limit
   2. build   build K1 (min-plus), K3 (WKV6), K2 (flash), K2' (flash
@@ -231,21 +232,23 @@ in phases; any failure raises and exits non-zero:
              micro-batches of 1 x 256 tokens (K2 / K2' launched layers x
              micro-batches times), within 1e-3 of each tensor's largest
              magnitude
- 21. serve   BatchedServer("qwen1.5-4b") and ("llama3-8b"), reduced=False:
-             full width and depth; ("command-r-35b", num_layers=8): full
-             width, 8 of 40 layers (40 in f32 are ~121 GB); f32 params,
-             bf16 compute, batch 4, cache_len 1024, 8 requests of 512
-             prompt tokens and 32 new tokens each; K2 launched 8 x layers
-             times (320, 256, 64); prefill ms per request, decode tokens/s,
-             peak device memory; each model freed before the next
+ 21. serve   BatchedServer("qwen1.5-4b"), ("llama3-8b") and
+             ("command-r-35b"), reduced=False, num_layers=8: full width, 8
+             of 40 / 32 / 40 layers (command-r's 40 in f32 are ~121 GB; the
+             others are cut for the run's time); f32 params, bf16 compute,
+             batch 4, cache_len 1024, 8 requests of 512 prompt tokens and
+             32 new tokens each; K2 launched 8 x 8 = 64 times each; prefill
+             ms per request, decode tokens/s, peak device memory; each
+             model freed before the next
  22. moe k2  K2 (f32 2e-5, bf16 2e-2) and K2' (bf16, batch 4, 3e-2)
              against their plain versions at the layer shapes of
              granite-moe-3b (24 / 8 heads of 64), qwen3-moe-235b (64 / 4 of
              128) and internvl2-1b (14 / 2 of 64, 256 patches + 512
              tokens); K2 timed there and at phase 21's dense serving layers
              (20 / 20, 32 / 8, 64 / 8 of 128) by CUDA events and the
-             profiler's device time beside the bound, the plain version and
-             scaled_dot_product_attention
+             profiler's device time in turns with
+             scaled_dot_product_attention, beside the bound and the plain
+             version
  23. moe     a 2-layer granite-moe-3b and internvl2-1b and a 1-layer
              qwen3-moe-235b at full width in f32 (TF32 off): a 512-token
              prefill (internvl2-1b's after 256 seeded patch embeddings) on
@@ -258,11 +261,44 @@ in phases; any failure raises and exits non-zero:
              differing token must sit at a near-tie (K-th and (K+1)-th
              probabilities within 1e-5) and then takes the card's picks,
              so every output stays compared; counted and printed
- 24. serve   BatchedServer at full width: granite-moe-3b-a800m and
-             internvl2-1b at full depth, qwen3-moe-235b-a22b at 4 of its 94
-             layers (94 in f32 are ~940 GB); as phase 21 (8 requests of 512
-             prompt tokens, internvl2-1b's after zero patch embeddings, 32
-             new tokens each); K2 launched 8 x layers times (256, 192, 32)
+ 24. serve   BatchedServer at full width: granite-moe-3b-a800m at 8 of
+             its 32 layers (for the run's time), internvl2-1b at full
+             depth, qwen3-moe-235b-a22b at 4 of its 94 layers (94 in f32 are
+             ~940 GB); as phase 21 (8 requests of 512 prompt tokens,
+             internvl2-1b's after zero patch embeddings, 32 new tokens
+             each); K2 launched 8 x layers times (64, 192, 32)
+ 25. hybrid/audio  whisper-small at full size (12 + 12 layers, 1500
+             frames) and jamba-1.5-large at full width cut to one period of
+             2 layers (a Mamba + SwiGLU and an attention + MoE slot) with 4
+             of its 16 experts, in f32 (TF32 off): a prefill (whisper: 1500
+             seeded frames and 64 tokens; jamba: 256 tokens) on cuda (K2)
+             against the CPU on the logits, every cache entry (k / v, xk /
+             xv, each Mamba slot's conv and ssm states) and whisper's
+             encoder output; 32 decode steps against the logits of the
+             longer sequence on the card (2e-3; jamba's experts then hold
+             every token, as a one-token decode step's do); the loss and
+             every gradient over 2 micro-batches of 1 x 64 (whisper) and
+             1 x 128 (jamba) tokens, K2 / K2' launched (12 + 2 x 12) and 1
+             times a micro-batch; all within 1e-3 of each tensor's largest
+             magnitude, every MoE call's routing held to the card's
+ 26. ha k2   K2 (f32 2e-5, bf16 2e-2) and K2' and K2's lse (1e-4, 3e-2)
+             against their plain versions without the causal mask at
+             whisper's encoder (1500 x 1500, 12 heads of 64) and cross
+             (64 x 1500) layers and a ragged (2, 77, 131, 4, 2, 16) shape,
+             and at jamba's attention layer (512, 64 / 8 heads of 128,
+             causal); no NaN; K2 and K2' at the encoder and cross shapes
+             timed by the profiler's device time in turns with
+             scaled_dot_product_attention and its backward (kernel, SDPA,
+             SDPA, kernel), beside the bound, the plain version and (K2)
+             CUDA events
+ 27. serve   BatchedServer at full width: whisper-small (reduced=False; 8
+             requests of 64 prompt tokens after zero frames and 64 new
+             tokens, cache_len 448: K2 launched 8 x 36 = 288 times) and
+             jamba at the 2-layer period with all 16 experts (8 requests of
+             512 prompt tokens and 32 new, cache_len 1024: K2 launched 8
+             times); f32 params, bf16 compute, batch 4; prefill ms per
+             request, decode tokens/s, peak device memory; each model
+             freed before the next
 
 A line ``{"sim": ..., "card": ...}`` carries phase 4d's walls, device busy
 times and peak memory; ``{"robust": ..., "card": ...}`` phase 4e's walls,
@@ -270,7 +306,8 @@ gaps, picks and K1 launches; ``{"train": ..., "card": ...}`` phases 17
 and 18's gaps, losses, step times, memory, idle shares and launches;
 ``{"dense": ..., "card": ...}`` phases 19-21's errors, windowed times,
 gaps, serving numbers and launches; ``{"moe": ..., "card": ...}`` phases
-22-24's errors, times, routing counts, gaps, serving numbers and launches.
+22-24's errors, times, routing counts, gaps, serving numbers and launches;
+``{"hybrid_audio": ..., "card": ...}`` phases 25-27's.
 The next-to-last line is a JSON object with the kernels' measurements;
 the last is ``{"ok": true, "device": {...}}``.
 Imports nothing of JAX or of the JAX package ``repro``.
@@ -280,6 +317,7 @@ Imports nothing of JAX or of the JAX package ``repro``.
     python3 chip_smoke.py --grads
     python3 chip_smoke.py --dense
     python3 chip_smoke.py --moe
+    python3 chip_smoke.py --hybrid-audio
 
 only time K1 (its six phase-3 shapes, both modes, by CUDA events, the
 profiler's device time and the host's time per call, and the planner's wall
@@ -289,7 +327,8 @@ at every tile) or K3
 (phase 7's timings), with this checkout's ``repro_torch`` or another's, to
 compare two versions of a kernel in one run; ``--grads`` builds and checks
 K2' and K3' alone (phases 14-16); ``--dense`` builds K2 and K2' and runs
-phases 19-21 alone, ``--moe`` phases 22-24.
+phases 19-21 alone, ``--moe`` phases 22-24, ``--hybrid-audio`` phases
+25-27.
 """
 
 from __future__ import annotations
@@ -354,6 +393,22 @@ SERVED_FLASH = (1, 512, 512, 16, 8, 128, True)
 LONG_FLASH = (1, 2048, 2048, 16, 8, 128, True)
 
 
+#: each phase of the full run: its label -> the perf_counter at its start
+PHASE_STARTS = {}
+
+
+def mark_phase(label):
+    PHASE_STARTS[label] = time.perf_counter()
+
+
+def phase_walls() -> dict:
+    """Seconds from each marked phase's start to the next's (the last's
+    to now)."""
+    labels = list(PHASE_STARTS)
+    ends = [PHASE_STARTS[k] for k in labels[1:]] + [time.perf_counter()]
+    return {k: round(e - PHASE_STARTS[k], 1) for k, e in zip(labels, ends)}
+
+
 def log(*args):
     print(*args, flush=True)
 
@@ -382,25 +437,35 @@ PROFILE_PAD_S = 0.02
 #: profiled sessions per ``device_ms`` call before CUDA events are used
 PROFILE_TRIES = 4
 #: device_ms calls, extra sessions run, and calls timed by CUDA events
-PROFILER_STATS = {"calls": 0, "retried_sessions": 0, "event_fallbacks": 0}
+PROFILER_STATS = {"calls": 0, "retried_sessions": 0, "lossy_sessions": 0,
+                  "event_fallbacks": 0}
 
 
 def device_ms(fn, reps: int = 50, host_events: bool = True,
-              split: dict = None) -> float:
+              split: dict = None, counts: dict = None,
+              whole_calls: bool = False) -> float:
     """Mean device time per call of the kernels ``fn`` launches: the CUDA
     kernel events of ``torch.profiler`` over ``reps`` calls, summed.  Unlike
     ``cuda_ms`` it leaves out the gaps in which the device waits for the
     host to dispatch the next launch.  ``host_events=False`` traces the
     device alone (a run of ~10^5 launches, whose host events would take the
     profiler longer to collect than the run).  A ``split`` dict receives
-    each kernel's share, {kernel name: ms per call}.
+    each kernel's share, {kernel name: ms per call}; a ``counts`` dict
+    the number of its events per call, {kernel name: events / reps} (1 for
+    a kernel launched once a call, unless the profiler lost events).
 
     A short session (50 launches of one 0.01 ms kernel and nothing else)
-    can come back with no device event at all.  Each session is padded
-    with idle time on both sides, one that saw no device time is run
-    again, and after ``PROFILE_TRIES`` such sessions the time is the CUDA
-    events' (``cuda_ms``).  Retries and fallbacks are logged and counted
-    in ``PROFILER_STATS``, which the run prints."""
+    can come back with no device event at all, and in a long run a
+    session can lose some of its events (a third of the backward K2'
+    kernels' in one full run, up to 42 of 50 launches late in another),
+    which reads as a shorter time.  Each session is padded with idle time
+    on both sides; one that saw no device time is run again, and with
+    ``whole_calls`` (``fn`` launches each of its kernels a fixed number of
+    times a call) so is one whose most frequent kernel ran a number of
+    times that is not a multiple of ``reps``, without host events; after
+    ``PROFILE_TRIES`` such sessions the time is the CUDA events'
+    (``cuda_ms``).  Retries and fallbacks are logged and counted in
+    ``PROFILER_STATS``, which the run prints."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     PROFILER_STATS["calls"] += 1
@@ -417,14 +482,30 @@ def device_ms(fn, reps: int = 50, host_events: bool = True,
         kernels = [e for e in prof.events()
                    if e.device_type == DeviceType.CUDA]
         us = sum(e.time_range.elapsed_us() for e in kernels)
+        by_name = {}
+        for e in kernels:
+            by_name[e.name] = by_name.get(e.name, 0) + 1
+        most = max(by_name.values(), default=0)
+        if us > 0 and whole_calls and most % reps:
+            # a deterministic fn launches its most frequent kernel a whole
+            # number of times a call: the profiler lost events
+            PROFILER_STATS["lossy_sessions"] += 1
+            log(f"profiler session {attempt + 1} of {PROFILE_TRIES} lost "
+                f"events ({most} of its most frequent kernel over {reps} "
+                "calls); run again without host events")
+            host_events = False
+            continue
         if us > 0:
-            if split is not None:
-                for e in kernels:
-                    # a kernel's base name; a copy or memset keeps its own
-                    m = re.search(r"\w+(?=<|\(|$)", e.name)
-                    name = m.group(0) if m else e.name
+            for e in kernels if split is not None or counts is not None \
+                    else ():
+                # a kernel's base name; a copy or memset keeps its own
+                m = re.search(r"\w+(?=<|\(|$)", e.name)
+                name = m.group(0) if m else e.name
+                if split is not None:
                     split[name] = (split.get(name, 0.0)
                                    + e.time_range.elapsed_us() / reps / 1e3)
+                if counts is not None:
+                    counts[name] = counts.get(name, 0.0) + 1 / reps
             return us / reps / 1e3
         PROFILER_STATS["retried_sessions"] += 1
         log(f"profiler session {attempt + 1} of {PROFILE_TRIES} saw no "
@@ -1058,12 +1139,13 @@ def check_flash(shape, dtype, flash_mod, window=0) -> float:
     return err
 
 
-def sdpa(q, k, v):
+def sdpa(q, k, v, causal=True):
     """The library yardstick of K2: one scaled_dot_product_attention call
-    on the (B, H, S, hd) views, GQA and the causal mask inside the call."""
+    on the (B, H, S, hd) views, GQA and the causal mask (when ``causal``)
+    inside the call."""
     return torch.nn.functional.scaled_dot_product_attention(
         q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
-        is_causal=True, enable_gqa=True)
+        is_causal=causal, enable_gqa=True)
 
 
 def rel_err(got, want) -> float:
@@ -1194,15 +1276,16 @@ def check_flash_grad(shape, dtype, flash_mod, flash_kernel,
     return max(err, err_auto)
 
 
-def sdpa_bwd(q, k, v, do, mask=None):
+def sdpa_bwd(q, k, v, do, mask=None, causal=True):
     """The library yardstick of K2': the backward of one
     scaled_dot_product_attention call on (B, H, S, hd) leaves (its backward
     kernels only; the forward runs once, outside the timed function), with
-    the causal mask or a boolean ``mask``."""
+    the causal mask (unless ``causal`` is False) or a boolean ``mask``."""
     leaves = [t.transpose(1, 2).detach().clone().requires_grad_()
               for t in (q, k, v)]
     out = torch.nn.functional.scaled_dot_product_attention(
-        *leaves, attn_mask=mask, is_causal=mask is None, enable_gqa=True)
+        *leaves, attn_mask=mask, is_causal=causal and mask is None,
+        enable_gqa=True)
     g = do.transpose(1, 2).contiguous()
     return lambda: torch.autograd.grad(out, leaves, g, retain_graph=True)
 
@@ -1824,22 +1907,36 @@ def dense_model_phase(flash_mod) -> dict:
 
 
 #: phase 21: (arch, layers served); command-r-35b's 40 layers in f32 (~121
-#: GB with its tied 8.4 GB embedding) do not fit one 80 GB card, 8 do
-DENSE_SERVE = (("qwen1.5-4b", None), ("llama3-8b", None),
-               ("command-r-35b", 8))
+#: GB with its tied 8.4 GB embedding) do not fit one 80 GB card, 8 do; the
+#: others, which fit at full depth, are cut to 8 layers as well to keep the
+#: whole run within half its time limit (decode is host-bound: its time goes
+#: as the layer count)
+DENSE_SERVE = (("qwen1.5-4b", 8), ("llama3-8b", 8), ("command-r-35b", 8))
+
+
+def k2_per_prefill(cfg) -> int:
+    """K2's launches in one prefill (and one training forward) of
+    ``cfg``'s model: one per attention layer (Whisper's encoder layers,
+    and its decoder's self- and cross-attention)."""
+    if cfg.family == "audio":
+        return cfg.encoder_layers + 2 * cfg.num_layers
+    return sum(cfg.layer_kind(i) == "attn" for i in range(cfg.num_layers))
 
 
 def serve_phase(server_cls, request_cls, flash_mod, counters,
                 runs=DENSE_SERVE) -> dict:
-    """Phases 13, 21 and 24: BatchedServer at full width for each (arch,
-    layers or None for all) of ``runs`` (phase 21: qwen1.5-4b and llama3-8b
-    at full depth, command-r-35b at 8 of its 40 layers; phase 24: MOE_SERVE):
-    f32 parameters, bf16 compute, 4 slots, cache_len 1024, 8 requests of
-    512 prompt tokens (a VLM's after its zero patch embeddings) and 32 new
-    tokens each; K2 launched 8 x layers times, a fresh prefill of request 0
-    finite and giving its first served token; prefill ms per request,
-    decode tokens/s and peak device memory.  Each model is freed before the
-    next is built."""
+    """Phases 13, 21, 24 and 27: BatchedServer at full width for each
+    (arch, layers or None for all[, options]) of ``runs`` (phase 21:
+    DENSE_SERVE; phase 24: MOE_SERVE; phase 27: ``ha_serve_runs()``): f32
+    parameters, bf16 compute, 4 slots, 8 requests; by default cache_len
+    1024, 512 prompt tokens (a VLM's after its zero patch embeddings, an
+    audio model's after zero frames) and 32 new tokens each, which the
+    options ``prompt``, ``gen`` and ``cache_len`` change (and ``config``
+    serves in place of the arch's config); K2 launched 8 x
+    ``k2_per_prefill`` times, a fresh prefill of request 0 finite and
+    giving its first served token; prefill ms per request, decode
+    tokens/s and peak device memory.  Each model is freed before the next
+    is built."""
     from repro_torch.configs import get_config
     prefill_s = []
 
@@ -1855,23 +1952,28 @@ def serve_phase(server_cls, request_cls, flash_mod, counters,
             return res
 
     out = {}
-    for arch, layers in runs:
+    for arch, layers, *opts in runs:
+        opts = opts[0] if opts else {}
+        prompt, gen = opts.get("prompt", 512), opts.get("gen", 32)
+        cache_len = opts.get("cache_len", 1024)
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
         held_gib = torch.cuda.memory_allocated() / 2**30
         t0 = time.perf_counter()
-        srv = TimedServer(arch, reduced=False, batch=4, cache_len=1024,
-                          seed=0, device="cuda", num_layers=layers)
+        srv = TimedServer(arch, reduced=False, batch=4, cache_len=cache_len,
+                          seed=0, device="cuda", num_layers=layers,
+                          config=opts.get("config"))
         torch.cuda.synchronize()
         init_s = time.perf_counter() - t0
         cfg = srv.cfg
         n_params = srv.api.param_count(srv.params)
         rng = np.random.default_rng(0)
-        reqs = [request_cls(rid, rng.integers(0, cfg.vocab, size=512)
-                            .astype(np.int32), max_new=32)
+        reqs = [request_cls(rid, rng.integers(0, cfg.vocab, size=prompt)
+                            .astype(np.int32), max_new=gen)
                 for rid in range(8)]
         warm = srv.api.prefill(srv.params,
-                               srv.prefill_batch(reqs[0].prompt[:64]), 1024)
+                               srv.prefill_batch(reqs[0].prompt[:64]),
+                               cache_len)
         del warm                          # casts the weights to bf16 once
         for req in reqs:
             srv.submit(req)
@@ -1881,19 +1983,19 @@ def serve_phase(server_cls, request_cls, flash_mod, counters,
         torch.cuda.synchronize()
         launches = {c.__name__: c.launches for c in counters}
         peak_gib = torch.cuda.max_memory_allocated() / 2**30
-        if launches[flash_mod.flash_attention.__name__] != \
-                len(reqs) * cfg.num_layers:
+        k2_want = len(reqs) * k2_per_prefill(cfg)
+        if launches[flash_mod.flash_attention.__name__] != k2_want:
             raise AssertionError(f"serve {arch}: launches {launches}, K2 "
-                                 f"expected {len(reqs) * cfg.num_layers}")
+                                 f"expected {k2_want}")
         done = stats["completed"]
         if not (len(done) == len(reqs) and all(
-                len(r.generated) == 32 and r.done
+                len(r.generated) == gen and r.done
                 and all(0 <= t < cfg.vocab for t in r.generated)
                 for r in done)):
             raise AssertionError(f"serve {arch}: served {len(done)} of "
                                  f"{len(reqs)} requests")
         logits, cache = srv.api.prefill(
-            srv.params, srv.prefill_batch(reqs[0].prompt), 1024)
+            srv.params, srv.prefill_batch(reqs[0].prompt), cache_len)
         if not (torch.isfinite(logits).all()
                 and all(torch.isfinite(c).all() for c in cache.values())
                 and int(torch.argmax(logits[0, -1])) == reqs[0].generated[0]):
@@ -1905,6 +2007,7 @@ def serve_phase(server_cls, request_cls, flash_mod, counters,
             "layers": cfg.num_layers,
             "layers_published": get_config(arch).num_layers,
             "patch_tokens": cfg.patch_tokens,
+            "prompt": prompt, "gen": gen, "cache_len": cache_len,
             "params": n_params, "init_s": init_s,
             "prefill_ms": [t * 1e3 for t in prefill_s],
             "decode_tokens": stats["tokens"], "seconds": stats["seconds"],
@@ -1914,10 +2017,13 @@ def serve_phase(server_cls, request_cls, flash_mod, counters,
         log(f"serve {arch} full width, {cfg.num_layers} of "
             f"{out[arch]['layers_published']} layers ({n_params} parameters, "
             f"f32 params, bf16 compute; init {init_s:.2f} s): {len(done)} "
-            f"requests x 512 prompt tokens"
+            f"requests x {prompt} prompt tokens"
             + (f" after {cfg.patch_tokens} patch positions"
                if cfg.patch_tokens else "")
-            + f", {stats['tokens']} decode tokens "
+            + (f" after {cfg.encoder_frames} zero frames"
+               if cfg.family == "audio" else "")
+            + f", {gen} new tokens each, cache_len {cache_len}, "
+            f"{stats['tokens']} decode tokens "
             f"in {stats['seconds']:.3f} s; prefill ms per request "
             f"{[round(t * 1e3, 3) for t in prefill_s]}; decode "
             f"{out[arch]['decode_tok_per_s']:.2f} tokens/s; launches "
@@ -1928,7 +2034,7 @@ def serve_phase(server_cls, request_cls, flash_mod, counters,
     return out
 
 
-#: phases 22-24: the MoE configs and the VLM backbone (Queue 1 item 10)
+#: phases 22-24: the MoE configs and the VLM backbone
 MOE_ARCHS = ("granite-moe-3b-a800m", "qwen3-moe-235b-a22b", "internvl2-1b")
 #: phase 22 also times K2 at the dense serving layers of phase 21
 DENSE_TIMED = ("qwen1.5-4b", "llama3-8b", "command-r-35b")
@@ -1942,8 +2048,9 @@ MOE_MODELS = (("granite-moe-3b-a800m", 2, True), ("internvl2-1b", 2, True),
 #: its K-th and (K+1)-th router probabilities are this close
 NEAR_TIE = 1e-5
 #: phase 24: (arch, layers served); qwen3-moe-235b's 94 layers in f32 are
-#: ~940 GB, 4 with their bf16 casts ~66 GB
-MOE_SERVE = (("granite-moe-3b-a800m", None), ("internvl2-1b", None),
+#: ~940 GB, 4 with their bf16 casts ~66 GB; granite-moe-3b, which fits at
+#: full depth, is cut to 8 of its 32 layers for the run's time (as phase 21)
+MOE_SERVE = (("granite-moe-3b-a800m", 8), ("internvl2-1b", None),
              ("qwen3-moe-235b-a22b", 4))
 MOE_PROMPT = 512
 
@@ -1953,24 +2060,6 @@ def layer_shape(cfg, batch=1, prompt=MOE_PROMPT) -> tuple:
     after the config's patch positions."""
     S = prompt + cfg.patch_tokens
     return (batch, S, S, cfg.n_heads, cfg.n_kv, cfg.head_dim, True)
-
-
-def time_flash_shape(flash_mod, shape) -> dict:
-    """K2 (bf16) at ``shape``: CUDA events and the profiler's device time
-    beside the bound, the plain version and scaled_dot_product_attention
-    (checked against it first)."""
-    q, k, v = flash_inputs(*shape[:6], torch.bfloat16, seed=5)
-    call = lambda: flash_mod.flash_attention(q, k, v)
-    lib = lambda: sdpa(q, k, v)
-    if not torch.allclose(call().float(), lib().transpose(1, 2).float(),
-                          atol=2e-2, rtol=2e-2):
-        raise AssertionError(f"K2 {shape} differs from "
-                             "scaled_dot_product_attention")
-    t = {"ms": cuda_ms(call), "device_ms": device_ms(call),
-         "plain_ms": cuda_ms(lambda: flash_mod.attention_plain(q, k, v)),
-         "library_ms": cuda_ms(lib), "library_device_ms": device_ms(lib)}
-    t["bound_ms"], t["bound_by"] = flash_bound_ms(*shape, torch.bfloat16)
-    return t
 
 
 def moe_flash_phase(flash_mod, flash_kernel) -> dict:
@@ -1993,7 +2082,7 @@ def moe_flash_phase(flash_mod, flash_kernel) -> dict:
     for arch in MOE_ARCHS + DENSE_TIMED:
         shape = layer_shape(get_config(arch))
         t = out["times"][arch] = {"shape": shape,
-                                  **time_flash_shape(flash_mod, shape)}
+                                  **time_flash_turns(flash_mod, shape)}
         log(f"K2 {arch} layer {shape}, bf16: kernel {t['ms']:.4f} ms "
             f"(device {t['device_ms']:.4f}), plain {t['plain_ms']:.4f} ms, "
             f"scaled_dot_product_attention {t['library_ms']:.4f} ms (device "
@@ -2073,6 +2162,44 @@ class RoutingProbe:
         return r
 
 
+def grads_cuda_vs_cpu(label, loss_fn, gpu_model, cpu_model, b, probe,
+                      counters, q, want) -> tuple:
+    """The mean loss and every gradient of ``loss_fn(model, micro-batch)``
+    over ``q`` micro-batches of the batch ``b`` (numpy arrays), on cuda
+    (``probe`` recording each MoE call's routing) and on the CPU (replaying
+    it); K2 and K2' (``counters``) must launch ``want`` times each on the
+    card, and each result must lie within MODEL_REL_TOL of each tensor's
+    largest magnitude.  Returns ({name: error, "loss": error}, the worst
+    name, the launches, the card's loss)."""
+    from repro_torch.pipeline.executor import microbatch_grads
+    fwd, bwd = counters
+    runs = {}
+    for route, dev, model in (("kernel", "cuda", gpu_model),
+                              ("plain", "cpu", cpu_model)):
+        batch = {n: torch.as_tensor(x, device=dev) for n, x in b.items()}
+        with probe.recording() if dev == "cuda" else probe.replaying():
+            reset_launches(fwd, bwd)
+            runs[route] = microbatch_grads(
+                lambda _p, mb, model=model: loss_fn(model, mb),
+                list(model.parameters()), batch, q)
+            if dev == "cuda":
+                torch.cuda.synchronize()
+                launches = {"forward": fwd.launches,
+                            "backward": bwd.launches}
+    if launches != {"forward": want, "backward": want}:
+        raise AssertionError(f"{label}: launches {launches} != {want} each")
+    names = [n for n, _ in gpu_model.named_parameters()]
+    errs = {"loss": rel_err(runs["kernel"][0], runs["plain"][0])}
+    errs.update({n: rel_err(g, c) for n, g, c in
+                 zip(names, runs["kernel"][1], runs["plain"][1])})
+    worst = max(errs, key=errs.get)
+    loss = float(runs["kernel"][0])
+    if not (math.isfinite(loss) and errs[worst] <= MODEL_REL_TOL):
+        raise AssertionError(f"{label} grads cuda vs cpu: {worst} "
+                             f"{errs[worst]}")
+    return errs, worst, launches, loss
+
+
 def moe_model_phase(flash_mod) -> dict:
     """Phase 23: a 2-layer granite-moe-3b and internvl2-1b and a 1-layer
     qwen3-moe-235b at full width in float32 compute with TF32 off: a
@@ -2087,7 +2214,6 @@ def moe_model_phase(flash_mod) -> dict:
     from repro_torch.configs import get_config
     from repro_torch.data import token_lm_batches
     from repro_torch.models import moe, transformer
-    from repro_torch.pipeline.executor import microbatch_grads
     torch.backends.cuda.matmul.allow_tf32 = False
     fwd, bwd = flash_mod.flash_attention, flash_mod.flash_attention_bwd
     q = GRAD_MODEL["microbatches"]
@@ -2138,44 +2264,17 @@ def moe_model_phase(flash_mod) -> dict:
                 b["patch_embeds"] = torch.randn(
                     (GRAD_MODEL["batch"], cfg.patch_tokens, cfg.d_model),
                     generator=gen).numpy()
-            runs = {}
-            for route, dev, model in (("kernel", "cuda", gpu_model),
-                                      ("plain", "cpu", cpu_model)):
-                batch = {n: torch.as_tensor(x, device=dev)
-                         for n, x in b.items()}
-                ctx = probe.recording() if dev == "cuda" \
-                    else probe.replaying()
-                with ctx:
-                    reset_launches(fwd, bwd)
-                    runs[route] = microbatch_grads(
-                        lambda _p, mb: transformer.loss_fn(model, mb),
-                        list(model.parameters()), batch, q)
-                    if dev == "cuda":
-                        torch.cuda.synchronize()
-                        launches = {"forward": fwd.launches,
-                                    "backward": bwd.launches}
-            want = layers * q
-            if launches != {"forward": want, "backward": want}:
-                raise AssertionError(f"{arch}: launches {launches} != "
-                                     f"{want} each")
-            names = [n for n, _ in gpu_model.named_parameters()]
-            gerrs = {"loss": rel_err(runs["kernel"][0], runs["plain"][0])}
-            gerrs.update({n: rel_err(g, c) for n, g, c in
-                          zip(names, runs["kernel"][1], runs["plain"][1])})
-            worst = max(gerrs, key=gerrs.get)
-            if not (math.isfinite(float(runs["kernel"][0]))
-                    and gerrs[worst] <= MODEL_REL_TOL):
-                raise AssertionError(f"{arch} grads cuda vs cpu: {worst} "
-                                     f"{gerrs[worst]}")
+            gerrs, worst, launches, loss = grads_cuda_vs_cpu(
+                arch, transformer.loss_fn, gpu_model, cpu_model, b, probe,
+                (fwd, bwd), q, layers * q)
             row.update(grads_max_rel_err=gerrs[worst], worst=worst,
                        loss_rel_err=gerrs["loss"], launches=launches,
-                       loss=float(runs["kernel"][0]),
+                       loss=loss,
                        option_grads_rel_err={
                            n: e for n, e in gerrs.items()
                            if n.split(".")[-1] in ("router", "w_gate",
                                                    "w_up", "w_down", "bq",
                                                    "bk", "bv")})
-            del runs
         if with_grads and cfg.moe_experts:
             row["adafactor"] = adafactor_steps(cfg, gpu_model, cpu_model,
                                                probe, fwd, bwd)
@@ -2313,6 +2412,357 @@ def moe_phases(flash_mod, flash_kernel, server_cls, request_cls,
     log("phase walls: " + ", ".join(f"{k} {v:.1f} s"
                                     for k, v in walls.items()))
     return {"flash": flash, "models": models, "serve": served,
+            "phase_walls_s": walls}
+
+
+#: phases 25-27: the hybrid and audio families
+WHISPER = "whisper-small"
+JAMBA = "jamba-1.5-large-398b"
+#: jamba at full width cut to one period of 2 layers (a Mamba + SwiGLU
+#: slot and an attention + MoE slot): 11.9B parameters, where one published
+#: period of 8 holds 45.2B (181 GB in f32)
+JAMBA_CUT = {"num_layers": 2, "attn_every": 2}
+#: phase 25 cuts jamba's experts to 4 of 16 as well (4.67B parameters, 18.7
+#: GB in f32), so the parameters, their gradients and a CPU copy fit
+JAMBA_CHECK_EXPERTS = 4
+#: phase 25: (arch, prompt tokens, tokens per micro-batch row)
+HA_MODELS = ((WHISPER, 64, 64), (JAMBA, 256, 128))
+HA_DECODE_STEPS = 32
+#: phase 26: K2 / K2' shapes (B, S, T, H, KV, hd, causal)
+HA_FLASH = {"whisper_encoder": (1, 1500, 1500, 12, 12, 64, False),
+            "whisper_cross": (1, 64, 1500, 12, 12, 64, False),
+            "ragged_non_causal": (2, 77, 131, 4, 2, 16, False),
+            "jamba_attention": (1, 512, 512, 64, 8, 128, True)}
+HA_TIMED = ("whisper_encoder", "whisper_cross")
+
+
+def jamba_cut(**changes):
+    """jamba-1.5-large at full width cut to one period of 2 layers."""
+    from repro_torch.configs import get_config
+    return dataclasses.replace(get_config(JAMBA), **JAMBA_CUT, **changes)
+
+
+def ha_serve_runs() -> tuple:
+    """Phase 27's servers: whisper-small at full size (the decoder's 448
+    positions) and the jamba cut with all 16 experts."""
+    return ((WHISPER, None, {"prompt": 64, "gen": 64, "cache_len": 448}),
+            (JAMBA, None, {"config": jamba_cut()}))
+
+
+@contextlib.contextmanager
+def experts_hold_every_token(model):
+    """Each MoE layer of ``model`` with capacity_factor experts / top-k,
+    so that an expert's capacity holds every token (as it always does in a
+    one-token decode step): a longer prefill then drops no pair, and
+    decode and prefill compute the same function."""
+    from repro_torch.models import moe
+    layers = [m for m in model.modules() if isinstance(m, moe.MoEFFN)]
+    saved = [m.cfg for m in layers]
+    for m in layers:
+        m.cfg = dataclasses.replace(
+            m.cfg, capacity_factor=m.cfg.moe_experts / m.cfg.moe_top_k)
+    try:
+        yield
+    finally:
+        for m, cfg in zip(layers, saved):
+            m.cfg = cfg
+
+
+def all_logits(model, tokens, frames=None):
+    """The logits at every position of ``tokens`` (B, L) on the model's
+    device, without grad: Jamba's training forward and head, Whisper's
+    teacher-forced decoder over the encoder's output of ``frames``."""
+    from repro_torch.models import jamba, whisper
+    with torch.no_grad():
+        if frames is not None:
+            return whisper.decode_train(model, tokens,
+                                        whisper.encode(model, frames))
+        return model.logits(jamba.forward_hidden(model, tokens))
+
+
+def ha_model_phase(flash_mod) -> dict:
+    """Phase 25: whisper-small at full size and the jamba cut (2 layers,
+    4 experts) in float32 compute with TF32 off (see the module
+    docstring)."""
+    from repro_torch.configs import get_config
+    from repro_torch.data import token_lm_batches
+    from repro_torch.models import moe, whisper
+    from repro_torch.models.registry import get_model
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    fwd, bwd = flash_mod.flash_attention, flash_mod.flash_attention_bwd
+    q = GRAD_MODEL["microbatches"]
+    out = {}
+    for arch, prompt_len, grad_seq in HA_MODELS:
+        t0 = time.perf_counter()
+        probe = RoutingProbe(moe)
+        base = (get_config(arch) if arch == WHISPER
+                else jamba_cut(moe_experts=JAMBA_CHECK_EXPERTS))
+        cfg = dataclasses.replace(base, compute_dtype=torch.float32,
+                                  remat="none")
+        api_g, api_c = get_model(cfg, "cuda"), get_model(cfg, "cpu")
+        gpu_model = api_g.init(torch.Generator(device="cuda").manual_seed(0))
+        cpu_model = type(gpu_model)(cfg, "cpu")
+        cpu_model.load_state_dict(gpu_model.state_dict())
+        audio = cfg.family == "audio"
+        gen = torch.Generator().manual_seed(1)
+        tokens = torch.randint(0, cfg.vocab,
+                               (1, prompt_len + HA_DECODE_STEPS),
+                               generator=gen)
+        batch = {"tokens": tokens[:, :prompt_len]}
+        if audio:
+            batch["frames"] = torch.randn(
+                (1, cfg.encoder_frames, cfg.d_model), generator=gen)
+        on_card = {n: t.cuda() for n, t in batch.items()}
+        cache_len = prompt_len + HA_DECODE_STEPS
+        with probe.recording():
+            reset_launches(fwd, bwd)
+            logits_g, cache_g = api_g.prefill(gpu_model, on_card, cache_len)
+            torch.cuda.synchronize()
+            prefill_launches = fwd.launches
+        if prefill_launches != k2_per_prefill(cfg):
+            raise AssertionError(f"{arch}: the cuda prefill launched K2 "
+                                 f"{prefill_launches} times")
+        with probe.replaying():
+            logits_c, cache_c = api_c.prefill(cpu_model, batch, cache_len)
+        errs = {"logits": rel_err(logits_g, logits_c),
+                **{f"cache {n}": rel_err(cache_g[n], cache_c[n])
+                   for n in cache_c}}
+        if audio:
+            with torch.no_grad():
+                errs["encoder output"] = rel_err(
+                    whisper.encode(gpu_model, on_card["frames"]),
+                    whisper.encode(cpu_model, batch["frames"]))
+        finite = torch.isfinite(logits_g).all() and all(
+            torch.isfinite(c).all() for c in cache_g.values())
+        if not (finite and max(errs.values()) <= MODEL_REL_TOL):
+            raise AssertionError(f"{arch} prefill cuda vs cpu: {errs}")
+        del logits_g, cache_g, logits_c, cache_c
+
+        # decode on the card against the longer sequence's logits
+        with experts_hold_every_token(gpu_model):
+            _, cache = api_g.prefill(gpu_model, on_card, cache_len)
+            steps = []
+            for t in range(HA_DECODE_STEPS):
+                pos = prompt_len + t
+                lg, cache = api_g.decode(gpu_model, cache,
+                                         tokens[:, pos:pos + 1].cuda(), pos)
+                steps.append(lg[:, 0])
+            full = all_logits(gpu_model, tokens.cuda(),
+                              on_card.get("frames"))[:, prompt_len:]
+        want = full.float()
+        decode_err = float((torch.stack(steps, 1).float() - want).abs().max()
+                           / want.abs().max())
+        if not decode_err <= DECODE_TOL:
+            raise AssertionError(f"{arch}: {HA_DECODE_STEPS} decode steps "
+                                 f"vs the longer sequence: {decode_err}")
+        del cache, steps, full, want
+
+        b = next(token_lm_batches(batch=GRAD_MODEL["batch"], seq_len=grad_seq,
+                                  vocab=cfg.vocab, seed=2))
+        if audio:
+            b["frames"] = torch.randn(
+                (GRAD_MODEL["batch"], cfg.encoder_frames, cfg.d_model),
+                generator=gen).numpy()
+        gerrs, worst, launches, _ = grads_cuda_vs_cpu(
+            arch, api_g.loss, gpu_model, cpu_model, b, probe, (fwd, bwd), q,
+            k2_per_prefill(cfg) * q)
+        row = {"layers": cfg.num_layers, "experts": cfg.moe_experts,
+               "params": api_g.param_count(gpu_model),
+               "prompt": prompt_len, "prefill_launches": prefill_launches,
+               "prefill_max_rel_err": max(errs.values()),
+               "prefill_errs": errs, "decode_steps": HA_DECODE_STEPS,
+               "decode_max_rel_err": decode_err,
+               "grads_max_rel_err": gerrs[worst], "worst": worst,
+               "loss_rel_err": gerrs["loss"], "launches": launches,
+               "grad_tokens": [GRAD_MODEL["batch"], grad_seq],
+               "routing": {k: v for k, v in probe.stats.items()
+                           if k != "gaps"},
+               "wall_s": time.perf_counter() - t0}
+        row["routing"]["near_tie_gaps"] = probe.stats["gaps"]
+        out[arch] = row
+        log(f"hybrid/audio model {arch} ({cfg.num_layers} layers"
+            + (f" + {cfg.encoder_layers} encoder layers over "
+               f"{cfg.encoder_frames} frames" if audio else
+               f", attn_every {cfg.attn_every}, {cfg.moe_experts} experts "
+               f"top {cfg.moe_top_k}")
+            + f", d {cfg.d_model}, {cfg.n_heads} heads / {cfg.n_kv} kv of "
+            f"{cfg.head_dim}, d_ff {cfg.d_ff}, vocab {cfg.vocab}; "
+            f"{row['params']} parameters; f32, TF32 off): {prompt_len}-token "
+            f"prefill cuda (K2 x {prefill_launches}) vs cpu "
+            + ", ".join(f"{n} {e:.2e}" for n, e in errs.items())
+            + f"; {HA_DECODE_STEPS} decode steps vs the longer sequence "
+            f"{decode_err:.2e} (tolerance {DECODE_TOL}); loss and "
+            f"{len(gerrs) - 1} gradients over {q} micro-batches of 1 x "
+            f"{grad_seq}: max err / max magnitude {gerrs[worst]:.2e} "
+            f"({worst}), loss {gerrs['loss']:.2e}; launches {launches}; "
+            f"routing {row['routing']} (tolerance {MODEL_REL_TOL}); "
+            f"{row['wall_s']:.1f} s")
+        del gpu_model, cpu_model
+        torch.cuda.empty_cache()
+    return out
+
+
+#: calls of each side before timed turns, so that neither side's first
+#: session pays a one-time cost (a library's plan, a lazy allocation)
+WARM_CALLS = 20
+
+
+def time_flash_turns(flash_mod, shape, turns=2) -> dict:
+    """K2 (bf16) at ``shape`` against scaled_dot_product_attention with
+    the same mask, by the profiler's device time in turns (K2, SDPA, SDPA,
+    K2 for two turns) so that a drift of the card's clock falls on both,
+    with the names of SDPA's kernels (its backend) and K2's profiler events
+    a call; a session that lost events is run again (``whole_calls``), and
+    those timed by CUDA events after losing events every time are counted;
+    also CUDA events, the plain version and the bound."""
+    q, k, v = flash_inputs(*shape[:6], torch.bfloat16, seed=5)
+    causal = shape[6]
+    call = lambda: flash_mod.flash_attention(q, k, v, causal=causal)
+    lib = lambda: sdpa(q, k, v, causal)
+    if not torch.allclose(call().float(), lib().transpose(1, 2).float(),
+                          atol=2e-2, rtol=2e-2):
+        raise AssertionError(f"K2 {shape} differs from "
+                             "scaled_dot_product_attention")
+    for _ in range(WARM_CALLS):
+        call()
+        lib()
+    fallbacks = PROFILER_STATS["event_fallbacks"]
+    runs, lib_split, k_counts = {"kernel": [], "library": []}, {}, {}
+    for i in range(turns):
+        for who in (("kernel", "library") if i % 2 == 0
+                    else ("library", "kernel")):
+            runs[who].append(
+                device_ms(call, counts=k_counts, whole_calls=True)
+                if who == "kernel"
+                else device_ms(lib, split=lib_split, whole_calls=True))
+    t = {"device_ms": float(np.mean(runs["kernel"])),
+         "library_device_ms": float(np.mean(runs["library"])),
+         "device_ms_turns": runs["kernel"],
+         "library_device_ms_turns": runs["library"],
+         "library_kernels": sorted(lib_split, key=lib_split.get,
+                                   reverse=True)[:3],
+         "kernel_events_per_call": {n: round(c / turns, 3)
+                                    for n, c in k_counts.items()},
+         "sessions_timed_by_events":
+             PROFILER_STATS["event_fallbacks"] - fallbacks,
+         "ms": cuda_ms(call), "library_ms": cuda_ms(lib),
+         "plain_ms": cuda_ms(lambda: flash_mod.attention_plain(
+             q, k, v, causal=causal))}
+    t["bound_ms"], t["bound_by"] = flash_bound_ms(*shape, torch.bfloat16)
+    return t
+
+
+def time_flash_bwd_turns(flash_mod, flash_kernel, shape, turns=2) -> dict:
+    """K2' (bf16) at ``shape`` against the backward of
+    scaled_dot_product_attention with the same mask, by the profiler's
+    device time in turns (K2', SDPA, SDPA, K2' for two turns), with the
+    names of SDPA's kernels; also the plain version (CUDA events) and the
+    bound."""
+    q, k, v = flash_inputs(*shape[:6], torch.bfloat16, seed=5)
+    do = flash_inputs(shape[0], shape[1], shape[1], shape[3], shape[3],
+                      shape[5], torch.bfloat16, seed=6)[0]
+    causal = shape[6]
+    out, lse = flash_kernel._forward(q, k, v, causal, True)
+    call = lambda: flash_mod.flash_attention_bwd(q, k, v, out, do, lse,
+                                                 causal=causal)
+    lib = sdpa_bwd(q, k, v, do, causal=causal)
+    for _ in range(WARM_CALLS):
+        call()
+        lib()
+    fallbacks = PROFILER_STATS["event_fallbacks"]
+    runs, lib_split, k_counts = {"kernel": [], "library": []}, {}, {}
+    for i in range(turns):
+        for who in (("kernel", "library") if i % 2 == 0
+                    else ("library", "kernel")):
+            runs[who].append(
+                device_ms(call, counts=k_counts, whole_calls=True)
+                if who == "kernel"
+                else device_ms(lib, split=lib_split, whole_calls=True))
+    t = {"device_ms": float(np.mean(runs["kernel"])),
+         "library_device_ms": float(np.mean(runs["library"])),
+         "device_ms_turns": runs["kernel"],
+         "library_device_ms_turns": runs["library"],
+         "library_kernels": sorted(lib_split, key=lib_split.get,
+                                   reverse=True)[:3],
+         "kernel_events_per_call": {n: round(c / turns, 3)
+                                    for n, c in k_counts.items()},
+         "sessions_timed_by_events":
+             PROFILER_STATS["event_fallbacks"] - fallbacks,
+         "plain_ms": cuda_ms(lambda: flash_mod.flash_bwd_plain(
+             q, k, v, out, do, lse, causal=causal))}
+    t["bound_ms"], t["bound_by"] = flash_bwd_bound_ms(*shape, torch.bfloat16)
+    return t
+
+
+def gpu_clocks() -> str:
+    """The card's SM clock, its maximum, power draw and temperature now
+    (``nvidia-smi``): beside a timing, they say whether the card ran at
+    its full clock (calls have timed the same kernel 3x apart)."""
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.sm,clocks.max.sm,power.draw,"
+         "temperature.gpu", "--format=csv,noheader"], capture_output=True,
+        text=True, check=True).stdout.strip()
+
+
+def ha_flash_phase(flash_mod, flash_kernel) -> dict:
+    """Phase 26: K2 and K2' at the HA_FLASH shapes against their plain
+    versions (TF32 off), then K2 and K2' timed at HA_TIMED."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    out = {"k2_err": 0.0, "k2_bwd_err": 0.0, "times": {}}
+    for shape in HA_FLASH.values():
+        for dtype in (torch.float32, torch.bfloat16):
+            out["k2_err"] = max(out["k2_err"],
+                                check_flash(shape, dtype, flash_mod))
+            out["k2_bwd_err"] = max(out["k2_bwd_err"], check_flash_grad(
+                shape, dtype, flash_mod, flash_kernel))
+    for name in HA_TIMED:
+        shape = HA_FLASH[name]
+        before = gpu_clocks()
+        t = out["times"][name] = {"shape": shape,
+                                  **time_flash_turns(flash_mod, shape)}
+        t["clocks"] = [before, gpu_clocks()]
+        log(f"K2 {name} {shape}, bf16: device {t['device_ms']:.4f} ms "
+            f"(turns {[round(x, 4) for x in t['device_ms_turns']]}), "
+            f"scaled_dot_product_attention device "
+            f"{t['library_device_ms']:.4f} ms (turns "
+            f"{[round(x, 4) for x in t['library_device_ms_turns']]}; "
+            f"{t['library_kernels']}); events: kernel {t['ms']:.4f} ms, "
+            f"library {t['library_ms']:.4f} ms, plain {t['plain_ms']:.4f} "
+            f"ms; bound "
+            f"{t['bound_ms']:.6f} ms ({t['bound_by']}); K2's events a call "
+            f"{t['kernel_events_per_call']} (sessions timed by CUDA events "
+            f"after lost events: {t['sessions_timed_by_events']}); clocks, "
+            f"power and temperature before / after: {t['clocks']}")
+        t = out["times"][name]["backward"] = time_flash_bwd_turns(
+            flash_mod, flash_kernel, shape)
+        log(f"K2' {name} {shape}, bf16: device {t['device_ms']:.4f} ms "
+            f"(turns {[round(x, 4) for x in t['device_ms_turns']]}), "
+            f"scaled_dot_product_attention's backward device "
+            f"{t['library_device_ms']:.4f} ms (turns "
+            f"{[round(x, 4) for x in t['library_device_ms_turns']]}; "
+            f"{t['library_kernels']}); plain "
+            f"{t['plain_ms']:.4f} ms (events); bound {t['bound_ms']:.6f} ms "
+            f"({t['bound_by']}); K2' events a call "
+            f"{t['kernel_events_per_call']} (sessions timed by CUDA events "
+            f"after lost events: {t['sessions_timed_by_events']})")
+    return out
+
+
+def ha_phases(flash_mod, flash_kernel, server_cls, request_cls,
+              counters) -> dict:
+    """Phases 25-27, timed."""
+    t0 = time.perf_counter()
+    models = ha_model_phase(flash_mod)
+    t1 = time.perf_counter()
+    flash = ha_flash_phase(flash_mod, flash_kernel)
+    t2 = time.perf_counter()
+    served = serve_phase(server_cls, request_cls, flash_mod, counters,
+                         ha_serve_runs())
+    walls = {"25": t1 - t0, "26": t2 - t1, "27": time.perf_counter() - t2}
+    log("phase walls: " + ", ".join(f"{k} {v:.1f} s"
+                                    for k, v in walls.items()))
+    return {"models": models, "flash": flash, "serve": served,
             "phase_walls_s": walls}
 
 
@@ -3129,6 +3579,10 @@ def main(argv=None) -> int:
                     help="only build K2 and K2' and run phases 22-24 (K2 "
                     "and K2' at the MoE and VLM layer shapes, the MoE and "
                     "VLM models, their servers) and print their JSON")
+    ap.add_argument("--hybrid-audio", action="store_true",
+                    help="only build K2 and K2' and run phases 25-27 (the "
+                    "hybrid and audio models, K2 and K2' at their shapes, "
+                    "their servers) and print their JSON")
     ap.add_argument("--src", help="import repro_torch from this directory "
                     "(another checkout's src/) instead of this one's")
     opts = ap.parse_args(argv)
@@ -3137,6 +3591,7 @@ def main(argv=None) -> int:
         OTHER_SRC = True
         sys.path.insert(0, os.path.abspath(opts.src))
     # 1. device ----------------------------------------------------------
+    mark_phase("1")
     if not torch.cuda.is_available():
         log("FAIL: torch.cuda.is_available() is False; this script needs "
             "an NVIDIA GPU")
@@ -3217,6 +3672,21 @@ def main(argv=None) -> int:
             (flash_mod.flash_attention, wkv6_mod.wkv6,
              minplus.sweep_minplus)), "card": smi}))
         return 0
+    if opts.hybrid_audio:
+        from repro_torch.kernels import flash as flash_mod
+        from repro_torch.kernels import minplus
+        from repro_torch.kernels import rwkv6 as wkv6_mod
+        from repro_torch.kernels.flash import kernel as flash_kernel
+        from repro_torch.kernels.rwkv6 import kernel as wkv6_kernel
+        from repro_torch.launch.serve import BatchedServer, Request
+        built = build_all([flash_kernel]
+                          + bwd_libraries(flash_kernel, wkv6_kernel)[:1])
+        log("build: " + ", ".join(f"{n} {t:.2f} s" for n, t in built.items()))
+        log(json.dumps({"hybrid_audio": ha_phases(
+            flash_mod, flash_kernel, BatchedServer, Request,
+            (flash_mod.flash_attention, wkv6_mod.wkv6,
+             minplus.sweep_minplus)), "card": smi}))
+        return 0
 
     from repro_torch import obs
     from repro_torch.compression import make_link_hooks
@@ -3237,6 +3707,7 @@ def main(argv=None) -> int:
                                       simulate_from_breakdown)
 
     # 2. build every kernel, in parallel --------------------------------------
+    mark_phase("2")
     t0 = time.perf_counter()
     built = build_all([minplus_kernel, wkv6_kernel, flash_kernel]
                       + bwd_libraries(flash_kernel, wkv6_kernel))
@@ -3246,6 +3717,7 @@ def main(argv=None) -> int:
     log_ptxas(_build, minplus_kernel.LIB_NAME)
 
     # 3. kernel ----------------------------------------------------------
+    mark_phase("3")
     import repro_torch.core as core
     shapes, ctx = k1_shapes(core, shortest_path)
     profile, net, plan_cpu = ctx["profile"], ctx["net"], ctx["plan_cpu"]
@@ -3295,6 +3767,7 @@ def main(argv=None) -> int:
         f"cuts={fleet_gpu.solution.cuts} obj={fleet_gpu.objective!r}")
 
     # 4. plan (the main path) ---------------------------------------------
+    mark_phase("4")
     minplus.sweep_minplus.launches = 0
     wkv6_mod.wkv6.launches = 0
     torch.cuda.synchronize()
@@ -3333,6 +3806,7 @@ def main(argv=None) -> int:
         f"(gap {sim.rel_gap:.2e})")
 
     # 4b. the b-sweep and the comparison baselines (Figs. 5-7) -------------
+    mark_phase("4b")
     # K1's graph axis at the shapes Planner.solve_many launches, recorded
     # from the planner on the CPU: the quickstart's exhaustive_joint(B=512,
     # b_step=4) and the fleet's b-sweep (B=128, b_step=16: 8 graphs)
@@ -3444,6 +3918,7 @@ def main(argv=None) -> int:
         f"{fluct.p95_latency!r}, degradation {fluct.degradation!r}")
 
     # 4c. warm replans, the batched device planner, the coordinator -------
+    mark_phase("4c")
     from repro_torch import ft
     from repro_torch.core import planner_device
     fprof, fnet = bench30_instance(core)
@@ -3586,9 +4061,11 @@ def main(argv=None) -> int:
         f"over the three events {coord_launches}")
 
     # 4d. sim: the simulator's engines on the card ---------------------------
+    mark_phase("4d")
     sim_out = sim_phase(core, minplus, profile, net, plan)
 
     # 4e. planning by the simulator and by tail risk, fuzz, policies ----------
+    mark_phase("4e")
     t0 = time.perf_counter()
     robust_out = planning_phase(
         core, minplus, profile, net, plan,
@@ -3598,6 +4075,7 @@ def main(argv=None) -> int:
     log(f"4e: phase wall {robust_out['phase_wall_s']:.2f} s")
 
     # 5. train -------------------------------------------------------------
+    mark_phase("5")
     # the comparison runs in full float32: cuDNN convolutions default to
     # TF32 on the card, so TF32 is switched off for this phase
     torch.backends.cudnn.allow_tf32 = False
@@ -3658,6 +4136,7 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
 
     # 6. build K3 -----------------------------------------------------------
+    mark_phase("6")
     log(f"build: K3 in {built[wkv6_kernel.LIB_NAME]:.2f} s (phase 2)")
     log_ptxas(_build, wkv6_kernel.LIB_NAME)
     k3_hmma = {
@@ -3675,6 +4154,7 @@ def main(argv=None) -> int:
         f"resident blocks per SM {k3_blocks}")
 
     # 7. K3 against its plain versions ----------------------------------------
+    mark_phase("7")
     # phases 7 and 8 compare in full float32: TF32 off for every matmul
     torch.backends.cuda.matmul.allow_tf32 = False
     k3_err = 0.0
@@ -3703,6 +4183,7 @@ def main(argv=None) -> int:
     k3_times = time_k3(wkv6_mod)
 
     # 8. model check: cuda (K3) vs CPU (plain), float32 ----------------------
+    mark_phase("8")
     from repro_torch.configs import get_config
     from repro_torch.launch.serve import BatchedServer, Request
     from repro_torch.models import rwkv6
@@ -3757,6 +4238,7 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
 
     # 9. serve rwkv6-1.6b at full width (the main path of K3) ----------------
+    mark_phase("9")
     prefill_s = []
 
     class TimedServer(BatchedServer):
@@ -3823,6 +4305,7 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
 
     # 10. build K2 -----------------------------------------------------------
+    mark_phase("10")
     from repro_torch.models import transformer
 
     log(f"build: K2 in {built[flash_kernel.LIB_NAME]:.2f} s (phase 2)")
@@ -3841,6 +4324,7 @@ def main(argv=None) -> int:
         f"{hmma}; resident blocks per SM by hd {k2_blocks}")
 
     # 11. K2 against its plain version (TF32 still off) ----------------------
+    mark_phase("11")
     k2_err = 0.0
     for shape in FLASH_SHAPES + [SERVED_FLASH, LONG_FLASH]:
         for dtype in (torch.float32, torch.bfloat16):
@@ -3892,6 +4376,7 @@ def main(argv=None) -> int:
     del q, k, v, q32, k32, v32, q_tile, mine, lib
 
     # 12. model check: cuda (K2) vs CPU (plain), float32 ---------------------
+    mark_phase("12")
     full_q = get_config("qwen3-0.6b")
     cfg12 = dataclasses.replace(full_q, num_layers=2,
                                 compute_dtype=torch.float32)
@@ -3936,6 +4421,7 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
 
     # 13. serve qwen3-0.6b at full width (the main path of K2) ---------------
+    mark_phase("13")
     served_q = serve_phase(
         BatchedServer, Request, flash_mod,
         (flash_mod.flash_attention, wkv6_mod.wkv6, minplus.sweep_minplus),
@@ -3943,6 +4429,7 @@ def main(argv=None) -> int:
     k2_launches = served_q["qwen3-0.6b"]["launches"]["flash_attention"]
 
     # 14. build K2' and K3' --------------------------------------------------
+    mark_phase("14")
     for name in (flash_kernel.BWD_LIB_NAME, wkv6_kernel.BWD_LIB_NAME):
         log(f"build: {name} in {built[name]:.2f} s (phase 2)")
         log_ptxas(_build, name)
@@ -3950,12 +4437,15 @@ def main(argv=None) -> int:
         _build, flash_kernel, wkv6_kernel)
 
     # 15, 16. K2' and K3' against their plain versions, timed -----------------
+    mark_phase("15,16")
     grads = grad_kernel_phases(flash_mod, flash_kernel, wkv6_mod, wkv6_kernel)
 
     # 17. model gradients: cuda (K2/K2', K3/K3') vs CPU (plain), float32 ------
+    mark_phase("17")
     model_grads = model_grad_phase(flash_mod, wkv6_mod)
 
     # 18. train both families at full width (the main path of K2' and K3') ---
+    mark_phase("18")
     trained = train_phase(
         flash_mod, wkv6_mod, minplus,
         os.path.join(os.path.dirname(os.path.abspath(__file__)), "build",
@@ -3966,12 +4456,15 @@ def main(argv=None) -> int:
         raise AssertionError("the training runs did not launch K2' and K3'")
 
     # 19. K2 and K2' with a sliding window; the padded head size ------------
+    mark_phase("19")
     t0 = time.perf_counter()
     window = window_phase(flash_mod, flash_kernel)
     # 20. dense models with each option: cuda (K2/K2') vs CPU, float32 ------
+    mark_phase("20")
     t1 = time.perf_counter()
     dense_models = dense_model_phase(flash_mod)
     # 21. serve the dense configs at full width (K2's main path) ------------
+    mark_phase("21")
     t2 = time.perf_counter()
     dense_served = serve_phase(
         BatchedServer, Request, flash_mod,
@@ -3980,10 +4473,16 @@ def main(argv=None) -> int:
                    "21": time.perf_counter() - t2}
     window_runs = [r for name, r in dense_models.items() if "window" in name]
     # 22-24. the MoE configs and the VLM backbone (K2's and K2''s main path)
+    mark_phase("22-24")
     moe_out = moe_phases(
         flash_mod, flash_kernel, BatchedServer, Request,
         (flash_mod.flash_attention, wkv6_mod.wkv6, minplus.sweep_minplus))
     moe_models = moe_out["models"]
+    # 25-27. the hybrid and audio families (K2's and K2''s main path) -------
+    mark_phase("25-27")
+    ha_out = ha_phases(
+        flash_mod, flash_kernel, BatchedServer, Request,
+        (flash_mod.flash_attention, wkv6_mod.wkv6, minplus.sweep_minplus))
 
     log(json.dumps({"sim": sim_out, "card": smi}))
     log(json.dumps({"robust": robust_out, "card": smi}))
@@ -3993,9 +4492,15 @@ def main(argv=None) -> int:
                               "serve": dense_served,
                               "phase_walls_s": dense_walls}, "card": smi}))
     log(json.dumps({"moe": moe_out, "card": smi}))
+    log(json.dumps({"hybrid_audio": ha_out, "card": smi}))
+    run_walls = phase_walls()
+    log("phase walls (s): "
+        + ", ".join(f"{k} {v}" for k, v in run_walls.items())
+        + f"; total {sum(run_walls.values()):.1f}")
     log(f"profiler: {PROFILER_STATS['calls']} device_ms calls, "
         f"{PROFILER_STATS['retried_sessions']} sessions with no device time "
-        f"run again, {PROFILER_STATS['event_fallbacks']} timed by CUDA events")
+        f"and {PROFILER_STATS['lossy_sessions']} that lost events run again, "
+        f"{PROFILER_STATS['event_fallbacks']} timed by CUDA events")
 
     log(json.dumps({"kernels": [{
         "name": "minplus_sweep",
@@ -4109,6 +4614,16 @@ def main(argv=None) -> int:
             "serve_launches": {
                 arch: r["launches"]["flash_attention"]
                 for arch, r in moe_out["serve"].items()}},
+        "hybrid_audio": {
+            "max_abs_err": ha_out["flash"]["k2_err"],
+            "shapes": HA_FLASH,
+            "times": ha_out["flash"]["times"],
+            "model_launches": {
+                arch: r["prefill_launches"] + r["launches"]["forward"]
+                for arch, r in ha_out["models"].items()},
+            "serve_launches": {
+                arch: r["launches"]["flash_attention"]
+                for arch, r in ha_out["serve"].items()}},
     }, {
         "name": "flash_attention_bwd",
         "route": "cuda",
@@ -4136,6 +4651,12 @@ def main(argv=None) -> int:
                 arch: r.get("launches", {}).get("backward", 0)
                 + r.get("adafactor", {}).get("launches", {}).get(
                     "backward", 0) for arch, r in moe_models.items()}},
+        "hybrid_audio": {
+            "max_abs_err": ha_out["flash"]["k2_bwd_err"],
+            "shapes": HA_FLASH,
+            "model_launches": {
+                arch: r["launches"]["backward"]
+                for arch, r in ha_out["models"].items()}},
     }, {
         "name": "wkv6_scan_bwd",
         "route": "cuda",

@@ -1,17 +1,18 @@
 """Arch registry of the port: ``get_config(arch_id, reduced=...)``.
 
-The ``ssm`` family (``rwkv6-1.6b``), the ``dense`` family
-(``qwen3-0.6b``, ``llama3-8b``, ``qwen1.5-4b``, ``command-r-35b``), the
-``moe`` family (``qwen3-moe-235b-a22b``, ``granite-moe-3b-a800m``) and the
-``vlm`` backbone (``internvl2-1b``) are ported, under the reference's ids;
-the reference's other architectures (``jamba-1.5-large-398b``: hybrid;
-``whisper-small``: audio) are ROADMAP Queue 1 item 10.
+Every architecture of the reference, under its id: the ``ssm`` family
+(``rwkv6-1.6b``), the ``dense`` family (``qwen3-0.6b``, ``llama3-8b``,
+``qwen1.5-4b``, ``command-r-35b``), the ``moe`` family
+(``qwen3-moe-235b-a22b``, ``granite-moe-3b-a800m``), the ``vlm`` backbone
+(``internvl2-1b``), the ``hybrid`` ``jamba-1.5-large-398b`` and the
+``audio`` ``whisper-small``.
 """
 
 from repro_torch.models.common import ArchConfig
 
-from . import (command_r_35b, granite_moe_3b, internvl2_1b, llama3_8b,
-               qwen1_5_4b, qwen3_0_6b, qwen3_moe_235b, rwkv6_1_6b)
+from . import (command_r_35b, granite_moe_3b, internvl2_1b, jamba_1_5_large,
+               llama3_8b, qwen1_5_4b, qwen3_0_6b, qwen3_moe_235b, rwkv6_1_6b,
+               whisper_small)
 
 _MODULES = {
     "qwen3-0.6b": qwen3_0_6b,
@@ -20,8 +21,10 @@ _MODULES = {
     "qwen1.5-4b": qwen1_5_4b,
     "qwen3-moe-235b-a22b": qwen3_moe_235b,
     "granite-moe-3b-a800m": granite_moe_3b,
+    "jamba-1.5-large-398b": jamba_1_5_large,
     "rwkv6-1.6b": rwkv6_1_6b,
     "internvl2-1b": internvl2_1b,
+    "whisper-small": whisper_small,
 }
 
 ARCH_IDS = tuple(_MODULES)
@@ -30,9 +33,8 @@ ARCH_IDS = tuple(_MODULES)
 def get_config(arch_id: str, reduced: bool = False) -> ArchConfig:
     mod = _MODULES.get(arch_id)
     if mod is None:
-        raise NotImplementedError(
-            f"arch {arch_id!r} is not ported yet (ROADMAP Queue 1 item 10); "
-            f"ported: {', '.join(ARCH_IDS)}")
+        raise KeyError(f"unknown arch {arch_id!r}; known: "
+                       f"{', '.join(ARCH_IDS)}")
     return mod.reduced() if reduced else mod.CONFIG
 
 

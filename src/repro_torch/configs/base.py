@@ -1,21 +1,25 @@
 """Config substrate — the part of ``repro/configs/base.py`` that the
 trainer's policy reads (``launch/steps.py::default_optimizer_name``), for
-the ported families (``dense``: the decoder-only transformer; ``moe``: the
-same with experts; ``vlm``: its backbone; ``ssm``: RWKV6): the assigned
-input shapes, the per-layer FLOP helpers, the planner's per-arch workload
-profile and the parameter estimate.
+every family (``dense``: the decoder-only transformer; ``moe``: the same
+with experts; ``vlm``: its backbone; ``ssm``: RWKV6; ``hybrid``: Jamba's
+Mamba and attention layers; ``audio``: Whisper): the assigned input
+shapes, the per-layer FLOP helpers, the planner's per-arch workload
+profile and the parameter estimate.  ``input_specs``, ``cache_specs``,
+``param_specs`` and ``runnable_cells`` wait for the dry run (ROADMAP
+Queue 1 item 11).
 
 ``count_params`` is the reference's estimate from that profile (fp32
 parameter bytes / 4), not the model's parameter count: it counts every
 attention layer's q/k/v/o as (H + 2 KV) hd d x 2 and every RWKV layer as
-6 d^2 + 2 d d_ff, leaves out norms, biases and LoRAs, and counts the head
-whether tied or not (qwen3-0.6b: 810,287,104 against 596,049,920 real
-parameters; rwkv6-1.6b: 1,577,058,304 against 1,580,795,904;
-command-r-35b: 33,051,115,520 against 30,283,538,432).  A layer counts
-its experts when the reference's ``is_moe_layer`` says so (its model puts
-them in every layer; the published configs set ``moe_every`` 1, where the
-two agree; ROADMAP Queue 3).  Other families raise (ROADMAP Queue 1 item
-10).
+6 d^2 + 2 d d_ff and every Mamba layer as 3 d d_inner, leaves out norms,
+biases, LoRAs and the Mamba block's small projections, counts the head
+whether tied or not, and walks only the decoder of an encoder-decoder
+(qwen3-0.6b: 810,287,104 against 596,049,920 real parameters; rwkv6-1.6b:
+1,577,058,304 against 1,580,795,904; command-r-35b: 33,051,115,520 against
+30,283,538,432).  A layer counts its experts when the reference's
+``is_moe_layer`` says so (the transformer puts them in every layer; the
+published configs set ``moe_every`` 1 there, where the two agree; ROADMAP
+Queue 3).
 """
 
 from __future__ import annotations
@@ -26,9 +30,10 @@ import numpy as np
 
 from repro_torch.core.profiles import ModelProfile
 from repro_torch.models.common import ArchConfig
+from repro_torch.models.mamba import d_inner, dt_rank
 
-#: families whose profile is ported
-PORTED_FAMILIES = ("dense", "moe", "vlm", "ssm")
+#: the reference's families, every one ported
+PORTED_FAMILIES = ("dense", "moe", "vlm", "ssm", "hybrid", "audio")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -58,16 +63,8 @@ def supports_shape(cfg: ArchConfig, shape: str) -> bool:
 
 def _check_family(cfg: ArchConfig) -> None:
     if cfg.family not in PORTED_FAMILIES:
-        raise NotImplementedError(
-            f"family {cfg.family!r} is not ported yet (ROADMAP Queue 1 item "
-            f"10); ported: {', '.join(PORTED_FAMILIES)}")
-
-
-def layer_kind(cfg: ArchConfig, i: int) -> str:
-    """The reference's ``ArchConfig.layer_kind`` for the ported families:
-    'rwkv' for ssm, 'attn' for the transformer's (dense, moe, vlm)."""
-    _check_family(cfg)
-    return "rwkv" if cfg.family == "ssm" else "attn"
+        raise ValueError(f"unknown family {cfg.family!r}; known: "
+                         f"{', '.join(PORTED_FAMILIES)}")
 
 
 # ---------------------------------------------------------------------------
@@ -88,6 +85,13 @@ def _ffn_layer_flops(cfg: ArchConfig, seq: int) -> float:
                    + 2 * cfg.d_model * cfg.moe_experts)
     else:
         per_tok = cfg.ffn_mult * 2 * cfg.d_model * cfg.d_ff
+    return float(per_tok * seq)
+
+
+def _mamba_layer_flops(cfg: ArchConfig, seq: int) -> float:
+    di, ds, dtr = d_inner(cfg), cfg.mamba_d_state, dt_rank(cfg)
+    per_tok = (2 * cfg.d_model * 2 * di + 2 * di * (dtr + 2 * ds)
+               + 2 * dtr * di + 10 * di * ds + 2 * di * cfg.d_model)
     return float(per_tok * seq)
 
 
@@ -129,10 +133,18 @@ def arch_profile(cfg: ArchConfig, shape_name: str = "train_4k",
     pd = 4  # param bytes (fp32 masters)
     add(1e6, cfg.vocab * cfg.d_model * pd)          # embedding
     for i in range(cfg.num_layers):
-        if layer_kind(cfg, i) == "attn":
+        kind = cfg.layer_kind(i)
+        if kind == "attn":
             fl = _attn_layer_flops(cfg, seq)
             pb = (cfg.n_heads + 2 * cfg.n_kv) * cfg.head_dim * cfg.d_model \
                 * pd * 2
+        elif kind == "mamba":
+            fl = _mamba_layer_flops(cfg, seq)
+            pb = 3 * cfg.d_model * d_inner(cfg) * pd
+        else:  # rwkv
+            fl = _rwkv_layer_flops(cfg, seq)
+            pb = 6 * cfg.d_model * cfg.d_model * pd
+        if kind != "rwkv":
             if cfg.is_moe_layer(i):
                 fl += _ffn_layer_flops(cfg, seq)
                 pb += cfg.moe_experts * cfg.ffn_mult * cfg.d_model \
@@ -141,9 +153,7 @@ def arch_profile(cfg: ArchConfig, shape_name: str = "train_4k",
                 fl += _ffn_layer_flops(
                     dataclasses.replace(cfg, moe_experts=0), seq)
                 pb += cfg.ffn_mult * cfg.d_model * cfg.d_ff * pd
-        else:  # rwkv
-            fl = _rwkv_layer_flops(cfg, seq)
-            pb = 6 * cfg.d_model * cfg.d_model * pd
+        else:
             pb += 2 * cfg.d_model * cfg.d_ff * pd
         add(fl, pb)
     add(2.0 * cfg.d_model * cfg.vocab * seq,

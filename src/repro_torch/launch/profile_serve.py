@@ -8,6 +8,10 @@ decode steps of the server's model, each under ``torch.profiler``.
         --arch llama3-8b --full
     PYTHONPATH=src python -m repro_torch.launch.profile_serve \
         --arch granite-moe-3b-a800m --full
+    PYTHONPATH=src python -m repro_torch.launch.profile_serve \
+        --arch whisper-small --full --prompt-len 64
+    PYTHONPATH=src python -m repro_torch.launch.profile_serve \
+        --arch jamba-1.5-large-398b --full --layers 2 --attn-every 2
 
 ``--arch`` takes every ported config (``repro_torch.configs.ARCH_IDS``).
     PYTHONPATH=src python -m repro_torch.launch.profile_serve --device cpu
@@ -27,6 +31,7 @@ from __future__ import annotations
 
 import argparse
 import collections
+import dataclasses
 import json
 import time
 
@@ -91,15 +96,16 @@ def profiled(fn, dev, top: int = 8):
 
 def profile_serve(arch: str = "rwkv6-1.6b", *, reduced: bool = True,
                   prompt_len: int = 512, steps: int = 16, seed: int = 0,
-                  device="cuda") -> dict:
+                  device="cuda", config=None) -> dict:
     """Profile one prefill of ``prompt_len`` tokens (after a VLM's patch
-    embeddings) and ``steps`` greedy decode steps after it from the
-    server's ``pos`` (one request, as the server runs each slot), after one
-    warm-up of each (the weights' casts, library handles)."""
+    embeddings, an audio model's frames) and ``steps`` greedy decode steps
+    after it from the server's ``pos`` (one request, as the server runs
+    each slot), after one warm-up of each (the weights' casts, library
+    handles).  ``config`` is served in place of the arch's (a cut)."""
+    cfg = config or get_config(arch, reduced=reduced)
     srv = BatchedServer(arch, reduced=reduced, batch=1, seed=seed,
-                        cache_len=prompt_len + steps + 1 + get_config(
-                            arch, reduced=reduced).patch_tokens,
-                        device=device)
+                        cache_len=prompt_len + steps + 1 + cfg.patch_tokens,
+                        device=device, config=cfg)
     dev, api, model = srv.device, srv.api, srv.params
     rng = np.random.default_rng(seed)
     batch = srv.prefill_batch(rng.integers(0, srv.cfg.vocab,
@@ -135,10 +141,20 @@ def main(argv=None):
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--prompt-len", type=int, default=512)
     ap.add_argument("--steps", type=int, default=16)
+    ap.add_argument("--layers", type=int, default=None,
+                    help="cut the config to this many layers")
+    ap.add_argument("--attn-every", type=int, default=None,
+                    help="a hybrid's period (with --layers)")
     args = ap.parse_args(argv)
+    changes = {k: v for k, v in (("num_layers", args.layers),
+                                 ("attn_every", args.attn_every))
+               if v is not None}
+    config = dataclasses.replace(get_config(args.arch,
+                                            reduced=not args.full),
+                                 **changes)
     out = profile_serve(args.arch, reduced=not args.full,
                         prompt_len=args.prompt_len, steps=args.steps,
-                        device=args.device)
+                        device=args.device, config=config)
     for phase in ("prefill", "decode"):
         print(json.dumps({"window": phase, "arch": out["arch"],
                           "device": out["device"], "card": out["card"],

@@ -20,18 +20,25 @@ The port of ``repro/launch/serve.py``:
         --gen 32 --cache-len 1024
     PYTHONPATH=src python -m repro_torch.launch.serve --arch internvl2-1b \
         --full --prompt-len 512 --gen 32 --cache-len 1024
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch whisper-small \
+        --full --prompt-len 64 --gen 64 --cache-len 448
+    PYTHONPATH=src python -m repro_torch.launch.serve \
+        --arch jamba-1.5-large-398b --full --layers 2 --attn-every 2 \
+        --prompt-len 512 --gen 32 --cache-len 1024
 
-``--arch`` takes every ported config (``repro_torch.configs.ARCH_IDS``:
-the dense ``qwen3-0.6b``, ``llama3-8b``, ``qwen1.5-4b`` and
-``command-r-35b``, the MoE ``granite-moe-3b-a800m`` and
-``qwen3-moe-235b-a22b``, the VLM ``internvl2-1b``, and ``rwkv6-1.6b``).  A
-request queue, a prefill of each admitted request into its own single-row
-state (the KV cache of a transformer, the recurrent state of
-``rwkv6-1.6b``), then a decode loop that retires finished sequences and
-admits new ones into the freed slots (continuous batching); greedy
-sampling (``argmax``, the first index on ties).  Admission, retirement and
-the returned stats are the reference's.  The server runs on ``"cuda"``
-unless the caller passes ``device="cpu"``; without a GPU it raises.
+``--arch`` takes every config (``repro_torch.configs.ARCH_IDS``: the dense
+``qwen3-0.6b``, ``llama3-8b``, ``qwen1.5-4b`` and ``command-r-35b``, the
+MoE ``granite-moe-3b-a800m`` and ``qwen3-moe-235b-a22b``, the VLM
+``internvl2-1b``, ``rwkv6-1.6b``, the hybrid ``jamba-1.5-large-398b`` and
+the audio ``whisper-small``).  A request queue, a prefill of each admitted
+request into its own single-row state (the KV cache of a transformer, the
+recurrent state of ``rwkv6-1.6b``, Jamba's KV cache and Mamba states,
+Whisper's self- and cross-attention caches), then a decode loop that
+retires finished sequences and admits new ones into the freed slots
+(continuous batching); greedy sampling (``argmax``, the first index on
+ties).  Admission, retirement and the returned stats are the reference's.
+The server runs on ``"cuda"`` unless the caller passes ``device="cpu"``;
+without a GPU it raises.
 
 A VLM request's prefill takes zero patch embeddings (1, ``patch_tokens``,
 d) in the compute type before its prompt, as the reference's server does.
@@ -40,7 +47,21 @@ len(prompt)``, which leaves the ``patch_tokens`` patch positions out: the
 first decode step writes into cache slot ``len(prompt)``, over a prompt
 token's keys, and attends over the slots up to it.  The port keeps this
 for parity (ROADMAP Queue 3); the model itself decodes right at ``pos =
-patch_tokens + len(prompt)``.
+patch_tokens + len(prompt)``.  An audio request's prefill takes zero
+frames (1, ``encoder_frames``, d) in the compute type, as the reference's
+server does.
+
+A config too large for one card is served cut: ``num_layers`` cuts the
+depth (``command-r-35b`` at 8 of its 40 layers, ``qwen3-moe-235b-a22b`` at
+4 of its 94), and ``config`` stands in for the arch lookup when more than
+the depth changes.  ``jamba-1.5-large-398b`` is served at full width cut to
+one period of 2 layers, ``dataclasses.replace(CONFIG, num_layers=2,
+attn_every=2)``: a Mamba + SwiGLU slot and an attention + MoE slot (16
+experts of 8192 x 24576, top 2), every slot kind at its published widths.
+One published period (8 layers, 4 with experts) holds 45,238,345,728
+parameters, 181 GB in float32 and 90.5 GB in bfloat16, more than an 80 GB
+card; the 2-layer period holds 11,912,896,512, 47.65 GB in float32, and
+with the bfloat16 casts the server keeps about 71.5 GB (66.6 GiB).
 """
 
 from __future__ import annotations
@@ -54,6 +75,7 @@ import torch
 
 from repro_torch._device import resolve_device
 from repro_torch.configs import get_config
+from repro_torch.models.common import ArchConfig
 from repro_torch.models.registry import get_model
 
 
@@ -69,13 +91,16 @@ class Request:
 class BatchedServer:
     """``num_layers`` cuts the config's depth (its widths unchanged): a
     model whose full depth does not fit one card, such as
-    ``command-r-35b``, is served at the layers that do."""
+    ``command-r-35b``, is served at the layers that do.  ``config``, when
+    given, is served in place of ``get_config(arch, reduced)`` (a hybrid
+    cut below one period changes ``attn_every`` as well)."""
 
     def __init__(self, arch: str, *, reduced: bool = True, batch: int = 4,
                  cache_len: int = 128, seed: int = 0, device="cuda",
-                 params=None, num_layers: int | None = None):
+                 params=None, num_layers: int | None = None,
+                 config: ArchConfig | None = None):
         self.device = resolve_device(device)
-        self.cfg = get_config(arch, reduced=reduced)
+        self.cfg = config or get_config(arch, reduced=reduced)
         if num_layers is not None:
             self.cfg = dataclasses.replace(self.cfg, num_layers=num_layers)
         self.api = get_model(self.cfg, self.device)
@@ -94,12 +119,17 @@ class BatchedServer:
 
     def prefill_batch(self, prompt) -> dict:
         """The prefill's batch for one prompt (P,): its tokens (1, P) and,
-        for a VLM, zero patch embeddings in the compute type."""
+        for a VLM, zero patch embeddings, for an audio model zero frames,
+        in the compute type."""
         batch = {"tokens": torch.as_tensor(np.asarray(prompt)[None, :],
                                            device=self.device)}
         if self.cfg.family == "vlm":
             batch["patch_embeds"] = torch.zeros(
                 (1, self.cfg.patch_tokens, self.cfg.d_model),
+                dtype=self.cfg.compute_dtype, device=self.device)
+        if self.cfg.family == "audio":
+            batch["frames"] = torch.zeros(
+                (1, self.cfg.encoder_frames, self.cfg.d_model),
                 dtype=self.cfg.compute_dtype, device=self.device)
         return batch
 
@@ -166,10 +196,18 @@ def main(argv=None):
     ap.add_argument("--cache-len", type=int, default=128)
     ap.add_argument("--layers", type=int, default=None,
                     help="cut the config to this many layers")
+    ap.add_argument("--attn-every", type=int, default=None,
+                    help="a hybrid's period (with --layers, to cut it "
+                    "below one published period)")
     args = ap.parse_args(argv)
+    config = None
+    if args.attn_every is not None:
+        config = dataclasses.replace(
+            get_config(args.arch, reduced=not args.full),
+            attn_every=args.attn_every)
     srv = BatchedServer(args.arch, reduced=not args.full, batch=args.batch,
                         cache_len=args.cache_len, device=args.device,
-                        num_layers=args.layers)
+                        num_layers=args.layers, config=config)
     rng = np.random.default_rng(0)
     for rid in range(args.requests):
         srv.submit(Request(rid, rng.integers(

@@ -10,10 +10,14 @@
         --arch granite-moe-3b-a800m --reduced --steps 16 --batch 16 \
         --seq 32 --optimizer adafactor --device cpu
 
-``--arch`` takes every ported config (``repro_torch.configs.ARCH_IDS``:
-the dense, MoE and VLM transformers and ``rwkv6-1.6b``).  A VLM batch
+``--arch`` takes every config (``repro_torch.configs.ARCH_IDS``: the
+dense, MoE and VLM transformers, ``rwkv6-1.6b``, the hybrid
+``jamba-1.5-large-398b`` and the audio ``whisper-small``).  A VLM batch
 carries zero patch embeddings (batch, ``patch_tokens``, d) in float32, as
-the reference's trainer gives it; the loss is taken on the text.
+the reference's trainer gives it; the loss is taken on the text.  An
+audio batch carries frames (batch, ``encoder_frames``, d) drawn in
+float32 from ``numpy.random.default_rng(step).normal(0, 1, ...)``, as the
+reference's trainer draws them.
 The optimizer's state is in ``launch/steps.py::optimizer_tree``'s layout
 (Adafactor's stacked over the layers, as the reference's), and a
 checkpoint holds it so.
@@ -36,6 +40,7 @@ from __future__ import annotations
 import argparse
 import time
 
+import numpy as np
 import torch
 
 from repro_torch._device import resolve_device
@@ -88,6 +93,11 @@ def train(arch: str, *, reduced: bool = True, steps: int = 50,
         if cfg.family == "vlm":
             batch_dev["patch_embeds"] = torch.zeros(
                 (batch, cfg.patch_tokens, cfg.d_model), device=dev)
+        if cfg.family == "audio":
+            batch_dev["frames"] = torch.as_tensor(
+                np.random.default_rng(step).normal(
+                    0, 1, (batch, cfg.encoder_frames, cfg.d_model)
+                ).astype(np.float32), device=dev)
         model, opt_state, loss = step_fn(model, opt_state, batch_dev)
         losses.append(float(loss))
         if step % log_every == 0:

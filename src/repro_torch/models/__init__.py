@@ -2,7 +2,8 @@
 family), the transformer (dense: ``qwen3-0.6b``, ``llama3-8b``,
 ``qwen1.5-4b``, ``command-r-35b``; with the mixture of experts of
 ``moe.py``: ``granite-moe-3b-a800m``, ``qwen3-moe-235b-a22b``; after patch
-embeddings, ``vlm.py``: ``internvl2-1b``), all served by
+embeddings, ``vlm.py``: ``internvl2-1b``), the hybrid ``jamba.py`` (with the
+Mamba block of ``mamba.py``: ``jamba-1.5-large-398b``) and the audio
+encoder-decoder ``whisper.py`` (``whisper-small``), all served by
 ``launch/serve.py`` and trained by ``launch/train.py``, the shared pieces
-and the model registry.  The hybrid and audio families are not ported yet
-(ROADMAP Queue 1 item 10)."""
+and the model registry."""

@@ -1,18 +1,19 @@
 """Shared model pieces — the port of ``repro/models/common.py``: the
 architecture config, the initializers, ``rms_norm``, ``layer_norm``,
-``gelu_mlp``, RoPE, ``decode_attention``, ``cross_entropy``, ``remat_wrap``
-and the cache of compute-type casts that both language-model families keep.
+``gelu_mlp``, RoPE, ``decode_attention``, ``chunked_linear_scan``,
+``cross_entropy``, ``remat_wrap`` and the cache of compute-type casts that
+the language models keep.
 
 The reference's ``full_attention`` and ``chunked_attention`` (with their
 causal mask and sliding window) have one counterpart here: attention over a
-whole sequence (a prefill, a training step) goes through
-``kernels/flash::flash_attention`` (K2, and K2' for its gradient).
-``chunked_linear_scan`` waits for the Mamba family (ROADMAP Queue 1 item
-10).
+whole sequence (a prefill, a training step, Whisper's encoder and its
+cross-attention) goes through ``kernels/flash::flash_attention`` (K2, and
+K2' for its gradient).
 
 :func:`nest_layers` and :func:`lookup` carry a model's named tensors
-(``layers.<i>.<name>``) to and from the reference's layout, where each
-per-layer tensor is stacked over the layers on a leading ``L`` axis.
+(``layers.<i>.<name>``, ``periods.<i>.<name>``, ``enc_layers.<i>.<name>``,
+...) to and from the reference's layout, where each such tensor is stacked
+over its group on a leading axis.
 """
 
 from __future__ import annotations
@@ -29,18 +30,18 @@ from torch.utils import checkpoint as torch_checkpoint
 
 @dataclasses.dataclass(frozen=True)
 class ArchConfig:
-    """The fields of the reference's config that the ported families
-    (``ssm``: RWKV6; ``dense``: the decoder-only transformer, with its QKV
-    biases, GELU MLP, untied head and sliding window; ``moe``: the same
-    with a mixture-of-experts FFN; ``vlm``: the transformer with patch
-    embeddings prepended) read, under the reference's names and with its
-    defaults; the other families' fields (hybrid, audio) come with the
-    slice that first reads them (ROADMAP Queue 1 item 10).
-    The reference's ``use_pallas`` switch has no counterpart: in the port
-    the tensor's device picks the route (the kernel on CUDA, its plain
-    version on the CPU)."""
+    """The fields of the reference's config that the families (``ssm``:
+    RWKV6; ``dense``: the decoder-only transformer, with its QKV biases,
+    GELU MLP, untied head and sliding window; ``moe``: the same with a
+    mixture-of-experts FFN; ``vlm``: the transformer with patch embeddings
+    prepended; ``hybrid``: Jamba's Mamba and attention layers; ``audio``:
+    the Whisper encoder-decoder) read, under the reference's names and
+    with its defaults.  The reference's ``rwkv`` flag is the family
+    ``ssm`` here, and its ``use_pallas`` switch has no counterpart: in the
+    port the tensor's device picks the route (the kernel on CUDA, its
+    plain version on the CPU)."""
     name: str
-    family: str                   # "ssm", "dense", "moe", "vlm" are ported
+    family: str                   # dense | moe | hybrid | ssm | vlm | audio
     num_layers: int
     d_model: int
     d_ff: int
@@ -59,6 +60,15 @@ class ArchConfig:
     moe_every: int = 1            # see is_moe_layer
     capacity_factor: float = 1.25
     moe_ff_chunks: int = 1        # the expert FFN in this many ff slices
+    # hybrid (Jamba): within a period of ``attn_every`` layers, one
+    # attention layer (the last), the rest Mamba; 0: attention only
+    attn_every: int = 0
+    mamba_d_state: int = 16
+    mamba_expand: int = 2
+    mamba_d_conv: int = 4
+    # enc-dec (Whisper)
+    encoder_layers: int = 0
+    encoder_frames: int = 1500
     # vlm
     patch_tokens: int = 0         # stub ViT patch embeddings, prepended
     use_rope: bool = True
@@ -70,7 +80,7 @@ class ArchConfig:
     norm_eps: float = 1e-6
     param_dtype: Any = torch.float32
     compute_dtype: Any = torch.bfloat16
-    scan_chunk: int = 256         # time-chunk of the RWKV linear scan
+    scan_chunk: int = 256         # time-chunk of the RWKV / Mamba scans
     remat: str = "layer"          # none | layer | dots (see remat_wrap)
     train_microbatches: int = 0   # 0 = auto (launch/steps.py policy)
 
@@ -82,6 +92,16 @@ class ArchConfig:
     def q_per_kv(self) -> int:
         return self.n_heads // self.n_kv
 
+    def layer_kind(self, i: int) -> str:
+        """'rwkv' | 'attn' | 'mamba' for layer i (of a hybrid stack: the
+        last of each period of ``attn_every`` layers is attention)."""
+        if self.family == "ssm":
+            return "rwkv"
+        if self.attn_every <= 0:
+            return "attn"
+        return "attn" if (i % self.attn_every) == (self.attn_every - 1) \
+            else "mamba"
+
     def is_moe_layer(self, i: int) -> bool:
         """The reference's test, which its profile reads; its model (and
         the port's) puts experts in every layer once ``moe_experts`` > 0,
@@ -90,41 +110,44 @@ class ArchConfig:
             (i % self.moe_every) == (self.moe_every - 1)
 
 
+def _stacked(parts: list) -> bool:
+    """Whether a name's parts are ``<group>.<i>.<path>``: row ``i`` of a
+    tensor stacked over ``group`` (``layers``, ``periods``, ...)."""
+    return len(parts) > 2 and parts[1].isdigit()
+
+
 def nest_layers(named: dict, stack) -> dict:
-    """A model's named tensors (``embed``, ``layers.<i>.<name>``,
-    ``layers.<i>.moe.<name>``, ...) -> the reference's tree: top-level
-    names as they are, each per-layer name nested by its dots under
-    ``"layers"`` and stacked over the layers in order with ``stack`` (a
-    list -> tensor function: ``torch.stack``, ``np.stack``)."""
-    tree, per_layer = {}, {}
+    """A model's named tensors (``embed``, ``enc_ln.scale``,
+    ``layers.<i>.<name>``, ``layers.<i>.moe.<name>``,
+    ``periods.<i>.slot<j>.<name>``, ...) -> the reference's tree: each name
+    nested by its dots, and a name ``<group>.<i>.<path>`` stacked over
+    ``i`` in order under ``tree[group][path]`` with ``stack`` (a list ->
+    tensor function: ``torch.stack``, ``np.stack``)."""
+    tree, stacked = {}, {}
     for name, t in named.items():
         parts = name.split(".")
-        if parts[0] == "layers":
-            per_layer.setdefault(tuple(parts[2:]), []).append(t)
+        if _stacked(parts):
+            stacked.setdefault((parts[0],) + tuple(parts[2:]), []).append(t)
         else:
-            tree[name] = t
-    layers = {}
-    for path, ts in per_layer.items():
-        node = layers
+            stacked[tuple(parts)] = t
+    for path, t in stacked.items():
+        node = tree
         for key in path[:-1]:
             node = node.setdefault(key, {})
-        node[path[-1]] = stack(ts)
-    if layers:
-        tree["layers"] = layers
+        node[path[-1]] = stack(t) if isinstance(t, list) else t
     return tree
 
 
 def lookup(tree: dict, name: str):
     """The entry of the reference's tree holding the named tensor ``name``
-    (:func:`nest_layers`' layout): ``layers.<i>.<path>`` gives row ``i``
-    of the stacked ``tree["layers"][path]``."""
+    (:func:`nest_layers`' layout): ``<group>.<i>.<path>`` gives row ``i``
+    of the stacked ``tree[group][path]``."""
     parts = name.split(".")
-    if parts[0] != "layers":
-        return tree[name]
-    node = tree["layers"]
-    for key in parts[2:]:
+    stacked = _stacked(parts)
+    node = tree
+    for key in ([parts[0]] + parts[2:]) if stacked else parts:
         node = node[key]
-    return node[int(parts[1])]
+    return node[int(parts[1])] if stacked else node
 
 
 def dense_init(generator, shape, dtype, device, in_axis: int = -2):
@@ -276,6 +299,37 @@ def remat_wrap(fn, mode: str):
         return functools.partial(torch_checkpoint.checkpoint, fn,
                                  use_reentrant=False, context_fn=context)
     raise ValueError(mode)
+
+
+def scan_pairs(a: torch.Tensor, u: torch.Tensor) -> tuple:
+    """Inclusive scan of the pairs (a_t, u_t) along dim 1 under the
+    reference's ``combine`` (earlier, later) -> (a1 a2, a2 u1 + u2), in
+    log2(n) steps (each a shift by 1, 2, 4, ... positions): returns (the
+    products a_1..a_t, the states from a zero start) at every t."""
+    n, d = a.shape[1], 1
+    while d < n:
+        u = torch.cat([u[:, :d], a[:, d:] * u[:, :-d] + u[:, d:]], dim=1)
+        a = torch.cat([a[:, :d], a[:, d:] * a[:, :-d]], dim=1)
+        d *= 2
+    return a, u
+
+
+def chunked_linear_scan(a: torch.Tensor, x: torch.Tensor, h0: torch.Tensor,
+                        chunk: int = 256) -> tuple:
+    """Solve h_t = a_t * h_{t-1} + x_t along axis 1 (time) in chunks of
+    ``chunk`` steps (the last may be shorter): a, x (B, S, ...) with
+    matching trailing dims, h0 (B, ...).  Inside a chunk a log-depth scan
+    (:func:`scan_pairs`), then the carry applied to the chunk's prefixes;
+    returns (h at the last step, every h_t (B, S, ...)), as the reference.
+    The products of a are taken directly, never as exp(cumsum(log a)),
+    which overflows under a strong decay."""
+    h, ys = h0, []
+    for s0 in range(0, x.shape[1], chunk):
+        aa, uu = scan_pairs(a[:, s0:s0 + chunk], x[:, s0:s0 + chunk])
+        h_all = aa * h[:, None] + uu
+        ys.append(h_all)
+        h = h_all[:, -1]
+    return h, torch.cat(ys, dim=1)
 
 
 def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,

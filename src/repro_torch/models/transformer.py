@@ -53,7 +53,8 @@ use (outside autograd the cast is kept until the parameter changes, see
 :func:`decode_step` run without autograd.  The head is the embedding
 transposed when ``tie_embeddings``, else its own ``lm_head`` of shape (d,
 vocab).  ``attn_out_bias`` is carried and, as in the reference, never read.
-The hybrid and audio families raise (ROADMAP Queue 1 item 10).
+The hybrid and audio families are built by ``models/jamba.py`` and
+``models/whisper.py``.
 """
 
 from __future__ import annotations
@@ -118,13 +119,37 @@ def _biases(cfg: ArchConfig) -> dict:
 
 
 def check_config(cfg: ArchConfig) -> None:
-    """Raise for a config this module does not build: every option of the
-    reference's dense, MoE and VLM families is ported; the hybrid and audio
-    families are not."""
+    """Raise for a config this module does not build: it builds the
+    dense, MoE and VLM families with every option of the reference's."""
     if cfg.family not in FAMILIES:
-        raise NotImplementedError(
-            f"family {cfg.family!r} is not ported yet (ROADMAP Queue 1 item "
-            f"10); the transformer builds {', '.join(FAMILIES)}")
+        raise ValueError(
+            f"family {cfg.family!r} is not a transformer's; the transformer "
+            f"builds {', '.join(FAMILIES)}")
+
+
+def project_qkv(layer, x, cos=None, sin=None) -> tuple:
+    """The reference's ``_project_qkv`` of ``layer`` (a module with ``cfg``,
+    ``w(name, dtype)`` and the q/k norms): x (B, S, d) -> q (B, S, H, hd),
+    k and v (B, S, KV, hd), with the QKV biases and the per-head qk-norm
+    of the config, then RoPE when ``cos`` / ``sin`` are given."""
+    cfg = layer.cfg
+    B, S, _ = x.shape
+    hd, dt = cfg.head_dim, x.dtype
+    q, k, v = (x @ layer.w(n, dt) for n in ("wq", "wk", "wv"))
+    if cfg.qkv_bias:
+        q = q + layer.w("bq", dt)
+        k = k + layer.w("bk", dt)
+        v = v + layer.w("bv", dt)
+    q = q.reshape(B, S, cfg.n_heads, hd)
+    k = k.reshape(B, S, cfg.n_kv, hd)
+    v = v.reshape(B, S, cfg.n_kv, hd)
+    if cfg.qk_norm:
+        q = rms_norm(q, layer.q_norm, cfg.norm_eps)
+        k = rms_norm(k, layer.k_norm, cfg.norm_eps)
+    if cos is not None:
+        q = apply_rope(q, cos, sin)
+        k = apply_rope(k, cos, sin)
+    return q, k, v
 
 
 class TransformerLayer(nn.Module):
@@ -144,26 +169,6 @@ class TransformerLayer(nn.Module):
     def w(self, name: str, dtype) -> torch.Tensor:
         """Parameter ``name`` in ``dtype``."""
         return self._cast.get(name, getattr(self, name), dtype)
-
-    def _qkv(self, x, cos, sin):
-        cfg = self.cfg
-        B, S, _ = x.shape
-        hd, dt = cfg.head_dim, x.dtype
-        q, k, v = (x @ self.w(n, dt) for n in ("wq", "wk", "wv"))
-        if cfg.qkv_bias:
-            q = q + self.w("bq", dt)
-            k = k + self.w("bk", dt)
-            v = v + self.w("bv", dt)
-        q = q.reshape(B, S, cfg.n_heads, hd)
-        k = k.reshape(B, S, cfg.n_kv, hd)
-        v = v.reshape(B, S, cfg.n_kv, hd)
-        if cfg.qk_norm:
-            q = rms_norm(q, self.q_norm, cfg.norm_eps)
-            k = rms_norm(k, self.k_norm, cfg.norm_eps)
-        if cfg.use_rope:
-            q = apply_rope(q, cos, sin)
-            k = apply_rope(k, cos, sin)
-        return q, k, v
 
     def _ffn(self, h):
         dt = h.dtype
@@ -187,7 +192,8 @@ class TransformerLayer(nn.Module):
         cfg = self.cfg
         B, S, _ = x.shape
         dt = x.dtype
-        q, k, v = self._qkv(rms_norm(x, self.ln1, cfg.norm_eps), cos, sin)
+        q, k, v = project_qkv(self, rms_norm(x, self.ln1, cfg.norm_eps),
+                              cos, sin)
         if cache is None:
             attn = flash_attention(q, k, v, causal=True,
                                    window=cfg.sliding_window)
@@ -376,4 +382,4 @@ def decode_step(model: Transformer, cache: dict, token, pos: int):
 
 __all__ = ["Transformer", "TransformerLayer", "check_config", "decode_step",
            "forward_hidden", "init_params", "loss_fn", "make_cache",
-           "params_from_jax", "params_to_jax", "prefill"]
+           "params_from_jax", "params_to_jax", "prefill", "project_qkv"]

@@ -13,7 +13,8 @@ without a GPU): a CUDA call that needs a gradient goes through
 and gives q, k and v their gradients; K2' is held to ``flash_bwd_plain``
 (float32 on the same inputs) within atol = rtol = 1e-4 for float32 inputs
 and 3e-2 for bfloat16, at the ``FLASH_SWEEP`` shapes, a ragged shape at hd
-16 and qwen3-0.6b's training layer; with a sliding window (1, 7, 64, 100
+16, qwen3-0.6b's training layer, a ragged shape without the causal mask
+and whisper-small's cross-attention and encoder layers; with a sliding window (1, 7, 64, 100
 and one longer than S) at the causal ones, K2's log-sum-exp over the kept
 keys within 2e-5 and free of NaN; and at head size 8 (zero-padded to 16 by
 the wrapper) through the autograd route.
@@ -37,6 +38,9 @@ SHAPES = [
     (1, 96, 96, 8, 1, 64, True),
     (2, 77, 77, 4, 1, 16, True),
     (4, 512, 512, 16, 8, 128, True),        # qwen3-0.6b's training layer
+    (2, 77, 131, 4, 2, 16, False),          # ragged, no causal mask
+    (1, 64, 1500, 12, 12, 64, False),       # whisper-small's cross layer
+    (1, 1500, 1500, 12, 12, 64, False),     # and its encoder layer
 ]
 TOL = {torch.float32: 1e-4, torch.bfloat16: 3e-2}
 WINDOWS = (1, 7, 64, 100, 4096)

@@ -13,7 +13,9 @@ held within the reference's tolerances (atol = rtol = 2e-5 in float32,
 ``FLASH_SWEEP`` shapes, the served layer shape of ``qwen3-0.6b`` and a
 2048-token causal prompt, and at the edges of the tensor-core kernel's
 tiles (a ragged length at hd 16, a non-causal cross shape with T not a
-multiple of 64, MQA over three query tiles); with a sliding window (1, 7,
+multiple of 64, MQA over three query tiles), at Whisper's encoder and
+cross-attention shapes (1500 keys, no causal mask), a ragged shape
+without the mask and Jamba's attention layer; with a sliding window (1, 7,
 64, 100 and one longer than S) at the causal shapes, where a row's first
 key tile can lie wholly outside its window (no NaN may appear); and at head
 sizes the kernel is not built for (8 and 48, zero-padded by the wrapper);
@@ -49,6 +51,15 @@ MMA_EDGES = [
     (2, 77, 77, 4, 1, 16, True),            # ragged S and T, hd 16
     (1, 50, 100, 4, 2, 64, False),          # cross, T not a multiple of 64
     (2, 130, 130, 8, 1, 128, True),         # MQA over three query tiles
+]
+#: the hybrid and audio layers: Whisper's encoder (1500 frames, no causal
+#: mask) and cross-attention (a 64-token prompt against 1500 frames), a
+#: small ragged shape without the mask, and Jamba's attention layer
+HYBRID_AUDIO = [
+    (1, 1500, 1500, 12, 12, 64, False),
+    (1, 64, 1500, 12, 12, 64, False),
+    (2, 77, 131, 4, 2, 16, False),
+    (1, 512, 512, 64, 8, 128, True),
 ]
 TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
 WINDOWS = (1, 7, 64, 100, 4096)
@@ -141,7 +152,8 @@ def test_prefill_attention_goes_through_the_wrapper(monkeypatch):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("B,S,T,H,KV,hd,causal",
-                         FLASH_SWEEP + MODEL_SHAPES + MMA_EDGES)
+                         FLASH_SWEEP + MODEL_SHAPES + MMA_EDGES
+                         + HYBRID_AUDIO)
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
                          ids=["float32", "bfloat16"])
 def test_kernel_matches_plain_on_gpu(gpu, B, S, T, H, KV, hd, causal, dtype):

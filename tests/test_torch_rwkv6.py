@@ -30,6 +30,7 @@ import numpy as np
 import pytest
 import torch
 
+from repro.configs import ARCH_IDS as REF_ARCH_IDS
 from repro.configs import get_config as ref_get_config
 from repro.models import rwkv6 as R
 from repro.models.common import rms_norm as ref_rms_norm
@@ -315,13 +316,25 @@ def test_init_params_is_seeded_and_shaped_like_reference():
 
 
 def test_unported_configs_and_families_raise():
-    with pytest.raises(NotImplementedError, match="Queue 1 item 10"):
-        get_config("jamba-1.5-large-398b")
-    for family in ("hybrid", "audio"):
-        cfg = dataclasses.replace(get_config("rwkv6-1.6b", reduced=True),
-                                  family=family)
-        with pytest.raises(NotImplementedError, match="Queue 1 item 10"):
-            get_model(cfg, device="cpu")
+    """Every config and family this test once pinned as unported is
+    ported: each arch id of the reference builds in the port (reduced, on
+    the CPU), the hybrid and audio families among them; an unknown arch
+    raises KeyError and an unknown family ValueError, as in the
+    reference."""
+    families = set()
+    for arch in REF_ARCH_IDS:
+        cfg = get_config(arch, reduced=True)
+        assert cfg.name == ref_get_config(arch, reduced=True).name
+        api = get_model(cfg, device="cpu")
+        assert api.cfg is cfg
+        families.add(cfg.family)
+    assert families == {"dense", "moe", "vlm", "ssm", "hybrid", "audio"}
+    with pytest.raises(KeyError, match="unknown arch"):
+        get_config("jamba-2-mini")
+    cfg = dataclasses.replace(get_config("rwkv6-1.6b", reduced=True),
+                              family="speech")
+    with pytest.raises(ValueError, match="unknown family"):
+        get_model(cfg, device="cpu")
 
 
 def test_cast_cache_follows_parameter_updates(tree):

@@ -36,6 +36,7 @@ from repro.models import transformer as R
 
 from repro_torch.configs import get_config
 from repro_torch.models import transformer
+from repro_torch.models.transformer import FAMILIES
 from repro_torch.models.common import (apply_rope, decode_attention,
                                        rope_cos_sin)
 from repro_torch.models.registry import get_model
@@ -320,27 +321,37 @@ def test_unported_options_raise(change):
     """The three dense options this test once pinned as unported are
     ported: each builds and runs (prefill, a decode step, the loss with
     its gradients; ``tests/test_torch_dense_options.py`` holds them to the
-    reference).  So are the MoE and VLM families it once pinned
-    (``tests/test_torch_moe_models.py`` and ``tests/test_torch_vlm.py``
-    hold them to the reference).  A family still unported (hybrid, audio)
-    raises, naming its queue item."""
+    reference).  So are the families it once pinned: MoE and VLM
+    (``tests/test_torch_moe_models.py``, ``tests/test_torch_vlm.py``), and
+    the hybrid and audio families (``tests/test_torch_jamba.py``,
+    ``tests/test_torch_whisper.py`` hold them to the reference).  The
+    transformer itself still refuses a family it does not build."""
     base = get_config("qwen3-0.6b", reduced=True)
     cfg = dataclasses.replace(base, **change)
     runs = {"dense": cfg,
             "moe": get_config("granite-moe-3b-a800m", reduced=True),
-            "vlm": get_config("internvl2-1b", reduced=True)}
+            "vlm": get_config("internvl2-1b", reduced=True),
+            "hybrid": get_config("jamba-1.5-large-398b", reduced=True),
+            "audio": get_config("whisper-small", reduced=True)}
     for family, run in runs.items():
+        assert run.family == family
         api = get_model(run, device="cpu")
         model = api.init(torch.Generator().manual_seed(0))
         names = {n for n, _ in model.named_parameters()}
-        assert ("lm_head" in names) == (not run.tie_embeddings)
-        assert ("layers.0.b_up" in names) == (run.ffn_mult != 3)
-        assert ("layers.0.moe.router" in names) == (family == "moe")
+        assert ("lm_head" in names) == (family == "hybrid"
+                                        or not run.tie_embeddings)
+        if family in FAMILIES:
+            assert ("layers.0.b_up" in names) == (run.ffn_mult != 3)
+            assert ("layers.0.moe.router" in names) == (family == "moe")
         tokens = torch.from_numpy(tokens_of(PROMPT) % run.vocab)
         batch = {"tokens": tokens, "labels": tokens}
         if family == "vlm":
             batch["patch_embeds"] = torch.randn(
                 (2, run.patch_tokens, run.d_model),
+                generator=torch.Generator().manual_seed(1))
+        if family == "audio":
+            batch["frames"] = torch.randn(
+                (2, run.encoder_frames, run.d_model),
                 generator=torch.Generator().manual_seed(1))
         logits, cache = api.prefill(model, batch, CACHE + run.patch_tokens)
         logits_d, _ = api.decode(model, cache, tokens[:, :1],
@@ -351,9 +362,7 @@ def test_unported_options_raise(change):
         assert all(torch.isfinite(t).all() for t in (logits, logits_d, loss))
         assert all(torch.isfinite(g).all() for g in grads)
     for family in ("hybrid", "audio"):
-        with pytest.raises(NotImplementedError, match="Queue 1 item 10"):
-            get_model(dataclasses.replace(cfg, family=family), device="cpu")
-        with pytest.raises(NotImplementedError, match="Queue 1 item 10"):
+        with pytest.raises(ValueError, match="not a transformer's"):
             transformer.Transformer(dataclasses.replace(cfg, family=family),
                                     device="cpu")
 
