@@ -181,7 +181,7 @@ exits non-zero:
              causal): atol = rtol = 1e-4 for float32 inputs, 3e-2 for
              bfloat16; the autograd route (FlashAttention) equals the
              direct call; then K2' timed at the training layer (CUDA
-             events, profiler device time) beside its bound, the plain
+             events, device_ms) beside its bound, the plain
              version and scaled_dot_product_attention's backward (device
              time of its backward kernels: the library yardstick), with
              each kernel's share of the device time
@@ -210,7 +210,7 @@ exits non-zero:
              launched 2 x and 1 x layers x micro-batches x steps (remat
              "layer" runs each forward kernel again in the backward); step
              time, tokens/s, peak device memory and the device's idle
-             share over one more step (profiler); then a restart from a
+             share over one more step (profiled steps, two agreeing); then a restart from a
              checkpoint on the reduced configs, its losses within 1e-3 of
              an uninterrupted run
  19. window  K2 and K2' with a sliding window (1, 7, 64, 100, 4096) against
@@ -286,11 +286,11 @@ exits non-zero:
              whisper's encoder (1500 x 1500, 12 heads of 64) and cross
              (64 x 1500) layers and a ragged (2, 77, 131, 4, 2, 16) shape,
              and at jamba's attention layer (512, 64 / 8 heads of 128,
-             causal); no NaN; K2 and K2' at the encoder and cross shapes
-             timed by the profiler's device time in turns with
+             causal); no NaN; K2 and K2' at the encoder, cross and jamba
+             attention shapes timed (device_ms) in turns with
              scaled_dot_product_attention and its backward (kernel, SDPA,
              SDPA, kernel), beside the bound, the plain version and (K2)
-             CUDA events
+             CUDA events of back-to-back calls
  27. serve   BatchedServer at full width: whisper-small (reduced=False; 8
              requests of 64 prompt tokens after zero frames and 64 new
              tokens, cache_len 448: K2 launched 8 x 36 = 288 times) and
@@ -299,6 +299,27 @@ exits non-zero:
              times); f32 params, bf16 compute, batch 4; prefill ms per
              request, decode tokens/s, peak device memory; each model
              freed before the next
+ 28. spmd    the paper's stage pipeline (pipeline/spmd.py) across two
+             stage ranks: the stage planner (core/planner.py, H100
+             defaults, 2 GPUs, a batch of 8; BCD from b0 = 8 and from 1,
+             the lower L_t kept) gives Q; two processes share the card
+             under gloo (host-staged hops; NCCL refuses two ranks on one
+             GPU), each holding 14 of qwen3-0.6b's 28 layers at full
+             width; float32 with TF32 off: the pipelined loss within 1e-5
+             of the plain model's on the card, every gradient and one AdamW
+             step within 1e-4 of each tensor's largest magnitude; bfloat16:
+             3 timed AdamW steps (wall, tokens/s, each rank's device busy
+             time from two profiled steps whose kernel counts must agree,
+             peak memory) beside the plan's T_f / T_i / L_t / bubble and the
+             plain single-process step at the same batch (Q = 2 and Q); K2
+             / K2' launches per rank equal to T x 14 (x 2 for K2 under
+             remat "layer") a step
+
+Every device time a run prints (``device_ms``) comes from CUDA events
+around replays of a CUDA graph of the calls, or, for a function a graph
+cannot capture (host syncs), from the profiler's kernel events with a
+check for lost events; ``device_ms: ...`` before the kernels line counts
+both and the sessions run again.
 
 A line ``{"sim": ..., "card": ...}`` carries phase 4d's walls, device busy
 times and peak memory; ``{"robust": ..., "card": ...}`` phase 4e's walls,
@@ -307,7 +328,8 @@ and 18's gaps, losses, step times, memory, idle shares and launches;
 ``{"dense": ..., "card": ...}`` phases 19-21's errors, windowed times,
 gaps, serving numbers and launches; ``{"moe": ..., "card": ...}`` phases
 22-24's errors, times, routing counts, gaps, serving numbers and launches;
-``{"hybrid_audio": ..., "card": ...}`` phases 25-27's.
+``{"hybrid_audio": ..., "card": ...}`` phases 25-27's; ``{"spmd": ...,
+"card": ...}`` phase 28's.
 The next-to-last line is a JSON object with the kernels' measurements;
 the last is ``{"ok": true, "device": {...}}``.
 Imports nothing of JAX or of the JAX package ``repro``.
@@ -318,6 +340,7 @@ Imports nothing of JAX or of the JAX package ``repro``.
     python3 chip_smoke.py --dense
     python3 chip_smoke.py --moe
     python3 chip_smoke.py --hybrid-audio
+    python3 chip_smoke.py --spmd
 
 only time K1 (its six phase-3 shapes, both modes, by CUDA events, the
 profiler's device time and the host's time per call, and the planner's wall
@@ -328,7 +351,7 @@ at every tile) or K3
 compare two versions of a kernel in one run; ``--grads`` builds and checks
 K2' and K3' alone (phases 14-16); ``--dense`` builds K2 and K2' and runs
 phases 19-21 alone, ``--moe`` phases 22-24, ``--hybrid-audio`` phases
-25-27.
+25-27, ``--spmd`` builds every kernel and runs phase 28.
 """
 
 from __future__ import annotations
@@ -351,11 +374,30 @@ import torch
 sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)),
                                 "src"))
 
+
+
+def _package_file(relpath: str):
+    """A module of this checkout's ``src/repro_torch`` that imports nothing
+    of the package, loaded by its path: importing ``repro_torch`` here
+    would fix which checkout's package the phases run before ``--src`` can
+    choose it."""
+    import importlib.util
+    name = "_smoke_" + relpath.replace("/", "_").removesuffix(".py")
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)), "src",
+                        "repro_torch", relpath)
+    spec = importlib.util.spec_from_file_location(name, path)
+    module = sys.modules[name] = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+_NETWORK = _package_file("core/network.py")
 #: H100 SXM peaks (NVIDIA data sheet; dense, no sparsity, 700 W): float64
-#: and float32 outside the tensor cores, bfloat16 on the tensor cores
-HBM_BYTES_PER_S = 3.35e12
+#: and float32 outside the tensor cores, bfloat16 on the tensor cores; the
+#: HBM rate and the bfloat16 peak are the planner's (core/network.py)
+HBM_BYTES_PER_S = _NETWORK.H100_HBM_BW
 PEAK_OPS = {torch.float64: 34e12, torch.float32: 67e12,
-            torch.bfloat16: 989e12}
+            torch.bfloat16: _NETWORK.H100_PEAK_FLOPS}
 #: TF32 on the tensor cores, where K3' does its products
 PEAK_TF32 = 495e12
 F32_RTOL = 1e-4
@@ -434,85 +476,246 @@ def cuda_ms(fn, min_seconds: float = 0.2) -> float:
 
 #: idle seconds before and after the launches of a profiled session
 PROFILE_PAD_S = 0.02
-#: profiled sessions per ``device_ms`` call before CUDA events are used
+#: profiled sessions per measurement before a loss of events fails the run
+#: (with ``reps`` 1, sessions until two of them agree)
 PROFILE_TRIES = 4
-#: device_ms calls, extra sessions run, and calls timed by CUDA events
-PROFILER_STATS = {"calls": 0, "retried_sessions": 0, "lossy_sessions": 0,
-                  "event_fallbacks": 0}
+PROFILE_TRIES_ONE_CALL = 6
+#: least total replay time of a CUDA-graph timing
+GRAPH_MIN_MS = 20.0
+#: how ``device_ms`` measured: calls, those timed by CUDA-graph replay and
+#: by the profiler (functions a graph cannot capture: host syncs, a
+#: backward whose forward ran outside the capture), profiler sessions,
+#: sessions that lost events or saw no device time and were run again,
+#: and sessions still short after their retries (each fails its phase, so
+#: a finished run prints 0); ``uncapturable`` names the profiled callers
+PROFILER_STATS = {"calls": 0, "graph_timed": 0, "profiler_timed": 0,
+                  "sessions": 0, "lossy_sessions": 0, "empty_sessions": 0,
+                  "unresolved": 0, "largest_session": 0, "probe_lost": 0,
+                  "uncapturable": {}}
 
 
-def device_ms(fn, reps: int = 50, host_events: bool = True,
-              split: dict = None, counts: dict = None,
-              whole_calls: bool = False) -> float:
-    """Mean device time per call of the kernels ``fn`` launches: the CUDA
-    kernel events of ``torch.profiler`` over ``reps`` calls, summed.  Unlike
-    ``cuda_ms`` it leaves out the gaps in which the device waits for the
-    host to dispatch the next launch.  ``host_events=False`` traces the
-    device alone (a run of ~10^5 launches, whose host events would take the
-    profiler longer to collect than the run).  A ``split`` dict receives
-    each kernel's share, {kernel name: ms per call}; a ``counts`` dict
-    the number of its events per call, {kernel name: events / reps} (1 for
-    a kernel launched once a call, unless the profiler lost events).
+def _caller() -> str:
+    """``function:line`` of the chip_smoke.py code that asked for a time."""
+    import inspect
+    for fr in inspect.stack()[2:]:
+        if fr.function not in ("device_ms", "<lambda>"):
+            return f"{fr.function}:{fr.lineno}"
+    return "?"
 
-    A short session (50 launches of one 0.01 ms kernel and nothing else)
-    can come back with no device event at all, and in a long run a
-    session can lose some of its events (a third of the backward K2'
-    kernels' in one full run, up to 42 of 50 launches late in another),
-    which reads as a shorter time.  Each session is padded with idle time
-    on both sides; one that saw no device time is run again, and with
-    ``whole_calls`` (``fn`` launches each of its kernels a fixed number of
-    times a call) so is one whose most frequent kernel ran a number of
-    times that is not a multiple of ``reps``, without host events; after
-    ``PROFILE_TRIES`` such sessions the time is the CUDA events'
-    (``cuda_ms``).  Retries and fallbacks are logged and counted in
-    ``PROFILER_STATS``, which the run prints."""
+
+def graph_ms(fn, reps: int = 50) -> float:
+    """Mean device time per call of ``fn``: ``reps`` calls captured in one
+    CUDA graph on a stream of its own, the graph replayed between two CUDA
+    events (for at least ``GRAPH_MIN_MS``).  The kernels' own times plus
+    the gaps between graph nodes; no host dispatch, no profiler.  Raises
+    when ``fn`` cannot be captured."""
+    stream = torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(stream):
+        for _ in range(2):
+            fn()
+    torch.cuda.current_stream().wait_stream(stream)
+    torch.cuda.synchronize()
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g, stream=stream):
+        for _ in range(reps):
+            fn()
+    g.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    g.replay()
+    end.record()
+    torch.cuda.synchronize()
+    n = max(3, min(200, math.ceil(GRAPH_MIN_MS
+                                  / max(start.elapsed_time(end), 1e-3))))
+    start.record()
+    for _ in range(n):
+        g.replay()
+    end.record()
+    torch.cuda.synchronize()
+    ms = start.elapsed_time(end) / (n * reps)
+    del g
+    return ms
+
+
+def _kernel_name(name: str) -> str:
+    """A kernel's base name; a copy or memset keeps its own."""
+    m = re.search(r"\w+(?=<|\(|$)", name)
+    return m.group(0) if m else name
+
+
+#: launches of the spin kernel that open every profiled session
+PROBE_LAUNCHES = 64
+PROBE_KERNEL = "spin_kernel"
+
+
+def _probe():
+    """``PROBE_LAUNCHES`` launches of ``torch.cuda._sleep``'s spin kernel
+    (a name no measured function launches), then a sync."""
+    for _ in range(PROBE_LAUNCHES):
+        torch.cuda._sleep(1)
+    torch.cuda.synchronize()
+
+
+def profiled(fn, reps: int = 50, host_events: bool = True) -> tuple:
+    """(device ms per call, {kernel: ms per call}, {kernel: events per
+    call}) of ``fn`` from the CUDA kernel events of ``torch.profiler`` over
+    ``reps`` calls.  In a long process the profiler drops the first few
+    records of every session (a debt that grows after each session of
+    ~10^5 kernels: PR 29 chip calls 8-12), so each session opens with
+    ``PROBE_LAUNCHES`` spin kernels that take the loss; a session is
+    trusted when at least one of them was recorded (the loss ended inside
+    them) and, over ``fn``'s own kernels, every kernel ran a whole number
+    of times a call (``fn`` launches each of its kernels a fixed number of
+    times a call) or, with ``reps`` 1, where that says nothing, two
+    sessions count the same events at the largest count seen (up to
+    ``PROFILE_TRIES_ONE_CALL`` sessions).  A session that saw no device
+    time or failed a check is run again without host events
+    (``host_events=False`` from the start traces the device alone: a run
+    of ~10^5 launches whose host events would take the profiler longer to
+    collect than the run); when no session passes, the measurement raises.
+    Each session is padded with idle time on both sides."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
-    PROFILER_STATS["calls"] += 1
     fn()
     torch.cuda.synchronize()
-    for attempt in range(PROFILE_TRIES):
+    seen = []
+    tries = PROFILE_TRIES_ONE_CALL if reps == 1 else PROFILE_TRIES
+    for attempt in range(tries):
+        PROFILER_STATS["sessions"] += 1
         with profile(activities=[ProfilerActivity.CUDA]
                      + [ProfilerActivity.CPU] * host_events) as prof:
             time.sleep(PROFILE_PAD_S)
+            _probe()
             for _ in range(reps):
                 fn()
             torch.cuda.synchronize()
             time.sleep(PROFILE_PAD_S)
-        kernels = [e for e in prof.events()
-                   if e.device_type == DeviceType.CUDA]
+        events = [e for e in prof.events()
+                  if e.device_type == DeviceType.CUDA]
+        probes = sum(_kernel_name(e.name) == PROBE_KERNEL for e in events)
+        kernels = [e for e in events
+                   if _kernel_name(e.name) != PROBE_KERNEL]
+        PROFILER_STATS["largest_session"] = max(
+            PROFILER_STATS["largest_session"], len(kernels))
+        PROFILER_STATS["probe_lost"] = max(PROFILER_STATS["probe_lost"],
+                                           PROBE_LAUNCHES - probes)
         us = sum(e.time_range.elapsed_us() for e in kernels)
-        by_name = {}
+        split, counts = {}, {}
         for e in kernels:
-            by_name[e.name] = by_name.get(e.name, 0) + 1
-        most = max(by_name.values(), default=0)
-        if us > 0 and whole_calls and most % reps:
-            # a deterministic fn launches its most frequent kernel a whole
-            # number of times a call: the profiler lost events
-            PROFILER_STATS["lossy_sessions"] += 1
-            log(f"profiler session {attempt + 1} of {PROFILE_TRIES} lost "
-                f"events ({most} of its most frequent kernel over {reps} "
-                "calls); run again without host events")
+            name = _kernel_name(e.name)
+            split[name] = split.get(name, 0.0) \
+                + e.time_range.elapsed_us() / reps / 1e3
+            counts[name] = counts.get(name, 0) + 1
+        if us <= 0:
+            PROFILER_STATS["empty_sessions"] += 1
+            log(f"profiler session {attempt + 1} saw no device time; run "
+                "again")
             host_events = False
             continue
-        if us > 0:
-            for e in kernels if split is not None or counts is not None \
-                    else ():
-                # a kernel's base name; a copy or memset keeps its own
-                m = re.search(r"\w+(?=<|\(|$)", e.name)
-                name = m.group(0) if m else e.name
-                if split is not None:
-                    split[name] = (split.get(name, 0.0)
-                                   + e.time_range.elapsed_us() / reps / 1e3)
-                if counts is not None:
-                    counts[name] = counts.get(name, 0.0) + 1 / reps
-            return us / reps / 1e3
-        PROFILER_STATS["retried_sessions"] += 1
-        log(f"profiler session {attempt + 1} of {PROFILE_TRIES} saw no "
-            "device time")
-    PROFILER_STATS["event_fallbacks"] += 1
-    log("the profiler saw no device time; timed by CUDA events instead")
-    return cuda_ms(fn)
+        if probes == 0:
+            PROFILER_STATS["lossy_sessions"] += 1
+            log(f"profiler session {attempt + 1} lost all {PROBE_LAUNCHES} "
+                "probe launches; run again")
+            continue
+        result = (us / reps / 1e3, split,
+                  {n: c / reps for n, c in counts.items()})
+        if reps == 1:
+            total = sum(counts.values())
+            most = max([total] + [sum(c.values()) for c, _ in seen])
+            twin = next((r for c, r in seen if c == counts), None)
+            if twin is not None and total == most:
+                return twin
+            if seen:
+                PROFILER_STATS["lossy_sessions"] += 1
+                log(f"profiler session {attempt + 1}: {total} kernel "
+                    f"events, the earlier ones "
+                    f"{[sum(c.values()) for c, _ in seen]}; run again")
+            seen.append((counts, result))
+            continue
+        short = {n: c for n, c in counts.items() if c % reps}
+        if short:
+            PROFILER_STATS["lossy_sessions"] += 1
+            log(f"profiler session {attempt + 1} lost events ({short} over "
+                f"{reps} calls; {probes} of {PROBE_LAUNCHES} probes); run "
+                "again without host events")
+            host_events = False
+            continue
+        return result
+    PROFILER_STATS["unresolved"] += 1
+    raise RuntimeError(f"the profiler lost kernel events in every one of "
+                       f"{tries} sessions ({_caller()})")
+
+
+def device_ms(fn, reps: int = 50, host_events: bool = True,
+              split: dict = None, counts: dict = None,
+              graph: bool = True) -> float:
+    """Mean device time per call of the kernels ``fn`` launches, without
+    the gaps in which the device waits for the host to dispatch the next
+    launch (``cuda_ms`` has those): by CUDA events around replays of a
+    CUDA graph holding ``reps`` calls (``graph_ms``), or, where ``fn``
+    cannot be captured (``graph=False``, or a capture that raises: logged
+    and named in ``PROFILER_STATS["uncapturable"]``), by the profiler's
+    kernel events summed (``profiled``, checked for lost events).  A
+    ``split`` dict receives each kernel's ms per call and a ``counts``
+    dict its events per call, {kernel name: value}, from a checked
+    profiler session.  The profiler lost events in long runs (a third of
+    K2' kernels' in one, 42 of 50 launches in another), which read as a
+    shorter time; the graph route does not ask it."""
+    PROFILER_STATS["calls"] += 1
+    ms = None
+    if graph:
+        try:
+            ms = graph_ms(fn, reps)
+            PROFILER_STATS["graph_timed"] += 1
+        except RuntimeError as e:
+            where = _caller()
+            PROFILER_STATS["uncapturable"][where] = \
+                str(e).strip().splitlines()[0][:160]
+            log(f"device_ms: {where} cannot be captured in a CUDA graph "
+                f"({PROFILER_STATS['uncapturable'][where]}); timed by the "
+                "profiler")
+            torch.cuda.synchronize()
+    if ms is None or split is not None or counts is not None:
+        prof_ms, prof_split, prof_counts = profiled(fn, reps, host_events)
+        if ms is None:
+            ms = prof_ms
+            PROFILER_STATS["profiler_timed"] += 1
+            if not graph:
+                PROFILER_STATS["uncapturable"].setdefault(
+                    _caller(), "host syncs (graph=False)")
+        for target, source in ((split, prof_split), (counts, prof_counts)):
+            if target is not None:
+                for name, v in source.items():
+                    target[name] = target.get(name, 0.0) + v
+    return ms
+
+
+def yardstick_turns(fn, turns: int = 2) -> dict:
+    """``fn`` timed both ways in turns (graph, profiler, profiler,
+    graph...): CUDA-graph replay counts the gaps between the graph's
+    kernels, the profiler's kernel sum does not."""
+    out = {"graph_ms": [], "profiler_ms": []}
+    for i in range(turns):
+        for way in (("graph", "profiler") if i % 2 == 0
+                    else ("profiler", "graph")):
+            out[f"{way}_ms"].append(graph_ms(fn) if way == "graph"
+                                    else profiled(fn)[0])
+    return out
+
+
+def profiler_line() -> str:
+    st = PROFILER_STATS
+    return (f"device_ms: {st['calls']} calls, {st['graph_timed']} timed by "
+            f"CUDA-graph replay, {st['profiler_timed']} by the profiler; "
+            f"{st['sessions']} profiler sessions, {st['lossy_sessions']} "
+            f"lost events and {st['empty_sessions']} saw no device time "
+            f"(each run again), {st['unresolved']} unresolved, the largest "
+            f"{st['largest_session']} kernel events, at most "
+            f"{st['probe_lost']} of {PROBE_LAUNCHES} opening probe launches "
+            f"lost; profiled because not capturable: {st['uncapturable']}")
 
 
 @contextlib.contextmanager
@@ -1279,15 +1482,28 @@ def check_flash_grad(shape, dtype, flash_mod, flash_kernel,
 def sdpa_bwd(q, k, v, do, mask=None, causal=True):
     """The library yardstick of K2': the backward of one
     scaled_dot_product_attention call on (B, H, S, hd) leaves (its backward
-    kernels only; the forward runs once, outside the timed function), with
-    the causal mask (unless ``causal`` is False) or a boolean ``mask``."""
-    leaves = [t.transpose(1, 2).detach().clone().requires_grad_()
-              for t in (q, k, v)]
-    out = torch.nn.functional.scaled_dot_product_attention(
-        *leaves, attn_mask=mask, is_causal=causal and mask is None,
-        enable_gqa=True)
+    kernels only; the forward runs outside the timed calls), with the
+    causal mask (unless ``causal`` is False) or a boolean ``mask``.  The
+    backward's kernels run on the stream its forward ran on, so the forward
+    is made again whenever the caller's stream changes: on the stream a
+    CUDA graph captures, during ``graph_ms``' warm-up calls."""
+    state = {}
     g = do.transpose(1, 2).contiguous()
-    return lambda: torch.autograd.grad(out, leaves, g, retain_graph=True)
+
+    def call():
+        stream = torch.cuda.current_stream().cuda_stream
+        if state.get("stream") != stream:
+            leaves = [t.transpose(1, 2).detach().clone().requires_grad_()
+                      for t in (q, k, v)]
+            out = torch.nn.functional.scaled_dot_product_attention(
+                *leaves, attn_mask=mask, is_causal=causal and mask is None,
+                enable_gqa=True)
+            state.update(stream=stream, out=out, leaves=leaves)
+        return torch.autograd.grad(state["out"], state["leaves"], g,
+                                   retain_graph=True)
+
+    call()
+    return call
 
 
 def time_flash_grad(flash_mod, flash_kernel) -> dict:
@@ -1550,7 +1766,6 @@ def train_phase(flash_mod, wkv6_mod, minplus, out_dir) -> dict:
     from repro_torch.configs import get_config
     from repro_torch.data import token_lm_batches
     from repro_torch.launch import train as train_mod
-    from repro_torch.launch.profile_serve import profiled
     from repro_torch.models.registry import get_model
     from repro_torch.optim import get_optimizer
     counters = (flash_mod.flash_attention, flash_mod.flash_attention_bwd,
@@ -1614,8 +1829,18 @@ def train_phase(flash_mod, wkv6_mod, minplus, out_dir) -> dict:
                                       seed=0))
             b = {k: torch.as_tensor(v, device="cuda") for k, v in b.items()}
             step(model, state, b)                                # warm-up
-            idle = profiled(lambda: step(model, state, b),
-                            torch.device("cuda"))[1]
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            step(model, state, b)
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t1) * 1e3
+            # the device time of a step: one step captured in a CUDA graph
+            # and replayed (or, where it cannot be captured, profiled steps
+            # two of which count the same kernel events)
+            busy = device_ms(lambda: step(model, state, b), reps=1,
+                             host_events=False)
+            idle = {"wall_ms": wall_ms, "device_busy_ms": busy,
+                    "device_idle_share": 1.0 - busy / wall_ms}
             n_params = api.param_count(model)
             del api, model, opt, state, step
             out[arch] = {
@@ -2433,7 +2658,7 @@ HA_FLASH = {"whisper_encoder": (1, 1500, 1500, 12, 12, 64, False),
             "whisper_cross": (1, 64, 1500, 12, 12, 64, False),
             "ragged_non_causal": (2, 77, 131, 4, 2, 16, False),
             "jamba_attention": (1, 512, 512, 64, 8, 128, True)}
-HA_TIMED = ("whisper_encoder", "whisper_cross")
+HA_TIMED = ("whisper_encoder", "whisper_cross", "jamba_attention")
 
 
 def jamba_cut(**changes):
@@ -2613,7 +2838,7 @@ def time_flash_turns(flash_mod, shape, turns=2) -> dict:
     the same mask, by the profiler's device time in turns (K2, SDPA, SDPA,
     K2 for two turns) so that a drift of the card's clock falls on both,
     with the names of SDPA's kernels (its backend) and K2's profiler events
-    a call; a session that lost events is run again (``whole_calls``), and
+    a call (from checked profiler sessions), and
     those timed by CUDA events after losing events every time are counted;
     also CUDA events, the plain version and the bound."""
     q, k, v = flash_inputs(*shape[:6], torch.bfloat16, seed=5)
@@ -2627,15 +2852,13 @@ def time_flash_turns(flash_mod, shape, turns=2) -> dict:
     for _ in range(WARM_CALLS):
         call()
         lib()
-    fallbacks = PROFILER_STATS["event_fallbacks"]
     runs, lib_split, k_counts = {"kernel": [], "library": []}, {}, {}
     for i in range(turns):
         for who in (("kernel", "library") if i % 2 == 0
                     else ("library", "kernel")):
             runs[who].append(
-                device_ms(call, counts=k_counts, whole_calls=True)
-                if who == "kernel"
-                else device_ms(lib, split=lib_split, whole_calls=True))
+                device_ms(call, counts=k_counts) if who == "kernel"
+                else device_ms(lib, split=lib_split))
     t = {"device_ms": float(np.mean(runs["kernel"])),
          "library_device_ms": float(np.mean(runs["library"])),
          "device_ms_turns": runs["kernel"],
@@ -2644,8 +2867,6 @@ def time_flash_turns(flash_mod, shape, turns=2) -> dict:
                                    reverse=True)[:3],
          "kernel_events_per_call": {n: round(c / turns, 3)
                                     for n, c in k_counts.items()},
-         "sessions_timed_by_events":
-             PROFILER_STATS["event_fallbacks"] - fallbacks,
          "ms": cuda_ms(call), "library_ms": cuda_ms(lib),
          "plain_ms": cuda_ms(lambda: flash_mod.attention_plain(
              q, k, v, causal=causal))}
@@ -2670,15 +2891,13 @@ def time_flash_bwd_turns(flash_mod, flash_kernel, shape, turns=2) -> dict:
     for _ in range(WARM_CALLS):
         call()
         lib()
-    fallbacks = PROFILER_STATS["event_fallbacks"]
     runs, lib_split, k_counts = {"kernel": [], "library": []}, {}, {}
     for i in range(turns):
         for who in (("kernel", "library") if i % 2 == 0
                     else ("library", "kernel")):
             runs[who].append(
-                device_ms(call, counts=k_counts, whole_calls=True)
-                if who == "kernel"
-                else device_ms(lib, split=lib_split, whole_calls=True))
+                device_ms(call, counts=k_counts) if who == "kernel"
+                else device_ms(lib, split=lib_split))
     t = {"device_ms": float(np.mean(runs["kernel"])),
          "library_device_ms": float(np.mean(runs["library"])),
          "device_ms_turns": runs["kernel"],
@@ -2687,8 +2906,6 @@ def time_flash_bwd_turns(flash_mod, flash_kernel, shape, turns=2) -> dict:
                                    reverse=True)[:3],
          "kernel_events_per_call": {n: round(c / turns, 3)
                                     for n, c in k_counts.items()},
-         "sessions_timed_by_events":
-             PROFILER_STATS["event_fallbacks"] - fallbacks,
          "plain_ms": cuda_ms(lambda: flash_mod.flash_bwd_plain(
              q, k, v, out, do, lse, causal=causal))}
     t["bound_ms"], t["bound_by"] = flash_bwd_bound_ms(*shape, torch.bfloat16)
@@ -2731,8 +2948,7 @@ def ha_flash_phase(flash_mod, flash_kernel) -> dict:
             f"library {t['library_ms']:.4f} ms, plain {t['plain_ms']:.4f} "
             f"ms; bound "
             f"{t['bound_ms']:.6f} ms ({t['bound_by']}); K2's events a call "
-            f"{t['kernel_events_per_call']} (sessions timed by CUDA events "
-            f"after lost events: {t['sessions_timed_by_events']}); clocks, "
+            f"{t['kernel_events_per_call']}; clocks, "
             f"power and temperature before / after: {t['clocks']}")
         t = out["times"][name]["backward"] = time_flash_bwd_turns(
             flash_mod, flash_kernel, shape)
@@ -2744,8 +2960,7 @@ def ha_flash_phase(flash_mod, flash_kernel) -> dict:
             f"{t['library_kernels']}); plain "
             f"{t['plain_ms']:.4f} ms (events); bound {t['bound_ms']:.6f} ms "
             f"({t['bound_by']}); K2' events a call "
-            f"{t['kernel_events_per_call']} (sessions timed by CUDA events "
-            f"after lost events: {t['sessions_timed_by_events']})")
+            f"{t['kernel_events_per_call']}")
     return out
 
 
@@ -2839,6 +3054,31 @@ def sim_device_gap(cuda_rep, cpu_rep) -> float:
         gaps += [sim_gap(cpu_rep.timeline.starts, cuda_rep.timeline.starts),
                  sim_gap(cpu_rep.timeline.ends, cuda_rep.timeline.ends)]
     return max(gaps)
+
+
+#: micro-batches of the 1F1B chain whose device busy time phase 4d reads
+SIM_BUSY_Q = 1_000
+#: one-call busy-time measurements of host-bound runs (phases 4d, 4e),
+#: taken after phase 27: their profiled sessions are the run's largest, and
+#: the profiler loses events in later sessions after large ones
+DEFERRED_BUSY = []
+
+
+def defer_busy(label, fn, entry, wall_s):
+    """Measure ``fn``'s device busy time (``device_ms``, one call, by the
+    profiler) after phase 27 and store it in ``entry`` as
+    ``device_busy_ms`` and ``idle_share`` against ``wall_s``."""
+    DEFERRED_BUSY.append((label, fn, entry, wall_s))
+
+
+def run_deferred_busy():
+    for label, fn, entry, wall_s in DEFERRED_BUSY:
+        busy = device_ms(fn, reps=1, host_events=False, graph=False)
+        entry["device_busy_ms"] = busy
+        entry["idle_share"] = 1.0 - busy / 1e3 / wall_s
+        log(f"{label}: device busy {busy:.2f} ms of {wall_s:.4f} s (idle "
+            f"share {entry['idle_share']:.3f})")
+    DEFERRED_BUSY.clear()
 
 
 def scale_chain(core, num_nodes: int = 100, num_microbatches: int = 10_000,
@@ -2944,8 +3184,14 @@ def sim_phase(core, minplus, profile, net, plan) -> dict:
             rep, wall = timed(lambda: run("cuda"), "cuda")
             walls.append(wall)
         peak = torch.cuda.max_memory_allocated()
-        # the device's busy time in one run (profiler, kernels summed)
-        busy_ms = device_ms(lambda: run("cuda"), reps=1, host_events=False)
+        # the device's busy time in one run (profiler, kernels summed, two
+        # sessions agreeing); under 1F1B, a chain of SIM_BUSY_Q
+        # micro-batches beside its own wall: the 10,000-micro-batch run's
+        # ~10^5 launches a session lose an event now and then
+        busy_Q = Q_s if pol == "fifo" else SIM_BUSY_Q
+        busy_wall = min(walls) if busy_Q == Q_s else min(
+            timed(lambda: run("cuda", Q=busy_Q), "cuda")[1]
+            for _ in range(2))
         cpu_rep, cpu_wall = timed(lambda: run("cpu"), "cpu")
         g_dev = sim_device_gap(rep, cpu_rep)
         got = (rep.T_f, rep.T_i, rep.L_t)
@@ -2958,8 +3204,7 @@ def sim_phase(core, minplus, profile, net, plan) -> dict:
             raise AssertionError(f"sim (b) {pol}: cuda vs cpu {g_dev:.3e}, "
                                  f"Eq. (12)-(14) rel {rel}")
         entry = {"walls_s": walls, "cpu_wall_s": cpu_wall,
-                 "device_busy_ms": busy_ms,
-                 "idle_share": 1.0 - busy_ms / 1e3 / min(walls),
+                 "busy_microbatches": busy_Q, "busy_wall_s": busy_wall,
                  "peak_mib": peak / 2**20, "cpu_gap": g_dev,
                  "T_f": rep.T_f, "T_i": rep.T_i, "L_t": rep.L_t,
                  "eq_rel": rel, "reason": rep.engine_reason}
@@ -2972,13 +3217,15 @@ def sim_phase(core, minplus, profile, net, plan) -> dict:
                                      f"Q = 200 {short:.3e}")
             entry["event_gap_q200"] = short
         scale[pol] = entry
+        defer_busy(f"4d (b) scaling chain {pol}, {busy_Q} micro-batches",
+                   lambda r=run, q=busy_Q: r("cuda", Q=q), entry, busy_wall)
         log(f"sim (b) scaling chain 100 nodes x {Q_s} micro-batches "
             f"({Q_s * len(sim.build_visit_table(prof_s, net_s, sol_s, b_s))}"
             f" tasks), {pol}: T_f={rep.T_f!r} T_i={rep.T_i!r} "
             f"L_t={rep.L_t!r} (Eq. 12-14 rel {[f'{x:.2e}' for x in rel]}); "
             f"cuda vs cpu {g_dev:.3e}; wall on cuda "
-            f"{[round(w, 4) for w in walls]} s (device busy "
-            f"{busy_ms:.2f} ms of it: idle share {entry['idle_share']:.3f}),"
+            f"{[round(w, 4) for w in walls]} s (device busy after phase "
+            f"27, at {busy_Q} micro-batches: {busy_wall:.4f} s),"
             f" on cpu {cpu_wall:.4f} s; peak device memory "
             f"{peak / 2**20:.1f} MiB"
             + (f"; vectorized vs event at Q = 200: "
@@ -2996,8 +3243,6 @@ def sim_phase(core, minplus, profile, net, plan) -> dict:
                                      policy=pol, engine=eng, device=dev)
         ev, ev_wall = timed(lambda: run("event", "cuda"), "cuda")
         vec, vec_wall = timed(lambda: run("vectorized", "cuda"), "cuda")
-        busy_ms = device_ms(lambda: run("vectorized", "cuda"), reps=1,
-                            host_events=False)
         vec_cpu, vec_cpu_wall = timed(lambda: run("vectorized", "cpu"),
                                       "cpu")
         g_ev = sim_gap(ev.mb_complete, vec.mb_complete)
@@ -3006,17 +3251,17 @@ def sim_phase(core, minplus, profile, net, plan) -> dict:
             raise AssertionError(f"sim (c) {pol}: vectorized vs event "
                                  f"{g_ev:.3e}, cuda vs cpu {g_dev:.3e}")
         traced[pol] = {"event_wall_s": ev_wall, "vectorized_wall_s": vec_wall,
-                       "device_busy_ms": busy_ms,
-                       "idle_share": 1.0 - busy_ms / 1e3 / vec_wall,
                        "vectorized_cpu_wall_s": vec_cpu_wall,
                        "event_gap": g_ev, "cpu_gap": g_dev,
                        "reason": vec.engine_reason}
         log(f"sim (c) trace chain 8 nodes x {Q_t}, Gauss-Markov cv 0.3, "
             f"{pol}: L_t={vec.L_t!r}; vectorized vs event {g_ev:.3e}, cuda "
             f"vs cpu {g_dev:.3e}; wall event {ev_wall:.3f} s, vectorized "
-            f"{vec_wall:.4f} s on cuda (device busy {busy_ms:.2f} ms: idle "
-            f"share {traced[pol]['idle_share']:.3f}; {vec_cpu_wall:.4f} s on "
-            f"cpu; {vec.engine_reason})")
+            f"{vec_wall:.4f} s on cuda (device busy after phase 27); "
+            f"{vec_cpu_wall:.4f} s on cpu; {vec.engine_reason}")
+        defer_busy(f"4d (c) trace chain {pol}",
+                   lambda r=run: r("vectorized", "cuda"), traced[pol],
+                   vec_wall)
         del ev, vec, vec_cpu
     out["trace_chain"] = traced
 
@@ -3248,8 +3493,6 @@ def planning_phase(core, minplus, profile, net, plan, out_dir) -> dict:
                                        for s, b in cands], "cuda")
     cpu_many = core.SimMakespan(device="cpu").evaluate_many(profile, net,
                                                             cands, 512)
-    many_busy = device_ms(lambda: cm.evaluate_many(profile, net, cands, 512),
-                          reps=1, host_events=False)
     reasons = sorted({r.engine_reason for r in sim.simulate_plans(
         profile, net, cands, B=512, policy=cm.policy, device="cuda")})
     g_loop = max(rel_gap(a, b) for a, b in zip(many, looped))
@@ -3264,8 +3507,7 @@ def planning_phase(core, minplus, profile, net, plan, out_dir) -> dict:
         "objective": got.objective, "L_t": got.L_t, "wall_s": wall,
         "cpu_wall_s": cpu_wall, "k1_launches": launches,
         "box": len(box), "evaluate_many_wall_s": many_wall,
-        "evaluate_many_busy_ms": many_busy,
-        "evaluate_many_idle_share": 1.0 - many_busy / 1e3 / many_wall,
+        "evaluate_many": {},
         "engine_reasons": reasons, "looped_wall_s": loop_wall,
         "looped_gap": g_loop, "cpu_gap": g_dev}
     log(f"4e (a) sim_refined (quickstart, B = 512): cuts={got.solution.cuts} "
@@ -3273,9 +3515,12 @@ def planning_phase(core, minplus, profile, net, plan, out_dir) -> dict:
         f"{got.objective!r} (equal to the CPU's); K1 launches {launches}; "
         f"wall {wall:.3f} s on cuda, {cpu_wall:.3f} s on cpu; "
         f"SimMakespan.evaluate_many over the feasible box ({len(box)} b, "
-        f"one simulate_plans: {reasons}) {many_wall:.3f} s (device busy "
-        f"{many_busy:.2f} ms) vs {len(box)} looped evaluate {loop_wall:.3f} "
+        f"one simulate_plans: {reasons}) {many_wall:.3f} s vs {len(box)} "
+        f"looped evaluate {loop_wall:.3f} "
         f"s: gap {g_loop:.3e}, cuda vs cpu {g_dev:.3e}")
+    defer_busy(f"4e (a) evaluate_many over {len(box)} b",
+               lambda: cm.evaluate_many(profile, net, cands, 512),
+               out["sim_refined"]["evaluate_many"], many_wall)
 
     # (b) the fluctuation report in trace mode
     fluct = {}
@@ -3367,10 +3612,9 @@ def planning_phase(core, minplus, profile, net, plan, out_dir) -> dict:
                                                cost_model=robust_cm,
                                                device="cuda"), "cuda")
     rb_launches = k1.launches
-    rb_busy = device_ms(lambda: core.bcd_solve(
-        profile, net, 512, cost_model=sim.RobustMakespan(n_scenarios=12,
-                                                         device="cuda"),
-        device="cuda"), reps=1, host_events=False)
+    # no device busy time here: the solve launches a few kernels more or
+    # less on every call (42,521-42,531 kernel events in six profiled
+    # solves), so no profiler session of it can be checked for lost events
     rb_cpu, rb_cpu_wall = timed(lambda: core.bcd_solve(
         profile, net, 512, cost_model=sim.RobustMakespan(n_scenarios=12,
                                                          device="cpu"),
@@ -3386,16 +3630,14 @@ def planning_phase(core, minplus, profile, net, plan, out_dir) -> dict:
                        "placement": list(rb.solution.placement), "b": rb.b,
                        "objective": rb.objective, "cpu_gap": rb_gap,
                        "wall_s": rb_wall, "cpu_wall_s": rb_cpu_wall,
-                       "busy_ms": rb_busy,
-                       "idle_share": 1.0 - rb_busy / 1e3 / rb_wall,
                        "k1_launches": rb_launches}}
     log(f"4e (d) acceptance: robust CVaR0.95 <= closed on all {len(rows)} "
         f"instances, < on {out['cvar']['strict_wins']}; bcd_solve(quickstart"
         f", B = 512, RobustMakespan(n_scenarios=12)): cuts={rb.solution.cuts}"
         f" placement={rb.solution.placement} b={rb.b} objective "
         f"{rb.objective!r} (cpu gap {rb_gap:.3e}); K1 launches "
-        f"{rb_launches}; wall {rb_wall:.3f} s on cuda (device busy "
-        f"{rb_busy:.2f} ms), {rb_cpu_wall:.3f} s on cpu")
+        f"{rb_launches}; wall {rb_wall:.3f} s on cuda, {rb_cpu_wall:.3f} s "
+        f"on cpu")
 
     # (e) the policy zoo
     k1.launches = 0
@@ -3485,6 +3727,448 @@ def planning_phase(core, minplus, profile, net, plan, out_dir) -> dict:
         f"{failed.restore_seconds!r} s (= estimate_restore_seconds), the "
         f"rate change 0")
     del ex, tree, back, like, flat
+    return out
+
+
+#: phase 28: the paper's stage pipeline (pipeline/spmd.py) on the card:
+#: qwen3-0.6b at full width and depth over 2 stage ranks, two processes
+#: sharing the one GPU under gloo (NCCL refuses two ranks on a GPU), a
+#: batch of 8 x 512 tokens; Q from the stage planner
+SPMD_RUN = {"arch": "qwen3-0.6b", "stages": 2, "batch": 8, "seq": 512,
+            "lr": 1e-3, "steps": 3, "seed": 0}
+#: pipelined against plain on the card, float32 with TF32 off: the loss
+#: relative to its size, each gradient and each updated parameter relative
+#: to its tensor's largest magnitude (the reference's own pipeline test
+#: keeps 1e-5 / 1e-4, tests/test_spmd.py)
+SPMD_LOSS_REL, SPMD_REL = 1e-5, 1e-4
+#: the pipelined train step against AdamW applied to the gradients that
+#: step computed, every element relative to its tensor's largest
+#: magnitude: float32 rounding of the same formula (tests/
+#: test_torch_spmd.py keeps the same bound against the reference's AdamW)
+SPMD_STEP_REL = 1e-6
+#: the step against the plain step (launch/steps.py) is held where the
+#: plain gradient is at least this large: AdamW's first step is g / (|g| +
+#: 1e-8), so below it a rounding of the gradient moves the step by a
+#: visible share of the rate; the elements below are counted
+SPMD_STEP_GRAD_MIN = 1e-6
+#: seconds the parent waits for the two ranks
+SPMD_TIMEOUT_S = 480
+#: profiled steps a rank runs for its device busy time
+SPMD_PROFILED = 4
+
+
+def _flat_tree(tree, prefix=""):
+    out = {}
+    for k in sorted(tree):
+        v = tree[k]
+        if isinstance(v, dict):
+            out.update(_flat_tree(v, f"{prefix}{k}/"))
+        else:
+            out[prefix + k] = v
+    return out
+
+
+def _stage_part(key, full, k, stages):
+    """The part of the whole tree's leaf ``key`` that stage k holds."""
+    if not key.startswith("layers/"):
+        return full
+    n = full.shape[0] // stages
+    return full[k * n:(k + 1) * n]
+
+
+def derived_spmd_launches(Q: int, S: int, layers_per_stage: int,
+                          remat: str) -> dict:
+    """K2 (forward) and K2' (backward) launches one stage rank makes in a
+    pipelined loss and its gradient: every one of the T = Q + S - 1 ticks
+    runs the stage's layers, once more in the backward under remat
+    "layer"."""
+    fwd = (Q + S - 1) * layers_per_stage
+    return {"flash_attention": fwd * (2 if remat == "layer" else 1),
+            "flash_attention_bwd": fwd}
+
+
+def _spmd_work(rank: int, job: dict) -> dict:
+    """Phase 28 on one stage rank: correctness in float32, then the timed
+    bfloat16 steps."""
+    import torch.distributed as dist
+    from repro_torch.configs import get_config
+    from repro_torch.data import token_lm_batches
+    from repro_torch.kernels import flash as flash_mod
+    from repro_torch.launch.mesh import MeshLayout, build_mesh
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.models import transformer as tf
+    from repro_torch.models.common import nest_layers
+    from repro_torch.models.registry import get_model
+    from repro_torch.optim import get_optimizer
+    from repro_torch.utils import tree_map
+    from repro_torch.pipeline.spmd import (PipelineConfig,
+                                           make_pipelined_loss,
+                                           make_pipelined_train_step,
+                                           shard_params)
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    S, Q, B, L = job["stages"], job["q"], job["batch"], job["seq"]
+    pcfg = PipelineConfig(S, Q)
+    mesh = build_mesh(MeshLayout(("stage",), (S,)), "cuda")
+    base = get_config(job["arch"])
+    batch = next(token_lm_batches(batch=B, seq_len=L, vocab=base.vocab,
+                                  seed=job["seed"]))
+    batch = {k: torch.as_tensor(v, device="cuda") for k, v in batch.items()}
+    out = {"rank": rank}
+
+    def whole_tree(model):
+        return nest_layers({n: p.detach().clone()
+                            for n, p in model.named_parameters()},
+                           torch.stack)
+
+    # float32, TF32 off: pipelined against plain on this card
+    cfg32 = dataclasses.replace(base, compute_dtype=torch.float32)
+    gen = torch.Generator(device="cuda").manual_seed(job["seed"])
+    model = tf.init_params(cfg32, gen, "cuda")
+    tree = whole_tree(model)
+    named = dict(model.named_parameters())
+    loss0 = get_model(cfg32, "cuda").loss(model, batch)
+    g0 = dict(zip(named, torch.autograd.grad(loss0, list(named.values()))))
+    g0 = _flat_tree(nest_layers(g0, torch.stack))
+    local = shard_params(tree, mesh, pcfg, "cuda")
+    loss_fn = make_pipelined_loss(cfg32, mesh, pcfg, "cuda")
+    k = loss_fn.pipe.k
+    out.update(stage=k, backend=loss_fn.pipe.backend,
+               transport=loss_fn.pipe.transport)
+    loss = loss_fn(local, batch)
+    leaves = _flat_tree(local)
+    grads = dict(zip(leaves, torch.autograd.grad(loss, list(leaves.values()))))
+    out["loss"], out["plain_loss"] = loss.item(), loss0.item()
+    out["loss_rel"] = abs(out["loss"] - out["plain_loss"]) \
+        / abs(out["plain_loss"])
+    out["grad_rel"] = {}
+    for key, g in grads.items():
+        want = _stage_part(key, g0[key], k, S)
+        out["grad_rel"][key] = float((g - want).abs().max()
+                                     / want.abs().max())
+    del loss, grads, local, loss_fn
+    # one AdamW step each way from the same weights.  The pipelined step
+    # hands its optimizer the gradients it computed: they are held to the
+    # plain ones, and the step's every element to AdamW applied to them
+    opt = get_optimizer("adamw", lr=job["lr"])
+    plain_step = make_train_step(cfg32, opt, Q, "cuda")
+    model, _, _ = plain_step(model, opt.init(dict(model.named_parameters())),
+                             batch)
+    stepped = _flat_tree(whole_tree(model))
+    del model, named
+    local = shard_params(tree, mesh, pcfg, "cuda")
+    del tree
+    seen = {}
+
+    def recorded(params, grads, state):
+        seen["before"] = tree_map(lambda p: p.detach().clone(), params)
+        seen["grads"] = tree_map(torch.clone, grads)
+        return opt.update(params, grads, state)
+
+    pipe_step = make_pipelined_train_step(
+        cfg32, mesh, pcfg, dataclasses.replace(opt, update=recorded), "cuda")
+    local, _, _ = pipe_step(local, opt.init(local), batch)
+    adamw, _ = opt.update(seen["before"], seen["grads"],
+                          opt.init(seen["before"]))
+    adamw, step_grads = _flat_tree(adamw), _flat_tree(seen["grads"])
+    out["step_rel"], out["step_grad_rel"] = {}, {}
+    out["step_plain_rel"], out["step_small_grad"] = {}, {}
+    for key, p in _flat_tree(local).items():
+        p = p.detach()
+        out["step_rel"][key] = float((p - adamw[key]).abs().max()
+                                     / adamw[key].abs().max())
+        g = _stage_part(key, g0[key], k, S)
+        out["step_grad_rel"][key] = float((step_grads[key] - g).abs().max()
+                                          / g.abs().max())
+        # against the plain step where AdamW's first step is well
+        # conditioned (SPMD_STEP_GRAD_MIN); the rest is only counted
+        want = _stage_part(key, stepped[key], k, S)
+        held = g.abs() >= SPMD_STEP_GRAD_MIN
+        diff = torch.where(held, (p - want).abs(), 0.0)
+        out["step_plain_rel"][key] = float(diff.max() / want.abs().max())
+        out["step_small_grad"][key] = int((~held).sum())
+    del local, stepped, g0, pipe_step, plain_step, seen, adamw, step_grads
+    torch.cuda.empty_cache()
+
+    # bfloat16 compute (the config's), remat "layer": timed steps
+    gen = torch.Generator(device="cuda").manual_seed(job["seed"])
+    model = tf.init_params(base, gen, "cuda")
+    tree = whole_tree(model)
+    del model
+    local = shard_params(tree, mesh, pcfg, "cuda")
+    del tree
+    torch.cuda.empty_cache()
+    opt = get_optimizer("adamw", lr=job["lr"])
+    state = opt.init(local)
+    step = make_pipelined_train_step(base, mesh, pcfg, opt, "cuda")
+    step(local, state, batch)                                  # warm-up
+    counters = (flash_mod.flash_attention, flash_mod.flash_attention_bwd)
+    torch.cuda.synchronize()
+    dist.barrier()
+    reset_launches(*counters)
+    torch.cuda.reset_peak_memory_stats()
+    step.pipe.seconds = dict.fromkeys(step.pipe.seconds, 0.0)
+    walls, losses = [], []
+    for _ in range(job["steps"]):
+        dist.barrier()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _, _, m = step(local, state, batch)
+        losses.append(float(m["loss"]))
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+    out["launches"] = {c.__name__: c.launches for c in counters}
+    out["launches_derived"] = {
+        name: n * job["steps"] for name, n in derived_spmd_launches(
+            Q, S, base.num_layers // S, base.remat).items()}
+    out["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    out["step_s"], out["losses"] = walls, losses
+    out["transfer_s"] = {k: v / job["steps"]
+                         for k, v in step.pipe.seconds.items()}
+    # device busy a step: SPMD_PROFILED profiled steps on every rank (the
+    # same number on each: a step is a collective), kept from two sessions
+    # that count the same kernel events at the largest count seen (a step
+    # launches the same kernels every time; a lost event shows as a
+    # difference)
+    sessions = []
+    for _ in range(SPMD_PROFILED):
+        dist.barrier()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            time.sleep(PROFILE_PAD_S)
+            _probe()
+            step(local, state, batch)
+            torch.cuda.synchronize()
+            time.sleep(PROFILE_PAD_S)
+        kernels = [e for e in prof.events()
+                   if e.device_type == DeviceType.CUDA
+                   and _kernel_name(e.name) != PROBE_KERNEL]
+        counts, split = {}, {}
+        for e in kernels:
+            name = _kernel_name(e.name)
+            counts[name] = counts.get(name, 0) + 1
+            split[name] = split.get(name, 0.0) \
+                + e.time_range.elapsed_us() / 1e3
+        sessions.append((sum(e.time_range.elapsed_us() for e in kernels)
+                         / 1e3, counts, split))
+    out["busy_sessions_ms"] = [ms for ms, _, _ in sessions]
+    out["busy_sessions_kernels"] = [sum(c.values()) for _, c, _ in sessions]
+    most = max(sum(c.values()) for _, c, _ in sessions)
+    pair = next(((i, j) for i in range(len(sessions))
+                 for j in range(i + 1, len(sessions))
+                 if sessions[i][1] == sessions[j][1]
+                 and sum(sessions[i][1].values()) == most), None)
+    out["busy_sessions_agree"] = pair is not None
+    if pair is None:
+        _, first, split = sessions[0]
+        out["busy_sessions_differ"] = {
+            n: [c.get(n, 0) for _, c, _ in sessions]
+            for n in sorted(set().union(*(c for _, c, _ in sessions)))
+            if len({c.get(n, 0) for _, c, _ in sessions}) > 1}
+        out["busy_ms"] = []
+    else:
+        out["busy_ms"] = [sessions[i][0] for i in pair]
+        _, first, split = sessions[pair[0]]
+    out["kernels_a_step"] = sum(first.values())
+    # where a step's device time goes, and each kernel's mean duration:
+    # two processes time-slice the card, so a kernel's recorded span can
+    # hold the other rank's slices
+    top = sorted(split, key=split.get, reverse=True)[:6]
+    out["top_kernels"] = {n: {"ms": split[n], "calls": first[n],
+                              "mean_ms": split[n] / first[n]} for n in top}
+    k2 = "flash_fwd_mma_kernel"
+    if k2 in split:
+        out["k2_mean_ms"] = split[k2] / first[k2]
+    return out
+
+
+def spmd_rank(rank: int, job: dict) -> None:
+    """One stage rank of phase 28, in a process of its own: gloo over a
+    FileStore, loopback sockets; writes its results as JSON."""
+    os.environ.setdefault("GLOO_SOCKET_IFNAME", "lo")
+    import torch.distributed as dist
+    torch.cuda.set_device(0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dist.init_process_group("gloo", store=dist.FileStore(job["store"],
+                                                         job["stages"]),
+                            rank=rank, world_size=job["stages"])
+    try:
+        out = _spmd_work(rank, job)
+        with open(job["out"].format(rank=rank), "w") as f:
+            json.dump(out, f)
+    finally:
+        dist.destroy_process_group()
+
+
+def spmd_phase(out_dir: str) -> dict:
+    """Phase 28: the stage planner picks Q for qwen3-0.6b on 2 GPUs (a
+    batch of 8); two processes, one stage rank each, share the card under
+    gloo (host-staged hops); each holds its stage's 14 layers.  float32
+    (TF32 off): the pipelined loss within 1e-5 of the plain model's on the
+    card, every gradient within 1e-4 of each tensor's largest magnitude;
+    one pipelined AdamW step: the gradients it used within 1e-4 of the
+    plain ones, its every element within 1e-6 of AdamW applied to them,
+    and within 1e-4 of the plain step where the plain gradient is at
+    least 1e-6.  bfloat16: the steps' wall, tokens/s, each rank's
+    device busy time and peak memory beside the plan's T_f, T_i, L_t and
+    bubble, and the plain single-process step at the same batch; K2 / K2'
+    launches a step per rank equal to T x the layers a stage holds (twice
+    for K2 under remat "layer")."""
+    import multiprocessing
+    import shutil
+    from repro_torch.configs import arch_profile, get_config
+    from repro_torch.core import plan_stages
+    from repro_torch.pipeline.spmd import plan_to_pipeline_config
+    run = SPMD_RUN
+    cfg = get_config(run["arch"])
+    prof = arch_profile(cfg)
+    plans = {}
+    for b0 in (8, 1):
+        sp = plan_stages(prof, total_chips=run["stages"],
+                         stage_candidates=(run["stages"],),
+                         global_batch=run["batch"], b0=b0, device="cuda")
+        plans[f"b0={b0}"] = {
+            "layer_ranges": sp.layer_ranges, "num_stages": sp.num_stages,
+            "microbatch": sp.microbatch, "Q": sp.num_microbatches,
+            "T_f": sp.T_f, "T_i": sp.T_i, "L_t": sp.L_t,
+            "bubble_fraction": sp.bubble_fraction, "plan": sp}
+        log(f"stage plan (H100 defaults, {run['stages']} GPUs, batch "
+            f"{run['batch']}, BCD from b0 = {b0}): stages "
+            f"{sp.layer_ranges}, micro-batch {sp.microbatch}, Q "
+            f"{sp.num_microbatches}, T_f {sp.T_f:.6f} s, T_i {sp.T_i:.6f} "
+            f"s, L_t {sp.L_t:.6f} s, bubble {sp.bubble_fraction:.4f}")
+    best = min(plans.values(), key=lambda p: p["L_t"])
+    pcfg = plan_to_pipeline_config(best.pop("plan"), run["batch"])
+    for p in plans.values():
+        p.pop("plan", None)
+    if pcfg.num_stages != run["stages"]:
+        raise AssertionError(f"the best plan has {pcfg.num_stages} stages")
+    Q, S = pcfg.num_microbatches, pcfg.num_stages
+    shutil.rmtree(out_dir, ignore_errors=True)
+    os.makedirs(out_dir)
+    job = {**run, "q": Q, "store": os.path.join(out_dir, "store"),
+           "out": os.path.join(out_dir, "rank{rank}.json")}
+    torch.cuda.empty_cache()
+    ctx = multiprocessing.get_context("spawn")
+    procs = [ctx.Process(target=spmd_rank, args=(r, job)) for r in range(S)]
+    t0 = time.perf_counter()
+    for p in procs:
+        p.start()
+    deadline = t0 + SPMD_TIMEOUT_S
+    for p in procs:
+        p.join(max(1.0, deadline - time.perf_counter()))
+    ranks_s = time.perf_counter() - t0
+    for p in procs:
+        if p.is_alive():
+            p.kill()
+            p.join()
+    if any(p.exitcode != 0 for p in procs):
+        raise AssertionError(f"stage ranks ended with "
+                             f"{[p.exitcode for p in procs]}")
+    ranks = []
+    for r in range(S):
+        with open(job["out"].format(rank=r)) as f:
+            ranks.append(json.load(f))
+    failures = []
+    for o in ranks:
+        worst = max(o["grad_rel"], key=o["grad_rel"].get)
+        worst_step = max(o["step_rel"], key=o["step_rel"].get)
+        worst_sg = max(o["step_grad_rel"], key=o["step_grad_rel"].get)
+        worst_plain = max(o["step_plain_rel"], key=o["step_plain_rel"].get)
+        small = sum(o["step_small_grad"].values())
+        log(f"stage rank {o['rank']} (stage {o['stage']}; backend "
+            f"{o['backend']}, transport {o['transport']}): float32 loss "
+            f"{o['loss']:.6f} against plain {o['plain_loss']:.6f} (rel "
+            f"{o['loss_rel']:.2e}); gradients within {o['grad_rel'][worst]:.2e}"
+            f" of scale (worst {worst}); AdamW step: its gradients within "
+            f"{o['step_grad_rel'][worst_sg]:.2e} of the plain ones (worst "
+            f"{worst_sg}), every element within "
+            f"{o['step_rel'][worst_step]:.2e} of AdamW on them (worst "
+            f"{worst_step}), within {o['step_plain_rel'][worst_plain]:.2e} "
+            f"of the plain step (worst {worst_plain}; {small} entries with "
+            f"|g| < {SPMD_STEP_GRAD_MIN} not held to it)")
+        log(f"stage rank {o['rank']}: bf16 steps "
+            f"{[round(x, 4) for x in o['step_s']]} s, peak "
+            f"{o['peak_gib']:.2f} GiB, launches {o['launches']} (derived "
+            f"{o['launches_derived']}); profiled steps' device time "
+            f"{[round(x, 2) for x in o['busy_sessions_ms']]} ms with "
+            f"{o['busy_sessions_kernels']} kernel events; host time in "
+            f"transfers a step {o['transfer_s']} s; K2's mean span in a "
+            f"step {o.get('k2_mean_ms', 0.0):.4f} ms; top kernels "
+            f"{ {n: round(v['ms'], 1) for n, v in o['top_kernels'].items()} }"
+            + ("" if o["busy_sessions_agree"] else
+               f"; no two sessions agree: {o['busy_sessions_differ']}"))
+        if not (o["loss_rel"] <= SPMD_LOSS_REL
+                and o["grad_rel"][worst] <= SPMD_REL
+                and o["step_grad_rel"][worst_sg] <= SPMD_REL
+                and o["step_rel"][worst_step] <= SPMD_STEP_REL
+                and o["step_plain_rel"][worst_plain] <= SPMD_REL):
+            failures.append(f"rank {o['rank']} outside the bounds")
+        if o["launches"] != o["launches_derived"]:
+            failures.append(f"rank {o['rank']} launched {o['launches']}, "
+                            f"derived {o['launches_derived']}")
+        if not o["busy_sessions_agree"]:
+            failures.append(f"rank {o['rank']}'s profiled steps counted "
+                            "different kernel events every time")
+    tokens = run["batch"] * run["seq"]
+    walls = [max(r["step_s"][i] for r in ranks)
+             for i in range(run["steps"])]
+    # the plain single-process step at the same batch, bfloat16
+    plain = {}
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.data import token_lm_batches
+    from repro_torch.models.registry import get_model
+    from repro_torch.optim import get_optimizer
+    api = get_model(cfg, "cuda")
+    model = api.init(torch.Generator(device="cuda").manual_seed(run["seed"]))
+    b = next(token_lm_batches(batch=run["batch"], seq_len=run["seq"],
+                              vocab=cfg.vocab, seed=run["seed"]))
+    b = {k: torch.as_tensor(v, device="cuda") for k, v in b.items()}
+    for q in sorted({2, Q}):
+        opt = get_optimizer("adamw", lr=run["lr"])
+        state = opt.init(dict(model.named_parameters()))
+        step = make_train_step(cfg, opt, q, "cuda")
+        step(model, state, b)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        ts = []
+        for _ in range(run["steps"]):
+            t1 = time.perf_counter()
+            step(model, state, b)
+            torch.cuda.synchronize()
+            ts.append(time.perf_counter() - t1)
+        plain[f"Q={q}"] = {"step_s": ts, "tokens_per_s": [tokens / t
+                                                          for t in ts],
+                           "peak_gib": torch.cuda.max_memory_allocated()
+                           / 2**30}
+        del opt, state, step
+    del api, model
+    torch.cuda.empty_cache()
+    T = Q + S - 1
+    out = {"plans": plans, "Q": Q, "stages": S, "ticks": T,
+           "tick_bubble": (S - 1) / T, "step_s": walls,
+           "tokens_per_s": [tokens / w for w in walls],
+           "ranks": ranks, "plain": plain, "ranks_wall_s": ranks_s,
+           "launches": {name: sum(r["launches"][name] for r in ranks)
+                        for name in ranks[0]["launches"]}}
+    log(f"phase 28 pipelined qwen3-0.6b ({cfg.num_layers} layers, "
+        f"{cfg.num_layers // S} a stage), {S} stage ranks on one card "
+        f"(gloo, host-staged hops), Q {Q}, T {T} ticks (tick bubble "
+        f"{out['tick_bubble']:.4f}); bf16 AdamW steps "
+        f"{[round(w, 4) for w in walls]} s "
+        f"({[round(t) for t in out['tokens_per_s']]} tokens/s); device busy "
+        f"a step per rank {[[round(x, 1) for x in r['busy_ms']] for r in ranks]}"
+        f" ms; peak per rank {[round(r['peak_gib'], 2) for r in ranks]} GiB; "
+        f"launches over the {run['steps']} steps per rank "
+        f"{[r['launches'] for r in ranks]} (derived "
+        f"{ranks[0]['launches_derived']}); plan T_f {best['T_f']:.6f} s, T_i "
+        f"{best['T_i']:.6f} s, L_t {best['L_t']:.6f} s, bubble "
+        f"{best['bubble_fraction']:.4f}; plain single-process step "
+        + ", ".join(f"{k}: {[round(x, 4) for x in v['step_s']]} s "
+                    f"({v['peak_gib']:.2f} GiB)" for k, v in plain.items())
+        + f"; ranks' processes {ranks_s:.1f} s")
+    if failures:
+        raise AssertionError("phase 28: " + "; ".join(failures))
     return out
 
 
@@ -3583,6 +4267,10 @@ def main(argv=None) -> int:
                     help="only build K2 and K2' and run phases 25-27 (the "
                     "hybrid and audio models, K2 and K2' at their shapes, "
                     "their servers) and print their JSON")
+    ap.add_argument("--spmd", action="store_true",
+                    help="only build the kernels and run phase 28 (the "
+                    "stage pipeline across two ranks on the card) and print "
+                    "its JSON")
     ap.add_argument("--src", help="import repro_torch from this directory "
                     "(another checkout's src/) instead of this one's")
     opts = ap.parse_args(argv)
@@ -3686,6 +4374,22 @@ def main(argv=None) -> int:
             flash_mod, flash_kernel, BatchedServer, Request,
             (flash_mod.flash_attention, wkv6_mod.wkv6,
              minplus.sweep_minplus)), "card": smi}))
+        return 0
+
+    spmd_dir = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                            "build", "smoke_28")
+    if opts.spmd:
+        from repro_torch.kernels.flash import kernel as flash_kernel
+        from repro_torch.kernels.minplus import kernel as minplus_kernel
+        from repro_torch.kernels.rwkv6 import kernel as wkv6_kernel
+        mark_phase("2")
+        built = build_all([minplus_kernel, wkv6_kernel, flash_kernel]
+                          + bwd_libraries(flash_kernel, wkv6_kernel))
+        log("build: " + ", ".join(f"{n} {t:.2f} s" for n, t in built.items()))
+        mark_phase("28")
+        spmd_out = spmd_phase(spmd_dir)
+        log(json.dumps({"spmd": spmd_out, "card": smi}))
+        log(profiler_line())
         return 0
 
     from repro_torch import obs
@@ -4357,6 +5061,9 @@ def main(argv=None) -> int:
             "chain_device_ms": device_ms(lambda: flash_mod.flash_attention(
                 q_tile, k, v, causal=False)),
         }
+        if label == "served":
+            timings[label]["yardsticks"] = yardstick_turns(
+                lambda: flash_mod.flash_attention(q, k, v))
         bound, by = flash_bound_ms(*shape, torch.bfloat16)
         bound32, by32 = flash_bound_ms(*shape, torch.float32)
         timings[label].update(bound_ms=bound, bound_by=by,
@@ -4368,11 +5075,16 @@ def main(argv=None) -> int:
             f"f32: kernel {t['ms_f32_inputs']:.4f} ms, bound {bound32:.6f} "
             f"ms ({by32}); the longest block's chain alone (64 query rows "
             f"x {shape[2]} keys per head, bf16) {t['chain_ms']:.4f} ms")
-        log(f"K2 {label}, device time per call (profiler): kernel bf16 "
+        log(f"K2 {label}, device time per call (device_ms): kernel bf16 "
             f"{t['device_ms']:.4f} ms, f32 {t['device_ms_f32_inputs']:.4f} "
             f"ms, plain {t['plain_device_ms']:.4f} ms, "
             f"scaled_dot_product_attention {t['library_device_ms']:.4f} ms, "
             f"chain alone {t['chain_device_ms']:.4f} ms")
+        if "yardsticks" in t:
+            log(f"K2 {label}, bf16, the two yardsticks in turns (graph, "
+                f"profiler, profiler, graph): CUDA-graph replay "
+                f"{t['yardsticks']['graph_ms']} ms, profiler kernel sum "
+                f"{t['yardsticks']['profiler_ms']} ms")
     del q, k, v, q32, k32, v32, q_tile, mine, lib
 
     # 12. model check: cuda (K2) vs CPU (plain), float32 ---------------------
@@ -4484,6 +5196,15 @@ def main(argv=None) -> int:
         flash_mod, flash_kernel, BatchedServer, Request,
         (flash_mod.flash_attention, wkv6_mod.wkv6, minplus.sweep_minplus))
 
+    # the one-call busy times of phases 4d and 4e, after every other
+    # profiler session of the run
+    mark_phase("busy")
+    run_deferred_busy()
+
+    # 28. the paper's stage pipeline across two ranks on the card ----------
+    mark_phase("28")
+    spmd_out = spmd_phase(spmd_dir)
+
     log(json.dumps({"sim": sim_out, "card": smi}))
     log(json.dumps({"robust": robust_out, "card": smi}))
     log(json.dumps({"train": {"model_grads": model_grads, **trained,
@@ -4493,14 +5214,12 @@ def main(argv=None) -> int:
                               "phase_walls_s": dense_walls}, "card": smi}))
     log(json.dumps({"moe": moe_out, "card": smi}))
     log(json.dumps({"hybrid_audio": ha_out, "card": smi}))
+    log(json.dumps({"spmd": spmd_out, "card": smi}))
     run_walls = phase_walls()
     log("phase walls (s): "
         + ", ".join(f"{k} {v}" for k, v in run_walls.items())
         + f"; total {sum(run_walls.values()):.1f}")
-    log(f"profiler: {PROFILER_STATS['calls']} device_ms calls, "
-        f"{PROFILER_STATS['retried_sessions']} sessions with no device time "
-        f"and {PROFILER_STATS['lossy_sessions']} that lost events run again, "
-        f"{PROFILER_STATS['event_fallbacks']} timed by CUDA events")
+    log(profiler_line())
 
     log(json.dumps({"kernels": [{
         "name": "minplus_sweep",
@@ -4624,6 +5343,11 @@ def main(argv=None) -> int:
             "serve_launches": {
                 arch: r["launches"]["flash_attention"]
                 for arch, r in ha_out["serve"].items()}},
+        "spmd_launches": {
+            "ranks": [r["launches"]["flash_attention"]
+                      for r in spmd_out["ranks"]],
+            "derived": [r["launches_derived"]["flash_attention"]
+                        for r in spmd_out["ranks"]]},
     }, {
         "name": "flash_attention_bwd",
         "route": "cuda",
@@ -4657,6 +5381,11 @@ def main(argv=None) -> int:
             "model_launches": {
                 arch: r["launches"]["backward"]
                 for arch, r in ha_out["models"].items()}},
+        "spmd_launches": {
+            "ranks": [r["launches"]["flash_attention_bwd"]
+                      for r in spmd_out["ranks"]],
+            "derived": [r["launches_derived"]["flash_attention_bwd"]
+                        for r in spmd_out["ranks"]]},
     }, {
         "name": "wkv6_scan_bwd",
         "route": "cuda",

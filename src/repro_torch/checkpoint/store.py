@@ -6,12 +6,15 @@ Layout:  <dir>/step_<N>/arrays.npz  +  <dir>/step_<N>/meta.json
 either package restores in the other.  A tree is nested dicts, lists and
 tuples of tensors; it is flattened to the reference's leaf keys — path
 components joined by ``/`` (``"a/b/0"``), dict keys in sorted order.
-Arrays are stored on the host; a restore places each tensor on the device
-of the matching tensor in the caller's like-tree.  A ``scratch -> rename``
-commit keeps partially written checkpoints invisible to ``latest_step``.
-
-Sharded restores (the reference's ``shardings=``) wait for the port of the
-mesh runtime (ROADMAP Queue 1 item 11): passing them raises.
+Arrays are stored on the host, unsharded; a restore places each tensor on
+the device of the matching tensor in the caller's like-tree, or, given
+``shardings=`` (a tree of ``launch/sharding.py::NamedSharding`` on a
+``DeviceMesh``), re-shards it onto the current mesh: every rank reads the
+npz and keeps its own shard as a DTensor, so a checkpoint written on one
+mesh restores onto another.  Saving a tree of DTensors gathers each leaf
+(``full_tensor()``, a collective every rank joins) and rank 0 writes.  A
+``scratch -> rename`` commit keeps partially written checkpoints invisible
+to ``latest_step``.
 """
 
 from __future__ import annotations
@@ -58,11 +61,19 @@ def _unflatten(like, leaves):
     return next(leaves)
 
 
+def _is_dtensor(leaf) -> bool:
+    from torch.distributed.tensor import DTensor
+    return isinstance(leaf, DTensor)
+
+
 def _host_array(leaf) -> np.ndarray:
-    """A leaf as a host numpy array.  bfloat16 (no numpy dtype) is stored
-    as float32, which holds every bfloat16 value exactly."""
+    """A leaf as a host numpy array (a DTensor gathered whole).  bfloat16
+    (no numpy dtype) is stored as float32, which holds every bfloat16 value
+    exactly."""
     if isinstance(leaf, torch.Tensor):
         t = leaf.detach()
+        if _is_dtensor(t):
+            t = t.full_tensor()
         if t.dtype == torch.bfloat16:
             t = t.float()
         return t.cpu().numpy()
@@ -73,8 +84,18 @@ def save_checkpoint(directory: str, step: int, tree, *, meta: dict = None,
                     blocking: bool = True):
     """Host-gather + write.  With ``blocking=False`` the disk write happens
     on a background thread (training continues; join via
-    ``CheckpointStore.wait``) and the thread is returned."""
-    arrays = {k: _host_array(v) for k, v in _flatten_with_paths(tree)}
+    ``CheckpointStore.wait``) and the thread is returned.  A tree holding
+    DTensors is gathered on every rank (each must call this) and written
+    by rank 0 alone; a blocking save then waits for every rank."""
+    items = _flatten_with_paths(tree)
+    sharded = any(_is_dtensor(v) for _, v in items)
+    arrays = {k: _host_array(v) for k, v in items}
+    if sharded:
+        import torch.distributed as dist
+        if dist.get_rank() != 0:
+            if blocking:
+                dist.barrier()
+            return None
     payload_meta = {"step": step, "time": time.time(),
                     "bytes": int(sum(a.nbytes for a in arrays.values())),
                     **(meta or {})}
@@ -94,6 +115,9 @@ def save_checkpoint(directory: str, step: int, tree, *, meta: dict = None,
 
     if blocking:
         write()
+        if sharded:
+            import torch.distributed as dist
+            dist.barrier()
         return None
     t = threading.Thread(target=write, daemon=True)
     t.start()
@@ -138,11 +162,12 @@ def restore_checkpoint(directory: str, step: int, like_tree, *,
     """Restore into the structure of ``like_tree``: each leaf takes its like
     tensor's dtype and device (a like leaf that is not a tensor — a numpy
     array — gives a tensor on ``device``, ``"cuda"`` unless the caller
-    passes ``"cpu"``).  Returns ``(tree, meta)``."""
+    passes ``"cpu"``).  With ``shardings`` (the like-tree's structure, a
+    ``launch/sharding.py::NamedSharding`` on a ``DeviceMesh`` a leaf) each
+    leaf becomes a DTensor on that mesh: this rank's shard of the stored
+    array, on the mesh's device type.  Returns ``(tree, meta)``."""
     if shardings is not None:
-        raise ValueError(
-            "restore_checkpoint(shardings=) re-shards onto a device mesh, "
-            "which is not ported yet (ROADMAP Queue 1 item 11)")
+        shard_of = _shardings_by_key(like_tree, shardings)
     dev = resolve_device(device)
     path = os.path.join(directory, f"step_{step:08d}")
     with np.load(os.path.join(path, "arrays.npz")) as npz:
@@ -156,14 +181,50 @@ def restore_checkpoint(directory: str, step: int, like_tree, *,
             raise ValueError(
                 f"shape mismatch for {key}: ckpt {a.shape} vs {like.shape}")
         if isinstance(like, torch.Tensor):
-            leaves.append(torch.from_numpy(a).to(device=like.device,
-                                                 dtype=like.dtype))
+            t = torch.from_numpy(a).to(device=like.device, dtype=like.dtype)
         else:
-            leaves.append(torch.from_numpy(a.astype(like.dtype)).to(dev))
+            t = torch.from_numpy(a.astype(like.dtype)).to(dev)
+        if shardings is not None:
+            t = _distribute(t, shard_of[key])
+        leaves.append(t)
     tree = _unflatten(like_tree, iter(leaves))
     with open(os.path.join(path, "meta.json")) as f:
         meta = json.load(f)
     return tree, meta
+
+
+def _shardings_by_key(like_tree, shardings) -> dict:
+    """{leaf key: NamedSharding}, checking ``shardings`` holds one
+    ``launch/sharding.py::NamedSharding`` on a ``DeviceMesh`` for every
+    leaf of ``like_tree``."""
+    from torch.distributed.device_mesh import DeviceMesh
+    from ..launch.sharding import NamedSharding
+    if isinstance(shardings, (dict, list, tuple)):
+        items = dict(_flatten_with_paths(shardings))
+    else:
+        items = {"": shardings}
+    for key, sh in items.items():
+        if not (isinstance(sh, NamedSharding)
+                and isinstance(sh.mesh, DeviceMesh)):
+            raise TypeError(
+                f"shardings[{key!r}] is a {type(sh).__name__}; restore "
+                "takes a tree of launch.sharding.NamedSharding on a "
+                "DeviceMesh")
+    want = [k for k, _ in _flatten_with_paths(like_tree)]
+    missing = [k for k in want if k not in items]
+    if missing:
+        raise KeyError(f"shardings has no entry for leaves {missing}")
+    return items
+
+
+def _distribute(t: torch.Tensor, sharding):
+    """This rank's shard of the whole tensor ``t`` as a DTensor (no
+    communication: every rank holds ``t``)."""
+    from torch.distributed.tensor import distribute_tensor
+    mesh = sharding.mesh
+    t = t.to(mesh.device_type)
+    return distribute_tensor(t, mesh, sharding.placements(),
+                             src_data_rank=None)
 
 
 @dataclasses.dataclass

@@ -28,6 +28,7 @@ _MODULES = {
 }
 
 ARCH_IDS = tuple(_MODULES)
+CONFIGS = {name: mod.CONFIG for name, mod in _MODULES.items()}
 
 
 def get_config(arch_id: str, reduced: bool = False) -> ArchConfig:
@@ -38,4 +39,10 @@ def get_config(arch_id: str, reduced: bool = False) -> ArchConfig:
     return mod.reduced() if reduced else mod.CONFIG
 
 
-__all__ = ["ARCH_IDS", "ArchConfig", "get_config"]
+from .base import (SHAPE_NAMES, SHAPES, arch_profile, cache_specs,
+                   count_params, input_specs, param_specs, runnable_cells,
+                   supports_shape)
+
+__all__ = ["ARCH_IDS", "ArchConfig", "CONFIGS", "SHAPES", "SHAPE_NAMES",
+           "arch_profile", "cache_specs", "count_params", "get_config",
+           "input_specs", "param_specs", "runnable_cells", "supports_shape"]

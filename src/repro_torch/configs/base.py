@@ -1,12 +1,12 @@
-"""Config substrate — the part of ``repro/configs/base.py`` that the
-trainer's policy reads (``launch/steps.py::default_optimizer_name``), for
-every family (``dense``: the decoder-only transformer; ``moe``: the same
-with experts; ``vlm``: its backbone; ``ssm``: RWKV6; ``hybrid``: Jamba's
-Mamba and attention layers; ``audio``: Whisper): the assigned input
-shapes, the per-layer FLOP helpers, the planner's per-arch workload
-profile and the parameter estimate.  ``input_specs``, ``cache_specs``,
-``param_specs`` and ``runnable_cells`` wait for the dry run (ROADMAP
-Queue 1 item 11).
+"""Config substrate — the port of ``repro/configs/base.py``, for every
+family (``dense``: the decoder-only transformer; ``moe``: the same with
+experts; ``vlm``: its backbone; ``ssm``: RWKV6; ``hybrid``: Jamba's Mamba
+and attention layers; ``audio``: Whisper): the assigned input shapes and
+their cells, the per-layer FLOP helpers, the planner's per-arch workload
+profile, the parameter estimate (which the trainer's policy reads,
+``launch/steps.py::default_optimizer_name``) and the stand-ins of every
+model input, cache and parameter as meta-device tensors (shape and dtype,
+no memory): :func:`input_specs`, :func:`cache_specs`, :func:`param_specs`.
 
 ``count_params`` is the reference's estimate from that profile (fp32
 parameter bytes / 4), not the model's parameter count: it counts every
@@ -27,6 +27,7 @@ from __future__ import annotations
 import dataclasses
 
 import numpy as np
+import torch
 
 from repro_torch.core.profiles import ModelProfile
 from repro_torch.models.common import ArchConfig
@@ -59,6 +60,83 @@ def supports_shape(cfg: ArchConfig, shape: str) -> bool:
     if shape == "long_500k":
         return cfg.family in ("ssm", "hybrid")
     return True
+
+
+def runnable_cells(configs: dict) -> list:
+    """Every (arch id, shape name) pair that ``supports_shape`` allows."""
+    return [(a, s) for a in configs for s in SHAPE_NAMES
+            if supports_shape(configs[a], s)]
+
+
+# ---------------------------------------------------------------------------
+# Meta-device stand-ins of every model input, cache and parameter
+# ---------------------------------------------------------------------------
+
+META = torch.device("meta")
+
+
+def _spec(shape, dtype) -> torch.Tensor:
+    return torch.empty(tuple(shape), dtype=dtype, device=META)
+
+
+def input_specs(cfg: ArchConfig, shape_name: str) -> dict:
+    """{name: meta tensor} for the step function of this cell (the
+    reference's ShapeDtypeStructs).  train / prefill: a batch dict (and
+    ``patch_embeds`` for a VLM, ``frames`` for audio, in the compute
+    type); decode: {'token', 'pos'} (the cache comes from
+    :func:`cache_specs`)."""
+    sp = SHAPES[shape_name]
+    B, S = sp.global_batch, sp.seq_len
+    i32, f = torch.int32, cfg.compute_dtype
+    if sp.kind == "decode":
+        return {"token": _spec((B, 1), i32), "pos": _spec((), i32)}
+    batch = {"tokens": _spec((B, S), i32)}
+    if sp.kind == "train":
+        batch["labels"] = _spec((B, S), i32)
+    if cfg.family == "vlm":
+        batch["patch_embeds"] = _spec((B, cfg.patch_tokens, cfg.d_model), f)
+    if cfg.family == "audio":
+        batch["frames"] = _spec((B, cfg.encoder_frames, cfg.d_model), f)
+    return batch
+
+
+def cache_specs(cfg: ArchConfig, shape_name: str) -> dict:
+    """The KV cache / recurrent state of this cell's batch and length, as
+    each family's ``make_cache`` (RWKV6's ``init_state``) builds it on the
+    meta device."""
+    from repro_torch.models import jamba, rwkv6, transformer, whisper
+    sp = SHAPES[shape_name]
+    B, T = sp.global_batch, sp.seq_len
+    if cfg.family == "ssm":
+        return rwkv6.init_state(cfg, B, META)
+    make = {"hybrid": jamba.make_cache,
+            "audio": whisper.make_cache}.get(cfg.family,
+                                             transformer.make_cache)
+    return make(cfg, B, T, META)
+
+
+def _model_class(cfg: ArchConfig):
+    from repro_torch.models import jamba, rwkv6, transformer, whisper
+    _check_family(cfg)
+    return {"ssm": rwkv6.RWKV6, "hybrid": jamba.Jamba,
+            "audio": whisper.Whisper}.get(cfg.family,
+                                          transformer.Transformer)
+
+
+def _stack_specs(specs: list) -> torch.Tensor:
+    return _spec((len(specs),) + tuple(specs[0].shape), specs[0].dtype)
+
+
+def param_specs(cfg: ArchConfig) -> dict:
+    """The reference's parameter tree (the names ``params_to_jax`` gives:
+    per-layer parameters stacked on a leading axis, the experts under
+    ``layers["moe"]``) with meta tensors of its shapes and dtypes: the
+    model is built on the meta device and its named parameters nested by
+    shape alone."""
+    from repro_torch.models.common import nest_layers
+    model = _model_class(cfg)(cfg, device=META)
+    return nest_layers({n: p.detach() for n, p in model.named_parameters()},
+                       _stack_specs)
 
 
 def _check_family(cfg: ArchConfig) -> None:

@@ -7,7 +7,8 @@ the paper's comparison schemes and its fluctuation model.
 from .profiles import (ModelProfile, vgg16_profile, uniform_profile,
                        random_profile, transformer_layer_flops,
                        transformer_profile, flops_summary)
-from .network import Node, EdgeNetwork, make_edge_network, shannon_rate
+from .network import (Node, EdgeNetwork, make_edge_network, shannon_rate,
+                      stage_network)
 from .latency import (SplitSolution, fill_latency, pipeline_interval,
                       total_latency, memory_feasible, node_memory_usage,
                       num_fills, breakdown, client_shares, client_max_share,
@@ -27,6 +28,7 @@ from .bcd import Plan, bcd_solve, exhaustive_joint
 from .baselines import (rc_op, rp_oc, no_pipeline, ours, sim_refined,
                         optimal, SCHEMES)
 from .fluctuation import FluctuationReport, evaluate_under_fluctuation
+from .planner import StagePlan, plan_stages, replan
 
 __all__ = [
     "ModelProfile", "vgg16_profile", "uniform_profile", "random_profile",
@@ -45,5 +47,6 @@ __all__ = [
     "MicrobatchResult", "optimal_microbatch", "exhaustive_microbatch",
     "feasibility_box", "Plan", "bcd_solve", "exhaustive_joint", "rc_op",
     "rp_oc", "no_pipeline", "ours", "sim_refined", "optimal", "SCHEMES",
-    "FluctuationReport", "evaluate_under_fluctuation",
+    "FluctuationReport", "evaluate_under_fluctuation", "stage_network",
+    "StagePlan", "plan_stages", "replan",
 ]

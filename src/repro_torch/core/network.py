@@ -1,7 +1,7 @@
 """Edge-network model: heterogeneous nodes + wireless/wired links (Sec. III).
 
-The port's copy of ``repro/core/network.py`` (without the TPU stage
-network).  Nodes carry ``(f_n, kappa_n, M_n, p_n, t0, t1, b_th)``; links
+The port's copy of ``repro/core/network.py``, with the reference's TPU
+stage network mapped onto H100s (:func:`stage_network`).  Nodes carry ``(f_n, kappa_n, M_n, p_n, t0, t1, b_th)``; links
 carry ``(W_nn', d_nn')`` and yield the Shannon rate of Eq. (4):
 
     r_nn' = W_nn' * log2(1 + p_n * d_nn'^{-gamma} / N0)
@@ -20,6 +20,20 @@ import math
 from typing import Sequence
 
 import numpy as np
+
+# NVIDIA H100 SXM5 constants (the reference's TPU_* ones are a v5e chip's).
+#: bf16 dense on the tensor cores, FLOP/s (H100 data sheet, SXM5, no sparsity)
+H100_PEAK_FLOPS = 989e12
+#: HBM3 bandwidth, bytes/s (H100 data sheet, SXM5)
+H100_HBM_BW = 3.35e12
+#: HBM3 capacity, bytes (H100 data sheet, SXM5: 80 GB)
+H100_HBM_BYTES = 80e9
+#: NVLink 4 per GPU and direction, bytes/s: 900 GB/s both ways (H100 data
+#: sheet), inside one NVSwitch domain of 8 GPUs (a DGX / HGX H100 node)
+H100_NVLINK_BW = 450e9
+#: NDR InfiniBand between nodes, bytes/s per GPU: one 400 Gb/s ConnectX-7
+#: port a GPU (DGX H100 user guide), 400e9 / 8
+H100_IB_BW = 50e9
 
 
 @dataclasses.dataclass(frozen=True)
@@ -204,3 +218,39 @@ def make_edge_network(
     rate = _effective_rates(link, adj)
     return EdgeNetwork(nodes=nodes, rate=rate, num_clients=num_clients,
                        topology=topology)
+
+
+def stage_network(num_stages: int, gpus_per_stage: int, *,
+                  peak_flops: float = H100_PEAK_FLOPS,
+                  hbm_bytes: float = H100_HBM_BYTES,
+                  link_bw: float = H100_IB_BW,
+                  links_per_hop: int = 1) -> EdgeNetwork:
+    """The paper's network mapped onto a pipeline of GPU stage groups — the
+    counterpart of the reference's ``tpu_stage_network``, with H100
+    defaults.
+
+    A line of ``num_stages`` homogeneous stage groups, each aggregating
+    ``gpus_per_stage`` GPUs (data-parallel within the group, so per-sample
+    throughput scales with the group).  Node 0 doubles as the "client
+    tier" = stage 0 (the embedding holder); there is no wireless channel:
+    the link rate is ``link_bw`` times the parallel links between groups.
+
+    The default link is NDR InfiniBand (50 GB/s a GPU): a stage group of a
+    production pipeline usually fills one or more 8-GPU nodes, so
+    neighbouring stages talk across nodes; pass ``link_bw=H100_NVLINK_BW``
+    for stages inside one NVSwitch domain.  Given the reference's TPU
+    constants (``peak_flops=197e12, hbm_bytes=16 * 2**30, link_bw=50e9``)
+    it builds the reference's network, field for field."""
+    nodes = [Node(name="stage0", f=peak_flops * gpus_per_stage, kappa=1.0,
+                  mem=hbm_bytes * gpus_per_stage, t0=0.0, t1=0.0,
+                  b_th=0, is_client=True)]
+    for s in range(1, num_stages):
+        nodes.append(Node(name=f"stage{s}", f=peak_flops * gpus_per_stage,
+                          kappa=1.0, mem=hbm_bytes * gpus_per_stage,
+                          t0=0.0, t1=0.0, b_th=0))
+    link = np.zeros((num_stages, num_stages))
+    for i in range(num_stages - 1):
+        link[i, i + 1] = link[i + 1, i] = link_bw * links_per_hop
+    adj = _adjacency("line", num_stages, np.random.default_rng(0))
+    rate = _effective_rates(link, adj)
+    return EdgeNetwork(nodes=nodes, rate=rate, num_clients=1, topology="line")

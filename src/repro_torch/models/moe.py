@@ -27,9 +27,9 @@ router through the gates, as ``jax.grad`` of the reference's does.
 
 Every step is a PyTorch op: the reference reaches no Pallas kernel here.
 Its sharding hints (``_maybe_constrain``, ``_experts_shardable``, the
-``PartitionSpec`` layouts of the buffer) lay the experts out over a TPU
-mesh; one card has no counterpart, and they wait for the SPMD pipeline
-(ROADMAP Queue 1 item 11).
+``PartitionSpec`` layouts of the buffer) lay the experts out over the
+"model" axis of a mesh; tensor parallelism inside a stage is ROADMAP Queue
+1 item 11b.
 """
 
 from __future__ import annotations

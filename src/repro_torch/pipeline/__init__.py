@@ -1,6 +1,6 @@
 """Pipelined execution runtime of the port: schedule analytics, VGG and
-stacked transformer stages and the micro-batched split-learning executor.
-The SPMD stage pipeline waits for ROADMAP Queue 1 item 11."""
+stacked transformer stages, the micro-batched split-learning executor and
+the SPMD stage pipeline across ranks (``spmd.py``)."""
 
 from .schedule import (SimResult, memory_highwater, simulate,
                        simulate_from_breakdown)
@@ -9,6 +9,9 @@ from .stage import (VGGStage, split_vgg_params, stack_stage_params,
                     vgg_stages_from_cuts)
 from .executor import (LinkHooks, SplitLearningExecutor, microbatch_grads,
                        split_batch)
+from .spmd import (PipelineConfig, make_pipelined_loss,
+                   make_pipelined_train_step, plan_to_pipeline_config,
+                   shard_params)
 
 __all__ = [
     "SimResult", "memory_highwater", "simulate", "simulate_from_breakdown",
@@ -16,4 +19,6 @@ __all__ = [
     "transformer_stage_fn", "unstack_stage_params", "vgg_stages_from_cuts",
     "LinkHooks",
     "SplitLearningExecutor", "microbatch_grads", "split_batch",
+    "PipelineConfig", "make_pipelined_loss", "make_pipelined_train_step",
+    "plan_to_pipeline_config", "shard_params",
 ]

@@ -8,8 +8,8 @@ Two parameter layouts, as in the reference:
   - *stacked* (the language models): per-layer parameters stacked on a
     leading ``L`` axis, a dict in the reference's layout
     (``params_to_jax``'s ``"layers"``); a stage takes its ``[lo:hi]`` slice
-    and runs its own block of layers.  The SPMD pipeline that shards stages
-    across devices waits for ROADMAP Queue 1 item 11.
+    and runs its own block of layers; ``spmd.py`` runs the stages across
+    ranks.
 """
 
 from __future__ import annotations

@@ -1,0 +1,276 @@
+"""The port's SPMD stage pipeline (``repro_torch/pipeline/spmd.py``), its
+sharded checkpoints and DTensor's splits, in four spawned gloo ranks on the
+CPU (``tests/torch_spmd_worker.py``), against the reference.
+
+The ranks meet through a ``FileStore`` under ``tmp_path`` (no TCP port),
+run one intra-op thread each and import no JAX.  One spawn serves every
+case: llama3-8b reduced to 4 layers in float32, a batch of 8 x 16 in Q = 4
+micro-batches, pipelined over (data 2 x stage 2) and (stage 4), and in
+Q = 2 over (stage 4), where two stage ranks score no micro-batch; the loss
+within 1e-5 and every gradient within 1e-4 (absolute) of the reference's
+plain ``api.loss`` / ``jax.grad`` on the same numpy weights — the bounds the
+reference's own pipeline test keeps (``tests/test_spmd.py``); one AdamW
+train step: its loss the reference's, and its update the reference's
+AdamW on the gradients the pipeline gave (held to ``jax.grad`` above);
+reshard-on-restore from a (4,) "model" mesh to a (2, 2) ("data", "model")
+one, as ``tests/test_spmd.py::test_checkpoint_reshards_across_meshes``; and
+each rank's block under DTensor's placements of a spec against the block
+JAX's ``NamedSharding`` gives the same device (a JAX subprocess with four
+host devices).
+"""
+
+import dataclasses
+import json
+import os
+import pathlib
+import subprocess
+import sys
+import textwrap
+
+import numpy as np
+import pytest
+
+import jax
+import jax.numpy as jnp
+
+from repro.configs import get_config as ref_config
+from repro.models import get_model as ref_model
+from repro.optim import get_optimizer as ref_optimizer
+
+ROOT = pathlib.Path(__file__).resolve().parents[1]
+WORLD = 4
+ARCH, LAYERS, BATCH, SEQ, Q = "llama3-8b", 4, 8, 16, 4
+LR = 1e-3
+LOSS_ATOL, GRAD_ATOL = 1e-5, 1e-4
+#: the train step against the reference's AdamW on the same gradients:
+#: float32 rounding of the two formulas, relative to each tensor's largest
+#: magnitude.  (Against AdamW on jax.grad's gradients no such bound holds:
+#: the first step is g / (|g| + 1e-8), so where |g| is near 1e-8 a
+#: gradient difference of 1e-10 moves the step by a few % of the rate.)
+STEP_REL = 1e-6
+PIPELINES = [
+    {"tag": "d2s2", "axes": ["data", "stage"], "sizes": [2, 2], "stages": 2,
+     "q": Q},
+    {"tag": "s4", "axes": ["stage"], "sizes": [4], "stages": 4, "q": Q},
+    # fewer micro-batches than stages: ranks 2 and 3 run no head
+    {"tag": "s4q2", "axes": ["stage"], "sizes": [4], "stages": 4, "q": 2},
+]
+TRAIN = [{"tag": "train", "axes": ["data", "stage"], "sizes": [2, 2],
+          "stages": 2, "q": Q}]
+#: (mesh axes, sizes, spec, tensor shape): a dim over two axes, major to
+#: minor, as the reference shards d_model over ("pod", "data")
+SPLITS = [
+    (["pod", "data"], [2, 2], [["pod", "data"], None], [8, 4]),
+    (["data", "model"], [2, 2], [None, "model"], [8, 4]),
+    (["data", "model"], [2, 2], ["data", "model"], [4, 8]),
+    (["data", "model"], [2, 2], [["data", "model"], None], [8, 2]),
+    (["pod", "data", "model"], [2, 1, 2], [["pod", "data"], "model"],
+     [4, 6]),
+]
+
+JAX_SPLITS = textwrap.dedent("""
+    import json, os, sys
+    os.environ["XLA_FLAGS"] = "--xla_force_host_platform_device_count=4"
+    os.environ["JAX_PLATFORMS"] = "cpu"
+    import numpy as np, jax
+    from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
+    out = []
+    for names, sizes, spec, shape in json.loads(sys.argv[1]):
+        mesh = Mesh(np.array(jax.devices()[:4]).reshape(sizes), tuple(names))
+        spec = [tuple(e) if isinstance(e, list) else e for e in spec]
+        idx = NamedSharding(mesh, P(*spec)).devices_indices_map(tuple(shape))
+        out.append({d.id: [[s.start or 0, shape[i] if s.stop is None
+                            else s.stop] for i, s in enumerate(sl)]
+                    for d, sl in idx.items()})
+    print(json.dumps(out))
+""")
+
+
+def _flat(tree, prefix=""):
+    out = {}
+    for k in sorted(tree):
+        v = tree[k]
+        if isinstance(v, dict):
+            out.update(_flat(v, f"{prefix}{k}/"))
+        else:
+            out[prefix + k] = np.asarray(v)
+    return out
+
+
+@pytest.fixture(scope="module")
+def run(tmp_path_factory):
+    d = tmp_path_factory.mktemp("spmd")
+    cfg = dataclasses.replace(ref_config(ARCH, reduced=True),
+                              num_layers=LAYERS, remat="none",
+                              compute_dtype=jnp.float32)
+    api = ref_model(cfg)
+    params = api.init(jax.random.key(0))
+    rng = np.random.default_rng(0)
+    batch = {"tokens": rng.integers(0, cfg.vocab, (BATCH, SEQ), np.int32),
+             "labels": rng.integers(0, cfg.vocab, (BATCH, SEQ), np.int32)}
+    weights = _flat(params)
+    np.savez(d / "weights.npz", **weights,
+             **{f"batch/{k}": v for k, v in batch.items()})
+    (d / "job.json").write_text(json.dumps(
+        {"arch": ARCH, "layers": LAYERS, "pipelines": PIPELINES,
+         "train": TRAIN, "lr": LR, "splits": SPLITS}))
+    env = {**os.environ, "OMP_NUM_THREADS": "1"}
+    # each rank's output to a file: a rank blocked on a full pipe would
+    # stall the others in their next collective
+    logs = [open(d / f"rank_{r}.log", "w") for r in range(WORLD)]
+    ranks = [subprocess.Popen(
+        [sys.executable, str(ROOT / "tests" / "torch_spmd_worker.py"),
+         str(r), str(WORLD), str(d)], env=env, stdout=logs[r],
+        stderr=subprocess.STDOUT) for r in range(WORLD)]
+    splits = subprocess.Popen([sys.executable, "-c", JAX_SPLITS,
+                               json.dumps(SPLITS)], stdout=subprocess.PIPE,
+                              stderr=subprocess.PIPE, text=True)
+    loss = float(jax.jit(api.loss)(params, batch))
+    grads = _flat(jax.jit(jax.grad(api.loss))(params, batch))
+    errors = []
+    out, err = splits.communicate(timeout=120)
+    for r, p in enumerate(ranks):
+        try:
+            p.wait(timeout=120)
+        except subprocess.TimeoutExpired:
+            for q in ranks:
+                q.kill()
+            raise
+        finally:
+            logs[r].close()
+        if p.returncode:
+            errors.append(f"rank {r}: "
+                          f"{(d / f'rank_{r}.log').read_text()[-3000:]}")
+    assert not errors, errors
+    assert splits.returncode == 0, err[-3000:]
+    outs = []
+    for r in range(WORLD):
+        with np.load(d / f"out_{r}.npz") as npz:
+            outs.append({k: npz[k] for k in npz.files})
+    return {"loss": loss, "grads": grads, "weights": weights, "outs": outs,
+            "jax_splits": json.loads(out.strip().splitlines()[-1])}
+
+
+def _stage_rows(full, k, stages):
+    n = full.shape[0] // stages
+    return full[k * n:(k + 1) * n]
+
+
+def _want(key, ref, k, stages):
+    return _stage_rows(ref[key], k, stages) if key.startswith("layers/") \
+        else ref[key]
+
+
+@pytest.mark.parametrize("case", PIPELINES, ids=lambda c: c["tag"])
+def test_pipelined_loss_matches_the_references_plain_loss(run, case):
+    for o in run["outs"]:
+        assert abs(float(o[f"{case['tag']}/loss"]) - run["loss"]) < \
+            LOSS_ATOL, (float(o[f"{case['tag']}/loss"]), run["loss"])
+        assert str(o[f"{case['tag']}/transport"]) == "direct"
+
+
+@pytest.mark.parametrize("case", PIPELINES, ids=lambda c: c["tag"])
+def test_pipelined_gradients_match_jax_grad(run, case):
+    tag, S = case["tag"], case["stages"]
+    seen = set()
+    for o in run["outs"]:
+        k = int(o[f"{tag}/stage"])
+        pre = f"{tag}/grad/"
+        keys = {key[len(pre):] for key in o if key.startswith(pre)}
+        assert keys == set(run["grads"]), keys ^ set(run["grads"])
+        for key in keys:
+            got = o[pre + key]
+            want = _want(key, run["grads"], k, S)
+            assert got.shape == want.shape, key
+            err = float(np.max(np.abs(got - want)))
+            assert err < GRAD_ATOL, (tag, k, key, err)
+        seen.add(k)
+    assert seen == set(range(S))
+
+
+def _nest(flat):
+    tree = {}
+    for key, a in flat.items():
+        *path, name = key.split("/")
+        node = tree
+        for p in path:
+            node = node.setdefault(p, {})
+        node[name] = jnp.asarray(a)
+    return tree
+
+
+def test_pipelined_train_step_matches_the_references_adamw(run):
+    tag, S = "train", TRAIN[0]["stages"]
+    opt = ref_optimizer("adamw", lr=LR)
+    update = jax.jit(lambda p, g: opt.update(p, g, opt.init(p))[0])
+    for o in run["outs"]:
+        k = int(o["d2s2/stage"])
+        assert abs(float(o[f"{tag}/loss"]) - run["loss"]) < LOSS_ATOL
+        pre = f"{tag}/param/"
+        keys = {key[len(pre):] for key in o if key.startswith(pre)}
+        assert keys == set(run["weights"])
+        local = {key: _want(key, run["weights"], k, S) for key in keys}
+        grads = {key: o[f"d2s2/grad/{key}"] for key in keys}
+        stepped = _flat(update(_nest(local), _nest(grads)))
+        moved = 0
+        for key in keys:
+            got, want, before = o[pre + key], stepped[key], local[key]
+            scale = float(np.max(np.abs(want)))
+            assert float(np.max(np.abs(got - want))) <= STEP_REL * scale, key
+            moved += int(np.any(got != before))
+        assert moved == len(keys)
+
+
+def test_checkpoint_reshards_across_meshes(run):
+    x = np.arange(32.0).reshape(8, 4)
+    for r, o in enumerate(run["outs"]):
+        # saved from a (4,) "model" mesh: rows split four ways
+        np.testing.assert_array_equal(o["reshard/saved_local"],
+                                      x[2 * r:2 * r + 2])
+        # restored onto (data 2, model 2) as (None, "model"): rank (d, m)
+        # holds columns [2 m, 2 m + 2), whatever its data index
+        m = r % 2
+        np.testing.assert_array_equal(o["reshard/local"], x[:, 2 * m:2 * m + 2])
+        np.testing.assert_array_equal(o["reshard/full"], x)
+        assert str(o["reshard/placements"]) == \
+            "(Replicate(), Shard(dim=1))"
+        assert int(o["reshard/step"]) == 0
+
+
+def test_a_mesh_of_another_size_than_the_world_raises(run):
+    for o in run["outs"]:
+        assert "needs 3 ranks; the process group has 4" in \
+            str(o["mesh_size_error"])
+
+
+def test_a_model_axis_and_other_families_raise():
+    """Tensor parallelism inside a stage is ROADMAP item 11b; the pipeline
+    runs the transformer's layers only.  Both refuse before any rank is
+    contacted."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.launch.mesh import MeshLayout
+    from repro_torch.pipeline.spmd import PipelineConfig, make_pipelined_loss
+    cfg = dataclasses.replace(get_config(ARCH, reduced=True),
+                              compute_dtype=torch.float32)
+    with pytest.raises(NotImplementedError, match="item 11b"):
+        make_pipelined_loss(cfg, MeshLayout(("stage", "model"), (2, 2)),
+                            PipelineConfig(2, 2), "cpu")
+    with pytest.raises(ValueError, match="has 4 ranks, the pipeline 2"):
+        make_pipelined_loss(cfg, MeshLayout(("stage",), (4,)),
+                            PipelineConfig(2, 2), "cpu")
+    with pytest.raises(ValueError, match="family 'ssm'"):
+        make_pipelined_loss(get_config("rwkv6-1.6b", reduced=True),
+                            MeshLayout(("stage",), (2,)),
+                            PipelineConfig(2, 2), "cpu")
+
+
+@pytest.mark.parametrize("i", range(len(SPLITS)),
+                         ids=lambda i: "-".join(SPLITS[i][0]))
+def test_dtensor_splits_as_jax_named_sharding(run, i):
+    shape = SPLITS[i][3]
+    x = np.arange(int(np.prod(shape))).reshape(shape)
+    blocks = run["jax_splits"][i]
+    for r, o in enumerate(run["outs"]):
+        sl = tuple(slice(a, b) for a, b in blocks[str(r)])
+        np.testing.assert_array_equal(o[f"split/{i}"], x[sl])

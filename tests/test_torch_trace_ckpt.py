@@ -265,9 +265,15 @@ def test_restore_places_on_the_like_trees_device_and_dtype(tmp_path):
     with pytest.raises(KeyError, match="missing leaf"):
         restore_checkpoint(str(tmp_path), 1, {**like, "x": torch.zeros(1)},
                            device=CPU)
-    with pytest.raises(ValueError, match="item 11"):
+    # a sharded restore takes NamedShardings on a DeviceMesh (the reshard
+    # itself runs in spawned ranks: tests/test_torch_spmd.py)
+    with pytest.raises(TypeError, match="NamedSharding on a DeviceMesh"):
         restore_checkpoint(str(tmp_path), 1, like, shardings=object(),
                            device=CPU)
+    with pytest.raises(TypeError, match=r"shardings\['h'\] is a str"):
+        restore_checkpoint(str(tmp_path), 1, like,
+                           shardings={"w": "data", "h": "data",
+                                      "n": ("data", None)}, device=CPU)
 
 
 def test_checkpoint_store_async_gc_and_restore_latest(tmp_path):
