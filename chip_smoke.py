@@ -308,12 +308,27 @@ exits non-zero:
              width; float32 with TF32 off: the pipelined loss within 1e-5
              of the plain model's on the card, every gradient and one AdamW
              step within 1e-4 of each tensor's largest magnitude; bfloat16:
-             3 timed AdamW steps (wall, tokens/s, each rank's device busy
+             2 timed AdamW steps (wall, tokens/s, each rank's device busy
              time from two profiled steps whose kernel counts must agree,
              peak memory) beside the plan's T_f / T_i / L_t / bubble and the
              plain single-process step at the same batch (Q = 2 and Q); K2
              / K2' launches per rank equal to T x 14 (x 2 for K2 under
              remat "layer") a step
+ 29. tp      the "model" axis inside the stages: qwen3-0.6b over (stage
+             2 x model 2), four processes sharing the card under gloo
+             (2 intra-op threads each), each rank 14 layers at 8 / 4
+             heads of 128 and d_ff 1536, Q from the planner as in 28;
+             float32 (TF32 off), the model blocks put back together: loss
+             within 1e-5, every gradient within 1e-4 of scale of the plain
+             model's, one AdamW step within 1e-6 of scale of AdamW on its
+             gradients; granite-moe-3b (2 layers, 20 experts a rank) at
+             the same bounds; bfloat16: 3 timed steps, busy time, peak
+             memory, Pipe.seconds / Pipe.bytes by kind, K2 / K2' launches
+             per rank T x 14 (x 2) / T x 14; K2 and K2' at the TP-local
+             layer (1 x 512, 8 / 4 of 128) against their plain versions
+             and timed beside SDPA; the dry run of the same cell (fake CUDA
+             tensors, a fake group of 4) beside the measured bytes, peak
+             and counted FLOPs, and its roofline row (predictions)
 
 Every device time a run prints (``device_ms``) comes from CUDA events
 around replays of a CUDA graph of the calls, or, for a function a graph
@@ -329,7 +344,7 @@ and 18's gaps, losses, step times, memory, idle shares and launches;
 gaps, serving numbers and launches; ``{"moe": ..., "card": ...}`` phases
 22-24's errors, times, routing counts, gaps, serving numbers and launches;
 ``{"hybrid_audio": ..., "card": ...}`` phases 25-27's; ``{"spmd": ...,
-"card": ...}`` phase 28's.
+"card": ...}`` phase 28's; ``{"tp": ..., "card": ...}`` phase 29's.
 The next-to-last line is a JSON object with the kernels' measurements;
 the last is ``{"ok": true, "device": {...}}``.
 Imports nothing of JAX or of the JAX package ``repro``.
@@ -341,6 +356,7 @@ Imports nothing of JAX or of the JAX package ``repro``.
     python3 chip_smoke.py --moe
     python3 chip_smoke.py --hybrid-audio
     python3 chip_smoke.py --spmd
+    python3 chip_smoke.py --tp
 
 only time K1 (its six phase-3 shapes, both modes, by CUDA events, the
 profiler's device time and the host's time per call, and the planner's wall
@@ -351,7 +367,8 @@ at every tile) or K3
 compare two versions of a kernel in one run; ``--grads`` builds and checks
 K2' and K3' alone (phases 14-16); ``--dense`` builds K2 and K2' and runs
 phases 19-21 alone, ``--moe`` phases 22-24, ``--hybrid-audio`` phases
-25-27, ``--spmd`` builds every kernel and runs phase 28.
+25-27, ``--spmd`` builds every kernel and runs phase 28, ``--tp`` builds
+K2 and K2' and runs phase 29.
 """
 
 from __future__ import annotations
@@ -366,6 +383,7 @@ import os
 import re
 import subprocess
 import sys
+import threading
 import time
 
 import numpy as np
@@ -3735,7 +3753,7 @@ def planning_phase(core, minplus, profile, net, plan, out_dir) -> dict:
 #: sharing the one GPU under gloo (NCCL refuses two ranks on a GPU), a
 #: batch of 8 x 512 tokens; Q from the stage planner
 SPMD_RUN = {"arch": "qwen3-0.6b", "stages": 2, "batch": 8, "seq": 512,
-            "lr": 1e-3, "steps": 3, "seed": 0}
+            "lr": 1e-3, "steps": 2, "seed": 0}
 #: pipelined against plain on the card, float32 with TF32 off: the loss
 #: relative to its size, each gradient and each updated parameter relative
 #: to its tensor's largest magnitude (the reference's own pipeline test
@@ -3754,7 +3772,7 @@ SPMD_STEP_GRAD_MIN = 1e-6
 #: seconds the parent waits for the two ranks
 SPMD_TIMEOUT_S = 480
 #: profiled steps a rank runs for its device busy time
-SPMD_PROFILED = 4
+SPMD_PROFILED = 3
 
 
 def _flat_tree(tree, prefix=""):
@@ -3787,6 +3805,66 @@ def derived_spmd_launches(Q: int, S: int, layers_per_stage: int,
             "flash_attention_bwd": fwd}
 
 
+def step_busy(run_step, sessions_to_run: int = SPMD_PROFILED) -> dict:
+    """A pipelined step's device busy time on this rank:
+    ``sessions_to_run`` profiled steps (the same number on every rank: a
+    step is a
+    collective), kept from two sessions that count the same kernel events
+    at the largest count seen (a step launches the same kernels every
+    time; a lost event shows as a difference); with the top kernels and
+    K2's mean span.  Two or more processes time-slice the card, so a
+    kernel's recorded span can hold another rank's slices."""
+    import torch.distributed as dist
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    out, sessions = {}, []
+    for _ in range(sessions_to_run):
+        dist.barrier()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            time.sleep(PROFILE_PAD_S)
+            _probe()
+            run_step()
+            torch.cuda.synchronize()
+            time.sleep(PROFILE_PAD_S)
+        kernels = [e for e in prof.events()
+                   if e.device_type == DeviceType.CUDA
+                   and _kernel_name(e.name) != PROBE_KERNEL]
+        counts, split = {}, {}
+        for e in kernels:
+            name = _kernel_name(e.name)
+            counts[name] = counts.get(name, 0) + 1
+            split[name] = split.get(name, 0.0) \
+                + e.time_range.elapsed_us() / 1e3
+        sessions.append((sum(e.time_range.elapsed_us() for e in kernels)
+                         / 1e3, counts, split))
+    out["busy_sessions_ms"] = [ms for ms, _, _ in sessions]
+    out["busy_sessions_kernels"] = [sum(c.values()) for _, c, _ in sessions]
+    most = max(sum(c.values()) for _, c, _ in sessions)
+    pair = next(((i, j) for i in range(len(sessions))
+                 for j in range(i + 1, len(sessions))
+                 if sessions[i][1] == sessions[j][1]
+                 and sum(sessions[i][1].values()) == most), None)
+    out["busy_sessions_agree"] = pair is not None
+    if pair is None:
+        _, first, split = sessions[0]
+        out["busy_sessions_differ"] = {
+            n: [c.get(n, 0) for _, c, _ in sessions]
+            for n in sorted(set().union(*(c for _, c, _ in sessions)))
+            if len({c.get(n, 0) for _, c, _ in sessions}) > 1}
+        out["busy_ms"] = []
+    else:
+        out["busy_ms"] = [sessions[i][0] for i in pair]
+        _, first, split = sessions[pair[0]]
+    out["kernels_a_step"] = sum(first.values())
+    top = sorted(split, key=split.get, reverse=True)[:6]
+    out["top_kernels"] = {n: {"ms": split[n], "calls": first[n],
+                              "mean_ms": split[n] / first[n]} for n in top}
+    k2 = "flash_fwd_mma_kernel"
+    if k2 in split:
+        out["k2_mean_ms"] = split[k2] / first[k2]
+    return out
+
+
 def _spmd_work(rank: int, job: dict) -> dict:
     """Phase 28 on one stage rank: correctness in float32, then the timed
     bfloat16 steps."""
@@ -3805,8 +3883,6 @@ def _spmd_work(rank: int, job: dict) -> dict:
                                            make_pipelined_loss,
                                            make_pipelined_train_step,
                                            shard_params)
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
     S, Q, B, L = job["stages"], job["q"], job["batch"], job["seq"]
     pcfg = PipelineConfig(S, Q)
     mesh = build_mesh(MeshLayout(("stage",), (S,)), "cuda")
@@ -3925,59 +4001,7 @@ def _spmd_work(rank: int, job: dict) -> dict:
     out["step_s"], out["losses"] = walls, losses
     out["transfer_s"] = {k: v / job["steps"]
                          for k, v in step.pipe.seconds.items()}
-    # device busy a step: SPMD_PROFILED profiled steps on every rank (the
-    # same number on each: a step is a collective), kept from two sessions
-    # that count the same kernel events at the largest count seen (a step
-    # launches the same kernels every time; a lost event shows as a
-    # difference)
-    sessions = []
-    for _ in range(SPMD_PROFILED):
-        dist.barrier()
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            time.sleep(PROFILE_PAD_S)
-            _probe()
-            step(local, state, batch)
-            torch.cuda.synchronize()
-            time.sleep(PROFILE_PAD_S)
-        kernels = [e for e in prof.events()
-                   if e.device_type == DeviceType.CUDA
-                   and _kernel_name(e.name) != PROBE_KERNEL]
-        counts, split = {}, {}
-        for e in kernels:
-            name = _kernel_name(e.name)
-            counts[name] = counts.get(name, 0) + 1
-            split[name] = split.get(name, 0.0) \
-                + e.time_range.elapsed_us() / 1e3
-        sessions.append((sum(e.time_range.elapsed_us() for e in kernels)
-                         / 1e3, counts, split))
-    out["busy_sessions_ms"] = [ms for ms, _, _ in sessions]
-    out["busy_sessions_kernels"] = [sum(c.values()) for _, c, _ in sessions]
-    most = max(sum(c.values()) for _, c, _ in sessions)
-    pair = next(((i, j) for i in range(len(sessions))
-                 for j in range(i + 1, len(sessions))
-                 if sessions[i][1] == sessions[j][1]
-                 and sum(sessions[i][1].values()) == most), None)
-    out["busy_sessions_agree"] = pair is not None
-    if pair is None:
-        _, first, split = sessions[0]
-        out["busy_sessions_differ"] = {
-            n: [c.get(n, 0) for _, c, _ in sessions]
-            for n in sorted(set().union(*(c for _, c, _ in sessions)))
-            if len({c.get(n, 0) for _, c, _ in sessions}) > 1}
-        out["busy_ms"] = []
-    else:
-        out["busy_ms"] = [sessions[i][0] for i in pair]
-        _, first, split = sessions[pair[0]]
-    out["kernels_a_step"] = sum(first.values())
-    # where a step's device time goes, and each kernel's mean duration:
-    # two processes time-slice the card, so a kernel's recorded span can
-    # hold the other rank's slices
-    top = sorted(split, key=split.get, reverse=True)[:6]
-    out["top_kernels"] = {n: {"ms": split[n], "calls": first[n],
-                              "mean_ms": split[n] / first[n]} for n in top}
-    k2 = "flash_fwd_mma_kernel"
-    if k2 in split:
-        out["k2_mean_ms"] = split[k2] / first[k2]
+    out.update(step_busy(lambda: step(local, state, batch)))
     return out
 
 
@@ -4016,34 +4040,11 @@ def spmd_phase(out_dir: str) -> dict:
     for K2 under remat "layer")."""
     import multiprocessing
     import shutil
-    from repro_torch.configs import arch_profile, get_config
-    from repro_torch.core import plan_stages
-    from repro_torch.pipeline.spmd import plan_to_pipeline_config
+    from repro_torch.configs import get_config
     run = SPMD_RUN
     cfg = get_config(run["arch"])
-    prof = arch_profile(cfg)
-    plans = {}
-    for b0 in (8, 1):
-        sp = plan_stages(prof, total_chips=run["stages"],
-                         stage_candidates=(run["stages"],),
-                         global_batch=run["batch"], b0=b0, device="cuda")
-        plans[f"b0={b0}"] = {
-            "layer_ranges": sp.layer_ranges, "num_stages": sp.num_stages,
-            "microbatch": sp.microbatch, "Q": sp.num_microbatches,
-            "T_f": sp.T_f, "T_i": sp.T_i, "L_t": sp.L_t,
-            "bubble_fraction": sp.bubble_fraction, "plan": sp}
-        log(f"stage plan (H100 defaults, {run['stages']} GPUs, batch "
-            f"{run['batch']}, BCD from b0 = {b0}): stages "
-            f"{sp.layer_ranges}, micro-batch {sp.microbatch}, Q "
-            f"{sp.num_microbatches}, T_f {sp.T_f:.6f} s, T_i {sp.T_i:.6f} "
-            f"s, L_t {sp.L_t:.6f} s, bubble {sp.bubble_fraction:.4f}")
-    best = min(plans.values(), key=lambda p: p["L_t"])
-    pcfg = plan_to_pipeline_config(best.pop("plan"), run["batch"])
-    for p in plans.values():
-        p.pop("plan", None)
-    if pcfg.num_stages != run["stages"]:
-        raise AssertionError(f"the best plan has {pcfg.num_stages} stages")
-    Q, S = pcfg.num_microbatches, pcfg.num_stages
+    plans, best, Q = stage_plan_q(run)
+    S = run["stages"]
     shutil.rmtree(out_dir, ignore_errors=True)
     os.makedirs(out_dir)
     job = {**run, "q": Q, "store": os.path.join(out_dir, "store"),
@@ -4172,6 +4173,481 @@ def spmd_phase(out_dir: str) -> dict:
     return out
 
 
+#: phase 29: tensor parallelism inside the pipeline's stages on the card
+#: (pipeline/spmd.py with a "model" axis): qwen3-0.6b at full width and
+#: depth over (stage 2 x model 2), four processes sharing the GPU under
+#: gloo with TP_THREADS intra-op threads each, 14 layers a stage and 8 / 4
+#: heads of 128 and d_ff 1536 a rank; a batch of 8 x 512 tokens, Q from
+#: the stage planner as in phase 28
+TP_RUN = {"arch": "qwen3-0.6b", "stages": 2, "model": 2, "batch": 8,
+          "seq": 512, "lr": 1e-3, "steps": 3, "seed": 0}
+TP_THREADS = 2
+#: the MoE branch on the card: granite-moe-3b at full width, 2 layers,
+#: 40 experts (expert parallelism: 20 a rank), Q = 2
+TP_MOE = {"arch": "granite-moe-3b-a800m", "layers": 2, "q": 2}
+#: K2 / K2' at the TP-local qwen3 layer: 1 x 512, 8 / 4 heads of 128
+TP_FLASH = (1, 512, 512, 8, 4, 128, True)
+#: seconds the parent waits for the four ranks
+TP_TIMEOUT_S = 600
+#: profiled steps a rank of phase 29 runs for its device busy time
+TP_PROFILED = 3
+
+
+def _model_axis_dim(cfg, layout, key, full_shape):
+    """The dim of leaf ``key`` (whole shape ``full_shape``) that the
+    runtime cuts over the "model" axis (the rules' "model" entry; the
+    leaves read whole inside the blocks, and the replicated ones, none)."""
+    from repro_torch.launch.sharding import model_dim
+    from repro_torch.pipeline.spmd import _INSIDE
+    if not key.startswith("layers/") or key.rsplit("/", 1)[-1] in _INSIDE:
+        return None
+    return model_dim(cfg, layout, key, tuple(full_shape))
+
+
+def _local_part(cfg, layout, key, full, k, m, S):
+    """Rank (stage k, model m)'s part of the whole tree's leaf ``key``, as
+    ``shard_params`` cuts it."""
+    d = _model_axis_dim(cfg, layout, key, full.shape)
+    if d is not None:
+        n = full.shape[d] // layout.shape["model"]
+        full = full.narrow(d, m * n, n)
+    return _stage_part(key, full, k, S)
+
+
+def _model_blocks_joined(pipe, cfg, layout, key, g, full_shape):
+    """The model group's blocks of the gradient ``g`` of leaf ``key``
+    (this rank's stage rows) put back together along the dim the rules
+    split (gathered through the host under gloo); ``g`` itself when the
+    leaf is whole on every model rank."""
+    import torch.distributed as dist
+    d = _model_axis_dim(cfg, layout, key, full_shape)
+    if d is None:
+        return g
+    host = g.detach().cpu().contiguous()
+    parts = [torch.empty_like(host) for _ in range(pipe.M)]
+    dist.all_gather(parts, host, group=pipe.model_group)
+    return torch.cat(parts, dim=d).to(g.device)
+
+
+def _tp_check(cfg, layout, pcfg, batch, seed, q_plain) -> dict:
+    """Loss and every gradient of the pipelined model (the model blocks
+    put back together) against the plain single-process model on the
+    card, from the same weights (f32, TF32 off)."""
+    from repro_torch.models import transformer as tf
+    from repro_torch.models.common import nest_layers
+    from repro_torch.models.registry import get_model
+    from repro_torch.pipeline.executor import microbatch_grads
+    from repro_torch.pipeline.spmd import make_pipelined_loss, shard_params
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    model = tf.init_params(cfg, gen, "cuda")
+    tree = nest_layers({n: p.detach().clone()
+                        for n, p in model.named_parameters()}, torch.stack)
+    api = get_model(cfg, "cuda")
+    names = [n for n, _ in model.named_parameters()]
+    loss0, g0 = microbatch_grads(lambda _p, mb: api.loss(model, mb),
+                                 list(model.parameters()), batch, q_plain)
+    g0 = _flat_tree(nest_layers(dict(zip(names, g0)), torch.stack))
+    del model
+    local = shard_params(tree, layout, pcfg, "cuda", cfg=cfg)
+    del tree
+    loss_fn = make_pipelined_loss(cfg, layout, pcfg, "cuda")
+    pipe = loss_fn.pipe
+    loss = loss_fn(local, batch)
+    leaves = _flat_tree(local)
+    grads = torch.autograd.grad(loss, list(leaves.values()))
+    out = {"loss": loss.item(), "plain_loss": loss0.item(),
+           "stage": pipe.k, "model": pipe.m, "grad_rel": {}}
+    out["loss_rel"] = abs(out["loss"] - out["plain_loss"]) \
+        / abs(out["plain_loss"])
+    for key, g in zip(leaves, grads):
+        whole = _model_blocks_joined(pipe, cfg, layout, key, g,
+                                     g0[key].shape)
+        want = _stage_part(key, g0[key], pipe.k, pipe.S)
+        if whole.shape != want.shape:
+            raise AssertionError(f"{key}: joined blocks {tuple(whole.shape)}"
+                                 f" against {tuple(want.shape)}")
+        out["grad_rel"][key] = float((whole - want).abs().max()
+                                     / want.abs().max())
+    return out, g0
+
+
+def _tp_work(rank: int, job: dict) -> dict:
+    """Phase 29 on one rank: the f32 checks (qwen3-0.6b, its AdamW step,
+    granite-moe-3b), then the timed bfloat16 steps and one step's count
+    (utils/cost.py)."""
+    import torch.distributed as dist
+    from repro_torch.configs import get_config
+    from repro_torch.data import token_lm_batches
+    from repro_torch.kernels import flash as flash_mod
+    from repro_torch.launch.mesh import MeshLayout
+    from repro_torch.models import transformer as tf
+    from repro_torch.models.common import nest_layers
+    from repro_torch.optim import get_optimizer
+    from repro_torch.pipeline.spmd import (PipelineConfig,
+                                           make_pipelined_train_step,
+                                           shard_params)
+    from repro_torch.utils import step_cost, tree_map
+    S, M, Q = job["stages"], job["model"], job["q"]
+    pcfg = PipelineConfig(S, Q)
+    layout = MeshLayout(("stage", "model"), (S, M))
+    base = get_config(job["arch"])
+    batch = next(token_lm_batches(batch=job["batch"], seq_len=job["seq"],
+                                  vocab=base.vocab, seed=job["seed"]))
+    batch = {k: torch.as_tensor(v, device="cuda") for k, v in batch.items()}
+    out = {"rank": rank}
+
+    # float32, TF32 off: the dense model, then one AdamW step
+    cfg32 = dataclasses.replace(base, compute_dtype=torch.float32)
+    out["f32"], g0 = _tp_check(cfg32, layout, pcfg, batch, job["seed"], 2)
+    gen = torch.Generator(device="cuda").manual_seed(job["seed"])
+    model = tf.init_params(cfg32, gen, "cuda")
+    tree = nest_layers({n: p.detach().clone()
+                        for n, p in model.named_parameters()}, torch.stack)
+    del model
+    local = shard_params(tree, layout, pcfg, "cuda", cfg=cfg32)
+    del tree
+    opt = get_optimizer("adamw", lr=job["lr"])
+    seen = {}
+
+    def recorded(params, grads, state):
+        seen["before"] = tree_map(lambda p: p.detach().clone(), params)
+        seen["grads"] = tree_map(torch.clone, grads)
+        return opt.update(params, grads, state)
+
+    step32 = make_pipelined_train_step(
+        cfg32, layout, pcfg, dataclasses.replace(opt, update=recorded),
+        "cuda")
+    k, m = step32.pipe.k, step32.pipe.m
+    local, _, _ = step32(local, opt.init(local), batch)
+    adamw, _ = opt.update(seen["before"], seen["grads"],
+                          opt.init(seen["before"]))
+    adamw, step_grads = _flat_tree(adamw), _flat_tree(seen["grads"])
+    out["step_rel"], out["step_grad_rel"] = {}, {}
+    for key, p in _flat_tree(local).items():
+        out["step_rel"][key] = float((p.detach() - adamw[key]).abs().max()
+                                     / adamw[key].abs().max())
+        g = _local_part(cfg32, layout, key, g0[key], k, m, S)
+        out["step_grad_rel"][key] = float((step_grads[key] - g).abs().max()
+                                          / g.abs().max())
+    del local, step32, seen, adamw, step_grads, g0
+    torch.cuda.empty_cache()
+
+    # the MoE branch: granite-moe-3b, 2 layers, expert parallelism
+    moe = dataclasses.replace(get_config(TP_MOE["arch"]),
+                              num_layers=TP_MOE["layers"],
+                              compute_dtype=torch.float32)
+    moe_batch = next(token_lm_batches(batch=job["batch"],
+                                      seq_len=job["seq"], vocab=moe.vocab,
+                                      seed=job["seed"]))
+    moe_batch = {k2: torch.as_tensor(v, device="cuda")
+                 for k2, v in moe_batch.items()}
+    out["moe"] = _tp_check(moe, layout, PipelineConfig(S, TP_MOE["q"]),
+                           moe_batch, job["seed"], 1)[0]
+    torch.cuda.empty_cache()
+
+    # bfloat16 compute (the config's), remat "layer": timed steps
+    gen = torch.Generator(device="cuda").manual_seed(job["seed"])
+    model = tf.init_params(base, gen, "cuda")
+    tree = nest_layers({n: p.detach().clone()
+                        for n, p in model.named_parameters()}, torch.stack)
+    del model
+    local = shard_params(tree, layout, pcfg, "cuda", cfg=base)
+    del tree
+    torch.cuda.empty_cache()
+    opt = get_optimizer("adamw", lr=job["lr"])
+    state = opt.init(local)
+    step = make_pipelined_train_step(base, layout, pcfg, opt, "cuda")
+    step(local, state, batch)                                  # warm-up
+    counters = (flash_mod.flash_attention, flash_mod.flash_attention_bwd)
+    torch.cuda.synchronize()
+    dist.barrier()
+    args_bytes = torch.cuda.memory_allocated()
+    reset_launches(*counters)
+    torch.cuda.reset_peak_memory_stats()
+    pipe = step.pipe
+    pipe.seconds = dict.fromkeys(pipe.seconds, 0.0)
+    pipe.bytes = dict.fromkeys(pipe.bytes, 0)
+    walls, losses = [], []
+    for _ in range(job["steps"]):
+        dist.barrier()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _, _, met = step(local, state, batch)
+        losses.append(float(met["loss"]))
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+    # the timed steps are done: the parent's dry run may start
+    open(job["timed"].format(rank=rank), "w").close()
+    out["launches"] = {c.__name__: c.launches for c in counters}
+    out["launches_derived"] = {
+        name: n * job["steps"] for name, n in derived_spmd_launches(
+            Q, S, base.num_layers // S, base.remat).items()}
+    out["allocated_before_gib"] = args_bytes / 2**30
+    out["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    out["step_s"], out["losses"] = walls, losses
+    out["transfer_s"] = {n: v / job["steps"] for n, v in pipe.seconds.items()}
+    out["transfer_bytes"] = {n: v // job["steps"]
+                             for n, v in pipe.bytes.items()}
+    out.update(step_busy(lambda: step(local, state, batch), TP_PROFILED))
+    # one more step counted by utils/cost.py (the dry run's prediction is
+    # held to it by the parent)
+    dist.barrier()
+    cost = step_cost(step, local, state, batch, pipe=pipe)
+    out["counted"] = {"flops": cost.flops,
+                      "collective_by_kind": cost.collective_by_kind,
+                      "kernels": cost.kernels}
+    return out
+
+
+def tp_rank(rank: int, job: dict) -> None:
+    """One rank of phase 29, in a process of its own: gloo over a
+    FileStore, loopback sockets; writes its results as JSON."""
+    os.environ.setdefault("GLOO_SOCKET_IFNAME", "lo")
+    import torch.distributed as dist
+    torch.set_num_threads(TP_THREADS)
+    torch.cuda.set_device(0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    world = job["stages"] * job["model"]
+    dist.init_process_group("gloo", store=dist.FileStore(job["store"],
+                                                         world),
+                            rank=rank, world_size=world)
+    try:
+        out = _tp_work(rank, job)
+        with open(job["out"].format(rank=rank), "w") as f:
+            json.dump(out, f)
+    finally:
+        dist.destroy_process_group()
+
+
+def stage_plan_q(run: dict) -> tuple:
+    """Phase 28's choice of Q: the stage planner (H100 defaults) on
+    ``run["stages"]`` GPUs and the run's batch, BCD from b0 = 8 and 1, the
+    plan of least L_t; returns (plans, the best plan's fields, Q)."""
+    from repro_torch.configs import arch_profile, get_config
+    from repro_torch.core import plan_stages
+    from repro_torch.pipeline.spmd import plan_to_pipeline_config
+    prof = arch_profile(get_config(run["arch"]))
+    plans = {}
+    for b0 in (8, 1):
+        sp = plan_stages(prof, total_chips=run["stages"],
+                         stage_candidates=(run["stages"],),
+                         global_batch=run["batch"], b0=b0, device="cuda")
+        plans[f"b0={b0}"] = {
+            "layer_ranges": sp.layer_ranges, "num_stages": sp.num_stages,
+            "microbatch": sp.microbatch, "Q": sp.num_microbatches,
+            "T_f": sp.T_f, "T_i": sp.T_i, "L_t": sp.L_t,
+            "bubble_fraction": sp.bubble_fraction, "plan": sp}
+        log(f"stage plan (H100 defaults, {run['stages']} GPUs, batch "
+            f"{run['batch']}, BCD from b0 = {b0}): stages "
+            f"{sp.layer_ranges}, micro-batch {sp.microbatch}, Q "
+            f"{sp.num_microbatches}, T_f {sp.T_f:.6f} s, T_i {sp.T_i:.6f} "
+            f"s, L_t {sp.L_t:.6f} s, bubble {sp.bubble_fraction:.4f}")
+    best = min(plans.values(), key=lambda p: p["L_t"])
+    pcfg = plan_to_pipeline_config(best.pop("plan"), run["batch"])
+    for p in plans.values():
+        p.pop("plan", None)
+    if pcfg.num_stages != run["stages"]:
+        raise AssertionError(f"the best plan has {pcfg.num_stages} stages")
+    return plans, best, pcfg.num_microbatches
+
+
+def tp_dry_run(Q: int) -> dict:
+    """The dry run (launch/dryrun.py) of phase 29's cell on a fake process
+    group of 4 with fake CUDA tensors, and its roofline row at the H100
+    constants (predictions from shapes and data-sheet rates)."""
+    from repro_torch.launch.dryrun import (_lower_pipeline_cell,
+                                           fake_process_group)
+    from repro_torch.launch.mesh import MeshLayout
+    from repro_torch.launch.roofline import roofline_row
+    run = TP_RUN
+    layout = MeshLayout(("stage", "model"), (run["stages"], run["model"]))
+    with fake_process_group(layout.size):
+        rec = _lower_pipeline_cell(
+            run["arch"], layout, num_stages=run["stages"], q=Q,
+            device="cuda", batch_override=(run["batch"], run["seq"]))
+    return {"record": rec, "roofline": roofline_row(rec)}
+
+
+def tp_phase(out_dir: str, flash_mod, flash_kernel) -> dict:
+    """Phase 29: qwen3-0.6b pipelined over (stage 2 x model 2) on one card
+    (four processes under gloo, host-staged transfers).  float32 (TF32
+    off), the model blocks put back together: the loss within 1e-5 of the
+    plain model's, every gradient within 1e-4 of each tensor's largest
+    magnitude; one AdamW step within 1e-6 of scale of AdamW on the
+    gradients it used (those within 1e-4 of the plain ones); granite-moe-3b
+    (2 layers, 20 experts a rank) at the same bounds.  bfloat16: step
+    seconds, tokens/s, each rank's device busy time and peak memory,
+    Pipe.seconds and Pipe.bytes by kind, K2 / K2' launches per rank equal
+    to the ticks x the stage's layers (twice for K2 under remat).  K2 and
+    K2' at the TP-local layer held to their plain versions and timed
+    beside SDPA.  The dry run of the same cell (fake CUDA tensors, a fake
+    group of 4; run in this process once the ranks have timed their
+    steps) beside the measured figures, and its roofline row."""
+    import multiprocessing
+    import shutil
+    run = TP_RUN
+    plans, best, Q = stage_plan_q(run)
+    S, M = run["stages"], run["model"]
+    T = Q + S - 1
+    shutil.rmtree(out_dir, ignore_errors=True)
+    os.makedirs(out_dir)
+    job = {**run, "q": Q, "store": os.path.join(out_dir, "store"),
+           "out": os.path.join(out_dir, "rank{rank}.json"),
+           "timed": os.path.join(out_dir, "timed{rank}")}
+    torch.cuda.empty_cache()
+    ctx = multiprocessing.get_context("spawn")
+    procs = [ctx.Process(target=tp_rank, args=(r, job))
+             for r in range(S * M)]
+    t0 = time.perf_counter()
+    for p in procs:
+        p.start()
+    # the dry run of the same cell is host work only (fake tensors): it
+    # runs in this process while the ranks run their untimed steps (the
+    # profiled ones and the counted one), once every rank has timed its
+    dry_out = {}
+
+    def dry_run():
+        marks = [job["timed"].format(rank=r) for r in range(S * M)]
+        while not all(os.path.exists(m) for m in marks):
+            if not any(p.is_alive() for p in procs):
+                return                      # the ranks failed: see below
+            time.sleep(0.5)
+        try:
+            dry_out.update(tp_dry_run(Q))
+        except BaseException as e:          # re-raised below
+            dry_out["error"] = e
+
+    dry_thread = threading.Thread(target=dry_run)
+    dry_thread.start()
+    deadline = t0 + TP_TIMEOUT_S
+    for p in procs:
+        p.join(max(1.0, deadline - time.perf_counter()))
+    ranks_s = time.perf_counter() - t0
+    for p in procs:
+        if p.is_alive():
+            p.kill()
+            p.join()
+    dry_thread.join()
+    if "error" in dry_out:
+        raise dry_out["error"]
+    if any(p.exitcode != 0 for p in procs):
+        raise AssertionError(f"phase 29 ranks ended with "
+                             f"{[p.exitcode for p in procs]}")
+    ranks = []
+    for r in range(S * M):
+        with open(job["out"].format(rank=r)) as f:
+            ranks.append(json.load(f))
+    failures = []
+    for o in ranks:
+        for label in ("f32", "moe"):
+            c = o[label]
+            worst = max(c["grad_rel"], key=c["grad_rel"].get)
+            log(f"phase 29 rank {o['rank']} (stage {c['stage']}, model "
+                f"{c['model']}) {label}: loss {c['loss']:.6f} against plain "
+                f"{c['plain_loss']:.6f} (rel {c['loss_rel']:.2e}); joined "
+                f"gradients within {c['grad_rel'][worst]:.2e} of scale "
+                f"(worst {worst})")
+            if not (c["loss_rel"] <= SPMD_LOSS_REL
+                    and c["grad_rel"][worst] <= SPMD_REL):
+                failures.append(f"rank {o['rank']} {label} outside the "
+                                "bounds")
+        ws = max(o["step_rel"], key=o["step_rel"].get)
+        wg = max(o["step_grad_rel"], key=o["step_grad_rel"].get)
+        log(f"phase 29 rank {o['rank']} AdamW step: every element within "
+            f"{o['step_rel'][ws]:.2e} of AdamW on its gradients (worst "
+            f"{ws}), those within {o['step_grad_rel'][wg]:.2e} of the plain "
+            f"blocks (worst {wg})")
+        if not (o["step_rel"][ws] <= SPMD_STEP_REL
+                and o["step_grad_rel"][wg] <= SPMD_REL):
+            failures.append(f"rank {o['rank']} AdamW step outside the "
+                            "bounds")
+        log(f"phase 29 rank {o['rank']}: bf16 steps "
+            f"{[round(x, 4) for x in o['step_s']]} s, peak "
+            f"{o['peak_gib']:.2f} GiB (allocated before the steps "
+            f"{o['allocated_before_gib']:.2f}), launches {o['launches']} "
+            f"(derived {o['launches_derived']}); device busy "
+            f"{[round(x, 2) for x in o['busy_sessions_ms']]} ms with "
+            f"{o['busy_sessions_kernels']} kernel events; host seconds a "
+            f"step by transfer {o['transfer_s']}; bytes a step by transfer "
+            f"{o['transfer_bytes']}; counted FLOPs a step "
+            f"{o['counted']['flops']:.6e}; top kernels "
+            f"{ {n: round(v['ms'], 1) for n, v in o['top_kernels'].items()} }"
+            + ("" if o["busy_sessions_agree"] else
+               f"; no two sessions agree: {o['busy_sessions_differ']}"))
+        if o["launches"] != o["launches_derived"]:
+            failures.append(f"rank {o['rank']} launched {o['launches']}, "
+                            f"derived {o['launches_derived']}")
+        if not o["busy_sessions_agree"]:
+            failures.append(f"rank {o['rank']}'s profiled steps counted "
+                            "different kernel events every time")
+    # K2 and K2' at the TP-local layer shape
+    torch.backends.cuda.matmul.allow_tf32 = False
+    flash = {"shape": TP_FLASH, "k2_err": 0.0, "k2_bwd_err": 0.0}
+    for dtype in (torch.float32, torch.bfloat16):
+        flash["k2_err"] = max(flash["k2_err"],
+                              check_flash(TP_FLASH, dtype, flash_mod))
+        flash["k2_bwd_err"] = max(flash["k2_bwd_err"], check_flash_grad(
+            TP_FLASH, dtype, flash_mod, flash_kernel))
+    flash["forward"] = time_flash_turns(flash_mod, TP_FLASH)
+    flash["backward"] = time_flash_bwd_turns(flash_mod, flash_kernel,
+                                             TP_FLASH)
+    for way, t in (("K2", flash["forward"]), ("K2'", flash["backward"])):
+        log(f"phase 29 {way} at the TP-local layer {TP_FLASH}, bf16: device "
+            f"{t['device_ms']:.4f} ms (turns "
+            f"{[round(x, 4) for x in t['device_ms_turns']]}), SDPA "
+            f"{t['library_device_ms']:.4f} ms, plain {t['plain_ms']:.4f} ms "
+            f"(events), bound {t['bound_ms']:.6f} ms ({t['bound_by']})")
+    # the dry run of the same cell beside what the ranks measured
+    dry = dry_out
+    rec, row = dry["record"], dry["roofline"]
+    walls = [max(r["step_s"][i] for r in ranks) for i in range(run["steps"])]
+    r0 = next(r for r in ranks if r["rank"] == 0)
+    dry["measured"] = {
+        "rank0_counted_flops": r0["counted"]["flops"],
+        "flops_counted_over_predicted": r0["counted"]["flops"]
+        / rec["flops_per_device"],
+        "rank0_allocated_before_gib": r0["allocated_before_gib"],
+        "rank0_peak_gib": r0["peak_gib"],
+        "step_s": min(walls),
+        "bound_share_of_step": max(row["compute_s"], row["memory_s"],
+                                   row["collective_s"]) / min(walls)}
+    mem = rec["memory"]
+    log(f"phase 29 dry run (predicted from shapes; fake CUDA tensors, a "
+        f"fake group of 4; rank 0): arguments "
+        f"{mem['argument_size_in_bytes'] / 2**30:.3f} GiB (measured "
+        f"allocated before the steps {r0['allocated_before_gib']:.3f}), "
+        f"peak {rec['hbm_per_device'] / 2**30:.3f} GiB (measured "
+        f"max_memory_allocated {r0['peak_gib']:.3f}), FLOPs a step "
+        f"{rec['flops_per_device']:.6e} (counted on the card "
+        f"{r0['counted']['flops']:.6e}, ratio "
+        f"{dry['measured']['flops_counted_over_predicted']:.6f}); "
+        f"collectives {rec['collective_breakdown']} (counted "
+        f"{r0['counted']['collective_by_kind']}); roofline at the H100 "
+        f"constants: compute {row['compute_s']:.3e} s, memory "
+        f"{row['memory_s']:.3e} s, collective {row['collective_s']:.3e} s, "
+        f"{row['dominant']}-bound; the measured step {min(walls):.4f} s is "
+        f"{1 / dry['measured']['bound_share_of_step']:.1f}x its bound")
+    tokens = run["batch"] * run["seq"]
+    out = {"plans": plans, "Q": Q, "stages": S, "model": M, "ticks": T,
+           "step_s": walls, "tokens_per_s": [tokens / w for w in walls],
+           "ranks": ranks, "ranks_wall_s": ranks_s, "flash": flash,
+           "dry_run": dry,
+           "launches": {name: sum(r["launches"][name] for r in ranks)
+                        for name in ranks[0]["launches"]}}
+    log(f"phase 29 qwen3-0.6b over (stage {S} x model {M}) on one card "
+        f"(gloo, host-staged), Q {Q} (plan L_t {best['L_t']:.6f} s), T {T} "
+        f"ticks; bf16 AdamW steps {[round(w, 4) for w in walls]} s "
+        f"({[round(t) for t in out['tokens_per_s']]} tokens/s); device "
+        f"busy a step per rank "
+        f"{[[round(x, 1) for x in r['busy_ms']] for r in ranks]} ms; peak "
+        f"per rank {[round(r['peak_gib'], 2) for r in ranks]} GiB; "
+        f"ranks' processes {ranks_s:.1f} s")
+    if failures:
+        raise AssertionError("phase 29: " + "; ".join(failures))
+    return out
+
+
 def timed(fn, device: str):
     """(fn(), wall seconds), the device synchronized on both sides."""
     if device == "cuda":
@@ -4271,6 +4747,10 @@ def main(argv=None) -> int:
                     help="only build the kernels and run phase 28 (the "
                     "stage pipeline across two ranks on the card) and print "
                     "its JSON")
+    ap.add_argument("--tp", action="store_true",
+                    help="only build K2 and K2' and run phase 29 (the "
+                    "'model' axis inside the pipeline's stages, its dry run "
+                    "and roofline) and print its JSON")
     ap.add_argument("--src", help="import repro_torch from this directory "
                     "(another checkout's src/) instead of this one's")
     opts = ap.parse_args(argv)
@@ -4378,6 +4858,21 @@ def main(argv=None) -> int:
 
     spmd_dir = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                             "build", "smoke_28")
+    tp_dir = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                          "build", "smoke_29")
+    if opts.tp:
+        from repro_torch.kernels import flash as flash_mod
+        from repro_torch.kernels.flash import kernel as flash_kernel
+        from repro_torch.kernels.rwkv6 import kernel as wkv6_kernel
+        mark_phase("2")
+        built = build_all([flash_kernel]
+                          + bwd_libraries(flash_kernel, wkv6_kernel)[:1])
+        log("build: " + ", ".join(f"{n} {t:.2f} s" for n, t in built.items()))
+        mark_phase("29")
+        tp_out = tp_phase(tp_dir, flash_mod, flash_kernel)
+        log(json.dumps({"tp": tp_out, "card": smi}))
+        log(profiler_line())
+        return 0
     if opts.spmd:
         from repro_torch.kernels.flash import kernel as flash_kernel
         from repro_torch.kernels.minplus import kernel as minplus_kernel
@@ -5205,6 +5700,10 @@ def main(argv=None) -> int:
     mark_phase("28")
     spmd_out = spmd_phase(spmd_dir)
 
+    # 29. the "model" axis inside the stages; its dry run and roofline -----
+    mark_phase("29")
+    tp_out = tp_phase(tp_dir, flash_mod, flash_kernel)
+
     log(json.dumps({"sim": sim_out, "card": smi}))
     log(json.dumps({"robust": robust_out, "card": smi}))
     log(json.dumps({"train": {"model_grads": model_grads, **trained,
@@ -5215,6 +5714,7 @@ def main(argv=None) -> int:
     log(json.dumps({"moe": moe_out, "card": smi}))
     log(json.dumps({"hybrid_audio": ha_out, "card": smi}))
     log(json.dumps({"spmd": spmd_out, "card": smi}))
+    log(json.dumps({"tp": tp_out, "card": smi}))
     run_walls = phase_walls()
     log("phase walls (s): "
         + ", ".join(f"{k} {v}" for k, v in run_walls.items())
@@ -5348,6 +5848,18 @@ def main(argv=None) -> int:
                       for r in spmd_out["ranks"]],
             "derived": [r["launches_derived"]["flash_attention"]
                         for r in spmd_out["ranks"]]},
+        "tp_launches": {
+            "ranks": [r["launches"]["flash_attention"]
+                      for r in tp_out["ranks"]],
+            "derived": [r["launches_derived"]["flash_attention"]
+                        for r in tp_out["ranks"]]},
+        "tp_layer": {"shape": dict(zip(("B", "S", "T", "H", "KV", "hd",
+                                        "causal"), TP_FLASH)),
+                     "max_abs_err": tp_out["flash"]["k2_err"],
+                     **{key: tp_out["flash"]["forward"][key]
+                        for key in ("ms", "device_ms", "plain_ms",
+                                    "bound_ms", "bound_by", "library_ms",
+                                    "library_device_ms")}},
     }, {
         "name": "flash_attention_bwd",
         "route": "cuda",
@@ -5386,6 +5898,17 @@ def main(argv=None) -> int:
                       for r in spmd_out["ranks"]],
             "derived": [r["launches_derived"]["flash_attention_bwd"]
                         for r in spmd_out["ranks"]]},
+        "tp_launches": {
+            "ranks": [r["launches"]["flash_attention_bwd"]
+                      for r in tp_out["ranks"]],
+            "derived": [r["launches_derived"]["flash_attention_bwd"]
+                        for r in tp_out["ranks"]]},
+        "tp_layer": {"shape": dict(zip(("B", "S", "T", "H", "KV", "hd",
+                                        "causal"), TP_FLASH)),
+                     "max_abs_err": tp_out["flash"]["k2_bwd_err"],
+                     **{key: tp_out["flash"]["backward"][key]
+                        for key in ("device_ms", "plain_ms", "bound_ms",
+                                    "bound_by", "library_device_ms")}},
     }, {
         "name": "wkv6_scan_bwd",
         "route": "cuda",

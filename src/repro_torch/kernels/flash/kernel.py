@@ -19,6 +19,15 @@ kernels and both plain versions.  The kernels are built at first use
 (``kernels/_build.py``) and launched on PyTorch's current stream without
 synchronising.
 
+Fake tensors (``torch._subclasses.fake_tensor``: the dry run's shapes
+without data): a fake CUDA call builds, loads and launches nothing and
+moves no launch counter; it allocates the outputs (and K2's lse) in their
+shapes and types and charges the kernel's operations and bytes to the
+active ``utils/cost.py`` counter (:func:`flash_cost`,
+:func:`flash_bwd_cost`: the query-key pairs the mask keeps).  A real
+launch charges the same.  A fake CPU call takes the plain version, as a
+real one does.
+
 Training: when grad is enabled and an input requires grad, a CUDA call goes
 through :class:`FlashAttention`, whose forward also writes each query
 row's log-sum-exp and whose backward launches K2' (``csrc/flash_bwd.cu``,
@@ -30,11 +39,15 @@ row's log-sum-exp and whose backward launches K2' (``csrc/flash_bwd.cu``,
 from __future__ import annotations
 
 import ctypes
+import functools
 import math
 from pathlib import Path
 
+import numpy as np
 import torch
+from torch._subclasses.fake_tensor import is_fake
 
+from ...utils.cost import charge
 from .._build import load_library
 from .ref import attention_lse_plain, attention_plain, flash_bwd_plain
 
@@ -92,9 +105,40 @@ def blocks_per_sm(hd: int, kernel: str = "fwd") -> int:
 def aligned16(t: torch.Tensor) -> torch.Tensor:
     """``t`` contiguous at a 16-byte aligned address (the bfloat16 kernel
     copies 16 bytes at a time with cp.async); a view at another offset is
-    copied."""
+    copied.  A fake tensor has no address: it is only made contiguous."""
     t = t.contiguous()
-    return t if t.data_ptr() % 16 == 0 else t.clone()
+    return t if is_fake(t) or t.data_ptr() % 16 == 0 else t.clone()
+
+
+def mask_pairs(S: int, T: int, causal: bool, window: int = 0) -> int:
+    """The query-key pairs the mask keeps: all S T, or under the
+    start-aligned causal mask kpos <= qpos, and under a window > 0 only
+    kpos > qpos - window besides."""
+    s = np.arange(S, dtype=np.int64)
+    hi = np.minimum(s, T - 1) if causal else np.full(S, T - 1)
+    lo = np.maximum(0, s - window + 1) if window > 0 else 0
+    return int(np.maximum(0, hi - lo + 1).sum())
+
+
+def flash_cost(B, S, T, H, KV, hd, causal, window, dtype,
+               with_lse=False) -> tuple:
+    """(operations, bytes) of one K2 call: 4 hd a kept pair and query head
+    (the score and its share of p v); q, k, v read and the output (and the
+    lse) written once."""
+    esize = torch.empty((), dtype=dtype).element_size()
+    nbytes = esize * (2 * B * S * H * hd + 2 * B * T * KV * hd) \
+        + (4 * B * H * S if with_lse else 0)
+    return 4 * hd * mask_pairs(S, T, causal, window) * B * H, nbytes
+
+
+def flash_bwd_cost(B, S, T, H, KV, hd, causal, window, dtype) -> tuple:
+    """(operations, bytes) of one K2' call: the five hd-deep products
+    (q k^T, dO v^T, P^T dO, dS^T q, dS k) over the kept pairs; q, k, v, o,
+    dO and lse read and dq, dk, dv written once."""
+    esize = torch.empty((), dtype=dtype).element_size()
+    nbytes = esize * (4 * B * S * H * hd + 4 * B * T * KV * hd) \
+        + 4 * B * H * S
+    return 10 * hd * mask_pairs(S, T, causal, window) * B * H, nbytes
 
 
 def kernel_head_dim(hd: int) -> int:
@@ -157,6 +201,13 @@ def _forward(q, k, v, causal: bool, with_lse: bool, window: int = 0):
     B, S, H, hd = q.shape
     T, KV = k.shape[1], k.shape[2]
     dev = q.device
+    cost = flash_cost(B, S, T, H, KV, hd, causal, window, q.dtype, with_lse)
+    if is_fake(q):
+        lse = (torch.empty((B, H, S), dtype=torch.float32, device=dev)
+               if with_lse else None)
+        charge("flash_attention", *cost)
+        return torch.empty_like(q, memory_format=torch.contiguous_format), \
+            lse
     hd_k = kernel_head_dim(hd)
     q, k, v = (aligned16(t) for t in _pad_hd((q, k, v), hd_k))
     out = torch.empty_like(q)
@@ -173,6 +224,7 @@ def _forward(q, k, v, causal: bool, with_lse: bool, window: int = 0):
         raise RuntimeError(f"flash_attention kernel launch failed: CUDA "
                            f"error {err}")
     flash_attention.launches += 1
+    charge("flash_attention", *cost)
     if hd_k != hd:
         out = out[..., :hd].contiguous()
     return out, lse
@@ -188,7 +240,22 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0):
     type.  On CUDA tensors that need a gradient it goes through
     :class:`FlashAttention` (K2 with its log-sum-exp, K2' in the backward).
     Every forward kernel launch adds one to ``flash_attention.launches``.
+    DTensors (the dry run's sharded layers) run through ``local_map`` on
+    each rank's blocks, in q's placements (heads or the batch split,
+    never the sequence).
     """
+    from torch.distributed.tensor import DTensor
+    if isinstance(q, DTensor):
+        from torch.distributed.tensor import Replicate
+        from torch.distributed.tensor.experimental import local_map
+        place = [Replicate() if p.is_partial() else p for p in q.placements]
+        q, k, v = (t if list(t.placements) == place
+                   else t.redistribute(t.device_mesh, place)
+                   for t in (q, k, v))
+        return local_map(
+            functools.partial(flash_attention, causal=causal, window=window),
+            out_placements=place, in_placements=(place, place, place),
+            device_mesh=q.device_mesh)(q, k, v)
     _check(q, k, v, causal, window)
     if q.device.type == "cpu":
         return attention_plain(q, k, v, causal=causal, window=window)
@@ -225,6 +292,11 @@ def flash_attention_bwd(q, k, v, o, do, lse, *, causal: bool = True,
     if dev.type == "cpu":
         return flash_bwd_plain(q, k, v, o, do, lse, causal=causal,
                                window=window)
+    cost = flash_bwd_cost(B, S, T, H, KV, hd, causal, window, dtype)
+    if is_fake(q):
+        charge("flash_attention_bwd", *cost)
+        return tuple(torch.empty(t.shape, dtype=dtype, device=dev)
+                     for t in (q, k, v))
     hd_k = kernel_head_dim(hd)
     q, k, v, o, do = (aligned16(t) for t in _pad_hd(
         [t.to(dtype) for t in (q, k, v, o, do)], hd_k))
@@ -244,6 +316,7 @@ def flash_attention_bwd(q, k, v, o, do, lse, *, causal: bool = True,
         raise RuntimeError(f"flash_attention_bwd kernel launch failed: CUDA "
                            f"error {err}")
     flash_attention_bwd.launches += 1
+    charge("flash_attention_bwd", *cost)
     if hd_k != hd:
         dq, dk, dv = (t[..., :hd].contiguous() for t in (dq, dk, dv))
     return dq, dk, dv

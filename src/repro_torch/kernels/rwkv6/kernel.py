@@ -24,6 +24,12 @@ rwkv6-1.6b's training shape (4 x 512 tokens, 32 heads of 64), held until
 the layer's backward (under ``remat="layer"`` only for the layer being
 recomputed).  On CPU tensors ``wkv6`` is autograd through the chunked
 plain version.
+
+Fake tensors (the dry run's shapes without data): a fake CUDA call
+builds, loads and launches nothing and moves no launch counter; it
+allocates the outputs in their shapes and types and charges the scan's
+operations and bytes to the active ``utils/cost.py`` counter
+(:func:`wkv6_cost`, :func:`wkv6_bwd_cost`), as a real launch does.
 """
 
 from __future__ import annotations
@@ -32,7 +38,9 @@ import ctypes
 from pathlib import Path
 
 import torch
+from torch._subclasses.fake_tensor import is_fake
 
+from ...utils.cost import charge
 from .._build import load_library
 from ..flash.kernel import aligned16
 from .ref import wkv6_bwd_plain, wkv6_chunked_plain
@@ -106,6 +114,9 @@ def wkv6(r, k, v, logw, u, s0, *, chunk: int = 128):
     to ``wkv6.launches``: it counts scans, not the two CUDA launches a scan
     makes.
     """
+    from torch.distributed.tensor import DTensor
+    if isinstance(r, DTensor):
+        return _on_blocks(r, k, v, logw, u, s0, chunk)
     B, S, H, hd = r.shape
     if chunk < 1 or S % chunk:
         raise ValueError(f"sequence length {S} is not a multiple of "
@@ -149,11 +160,75 @@ def wkv6(r, k, v, logw, u, s0, *, chunk: int = 128):
 wkv6.launches = 0
 
 
+def _on_blocks(r, k, v, logw, u, s0, chunk):
+    """``wkv6`` on DTensors (the dry run's sharded layers): each rank's
+    blocks through ``local_map``, r / k / v / log w split as r is over the
+    batch and the heads (a partial sum summed first), u and s0 split to
+    match."""
+    from torch.distributed.tensor import Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+    mesh = r.device_mesh
+    x_pl = [Replicate() if p.is_partial() or (p.is_shard() and p.dim not in
+                                              (0, 2)) else p
+            for p in r.placements]
+    u_pl = [Shard(0) if p == Shard(2) else Replicate() for p in x_pl]
+    s_pl = [Shard(1) if p == Shard(2) else p for p in x_pl]
+
+    def put(t, pl):
+        if not isinstance(t, DTensor):      # a plain tensor is replicated
+            t = DTensor.from_local(t, mesh, [Replicate()] * mesh.ndim,
+                                   run_check=False)
+        return t if list(t.placements) == pl else t.redistribute(mesh, pl)
+
+    from torch.distributed.tensor import DTensor
+    args = [put(t, x_pl) for t in (r, k, v, logw)] + [put(u, u_pl),
+                                                        put(s0, s_pl)]
+    return local_map(lambda *a: wkv6(*a, chunk=chunk),
+                     out_placements=(x_pl, s_pl),
+                     in_placements=(x_pl,) * 4 + (u_pl, s_pl),
+                     device_mesh=mesh)(*args)
+
+
+def wkv6_cost(B, S, H, hd, dtype) -> tuple:
+    """(operations, bytes) of one K3 scan: the chunked form over the
+    kernel's 64-token tiles (q S and the state update, 2 n hd^2 each; q k'^T
+    and its product with v below the diagonal, n (n - 1) hd each; decays,
+    exponentials and bonus, 8 n hd; the state's decay, hd^2, for a tile of
+    n); r, k, v, log w, u and s0 read and y and S_final written once."""
+    esize = torch.empty((), dtype=dtype).element_size()
+    elems = B * S * H * hd
+    tiles = [TILE] * (S // TILE) + ([S % TILE] if S % TILE else [])
+    ops = sum(4 * n * hd * hd + 2 * n * (n - 1) * hd + 8 * n * hd + hd * hd
+              for n in tiles)
+    return ops * B * H, (elems * (3 * esize + 4 + 4) + H * hd * 4
+                         + 2 * B * H * hd * hd * 4)
+
+
+def wkv6_bwd_cost(B, S, H, hd, dtype) -> tuple:
+    """(operations, bytes) of one K3' call: the per-token walk's products
+    (10 hd^2 a token and head); the forward's inputs, dy and dS_final read
+    and the six gradients written once."""
+    esize = torch.empty((), dtype=dtype).element_size()
+    elems = B * S * H * hd
+    return 10 * hd * hd * B * S * H, (
+        elems * (3 * esize + 4 + 4) + H * hd * 4 + 2 * B * H * hd * hd * 4
+        + elems * (3 * esize + 4) + H * hd * 4 + B * H * hd * hd * 4)
+
+
 def _launch(r, k, v, logw, u, s0):
     """K3 on checked CUDA inputs (hd >= 4): (y, S_final, states), states
-    the pass-1 scratch (B * H, ceil(S / 64), hd, hd) float32."""
+    the pass-1 scratch (B * H, ceil(S / 64), hd, hd) float32.  On fake
+    tensors: the three outputs allocated and the scan's work charged
+    (``utils/cost.py``), nothing launched."""
     B, S, H, hd = r.shape
     dev = r.device
+    cost = wkv6_cost(B, S, H, hd, r.dtype)
+    if is_fake(r):
+        charge("wkv6", *cost)
+        return (torch.empty((B, S, H, hd), dtype=torch.float32, device=dev),
+                torch.empty((B, H, hd, hd), dtype=torch.float32, device=dev),
+                torch.empty((B * H, -(-S // TILE), hd, hd),
+                            dtype=torch.float32, device=dev))
     # the kernel reads 4-vectors
     r, k, v, logw, u, s0 = (aligned16(t) for t in (r, k, v, logw, u, s0))
     y = torch.empty((B, S, H, hd), dtype=torch.float32, device=dev)
@@ -169,6 +244,7 @@ def _launch(r, k, v, logw, u, s0):
     if err != 0:
         raise RuntimeError(f"wkv6 kernel launch failed: CUDA error {err}")
     wkv6.launches += 1
+    charge("wkv6", *cost)
     return y, s_out, scratch
 
 
@@ -214,6 +290,13 @@ def wkv6_bwd(r, k, v, logw, u, s0, dy, ds_final, *, states=None):
             raise ValueError(f"{name} is {t.dtype} {tuple(t.shape)} on "
                              f"{t.device}; expected {want_dtype} {shape} on "
                              f"{dev}")
+    cost = wkv6_bwd_cost(B, S, H, hd, dtype)
+    if is_fake(r):
+        charge("wkv6_bwd", *cost)
+        return tuple(torch.empty((B, S, H, hd), dtype=dt, device=dev)
+                     for dt in (dtype, dtype, dtype, f32)) + (
+            torch.empty((H, hd), dtype=f32, device=dev),
+            torch.empty((B, H, hd, hd), dtype=f32, device=dev))
     if states is None:
         states = _launch(r, k, v, logw, u, s0)[2]
     want = (B * H, -(-S // TILE), hd, hd)
@@ -242,6 +325,7 @@ def wkv6_bwd(r, k, v, logw, u, s0, dy, ds_final, *, states=None):
         raise RuntimeError(f"wkv6_bwd kernel launch failed: CUDA error "
                            f"{err}")
     wkv6_bwd.launches += 1
+    charge("wkv6_bwd", *cost)
     return dr, dk, dv, dlw, du, ds0
 
 

@@ -154,6 +154,50 @@ def param_spec(cfg: ArchConfig, mesh, path: str, shape: tuple,
     return tuple(spec)
 
 
+#: biases the rules leave whole, and the matrix whose output dim each
+#: follows when a rank holds a block of that matrix's columns
+_BIAS_OF = {"bq": "wq", "bk": "wk", "bv": "wv", "b_up": "w_up"}
+
+
+def model_dim(cfg: ArchConfig, mesh, path: str, shape: tuple,
+              policy: ShardingPolicy = ShardingPolicy()):
+    """The dim of the leaf at ``path`` that :func:`param_spec` splits over
+    the "model" axis, or None.  A bias of :data:`_BIAS_OF` takes its
+    matrix's output split (its matrix's shape is the bias's with d_model
+    before the last dim)."""
+    *head, name = path.split("/")
+    if name in _BIAS_OF:
+        mshape = tuple(shape[:-1]) + (cfg.d_model, shape[-1])
+        spec = param_spec(cfg, mesh, "/".join(head + [_BIAS_OF[name]]),
+                          mshape, policy)
+        return len(shape) - 1 if spec[-1] == "model" else None
+    spec = param_spec(cfg, mesh, path, shape, policy)
+    for d, e in enumerate(spec):
+        axes = (e,) if isinstance(e, str) else tuple(e or ())
+        if "model" in axes:
+            if axes != ("model",):
+                raise ValueError(f"{path}: dim {d} is split over {axes}; a "
+                                 "model block is cut along 'model' alone")
+            return d
+    return None
+
+
+def model_block(cfg: ArchConfig, mesh, path: str, x, rank: int,
+                policy: ShardingPolicy = ShardingPolicy()):
+    """Rank ``rank``'s block of the leaf ``x`` (at tree path ``path``, in
+    the reference's stacked layout) along the mesh's "model" axis: the dim
+    :func:`model_dim` names cut into ``tp`` equal blocks, or ``x`` itself
+    when no dim is split.  A view, for tensors and arrays alike."""
+    d = model_dim(cfg, mesh, path, tuple(x.shape), policy)
+    if d is None:
+        return x
+    tp = _axis_size(as_layout(mesh), "model")
+    n = x.shape[d] // tp
+    idx = [slice(None)] * len(x.shape)
+    idx[d] = slice(rank * n, (rank + 1) * n)
+    return x[tuple(idx)]
+
+
 def _flatten(tree, prefix=()) -> list:
     """[(path components, leaf)] of a nested dict / list / tuple, dict keys
     in sorted order (``jax.tree_util``'s)."""

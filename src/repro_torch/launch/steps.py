@@ -51,6 +51,17 @@ def default_microbatches(cfg: ArchConfig, global_batch: int) -> int:
     return max(q, 1)
 
 
+def _on(x, device: torch.device):
+    """``x`` as a tensor on ``device``'s type: a tensor already there, or
+    a DTensor (the dry run's, laid out by its mesh), as it is; anything
+    else through ``torch.as_tensor``."""
+    from torch.distributed.tensor import DTensor
+    if isinstance(x, DTensor) or (isinstance(x, torch.Tensor)
+                                  and x.device.type == device.type):
+        return x
+    return torch.as_tensor(x, device=device)
+
+
 def optimizer_tree(named: dict, optimizer: Optimizer) -> dict:
     """The tree ``optimizer`` updates, from a model's named tensors
     (parameters or their gradients): the named tensors themselves for an
@@ -88,8 +99,7 @@ def make_train_step(cfg: ArchConfig, optimizer: Optimizer,
 
     def train_step(model, opt_state, batch):
         params = dict(model.named_parameters())
-        batch = {k: torch.as_tensor(v, device=api.device)
-                 for k, v in batch.items()}
+        batch = {k: _on(v, api.device) for k, v in batch.items()}
         loss, grads = microbatch_grads(lambda _p, mb: api.loss(model, mb),
                                        list(params.values()), batch,
                                        num_microbatches)
@@ -113,8 +123,8 @@ def make_prefill_step(cfg: ArchConfig, cache_len: int,
     api = get_model(cfg, device)
 
     def prefill_step(model, batch):
-        tokens = torch.as_tensor(batch["tokens"], device=api.device)
-        return api.prefill(model, {"tokens": tokens}, cache_len)
+        return api.prefill(model, {k: _on(v, api.device)
+                                   for k, v in batch.items()}, cache_len)
 
     return prefill_step
 
@@ -123,7 +133,6 @@ def make_decode_step(cfg: ArchConfig, device="cuda") -> Callable:
     api = get_model(cfg, device)
 
     def decode_step(model, cache, token, pos):
-        return api.decode(model, cache,
-                          torch.as_tensor(token, device=api.device), pos)
+        return api.decode(model, cache, _on(token, api.device), pos)
 
     return decode_step

@@ -21,7 +21,7 @@ from __future__ import annotations
 import dataclasses
 import functools
 import math
-from typing import Any
+from typing import Any, Callable
 
 import torch
 import torch.nn.functional as F
@@ -108,6 +108,132 @@ class ArchConfig:
         whatever ``moe_every`` says (ROADMAP Queue 3)."""
         return self.moe_experts > 0 and \
             (i % self.moe_every) == (self.moe_every - 1)
+
+
+def _identity(x):
+    return x
+
+
+@dataclasses.dataclass(frozen=True)
+class ModelSplit:
+    """This rank's block of a layer along a mesh's "model" axis
+    (Megatron-style tensor parallelism inside a pipeline stage): ``size``
+    ranks, this one ``rank``.  A layer built with a split holds 1/size of
+    its query and kv heads and of its FFN's hidden width (or of its
+    experts, see ``models/moe.py``); ``enter`` marks the input of each
+    column-parallel block (identity forward, the gradient summed over the
+    model group) and ``exit`` the output of each row-parallel one (summed
+    over the model group forward, identity backward).  The default is the
+    whole layer."""
+    size: int = 1
+    rank: int = 0
+    enter: Callable = _identity
+    exit: Callable = _identity
+
+    def part(self, n: int, what: str) -> int:
+        """n / size, or ValueError when size does not divide n."""
+        if n % self.size:
+            raise ValueError(f"{n} {what} do not split over a model axis of "
+                             f"{self.size}")
+        return n // self.size
+
+
+WHOLE = ModelSplit()
+
+
+#: a spec entry for the batch dim: the mesh's data axes, as the
+#: reference's ("pod", "data")
+DATA = ("pod", "data")
+
+
+def model_axis_size(x) -> int:
+    """The size of the "model" axis of a DTensor's mesh (1 without one, or
+    for a plain tensor)."""
+    from torch.distributed.tensor import DTensor
+    if not isinstance(x, DTensor):
+        return 1
+    names = x.device_mesh.mesh_dim_names or ()
+    return x.device_mesh.size(names.index("model")) if "model" in names \
+        else 1
+
+
+def gather_data_axes(p):
+    """A DTensor parameter made whole over every mesh axis but "model"
+    before use (FSDP's all-gather: the rules shard d_model over the data
+    axes for storage only); a plain tensor as it is."""
+    from torch.distributed.tensor import DTensor, Replicate
+    if not isinstance(p, DTensor):
+        return p
+    names = p.device_mesh.mesh_dim_names or ()
+    place = tuple(pl if i < len(names) and names[i] == "model"
+                  else Replicate() for i, pl in enumerate(p.placements))
+    return p if place == tuple(p.placements) else \
+        p.redistribute(p.device_mesh, place)
+
+
+def heads_flat(t, n: int):
+    """(B, S, n hd) with its heads over "model" on a mesh when n splits
+    there, else whole (the gradient too: a reshape to or from heads needs
+    whole heads in a rank's block); a plain tensor as it is."""
+    tp = model_axis_size(t)
+    if tp == 1:
+        return t
+    return maybe_constrain(t, (DATA, None, None if n % tp else "model"))
+
+
+def maybe_constrain(x, spec):
+    """The reference's ``maybe_constrain``: a layout hint.  On a DTensor,
+    redistribute ``x`` to ``spec`` (the reference's PartitionSpec as a
+    tuple: per dim None, an axis name or a tuple of names) on its own
+    mesh, each entry's axes kept only where the mesh has them and their
+    sizes divide the dim (the rest of the entry dropped, as the reference
+    drops it), and an axis already used by an earlier dim left out; a
+    tensor whose layout already matches is returned as it is.  On a plain
+    tensor: ``x`` (no mesh, nothing to lay out)."""
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+    if not isinstance(x, DTensor):
+        return x
+    mesh = x.device_mesh
+    names = mesh.mesh_dim_names or ()
+    place = [Replicate()] * mesh.ndim
+    for d, entry in enumerate(spec):
+        axes = entry if isinstance(entry, tuple) else \
+            ((entry,) if entry else ())
+        axes = tuple(a for a in axes if a in names
+                     and place[names.index(a)] == Replicate())
+        size = 1
+        for a in axes:
+            size *= mesh.size(names.index(a))
+        if axes and x.shape[d] % size == 0:
+            for a in axes:
+                place[names.index(a)] = Shard(d)
+    place = tuple(place)
+    if tuple(x.placements) == place and not x.requires_grad:
+        return x
+    return _Constrain.apply(x, place)
+
+
+class _Constrain(torch.autograd.Function):
+    """A layout constraint: the value redistributed to ``place`` forward;
+    its gradient laid out as the input was (a partial sum summed), so the
+    products before it keep their split in the backward too (DTensor's
+    planner weighs only communication, and would otherwise run a product
+    whole on every rank where that moves nothing)."""
+
+    @staticmethod
+    def forward(ctx, x, place):
+        from torch.distributed.tensor import Replicate
+        ctx.back = tuple(Replicate() if p.is_partial() else p
+                         for p in x.placements)
+        if tuple(x.placements) == place:
+            return x.view_as(x)
+        return x.redistribute(x.device_mesh, place)
+
+    @staticmethod
+    def backward(ctx, g):
+        if tuple(g.placements) == ctx.back:
+            return g, None
+        return g.redistribute(g.device_mesh, ctx.back), None
 
 
 def _stacked(parts: list) -> bool:
@@ -231,6 +357,9 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
     computes it outside any Pallas kernel."""
     b, _, h, hd = q.shape
     t, kv = k_cache.shape[1], k_cache.shape[2]
+    # on a mesh: whole heads for the grouping reshape (the cache keeps its
+    # own layout, the sequence over "model")
+    q = maybe_constrain(q, (DATA, None, None, None))
     qg = q.reshape(b, 1, kv, h // kv, hd)
     scores = torch.einsum("bqkgh,btkh->bkgqt", qg, k_cache).float()
     scores = scores * (1.0 / math.sqrt(hd))
@@ -257,6 +386,7 @@ class CastCache:
         self._casts = {}
 
     def get(self, name, p, dtype):
+        p = gather_data_axes(p)
         if p.dtype == dtype:
             return p
         if p.requires_grad and torch.is_grad_enabled():
@@ -342,8 +472,11 @@ def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
     sumexp = torch.exp(shifted).sum(dim=-1, dtype=torch.float32)
     # ignored positions gather index 0 (masked out below): torch.gather
     # rejects a negative index
-    idx = labels.long().clamp_min(0)[..., None]
-    gold = torch.gather(shifted, -1, idx)[..., 0]
+    # (on rows: DTensor's vocab-parallel gather takes two dims)
+    V = shifted.shape[-1]
+    idx = labels.long().clamp_min(0).reshape(-1, 1)
+    gold = torch.gather(shifted.reshape(-1, V), -1, idx).reshape(
+        labels.shape)
     nll = torch.log(sumexp) - gold.float()
     mask = labels != ignore_id
     return (nll * mask).sum() / mask.sum().clamp_min(1)

@@ -30,7 +30,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from .common import ArchConfig, CastCache, dense_init, rms_norm, scan_pairs
+from .common import (DATA, ArchConfig, CastCache, dense_init,
+                     maybe_constrain, rms_norm, scan_pairs)
 
 
 def d_inner(cfg: ArchConfig) -> int:
@@ -150,6 +151,10 @@ def mamba_fwd(m: Mamba, x: torch.Tensor, *, state=None) -> tuple:
     dtr = dt_rank(cfg)
     dt, Bv, Cv = (xin @ m.w("x_proj", dt_)).split([dtr, ds, ds], dim=-1)
     dt = F.softplus(dt @ m.w("dt_proj", dt_) + m.w("dt_bias", dt_))
+    # on a mesh: the scan's inputs with d_inner over "model" (the
+    # reference's hint)
+    dt = maybe_constrain(dt, (DATA, None, "model"))
+    xin = maybe_constrain(xin, (DATA, None, "model"))
     A = -torch.exp(m.A_log.float())
 
     if h0 is None:

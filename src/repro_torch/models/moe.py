@@ -26,30 +26,49 @@ every S.  In training the gradient reaches x through the dispatch and the
 router through the gates, as ``jax.grad`` of the reference's does.
 
 Every step is a PyTorch op: the reference reaches no Pallas kernel here.
-Its sharding hints (``_maybe_constrain``, ``_experts_shardable``, the
-``PartitionSpec`` layouts of the buffer) lay the experts out over the
-"model" axis of a mesh; tensor parallelism inside a stage is ROADMAP Queue
-1 item 11b.
+Its sharding hints lay the experts out over a mesh's "model" axis when
+that divides E, else each expert's d_ff.  A layer built with a
+``common.ModelSplit`` takes the same two branches: with E % size == 0
+(expert parallelism) the rank holds E / size experts, routes every token
+with the whole router (the same picks and capacity on every rank),
+dispatches only the pairs of its experts and combines only those; else it
+holds every expert's block of d_ff columns (rows of ``w_down``), routes
+and dispatches everything and combines its partial outputs.  Either way
+the layer's ``split.exit`` sums the combine over the model group.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 
-from .common import ArchConfig, CastCache, dense_init
+from .common import (DATA, WHOLE, ArchConfig, CastCache, ModelSplit,
+                     dense_init, maybe_constrain)
 
 
-def _shapes(cfg: ArchConfig) -> dict:
+def expert_parallel(cfg: ArchConfig, split: ModelSplit) -> bool:
+    """Whether ``split`` deals whole experts (E % size == 0) rather than
+    each expert's d_ff columns: the reference's sharding rule."""
+    return cfg.moe_experts % split.size == 0
+
+
+def _shapes(cfg: ArchConfig, split: ModelSplit = WHOLE) -> dict:
     """The MoE parameters of one layer, by shape, in the reference's
-    ``init_moe_params`` order."""
+    ``init_moe_params`` order (``split``'s block of the experts; the
+    router whole)."""
     d, ff, E = cfg.d_model, cfg.d_ff, cfg.moe_experts
-    return {"router": (d, E), "w_gate": (E, d, ff), "w_up": (E, d, ff),
-            "w_down": (E, ff, d)}
+    El = E
+    if expert_parallel(cfg, split):
+        El = E // split.size
+    else:
+        ff = split.part(ff, "expert FFN columns")
+    return {"router": (d, E), "w_gate": (El, d, ff), "w_up": (El, d, ff),
+            "w_down": (El, ff, d)}
 
 
 class MoEFFN(nn.Module):
@@ -57,10 +76,12 @@ class MoEFFN(nn.Module):
     ``w_up`` (E, d, ff), ``w_down`` (E, ff, d), in ``cfg.param_dtype``
     and cast to the compute type at use (see ``CastCache``)."""
 
-    def __init__(self, cfg: ArchConfig, device=None):
+    def __init__(self, cfg: ArchConfig, device=None,
+                 split: ModelSplit = WHOLE):
         super().__init__()
         self.cfg = cfg
-        for name, shape in _shapes(cfg).items():
+        self.split = split
+        for name, shape in _shapes(cfg, split).items():
             self.register_parameter(name, nn.Parameter(torch.empty(
                 shape, dtype=cfg.param_dtype, device=device)))
         self._cast = CastCache()
@@ -78,7 +99,7 @@ def init_moe_params(moe: MoEFFN, generator: torch.Generator) -> None:
     ``w_gate`` and ``w_up``; ff for ``w_down``)."""
     cfg = moe.cfg
     with torch.no_grad():
-        for name, shape in _shapes(cfg).items():
+        for name, shape in _shapes(cfg, moe.split).items():
             p = getattr(moe, name)
             p.copy_(dense_init(generator, shape, cfg.param_dtype, p.device))
 
@@ -151,6 +172,17 @@ def assign(idx: torch.Tensor, gates: torch.Tensor, C: int,
     return Routing(idx, gates, expert, token, gate, keep, slot, C, E)
 
 
+def local_routing(r: Routing, lo: int, n: int) -> Routing:
+    """``r`` seen by the holder of experts [lo, lo + n): the same pairs
+    in the same order, kept only where kept and theirs, slots counted
+    from expert ``lo`` (a pair of another expert goes to the trash slot
+    ``n * C``)."""
+    mine = r.keep & (r.expert >= lo) & (r.expert < lo + n)
+    slot = torch.where(mine, r.slot - lo * r.C, n * r.C)
+    return Routing(r.idx, r.gates, r.expert - lo, r.token, r.gate, mine,
+                   slot, r.C, n)
+
+
 def _rows(r: Routing) -> torch.Tensor:
     return torch.arange(r.slot.shape[0], device=r.slot.device)[:, None]
 
@@ -198,11 +230,10 @@ def combine(out: torch.Tensor, r: Routing) -> torch.Tensor:
     return y
 
 
-def _experts(moe: MoEFFN, buf: torch.Tensor) -> torch.Tensor:
+def _experts(cfg: ArchConfig, buf: torch.Tensor, wg, wu, wd) -> torch.Tensor:
     """The expert SwiGLU on the dispatch buffer (B, E, C, d), in
     ``moe_ff_chunks`` slices of d_ff when that divides it."""
-    cfg, dt = moe.cfg, buf.dtype
-    wg, wu, wd = (moe.w(n, dt) for n in ("w_gate", "w_up", "w_down"))
+    ff = wg.shape[-1]
 
     def ffn(g, u, dn):
         h = F.silu(torch.einsum("becd,edf->becf", buf, g))
@@ -210,8 +241,8 @@ def _experts(moe: MoEFFN, buf: torch.Tensor) -> torch.Tensor:
         return torch.einsum("becf,efd->becd", h, dn)
 
     n = max(1, cfg.moe_ff_chunks)
-    if n > 1 and cfg.d_ff % n == 0:
-        f = cfg.d_ff // n
+    if n > 1 and ff % n == 0:
+        f = ff // n
         acc = torch.zeros_like(buf)
         for i in range(n):
             s = slice(i * f, (i + 1) * f)
@@ -226,13 +257,57 @@ def router_logits(moe: MoEFFN, x: torch.Tensor) -> torch.Tensor:
     return (x @ moe.w("router", x.dtype)).float()
 
 
-def moe_ffn(moe: MoEFFN, x: torch.Tensor) -> torch.Tensor:
-    """x (B, S, d) -> (B, S, d)."""
-    cfg = moe.cfg
+def _moe(cfg: ArchConfig, split: ModelSplit, x, router, wg, wu, wd):
+    """The MoE FFN on plain tensors: route with the whole ``router``,
+    dispatch (only ``split``'s experts under expert parallelism), the
+    experts on the given blocks of the weights, combine."""
     C = expert_capacity(x.shape[1], cfg)
-    r = route(router_logits(moe, x), C, cfg.moe_experts, cfg.moe_top_k)
+    r = route((x @ router).float(), C, cfg.moe_experts, cfg.moe_top_k)
+    if split.size > 1 and expert_parallel(cfg, split):
+        n = cfg.moe_experts // split.size
+        r = local_routing(r, split.rank * n, n)
     buf, _, _ = dispatch(x, r)
-    return combine(_experts(moe, buf), r)
+    return combine(_experts(cfg, buf, wg, wu, wd), r)
+
+
+def moe_ffn(moe: MoEFFN, x: torch.Tensor) -> torch.Tensor:
+    """x (B, S, d) -> (B, S, d) (under a split: this rank's part of it,
+    which the model group's sum completes).  On a DTensor (the dry run's
+    sharded layers) each rank runs its block through ``local_map``:
+    every token routed on every model rank, the experts (or their
+    columns) as the rules place them, the output a partial sum over
+    "model"."""
+    from torch.distributed.tensor import DTensor
+    dt = x.dtype
+    if isinstance(x, DTensor):
+        return _moe_on_mesh(moe, x)
+    return _moe(moe.cfg, moe.split, x, moe.w("router", dt),
+                *(moe.w(n, dt) for n in ("w_gate", "w_up", "w_down")))
+
+
+def _moe_on_mesh(moe: MoEFFN, x):
+    from torch.distributed.tensor import Partial, Replicate
+    from torch.distributed.tensor.experimental import local_map
+    dt = x.dtype
+    x = maybe_constrain(x, (DATA, None, None))
+    mesh = x.device_mesh
+    names = mesh.mesh_dim_names or ()
+    ws = [moe.w(n, dt) for n in ("w_gate", "w_up", "w_down")]
+    router = moe.w("router", dt)
+    router = router.redistribute(mesh, [Replicate()] * mesh.ndim)
+    out = list(x.placements)
+    split = WHOLE
+    if "model" in names:
+        ax = names.index("model")
+        if ws[0].placements[ax].is_shard():
+            split = ModelSplit(mesh.size(ax), mesh.get_local_rank("model"))
+            out[ax] = Partial()
+    fn = functools.partial(_moe, moe.cfg, split)
+    return local_map(fn, out_placements=out,
+                     in_placements=(list(x.placements),
+                                    list(router.placements),
+                                    *(list(w.placements) for w in ws)),
+                     device_mesh=mesh)(x, router, *ws)
 
 
 def aux_load_balance_loss(logits: torch.Tensor, gate_idx: torch.Tensor,
@@ -248,5 +323,6 @@ def aux_load_balance_loss(logits: torch.Tensor, gate_idx: torch.Tensor,
 
 
 __all__ = ["MoEFFN", "Routing", "assign", "aux_load_balance_loss", "combine",
-           "dispatch", "expert_capacity", "gates_of", "init_moe_params",
-           "moe_ffn", "route", "router_logits"]
+           "dispatch", "expert_capacity", "expert_parallel", "gates_of",
+           "init_moe_params", "local_routing", "moe_ffn", "route",
+           "router_logits"]

@@ -65,12 +65,15 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.distributed.tensor import DTensor
 
 from ..kernels.flash import flash_attention
 from . import moe as moe_lib
-from .common import (ArchConfig, CastCache, apply_rope, cross_entropy,
-                     decode_attention, dense_init, embed_init, gelu_mlp,
-                     lookup, nest_layers, remat_wrap, rms_norm, rope_cos_sin)
+from .common import (DATA, WHOLE, ArchConfig, CastCache, ModelSplit,
+                     apply_rope, cross_entropy, decode_attention, dense_init,
+                     embed_init, heads_flat, lookup, maybe_constrain,
+                     model_axis_size, nest_layers, remat_wrap, rms_norm,
+                     rope_cos_sin)
 
 #: the families this module builds
 FAMILIES = ("dense", "moe", "vlm")
@@ -82,15 +85,19 @@ def _swiglu(cfg: ArchConfig) -> bool:
     return cfg.ffn_mult == 3
 
 
-def _matrices(cfg: ArchConfig) -> dict:
+def _matrices(cfg: ArchConfig, split: ModelSplit = WHOLE) -> dict:
     """The per-layer matrices of the reference, by shape (the experts'
-    are ``moe_lib.MoEFFN``'s)."""
-    d, hd, ff = cfg.d_model, cfg.head_dim, cfg.d_ff
-    H, KV = cfg.n_heads, cfg.n_kv
+    are ``moe_lib.MoEFFN``'s), or ``split``'s block of them: wq, wk, wv
+    and the FFN's first matrices by columns (whole heads), wo and w_down
+    by rows."""
+    d, hd = cfg.d_model, cfg.head_dim
+    H = split.part(cfg.n_heads, "query heads")
+    KV = split.part(cfg.n_kv, "kv heads")
     out = {"wq": (d, H * hd), "wk": (d, KV * hd), "wv": (d, KV * hd),
            "wo": (H * hd, d)}
     if cfg.moe_experts > 0:
         return out
+    ff = split.part(cfg.d_ff, "FFN columns")
     if _swiglu(cfg):
         out["w_gate"] = (d, ff)
     out.update(w_up=(d, ff), w_down=(ff, d))
@@ -106,16 +113,50 @@ def _vectors(cfg: ArchConfig) -> dict:
     return out
 
 
-def _biases(cfg: ArchConfig) -> dict:
+def _biases(cfg: ArchConfig, split: ModelSplit = WHOLE) -> dict:
     """The per-layer biases of the reference, by shape (all start at
-    zero): q, k and v with ``qkv_bias``, the GELU MLP's two."""
-    hd, H, KV = cfg.head_dim, cfg.n_heads, cfg.n_kv
+    zero): q, k and v with ``qkv_bias``, the GELU MLP's two; under
+    ``split`` each cut as its matrix's columns, ``b_down`` whole (added
+    after the row-parallel sum)."""
+    hd = cfg.head_dim
+    H = split.part(cfg.n_heads, "query heads")
+    KV = split.part(cfg.n_kv, "kv heads")
     out = {}
     if cfg.qkv_bias:
         out.update(bq=(H * hd,), bk=(KV * hd,), bv=(KV * hd,))
     if not _swiglu(cfg) and cfg.moe_experts == 0:
-        out.update(b_up=(cfg.d_ff,), b_down=(cfg.d_model,))
+        out.update(b_up=(split.part(cfg.d_ff, "FFN columns"),),
+                   b_down=(cfg.d_model,))
     return out
+
+
+#: the residual stream on a mesh: the batch over the data axes
+_RESIDUAL = (DATA, None, None)
+#: the FFN's hidden activations on a mesh: the batch over the data axes,
+#: the hidden columns over "model" (where they divide)
+_HIDDEN = (DATA, None, "model")
+
+
+def attention(q, k, v, window: int = 0):
+    """Causal attention over the whole sequence (K2 through
+    ``flash_attention``), with the reference's layout hints on DTensors:
+    q, k and v over the data axes and their heads over "model" (kv heads
+    repeated per query head first when they do not split over it, as the
+    reference's ``jnp.repeat``); when the query heads do not split either,
+    the heads stay whole on every model rank (the reference shards the
+    keys instead, ``_kv_seq_spec``; the port does not split a softmax).
+    A plain tensor goes straight through."""
+    tp = model_axis_size(q)
+    if tp > 1:
+        H, KV = q.shape[2], k.shape[2]
+        if KV % tp:
+            # whole heads around the repeat, its gradient's sum included
+            k, v = (maybe_constrain(t.repeat_interleave(H // KV, dim=2),
+                                    (DATA, None, None, None))
+                    for t in (k, v))
+        spec = (DATA, None, None if H % tp else "model", None)
+        q, k, v = (maybe_constrain(t, spec) for t in (q, k, v))
+    return flash_attention(q, k, v, causal=True, window=window)
 
 
 def check_config(cfg: ArchConfig) -> None:
@@ -131,7 +172,8 @@ def project_qkv(layer, x, cos=None, sin=None) -> tuple:
     """The reference's ``_project_qkv`` of ``layer`` (a module with ``cfg``,
     ``w(name, dtype)`` and the q/k norms): x (B, S, d) -> q (B, S, H, hd),
     k and v (B, S, KV, hd), with the QKV biases and the per-head qk-norm
-    of the config, then RoPE when ``cos`` / ``sin`` are given."""
+    of the config, then RoPE when ``cos`` / ``sin`` are given.  H and KV
+    are the heads the layer holds (a :class:`ModelSplit`'s block)."""
     cfg = layer.cfg
     B, S, _ = x.shape
     hd, dt = cfg.head_dim, x.dtype
@@ -140,9 +182,11 @@ def project_qkv(layer, x, cos=None, sin=None) -> tuple:
         q = q + layer.w("bq", dt)
         k = k + layer.w("bk", dt)
         v = v + layer.w("bv", dt)
-    q = q.reshape(B, S, cfg.n_heads, hd)
-    k = k.reshape(B, S, cfg.n_kv, hd)
-    v = v.reshape(B, S, cfg.n_kv, hd)
+    q, k, v = (heads_flat(t, n) for t, n in
+               ((q, cfg.n_heads), (k, cfg.n_kv), (v, cfg.n_kv)))
+    q = q.reshape(B, S, -1, hd)
+    k = k.reshape(B, S, -1, hd)
+    v = v.reshape(B, S, -1, hd)
     if cfg.qk_norm:
         q = rms_norm(q, layer.q_norm, cfg.norm_eps)
         k = rms_norm(k, layer.k_norm, cfg.norm_eps)
@@ -153,17 +197,22 @@ def project_qkv(layer, x, cos=None, sin=None) -> tuple:
 
 
 class TransformerLayer(nn.Module):
-    """One block (the reference's ``block_fwd``)."""
+    """One block (the reference's ``block_fwd``), whole or ``split``'s
+    block of it: then the attention runs on the rank's heads and the FFN
+    on its columns (or experts), each between ``split.enter`` and
+    ``split.exit``."""
 
-    def __init__(self, cfg: ArchConfig, device=None):
+    def __init__(self, cfg: ArchConfig, device=None,
+                 split: ModelSplit = WHOLE):
         super().__init__()
         self.cfg = cfg
-        for name, shape in {**_vectors(cfg), **_biases(cfg),
-                            **_matrices(cfg)}.items():
+        self.split = split
+        for name, shape in {**_vectors(cfg), **_biases(cfg, split),
+                            **_matrices(cfg, split)}.items():
             self.register_parameter(name, nn.Parameter(torch.empty(
                 shape, dtype=cfg.param_dtype, device=device)))
         if cfg.moe_experts > 0:
-            self.moe = moe_lib.MoEFFN(cfg, device)
+            self.moe = moe_lib.MoEFFN(cfg, device, split)
         self._cast = CastCache()
 
     def w(self, name: str, dtype) -> torch.Tensor:
@@ -171,14 +220,20 @@ class TransformerLayer(nn.Module):
         return self._cast.get(name, getattr(self, name), dtype)
 
     def _ffn(self, h):
-        dt = h.dtype
+        """The FFN (``common.gelu_mlp``'s ops for the GELU MLP, its
+        ``b_down`` added after the model group's sum)."""
+        dt, sp = h.dtype, self.split
+        h = sp.enter(h)
         if self.cfg.moe_experts > 0:
-            return self.moe(h)
+            return sp.exit(self.moe(h))
         if _swiglu(self.cfg):
             h = F.silu(h @ self.w("w_gate", dt)) * (h @ self.w("w_up", dt))
-            return h @ self.w("w_down", dt)
-        return gelu_mlp(h, *(self.w(n, dt) for n in
-                             ("w_up", "b_up", "w_down", "b_down")))
+            h = maybe_constrain(h, _HIDDEN)
+            return sp.exit(h @ self.w("w_down", dt))
+        h = F.gelu(h @ self.w("w_up", dt) + self.w("b_up", dt),
+                   approximate="tanh")
+        h = maybe_constrain(h, _HIDDEN)
+        return sp.exit(h @ self.w("w_down", dt)) + self.w("b_down", dt)
 
     def forward(self, x, cos=None, sin=None, *, cache=None, pos=None):
         """x (B, S, d); cos/sin from ``rope_cos_sin`` at the positions of
@@ -192,11 +247,11 @@ class TransformerLayer(nn.Module):
         cfg = self.cfg
         B, S, _ = x.shape
         dt = x.dtype
-        q, k, v = project_qkv(self, rms_norm(x, self.ln1, cfg.norm_eps),
-                              cos, sin)
+        q, k, v = project_qkv(
+            self, self.split.enter(rms_norm(x, self.ln1, cfg.norm_eps)),
+            cos, sin)
         if cache is None:
-            attn = flash_attention(q, k, v, causal=True,
-                                   window=cfg.sliding_window)
+            attn = attention(q, k, v, cfg.sliding_window)
             new = (k, v)
         else:
             k_cache, v_cache = cache
@@ -207,9 +262,13 @@ class TransformerLayer(nn.Module):
             v_cache[:, at:at + 1] = v
             attn = decode_attention(q, k_cache, v_cache, pos)
             new = cache
-        x = x + attn.reshape(B, S, cfg.n_heads * cfg.head_dim) @ \
-            self.w("wo", dt)
-        return x + self._ffn(rms_norm(x, self.ln2, cfg.norm_eps)), new
+        attn = heads_flat(attn.reshape(B, S, -1), cfg.n_heads)
+        x = x + self.split.exit(attn @ self.w("wo", dt))
+        # on a mesh the row-parallel products leave partial sums: the
+        # residual stream is summed over "model" (the model group's sum)
+        x = maybe_constrain(x, _RESIDUAL)
+        x = x + self._ffn(rms_norm(x, self.ln2, cfg.norm_eps))
+        return maybe_constrain(x, _RESIDUAL), new
 
 
 class Transformer(nn.Module):
@@ -236,18 +295,24 @@ class Transformer(nn.Module):
         """The reference's ``_embed``: rows of the table in the compute
         type, after ``extra_embeds`` (B, P, d) in it when given."""
         x = self.embed[tokens.long()].to(self.cfg.compute_dtype)
-        if extra_embeds is None:
-            return x
-        extra = torch.as_tensor(extra_embeds, device=x.device)
-        return torch.cat([extra.to(x.dtype), x], dim=1)
+        if extra_embeds is not None:
+            extra = torch.as_tensor(extra_embeds, device=x.device)
+            x = torch.cat([extra.to(x.dtype), x], dim=1)
+        # the residual stream over the data axes after the vocab-sharded
+        # gather (the reference's hint)
+        return maybe_constrain(x, _RESIDUAL)
 
     def logits(self, x) -> torch.Tensor:
         """The reference's ``_unembed``: the final norm, then the tied head
         (``embed.T``) or ``lm_head``."""
         x = rms_norm(x, self.final_norm, self.cfg.norm_eps)
         if self.cfg.tie_embeddings:
-            return x @ self._cast.get("embed", self.embed, x.dtype).T
-        return x @ self._cast.get("lm_head", self.lm_head, x.dtype)
+            logits = x @ self._cast.get("embed", self.embed, x.dtype).T
+        else:
+            logits = x @ self._cast.get("lm_head", self.lm_head, x.dtype)
+        # on a mesh: the vocab over "model", and the logits' gradient too
+        # (the head's weight gradient then splits as its product does)
+        return maybe_constrain(logits, (DATA, None, "model"))
 
     def rope(self, positions):
         """(cos, sin) at ``positions``, or (None, None) without RoPE."""
@@ -316,6 +381,17 @@ def make_cache(cfg: ArchConfig, batch: int, cache_len: int, device,
             "v": torch.zeros(shape, dtype=dtype, device=device)}
 
 
+def _mesh_cache(cfg: ArchConfig, k, cache_len: int) -> dict:
+    """:func:`make_cache` as DTensors (the dry run's sharded prefill),
+    each layer's slot laid out as the keys ``k`` (B, S, KV, hd) it
+    holds."""
+    from torch.distributed.tensor import Shard, zeros
+    place = [Shard(p.dim + 1) if p.is_shard() else p for p in k.placements]
+    shape = (cfg.num_layers, k.shape[0], cache_len) + tuple(k.shape[2:])
+    return {n: zeros(shape, dtype=k.dtype, device_mesh=k.device_mesh,
+                     placements=place) for n in ("k", "v")}
+
+
 def _layer_train(layer, x, cos, sin):
     return layer(x, cos, sin)[0]
 
@@ -358,9 +434,13 @@ def prefill(model: Transformer, tokens, cache_len: int, extra_embeds=None):
         raise ValueError(f"a {S}-position prompt does not fit a cache of "
                          f"{cache_len}")
     cos, sin = model.rope(torch.arange(S, device=x.device))
-    cache = make_cache(model.cfg, B, cache_len, x.device)
+    on_mesh = isinstance(x, DTensor)
+    cache = None if on_mesh else make_cache(model.cfg, B, cache_len,
+                                            x.device)
     for i, layer in enumerate(model.layers):
         x, (k, v) = layer(x, cos, sin)
+        if cache is None:
+            cache = _mesh_cache(model.cfg, k, cache_len)
         cache["k"][i, :, :S] = k
         cache["v"][i, :, :S] = v
     return model.logits(x[:, -1:]), cache
@@ -380,6 +460,7 @@ def decode_step(model: Transformer, cache: dict, token, pos: int):
     return model.logits(x), cache
 
 
-__all__ = ["Transformer", "TransformerLayer", "check_config", "decode_step",
+__all__ = ["Transformer", "TransformerLayer", "attention", "check_config",
+           "decode_step",
            "forward_hidden", "init_params", "loss_fn", "make_cache",
            "params_from_jax", "params_to_jax", "prefill", "project_qkv"]

@@ -42,8 +42,8 @@ from torch import nn
 
 from ..kernels.flash import flash_attention
 from .common import (ArchConfig, CastCache, cross_entropy, decode_attention,
-                     dense_init, embed_init, gelu_mlp, layer_norm, lookup,
-                     nest_layers, remat_wrap)
+                     dense_init, embed_init, gelu_mlp, heads_flat,
+                     layer_norm, lookup, nest_layers, remat_wrap)
 
 MAX_TARGET_POSITIONS = 448
 LN_EPS = 1e-5
@@ -96,6 +96,7 @@ class WhisperLayer(nn.Module):
 
     def heads(self, x) -> torch.Tensor:
         B, S, _ = x.shape
+        x = heads_flat(x, self.cfg.n_heads)
         return x.reshape(B, S, self.cfg.n_heads, self.cfg.head_dim)
 
     def query(self, h, prefix: str = "") -> torch.Tensor:
@@ -112,8 +113,8 @@ class WhisperLayer(nn.Module):
     def out(self, o, prefix: str = "") -> torch.Tensor:
         B, S = o.shape[:2]
         dt = o.dtype
-        return o.reshape(B, S, self.cfg.d_model) @ \
-            self.w(prefix + "wo", dt) + self.w(prefix + "bo", dt)
+        o = heads_flat(o.reshape(B, S, self.cfg.d_model), self.cfg.n_heads)
+        return o @ self.w(prefix + "wo", dt) + self.w(prefix + "bo", dt)
 
     def mlp(self, h) -> torch.Tensor:
         return gelu_mlp(h, *(self.w(n, h.dtype) for n in

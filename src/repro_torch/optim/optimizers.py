@@ -117,12 +117,14 @@ def adafactor(lr: float = 1e-3, decay: float = 0.8, eps: float = 1e-30,
 
     def init(params):
         def leaf_state(p):
-            f32 = dict(dtype=torch.float32, device=p.device)
+            # new_zeros: on the parameter's device (and, for the dry run's
+            # DTensors, on its mesh)
+            f32 = dict(dtype=torch.float32)
             if p.dim() >= 2:
-                return {"vr": torch.zeros(p.shape[:-1], **f32),
-                        "vc": torch.zeros(p.shape[:-2] + (p.shape[-1],),
+                return {"vr": p.new_zeros(p.shape[:-1], **f32),
+                        "vc": p.new_zeros(p.shape[:-2] + (p.shape[-1],),
                                           **f32)}
-            return {"v": torch.zeros(p.shape, **f32)}
+            return {"v": p.new_zeros(p.shape, **f32)}
         dev = tree_leaves(params)[0].device
         return {"f": tree_map(leaf_state, params),
                 "t": torch.zeros((), dtype=torch.int32, device=dev)}

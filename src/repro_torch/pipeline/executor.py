@@ -28,19 +28,40 @@ from .. import obs
 from .._device import resolve_device
 from ..core.bcd import Plan
 from ..models import vgg as vgg_lib
-from ..models.common import cross_entropy
+from ..models.common import DATA, cross_entropy, maybe_constrain
 from .stage import split_vgg_params, vgg_stages_from_cuts
 
 
+def _batch_split(x) -> int:
+    """How many blocks a DTensor's dim 0 is cut into (0 for a plain
+    tensor: nothing to cut)."""
+    from torch.distributed.tensor import DTensor
+    if not isinstance(x, DTensor):
+        return 0
+    n = 1
+    for i, p in enumerate(x.placements):
+        if p.is_shard(0):
+            n *= x.device_mesh.size(i)
+    return n if n > 1 else 0
+
+
 def split_batch(batch: dict, num_microbatches: int) -> dict:
-    """(B, ...) -> (Q, B/Q, ...) for every entry of ``batch``."""
+    """(B, ...) -> (Q, B/Q, ...) for every entry of ``batch``, each
+    micro-batch's batch dim kept over the data axes of a DTensor's mesh
+    (the reference's hint: the reshape alone would lose it)."""
     def resh(x):
         B = x.shape[0]
         if B % num_microbatches:
             raise ValueError(f"batch {B} does not split into "
                              f"{num_microbatches} micro-batches")
-        return x.reshape((num_microbatches, B // num_microbatches)
-                         + tuple(x.shape[1:]))
+        n = _batch_split(x)
+        if n and num_microbatches % n:
+            # DTensor keeps a split dim's blocks on the reshape's outer dim
+            # (Q), which n blocks must divide: gather the batch first
+            x = maybe_constrain(x, (None,) * x.dim())
+        y = x.reshape((num_microbatches, B // num_microbatches)
+                      + tuple(x.shape[1:]))
+        return maybe_constrain(y, (None, DATA) + (None,) * (y.dim() - 2))
     return {k: resh(v) for k, v in batch.items()}
 
 

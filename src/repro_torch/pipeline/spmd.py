@@ -1,17 +1,34 @@
 """SPMD pipeline parallelism — the paper's pipelined split learning across
 devices, on ``torch.distributed``; the port of ``repro/pipeline/spmd.py``.
 
-A mesh of ("data", "stage") ranks (a "pod" axis folds into data).  Stage
-k's block of layers lives on the ranks of stage k only: the local
-parameter tree of a rank (:func:`shard_params`) holds its stage's slice of
-the stacked layers (``stage.py::stack_stage_params``) beside the embedding,
-final norm and head, which every rank holds whole (replicated, outside the
-pipe, as in the reference).  Activations hop stage -> stage + 1 (the
-paper's inter-server transmissions, Eqs. 5/6) and their gradients hop
-back (Eqs. 9/10): a hop is an ``autograd.Function`` whose forward sends to
-k + 1 and receives from k - 1 and whose backward sends the gradient to
-k - 1 and receives from k + 1, the send and receive of each tick issued
-together.
+A mesh of ("data", "stage", "model") ranks (a "pod" axis folds into
+data).  Stage k's block of layers lives on the ranks of stage k only: the
+local parameter tree of a rank (:func:`shard_params`) holds its stage's
+slice of the stacked layers (``stage.py::stack_stage_params``) beside the
+embedding, final norm and head, which every rank holds whole (replicated,
+outside the pipe, as in the reference).
+
+A "model" axis of size M > 1 is tensor parallelism inside a stage: each
+layer leaf is further cut to the rank's block along the "model" entry of
+the reference's rules (``launch/sharding.py::model_block``): 1/M of the
+query and kv heads, of the FFN's columns, and of the experts (or of each
+expert's columns), so the stage's layers run Megatron-style column and row
+blocks (``stage.py::transformer_stage_fn(cfg, tp=...)``).  Every model
+rank of a stage holds the whole activation; a block's input is marked by
+an identity whose backward sums the gradient over the model group, its
+output summed over the model group (``Pipe.all_reduce_``, "tp_reduce").
+The leaves a layer reads whole inside those blocks — the qk-norm scales
+and the MoE router — get a partial gradient on each model rank, summed
+over the model group in the backward; the ones read outside them (the
+layer norms, the embedding, the final norm, the head) are whole on each
+rank, and the head runs on every model rank (the reference's XLA lays all
+of this out itself: its stage region is manual over "stage" only).
+
+Activations hop stage -> stage + 1 (the paper's inter-server
+transmissions, Eqs. 5/6) and their gradients hop back (Eqs. 9/10): a hop
+is an ``autograd.Function`` whose forward sends to k + 1 and receives from
+k - 1 and whose backward sends the gradient to k - 1 and receives from
+k + 1, the send and receive of each tick issued together.
 
 Schedule: the reference's GPipe fill / steady / drain over T = Q + S - 1
 ticks (Eq. 14's T_f + (Q - 1) T_i): at tick t stage 0 takes micro-batch
@@ -43,8 +60,9 @@ host buffers (kept per shape, reused every tick and step), while all
 compute stays on the device.  A CPU tensor under gloo
 moves as it is.  A failed collective raises; nothing falls back.
 
-A "model" axis of size > 1 (tensor parallelism inside a stage) is ROADMAP
-Queue 1 item 11b and raises.
+Every transfer's host seconds and operand bytes are kept by kind in
+``Pipe.seconds`` / ``Pipe.bytes`` (``utils/cost.py`` reads the bytes: no
+profiler sees a p2p hop's size).
 """
 
 from __future__ import annotations
@@ -59,7 +77,8 @@ import torch.distributed as dist
 
 from .._device import resolve_device
 from ..launch.mesh import as_layout
-from ..models.common import ArchConfig, cross_entropy, rms_norm
+from ..launch.sharding import model_block
+from ..models.common import ArchConfig, ModelSplit, cross_entropy, rms_norm
 from ..utils.treemath import tree_leaves, tree_map
 from .stage import transformer_stage_fn
 
@@ -72,9 +91,9 @@ class PipelineConfig:
 
 
 def _coords(mesh, pcfg: PipelineConfig) -> tuple:
-    """(grid, d, k): the mesh's global ranks as a (D, S) grid (data axes
-    and the size-1 model axis major, stage minor) and this rank's row d
-    and stage k in it."""
+    """(grid, d, k, m): the mesh's global ranks as a (D, S, M) grid (the
+    data axes major, then stage, the model axis minor) and this rank's
+    data row d, stage k and model index m in it."""
     lay = as_layout(mesh)
     ax = pcfg.stage_axis
     known = ("pod", "data", ax, "model")
@@ -83,57 +102,72 @@ def _coords(mesh, pcfg: PipelineConfig) -> tuple:
     for a in lay.axis_names:
         if a not in known:
             raise ValueError(f"mesh axis {a!r} is none of {known}")
-    if lay.shape.get("model", 1) > 1:
-        raise NotImplementedError(
-            "a 'model' axis of size > 1 (tensor parallelism inside a "
-            "stage) is ROADMAP Queue 1 item 11b")
     if lay.shape[ax] != pcfg.num_stages:
         raise ValueError(f"the mesh's {ax!r} axis has {lay.shape[ax]} "
                          f"ranks, the pipeline {pcfg.num_stages} stages")
-    ranks = mesh.mesh if hasattr(mesh, "mesh") else \
-        torch.arange(lay.size).reshape(lay.sizes)
-    order = [i for i, a in enumerate(lay.axis_names) if a != ax] + \
-        [lay.axis_names.index(ax)]
-    grid = np.asarray(ranks.permute(order).reshape(-1, pcfg.num_stages)
-                      .tolist())
+    ranks = np.asarray(mesh.mesh.tolist()) if hasattr(mesh, "mesh") else \
+        np.arange(lay.size).reshape(lay.sizes)
+    names = lay.axis_names
+    tail = [names.index(ax)] + ([names.index("model")] if "model" in names
+                                else [])
+    order = [i for i in range(len(names)) if i not in tail] + tail
+    M = lay.shape.get("model", 1)
+    grid = ranks.transpose(order).reshape(-1, pcfg.num_stages, M)
     me = dist.get_rank()
     where = np.argwhere(grid == me)
     if len(where) != 1:
         raise ValueError(f"rank {me} is not in the mesh {grid.tolist()}")
-    return grid, int(where[0][0]), int(where[0][1])
+    return grid, int(where[0][0]), int(where[0][1]), int(where[0][2])
 
 
 class Pipe:
     """This rank's place in the mesh: its stage k of S, its data index d of
-    D, the process groups of its stage row and its data column (every rank
-    creates every group, in the same order: a collective), its
-    neighbours' global ranks, and how tensors move (``transport``:
-    "direct", or "host-staged" for CUDA tensors under gloo).  ``seconds``
-    adds up the host's time in each kind of transfer ("hop", "hop_back",
-    "combine", "combine_back", "grad_reduce", "loss_reduce"); a
-    host-staged transfer's copy to the host first waits for the device's
-    queued work."""
+    D, its model index m of M, the process groups of its stage row, its
+    data column and its model group (every rank creates every group, in
+    the same order: a collective), its neighbours' global ranks, and how
+    tensors move (``transport``: "direct", or "host-staged" for CUDA
+    tensors under gloo).  ``seconds`` adds up the host's time in each kind
+    of transfer ("hop", "hop_back", "combine", "combine_back",
+    "grad_reduce", "loss_reduce", "tp_reduce"), ``bytes`` the operand
+    bytes this rank put into each; a host-staged transfer's copy to the
+    host first waits for the device's queued work."""
+
+    KINDS = ("hop", "hop_back", "combine", "combine_back", "grad_reduce",
+             "loss_reduce", "tp_reduce")
 
     def __init__(self, mesh, pcfg: PipelineConfig, device):
-        grid, self.d, self.k = _coords(mesh, pcfg)
+        grid, self.d, self.k, self.m = _coords(mesh, pcfg)
         self.device = device
-        self.S = pcfg.num_stages
-        self.D = grid.shape[0]
-        rows = [dist.new_group([int(r) for r in row]) for row in grid]
-        cols = [dist.new_group([int(r) for r in col]) for col in grid.T]
-        self.stage_group = rows[self.d]
-        self.data_group = cols[self.k] if self.D > 1 else None
-        self.prev = int(grid[self.d, self.k - 1]) if self.k > 0 else None
-        self.next = int(grid[self.d, self.k + 1]) if self.k < self.S - 1 \
+        self.D, self.S, self.M = grid.shape
+
+        def groups(lines):
+            return [dist.new_group([int(r) for r in line]) for line in lines]
+
+        rows = groups(grid[d, :, m] for d in range(self.D)
+                      for m in range(self.M))
+        cols = groups(grid[:, k, m] for k in range(self.S)
+                      for m in range(self.M))
+        models = groups(grid[d, k, :] for d in range(self.D)
+                        for k in range(self.S)) if self.M > 1 else None
+        self.stage_group = rows[self.d * self.M + self.m]
+        self.data_group = cols[self.k * self.M + self.m] if self.D > 1 \
             else None
+        self.model_group = models[self.d * self.S + self.k] if models \
+            else None
+        self.prev = int(grid[self.d, self.k - 1, self.m]) if self.k > 0 \
+            else None
+        self.next = int(grid[self.d, self.k + 1, self.m]) \
+            if self.k < self.S - 1 else None
         self.backend = dist.get_backend(self.stage_group)
         if self.backend == "nccl" and device.type != "cuda":
             raise ValueError("NCCL moves CUDA tensors; pass device='cuda'")
-        self.host = self.backend != "nccl" and device.type == "cuda"
+        # a fake process group (the dry run) moves nothing: it stands for
+        # NCCL's direct transfers
+        self.host = self.backend not in ("nccl", "fake") \
+            and device.type == "cuda"
         self.transport = "host-staged" if self.host else "direct"
-        self.seconds = dict.fromkeys(("hop", "hop_back", "combine",
-                                      "combine_back", "grad_reduce",
-                                      "loss_reduce"), 0.0)
+        self.seconds = dict.fromkeys(self.KINDS, 0.0)
+        self.bytes = dict.fromkeys(self.KINDS, 0)
         self._buffers = {}
 
     def _buffer(self, role: str, like: torch.Tensor) -> torch.Tensor:
@@ -159,6 +193,7 @@ class Pipe:
         if send is not None and dst is not None:
             ops.append(dist.P2POp(dist.isend, self._wire(send), dst,
                                   self.stage_group))
+            self.bytes[what] += send.numel() * send.element_size()
         if src is not None:
             buf = self._buffer("recv", like) if self.host else \
                 torch.empty_like(like)
@@ -182,6 +217,7 @@ class Pipe:
         if group is None or dist.get_world_size(group) == 1:
             return t
         t0 = time.perf_counter()
+        self.bytes[what] += t.numel() * t.element_size()
         if self.host:
             h = self._buffer("reduce", t).copy_(t.detach())
             dist.all_reduce(h, group=group)
@@ -225,32 +261,78 @@ class _Combine(torch.autograd.Function):
                                     "combine_back"), None
 
 
-class _ReduceGrad(torch.autograd.Function):
-    """Identity forward; the backward sums the gradient over the stage
-    group (``over_stage``: a replicated leaf) and averages it over the
-    data group."""
+class _ToModel(torch.autograd.Function):
+    """The input of a column-parallel block: identity forward, the
+    gradient summed over the model group."""
 
     @staticmethod
-    def forward(ctx, x, pipe, over_stage):
-        ctx.pipe, ctx.over_stage = pipe, over_stage
+    def forward(ctx, x, pipe):
+        ctx.pipe = pipe
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return ctx.pipe.all_reduce_(g.clone(), ctx.pipe.model_group,
+                                    "tp_reduce"), None
+
+
+class _FromModel(torch.autograd.Function):
+    """The output of a row-parallel block: summed over the model group,
+    identity backward."""
+
+    @staticmethod
+    def forward(ctx, x, pipe):
+        return pipe.all_reduce_(x.clone(), pipe.model_group, "tp_reduce")
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+def model_split(pipe: Pipe) -> ModelSplit:
+    """The layers' :class:`ModelSplit` on this rank's model group."""
+    return ModelSplit(pipe.M, pipe.m,
+                      enter=lambda x: _ToModel.apply(x, pipe),
+                      exit=lambda x: _FromModel.apply(x, pipe))
+
+
+class _ReduceGrad(torch.autograd.Function):
+    """Identity forward; the backward sums the gradient over the model
+    group (``over_model``: a leaf read whole inside the column / row
+    blocks), over the stage group (``over_stage``: a replicated leaf) and
+    averages it over the data group."""
+
+    @staticmethod
+    def forward(ctx, x, pipe, over_stage, over_model):
+        ctx.pipe, ctx.over_stage, ctx.over_model = pipe, over_stage, \
+            over_model
         return x.view_as(x)
 
     @staticmethod
     def backward(ctx, g):
         pipe = ctx.pipe
         g = g.clone()
+        if ctx.over_model:
+            pipe.all_reduce_(g, pipe.model_group, "grad_reduce")
         if ctx.over_stage:
             pipe.all_reduce_(g, pipe.stage_group, "grad_reduce")
         if pipe.data_group is not None:
             pipe.all_reduce_(g, pipe.data_group, "grad_reduce").div_(pipe.D)
-        return g, None, None
+        return g, None, None, None
 
 
-def _reduced(pipe: Pipe, x: torch.Tensor, over_stage: bool):
-    if not x.requires_grad or (pipe.data_group is None
+#: layer leaves read whole inside the model-parallel blocks (their
+#: gradient on one model rank is that rank's heads' or experts' part)
+_INSIDE = ("q_norm", "k_norm", "router")
+
+
+def _reduced(pipe: Pipe, x: torch.Tensor, over_stage: bool,
+             over_model: bool = False):
+    over_model = over_model and pipe.M > 1
+    if not x.requires_grad or (pipe.data_group is None and not over_model
                                and (not over_stage or pipe.S == 1)):
         return x
-    return _ReduceGrad.apply(x, pipe, over_stage)
+    return _ReduceGrad.apply(x, pipe, over_stage, over_model)
 
 
 def _check_config(cfg: ArchConfig) -> None:
@@ -267,15 +349,38 @@ def _head_logits(cfg: ArchConfig, params: dict, y: torch.Tensor):
     return x @ params["lm_head"].to(x.dtype)
 
 
+def check_model_axis(cfg: ArchConfig, M: int) -> None:
+    """ValueError unless a model axis of M splits ``cfg``'s layers
+    into whole heads and equal FFN (or expert) blocks."""
+    if M == 1:
+        return
+    from ..models import moe as moe_lib
+    from ..models import transformer as tf_lib
+    split = ModelSplit(M)
+    tf_lib.TransformerLayer(cfg, device="meta", split=split)
+    if cfg.moe_experts and not moe_lib.expert_parallel(cfg, split):
+        split.part(cfg.d_ff, "expert FFN columns")
+
+
 def shard_params(params: dict, mesh, pcfg: PipelineConfig,
-                 device="cuda") -> dict:
+                 device="cuda", *, cfg: ArchConfig | None = None) -> dict:
     """This rank's parameter tree from the reference's whole tree
     (``nest_layers`` of a model's named parameters, or numpy arrays):
-    the replicated leaves whole and ``"layers"`` cut to this rank's stage,
-    each a leaf tensor on ``device`` (``"cuda"`` unless the caller passes
-    ``"cpu"``) that requires grad."""
+    the replicated leaves whole and ``"layers"`` cut to this rank's stage
+    and, on a "model" axis of size > 1, to this rank's block of the
+    reference's rules (``launch/sharding.py::model_block``; the router
+    stays whole, see the module docstring), each a leaf tensor on
+    ``device`` (``"cuda"`` unless the caller passes ``"cpu"``) that
+    requires grad.  ``cfg`` is needed with a model axis; a config whose
+    heads, kv heads or FFN do not split over it raises ValueError."""
     dev = resolve_device(device)
-    _, _, k = _coords(mesh, pcfg)
+    M = as_layout(mesh).shape.get("model", 1)
+    if M > 1:
+        if cfg is None:
+            raise ValueError("a model axis needs the config (cfg=) to cut "
+                             "the layers by the sharding rules")
+        check_model_axis(cfg, M)
+    _, _, k, m = _coords(mesh, pcfg)
     S = pcfg.num_stages
 
     def leaf(x, rows=None):
@@ -285,16 +390,19 @@ def shard_params(params: dict, mesh, pcfg: PipelineConfig,
             t = t[rows]
         return t.detach().to(dev).clone().requires_grad_(True)
 
-    def stage_slice(tree):
+    def stage_slice(tree, path):
         if isinstance(tree, dict):
-            return {name: stage_slice(v) for name, v in tree.items()}
+            return {name: stage_slice(v, f"{path}/{name}")
+                    for name, v in tree.items()}
         L = tree.shape[0]
         if L % S:
             raise ValueError(f"{L} layers do not split into {S} stages")
+        if M > 1 and path.rsplit("/", 1)[-1] not in _INSIDE:
+            tree = model_block(cfg, mesh, path, tree, m)
         n = L // S
         return leaf(tree, slice(k * n, (k + 1) * n))
 
-    return {k: (stage_slice(v) if k == "layers" else leaf(v))
+    return {k: (stage_slice(v, k) if k == "layers" else leaf(v))
             for k, v in params.items()}
 
 
@@ -311,9 +419,10 @@ def make_pipelined_loss(cfg: ArchConfig, mesh, pcfg: PipelineConfig,
     A collective: every rank of the mesh calls it, and then the loss,
     together.  ``loss.pipe`` tells the transport."""
     _check_config(cfg)
+    check_model_axis(cfg, as_layout(mesh).shape.get("model", 1))
     dev = resolve_device(device)
     pipe = Pipe(mesh, pcfg, dev)
-    stage_fn = transformer_stage_fn(cfg)
+    stage_fn = transformer_stage_fn(cfg, model_split(pipe))
     S, Q = pcfg.num_stages, pcfg.num_microbatches
     T = Q + S - 1
     first = torch.tensor(pipe.k == 0, device=dev)
@@ -332,8 +441,11 @@ def make_pipelined_loss(cfg: ArchConfig, mesh, pcfg: PipelineConfig,
         labels = labels.reshape(Q, B // Q, L)[:, rows]
         rep = {k: _reduced(pipe, v, True) for k, v in params.items()
                if k != "layers"}
-        layers = tree_map(lambda v: _reduced(pipe, v, False),
-                          params["layers"])
+        layers = {k: (_reduced(pipe, v, False, k in _INSIDE)
+                      if not isinstance(v, dict) else
+                      {n: _reduced(pipe, w, False, n in _INSIDE)
+                       for n, w in v.items()})
+                  for k, v in params["layers"].items()}
         x = rep["embed"][tokens.long()].to(cfg.compute_dtype)
         stream = x.float()                          # (Q, m, L, d), f32
         carry = torch.zeros(stream.shape[1:], dtype=cfg.compute_dtype,

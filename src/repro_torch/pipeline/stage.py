@@ -24,7 +24,8 @@ from torch.func import functional_call
 from .._device import resolve_device
 from ..models import transformer as tf_lib
 from ..models import vgg as vgg_lib
-from ..models.common import ArchConfig, remat_wrap, rope_cos_sin
+from ..models.common import WHOLE, ArchConfig, ModelSplit, remat_wrap, \
+    rope_cos_sin
 from ..utils.treemath import tree_map
 
 # ---------------------------------------------------------------------------
@@ -119,14 +120,18 @@ def _block(layer, cfg, params, x):
     return functional_call(layer, params, (x, cos, sin))[0]
 
 
-def transformer_stage_fn(cfg: ArchConfig):
+def transformer_stage_fn(cfg: ArchConfig, tp: ModelSplit = WHOLE):
     """Returns ``f(stage_layers, x)`` running one stage's block of
     :class:`~repro_torch.models.transformer.TransformerLayer`s, from
     position 0, each under ``remat_wrap(cfg.remat)``: ``stage_layers`` is a
     dict of (n, ...) stacked tensors (a slice of
-    :func:`stack_stage_params`, the experts nested under ``"moe"``), x is
-    (B, S, d)."""
-    layer = tf_lib.TransformerLayer(cfg, device="meta")
+    :func:`stack_stage_params`, the experts nested under ``"moe"``; under
+    ``tp`` this rank's block of each along the "model" axis), x is (B, S,
+    d), whole on every model rank.  With ``tp`` the layers are
+    Megatron-style column and row blocks: H / tp query heads, KV / tp kv
+    heads, d_ff / tp columns (or E / tp experts), their outputs summed
+    over the model group by ``tp.exit``."""
+    layer = tf_lib.TransformerLayer(cfg, device="meta", split=tp)
     body = remat_wrap(functools.partial(_block, layer, cfg), cfg.remat)
 
     def stage_fn(stage_layers: dict, x: torch.Tensor) -> torch.Tensor:

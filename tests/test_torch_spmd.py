@@ -6,12 +6,20 @@ The ranks meet through a ``FileStore`` under ``tmp_path`` (no TCP port),
 run one intra-op thread each and import no JAX.  One spawn serves every
 case: llama3-8b reduced to 4 layers in float32, a batch of 8 x 16 in Q = 4
 micro-batches, pipelined over (data 2 x stage 2) and (stage 4), and in
-Q = 2 over (stage 4), where two stage ranks score no micro-batch; the loss
-within 1e-5 and every gradient within 1e-4 (absolute) of the reference's
-plain ``api.loss`` / ``jax.grad`` on the same numpy weights — the bounds the
-reference's own pipeline test keeps (``tests/test_spmd.py``); one AdamW
-train step: its loss the reference's, and its update the reference's
-AdamW on the gradients the pipeline gave (held to ``jax.grad`` above);
+Q = 2 over (stage 4), where two stage ranks score no micro-batch; with a
+"model" axis (tensor parallelism inside a stage: each rank holds its
+block of heads and FFN columns) over (stage 2 x model 2) and (data 2 x
+stage 1 x model 2); the MoE branches over (stage 2 x model 2):
+qwen3-moe-235b-a22b reduced (8 experts: 4 a rank) and
+granite-moe-3b-a800m reduced (5 experts: each expert's d_ff split); the
+loss within 1e-5 and every gradient within 1e-4 (absolute) of the
+reference's plain ``api.loss`` / ``jax.grad`` on the same numpy weights,
+each model rank's gradient against its block of the reference's (cut here
+by Megatron's layout, independently of ``launch/sharding.py``) — the
+bounds the reference's own pipeline test keeps (``tests/test_spmd.py``);
+one AdamW train step each over (data 2 x stage 2) and (stage 2 x model 2):
+its loss the reference's, and its update the reference's AdamW on the
+gradients the pipeline gave (held to ``jax.grad`` above);
 reshard-on-restore from a (4,) "model" mesh to a (2, 2) ("data", "model")
 one, as ``tests/test_spmd.py::test_checkpoint_reshards_across_meshes``; and
 each rank's block under DTensor's placements of a spec against the block
@@ -40,6 +48,8 @@ from repro.optim import get_optimizer as ref_optimizer
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 WORLD = 4
 ARCH, LAYERS, BATCH, SEQ, Q = "llama3-8b", 4, 8, 16, 4
+#: the configs the spawn runs, and their depth
+MODELS = {ARCH: LAYERS}
 LR = 1e-3
 LOSS_ATOL, GRAD_ATOL = 1e-5, 1e-4
 #: the train step against the reference's AdamW on the same gradients:
@@ -55,8 +65,12 @@ PIPELINES = [
     # fewer micro-batches than stages: ranks 2 and 3 run no head
     {"tag": "s4q2", "axes": ["stage"], "sizes": [4], "stages": 4, "q": 2},
 ]
-TRAIN = [{"tag": "train", "axes": ["data", "stage"], "sizes": [2, 2],
-          "stages": 2, "q": Q}]
+for _c in PIPELINES:
+    _c.setdefault("arch", ARCH)
+#: each train case holds its step to the gradients of the pipeline case
+#: ``grads`` (the same mesh, config and Q)
+TRAIN = [{"tag": "train", "arch": ARCH, "axes": ["data", "stage"],
+          "sizes": [2, 2], "stages": 2, "q": Q, "grads": "d2s2"}]
 #: (mesh axes, sizes, spec, tensor shape): a dim over two axes, major to
 #: minor, as the reference shards d_model over ("pod", "data")
 SPLITS = [
@@ -97,23 +111,32 @@ def _flat(tree, prefix=""):
     return out
 
 
-@pytest.fixture(scope="module")
-def run(tmp_path_factory):
-    d = tmp_path_factory.mktemp("spmd")
-    cfg = dataclasses.replace(ref_config(ARCH, reduced=True),
-                              num_layers=LAYERS, remat="none",
+def _reference(arch, layers, d):
+    """The reference model of ``arch`` at ``layers`` (float32, remat
+    none), its weights and a batch, written for the ranks; returns (api,
+    params, batch)."""
+    cfg = dataclasses.replace(ref_config(arch, reduced=True),
+                              num_layers=layers, remat="none",
                               compute_dtype=jnp.float32)
     api = ref_model(cfg)
     params = api.init(jax.random.key(0))
     rng = np.random.default_rng(0)
     batch = {"tokens": rng.integers(0, cfg.vocab, (BATCH, SEQ), np.int32),
              "labels": rng.integers(0, cfg.vocab, (BATCH, SEQ), np.int32)}
-    weights = _flat(params)
-    np.savez(d / "weights.npz", **weights,
+    np.savez(d / f"weights_{arch}.npz", **_flat(params),
              **{f"batch/{k}": v for k, v in batch.items()})
+    return api, params, batch
+
+
+def spawn(d, models, pipelines, train, splits):
+    """Run the ranks on ``models`` ({arch: layers}) and the cases; returns
+    {"ref": each arch's reference loss, gradients, weights and experts,
+    "outs": each rank's arrays, "jax_splits": JAX's blocks of
+    ``splits``}."""
+    refs = {arch: _reference(arch, models[arch], d) for arch in models}
     (d / "job.json").write_text(json.dumps(
-        {"arch": ARCH, "layers": LAYERS, "pipelines": PIPELINES,
-         "train": TRAIN, "lr": LR, "splits": SPLITS}))
+        {"models": models, "pipelines": pipelines, "train": train,
+         "lr": LR, "splits": splits}))
     env = {**os.environ, "OMP_NUM_THREADS": "1"}
     # each rank's output to a file: a rank blocked on a full pipe would
     # stall the others in their next collective
@@ -122,13 +145,17 @@ def run(tmp_path_factory):
         [sys.executable, str(ROOT / "tests" / "torch_spmd_worker.py"),
          str(r), str(WORLD), str(d)], env=env, stdout=logs[r],
         stderr=subprocess.STDOUT) for r in range(WORLD)]
-    splits = subprocess.Popen([sys.executable, "-c", JAX_SPLITS,
-                               json.dumps(SPLITS)], stdout=subprocess.PIPE,
+    jax_proc = subprocess.Popen([sys.executable, "-c", JAX_SPLITS,
+                                 json.dumps(splits)], stdout=subprocess.PIPE,
                               stderr=subprocess.PIPE, text=True)
-    loss = float(jax.jit(api.loss)(params, batch))
-    grads = _flat(jax.jit(jax.grad(api.loss))(params, batch))
+    ref = {}
+    for arch, (api, params, batch) in refs.items():
+        loss, grads = jax.jit(jax.value_and_grad(api.loss))(params, batch)
+        ref[arch] = {"loss": float(loss), "grads": _flat(grads),
+                     "weights": _flat(params),
+                     "experts": api.cfg.moe_experts}
     errors = []
-    out, err = splits.communicate(timeout=120)
+    out, err = jax_proc.communicate(timeout=120)
     for r, p in enumerate(ranks):
         try:
             p.wait(timeout=120)
@@ -142,13 +169,19 @@ def run(tmp_path_factory):
             errors.append(f"rank {r}: "
                           f"{(d / f'rank_{r}.log').read_text()[-3000:]}")
     assert not errors, errors
-    assert splits.returncode == 0, err[-3000:]
+    assert jax_proc.returncode == 0, err[-3000:]
     outs = []
     for r in range(WORLD):
         with np.load(d / f"out_{r}.npz") as npz:
             outs.append({k: npz[k] for k in npz.files})
-    return {"loss": loss, "grads": grads, "weights": weights, "outs": outs,
+    return {"ref": ref, "outs": outs,
             "jax_splits": json.loads(out.strip().splitlines()[-1])}
+
+
+@pytest.fixture(scope="module")
+def run(tmp_path_factory):
+    return spawn(tmp_path_factory.mktemp("spmd"), MODELS, PIPELINES, TRAIN,
+                 SPLITS)
 
 
 def _stage_rows(full, k, stages):
@@ -156,36 +189,76 @@ def _stage_rows(full, k, stages):
     return full[k * n:(k + 1) * n]
 
 
-def _want(key, ref, k, stages):
-    return _stage_rows(ref[key], k, stages) if key.startswith("layers/") \
-        else ref[key]
+#: Megatron's blocks on a "model" axis: the columns of these (the last dim;
+#: a bias as its matrix), the rows of those; the experts' dim of the MoE
+#: matrices when the axis divides E, else their columns / rows.  The
+#: router and the norm scales stay whole.
+_COLS = ("wq", "wk", "wv", "w_gate", "w_up", "bq", "bk", "bv", "b_up")
+_ROWS = ("wo", "w_down")
+
+
+def _model_part(key, full, m, M, experts):
+    name = key.split("/")[-1]
+    if M == 1 or not key.startswith("layers/") or name not in _COLS + _ROWS:
+        return full
+    if key.startswith("layers/moe/") and experts % M == 0:
+        dim = 1
+    else:
+        dim = full.ndim - (2 if name in _ROWS else 1)
+    n = full.shape[dim] // M
+    return np.take(full, np.arange(m * n, (m + 1) * n), axis=dim)
+
+
+def _model_size(case):
+    return dict(zip(case["axes"], case["sizes"])).get("model", 1)
+
+
+def _want(key, ref, k, stages, m=0, M=1, experts=0):
+    full = _model_part(key, ref[key], m, M, experts)
+    return _stage_rows(full, k, stages) if key.startswith("layers/") \
+        else full
+
+
+def check_loss(run, case):
+    """Every rank's pipelined loss against the reference's plain one."""
+    want = run["ref"][case["arch"]]["loss"]
+    for o in run["outs"]:
+        assert abs(float(o[f"{case['tag']}/loss"]) - want) < \
+            LOSS_ATOL, (float(o[f"{case['tag']}/loss"]), want)
+        assert str(o[f"{case['tag']}/transport"]) == "direct"
+        # the model group's sums moved bytes exactly where it has ranks
+        assert (int(o[f"{case['tag']}/tp_bytes"]) > 0) == \
+            (_model_size(case) > 1)
+
+
+def check_grads(run, case):
+    """Every rank's gradients against its block of ``jax.grad``'s."""
+    tag, S, M = case["tag"], case["stages"], _model_size(case)
+    ref = run["ref"][case["arch"]]
+    seen = set()
+    for o in run["outs"]:
+        k, m = int(o[f"{tag}/stage"]), int(o[f"{tag}/model"])
+        pre = f"{tag}/grad/"
+        keys = {key[len(pre):] for key in o if key.startswith(pre)}
+        assert keys == set(ref["grads"]), keys ^ set(ref["grads"])
+        for key in keys:
+            got = o[pre + key]
+            want = _want(key, ref["grads"], k, S, m, M, ref["experts"])
+            assert got.shape == want.shape, key
+            err = float(np.max(np.abs(got - want)))
+            assert err < GRAD_ATOL, (tag, k, m, key, err)
+        seen.add((k, m))
+    assert seen == {(k, m) for k in range(S) for m in range(M)}
 
 
 @pytest.mark.parametrize("case", PIPELINES, ids=lambda c: c["tag"])
 def test_pipelined_loss_matches_the_references_plain_loss(run, case):
-    for o in run["outs"]:
-        assert abs(float(o[f"{case['tag']}/loss"]) - run["loss"]) < \
-            LOSS_ATOL, (float(o[f"{case['tag']}/loss"]), run["loss"])
-        assert str(o[f"{case['tag']}/transport"]) == "direct"
+    check_loss(run, case)
 
 
 @pytest.mark.parametrize("case", PIPELINES, ids=lambda c: c["tag"])
 def test_pipelined_gradients_match_jax_grad(run, case):
-    tag, S = case["tag"], case["stages"]
-    seen = set()
-    for o in run["outs"]:
-        k = int(o[f"{tag}/stage"])
-        pre = f"{tag}/grad/"
-        keys = {key[len(pre):] for key in o if key.startswith(pre)}
-        assert keys == set(run["grads"]), keys ^ set(run["grads"])
-        for key in keys:
-            got = o[pre + key]
-            want = _want(key, run["grads"], k, S)
-            assert got.shape == want.shape, key
-            err = float(np.max(np.abs(got - want)))
-            assert err < GRAD_ATOL, (tag, k, key, err)
-        seen.add(k)
-    assert seen == set(range(S))
+    check_grads(run, case)
 
 
 def _nest(flat):
@@ -199,18 +272,23 @@ def _nest(flat):
     return tree
 
 
-def test_pipelined_train_step_matches_the_references_adamw(run):
-    tag, S = "train", TRAIN[0]["stages"]
+def check_train(run, case):
+    """Every rank's AdamW step against the reference's AdamW on the
+    gradients the pipeline gave."""
+    tag, S, M, via = case["tag"], case["stages"], _model_size(case), \
+        case["grads"]
+    ref = run["ref"][case["arch"]]
     opt = ref_optimizer("adamw", lr=LR)
     update = jax.jit(lambda p, g: opt.update(p, g, opt.init(p))[0])
     for o in run["outs"]:
-        k = int(o["d2s2/stage"])
-        assert abs(float(o[f"{tag}/loss"]) - run["loss"]) < LOSS_ATOL
+        k, m = int(o[f"{via}/stage"]), int(o[f"{via}/model"])
+        assert abs(float(o[f"{tag}/loss"]) - ref["loss"]) < LOSS_ATOL
         pre = f"{tag}/param/"
         keys = {key[len(pre):] for key in o if key.startswith(pre)}
-        assert keys == set(run["weights"])
-        local = {key: _want(key, run["weights"], k, S) for key in keys}
-        grads = {key: o[f"d2s2/grad/{key}"] for key in keys}
+        assert keys == set(ref["weights"])
+        local = {key: _want(key, ref["weights"], k, S, m, M, ref["experts"])
+                 for key in keys}
+        grads = {key: o[f"{via}/grad/{key}"] for key in keys}
         stepped = _flat(update(_nest(local), _nest(grads)))
         moved = 0
         for key in keys:
@@ -219,6 +297,11 @@ def test_pipelined_train_step_matches_the_references_adamw(run):
             assert float(np.max(np.abs(got - want))) <= STEP_REL * scale, key
             moved += int(np.any(got != before))
         assert moved == len(keys)
+
+
+@pytest.mark.parametrize("case", TRAIN, ids=lambda c: c["tag"])
+def test_pipelined_train_step_matches_the_references_adamw(run, case):
+    check_train(run, case)
 
 
 def test_checkpoint_reshards_across_meshes(run):
@@ -244,18 +327,30 @@ def test_a_mesh_of_another_size_than_the_world_raises(run):
 
 
 def test_a_model_axis_and_other_families_raise():
-    """Tensor parallelism inside a stage is ROADMAP item 11b; the pipeline
-    runs the transformer's layers only.  Both refuse before any rank is
-    contacted."""
+    """A "model" axis must split every layer into whole heads (and equal
+    FFN blocks); the pipeline runs the transformer's layers only.  Each
+    refuses before any rank is contacted."""
     import torch
     from repro_torch.configs import get_config
     from repro_torch.launch.mesh import MeshLayout
-    from repro_torch.pipeline.spmd import PipelineConfig, make_pipelined_loss
+    from repro_torch.pipeline.spmd import (PipelineConfig,
+                                           make_pipelined_loss,
+                                           shard_params)
     cfg = dataclasses.replace(get_config(ARCH, reduced=True),
                               compute_dtype=torch.float32)
-    with pytest.raises(NotImplementedError, match="item 11b"):
-        make_pipelined_loss(cfg, MeshLayout(("stage", "model"), (2, 2)),
+    # 4 query and 2 kv heads: a model axis of 4 would split a kv head
+    with pytest.raises(ValueError, match="2 kv heads do not split over a "
+                                         "model axis of 4"):
+        make_pipelined_loss(cfg, MeshLayout(("stage", "model"), (2, 4)),
                             PipelineConfig(2, 2), "cpu")
+    with pytest.raises(ValueError, match="4 query heads do not split over "
+                                         "a model axis of 8"):
+        make_pipelined_loss(cfg, MeshLayout(("stage", "model"), (1, 8)),
+                            PipelineConfig(1, 2), "cpu")
+    # and shard_params needs the config to cut by the rules
+    with pytest.raises(ValueError, match="needs the config"):
+        shard_params({}, MeshLayout(("stage", "model"), (1, 2)),
+                     PipelineConfig(1, 2), "cpu")
     with pytest.raises(ValueError, match="has 4 ranks, the pipeline 2"):
         make_pipelined_loss(cfg, MeshLayout(("stage",), (4,)),
                             PipelineConfig(2, 2), "cpu")

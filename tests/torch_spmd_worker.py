@@ -4,8 +4,9 @@ under gloo.  Imports no JAX (the ranks stand for the card's processes).
 
     python tests/torch_spmd_worker.py RANK WORLD DIR
 
-reads ``DIR/job.json`` (the config and what to run) and ``DIR/weights.npz``
-(the reference's parameter tree, flat ``a/b`` keys, and the batch), meets
+reads ``DIR/job.json`` (the configs and what to run) and
+``DIR/weights_<arch>.npz`` (each reference's parameter tree, flat ``a/b``
+keys, and the batch), meets
 the other ranks through a ``FileStore`` under ``DIR`` and writes
 ``DIR/out_<RANK>.npz``.
 """
@@ -61,21 +62,23 @@ def flat(tree: dict, prefix: str = "") -> dict:
 
 def pipeline_case(tag, cfg, params, batch, layout, pcfg, out):
     mesh = build_mesh(layout, CPU)
-    local = shard_params(params, mesh, pcfg, CPU)
+    local = shard_params(params, mesh, pcfg, CPU, cfg=cfg)
     loss_fn = make_pipelined_loss(cfg, mesh, pcfg, CPU)
     loss = loss_fn(local, batch)
     leaves = flat(local)
     grads = torch.autograd.grad(loss, list(leaves.values()))
     out[f"{tag}/loss"] = loss.detach().numpy()
     out[f"{tag}/stage"] = np.array(loss_fn.pipe.k)
+    out[f"{tag}/model"] = np.array(loss_fn.pipe.m)
     out[f"{tag}/transport"] = np.array(loss_fn.pipe.transport)
+    out[f"{tag}/tp_bytes"] = np.array(loss_fn.pipe.bytes["tp_reduce"])
     for key, g in zip(leaves, grads):
         out[f"{tag}/grad/{key}"] = g.numpy()
 
 
 def train_case(tag, cfg, params, batch, layout, pcfg, lr, out):
     mesh = build_mesh(layout, CPU)
-    local = shard_params(params, mesh, pcfg, CPU)
+    local = shard_params(params, mesh, pcfg, CPU, cfg=cfg)
     opt = get_optimizer("adamw", lr=lr)
     state = opt.init(local)
     step = make_pipelined_train_step(cfg, mesh, pcfg, opt, CPU)
@@ -137,21 +140,23 @@ def main():
     store = dist.FileStore(os.path.join(directory, "store"), world)
     dist.init_process_group("gloo", store=store, rank=rank,
                             world_size=world)
-    cfg = dataclasses.replace(get_config(job["arch"], reduced=True),
-                              num_layers=job["layers"], remat="layer",
-                              compute_dtype=torch.float32)
-    with np.load(os.path.join(directory, "weights.npz")) as npz:
-        arrays = {k: npz[k] for k in npz.files}
-    batch = {"tokens": arrays.pop("batch/tokens"),
-             "labels": arrays.pop("batch/labels")}
-    params = nested(arrays)
+    models = {}
+    for arch, layers in job["models"].items():
+        cfg = dataclasses.replace(get_config(arch, reduced=True),
+                                  num_layers=layers, remat="layer",
+                                  compute_dtype=torch.float32)
+        with np.load(os.path.join(directory, f"weights_{arch}.npz")) as npz:
+            arrays = {k: npz[k] for k in npz.files}
+        batch = {"tokens": arrays.pop("batch/tokens"),
+                 "labels": arrays.pop("batch/labels")}
+        models[arch] = (cfg, nested(arrays), batch)
     out = {}
     for case in job["pipelines"]:
-        pipeline_case(case["tag"], cfg, params, batch,
+        pipeline_case(case["tag"], *models[case["arch"]],
                       MeshLayout(tuple(case["axes"]), tuple(case["sizes"])),
                       PipelineConfig(case["stages"], case["q"]), out)
     for case in job["train"]:
-        train_case(case["tag"], cfg, params, batch,
+        train_case(case["tag"], *models[case["arch"]],
                    MeshLayout(tuple(case["axes"]), tuple(case["sizes"])),
                    PipelineConfig(case["stages"], case["q"]), job["lr"], out)
     reshard_case(directory, out)
