@@ -328,7 +328,12 @@ exits non-zero:
              layer (1 x 512, 8 / 4 of 128) against their plain versions
              and timed beside SDPA; the dry run of the same cell (fake CUDA
              tensors, a fake group of 4) beside the measured bytes, peak
-             and counted FLOPs, and its roofline row (predictions)
+             and counted FLOPs, and its roofline row (predictions); the
+             dry runs of the reduced cells its repair covers (micro-batches
+             with fewer rows than the (pod, data) ranks, RWKV6's decode
+             state, RWKV6 training over (pod, data), whisper's prefill,
+             the VLM pipeline) on fake CUDA tensors, each kernel of the
+             cell charged, beside the same trace on fake CPU tensors
 
 Every device time a run prints (``device_ms``) comes from CUDA events
 around replays of a CUDA graph of the calls, or, for a function a graph
@@ -4469,6 +4474,109 @@ def tp_dry_run(Q: int) -> dict:
     return {"record": rec, "roofline": roofline_row(rec)}
 
 
+#: phase 29's dry runs of the reduced cells the dry run's repair covers,
+#: each traced on fake CUDA tensors (the kernels' fake branches charge
+#: their work) and on fake CPU tensors (the plain versions): micro-batches
+#: with fewer rows than the (pod, data) ranks; RWKV6's state in a decode;
+#: RWKV6 training over (pod, data) (K3 / K3'); whisper's prefill with its
+#: caches on the mesh; the VLM backbone in the stage pipeline.  "kernels"
+#: are those the fake CUDA trace must charge.
+DRY_CELLS = [
+    {"name": "small micro-batches", "arch": "qwen3-0.6b",
+     "shape": "train_4k", "axes": ("pod", "data", "model"),
+     "sizes": (2, 2, 2), "batch": (8, 32), "q": 4,
+     "kernels": ("flash_attention", "flash_attention_bwd")},
+    {"name": "rwkv6 decode", "arch": "rwkv6-1.6b", "shape": "decode_32k",
+     "axes": ("data", "model"), "sizes": (2, 2), "batch": (8, 32),
+     "kernels": ()},
+    {"name": "rwkv6 training over pod x data", "arch": "rwkv6-1.6b",
+     "shape": "train_4k", "axes": ("pod", "data", "model"),
+     "sizes": (2, 2, 2), "batch": (8, 64), "q": 2,
+     "kernels": ("wkv6", "wkv6_bwd")},
+    {"name": "whisper prefill", "arch": "whisper-small",
+     "shape": "prefill_32k", "axes": ("data", "model"), "sizes": (2, 2),
+     "batch": (8, 32), "over": {"num_layers": 1, "encoder_layers": 1},
+     "kernels": ("flash_attention",)},
+    {"name": "vlm pipeline", "arch": "internvl2-1b", "shape": "train_4k",
+     "axes": ("data", "stage", "model"), "sizes": (2, 2, 2),
+     "batch": (8, 32), "q": 2, "pipeline": True, "over": {"num_layers": 4},
+     "kernels": ("flash_attention", "flash_attention_bwd")},
+]
+
+
+def dry_cell(cell: dict, device: str) -> dict:
+    """The dry run's record of one of ``DRY_CELLS`` on ``device``'s fake
+    tensors over a fake process group of its mesh."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import MeshLayout
+    cfg = dataclasses.replace(get_config(cell["arch"], reduced=True),
+                              **cell.get("over", {}))
+    layout = MeshLayout(cell["axes"], cell["sizes"])
+    with dryrun.fake_process_group(layout.size):
+        if cell.get("pipeline"):
+            return dryrun._lower_pipeline_cell(
+                cell["arch"], layout, num_stages=layout.shape["stage"],
+                q=cell["q"], device=device, cfg=cfg,
+                batch_override=cell["batch"])
+        return dryrun._lower_cell(cell["arch"], cell["shape"], layout,
+                                  q_override=cell.get("q"), device=device,
+                                  cfg=cfg, batch_override=cell["batch"])
+
+
+def dry_cells_run(path: str) -> None:
+    """Every cell of ``DRY_CELLS`` traced on fake CUDA and fake CPU
+    tensors (one intra-op thread, in a process of its own: host work
+    only), the records' figures or each trace's error written to
+    ``path``."""
+    torch.set_num_threads(1)
+    out = []
+    for cell in DRY_CELLS:
+        row = {"name": cell["name"]}
+        for device in ("cuda", "cpu"):
+            t0 = time.perf_counter()
+            try:
+                rec = dry_cell(cell, device)
+                row[device] = {
+                    "flops": rec["flops_per_device"],
+                    "args": rec["memory"]["argument_size_in_bytes"],
+                    "hbm": rec["hbm_per_device"],
+                    "kernels": {k: v["calls"]
+                                for k, v in rec["kernels"].items()},
+                    "cache": rec.get("cache"),
+                    "seconds": time.perf_counter() - t0}
+            except Exception as e:              # reported by the parent
+                row[device] = {"error": repr(e)[-2000:]}
+        out.append(row)
+    with open(path, "w") as f:
+        json.dump(out, f)
+
+
+def check_dry_cells(rows: list) -> list:
+    """Log each repaired cell's fake CUDA and fake CPU figures; returns
+    the failures (a trace that raised, a kernel the fake CUDA trace did
+    not charge)."""
+    failures = []
+    for cell, row in zip(DRY_CELLS, rows):
+        bad = [d for d in ("cuda", "cpu") if "error" in row[d]]
+        if bad:
+            failures += [f"dry run of {cell['name']} on fake {d}: "
+                         f"{row[d]['error']}" for d in bad]
+            continue
+        cu, cp = row["cuda"], row["cpu"]
+        missing = [k for k in cell["kernels"] if not cu["kernels"].get(k)]
+        if missing:
+            failures.append(f"dry run of {cell['name']}: no charge of "
+                            f"{missing}")
+        log(f"phase 29 dry run, {cell['name']} ({cell['arch']} reduced, "
+            f"{'x'.join(map(str, cell['sizes']))} {cell['axes']}): FLOPs a "
+            f"device {cu['flops']:.6e} on fake CUDA (kernels charged "
+            f"{cu['kernels']}) beside {cp['flops']:.6e} on fake CPU (the "
+            f"plain versions); arguments {cu['args']} / {cp['args']} B; "
+            f"traced in {cu['seconds']:.1f} / {cp['seconds']:.1f} s")
+    return failures
+
+
 def tp_phase(out_dir: str, flash_mod, flash_kernel) -> dict:
     """Phase 29: qwen3-0.6b pipelined over (stage 2 x model 2) on one card
     (four processes under gloo, host-staged transfers).  float32 (TF32
@@ -4507,12 +4615,17 @@ def tp_phase(out_dir: str, flash_mod, flash_kernel) -> dict:
     # profiled ones and the counted one), once every rank has timed its
     dry_out = {}
 
+    cells_path = os.path.join(out_dir, "dry_cells.json")
+    cells_proc = ctx.Process(target=dry_cells_run, args=(cells_path,))
+
     def dry_run():
         marks = [job["timed"].format(rank=r) for r in range(S * M)]
         while not all(os.path.exists(m) for m in marks):
             if not any(p.is_alive() for p in procs):
                 return                      # the ranks failed: see below
             time.sleep(0.5)
+        # the repaired cells' traces in a process of their own meanwhile
+        cells_proc.start()
         try:
             dry_out.update(tp_dry_run(Q))
         except BaseException as e:          # re-raised below
@@ -4529,6 +4642,12 @@ def tp_phase(out_dir: str, flash_mod, flash_kernel) -> dict:
             p.kill()
             p.join()
     dry_thread.join()
+    if cells_proc.pid is not None:
+        cells_proc.join(max(1.0, deadline + TP_TIMEOUT_S
+                            - time.perf_counter()))
+        if cells_proc.is_alive():
+            cells_proc.kill()
+            cells_proc.join()
     if "error" in dry_out:
         raise dry_out["error"]
     if any(p.exitcode != 0 for p in procs):
@@ -4598,8 +4717,18 @@ def tp_phase(out_dir: str, flash_mod, flash_kernel) -> dict:
             f"{[round(x, 4) for x in t['device_ms_turns']]}), SDPA "
             f"{t['library_device_ms']:.4f} ms, plain {t['plain_ms']:.4f} ms "
             f"(events), bound {t['bound_ms']:.6f} ms ({t['bound_by']})")
+    # the repaired cells' dry runs, fake CUDA beside fake CPU
+    if not os.path.exists(cells_path):
+        failures.append(f"the repaired cells' dry runs wrote nothing "
+                        f"(exit code {cells_proc.exitcode})")
+        cells = []
+    else:
+        with open(cells_path) as f:
+            cells = json.load(f)
+        failures += check_dry_cells(cells)
     # the dry run of the same cell beside what the ranks measured
     dry = dry_out
+    dry["repaired_cells"] = cells
     rec, row = dry["record"], dry["roofline"]
     walls = [max(r["step_s"][i] for r in ranks) for i in range(run["steps"])]
     r0 = next(r for r in ranks if r["rank"] == 0)

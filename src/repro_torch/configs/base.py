@@ -100,13 +100,15 @@ def input_specs(cfg: ArchConfig, shape_name: str) -> dict:
     return batch
 
 
-def cache_specs(cfg: ArchConfig, shape_name: str) -> dict:
-    """The KV cache / recurrent state of this cell's batch and length, as
-    each family's ``make_cache`` (RWKV6's ``init_state``) builds it on the
-    meta device."""
+def cache_specs(cfg: ArchConfig, shape_name: str, *, batch: int = None,
+                seq_len: int = None) -> dict:
+    """The KV cache / recurrent state of this cell's batch and length (or
+    of ``batch`` / ``seq_len`` when given), as each family's
+    ``make_cache`` (RWKV6's ``init_state``) builds it on the meta device:
+    the family knows which of its leaves has a length axis."""
     from repro_torch.models import jamba, rwkv6, transformer, whisper
     sp = SHAPES[shape_name]
-    B, T = sp.global_batch, sp.seq_len
+    B, T = batch or sp.global_batch, seq_len or sp.seq_len
     if cfg.family == "ssm":
         return rwkv6.init_state(cfg, B, META)
     make = {"hybrid": jamba.make_cache,

@@ -34,6 +34,9 @@ argument bytes (the local blocks of the step's inputs on rank 0), the
 output bytes (new storages the step returns) and the temp bytes (the
 peak of live bytes above the arguments); ``while_trip_counts`` and
 ``unresolved_loops`` are empty / 0 (torch counts every pass of a loop).
+A serving cell's cache is laid out by the cache rules as the step returns
+it (the reference's ``out_shardings``), and its record adds ``cache``:
+each leaf's global shape and placements.
 The process group is made in :func:`run_cells` (or by a caller through
 :func:`fake_process_group`) and destroyed after it, never at import.
 
@@ -262,11 +265,14 @@ def _finish(rec: dict, counter: CostCounter, args: int, outs, t0: float,
 
 def _lower_cell(arch: str, shape: str, mesh, *, policy=None,
                 q_override=None, device: str = "cuda", cfg=None,
-                batch_override=None):
+                batch_override=None, breakdown: bool = False,
+                optimizer: str = None):
     """Trace one cell of the baseline layout (``mesh`` a ``MeshLayout`` of
     the process group's size); returns the record dict.  ``cfg`` replaces
     ``get_config(arch)`` (a reduced or re-timed config), and
-    ``batch_override`` = (global batch, sequence) the shape's."""
+    ``batch_override`` = (global batch, sequence) the shape's;
+    ``breakdown`` adds ``peak_temp_by_op`` (what is alive at the peak);
+    ``optimizer`` replaces the config's default one."""
     import torch.distributed as dist
     cfg = cfg or get_config(arch)
     if os.environ.get("REPRO_REMAT"):
@@ -282,7 +288,6 @@ def _lower_cell(arch: str, shape: str, mesh, *, policy=None,
                          f"of {layout.size}")
     policy = policy or shlib.ShardingPolicy()
     t0 = time.time()
-    dmesh = _device_mesh(layout, device)
     rec = {"arch": arch, "shape": shape, "mesh": mesh_tag(layout),
            **({"tokens": sp.global_batch * (
                1 if sp.kind == "decode" else sp.seq_len)}
@@ -290,9 +295,11 @@ def _lower_cell(arch: str, shape: str, mesh, *, policy=None,
            "kind": sp.kind, "policy": dataclasses.asdict(policy),
            "device": device}
     specs = _input_specs(cfg, sp)
+    layout = _traced_layout(layout, policy)
+    dmesh = _device_mesh(layout, device)
     with _fake_mode():
         if sp.kind == "train":
-            opt_name = default_optimizer_name(cfg)
+            opt_name = optimizer or default_optimizer_name(cfg)
             q = q_override or default_microbatches(cfg, sp.global_batch)
             opt = get_optimizer(opt_name)
             model = _sharded_model(cfg, layout, dmesh, device, policy)
@@ -301,7 +308,7 @@ def _lower_cell(arch: str, shape: str, mesh, *, policy=None,
             batch = _batch(specs, layout, dmesh, device, cfg, policy)
             step = make_train_step(cfg, opt, q, device)
             rec.update(optimizer=opt_name, microbatches=q)
-            counter = CostCounter(track_memory=True)
+            counter = CostCounter(track_memory=True, breakdown=breakdown)
             args = counter.mark_arguments(list(model.parameters()), state,
                                           batch)
             with _traced(counter), _one_microbatch(counter):
@@ -313,10 +320,12 @@ def _lower_cell(arch: str, shape: str, mesh, *, policy=None,
             batch = _batch(specs, layout, dmesh, device, cfg, policy)
             step = make_prefill_step(cfg_srv, sp.seq_len + cfg.patch_tokens,
                                      device)
-            counter = CostCounter(track_memory=True)
+            counter = CostCounter(track_memory=True, breakdown=breakdown)
             args = counter.mark_arguments(list(model.parameters()), batch)
             with _traced(counter), torch.no_grad():
                 outs = step(model, batch)
+                outs = (outs[0], _by_rules(outs[1], cfg_srv, layout, dmesh,
+                                           policy))
         else:
             cfg_srv = dataclasses.replace(cfg, param_dtype=cfg.compute_dtype)
             model = _sharded_model(cfg_srv, layout, dmesh, device, policy,
@@ -325,12 +334,137 @@ def _lower_cell(arch: str, shape: str, mesh, *, policy=None,
             tok = _batch({"t": specs["token"]}, layout, dmesh, device, cfg,
                          policy)["t"]
             step = make_decode_step(cfg_srv, device)
-            counter = CostCounter(track_memory=True)
+            counter = CostCounter(track_memory=True, breakdown=breakdown)
             args = counter.mark_arguments(list(model.parameters()), cache,
                                           tok)
             with _traced(counter), torch.no_grad():
                 outs = step(model, cache, tok, sp.seq_len - 1)
+                outs = (outs[0], _by_rules(outs[1], cfg_srv, layout, dmesh,
+                                           policy))
+    if sp.kind != "train":
+        rec["cache"] = _layouts(outs[1])
+    if breakdown:
+        rec["peak_temp_by_op"] = counter.peak_by_op()
     return _finish(rec, counter, args, outs, t0, layout.size)
+
+
+#: record fields that grow with the depth as sums over its layers do
+_LINEAR = ("xla_flops_per_device", "xla_bytes_per_device", "flops_per_device",
+           "bytes_per_device", "collective_bytes_per_device",
+           "lower_compile_seconds")
+
+
+def _unit_layers(cfg) -> int:
+    """Layers of the config's repeating unit: a jamba period, else a
+    layer (whisper's two stacks have no one unit)."""
+    if cfg.family == "audio":
+        raise ValueError("whisper's encoder and decoder stacks have no one "
+                         "repeating unit to extrapolate")
+    return cfg.attn_every if cfg.family == "hybrid" else 1
+
+
+def _lower_extrapolated(arch: str, shape: str, mesh, *, cfg=None,
+                        q_override=None, **kw) -> dict:
+    """:func:`_lower_cell` of a deep config from traces of one and two of
+    its repeating units (``_unit_layers``): every layer of a unit is
+    traced, and each figure that sums over the layers (FLOPs, traffic,
+    collective bytes by kind, argument and output bytes, kernel charges,
+    op counts) is the one-unit figure plus (units - 1) times the second
+    unit's increment.  The shape's micro-batches and the full config's
+    optimizer are pinned (both may depend on the depth).  The temp bytes
+    are extrapolated the same way; the peak is not a sum, so it is a
+    prediction of a prediction, and the record says how it was made."""
+    cfg = cfg or get_config(arch)
+    unit = _unit_layers(cfg)
+    units = cfg.num_layers // unit
+    if units < 3 or cfg.num_layers % unit:
+        return _lower_cell(arch, shape, mesh, cfg=cfg, q_override=q_override,
+                           **kw)
+    sp = SHAPES[shape]
+    if kw.get("batch_override") is not None:
+        sp = dataclasses.replace(sp, global_batch=kw["batch_override"][0])
+    if sp.kind == "train":
+        kw["optimizer"] = kw.get("optimizer") or default_optimizer_name(cfg)
+        q_override = q_override or default_microbatches(cfg, sp.global_batch)
+    one, two = (_lower_cell(arch, shape, mesh, q_override=q_override,
+                            cfg=dataclasses.replace(cfg, num_layers=n * unit),
+                            **kw) for n in (1, 2))
+
+    def grow(a, b):
+        if isinstance(a, dict):
+            return {k: grow(a[k], b[k]) for k in a}
+        if isinstance(a, (int, float)) and not isinstance(a, bool):
+            return a + (units - 1) * (b - a)
+        return a
+    rec = dict(two)
+    for k in _LINEAR:
+        rec[k] = grow(one[k], two[k])
+    rec["lower_compile_seconds"] = round(one["lower_compile_seconds"]
+                                         + two["lower_compile_seconds"], 2)
+    rec["collective_breakdown"] = grow(one["collective_breakdown"],
+                                       two["collective_breakdown"])
+    rec["memory"] = grow(one["memory"], two["memory"])
+    rec["kernels"] = grow(one["kernels"], two["kernels"])
+    ops = dict(one["op_histogram"])
+    rec["op_histogram"] = [(op, grow(ops.get(op, 0), n))
+                           for op, n in two["op_histogram"]]
+    if "cache" in two:
+        rec["cache"] = {k: {**v, "shape": [grow(a, b) if i == 0 else b
+                                           for i, (a, b) in enumerate(zip(
+                                               one["cache"][k]["shape"],
+                                               v["shape"]))]}
+                        for k, v in two["cache"].items()}
+    mem = rec["memory"]
+    rec["hbm_per_device"] = float(mem["argument_size_in_bytes"]
+                                  + mem["output_size_in_bytes"]
+                                  + mem["temp_size_in_bytes"])
+    rec["fits_80gb"] = bool(rec["hbm_per_device"] < FIT_BYTES)
+    rec["extrapolated"] = {"unit_layers": unit, "units": units,
+                           "traced_units": [1, 2]}
+    return rec
+
+
+def _by_rules(cache, cfg, layout, mesh, policy):
+    """The cache a serving step returns, each leaf laid out by the cache
+    rules (the reference's ``out_shardings``; a leaf already there as it
+    is)."""
+    if isinstance(cache, dict):
+        return {k: _by_rules(v, cfg, layout, mesh, policy)
+                for k, v in cache.items()}
+    spec = shlib.cache_sharding(cfg, layout, cache, policy).spec
+    place = shlib.placements(spec, mesh)
+    return cache if tuple(cache.placements) == place else \
+        cache.redistribute(mesh, place)
+
+
+def _layouts(tree, path="") -> dict:
+    """{leaf path: {"shape": its global shape, "placements": each mesh
+    dim's placement}} of a (nested) dict of DTensors (the serving cells'
+    cache as the step returns it)."""
+    out = {}
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            out.update(_layouts(v, f"{path}{k}/"))
+        else:
+            out[path + k] = {"shape": list(v.shape),
+                             "placements": [str(p) for p in v.placements]}
+    return out
+
+
+def _traced_layout(layout: MeshLayout, policy) -> MeshLayout:
+    """The layout the step is traced on: a multi-pod mesh's "pod" and
+    "data" axes folded into one "data" axis of their product when the
+    batch axes are the pair (the rules and the models' hints name them
+    only together, as ("pod", "data"), so every split and every per-device
+    figure is the same; a collective over the pair is then one over its
+    ranks, as XLA emits it, where DTensor would run one per axis, and
+    DTensor plans ops on a 2-D mesh far faster than on a 3-D one)."""
+    names = layout.axis_names
+    if tuple(policy.batch_axes) != ("pod", "data") or names[:2] != (
+            "pod", "data"):
+        return layout
+    return MeshLayout(("data",) + names[2:],
+                      (layout.sizes[0] * layout.sizes[1],) + layout.sizes[2:])
 
 
 def _input_specs(cfg, sp) -> dict:
@@ -351,23 +485,20 @@ def _input_specs(cfg, sp) -> dict:
 
 
 def _cache(cfg, sp, layout, mesh, dev, policy):
-    """``cache_specs`` at the cell's batch and length as fake DTensors
-    placed by the cache rules."""
+    """The family's cache (``cache_specs``) at the cell's batch and length
+    as fake DTensors placed by the cache rules: a KV cache's length axis
+    takes the cell's length; a WKV or Mamba state, and whisper's cross
+    keys and values over its frames, keep their own sizes."""
     name = next(n for n, s in SHAPES.items() if s.kind == "decode")
 
     def build(tree):
         if isinstance(tree, dict):
             return {k: build(v) for k, v in tree.items()}
-        shape = list(tree.shape)
-        if len(shape) >= 2:
-            shape[1] = sp.global_batch
-        if len(shape) == 5:
-            shape[2] = sp.seq_len
-        spec = shlib.cache_sharding(cfg, layout, torch.empty(
-            shape, device="meta"), policy).spec
-        return _local(shape, tree.dtype, dev, mesh,
+        spec = shlib.cache_sharding(cfg, layout, tree, policy).spec
+        return _local(tree.shape, tree.dtype, dev, mesh,
                       shlib.placements(spec, mesh))
-    return build(cache_specs(cfg, name))
+    return build(cache_specs(cfg, name, batch=sp.global_batch,
+                             seq_len=sp.seq_len))
 
 
 def _lower_pipeline_cell(arch: str, mesh, *, num_stages: int = 4,
@@ -430,7 +561,7 @@ def _fake_tree(tree, dev):
 
 def run_cells(archs, shapes, meshes, *, mode="baseline", out_dir=RESULTS_DIR,
               force=False, policy=None, q_override=None, tag="",
-              device="cuda"):
+              device="cuda", breakdown=False, extrapolate=False):
     os.makedirs(out_dir, exist_ok=True)
     failures, done = [], 0
     for mesh_name in meshes:
@@ -462,10 +593,11 @@ def run_cells(archs, shapes, meshes, *, mode="baseline", out_dir=RESULTS_DIR,
                                 arch, layout, num_stages=layout.shape["stage"],
                                 q=q_override or 16, device=device)
                         else:
-                            rec = _lower_cell(arch, shape, layout,
-                                              policy=policy,
-                                              q_override=q_override,
-                                              device=device)
+                            lower = _lower_extrapolated if extrapolate \
+                                else _lower_cell
+                            rec = lower(arch, shape, layout, policy=policy,
+                                        q_override=q_override, device=device,
+                                        breakdown=breakdown)
                         with open(fname, "w") as f:
                             json.dump(rec, f, indent=1)
                         print(f"OK {arch} x {shape} x {mesh_name}: "
@@ -505,6 +637,13 @@ def main(argv=None):
     ap.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
                     help="the fake tensors' device (cuda: the kernels' fake "
                     "branches; cpu: the plain versions)")
+    ap.add_argument("--breakdown", action="store_true",
+                    help="record what is alive at the memory peak, by the "
+                    "op that made it (peak_temp_by_op; baseline cells)")
+    ap.add_argument("--extrapolate", action="store_true",
+                    help="trace one and two of the config's repeating "
+                    "units (a layer; a jamba period) and extrapolate to its "
+                    "depth (baseline cells)")
     args = ap.parse_args(argv)
 
     archs = [args.arch] if args.arch else list(ARCH_IDS)
@@ -514,7 +653,8 @@ def main(argv=None):
     failures = run_cells(archs, shapes, meshes, mode=args.mode,
                          out_dir=args.out, force=args.force, policy=policy,
                          q_override=args.microbatches, tag=args.tag,
-                         device=args.device)
+                         device=args.device, breakdown=args.breakdown,
+                         extrapolate=args.extrapolate)
     raise SystemExit(1 if failures else 0)
 
 

@@ -162,10 +162,48 @@ def markdown_table(rows: list) -> str:
     return hdr + "\n".join(lines)
 
 
+def _cell_key(rec: dict) -> tuple:
+    return rec["arch"], rec["shape"], rec["mesh"], rec.get("kind")
+
+
+def compare_table(recs: list, refs: list) -> str:
+    """The port's records beside the reference's (``repro/launch/
+    dryrun.py``'s JSON files) of the same cells: FLOPs a device and their
+    ratio, HBM a device, and each side's seconds to trace or compile; a
+    cell the reference did not lower shows "—" there."""
+    by_key = {_cell_key(r): r for r in refs}
+    hdr = ("| arch | shape | mesh | FLOPs port | FLOPs reference | port / "
+           "reference | HBM GiB port | HBM GiB reference | s port | "
+           "s reference |\n|---|---|---|---|---|---|---|---|---|---|\n")
+    lines = []
+    for r in sorted(recs, key=_cell_key):
+        ref = by_key.get(_cell_key(r))
+        port = (f"{r['flops_per_device']:.4e}",
+                f"{r['hbm_per_device'] / 2**30:.2f}")
+        if ref is None:
+            theirs = ("—", "—", "—", "—")
+        else:
+            ratio = r["flops_per_device"] / ref["flops_per_device"] \
+                if ref["flops_per_device"] else float("nan")
+            theirs = (f"{ref['flops_per_device']:.4e}", f"{ratio:.4f}",
+                      f"{ref['hbm_per_device'] / 2**30:.2f}",
+                      f"{ref['lower_compile_seconds']}")
+        mesh = r["mesh"] + (" pipe" if r.get("kind") == "train-pipeline"
+                            else "")
+        lines.append(f"| {r['arch']} | {r['shape']} | {mesh} | {port[0]} "
+                     f"| {theirs[0]} | {theirs[1]} | {port[1]} | {theirs[2]} "
+                     f"| {r['lower_compile_seconds']} | {theirs[3]} |")
+    return hdr + "\n".join(lines)
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--dir", default=RESULTS_DIR)
     ap.add_argument("--csv", default=None)
+    ap.add_argument("--reference", default=None,
+                    help="a directory of the reference's dry-run records "
+                    "(python -m repro.launch.dryrun --out DIR) to print "
+                    "beside the port's")
     args = ap.parse_args(argv)
     recs = load_records(args.dir)
     rows = [roofline_row(r) for r in recs]
@@ -174,6 +212,11 @@ def main(argv=None):
           "constants (989 TFLOP/s bf16, 3.35 TB/s HBM3, 50 GB/s InfiniBand "
           "a GPU); no card measured these.")
     print(markdown_table(rows))
+    if args.reference:
+        print("\nThe port's dry run beside the reference's (both "
+              "predictions from shapes: the reference's XLA compile on host "
+              "devices, the port's trace on fake tensors).")
+        print(compare_table(recs, load_records(args.reference)))
     if args.csv:
         import csv
         with open(args.csv, "w", newline="") as f:

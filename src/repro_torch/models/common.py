@@ -18,6 +18,7 @@ over its group on a leading axis.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import functools
 import math
@@ -157,18 +158,143 @@ def model_axis_size(x) -> int:
         else 1
 
 
+def _stationary_mode():
+    """The active :class:`_WeightStationary` mode, or None."""
+    from torch.overrides import _get_current_function_mode_stack
+    for mode in reversed(_get_current_function_mode_stack()):
+        if isinstance(mode, _WeightStationary):
+            return mode
+    return None
+
+
+class _WeightStationary(torch.overrides.TorchFunctionMode):
+    """Products of activations replicated over some data axes (``axes``)
+    with a 2-D parameter block, laid out as XLA lays them: over each such
+    axis the parameter stays split (FSDP's block, see
+    :func:`gather_data_axes`) and the activations are cut to the matching
+    slice of the contracted dim, each rank summing a partial product; a
+    parameter split there along its output dim already splits the product,
+    and one replicated there is cut along its input dim.  The slices are
+    taken before the product, so its backward (the weight's gradient
+    among it) runs on them too: DTensor's planner weighs communication
+    only, and would run those products whole on every rank."""
+
+    _MATMULS = (torch.matmul, torch.Tensor.matmul, torch.Tensor.__matmul__)
+
+    def __init__(self, axes: frozenset):
+        super().__init__()
+        self.axes = axes
+
+    def __torch_function__(self, func, types, args=(), kwargs=None):
+        kwargs = kwargs or {}
+        if func in self._MATMULS and len(args) == 2 and not kwargs:
+            y = self._product(*args)
+            if y is not None:
+                return y
+        return func(*args, **kwargs)
+
+    def _product(self, x, w):
+        """``x @ w`` laid out as the class says, or None where nothing
+        changes (a plain operand, a weight of another rank than 2)."""
+        from torch.distributed.tensor import DTensor, Replicate, Shard
+        if not (isinstance(x, DTensor) and isinstance(w, DTensor)
+                and w.dim() == 2 and x.device_mesh == w.device_mesh):
+            return None
+        mesh = x.device_mesh
+        names = mesh.mesh_dim_names or ()
+        lead = x.shape[:-1]
+        if x.dim() != 2:
+            # flatten the rows first: DTensor's planner takes the
+            # flattened view of a sliced 3-D tensor for a strided layout,
+            # whose plans it searches slowly
+            x = x.reshape(-1, x.shape[-1])
+        xp, wp = list(x.placements), list(w.placements)
+        for i, name in enumerate(names):
+            if name in self.axes and xp[i] == Replicate() \
+                    and not (wp[i].is_shard(1) or wp[i].is_partial()) \
+                    and w.shape[0] % mesh.size(i) == 0:
+                xp[i], wp[i] = Shard(1), Shard(0)
+        if tuple(xp) != tuple(x.placements):
+            x = x.redistribute(mesh, tuple(xp))
+        if tuple(wp) != tuple(w.placements):
+            w = w.redistribute(mesh, tuple(wp))
+        y = torch.mm(x, w)
+        # its gradient as the product left it, the partial sums summed (a
+        # layout DTensor chose for the gradient, rows split or strided,
+        # would send the weight's gradient product on a slow plan search)
+        y = _Constrain.apply(y, tuple(y.placements))
+        return y.reshape(*lead, w.shape[1])
+
+
+@contextlib.contextmanager
+def batch_layout(rows):
+    """The products of the block laid out for a batch as small as
+    ``rows`` (a DTensor whose dim 0 holds the step's batch rows, e.g. a
+    micro-batch's tokens): over each mesh axis other than "model" and
+    "stage" that the rows are not split over (the reference's hints drop
+    the batch's entry where its rows do not divide, so the activations
+    are replicated there), :class:`_WeightStationary` splits the products
+    as XLA does, and :func:`gather_data_axes` leaves the parameters' FSDP
+    blocks in place.  Rows split over every data axis, or a plain
+    ``rows``: nothing changes."""
+    from torch.distributed.tensor import DTensor
+    axes = frozenset()
+    if isinstance(rows, DTensor):
+        names = rows.device_mesh.mesh_dim_names or ()
+        axes = frozenset(n for n, pl in zip(names, rows.placements)
+                         if n not in ("model", "stage")
+                         and not pl.is_shard(0))
+    if not axes:
+        yield
+        return
+    with _WeightStationary(axes):
+        yield
+
+
 def gather_data_axes(p):
     """A DTensor parameter made whole over every mesh axis but "model"
     before use (FSDP's all-gather: the rules shard d_model over the data
-    axes for storage only); a plain tensor as it is."""
+    axes for storage only) — but a matrix left split over the axes where
+    :func:`batch_layout` keeps it in place (the products
+    :class:`_WeightStationary` lays out); a plain tensor as it is."""
     from torch.distributed.tensor import DTensor, Replicate
     if not isinstance(p, DTensor):
         return p
     names = p.device_mesh.mesh_dim_names or ()
-    place = tuple(pl if i < len(names) and names[i] == "model"
+    mode = _stationary_mode()
+    keep = ("model",) + (tuple(mode.axes) if mode is not None
+                         and p.dim() == 2 else ())
+    place = tuple(pl if i < len(names) and names[i] in keep
                   else Replicate() for i, pl in enumerate(p.placements))
     return p if place == tuple(p.placements) else \
         p.redistribute(p.device_mesh, place)
+
+
+def mesh_zeros(spec: torch.Tensor, like):
+    """A zeroed cache entry of ``spec``'s shape and type (a leading layer
+    axis before the dims of one layer's slot) for a slot written with
+    ``like``: on ``like``'s mesh, each of its splits one dim further
+    (the dry run's sharded prefill, whose cache a plain tensor cannot
+    take), or a plain tensor on ``like``'s device."""
+    from torch.distributed.tensor import DTensor, Shard, zeros
+    if not isinstance(like, DTensor):
+        return torch.zeros(spec.shape, dtype=spec.dtype, device=like.device)
+    place = [Shard(p.dim + 1) if p.is_shard() else p
+             for p in like.placements]
+    return zeros(tuple(spec.shape), dtype=spec.dtype,
+                 device_mesh=like.device_mesh, placements=place)
+
+
+def lay_out(t, mesh, placements):
+    """``t`` as a DTensor on ``mesh`` with ``placements`` (a plain tensor
+    taken as replicated; a DTensor redistributed where it differs): the
+    operands of a ``local_map`` over each rank's blocks."""
+    from torch.distributed.tensor import DTensor, Replicate
+    if not isinstance(t, DTensor):
+        t = DTensor.from_local(t, mesh, [Replicate()] * mesh.ndim,
+                               run_check=False)
+    return t if list(t.placements) == list(placements) else \
+        t.redistribute(mesh, placements)
 
 
 def heads_flat(t, n: int):
@@ -410,22 +536,43 @@ def _save_dots(ctx, op, *args, **kwargs):
             else torch_checkpoint.CheckpointPolicy.PREFER_RECOMPUTE)
 
 
+def _recompute_in_layout(inner=None):
+    """A checkpoint ``context_fn``: ``inner``'s (forward, recompute)
+    contexts, the recompute also under the forward's
+    :class:`_WeightStationary` mode (the backward runs outside the mode
+    stack, and must lay the products out as the forward did)."""
+    fwd, rec = inner() if inner else (contextlib.nullcontext(),
+                                      contextlib.nullcontext())
+    mode = _stationary_mode()
+    if mode is None:
+        return fwd, rec
+
+    @contextlib.contextmanager
+    def recompute():
+        with _WeightStationary(mode.axes), rec:
+            yield
+    return fwd, recompute()
+
+
 def remat_wrap(fn, mode: str):
     """``fn`` under the reference's rematerialisation policy: ``"none"``
     keeps every activation, ``"layer"`` keeps only the inputs and recomputes
     the rest in the backward (``torch.utils.checkpoint``), ``"dots"`` keeps
     the outputs of matrix products without a batch dimension and recomputes
     the rest (selective checkpointing).  Recomputation runs the forward
-    kernels (K2, K3) again in the backward."""
+    kernels (K2, K3) again in the backward, in the forward's layout (see
+    :func:`batch_layout`)."""
     if mode == "none":
         return fn
     if mode == "layer":
         return functools.partial(torch_checkpoint.checkpoint, fn,
-                                 use_reentrant=False)
+                                 use_reentrant=False,
+                                 context_fn=_recompute_in_layout)
     if mode == "dots":
         context = functools.partial(
-            torch_checkpoint.create_selective_checkpoint_contexts,
-            _save_dots)
+            _recompute_in_layout, functools.partial(
+                torch_checkpoint.create_selective_checkpoint_contexts,
+                _save_dots))
         return functools.partial(torch_checkpoint.checkpoint, fn,
                                  use_reentrant=False, context_fn=context)
     raise ValueError(mode)
@@ -462,21 +609,71 @@ def chunked_linear_scan(a: torch.Tensor, x: torch.Tensor, h0: torch.Tensor,
     return h, torch.cat(ys, dim=1)
 
 
+def _on_mesh(x) -> bool:
+    from torch.distributed.tensor import DTensor
+    return isinstance(x, DTensor)
+
+
+def _terms_on_mesh(shifted, idx) -> tuple:
+    """(sum of exp, the labels' entries) of DTensor ``shifted`` (..., V),
+    each rank's vocab block on its own (``local_map``), partial sums over
+    the vocab's mesh axes: the entries as the sum over the block of
+    ``shifted`` where the vocab id is the label (one term and exact
+    zeros).  As DTensor ops, the gather's backward would scatter into
+    zeros of the logits' whole global shape (DTensor's ``new_zeros`` of
+    another size is replicated), and the label mask and the sum's
+    backward (its cast to the logits' type) would be whole over the vocab
+    on every rank."""
+    from torch.distributed.tensor import (Partial, Replicate, Shard,
+                                          distribute_tensor)
+    from torch.distributed.tensor.experimental import local_map
+    mesh, last = shifted.device_mesh, shifted.dim() - 1
+    s_pl = [Replicate() if p.is_partial() else p for p in shifted.placements]
+    if s_pl != list(shifted.placements):
+        shifted = shifted.redistribute(mesh, s_pl)
+    vocab = [p.is_shard(last) for p in s_pl]
+    i_pl = [Replicate() if v else p for v, p in zip(vocab, s_pl)]
+    d_pl = [Shard(0) if v else Replicate() for v in vocab]
+    o_pl = [Partial() if v else p for v, p in zip(vocab, s_pl)]
+    ids = distribute_tensor(torch.arange(shifted.shape[-1],
+                                         device=shifted.device),
+                            mesh, d_pl, src_data_rank=None)
+    if list(idx.placements) != i_pl:
+        idx = idx.redistribute(mesh, i_pl)
+
+    def block(s, i, d):
+        return (torch.exp(s).sum(dim=-1, dtype=torch.float32),
+                (s * (i.unsqueeze(-1) == d)).sum(dim=-1))
+    return local_map(block, device_mesh=mesh, out_placements=(o_pl, o_pl),
+                     in_placements=(s_pl, i_pl, d_pl))(shifted, idx, ids)
+
+
 def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
                   ignore_id: int = -1) -> torch.Tensor:
     """Mean token cross entropy; logits (B, S, V) any float dtype, labels
     (B, S) integers.  The max-shift is a constant (no gradient), and the
     reductions accumulate in float32, as in the reference."""
-    m = logits.max(dim=-1, keepdim=True).values.detach()
+    # on a mesh amax reduces each rank's vocab block and then the blocks'
+    # maxima; max(dim) also returns indices, which DTensor makes by moving
+    # the logits to a layout with the whole vocab on every rank
+    m = (torch.amax(logits, dim=-1, keepdim=True) if _on_mesh(logits)
+         else logits.max(dim=-1, keepdim=True).values).detach()
     shifted = logits - m
-    sumexp = torch.exp(shifted).sum(dim=-1, dtype=torch.float32)
     # ignored positions gather index 0 (masked out below): torch.gather
     # rejects a negative index
-    # (on rows: DTensor's vocab-parallel gather takes two dims)
     V = shifted.shape[-1]
-    idx = labels.long().clamp_min(0).reshape(-1, 1)
-    gold = torch.gather(shifted.reshape(-1, V), -1, idx).reshape(
-        labels.shape)
+    idx = labels.long().clamp_min(0)
+    if _on_mesh(shifted):
+        sumexp, gold = _terms_on_mesh(shifted, idx)
+    else:
+        sumexp = torch.exp(shifted).sum(dim=-1, dtype=torch.float32)
+        gold = torch.gather(shifted.reshape(-1, V), -1,
+                            idx.reshape(-1, 1)).reshape(labels.shape)
+    # on a mesh: the per-token terms laid out by the batch only, and their
+    # gradients too (a layout DTensor picks for them, the sequence over
+    # "model", would move the logits' gradient there by an all-to-all)
+    sumexp = maybe_constrain(sumexp, (DATA, None))
+    gold = maybe_constrain(gold, (DATA, None))
     nll = torch.log(sumexp) - gold.float()
     mask = labels != ignore_id
     return (nll * mask).sum() / mask.sum().clamp_min(1)

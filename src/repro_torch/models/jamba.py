@@ -41,8 +41,8 @@ from ..kernels.flash import flash_attention
 from . import mamba as mamba_lib
 from . import moe as moe_lib
 from .common import (ArchConfig, CastCache, cross_entropy, decode_attention,
-                     dense_init, embed_init, lookup, nest_layers, remat_wrap,
-                     rms_norm)
+                     dense_init, embed_init, lookup, mesh_zeros, nest_layers,
+                     remat_wrap, rms_norm)
 from .transformer import project_qkv
 
 
@@ -300,10 +300,20 @@ def prefill(model: Jamba, tokens, cache_len: int) -> tuple:
     if S > cache_len:
         raise ValueError(f"a {S}-token prompt does not fit a cache of "
                          f"{cache_len}")
-    cache = make_cache(model.cfg, B, cache_len, x.device)
+    spec = make_cache(model.cfg, B, cache_len, "meta")
+    cache = None
     for p, period in enumerate(model.periods):
         x, new = period_fwd(period, x, model.cfg, mode="prefill")
         k, v = new["kv"]
+        if cache is None:
+            # each entry laid out as what its slot takes (a plain tensor
+            # on their device)
+            like = {"k": k, "v": v}
+            for key, (conv, h) in new.items():
+                if key.startswith("mamba"):
+                    j = key[len("mamba"):]
+                    like[f"m{j}_conv"], like[f"m{j}_h"] = conv, h
+            cache = {n: mesh_zeros(t, like[n]) for n, t in spec.items()}
         cache["k"][p, :, :S] = k
         cache["v"][p, :, :S] = v
         _store_states(cache, p, new)

@@ -30,7 +30,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from .common import (DATA, ArchConfig, CastCache, dense_init,
+from .common import (DATA, ArchConfig, CastCache, dense_init, lay_out,
                      maybe_constrain, rms_norm, scan_pairs)
 
 
@@ -132,6 +132,32 @@ def selective_scan(dt, xin, Bv, Cf, A, h0, chunk: int) -> tuple:
     return torch.cat(ys, dim=1), h
 
 
+def _scan_on_blocks(dt, xin, Bv, Cf, A, h0, chunk: int) -> tuple:
+    """:func:`selective_scan`, on DTensors (the dry run's sharded layers)
+    each rank's block through ``local_map``: the batch as dt's rows are
+    split, d_inner as its channels (the scan is independent along both);
+    B, C and the state follow.  Its many small ops then run on the blocks,
+    not through DTensor's planning one by one.  On plain tensors as it
+    is."""
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+    if not isinstance(dt, DTensor):
+        return selective_scan(dt, xin, Bv, Cf, A, h0, chunk)
+    from torch.distributed.tensor.experimental import local_map
+    mesh = dt.device_mesh
+    x_pl = [p if p in (Shard(0), Shard(2)) else Replicate()
+            for p in dt.placements]
+    n_pl = [p if p == Shard(0) else Replicate() for p in x_pl]
+    a_pl = [Shard(0) if p == Shard(2) else Replicate() for p in x_pl]
+    h_pl = [Shard(1) if p == Shard(2) else p for p in x_pl]
+    args = [lay_out(t, mesh, pl) for t, pl in ((dt, x_pl), (xin, x_pl),
+                                               (Bv, n_pl), (Cf, n_pl),
+                                               (A, a_pl), (h0, h_pl))]
+    return local_map(lambda *a: selective_scan(*a, chunk),
+                     out_placements=(x_pl, h_pl),
+                     in_placements=(x_pl, x_pl, n_pl, n_pl, a_pl, h_pl),
+                     device_mesh=mesh)(*args)
+
+
 def mamba_fwd(m: Mamba, x: torch.Tensor, *, state=None) -> tuple:
     """x (B, S, d) -> (out (B, S, d), (conv_state, h)).  ``state``:
     (conv_state, h) or None (a zero start).  With S == 1 and a state this
@@ -166,8 +192,8 @@ def mamba_fwd(m: Mamba, x: torch.Tensor, *, state=None) -> tuple:
         h_last = a1 * h0 + u1
         y = torch.einsum("bdn,bn->bd", h_last, Cf[:, 0])[:, None]
     else:
-        y, h_last = selective_scan(dt, xin, Bv, Cf, A, h0,
-                                   min(cfg.scan_chunk, S))
+        y, h_last = _scan_on_blocks(dt, xin, Bv, Cf, A, h0,
+                                    min(cfg.scan_chunk, S))
     y = y.to(dt_) + xin * m.w("D", dt_)
     y = y * F.silu(z)
     return res + y @ m.w("out_proj", dt_), (new_conv, h_last)

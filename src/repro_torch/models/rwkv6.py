@@ -37,8 +37,9 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..kernels.rwkv6 import wkv6
-from .common import (ArchConfig, CastCache, cross_entropy, dense_init,
-                     embed_init, lookup, nest_layers, remat_wrap, rms_norm)
+from .common import (DATA, ArchConfig, CastCache, cross_entropy,
+                     dense_init, embed_init, lay_out, lookup, maybe_constrain,
+                     nest_layers, remat_wrap, rms_norm)
 
 LORA_RANK = 32
 
@@ -63,6 +64,37 @@ _VECTOR_INIT = {"ln1": 1.0, "ln2": 1.0, "gn_scale": 1.0, "w0": -6.0,
 
 def num_heads(cfg: ArchConfig) -> int:
     return cfg.d_model // cfg.rwkv_head_dim
+
+
+def _step(rf, kf, vf, lw, u, S0) -> tuple:
+    """One decode step of the recurrence: r, k, v, log w (B, H, hd), u (H,
+    hd), the state S0 (B, H, hd, hd) -> (y (B, H, hd), the new state)."""
+    y = torch.einsum("bhk,bhkv->bhv", rf, S0) + \
+        torch.einsum("bhk,bhk->bh", rf, u[None] * kf)[..., None] * vf
+    S_new = torch.exp(lw)[..., None] * S0 + \
+        torch.einsum("bhk,bhv->bhkv", kf, vf)
+    return y, S_new
+
+
+def _step_on_blocks(rf, kf, vf, lw, u, S0) -> tuple:
+    """:func:`_step`, on DTensors (the dry run's sharded decode) each
+    rank's block of the batch and the heads through ``local_map``, laid out
+    as the state is (a product over two split dims flattened is not
+    planned by every torch release's DTensor); on plain tensors as it
+    is."""
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+    if not isinstance(S0, DTensor):
+        return _step(rf, kf, vf, lw, u, S0)
+    from torch.distributed.tensor.experimental import local_map
+    mesh = S0.device_mesh
+    x_pl = [p if p in (Shard(0), Shard(1)) else Replicate()
+            for p in S0.placements]
+    u_pl = [Shard(0) if p == Shard(1) else Replicate() for p in x_pl]
+    args = [lay_out(t, mesh, x_pl) for t in (rf, kf, vf, lw)] + [
+        lay_out(u, mesh, u_pl), lay_out(S0, mesh, x_pl)]
+    return local_map(_step, out_placements=(x_pl, x_pl),
+                     in_placements=(x_pl,) * 4 + (u_pl, x_pl),
+                     device_mesh=mesh)(*args)
 
 
 def wkv_chunk(cfg: ArchConfig, S: int) -> int:
@@ -136,11 +168,8 @@ class RWKV6Layer(nn.Module):
         if S == 1:
             # decode: one recurrence step, plain torch
             rf, kf, vf = (t[:, 0].float() for t in (r, k, v))
-            lw = logw[:, 0].float()
-            y = torch.einsum("bhk,bhkv->bhv", rf, S0) + \
-                torch.einsum("bhk,bhk->bh", rf, u[None] * kf)[..., None] * vf
-            S_new = torch.exp(lw)[..., None] * S0 + \
-                torch.einsum("bhk,bhv->bhkv", kf, vf)
+            y, S_new = _step_on_blocks(rf, kf, vf, logw[:, 0].float(), u,
+                                       S0)
             y = y[:, None]
         else:
             y, S_new = wkv6(r, k, v, logw, u, S0, chunk=wkv_chunk(cfg, S))
@@ -199,6 +228,16 @@ class RWKV6(nn.Module):
         self._cast = CastCache()
 
     def embed_tokens(self, tokens) -> torch.Tensor:
+        from torch.distributed.tensor import DTensor
+        if isinstance(tokens, DTensor) and self.embed.requires_grad \
+                and torch.is_grad_enabled():
+            # training on a mesh: the lookup as an embedding op, whose
+            # backward DTensor plans in every torch release (an index's
+            # backward, a scatter into zeros of the table, not in all),
+            # the rows over the data axes and the gradient whole over d
+            x = F.embedding(tokens.long(), self.embed)
+            return maybe_constrain(x.to(self.cfg.compute_dtype),
+                                   (DATA, None, None))
         return self.embed[tokens.long()].to(self.cfg.compute_dtype)
 
     def logits(self, x) -> torch.Tensor:

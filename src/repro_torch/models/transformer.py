@@ -72,8 +72,8 @@ from . import moe as moe_lib
 from .common import (DATA, WHOLE, ArchConfig, CastCache, ModelSplit,
                      apply_rope, cross_entropy, decode_attention, dense_init,
                      embed_init, heads_flat, lookup, maybe_constrain,
-                     model_axis_size, nest_layers, remat_wrap, rms_norm,
-                     rope_cos_sin)
+                     mesh_zeros, model_axis_size, nest_layers, remat_wrap,
+                     rms_norm, rope_cos_sin)
 
 #: the families this module builds
 FAMILIES = ("dense", "moe", "vlm")
@@ -85,14 +85,32 @@ def _swiglu(cfg: ArchConfig) -> bool:
     return cfg.ffn_mult == 3
 
 
+#: a layer's attention leaves: its query, key, value and output matrices
+#: and their biases
+ATTENTION = ("wq", "wk", "wv", "wo", "bq", "bk", "bv")
+
+
+def attention_split(cfg: ArchConfig, split: ModelSplit) -> ModelSplit:
+    """``split`` for the attention block where the query and kv heads
+    split over it into whole heads; else the whole block, every model rank
+    running every head on the whole activation (the FFN still split): a
+    head cannot be cut, and the reference's XLA then keeps the heads whole
+    as well, splitting the keys' sequence instead."""
+    if cfg.n_heads % split.size == 0 and cfg.n_kv % split.size == 0:
+        return split
+    return WHOLE
+
+
 def _matrices(cfg: ArchConfig, split: ModelSplit = WHOLE) -> dict:
     """The per-layer matrices of the reference, by shape (the experts'
     are ``moe_lib.MoEFFN``'s), or ``split``'s block of them: wq, wk, wv
     and the FFN's first matrices by columns (whole heads), wo and w_down
-    by rows."""
+    by rows (the attention's whole where its heads do not split, see
+    :func:`attention_split`)."""
     d, hd = cfg.d_model, cfg.head_dim
-    H = split.part(cfg.n_heads, "query heads")
-    KV = split.part(cfg.n_kv, "kv heads")
+    att = attention_split(cfg, split)
+    H = att.part(cfg.n_heads, "query heads")
+    KV = att.part(cfg.n_kv, "kv heads")
     out = {"wq": (d, H * hd), "wk": (d, KV * hd), "wv": (d, KV * hd),
            "wo": (H * hd, d)}
     if cfg.moe_experts > 0:
@@ -119,8 +137,9 @@ def _biases(cfg: ArchConfig, split: ModelSplit = WHOLE) -> dict:
     ``split`` each cut as its matrix's columns, ``b_down`` whole (added
     after the row-parallel sum)."""
     hd = cfg.head_dim
-    H = split.part(cfg.n_heads, "query heads")
-    KV = split.part(cfg.n_kv, "kv heads")
+    att = attention_split(cfg, split)
+    H = att.part(cfg.n_heads, "query heads")
+    KV = att.part(cfg.n_kv, "kv heads")
     out = {}
     if cfg.qkv_bias:
         out.update(bq=(H * hd,), bk=(KV * hd,), bv=(KV * hd,))
@@ -207,6 +226,7 @@ class TransformerLayer(nn.Module):
         super().__init__()
         self.cfg = cfg
         self.split = split
+        self.attn_split = attention_split(cfg, split)
         for name, shape in {**_vectors(cfg), **_biases(cfg, split),
                             **_matrices(cfg, split)}.items():
             self.register_parameter(name, nn.Parameter(torch.empty(
@@ -248,7 +268,7 @@ class TransformerLayer(nn.Module):
         B, S, _ = x.shape
         dt = x.dtype
         q, k, v = project_qkv(
-            self, self.split.enter(rms_norm(x, self.ln1, cfg.norm_eps)),
+            self, self.attn_split.enter(rms_norm(x, self.ln1, cfg.norm_eps)),
             cos, sin)
         if cache is None:
             attn = attention(q, k, v, cfg.sliding_window)
@@ -263,7 +283,7 @@ class TransformerLayer(nn.Module):
             attn = decode_attention(q, k_cache, v_cache, pos)
             new = cache
         attn = heads_flat(attn.reshape(B, S, -1), cfg.n_heads)
-        x = x + self.split.exit(attn @ self.w("wo", dt))
+        x = x + self.attn_split.exit(attn @ self.w("wo", dt))
         # on a mesh the row-parallel products leave partial sums: the
         # residual stream is summed over "model" (the model group's sum)
         x = maybe_constrain(x, _RESIDUAL)
@@ -385,11 +405,8 @@ def _mesh_cache(cfg: ArchConfig, k, cache_len: int) -> dict:
     """:func:`make_cache` as DTensors (the dry run's sharded prefill),
     each layer's slot laid out as the keys ``k`` (B, S, KV, hd) it
     holds."""
-    from torch.distributed.tensor import Shard, zeros
-    place = [Shard(p.dim + 1) if p.is_shard() else p for p in k.placements]
-    shape = (cfg.num_layers, k.shape[0], cache_len) + tuple(k.shape[2:])
-    return {n: zeros(shape, dtype=k.dtype, device_mesh=k.device_mesh,
-                     placements=place) for n in ("k", "v")}
+    spec = make_cache(cfg, k.shape[0], cache_len, "meta", k.dtype)
+    return {n: mesh_zeros(t, k) for n, t in spec.items()}
 
 
 def _layer_train(layer, x, cos, sin):

@@ -43,7 +43,8 @@ from torch import nn
 from ..kernels.flash import flash_attention
 from .common import (ArchConfig, CastCache, cross_entropy, decode_attention,
                      dense_init, embed_init, gelu_mlp, heads_flat,
-                     layer_norm, lookup, nest_layers, remat_wrap)
+                     layer_norm, lookup, mesh_zeros, nest_layers,
+                     remat_wrap)
 
 MAX_TARGET_POSITIONS = 448
 LN_EPS = 1e-5
@@ -288,11 +289,15 @@ def prefill(model: Whisper, frames, tokens, cache_len: int) -> tuple:
     if S > cache_len:
         raise ValueError(f"a {S}-token prompt does not fit a cache of "
                          f"{cache_len}")
-    cache = make_cache(model.cfg, B, cache_len, x.device)
+    spec = make_cache(model.cfg, B, cache_len, "meta")
+    cache = None
     cross = []
     for i, layer in enumerate(model.dec_layers):
         xk, xv = layer.keys_values(enc_out, "x_")
         x, (k, v) = _dec_layer(layer, x, enc_out, xk, xv)
+        if cache is None:
+            # laid out as the keys (a plain tensor on their device)
+            cache = {n: mesh_zeros(spec[n], k) for n in ("k", "v")}
         cache["k"][i, :, :S] = k
         cache["v"][i, :, :S] = v
         cross.append((xk, xv))

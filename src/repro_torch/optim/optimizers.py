@@ -110,6 +110,21 @@ def adamw(lr: float = 3e-4, b1: float = 0.9, b2: float = 0.95,
     return Optimizer("adamw", init, update, 8.0)
 
 
+def _like(x, g):
+    """``x``, broadcastable to ``g``, laid out as ``g`` over the dims where
+    it is whole (a free slice of a replicated DTensor), so their product
+    keeps ``g``'s blocks; a plain tensor as it is.  On the dry run's
+    DTensors the factored moments' outer product would otherwise be made
+    whole, at the leaf's global size, on every rank."""
+    from torch.distributed.tensor import DTensor, Replicate
+    if not (isinstance(x, DTensor) and isinstance(g, DTensor)):
+        return x
+    place = tuple(p if p.is_shard() and x.shape[p.dim] == g.shape[p.dim]
+                  else Replicate() for p in g.placements)
+    return x if tuple(x.placements) == place else \
+        x.redistribute(x.device_mesh, place)
+
+
 def adafactor(lr: float = 1e-3, decay: float = 0.8, eps: float = 1e-30,
               clip_threshold: float = 1.0) -> Optimizer:
     """Factored second-moment optimizer (Shazeer & Stern) — O(n+m) state for
@@ -143,7 +158,7 @@ def adafactor(lr: float = 1e-3, decay: float = 0.8, eps: float = 1e-30,
                 vr, vc = s["vr"], s["vc"]
                 vr.copy_(beta * vr + (1 - beta) * g2.mean(-1))
                 vc.copy_(beta * vc + (1 - beta) * g2.mean(-2))
-                denom = (vr[..., None] * vc[..., None, :]
+                denom = (_like(vr[..., None], g) * _like(vc[..., None, :], g)
                          / torch.clamp_min(
                              vr.mean(-1, keepdim=True)[..., None], eps))
                 u = g * torch.rsqrt(denom + eps)

@@ -17,9 +17,12 @@ blocks (``stage.py::transformer_stage_fn(cfg, tp=...)``).  Every model
 rank of a stage holds the whole activation; a block's input is marked by
 an identity whose backward sums the gradient over the model group, its
 output summed over the model group (``Pipe.all_reduce_``, "tp_reduce").
-The leaves a layer reads whole inside those blocks — the qk-norm scales
-and the MoE router — get a partial gradient on each model rank, summed
-over the model group in the backward; the ones read outside them (the
+Where the query or kv heads do not split over M into whole heads, the
+attention runs whole on every model rank (its leaves whole, the FFN still
+split; ``transformer.py::attention_split``).  The leaves a layer reads
+whole inside those blocks — the qk-norm scales of split heads and the MoE
+router — get a partial gradient on each model rank, summed over the
+model group in the backward; the ones read outside them (the
 layer norms, the embedding, the final norm, the head) are whole on each
 rank, and the head runs on every model rank (the reference's XLA lays all
 of this out itself: its stage region is manual over "stage" only).
@@ -326,6 +329,23 @@ class _ReduceGrad(torch.autograd.Function):
 _INSIDE = ("q_norm", "k_norm", "router")
 
 
+def _whole_attention(cfg: ArchConfig, M: int) -> bool:
+    """Whether the layers' attention runs whole on every model rank (its
+    heads do not split over a model axis of M: ``transformer.py::
+    attention_split``)."""
+    from ..models import transformer as tf_lib
+    return M > 1 and tf_lib.attention_split(cfg, ModelSplit(M)).size == 1
+
+
+def _inside(cfg: ArchConfig, M: int) -> tuple:
+    """:data:`_INSIDE` for ``cfg`` on a model axis of M: the qk-norm
+    scales are read outside the blocks where the attention runs whole
+    (their gradient whole on each rank, as the layer norms')."""
+    if _whole_attention(cfg, M):
+        return tuple(n for n in _INSIDE if n not in ("q_norm", "k_norm"))
+    return _INSIDE
+
+
 def _reduced(pipe: Pipe, x: torch.Tensor, over_stage: bool,
              over_model: bool = False):
     over_model = over_model and pipe.M > 1
@@ -336,7 +356,10 @@ def _reduced(pipe: Pipe, x: torch.Tensor, over_stage: bool,
 
 
 def _check_config(cfg: ArchConfig) -> None:
-    if cfg.family not in ("dense", "moe"):
+    """The transformer's families: dense, MoE, and the VLM backbone, whose
+    pipelined loss reads the tokens only (as the reference's does: its
+    patch embeddings go unused there)."""
+    if cfg.family not in ("dense", "moe", "vlm"):
         raise ValueError(f"the stage pipeline runs the transformer's layers; "
                          f"family {cfg.family!r} has none")
 
@@ -350,8 +373,9 @@ def _head_logits(cfg: ArchConfig, params: dict, y: torch.Tensor):
 
 
 def check_model_axis(cfg: ArchConfig, M: int) -> None:
-    """ValueError unless a model axis of M splits ``cfg``'s layers
-    into whole heads and equal FFN (or expert) blocks."""
+    """ValueError unless a model axis of M splits ``cfg``'s layers into
+    equal FFN (or expert) blocks (heads that do not split into whole heads
+    run whole on every model rank)."""
     if M == 1:
         return
     from ..models import moe as moe_lib
@@ -382,6 +406,8 @@ def shard_params(params: dict, mesh, pcfg: PipelineConfig,
         check_model_axis(cfg, M)
     _, _, k, m = _coords(mesh, pcfg)
     S = pcfg.num_stages
+    from ..models import transformer as tf_lib
+    whole_attention = M > 1 and _whole_attention(cfg, M)
 
     def leaf(x, rows=None):
         t = x if isinstance(x, torch.Tensor) else torch.as_tensor(
@@ -397,13 +423,39 @@ def shard_params(params: dict, mesh, pcfg: PipelineConfig,
         L = tree.shape[0]
         if L % S:
             raise ValueError(f"{L} layers do not split into {S} stages")
-        if M > 1 and path.rsplit("/", 1)[-1] not in _INSIDE:
+        name = path.rsplit("/", 1)[-1]
+        if M > 1 and name not in _INSIDE and not (
+                whole_attention and name in tf_lib.ATTENTION):
             tree = model_block(cfg, mesh, path, tree, m)
         n = L // S
         return leaf(tree, slice(k * n, (k + 1) * n))
 
     return {k: (stage_slice(v, k) if k == "layers" else leaf(v))
             for k, v in params.items()}
+
+
+def _data_rows(tokens, labels, Q: int, pipe: Pipe) -> tuple:
+    """This data rank's rows of each of the Q micro-batches of (B, L)
+    ``tokens`` / ``labels``: (Q, m, L) each, m = ceil(B / (Q D)), and the
+    weight of its mean loss.  A micro-batch's B / Q rows split over the D
+    data ranks as far as they go, padded to m D (the reference's layout of
+    a stream whose rows do not divide): a rank's padding rows are token 0
+    with label -1, which the cross entropy leaves out, so they add nothing
+    to the loss or the gradients.  The weight, (its real rows) D / (B /
+    Q), makes the data group's mean of the ranks' means the mean over the
+    real rows (1 where the rows divide)."""
+    B, L = tokens.shape
+    r = B // Q
+    m = -(-r // pipe.D)
+    lo, hi = min(pipe.d * m, r), min((pipe.d + 1) * m, r)
+    tokens = tokens.reshape(Q, r, L)[:, lo:hi]
+    labels = labels.reshape(Q, r, L)[:, lo:hi]
+    if hi - lo < m:
+        pad = (0, 0, 0, m - (hi - lo))
+        tokens = torch.nn.functional.pad(tokens, pad, value=0)
+        labels = torch.nn.functional.pad(labels, pad, value=-1)
+    weight = 1 if (hi - lo) * pipe.D == r else (hi - lo) * pipe.D / r
+    return tokens, labels, weight
 
 
 def make_pipelined_loss(cfg: ArchConfig, mesh, pcfg: PipelineConfig,
@@ -413,7 +465,9 @@ def make_pipelined_loss(cfg: ArchConfig, mesh, pcfg: PipelineConfig,
     ``"cpu"``).  ``params`` is this rank's tree (:func:`shard_params`);
     ``batch`` the whole global batch ({tokens, labels}, (B, S) each), the
     same on every rank: rank (d, k) embeds and scores rows
-    [d m, (d + 1) m) of each of the Q micro-batches, m = B / (Q D).  The
+    [d m, (d + 1) m) of each of the Q micro-batches, m = B / (Q D) (a
+    micro-batch with fewer rows than the D data ranks padded, see
+    :func:`_data_rows`).  The
     loss equals the plain model's mean cross entropy, and its gradient
     (``torch.autograd.grad``) the plain gradient of this rank's leaves.
     A collective: every rank of the mesh calls it, and then the loss,
@@ -423,6 +477,7 @@ def make_pipelined_loss(cfg: ArchConfig, mesh, pcfg: PipelineConfig,
     dev = resolve_device(device)
     pipe = Pipe(mesh, pcfg, dev)
     stage_fn = transformer_stage_fn(cfg, model_split(pipe))
+    inside = _inside(cfg, pipe.M)
     S, Q = pcfg.num_stages, pcfg.num_microbatches
     T = Q + S - 1
     first = torch.tensor(pipe.k == 0, device=dev)
@@ -432,18 +487,15 @@ def make_pipelined_loss(cfg: ArchConfig, mesh, pcfg: PipelineConfig,
         tokens = torch.as_tensor(batch["tokens"], device=dev)
         labels = torch.as_tensor(batch["labels"], device=dev)
         B, L = tokens.shape
-        if B % (Q * pipe.D):
+        if B % Q:
             raise ValueError(f"a batch of {B} does not split into {Q} "
-                             f"micro-batches over {pipe.D} data ranks")
-        m = B // (Q * pipe.D)
-        rows = slice(pipe.d * m, (pipe.d + 1) * m)
-        tokens = tokens.reshape(Q, B // Q, L)[:, rows]
-        labels = labels.reshape(Q, B // Q, L)[:, rows]
+                             f"micro-batches")
+        tokens, labels, weight = _data_rows(tokens, labels, Q, pipe)
         rep = {k: _reduced(pipe, v, True) for k, v in params.items()
                if k != "layers"}
-        layers = {k: (_reduced(pipe, v, False, k in _INSIDE)
+        layers = {k: (_reduced(pipe, v, False, k in inside)
                       if not isinstance(v, dict) else
-                      {n: _reduced(pipe, w, False, n in _INSIDE)
+                      {n: _reduced(pipe, w, False, n in inside)
                        for n, w in v.items()})
                   for k, v in params["layers"].items()}
         x = rep["embed"][tokens.long()].to(cfg.compute_dtype)
@@ -463,8 +515,8 @@ def make_pipelined_loss(cfg: ArchConfig, mesh, pcfg: PipelineConfig,
         part = torch.zeros((), dtype=torch.float32, device=dev)
         heads = range(pipe.k, Q, S)
         for q in heads:
-            part = part + cross_entropy(_head_logits(cfg, rep, ys[q]),
-                                        labels[q])
+            ce = cross_entropy(_head_logits(cfg, rep, ys[q]), labels[q])
+            part = part + (ce if weight == 1 else ce * weight)
         if not heads:
             # Q < S: this rank scores no micro-batch.  Its part still
             # reaches ys and every replicated leaf (with zero gradients),

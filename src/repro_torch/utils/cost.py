@@ -22,7 +22,11 @@ actually runs, under a ``TorchDispatchMode`` (:class:`CostCounter`):
   hops under the reference's name "collective-permute" from
   ``pipeline/spmd.py::Pipe.bytes`` (a p2p op reaches no dispatcher).
 - **Memory** (``track_memory``): the bytes of the storages alive after
-  each op, their peak, and which of them were there before the step.
+  each op (meta-device tensors, shapes without storage, are neither
+  counted nor tracked), their peak, and which of them were there before
+  the step;
+  with ``breakdown`` also the storages alive at the peak above the
+  arguments, each by the op that made it (:meth:`CostCounter.peak_by_op`).
 
 ``while_trip_counts`` / ``unresolved_loops`` have no counterpart: torch
 counts each op every time it runs, so a loop body is counted once per
@@ -178,7 +182,8 @@ class CostCounter(TorchDispatchMode):
     peak in ``peak_bytes``; :meth:`mark_arguments` first names the
     storages that existed before the step)."""
 
-    def __init__(self, *, pipe=None, track_memory: bool = False):
+    def __init__(self, *, pipe=None, track_memory: bool = False,
+                 breakdown: bool = False):
         super().__init__()
         self.flops = 0.0
         self.traffic = 0.0
@@ -193,7 +198,17 @@ class CostCounter(TorchDispatchMode):
         self._args = set()
         self.peak_bytes = 0
         self.peak_temp_bytes = 0
+        # the bytes of every storage in _live (the dead ones too until a
+        # sweep drops them), of the arguments among them, and the size
+        # _live may reach before a sweep
+        self._bound = 0
+        self._arg_bytes = 0
+        self._sweep_at = 1024
         self._mult = 1
+        self.breakdown = breakdown
+        self._made_by = {}          # storage -> (op, shape, dtype)
+        self._op = None
+        self._at_peak = {}          # storage -> (bytes, (op, shape, dtype))
 
     @contextlib.contextmanager
     def repeat(self, n: int):
@@ -221,35 +236,74 @@ class CostCounter(TorchDispatchMode):
             if key not in self._args:
                 self._args.add(key)
                 n = t.untyped_storage().nbytes()
+                if key not in self._live:
+                    self._bound += n
                 self._live[key] = (ref, n)
+                self._arg_bytes += n
                 total += n
         return total
 
     def live_bytes(self, *, temp: bool = False) -> int:
-        return sum(n for key, (_, n) in self._live.items()
-                   if not (temp and key in self._args))
+        self._sweep()
+        return self._bound - (self._arg_bytes if temp else 0)
+
+    def _sweep(self) -> None:
+        """Drop the storages that died since the last sweep."""
+        for k in [k for k, (ref, _) in self._live.items() if ref.expired()]:
+            n = self._live.pop(k)[1]
+            self._bound -= n
+            if k in self._args:
+                self._args.discard(k)
+                self._arg_bytes -= n
+            self._made_by.pop(k, None)
+        self._sweep_at = 2 * len(self._live) + 1024
 
     def _track(self, outs) -> None:
-        """Register new storages among ``outs``; when there is one, drop
-        the dead and update the peaks (a peak can only rise where
-        something is allocated)."""
+        """Register new storages among ``outs``; when there is one that
+        may raise a peak, drop the dead and update the peaks (a peak can
+        only rise where something is allocated, and only above what is
+        live, dead storages not yet dropped included: below that bound
+        nothing is swept but every so often, to keep the table small)."""
         new = False
         for t in outs:
             if isinstance(t, torch.Tensor) and not _is_dtensor(t):
                 key, ref = _storage_key(t)
                 if key not in self._live:
-                    self._live[key] = (ref, t.untyped_storage().nbytes())
+                    n = t.untyped_storage().nbytes()
+                    self._live[key] = (ref, n)
+                    self._bound += n
                     new = True
-        if not new:
+                    if self.breakdown:
+                        self._made_by[key] = (self._op, tuple(t.shape),
+                                              str(t.dtype))
+        if not new or (self._bound <= self.peak_bytes
+                       and self._bound - self._arg_bytes
+                       <= self.peak_temp_bytes
+                       and len(self._live) < self._sweep_at):
             return
-        dead = [k for k, (ref, _) in self._live.items() if ref.expired()]
-        for k in dead:
-            del self._live[k]
-            self._args.discard(k)
-        live = self.live_bytes()
-        temp = live - sum(self._live[k][1] for k in self._args)
+        self._sweep()
+        live = self._bound
+        temp = live - self._arg_bytes
         self.peak_bytes = max(self.peak_bytes, live)
+        if temp > self.peak_temp_bytes and self.breakdown:
+            self._at_peak = {k: (n, self._made_by.get(k))
+                             for k, (_, n) in self._live.items()
+                             if k not in self._args}
         self.peak_temp_bytes = max(self.peak_temp_bytes, temp)
+
+    def peak_by_op(self, top: int = 12) -> list:
+        """The storages alive at the peak above the arguments (needs
+        ``breakdown``), grouped by the op, shape and type that made them:
+        [{"op", "shape", "dtype", "count", "bytes"}], the largest first."""
+        groups = defaultdict(lambda: [0, 0])
+        for n, made in self._at_peak.values():
+            g = groups[made or ("?", (), "?")]
+            g[0] += 1
+            g[1] += n
+        rows = [{"op": op, "shape": list(shape), "dtype": dtype,
+                 "count": c, "bytes": b}
+                for (op, shape, dtype), (c, b) in groups.items()]
+        return sorted(rows, key=lambda r: -r["bytes"])[:top]
 
     # -- dispatch -------------------------------------------------------
     def __enter__(self):
@@ -280,8 +334,12 @@ class CostCounter(TorchDispatchMode):
             return NotImplemented
         kwargs = kwargs or {}
         out = func(*args, **kwargs)
+        self._op = str(func.overloadpacket)
         if _PROPAGATING[0] or getattr(func, "namespace", "") == "prim":
             return out          # planning, or a metadata query (.device)
+        outs = [t for t in tree_flatten(out)[0] if isinstance(t, torch.Tensor)]
+        if outs and all(t.device.type == "meta" for t in outs):
+            return out          # shapes only (a spec on the meta device)
         flat = tree_flatten((args, kwargs))[0]
         packet = func.overloadpacket
         space, _, name = str(packet).rpartition(".")

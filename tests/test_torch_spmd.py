@@ -6,7 +6,9 @@ The ranks meet through a ``FileStore`` under ``tmp_path`` (no TCP port),
 run one intra-op thread each and import no JAX.  One spawn serves every
 case: llama3-8b reduced to 4 layers in float32, a batch of 8 x 16 in Q = 4
 micro-batches, pipelined over (data 2 x stage 2) and (stage 4), and in
-Q = 2 over (stage 4), where two stage ranks score no micro-batch; with a
+Q = 2 over (stage 4), where two stage ranks score no micro-batch, and in
+Q = 8 over (data 2 x stage 2), a micro-batch's one row over two data
+ranks (the second holds a padding row); with a
 "model" axis (tensor parallelism inside a stage: each rank holds its
 block of heads and FFN columns) over (stage 2 x model 2) and (data 2 x
 stage 1 x model 2); the MoE branches over (stage 2 x model 2):
@@ -64,6 +66,10 @@ PIPELINES = [
     {"tag": "s4", "axes": ["stage"], "sizes": [4], "stages": 4, "q": Q},
     # fewer micro-batches than stages: ranks 2 and 3 run no head
     {"tag": "s4q2", "axes": ["stage"], "sizes": [4], "stages": 4, "q": 2},
+    # fewer rows a micro-batch than data ranks: one row over two, data
+    # rank 1 holding a padding row
+    {"tag": "d2s2q8", "axes": ["data", "stage"], "sizes": [2, 2],
+     "stages": 2, "q": 8},
 ]
 for _c in PIPELINES:
     _c.setdefault("arch", ARCH)
@@ -153,7 +159,8 @@ def spawn(d, models, pipelines, train, splits):
         loss, grads = jax.jit(jax.value_and_grad(api.loss))(params, batch)
         ref[arch] = {"loss": float(loss), "grads": _flat(grads),
                      "weights": _flat(params),
-                     "experts": api.cfg.moe_experts}
+                     "experts": api.cfg.moe_experts,
+                     "heads": (api.cfg.n_heads, api.cfg.n_kv)}
     errors = []
     out, err = jax_proc.communicate(timeout=120)
     for r, p in enumerate(ranks):
@@ -192,14 +199,18 @@ def _stage_rows(full, k, stages):
 #: Megatron's blocks on a "model" axis: the columns of these (the last dim;
 #: a bias as its matrix), the rows of those; the experts' dim of the MoE
 #: matrices when the axis divides E, else their columns / rows.  The
-#: router and the norm scales stay whole.
+#: router and the norm scales stay whole, and so does the attention where
+#: its query or kv heads do not split over the axis.
 _COLS = ("wq", "wk", "wv", "w_gate", "w_up", "bq", "bk", "bv", "b_up")
 _ROWS = ("wo", "w_down")
+_ATTENTION = ("wq", "wk", "wv", "wo", "bq", "bk", "bv")
 
 
-def _model_part(key, full, m, M, experts):
+def _model_part(key, full, m, M, experts, heads=(1, 1)):
     name = key.split("/")[-1]
     if M == 1 or not key.startswith("layers/") or name not in _COLS + _ROWS:
+        return full
+    if name in _ATTENTION and any(h % M for h in heads):
         return full
     if key.startswith("layers/moe/") and experts % M == 0:
         dim = 1
@@ -213,8 +224,8 @@ def _model_size(case):
     return dict(zip(case["axes"], case["sizes"])).get("model", 1)
 
 
-def _want(key, ref, k, stages, m=0, M=1, experts=0):
-    full = _model_part(key, ref[key], m, M, experts)
+def _want(key, ref, k, stages, m=0, M=1, experts=0, heads=(1, 1)):
+    full = _model_part(key, ref[key], m, M, experts, heads)
     return _stage_rows(full, k, stages) if key.startswith("layers/") \
         else full
 
@@ -243,7 +254,8 @@ def check_grads(run, case):
         assert keys == set(ref["grads"]), keys ^ set(ref["grads"])
         for key in keys:
             got = o[pre + key]
-            want = _want(key, ref["grads"], k, S, m, M, ref["experts"])
+            want = _want(key, ref["grads"], k, S, m, M, ref["experts"],
+                         ref["heads"])
             assert got.shape == want.shape, key
             err = float(np.max(np.abs(got - want)))
             assert err < GRAD_ATOL, (tag, k, m, key, err)
@@ -286,7 +298,8 @@ def check_train(run, case):
         pre = f"{tag}/param/"
         keys = {key[len(pre):] for key in o if key.startswith(pre)}
         assert keys == set(ref["weights"])
-        local = {key: _want(key, ref["weights"], k, S, m, M, ref["experts"])
+        local = {key: _want(key, ref["weights"], k, S, m, M, ref["experts"],
+                            ref["heads"])
                  for key in keys}
         grads = {key: o[f"{via}/grad/{key}"] for key in keys}
         stepped = _flat(update(_nest(local), _nest(grads)))
@@ -327,26 +340,31 @@ def test_a_mesh_of_another_size_than_the_world_raises(run):
 
 
 def test_a_model_axis_and_other_families_raise():
-    """A "model" axis must split every layer into whole heads (and equal
-    FFN blocks); the pipeline runs the transformer's layers only.  Each
-    refuses before any rank is contacted."""
+    """A "model" axis must split every layer's FFN into equal blocks (heads
+    that do not split into whole heads run whole on every model rank); the
+    pipeline runs the transformer's layers only.  Each refuses before any
+    rank is contacted."""
     import torch
     from repro_torch.configs import get_config
     from repro_torch.launch.mesh import MeshLayout
+    from repro_torch.models.common import ModelSplit
+    from repro_torch.models.transformer import TransformerLayer
     from repro_torch.pipeline.spmd import (PipelineConfig,
+                                           check_model_axis,
                                            make_pipelined_loss,
                                            shard_params)
     cfg = dataclasses.replace(get_config(ARCH, reduced=True),
                               compute_dtype=torch.float32)
-    # 4 query and 2 kv heads: a model axis of 4 would split a kv head
-    with pytest.raises(ValueError, match="2 kv heads do not split over a "
-                                         "model axis of 4"):
-        make_pipelined_loss(cfg, MeshLayout(("stage", "model"), (2, 4)),
+    # 4 query and 2 kv heads over a model axis of 4: the attention whole
+    # on every model rank, the FFN's 176 columns split
+    check_model_axis(cfg, 4)
+    layer = TransformerLayer(cfg, device="meta", split=ModelSplit(4))
+    assert tuple(layer.wk.shape) == (cfg.d_model, 2 * cfg.head_dim)
+    assert tuple(layer.w_up.shape) == (cfg.d_model, 44)
+    with pytest.raises(ValueError, match="176 FFN columns do not split over "
+                                         "a model axis of 3"):
+        make_pipelined_loss(cfg, MeshLayout(("stage", "model"), (2, 3)),
                             PipelineConfig(2, 2), "cpu")
-    with pytest.raises(ValueError, match="4 query heads do not split over "
-                                         "a model axis of 8"):
-        make_pipelined_loss(cfg, MeshLayout(("stage", "model"), (1, 8)),
-                            PipelineConfig(1, 2), "cpu")
     # and shard_params needs the config to cut by the rules
     with pytest.raises(ValueError, match="needs the config"):
         shard_params({}, MeshLayout(("stage", "model"), (1, 2)),
