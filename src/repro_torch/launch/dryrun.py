@@ -69,7 +69,7 @@ from repro_torch.launch.steps import (default_microbatches,
                                       default_optimizer_name,
                                       make_decode_step, make_prefill_step,
                                       make_train_step)
-from repro_torch.models.common import _stacked
+from repro_torch.models.common import _stacked, batch_layout
 from repro_torch.optim import get_optimizer
 from repro_torch.utils.cost import CostCounter, op_histogram
 
@@ -127,16 +127,19 @@ def _one_microbatch(counter: CostCounter):
     """The train step's Q micro-batches have one shape: trace the first
     and count it Q times (``CostCounter.repeat``; the reference scales a
     scanned body by its trip count), the gradient accumulation's
-    elementwise ops with it; the optimizer's update is traced once."""
+    elementwise ops with it; the optimizer's update is traced once.  Its
+    forward runs in the micro-batch's :func:`batch_layout` (a remat
+    recompute in the backward re-enters it)."""
     import repro_torch.launch.steps as steps_mod
     from repro_torch.pipeline.executor import split_batch
     original = steps_mod.microbatch_grads
 
     def once(loss_fn, params, batch, q):
         if q == 1:
-            return original(loss_fn, params, batch, 1)
+            with batch_layout(batch["tokens"]):
+                return original(loss_fn, params, batch, 1)
         first = {k: v[0] for k, v in split_batch(batch, q).items()}
-        with counter.repeat(q):
+        with counter.repeat(q), batch_layout(first["tokens"]):
             return original(loss_fn, params, first, 1)
 
     steps_mod.microbatch_grads = once
@@ -265,14 +268,12 @@ def _finish(rec: dict, counter: CostCounter, args: int, outs, t0: float,
 
 def _lower_cell(arch: str, shape: str, mesh, *, policy=None,
                 q_override=None, device: str = "cuda", cfg=None,
-                batch_override=None, breakdown: bool = False,
-                optimizer: str = None):
+                batch_override=None, breakdown: bool = False):
     """Trace one cell of the baseline layout (``mesh`` a ``MeshLayout`` of
     the process group's size); returns the record dict.  ``cfg`` replaces
     ``get_config(arch)`` (a reduced or re-timed config), and
     ``batch_override`` = (global batch, sequence) the shape's;
-    ``breakdown`` adds ``peak_temp_by_op`` (what is alive at the peak);
-    ``optimizer`` replaces the config's default one."""
+    ``breakdown`` adds ``peak_temp_by_op`` (what is alive at the peak)."""
     import torch.distributed as dist
     cfg = cfg or get_config(arch)
     if os.environ.get("REPRO_REMAT"):
@@ -299,7 +300,7 @@ def _lower_cell(arch: str, shape: str, mesh, *, policy=None,
     dmesh = _device_mesh(layout, device)
     with _fake_mode():
         if sp.kind == "train":
-            opt_name = optimizer or default_optimizer_name(cfg)
+            opt_name = default_optimizer_name(cfg)
             q = q_override or default_microbatches(cfg, sp.global_batch)
             opt = get_optimizer(opt_name)
             model = _sharded_model(cfg, layout, dmesh, device, policy)
@@ -322,7 +323,8 @@ def _lower_cell(arch: str, shape: str, mesh, *, policy=None,
                                      device)
             counter = CostCounter(track_memory=True, breakdown=breakdown)
             args = counter.mark_arguments(list(model.parameters()), batch)
-            with _traced(counter), torch.no_grad():
+            with _traced(counter), torch.no_grad(), \
+                    batch_layout(batch["tokens"]):
                 outs = step(model, batch)
                 outs = (outs[0], _by_rules(outs[1], cfg_srv, layout, dmesh,
                                            policy))
@@ -337,7 +339,7 @@ def _lower_cell(arch: str, shape: str, mesh, *, policy=None,
             counter = CostCounter(track_memory=True, breakdown=breakdown)
             args = counter.mark_arguments(list(model.parameters()), cache,
                                           tok)
-            with _traced(counter), torch.no_grad():
+            with _traced(counter), torch.no_grad(), batch_layout(tok):
                 outs = step(model, cache, tok, sp.seq_len - 1)
                 outs = (outs[0], _by_rules(outs[1], cfg_srv, layout, dmesh,
                                            policy))
@@ -346,82 +348,6 @@ def _lower_cell(arch: str, shape: str, mesh, *, policy=None,
     if breakdown:
         rec["peak_temp_by_op"] = counter.peak_by_op()
     return _finish(rec, counter, args, outs, t0, layout.size)
-
-
-#: record fields that grow with the depth as sums over its layers do
-_LINEAR = ("xla_flops_per_device", "xla_bytes_per_device", "flops_per_device",
-           "bytes_per_device", "collective_bytes_per_device",
-           "lower_compile_seconds")
-
-
-def _unit_layers(cfg) -> int:
-    """Layers of the config's repeating unit: a jamba period, else a
-    layer (whisper's two stacks have no one unit)."""
-    if cfg.family == "audio":
-        raise ValueError("whisper's encoder and decoder stacks have no one "
-                         "repeating unit to extrapolate")
-    return cfg.attn_every if cfg.family == "hybrid" else 1
-
-
-def _lower_extrapolated(arch: str, shape: str, mesh, *, cfg=None,
-                        q_override=None, **kw) -> dict:
-    """:func:`_lower_cell` of a deep config from traces of one and two of
-    its repeating units (``_unit_layers``): every layer of a unit is
-    traced, and each figure that sums over the layers (FLOPs, traffic,
-    collective bytes by kind, argument and output bytes, kernel charges,
-    op counts) is the one-unit figure plus (units - 1) times the second
-    unit's increment.  The shape's micro-batches and the full config's
-    optimizer are pinned (both may depend on the depth).  The temp bytes
-    are extrapolated the same way; the peak is not a sum, so it is a
-    prediction of a prediction, and the record says how it was made."""
-    cfg = cfg or get_config(arch)
-    unit = _unit_layers(cfg)
-    units = cfg.num_layers // unit
-    if units < 3 or cfg.num_layers % unit:
-        return _lower_cell(arch, shape, mesh, cfg=cfg, q_override=q_override,
-                           **kw)
-    sp = SHAPES[shape]
-    if kw.get("batch_override") is not None:
-        sp = dataclasses.replace(sp, global_batch=kw["batch_override"][0])
-    if sp.kind == "train":
-        kw["optimizer"] = kw.get("optimizer") or default_optimizer_name(cfg)
-        q_override = q_override or default_microbatches(cfg, sp.global_batch)
-    one, two = (_lower_cell(arch, shape, mesh, q_override=q_override,
-                            cfg=dataclasses.replace(cfg, num_layers=n * unit),
-                            **kw) for n in (1, 2))
-
-    def grow(a, b):
-        if isinstance(a, dict):
-            return {k: grow(a[k], b[k]) for k in a}
-        if isinstance(a, (int, float)) and not isinstance(a, bool):
-            return a + (units - 1) * (b - a)
-        return a
-    rec = dict(two)
-    for k in _LINEAR:
-        rec[k] = grow(one[k], two[k])
-    rec["lower_compile_seconds"] = round(one["lower_compile_seconds"]
-                                         + two["lower_compile_seconds"], 2)
-    rec["collective_breakdown"] = grow(one["collective_breakdown"],
-                                       two["collective_breakdown"])
-    rec["memory"] = grow(one["memory"], two["memory"])
-    rec["kernels"] = grow(one["kernels"], two["kernels"])
-    ops = dict(one["op_histogram"])
-    rec["op_histogram"] = [(op, grow(ops.get(op, 0), n))
-                           for op, n in two["op_histogram"]]
-    if "cache" in two:
-        rec["cache"] = {k: {**v, "shape": [grow(a, b) if i == 0 else b
-                                           for i, (a, b) in enumerate(zip(
-                                               one["cache"][k]["shape"],
-                                               v["shape"]))]}
-                        for k, v in two["cache"].items()}
-    mem = rec["memory"]
-    rec["hbm_per_device"] = float(mem["argument_size_in_bytes"]
-                                  + mem["output_size_in_bytes"]
-                                  + mem["temp_size_in_bytes"])
-    rec["fits_80gb"] = bool(rec["hbm_per_device"] < FIT_BYTES)
-    rec["extrapolated"] = {"unit_layers": unit, "units": units,
-                           "traced_units": [1, 2]}
-    return rec
 
 
 def _by_rules(cache, cfg, layout, mesh, policy):
@@ -527,7 +453,10 @@ def _lower_pipeline_cell(arch: str, mesh, *, num_stages: int = 4,
         raise ValueError(f"{arch}: L={cfg.num_layers} % stages={num_stages}")
     t0 = time.time()
     opt_name = default_optimizer_name(cfg)
-    pcfg = PipelineConfig(num_stages=num_stages, num_microbatches=q)
+    # heads that do not split over "model" run whole (XLA splits the keys'
+    # sequence there; the port counts M times their attention)
+    pcfg = PipelineConfig(num_stages=num_stages, num_microbatches=q,
+                          whole_attention=True)
     specs = _input_specs(cfg, sp)
     with _fake_mode():
         opt = get_optimizer(opt_name)
@@ -561,7 +490,7 @@ def _fake_tree(tree, dev):
 
 def run_cells(archs, shapes, meshes, *, mode="baseline", out_dir=RESULTS_DIR,
               force=False, policy=None, q_override=None, tag="",
-              device="cuda", breakdown=False, extrapolate=False):
+              device="cuda", breakdown=False):
     os.makedirs(out_dir, exist_ok=True)
     failures, done = [], 0
     for mesh_name in meshes:
@@ -593,11 +522,11 @@ def run_cells(archs, shapes, meshes, *, mode="baseline", out_dir=RESULTS_DIR,
                                 arch, layout, num_stages=layout.shape["stage"],
                                 q=q_override or 16, device=device)
                         else:
-                            lower = _lower_extrapolated if extrapolate \
-                                else _lower_cell
-                            rec = lower(arch, shape, layout, policy=policy,
-                                        q_override=q_override, device=device,
-                                        breakdown=breakdown)
+                            rec = _lower_cell(arch, shape, layout,
+                                              policy=policy,
+                                              q_override=q_override,
+                                              device=device,
+                                              breakdown=breakdown)
                         with open(fname, "w") as f:
                             json.dump(rec, f, indent=1)
                         print(f"OK {arch} x {shape} x {mesh_name}: "
@@ -640,10 +569,6 @@ def main(argv=None):
     ap.add_argument("--breakdown", action="store_true",
                     help="record what is alive at the memory peak, by the "
                     "op that made it (peak_temp_by_op; baseline cells)")
-    ap.add_argument("--extrapolate", action="store_true",
-                    help="trace one and two of the config's repeating "
-                    "units (a layer; a jamba period) and extrapolate to its "
-                    "depth (baseline cells)")
     args = ap.parse_args(argv)
 
     archs = [args.arch] if args.arch else list(ARCH_IDS)
@@ -653,8 +578,7 @@ def main(argv=None):
     failures = run_cells(archs, shapes, meshes, mode=args.mode,
                          out_dir=args.out, force=args.force, policy=policy,
                          q_override=args.microbatches, tag=args.tag,
-                         device=args.device, breakdown=args.breakdown,
-                         extrapolate=args.extrapolate)
+                         device=args.device, breakdown=args.breakdown)
     raise SystemExit(1 if failures else 0)
 
 

@@ -21,8 +21,7 @@ from typing import Callable
 
 import torch
 
-from repro_torch.models.common import (ArchConfig, batch_layout, lookup,
-                                       nest_layers)
+from repro_torch.models.common import ArchConfig, lookup, nest_layers
 from repro_torch.models.registry import get_model
 from repro_torch.optim import Optimizer
 from repro_torch.pipeline.executor import microbatch_grads
@@ -124,9 +123,8 @@ def make_prefill_step(cfg: ArchConfig, cache_len: int,
     api = get_model(cfg, device)
 
     def prefill_step(model, batch):
-        batch = {k: _on(v, api.device) for k, v in batch.items()}
-        with batch_layout(batch["tokens"]):
-            return api.prefill(model, batch, cache_len)
+        return api.prefill(model, {k: _on(v, api.device)
+                                   for k, v in batch.items()}, cache_len)
 
     return prefill_step
 
@@ -135,8 +133,6 @@ def make_decode_step(cfg: ArchConfig, device="cuda") -> Callable:
     api = get_model(cfg, device)
 
     def decode_step(model, cache, token, pos):
-        token = _on(token, api.device)
-        with batch_layout(token):
-            return api.decode(model, cache, token, pos)
+        return api.decode(model, cache, _on(token, api.device), pos)
 
     return decode_step

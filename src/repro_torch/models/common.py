@@ -236,7 +236,9 @@ def batch_layout(rows):
     are replicated there), :class:`_WeightStationary` splits the products
     as XLA does, and :func:`gather_data_axes` leaves the parameters' FSDP
     blocks in place.  Rows split over every data axis, or a plain
-    ``rows``: nothing changes."""
+    ``rows``: nothing changes.  The dry run enters it around a whole
+    step; a remat recompute, which runs outside it, re-enters it
+    (``remat_wrap``)."""
     from torch.distributed.tensor import DTensor
     axes = frozenset()
     if isinstance(rows, DTensor):
@@ -539,8 +541,10 @@ def _save_dots(ctx, op, *args, **kwargs):
 def _recompute_in_layout(inner=None):
     """A checkpoint ``context_fn``: ``inner``'s (forward, recompute)
     contexts, the recompute also under the forward's
-    :class:`_WeightStationary` mode (the backward runs outside the mode
-    stack, and must lay the products out as the forward did)."""
+    :class:`_WeightStationary` mode.  The recompute runs in the backward,
+    where no function mode of the forward is active (``torch.utils.
+    checkpoint`` carries only a device context over), and must lay the
+    products out as the forward did; without the mode, as ``inner``."""
     fwd, rec = inner() if inner else (contextlib.nullcontext(),
                                       contextlib.nullcontext())
     mode = _stationary_mode()

@@ -228,17 +228,11 @@ class RWKV6(nn.Module):
         self._cast = CastCache()
 
     def embed_tokens(self, tokens) -> torch.Tensor:
-        from torch.distributed.tensor import DTensor
-        if isinstance(tokens, DTensor) and self.embed.requires_grad \
-                and torch.is_grad_enabled():
-            # training on a mesh: the lookup as an embedding op, whose
-            # backward DTensor plans in every torch release (an index's
-            # backward, a scatter into zeros of the table, not in all),
-            # the rows over the data axes and the gradient whole over d
-            x = F.embedding(tokens.long(), self.embed)
-            return maybe_constrain(x.to(self.cfg.compute_dtype),
-                                   (DATA, None, None))
-        return self.embed[tokens.long()].to(self.cfg.compute_dtype)
+        # an embedding op, whose backward DTensor plans in every torch
+        # release (an index's, a scatter into zeros of the table, not in
+        # all); on a mesh the rows over the data axes
+        x = F.embedding(tokens.long(), self.embed).to(self.cfg.compute_dtype)
+        return maybe_constrain(x, (DATA, None, None))
 
     def logits(self, x) -> torch.Tensor:
         x = rms_norm(x, self.final_norm, self.cfg.norm_eps)

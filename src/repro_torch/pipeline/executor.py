@@ -28,8 +28,7 @@ from .. import obs
 from .._device import resolve_device
 from ..core.bcd import Plan
 from ..models import vgg as vgg_lib
-from ..models.common import (DATA, batch_layout, cross_entropy,
-                             maybe_constrain)
+from ..models.common import DATA, cross_entropy, maybe_constrain
 from .stage import split_vgg_params, vgg_stages_from_cuts
 
 
@@ -79,9 +78,7 @@ def microbatch_grads(loss_fn: Callable, params, batch: dict,
     loss_sum = torch.zeros((), dtype=torch.float32, device=params[0].device)
     grad_sum = [torch.zeros_like(p) for p in params]
     for q in range(num_microbatches):
-        mbatch = {k: v[q] for k, v in mb.items()}
-        with batch_layout(next(iter(mbatch.values()))):
-            loss = loss_fn(params, mbatch)
+        loss = loss_fn(params, {k: v[q] for k, v in mb.items()})
         grads = torch.autograd.grad(loss, params)
         loss_sum = loss_sum + loss.detach()
         for acc, g in zip(grad_sum, grads):

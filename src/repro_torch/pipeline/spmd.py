@@ -18,7 +18,8 @@ rank of a stage holds the whole activation; a block's input is marked by
 an identity whose backward sums the gradient over the model group, its
 output summed over the model group (``Pipe.all_reduce_``, "tp_reduce").
 Where the query or kv heads do not split over M into whole heads, the
-attention runs whole on every model rank (its leaves whole, the FFN still
+config is refused, unless ``PipelineConfig.whole_attention`` asks for the
+attention whole on every model rank (its leaves whole, the FFN still
 split; ``transformer.py::attention_split``).  The leaves a layer reads
 whole inside those blocks — the qk-norm scales of split heads and the MoE
 router — get a partial gradient on each model rank, summed over the
@@ -88,9 +89,14 @@ from .stage import transformer_stage_fn
 
 @dataclasses.dataclass(frozen=True)
 class PipelineConfig:
+    """``whole_attention``: where the query or kv heads do not split over
+    the "model" axis, run the attention whole on every model rank (M times
+    its work; the dry run's stand-in for the reference's XLA, which splits
+    the keys' sequence there) instead of raising ValueError."""
     num_stages: int
     num_microbatches: int
     stage_axis: str = "stage"
+    whole_attention: bool = False
 
 
 def _coords(mesh, pcfg: PipelineConfig) -> tuple:
@@ -372,15 +378,19 @@ def _head_logits(cfg: ArchConfig, params: dict, y: torch.Tensor):
     return x @ params["lm_head"].to(x.dtype)
 
 
-def check_model_axis(cfg: ArchConfig, M: int) -> None:
+def check_model_axis(cfg: ArchConfig, M: int,
+                     whole_attention: bool = False) -> None:
     """ValueError unless a model axis of M splits ``cfg``'s layers into
-    equal FFN (or expert) blocks (heads that do not split into whole heads
-    run whole on every model rank)."""
+    whole heads (unless ``whole_attention``: then such heads run whole on
+    every model rank) and equal FFN (or expert) blocks."""
     if M == 1:
         return
     from ..models import moe as moe_lib
     from ..models import transformer as tf_lib
     split = ModelSplit(M)
+    if not whole_attention:
+        split.part(cfg.n_heads, "query heads")
+        split.part(cfg.n_kv, "kv heads")
     tf_lib.TransformerLayer(cfg, device="meta", split=split)
     if cfg.moe_experts and not moe_lib.expert_parallel(cfg, split):
         split.part(cfg.d_ff, "expert FFN columns")
@@ -396,14 +406,15 @@ def shard_params(params: dict, mesh, pcfg: PipelineConfig,
     stays whole, see the module docstring), each a leaf tensor on
     ``device`` (``"cuda"`` unless the caller passes ``"cpu"``) that
     requires grad.  ``cfg`` is needed with a model axis; a config whose
-    heads, kv heads or FFN do not split over it raises ValueError."""
+    heads or kv heads (unless ``pcfg.whole_attention``) or FFN do not
+    split over it raises ValueError."""
     dev = resolve_device(device)
     M = as_layout(mesh).shape.get("model", 1)
     if M > 1:
         if cfg is None:
             raise ValueError("a model axis needs the config (cfg=) to cut "
                              "the layers by the sharding rules")
-        check_model_axis(cfg, M)
+        check_model_axis(cfg, M, pcfg.whole_attention)
     _, _, k, m = _coords(mesh, pcfg)
     S = pcfg.num_stages
     from ..models import transformer as tf_lib
@@ -473,7 +484,8 @@ def make_pipelined_loss(cfg: ArchConfig, mesh, pcfg: PipelineConfig,
     A collective: every rank of the mesh calls it, and then the loss,
     together.  ``loss.pipe`` tells the transport."""
     _check_config(cfg)
-    check_model_axis(cfg, as_layout(mesh).shape.get("model", 1))
+    check_model_axis(cfg, as_layout(mesh).shape.get("model", 1),
+                     pcfg.whole_attention)
     dev = resolve_device(device)
     pipe = Pipe(mesh, pcfg, dev)
     stage_fn = transformer_stage_fn(cfg, model_split(pipe))

@@ -16,9 +16,13 @@ Usage (from the repository root; imports JAX, so never from the port)::
         "over": {"remat": "none"}}]'
 
 A cell's keys: ``arch``, ``shape``, ``axes``, ``sizes``, ``batch`` ([B,
-S]), and optionally ``q`` (micro-batches), ``over`` (config fields) and
-``pipeline`` (true: the paper-mode train cell, ``axes`` holding "stage").
-The port's side of a cell is ``test_torch_dryrun.py::trace``.
+S]), and optionally ``q`` (micro-batches), ``over`` (config fields),
+``pipeline`` (true: the paper-mode train cell, ``axes`` holding "stage"),
+``reduced`` (false: the full config) and ``dots`` (N: the record's
+``dots`` lists the compiled step's N largest products, each
+[FLOPs a device with its loops' trip counts, computation, lhs, rhs and
+output dims]).  The port's side of a cell is
+``test_torch_dryrun.py::trace``.
 """
 
 import dataclasses
@@ -39,11 +43,18 @@ def lower(cells: list) -> list:
     from repro.configs import cache_specs, get_config
     from repro.launch.compat import AxisType, make_mesh
     shapes = dict(ref_base.SHAPES)
+    hlo_cost = ref_dryrun.hlo_cost
+    texts = []
+
+    def keep_text(text):
+        texts[:] = [text]
+        return hlo_cost(text)
+    ref_dryrun.hlo_cost = keep_text
     out = []
     for c in cells:
         over = c.get("over", {})
-        cfg = dataclasses.replace(get_config(c["arch"], reduced=True),
-                                  **over)
+        cfg = dataclasses.replace(
+            get_config(c["arch"], reduced=c.get("reduced", True)), **over)
         sp = dataclasses.replace(shapes[c["shape"]],
                                  global_batch=c["batch"][0],
                                  seq_len=c["batch"][1])
@@ -63,8 +74,43 @@ def lower(cells: list) -> list:
             rec["cache_shapes"] = jax.tree.map(
                 lambda s: list(s.shape), cache_specs(cfg_srv, c["shape"]))
         ref_base.SHAPES[c["shape"]] = shapes[c["shape"]]
+        if c.get("dots"):
+            rec["dots"] = dots(texts[-1])[:c["dots"]]
         out.append(rec)
     return out
+
+
+def dots(hlo_text: str) -> list:
+    """Every product of a compiled module, largest first: [FLOPs a device
+    (times the trip counts of the loops around it), computation, lhs dims,
+    rhs dims, output dims], counted as the reference's ``hlo_cost``
+    counts them."""
+    import re
+    from repro.utils import hlo
+    comps = hlo._parse_computations(hlo_text)
+    found = []
+
+    def walk(name, mult, seen):
+        instrs = comps.get(name, [])
+        dims = {i.name: i.out_dims for i in instrs}
+        for ins in instrs:
+            if ins.opcode == "dot":
+                lhs, rhs = (list(dims.get(o, ())) for o in
+                            (ins.operand_names + ["", ""])[:2])
+                found.append([mult * hlo._dot_flops(ins, dims), name, lhs,
+                              rhs, list(ins.out_dims)])
+            for callee in re.findall(r"(?:to_apply|calls)=%?([\w.\-]+)",
+                                     ins.line):
+                if callee in comps and callee not in seen:
+                    walk(callee, mult, seen | {callee})
+            if ins.opcode == "while":
+                body = re.search(r"body=%?([\w.\-]+)", ins.line).group(1)
+                cond = re.search(r"condition=%?([\w.\-]+)",
+                                 ins.line).group(1)
+                trips = hlo._trip_count(ins.line, comps.get(cond, []))
+                walk(body, mult * trips, seen | {body})
+    walk(next(n for n in comps if n.startswith("main")), 1.0, set())
+    return sorted(found, key=lambda d: -d[0])
 
 
 def _size(cell) -> int:

@@ -12,7 +12,9 @@ axes); the port lays the products out the same way
 subprocess on 8 host devices (``tests/dryrun_reference.py``); held equal
 (``==``): the FLOPs and the argument bytes per device.  The even split
 (1.8874e7, the Q = 2 cell's) is below both, and the port's figure before
-this layout, every rank computing the whole micro-batch, 4x it.
+this layout, every rank computing the whole micro-batch, 4x it.  Under
+remat "layer" too: the backward's recompute, which runs outside the
+forward's layout, re-enters it (``models/common.py::remat_wrap``).
 """
 
 import json
@@ -27,6 +29,8 @@ from test_torch_dryrun import ROOT, _check_record
 CELL = {"arch": "qwen3-0.6b", "shape": "train_4k",
         "axes": ["pod", "data", "model"], "sizes": [2, 2, 2],
         "batch": [8, 32], "q": 4, "over": {"remat": "none"}}
+#: the cell under remat "layer"
+REMAT = {**CELL, "over": {"remat": "layer"}}
 
 
 @pytest.fixture(scope="module", autouse=True)
@@ -75,14 +79,20 @@ def port_cell(c) -> dict:
 
 
 @pytest.fixture(scope="module")
-def cell():
-    proc = reference_cells([CELL])
+def cells():
+    """{remat: (the port's record, the reference's)} of both cells."""
+    proc = reference_cells([CELL, REMAT])
     try:
-        port = port_cell(CELL)
-        return port, records(proc)[0]
+        port = [port_cell(c) for c in (CELL, REMAT)]
+        return dict(zip(("none", "layer"), zip(port, records(proc))))
     finally:
         if proc.poll() is None:
             proc.kill()
+
+
+@pytest.fixture(scope="module")
+def cell(cells):
+    return cells["none"]
 
 
 def test_small_micro_batches_count_the_references_flops(cell):
@@ -94,6 +104,13 @@ def test_small_micro_batches_count_the_references_flops(cell):
     # more than the even split of the work, less than each rank running
     # the whole micro-batch
     assert 1.8874368e7 < port["flops_per_device"] < 7.5497472e7
+
+
+def test_a_remat_recompute_keeps_the_layout(cells):
+    port, ref = cells["layer"]
+    _check_record(port)
+    assert port["flops_per_device"] == ref["flops_per_device"]
+    assert port["flops_per_device"] > cells["none"][0]["flops_per_device"]
 
 
 def test_small_micro_batches_take_the_references_argument_bytes(cell):

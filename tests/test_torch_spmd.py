@@ -340,10 +340,9 @@ def test_a_mesh_of_another_size_than_the_world_raises(run):
 
 
 def test_a_model_axis_and_other_families_raise():
-    """A "model" axis must split every layer's FFN into equal blocks (heads
-    that do not split into whole heads run whole on every model rank); the
-    pipeline runs the transformer's layers only.  Each refuses before any
-    rank is contacted."""
+    """A "model" axis must split every layer into whole heads (and equal
+    FFN blocks); the pipeline runs the transformer's layers only.  Each
+    refuses before any rank is contacted."""
     import torch
     from repro_torch.configs import get_config
     from repro_torch.launch.mesh import MeshLayout
@@ -355,16 +354,26 @@ def test_a_model_axis_and_other_families_raise():
                                            shard_params)
     cfg = dataclasses.replace(get_config(ARCH, reduced=True),
                               compute_dtype=torch.float32)
-    # 4 query and 2 kv heads over a model axis of 4: the attention whole
-    # on every model rank, the FFN's 176 columns split
-    check_model_axis(cfg, 4)
+    # 4 query and 2 kv heads: a model axis of 4 would split a kv head
+    with pytest.raises(ValueError, match="2 kv heads do not split over a "
+                                         "model axis of 4"):
+        make_pipelined_loss(cfg, MeshLayout(("stage", "model"), (2, 4)),
+                            PipelineConfig(2, 2), "cpu")
+    with pytest.raises(ValueError, match="4 query heads do not split over "
+                                         "a model axis of 8"):
+        make_pipelined_loss(cfg, MeshLayout(("stage", "model"), (1, 8)),
+                            PipelineConfig(1, 2), "cpu")
+    # unless the caller asks for the attention whole on every model rank
+    # (the dry run's layout): the FFN's 176 columns must still split
+    check_model_axis(cfg, 4, whole_attention=True)
     layer = TransformerLayer(cfg, device="meta", split=ModelSplit(4))
     assert tuple(layer.wk.shape) == (cfg.d_model, 2 * cfg.head_dim)
     assert tuple(layer.w_up.shape) == (cfg.d_model, 44)
     with pytest.raises(ValueError, match="176 FFN columns do not split over "
                                          "a model axis of 3"):
         make_pipelined_loss(cfg, MeshLayout(("stage", "model"), (2, 3)),
-                            PipelineConfig(2, 2), "cpu")
+                            PipelineConfig(2, 2, whole_attention=True),
+                            "cpu")
     # and shard_params needs the config to cut by the rules
     with pytest.raises(ValueError, match="needs the config"):
         shard_params({}, MeshLayout(("stage", "model"), (1, 2)),

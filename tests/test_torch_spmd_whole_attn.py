@@ -5,7 +5,8 @@ attention_split``), in four spawned gloo ranks on the CPU, as
 
 qwen3-0.6b reduced to 2 layers (4 query and 2 kv heads, qk-norm) in
 float32 over (stage 1 x model 4), a batch of 8 x 16 in Q = 2: the 2 kv
-heads do not split over 4, so every model rank runs the whole attention
+heads do not split over 4, and ``PipelineConfig(whole_attention=True)``
+(the dry run's layout) has every model rank run the whole attention
 (its leaves, the qk-norm scales among them, whole on each rank, their
 gradient whole) and its quarter of the FFN.  The loss within 1e-5 and
 every gradient within 1e-4 (absolute) of the reference's plain
@@ -20,7 +21,7 @@ from test_torch_spmd import check_grads, check_loss, spawn
 MODELS = {"qwen3-0.6b": 2}
 PIPELINES = [{"tag": "whole_attn", "arch": "qwen3-0.6b",
               "axes": ["stage", "model"], "sizes": [1, 4], "stages": 1,
-              "q": 2}]
+              "q": 2, "whole_attention": True}]
 
 
 @pytest.fixture(scope="module")

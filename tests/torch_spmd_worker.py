@@ -154,7 +154,9 @@ def main():
     for case in job["pipelines"]:
         pipeline_case(case["tag"], *models[case["arch"]],
                       MeshLayout(tuple(case["axes"]), tuple(case["sizes"])),
-                      PipelineConfig(case["stages"], case["q"]), out)
+                      PipelineConfig(case["stages"], case["q"],
+                                     whole_attention=case.get(
+                                         "whole_attention", False)), out)
     for case in job["train"]:
         train_case(case["tag"], *models[case["arch"]],
                    MeshLayout(tuple(case["axes"]), tuple(case["sizes"])),
