@@ -317,7 +317,15 @@ exits non-zero:
  29. tp      the "model" axis inside the stages: qwen3-0.6b over (stage
              2 x model 2), four processes sharing the card under gloo
              (2 intra-op threads each), each rank 14 layers at 8 / 4
-             heads of 128 and d_ff 1536, Q from the planner as in 28;
+             heads of 128 and d_ff 1536, the head's vocabulary split over
+             the model ranks, Q from the planner as in 28; internvl2-1b's
+             backbone (2 layers) over (stage 1 x model 4) in the same
+             processes, its 14 heads gathered whole and the keys split
+             (f32 checks as below, 2 timed bf16 steps, K2 / K2' launches
+             as derived); K2 / K2' with a key offset at its layer, split
+             4 and 3 ways, against the plain versions and combined
+             against the whole calls, timed beside SDPA given each
+             block's mask;
              float32 (TF32 off), the model blocks put back together: loss
              within 1e-5, every gradient within 1e-4 of scale of the plain
              model's, one AdamW step within 1e-6 of scale of AdamW on its
@@ -1314,19 +1322,20 @@ def flash_inputs(B, S, T, H, KV, hd, dtype, seed=42):
             for shape in ((B, S, H, hd), (B, T, KV, hd), (B, T, KV, hd))]
 
 
-def mask_pairs(S, T, causal, window=0) -> int:
+def mask_pairs(S, T, causal, window=0, k_offset=0) -> int:
     """The query-key pairs the mask keeps: all S T, or under the
     start-aligned causal mask kpos <= qpos, and under a window > 0 only
-    kpos > qpos - window besides."""
+    kpos > qpos - window besides, the T keys at positions k_offset on."""
     total = 0
     for s in range(S):
-        hi = min(s, T - 1) if causal else T - 1
-        lo = max(0, s - window + 1) if window > 0 else 0
+        hi = min(s - k_offset, T - 1) if causal else T - 1
+        lo = max(0, s - k_offset - window + 1) if window > 0 else 0
         total += max(0, hi - lo + 1)
     return total
 
 
-def flash_bound_ms(B, S, T, H, KV, hd, causal, dtype, window=0) -> tuple:
+def flash_bound_ms(B, S, T, H, KV, hd, causal, dtype, window=0,
+                   k_offset=0) -> tuple:
     """(bound_ms, bound_by) of K2: q, k and v read once and the output
     written once over HBM bandwidth, vs the operations of the query-key
     pairs the mask keeps (2 hd for the score, 2 hd for its share of p v;
@@ -1336,7 +1345,7 @@ def flash_bound_ms(B, S, T, H, KV, hd, causal, dtype, window=0) -> tuple:
     esize = torch.tensor([], dtype=dtype).element_size()
     byte_s = esize * (2 * B * S * H * hd + 2 * B * T * KV * hd) \
         / HBM_BYTES_PER_S
-    pairs = mask_pairs(S, T, causal, window)
+    pairs = mask_pairs(S, T, causal, window, k_offset)
     op_s = 4 * hd * pairs * B * H / PEAK_OPS[dtype]
     return (max(byte_s, op_s) * 1e3,
             "bytes" if byte_s >= op_s else "operations")
@@ -1400,7 +1409,7 @@ WKV_GRAD_STRONG = [(1, 64, 2, 64, 64), (1, 130, 2, 64, 2)]
 
 
 def flash_bwd_bound_ms(B, S, T, H, KV, hd, causal, dtype,
-                       window=0) -> tuple:
+                       window=0, k_offset=0) -> tuple:
     """(bound_ms, bound_by) of K2': q, k, v, o, do and lse read once and dq,
     dk, dv written once over HBM bandwidth, vs the five hd-deep products
     (q k^T, dO v^T, P^T dO, dS^T q, dS k: 2 hd operations a pair each)
@@ -1409,7 +1418,7 @@ def flash_bwd_bound_ms(B, S, T, H, KV, hd, causal, dtype,
     esize = torch.tensor([], dtype=dtype).element_size()
     byte_s = (esize * (4 * B * S * H * hd + 4 * B * T * KV * hd)
               + 4 * B * H * S) / HBM_BYTES_PER_S
-    pairs = mask_pairs(S, T, causal, window)
+    pairs = mask_pairs(S, T, causal, window, k_offset)
     op_s = 5 * 2 * hd * pairs * B * H / PEAK_OPS[dtype]
     return (max(byte_s, op_s) * 1e3,
             "bytes" if byte_s >= op_s else "operations")
@@ -4192,6 +4201,18 @@ TP_THREADS = 2
 TP_MOE = {"arch": "granite-moe-3b-a800m", "layers": 2, "q": 2}
 #: K2 / K2' at the TP-local qwen3 layer: 1 x 512, 8 / 4 heads of 128
 TP_FLASH = (1, 512, 512, 8, 4, 128, True)
+#: phase 29's split-key cell: internvl2-1b's backbone at full width (d
+#: 896, 14 / 2 heads of 64, d_ff 4864), 2 layers, over (stage 1 x model 4):
+#: its 14 query heads do not split over 4, so every rank gathers them
+#: whole and attends to its quarter of the keys' sequence (the reference's
+#: _kv_seq_spec); its vocabulary (151655) does not split over 4, so the
+#: head stays whole.  A batch of 4 x 512 tokens in Q = 2.
+TP_SPLIT = {"arch": "internvl2-1b", "layers": 2, "stages": 1, "model": 4,
+            "batch": 4, "q": 2, "steps": 2}
+#: K2 / K2' with a key offset at internvl2-1b's layer: B, S = T, H, KV,
+#: hd (causal), the keys split into 4 even blocks and 3 uneven ones
+SPLIT_FLASH = (1, 512, 14, 2, 64)
+SPLIT_WAYS = (4, 3)
 #: seconds the parent waits for the four ranks
 TP_TIMEOUT_S = 600
 #: profiled steps a rank of phase 29 runs for its device busy time
@@ -4276,10 +4297,269 @@ def _tp_check(cfg, layout, pcfg, batch, seed, q_plain) -> dict:
     return out, g0
 
 
+def _tp_adamw_check(cfg32, layout, pcfg, batch, seed, lr, g0) -> tuple:
+    """One pipelined AdamW step of ``cfg32`` (f32) from the seed's weights:
+    (each updated leaf against AdamW applied to the gradients the step
+    used, those gradients against the rank's block of the plain model's
+    ``g0``), each relative to its tensor's largest magnitude."""
+    from repro_torch.models import transformer as tf
+    from repro_torch.models.common import nest_layers
+    from repro_torch.optim import get_optimizer
+    from repro_torch.pipeline.spmd import (make_pipelined_train_step,
+                                           shard_params)
+    from repro_torch.utils import tree_map
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    model = tf.init_params(cfg32, gen, "cuda")
+    tree = nest_layers({n: p.detach().clone()
+                        for n, p in model.named_parameters()}, torch.stack)
+    del model
+    local = shard_params(tree, layout, pcfg, "cuda", cfg=cfg32)
+    del tree
+    opt = get_optimizer("adamw", lr=lr)
+    seen = {}
+
+    def recorded(params, grads, state):
+        seen["before"] = tree_map(lambda p: p.detach().clone(), params)
+        seen["grads"] = tree_map(torch.clone, grads)
+        return opt.update(params, grads, state)
+
+    step32 = make_pipelined_train_step(
+        cfg32, layout, pcfg, dataclasses.replace(opt, update=recorded),
+        "cuda")
+    k, m = step32.pipe.k, step32.pipe.m
+    local, _, _ = step32(local, opt.init(local), batch)
+    adamw, _ = opt.update(seen["before"], seen["grads"],
+                          opt.init(seen["before"]))
+    adamw, step_grads = _flat_tree(adamw), _flat_tree(seen["grads"])
+    step_rel, grad_rel = {}, {}
+    for key, p in _flat_tree(local).items():
+        step_rel[key] = float((p.detach() - adamw[key]).abs().max()
+                              / adamw[key].abs().max())
+        g = _local_part(cfg32, layout, key, g0[key], k, m, pcfg.num_stages)
+        grad_rel[key] = float((step_grads[key] - g).abs().max()
+                              / g.abs().max())
+    return step_rel, grad_rel
+
+
+def _tp_split_cell(job: dict) -> dict:
+    """Phase 29's split-key cell (``TP_SPLIT``) on one rank: the f32
+    loss, every gradient and one AdamW step against the plain model on
+    the card, then timed bfloat16 steps with their K2 / K2' launches and
+    ``Pipe.seconds`` / ``Pipe.bytes`` by kind."""
+    import torch.distributed as dist
+    from repro_torch.configs import get_config
+    from repro_torch.data import token_lm_batches
+    from repro_torch.kernels import flash as flash_mod
+    from repro_torch.launch.mesh import MeshLayout
+    from repro_torch.models import transformer as tf
+    from repro_torch.models.common import nest_layers
+    from repro_torch.optim import get_optimizer
+    from repro_torch.pipeline.spmd import (PipelineConfig,
+                                           make_pipelined_train_step,
+                                           shard_params, vocab_parallel)
+    c = TP_SPLIT
+    layout = MeshLayout(("stage", "model"), (c["stages"], c["model"]))
+    pcfg = PipelineConfig(c["stages"], c["q"])
+    base = dataclasses.replace(get_config(c["arch"]),
+                               num_layers=c["layers"])
+    mode = tf.attention_mode(base, c["model"])
+    if mode != "split_keys" or vocab_parallel(base, c["model"]):
+        raise AssertionError(f"{c['arch']} over {c['model']}: attention "
+                             f"{mode}, vocabulary split "
+                             f"{vocab_parallel(base, c['model'])}")
+    batch = next(token_lm_batches(batch=c["batch"], seq_len=job["seq"],
+                                  vocab=base.vocab, seed=job["seed"]))
+    batch = {k: torch.as_tensor(v, device="cuda") for k, v in batch.items()}
+    out = {"attention": mode}
+    cfg32 = dataclasses.replace(base, compute_dtype=torch.float32)
+    out["f32"], g0 = _tp_check(cfg32, layout, pcfg, batch, job["seed"],
+                               c["q"])
+    out["step_rel"], out["step_grad_rel"] = _tp_adamw_check(
+        cfg32, layout, pcfg, batch, job["seed"], job["lr"], g0)
+    del g0
+    torch.cuda.empty_cache()
+    gen = torch.Generator(device="cuda").manual_seed(job["seed"])
+    model = tf.init_params(base, gen, "cuda")
+    tree = nest_layers({n: p.detach().clone()
+                        for n, p in model.named_parameters()}, torch.stack)
+    del model
+    local = shard_params(tree, layout, pcfg, "cuda", cfg=base)
+    del tree
+    opt = get_optimizer("adamw", lr=job["lr"])
+    state = opt.init(local)
+    step = make_pipelined_train_step(base, layout, pcfg, opt, "cuda")
+    step(local, state, batch)                                  # warm-up
+    counters = (flash_mod.flash_attention, flash_mod.flash_attention_bwd)
+    pipe = step.pipe
+    torch.cuda.synchronize()
+    dist.barrier()
+    reset_launches(*counters)
+    pipe.seconds = dict.fromkeys(pipe.seconds, 0.0)
+    pipe.bytes = dict.fromkeys(pipe.bytes, 0)
+    walls = []
+    for _ in range(c["steps"]):
+        dist.barrier()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        step(local, state, batch)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+    out["launches"] = {f.__name__: f.launches for f in counters}
+    out["launches_derived"] = {
+        name: n * c["steps"] for name, n in derived_spmd_launches(
+            c["q"], c["stages"], c["layers"] // c["stages"],
+            base.remat).items()}
+    out["step_s"] = walls
+    out["transfer_s"] = {n: v / c["steps"] for n, v in pipe.seconds.items()}
+    out["transfer_bytes"] = {n: v // c["steps"]
+                             for n, v in pipe.bytes.items()}
+    del local, state, step
+    torch.cuda.empty_cache()
+    return out
+
+
+def check_split_keys(flash_mod, flash_kernel) -> dict:
+    """K2 and K2' with a key offset at ``SPLIT_FLASH`` on the card, its
+    keys split into each of ``SPLIT_WAYS`` blocks (even and uneven), in
+    float32 and bfloat16: each block's output and lse against the plain
+    versions with the offset (the flash forward contract; a row before
+    the block's first key a zero output row and lse -inf, no NaN); the
+    blocks combined by the log-sum-exp against the whole K2; K2' on each
+    block from the combined output and lse against flash_bwd_plain (the
+    backward contract), the blocks' dq summed and dk, dv joined against
+    the whole K2'.  Then, in bfloat16, the first and last of 4 blocks
+    (offsets 0 and 384) timed by device time beside the whole call, SDPA
+    given the block's mask, the plain versions and the bound."""
+    from repro_torch.kernels.flash.split import key_blocks
+    B, S, H, KV, hd = SPLIT_FLASH
+    out = {"k2_err": 0.0, "k2_bwd_err": 0.0, "combined_err": 0.0,
+           "combined_bwd_err": 0.0, "empty_rows": 0}
+    for dtype in (torch.float32, torch.bfloat16):
+        q, k, v = flash_inputs(B, S, S, H, KV, hd, dtype)
+        do = flash_inputs(B, S, S, H, H, hd, dtype, seed=43)[0]
+        tol, gtol = FLASH_TOL[dtype], GRAD_TOL[dtype]
+        o_all, lse_all = flash_kernel._forward(q, k, v, True, True)
+        g_all = flash_mod.flash_attention_bwd(q, k, v, o_all, do, lse_all)
+        for M in SPLIT_WAYS:
+            tag = f"K2 split {M} ways {str(dtype)[6:]}"
+            parts = []
+            for lo, hi in key_blocks(S, M):
+                kb, vb = k[:, lo:hi].contiguous(), v[:, lo:hi].contiguous()
+                o_m, lse_m = flash_kernel._forward(q, kb, vb, True, True, 0,
+                                                   lo)
+                want = flash_mod.attention_plain(q, kb, vb, k_offset=lo)
+                want_lse = flash_mod.attention_lse_plain(q, kb, k_offset=lo)
+                err = float((o_m.float() - want.float()).abs().max())
+                kept = torch.isfinite(want_lse)
+                lse_err = float((lse_m - want_lse)[kept].abs().max())
+                empty = ~kept
+                if not (torch.isfinite(o_m).all()
+                        and torch.allclose(o_m.float(), want.float(),
+                                           atol=tol, rtol=tol)
+                        and lse_err <= tol * (1 + float(want_lse[kept]
+                                                       .abs().max()))
+                        and torch.equal(torch.isneginf(lse_m), empty)
+                        and bool((o_m.transpose(1, 2)[empty] == 0).all())):
+                    raise AssertionError(f"{tag} block {lo}:{hi}: max abs "
+                                         f"err {err}, lse {lse_err}")
+                out["k2_err"] = max(out["k2_err"], err)
+                out["empty_rows"] += int(empty.sum())
+                parts.append((lo, hi, kb, vb, o_m, lse_m))
+            lse = torch.logsumexp(torch.stack([p[5] for p in parts]), 0)
+            o = sum(torch.exp(p[5] - lse).transpose(1, 2)[..., None]
+                    * p[4].float() for p in parts)
+            cerr = float((o - o_all.float()).abs().max())
+            if not torch.allclose(o, o_all.float(), atol=tol, rtol=tol):
+                raise AssertionError(f"{tag}: combined output off the whole "
+                                     f"K2 by {cerr}")
+            out["combined_err"] = max(out["combined_err"], cerr)
+            o = o.to(dtype)
+            dq = torch.zeros_like(q, dtype=torch.float32)
+            dks, dvs = [], []
+            for lo, hi, kb, vb, _, _ in parts:
+                got = flash_mod.flash_attention_bwd(q, kb, vb, o, do, lse,
+                                                    k_offset=lo)
+                want = flash_mod.flash_bwd_plain(q, kb, vb, o, do, lse,
+                                                 k_offset=lo)
+                out["k2_bwd_err"] = max(out["k2_bwd_err"], check_grads(
+                    f"K2' split {M} ways block {lo}:{hi} {str(dtype)[6:]}",
+                    got, want, gtol))
+                if not torch.all(got[0][:, :lo] == 0):
+                    raise AssertionError(f"K2' block {lo}:{hi}: dq of the "
+                                         "rows before it not zero")
+                dq += got[0].float()
+                dks.append(got[1])
+                dvs.append(got[2])
+            out["combined_bwd_err"] = max(
+                out["combined_bwd_err"], check_grads(
+                    f"K2' split {M} ways combined {str(dtype)[6:]}",
+                    (dq, torch.cat(dks, 1), torch.cat(dvs, 1)), g_all, gtol))
+            log(f"{tag}: blocks within {tol} of the plain versions with "
+                f"their offsets (max abs err {out['k2_err']:.3e}), "
+                f"combined within {cerr:.3e} of the whole K2; K2' blocks "
+                f"within {gtol} (max {out['k2_bwd_err']:.3e}), combined "
+                f"within {out['combined_bwd_err']:.3e} of the whole K2'")
+    out["times"] = time_split_keys(flash_mod, flash_kernel)
+    return out
+
+
+def time_split_keys(flash_mod, flash_kernel) -> dict:
+    """K2 / K2' (bf16) on the first and last of 4 key blocks at
+    ``SPLIT_FLASH`` (offsets 0 and 384) and on the whole keys, by device
+    time, beside SDPA given each block's mask (its backward too), the
+    plain versions (CUDA events) and the bounds."""
+    from repro_torch.kernels.flash.split import key_blocks
+    B, S, H, KV, hd = SPLIT_FLASH
+    q, k, v = flash_inputs(B, S, S, H, KV, hd, torch.bfloat16, seed=5)
+    do = flash_inputs(B, S, S, H, H, hd, torch.bfloat16, seed=6)[0]
+    blocks = key_blocks(S, 4)
+    out = {}
+    for label, (lo, hi) in (("whole", (0, S)), ("block 0", blocks[0]),
+                            ("block 3", blocks[-1])):
+        kb, vb = k[:, lo:hi].contiguous(), v[:, lo:hi].contiguous()
+        T = hi - lo
+        qpos = torch.arange(S, device="cuda")[:, None]
+        mask = torch.arange(lo, hi, device="cuda")[None, :] <= qpos
+        # SDPA gives a row with no kept key NaN: those rows are left out of
+        # its call (the same kept pairs)
+        r0 = lo
+        o_m, lse_m = flash_kernel._forward(q, kb, vb, True, True, 0, lo)
+        fwd = lambda: flash_kernel._forward(q, kb, vb, True, False, 0, lo)
+        bwd = lambda: flash_mod.flash_attention_bwd(q, kb, vb, o_m, do,
+                                                    lse_m, k_offset=lo)
+        lib = lambda: sdpa_masked(q[:, r0:], kb, vb, mask[r0:])
+        lib_bwd = sdpa_bwd(q[:, r0:], kb, vb, do[:, r0:], mask=mask[r0:])
+        for fn in (fwd, bwd, lib, lib_bwd):
+            for _ in range(WARM_CALLS):
+                fn()
+        row = {"offset": lo, "keys": T,
+               "device_ms": device_ms(fwd), "bwd_device_ms": device_ms(bwd),
+               "library_device_ms": device_ms(lib),
+               "library_bwd_device_ms": device_ms(lib_bwd),
+               "plain_ms": cuda_ms(lambda: flash_mod.attention_plain(
+                   q, kb, vb, k_offset=lo)),
+               "bwd_plain_ms": cuda_ms(lambda: flash_mod.flash_bwd_plain(
+                   q, kb, vb, o_m, do, lse_m, k_offset=lo))}
+        row["bound_ms"], row["bound_by"] = flash_bound_ms(
+            B, S, T, H, KV, hd, True, torch.bfloat16, 0, lo)
+        row["bwd_bound_ms"], row["bwd_bound_by"] = flash_bwd_bound_ms(
+            B, S, T, H, KV, hd, True, torch.bfloat16, 0, lo)
+        log(f"K2 / K2' at {SPLIT_FLASH} keys {lo}:{hi} (offset {lo}), "
+            f"bf16: device {row['device_ms']:.4f} / "
+            f"{row['bwd_device_ms']:.4f} ms, SDPA with the block's mask "
+            f"{row['library_device_ms']:.4f} / "
+            f"{row['library_bwd_device_ms']:.4f} ms, plain "
+            f"{row['plain_ms']:.4f} / {row['bwd_plain_ms']:.4f} ms "
+            f"(events), bound {row['bound_ms']:.6f} ({row['bound_by']}) / "
+            f"{row['bwd_bound_ms']:.6f} ms ({row['bwd_bound_by']})")
+        out[label] = row
+    return out
+
+
 def _tp_work(rank: int, job: dict) -> dict:
     """Phase 29 on one rank: the f32 checks (qwen3-0.6b, its AdamW step,
-    granite-moe-3b), then the timed bfloat16 steps and one step's count
-    (utils/cost.py)."""
+    granite-moe-3b), the split-key cell (``_tp_split_cell``), then the
+    timed bfloat16 steps and one step's count (utils/cost.py)."""
     import torch.distributed as dist
     from repro_torch.configs import get_config
     from repro_torch.data import token_lm_batches
@@ -4304,37 +4584,9 @@ def _tp_work(rank: int, job: dict) -> dict:
     # float32, TF32 off: the dense model, then one AdamW step
     cfg32 = dataclasses.replace(base, compute_dtype=torch.float32)
     out["f32"], g0 = _tp_check(cfg32, layout, pcfg, batch, job["seed"], 2)
-    gen = torch.Generator(device="cuda").manual_seed(job["seed"])
-    model = tf.init_params(cfg32, gen, "cuda")
-    tree = nest_layers({n: p.detach().clone()
-                        for n, p in model.named_parameters()}, torch.stack)
-    del model
-    local = shard_params(tree, layout, pcfg, "cuda", cfg=cfg32)
-    del tree
-    opt = get_optimizer("adamw", lr=job["lr"])
-    seen = {}
-
-    def recorded(params, grads, state):
-        seen["before"] = tree_map(lambda p: p.detach().clone(), params)
-        seen["grads"] = tree_map(torch.clone, grads)
-        return opt.update(params, grads, state)
-
-    step32 = make_pipelined_train_step(
-        cfg32, layout, pcfg, dataclasses.replace(opt, update=recorded),
-        "cuda")
-    k, m = step32.pipe.k, step32.pipe.m
-    local, _, _ = step32(local, opt.init(local), batch)
-    adamw, _ = opt.update(seen["before"], seen["grads"],
-                          opt.init(seen["before"]))
-    adamw, step_grads = _flat_tree(adamw), _flat_tree(seen["grads"])
-    out["step_rel"], out["step_grad_rel"] = {}, {}
-    for key, p in _flat_tree(local).items():
-        out["step_rel"][key] = float((p.detach() - adamw[key]).abs().max()
-                                     / adamw[key].abs().max())
-        g = _local_part(cfg32, layout, key, g0[key], k, m, S)
-        out["step_grad_rel"][key] = float((step_grads[key] - g).abs().max()
-                                          / g.abs().max())
-    del local, step32, seen, adamw, step_grads, g0
+    out["step_rel"], out["step_grad_rel"] = _tp_adamw_check(
+        cfg32, layout, pcfg, batch, job["seed"], job["lr"], g0)
+    del g0
     torch.cuda.empty_cache()
 
     # the MoE branch: granite-moe-3b, 2 layers, expert parallelism
@@ -4349,6 +4601,9 @@ def _tp_work(rank: int, job: dict) -> dict:
     out["moe"] = _tp_check(moe, layout, PipelineConfig(S, TP_MOE["q"]),
                            moe_batch, job["seed"], 1)[0]
     torch.cuda.empty_cache()
+
+    # the heads that do not split: internvl2-1b over (stage 1 x model 4)
+    out["split"] = _tp_split_cell(job)
 
     # bfloat16 compute (the config's), remat "layer": timed steps
     gen = torch.Generator(device="cuda").manual_seed(job["seed"])
@@ -4584,12 +4839,13 @@ def tp_phase(out_dir: str, flash_mod, flash_kernel) -> dict:
     plain model's, every gradient within 1e-4 of each tensor's largest
     magnitude; one AdamW step within 1e-6 of scale of AdamW on the
     gradients it used (those within 1e-4 of the plain ones); granite-moe-3b
-    (2 layers, 20 experts a rank) at the same bounds.  bfloat16: step
-    seconds, tokens/s, each rank's device busy time and peak memory,
-    Pipe.seconds and Pipe.bytes by kind, K2 / K2' launches per rank equal
-    to the ticks x the stage's layers (twice for K2 under remat).  K2 and
-    K2' at the TP-local layer held to their plain versions and timed
-    beside SDPA.  The dry run of the same cell (fake CUDA tensors, a fake
+    (2 layers, 20 experts a rank) and internvl2-1b's split-key cell
+    (``TP_SPLIT``) at the same bounds.  bfloat16: step seconds, tokens/s,
+    each rank's device busy time and peak memory, Pipe.seconds and
+    Pipe.bytes by kind, K2 / K2' launches per rank equal to the ticks x
+    the stage's layers (twice for K2 under remat).  K2 and K2' with a key
+    offset (``check_split_keys``) and at the TP-local layer held to their
+    plain versions and timed beside SDPA.  The dry run of the same cell (fake CUDA tensors, a fake
     group of 4; run in this process once the ranks have timed their
     steps) beside the measured figures, and its roofline row."""
     import multiprocessing
@@ -4700,6 +4956,34 @@ def tp_phase(out_dir: str, flash_mod, flash_kernel) -> dict:
         if not o["busy_sessions_agree"]:
             failures.append(f"rank {o['rank']}'s profiled steps counted "
                             "different kernel events every time")
+        sp = o["split"]
+        c = sp["f32"]
+        worst = max(c["grad_rel"], key=c["grad_rel"].get)
+        ws = max(sp["step_rel"], key=sp["step_rel"].get)
+        wg = max(sp["step_grad_rel"], key=sp["step_grad_rel"].get)
+        log(f"phase 29 rank {o['rank']} {TP_SPLIT['arch']} over (stage "
+            f"{TP_SPLIT['stages']} x model {TP_SPLIT['model']}), attention "
+            f"{sp['attention']}, f32: loss {c['loss']:.6f} against plain "
+            f"{c['plain_loss']:.6f} (rel {c['loss_rel']:.2e}); joined "
+            f"gradients within {c['grad_rel'][worst]:.2e} of scale (worst "
+            f"{worst}); AdamW step within {sp['step_rel'][ws]:.2e} (worst "
+            f"{ws}), its gradients within {sp['step_grad_rel'][wg]:.2e}; "
+            f"bf16 steps {[round(x, 4) for x in sp['step_s']]} s, launches "
+            f"{sp['launches']} (derived {sp['launches_derived']}); host "
+            f"seconds a step by transfer {sp['transfer_s']}; bytes a step "
+            f"by transfer {sp['transfer_bytes']}")
+        if not (c["loss_rel"] <= SPMD_LOSS_REL
+                and c["grad_rel"][worst] <= SPMD_REL
+                and sp["step_rel"][ws] <= SPMD_STEP_REL
+                and sp["step_grad_rel"][wg] <= SPMD_REL):
+            failures.append(f"rank {o['rank']} {TP_SPLIT['arch']} outside "
+                            "the bounds")
+        if sp["launches"] != sp["launches_derived"]:
+            failures.append(f"rank {o['rank']} {TP_SPLIT['arch']} launched "
+                            f"{sp['launches']}, derived "
+                            f"{sp['launches_derived']}")
+    # K2 and K2' with a key offset: the split-key blocks
+    split_keys = check_split_keys(flash_mod, flash_kernel)
     # K2 and K2' at the TP-local layer shape
     torch.backends.cuda.matmul.allow_tf32 = False
     flash = {"shape": TP_FLASH, "k2_err": 0.0, "k2_bwd_err": 0.0}
@@ -4758,9 +5042,16 @@ def tp_phase(out_dir: str, flash_mod, flash_kernel) -> dict:
         f"{row['dominant']}-bound; the measured step {min(walls):.4f} s is "
         f"{1 / dry['measured']['bound_share_of_step']:.1f}x its bound")
     tokens = run["batch"] * run["seq"]
+    split_walls = [max(r["split"]["step_s"][i] for r in ranks)
+                   for i in range(TP_SPLIT["steps"])]
     out = {"plans": plans, "Q": Q, "stages": S, "model": M, "ticks": T,
            "step_s": walls, "tokens_per_s": [tokens / w for w in walls],
            "ranks": ranks, "ranks_wall_s": ranks_s, "flash": flash,
+           "split_keys": split_keys,
+           "split_cell": {**TP_SPLIT, "step_s": split_walls,
+                          "launches": {name: sum(r["split"]["launches"][name]
+                                                 for r in ranks)
+                                       for name in ranks[0]["launches"]}},
            "dry_run": dry,
            "launches": {name: sum(r["launches"][name] for r in ranks)
                         for name in ranks[0]["launches"]}}
@@ -4771,7 +5062,12 @@ def tp_phase(out_dir: str, flash_mod, flash_kernel) -> dict:
         f"busy a step per rank "
         f"{[[round(x, 1) for x in r['busy_ms']] for r in ranks]} ms; peak "
         f"per rank {[round(r['peak_gib'], 2) for r in ranks]} GiB; "
-        f"ranks' processes {ranks_s:.1f} s")
+        f"ranks' processes {ranks_s:.1f} s; the vocabulary-parallel head "
+        f"and the model group's sums: tp_reduce "
+        f"{[r['transfer_bytes']['tp_reduce'] for r in ranks]} B and "
+        f"{[round(r['transfer_s']['tp_reduce'], 3) for r in ranks]} s a "
+        f"step per rank; {TP_SPLIT['arch']} over (stage 1 x model 4) bf16 "
+        f"steps {[round(w, 4) for w in split_walls]} s")
     if failures:
         raise AssertionError("phase 29: " + "; ".join(failures))
     return out
@@ -5989,6 +6285,18 @@ def main(argv=None) -> int:
                         for key in ("ms", "device_ms", "plain_ms",
                                     "bound_ms", "bound_by", "library_ms",
                                     "library_device_ms")}},
+        "split_keys": {
+            "shape": dict(zip(("B", "S", "H", "KV", "hd"), SPLIT_FLASH)),
+            "ways": SPLIT_WAYS,
+            "max_abs_err": tp_out["split_keys"]["k2_err"],
+            "combined_max_abs_err": tp_out["split_keys"]["combined_err"],
+            "empty_rows": tp_out["split_keys"]["empty_rows"],
+            "times": {label: {key: row[key] for key in (
+                "offset", "keys", "device_ms", "library_device_ms",
+                "plain_ms", "bound_ms", "bound_by")}
+                for label, row in tp_out["split_keys"]["times"].items()},
+            "cell_launches": tp_out["split_cell"]["launches"][
+                "flash_attention"]},
     }, {
         "name": "flash_attention_bwd",
         "route": "cuda",
@@ -6038,6 +6346,16 @@ def main(argv=None) -> int:
                      **{key: tp_out["flash"]["backward"][key]
                         for key in ("device_ms", "plain_ms", "bound_ms",
                                     "bound_by", "library_device_ms")}},
+        "split_keys": {
+            "max_abs_err": tp_out["split_keys"]["k2_bwd_err"],
+            "combined_max_abs_err": tp_out["split_keys"]["combined_bwd_err"],
+            "times": {label: {key[4:] if key.startswith("bwd_") else key:
+                              row[key] for key in (
+                "offset", "keys", "bwd_device_ms", "library_bwd_device_ms",
+                "bwd_plain_ms", "bwd_bound_ms", "bwd_bound_by")}
+                for label, row in tp_out["split_keys"]["times"].items()},
+            "cell_launches": tp_out["split_cell"]["launches"][
+                "flash_attention_bwd"]},
     }, {
         "name": "wkv6_scan_bwd",
         "route": "cuda",

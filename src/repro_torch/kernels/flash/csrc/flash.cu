@@ -15,6 +15,11 @@
 // chunked_attention, src/repro/models/common.py:235-236,276-277; the TPU
 // kernel takes no window); keys at kpos >= T are masked; masked scores are
 // -1e30, as in the TPU kernel.
+// k_offset is the position of key 0 (k and v a block of a longer key
+// sequence, one rank's block of the keys' sequence: split.py); the masks
+// compare kpos + k_offset with qpos.  A row with no kept key in the block
+// writes a zero output row and lse = -inf (the block adds nothing to the
+// row's softmax when split.py combines the blocks).
 //
 // Common to both entries:
 // - Grid (B * H, ceil(S / 64)): one block per (batch x head, 64-row query
@@ -146,7 +151,8 @@ __global__ void __launch_bounds__(NT)
 flash_fwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
                      const float* __restrict__ v, float* __restrict__ o,
                      float* __restrict__ lse, int S, int T_len, int H,
-                     int KV, int causal, int window, float scale) {
+                     int KV, int causal, int window, int kofs,
+                     float scale) {
   constexpr int LD = HD + 1;       // padded row of the Q and K tiles
   constexpr int DJ = HD / 16;      // output columns per thread
   extern __shared__ float smem[];
@@ -179,8 +185,10 @@ flash_fwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
     for (int j = 0; j < DJ; ++j) acc[i][j] = 0.f;
   }
 
-  const int k_end = causal ? min(T_len, q0 + BQ) : T_len;
-  const int k_begin = window > 0 ? max(0, q0 - window + 1) / BK * BK : 0;
+  // the block's keys (local positions) the tile's rows can see
+  const int k_end = causal ? min(T_len, q0 + BQ - kofs) : T_len;
+  const int k_begin =
+      window > 0 ? max(0, q0 - window + 1 - kofs) / BK * BK : 0;
   for (int k0 = k_begin; k0 < k_end; k0 += BK) {
     __syncthreads();  // Q is loaded; the last tile's K, V, P are read
     for (int e = tid; e < BK * HD; e += NT) {
@@ -217,9 +225,9 @@ flash_fwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
       float mx = NEG_INF;
 #pragma unroll
       for (int j = 0; j < CJ; ++j) {
-        const int kpos = k0 + tx + 16 * j;
-        const bool ok = kpos < T_len && (!causal || kpos <= qpos) &&
-                        (window <= 0 || kpos > qpos - window);
+        const int kpos = k0 + tx + 16 * j, kg = kpos + kofs;
+        const bool ok = kpos < T_len && (!causal || kg <= qpos) &&
+                        (window <= 0 || kg > qpos - window);
         s[i][j] = ok ? s[i][j] * scale : NEG_INF;
         mx = fmaxf(mx, s[i][j]);
       }
@@ -270,8 +278,9 @@ flash_fwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
 #pragma unroll
       for (int j = 0; j < DJ; ++j)
         ob[(size_t)r * qrow + tx + 16 * j] = acc[i][j] / den;
-      if (lse != nullptr && tx == 0)
-        lse[((size_t)b * H + h) * S + r] = m[i] + logf(den);
+      if (lse != nullptr && tx == 0)     // -inf: no kept key
+        lse[((size_t)b * H + h) * S + r] =
+            l[i] > 0.f ? m[i] + logf(den) : -__int_as_float(0x7f800000);
     }
   }
 }
@@ -383,7 +392,8 @@ __global__ void __launch_bounds__(MMA_NT, 2)
 flash_fwd_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                      const bf16* __restrict__ v, bf16* __restrict__ o,
                      float* __restrict__ lse, int S, int T_len, int H,
-                     int KV, int causal, int window, float scale_log2) {
+                     int KV, int causal, int window, int kofs,
+                     float scale_log2) {
   constexpr int LDS = HD + PAD;    // shared row, in elements
   constexpr int KD = HD / 16;      // k-steps of q k^T
   constexpr int NS = BK / 8;       // 8-key tiles of the scores
@@ -407,10 +417,12 @@ flash_fwd_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   const bf16* kb = k + (size_t)b * T_len * krow + (size_t)kvh * HD;
   const bf16* vb = v + (size_t)b * T_len * krow + (size_t)kvh * HD;
   bf16* ob = o + (size_t)b * S * qrow + (size_t)h * HD;
-  const int k_end = causal ? min(T_len, q0 + BQ) : T_len;
+  // the block's keys (local positions) the tile's rows can see
+  const int k_end = causal ? min(T_len, q0 + BQ - kofs) : T_len;
   // the first key tile holding a key inside the window of row q0
-  const int k_begin = window > 0 ? max(0, q0 - window + 1) / BK * BK : 0;
-  const int n_tiles = (k_end - k_begin + BK - 1) / BK;
+  const int k_begin =
+      window > 0 ? max(0, q0 - window + 1 - kofs) / BK * BK : 0;
+  const int n_tiles = max(0, (k_end - k_begin + BK - 1) / BK);
   const int row0 = q0 + 16 * warp;                // this warp's first row
   // each lane's row address in the ldmatrix of Q, K and V (bytes)
   const uint32_t q_lane =
@@ -422,10 +434,12 @@ flash_fwd_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
       ((lane % 8 + ((lane / 8) % 2) * 8) * LDS + (lane / 16) * 8) *
       sizeof(bf16);
 
-  load_tile<HD>(Qs, qb, qrow, q0, S, tid);
-  load_tile<HD>(Ks, kb, krow, k_begin, T_len, tid);
-  load_tile<HD>(Vs, vb, krow, k_begin, T_len, tid);
-  cp_async_commit();
+  if (n_tiles > 0) {               // else every row of the tile is empty
+    load_tile<HD>(Qs, qb, qrow, q0, S, tid);
+    load_tile<HD>(Ks, kb, krow, k_begin, T_len, tid);
+    load_tile<HD>(Vs, vb, krow, k_begin, T_len, tid);
+    cp_async_commit();
+  }
 
   // rows g and g + 8 of the warp's 16: acc[j] holds columns 8 j + 2 t, +1;
   // m is kept in log2 units (scores times scale_log2)
@@ -475,16 +489,16 @@ flash_fwd_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 
     // mask, row max of the raw scores over the quad (the scale is > 0);
     // the window masks keys at or below qpos - window of the warp's rows
-    if (k0 + BK > T_len || (causal && k0 + BK - 1 > row0) ||
-        (window > 0 && k0 <= row0 + 15 - window)) {
+    if (k0 + BK > T_len || (causal && k0 + kofs + BK - 1 > row0) ||
+        (window > 0 && k0 + kofs <= row0 + 15 - window)) {
 #pragma unroll
       for (int n = 0; n < NS; ++n)
 #pragma unroll
         for (int e = 0; e < 4; ++e) {
-          const int kpos = k0 + 8 * n + 2 * t + e % 2;
+          const int kpos = k0 + 8 * n + 2 * t + e % 2, kg = kpos + kofs;
           const int qpos = row0 + g + 8 * (e / 2);
-          if (kpos >= T_len || (causal && kpos > qpos) ||
-              (window > 0 && kpos <= qpos - window))
+          if (kpos >= T_len || (causal && kg > qpos) ||
+              (window > 0 && kg <= qpos - window))
             s[n][e] = NEG_INF;
         }
     }
@@ -567,9 +581,10 @@ flash_fwd_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     const int r = row0 + g + 8 * i;
     if (r < S) {
       const float inv = 1.f / fmaxf(l[i], 1e-30f);
-      if (lse != nullptr && t == 0)   // m is in log2 units
+      if (lse != nullptr && t == 0)   // m in log2 units; -inf: no kept key
         lse[((size_t)b * H + h) * S + r] =
-            (m[i] + log2f(fmaxf(l[i], 1e-30f))) * LN2;
+            l[i] > 0.f ? (m[i] + log2f(l[i])) * LN2
+                   : -__int_as_float(0x7f800000);
       bf16* orow = ob + (size_t)r * qrow + 2 * t;
 #pragma unroll
       for (int d = 0; d < ND; ++d)
@@ -587,7 +602,8 @@ flash_fwd_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 template <int HD>
 int launch_f32(const void* q, const void* k, const void* v, void* o,
                void* lse, int B, int S, int T_len, int H, int KV,
-               int causal, int window, float scale, void* stream) {
+               int causal, int window, int kofs, float scale,
+               void* stream) {
   const size_t bytes = smem_bytes<HD>();
   cudaError_t err = cudaFuncSetAttribute(
       flash_fwd_f32_kernel<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -596,14 +612,15 @@ int launch_f32(const void* q, const void* k, const void* v, void* o,
   dim3 grid(B * H, (S + BQ - 1) / BQ);
   flash_fwd_f32_kernel<HD><<<grid, NT, bytes, (cudaStream_t)stream>>>(
       (const float*)q, (const float*)k, (const float*)v, (float*)o,
-      (float*)lse, S, T_len, H, KV, causal, window, scale);
+      (float*)lse, S, T_len, H, KV, causal, window, kofs, scale);
   return (int)cudaGetLastError();
 }
 
 template <int HD>
 int launch_bf16(const void* q, const void* k, const void* v, void* o,
                 void* lse, int B, int S, int T_len, int H, int KV,
-                int causal, int window, float scale, void* stream) {
+                int causal, int window, int kofs, float scale,
+                void* stream) {
   const size_t bytes = mma_smem_bytes<HD>();
   cudaError_t err = cudaFuncSetAttribute(
       flash_fwd_mma_kernel<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -612,7 +629,7 @@ int launch_bf16(const void* q, const void* k, const void* v, void* o,
   dim3 grid(B * H, (S + BQ - 1) / BQ);
   flash_fwd_mma_kernel<HD><<<grid, MMA_NT, bytes, (cudaStream_t)stream>>>(
       (const bf16*)q, (const bf16*)k, (const bf16*)v, (bf16*)o, (float*)lse,
-      S, T_len, H, KV, causal, window, scale * LOG2E);
+      S, T_len, H, KV, causal, window, kofs, scale * LOG2E);
   return (int)cudaGetLastError();
 }
 
@@ -629,9 +646,9 @@ int blocks_per_sm() {
   return err == cudaSuccess ? n : -(int)err;
 }
 
-bool valid(int B, int S, int T_len, int H, int KV, int window) {
+bool valid(int B, int S, int T_len, int H, int KV, int window, int kofs) {
   return B >= 1 && S >= 1 && T_len >= 1 && KV >= 1 && H % KV == 0 &&
-         window >= 0 && (S + BQ - 1) / BQ <= 65535;
+         window >= 0 && kofs >= 0 && (S + BQ - 1) / BQ <= 65535;
 }
 
 }  // namespace
@@ -642,27 +659,30 @@ extern "C" {
 // type (the bf16 entry's pointers 16-byte aligned).  H is a multiple of
 // KV; hd is 16, 32, 64 or 128 (a smaller head size is zero-padded by the
 // wrapper, which passes the true scale); causal is 0 or 1; window >= 0 (0:
-// none; > 0: keep kpos > qpos - window); scale is 1 / sqrt(hd).
+// none; > 0: keep kpos > qpos - window); k_offset >= 0 is the position of
+// key 0 (0: q and k start together); scale is 1 / sqrt(hd).
 // lse, when not null: (B, H, S) float32, the log-sum-exp of each query
 // row's masked, scaled scores (m + log l), which the backward (K2',
 // flash_bwd.cu) reads; serving passes null.
 int flash_fwd_f32(const void* q, const void* k, const void* v, void* o,
                   void* lse, int B, int S, int T, int H, int KV, int hd,
-                  int causal, int window, float scale, void* stream) {
-  if (!valid(B, S, T, H, KV, window)) return (int)cudaErrorInvalidValue;
+                  int causal, int window, int k_offset, float scale,
+                  void* stream) {
+  if (!valid(B, S, T, H, KV, window, k_offset))
+    return (int)cudaErrorInvalidValue;
   switch (hd) {
     case 16:
       return launch_f32<16>(q, k, v, o, lse, B, S, T, H, KV, causal,
-                            window, scale, stream);
+                            window, k_offset, scale, stream);
     case 32:
       return launch_f32<32>(q, k, v, o, lse, B, S, T, H, KV, causal,
-                            window, scale, stream);
+                            window, k_offset, scale, stream);
     case 64:
       return launch_f32<64>(q, k, v, o, lse, B, S, T, H, KV, causal,
-                            window, scale, stream);
+                            window, k_offset, scale, stream);
     case 128:
       return launch_f32<128>(q, k, v, o, lse, B, S, T, H, KV, causal,
-                             window, scale, stream);
+                             window, k_offset, scale, stream);
     default:
       return (int)cudaErrorInvalidValue;
   }
@@ -670,21 +690,23 @@ int flash_fwd_f32(const void* q, const void* k, const void* v, void* o,
 
 int flash_fwd_bf16(const void* q, const void* k, const void* v, void* o,
                    void* lse, int B, int S, int T, int H, int KV, int hd,
-                   int causal, int window, float scale, void* stream) {
-  if (!valid(B, S, T, H, KV, window)) return (int)cudaErrorInvalidValue;
+                   int causal, int window, int k_offset, float scale,
+                   void* stream) {
+  if (!valid(B, S, T, H, KV, window, k_offset))
+    return (int)cudaErrorInvalidValue;
   switch (hd) {
     case 16:
       return launch_bf16<16>(q, k, v, o, lse, B, S, T, H, KV, causal,
-                             window, scale, stream);
+                             window, k_offset, scale, stream);
     case 32:
       return launch_bf16<32>(q, k, v, o, lse, B, S, T, H, KV, causal,
-                             window, scale, stream);
+                             window, k_offset, scale, stream);
     case 64:
       return launch_bf16<64>(q, k, v, o, lse, B, S, T, H, KV, causal,
-                             window, scale, stream);
+                             window, k_offset, scale, stream);
     case 128:
       return launch_bf16<128>(q, k, v, o, lse, B, S, T, H, KV, causal,
-                              window, scale, stream);
+                              window, k_offset, scale, stream);
     default:
       return (int)cudaErrorInvalidValue;
   }

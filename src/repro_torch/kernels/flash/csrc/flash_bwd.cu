@@ -38,6 +38,13 @@
 //   down to a tile), with dq in registers.
 // Every masked pair's P and dS are 0 by a select, so a row or key that
 // sees nothing in a tile adds nothing.
+// k_offset is the position of key 0 (k and v a block of a longer key
+// sequence, as in flash.cu): the masks compare kpos + k_offset with qpos,
+// the dk/dv walk starts at the query tile holding k0 + k_offset, the dq
+// walk ends before the block's first key past the tile.  Given the output
+// and lse of the whole sequence's softmax (split.py combines the blocks'),
+// P is the block's share of it, and dk, dv are the block's and dq its
+// share of the whole dq; a row with no kept key (lse -inf) gets dq = 0.
 // s = q k^T and dP = dO v^T are computed in both: seven products in place
 // of five, the price of a deterministic dq (FlashAttention-2 adds dq into a
 // float32 buffer with atomics).
@@ -191,7 +198,7 @@ template <int HD>
 __device__ __forceinline__ void score_tiles(
     const float* Qs, const float* dOs, const float* Ks, const float* Vs,
     const float* Ls, const float* Ds, float* Ps, float* dSs, int q0, int k0,
-    int S, int T_len, int causal, int window, float scale) {
+    int S, int T_len, int causal, int window, int kofs, float scale) {
   constexpr int LD = HD + 1;
   const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
   float s[RI][CJ], dp[RI][CJ];
@@ -225,10 +232,10 @@ __device__ __forceinline__ void score_tiles(
     const int r = ty + 16 * i, qpos = q0 + r;
 #pragma unroll
     for (int j = 0; j < CJ; ++j) {
-      const int c = tx + 16 * j, kpos = k0 + c;
+      const int c = tx + 16 * j, kpos = k0 + c, kg = kpos + kofs;
       const bool ok = qpos < S && kpos < T_len &&
-                      (!causal || kpos <= qpos) &&
-                      (window <= 0 || kpos > qpos - window);
+                      (!causal || kg <= qpos) &&
+                      (window <= 0 || kg > qpos - window);
       const float p = ok ? expf(s[i][j] * scale - Ls[r]) : 0.f;
       Ps[r * LDP + c] = p;
       dSs[r * LDP + c] = p * (dp[i][j] - Ds[r]);
@@ -251,7 +258,8 @@ flash_bwd_dkdv_f32_kernel(const float* __restrict__ q,
                           const float* __restrict__ lse,
                           const float* __restrict__ D, float* __restrict__ dk,
                           float* __restrict__ dv, int S, int T_len, int H,
-                          int KV, int causal, int window, float scale) {
+                          int KV, int causal, int window, int kofs,
+                          float scale) {
   constexpr int LD = HD + 1;
   constexpr int DJ = HD / 16;
   extern __shared__ float smem[];
@@ -278,11 +286,11 @@ flash_bwd_dkdv_f32_kernel(const float* __restrict__ q,
 #pragma unroll
     for (int j = 0; j < DJ; ++j) adk[i][j] = adv[i][j] = 0.f;
 
-  // under the causal mask the query tiles before the key tile see none of
-  // its keys (BQ == BK: query tile index >= key tile index); under a window
-  // no query at or past k0 + 63 + window sees one
-  const int q_start = causal ? k0 : 0;
-  const int q_end = window > 0 ? min(S, k0 + BK - 1 + window) : S;
+  // under the causal mask the query tiles before the key tile (at its
+  // position k0 + kofs) see none of its keys; under a window no query at
+  // or past k0 + kofs + 63 + window sees one
+  const int q_start = causal ? (k0 + kofs) / BQ * BQ : 0;
+  const int q_end = window > 0 ? min(S, k0 + kofs + BK - 1 + window) : S;
   for (int g = 0; g < G; ++g) {
     const int h = kvh * G + g;
     const size_t qoff = (size_t)b * S * qrow + (size_t)h * HD;
@@ -298,7 +306,7 @@ flash_bwd_dkdv_f32_kernel(const float* __restrict__ q,
       }
       __syncthreads();
       score_tiles<HD>(Qs, dOs, Ks, Vs, Ls, Ds, Ps, dSs, q0, k0, S, T_len,
-                      causal, window, scale);
+                      causal, window, kofs, scale);
       __syncthreads();
       // dv += P^T dO, dk += dS^T Q over the tile's query rows
 #pragma unroll 4
@@ -349,7 +357,7 @@ flash_bwd_dq_f32_kernel(const float* __restrict__ q,
                         const float* __restrict__ lse,
                         const float* __restrict__ D, float* __restrict__ dq,
                         int S, int T_len, int H, int KV, int causal,
-                        int window, float scale) {
+                        int window, int kofs, float scale) {
   constexpr int LD = HD + 1;
   constexpr int DJ = HD / 16;
   extern __shared__ float smem[];
@@ -384,15 +392,16 @@ flash_bwd_dq_f32_kernel(const float* __restrict__ q,
 #pragma unroll
     for (int j = 0; j < DJ; ++j) adq[i][j] = 0.f;
 
-  const int k_end = causal ? min(T_len, q0 + BQ) : T_len;
-  const int k_begin = window > 0 ? max(0, q0 - window + 1) / BK * BK : 0;
+  const int k_end = causal ? min(T_len, q0 + BQ - kofs) : T_len;
+  const int k_begin =
+      window > 0 ? max(0, q0 - window + 1 - kofs) / BK * BK : 0;
   for (int k0 = k_begin; k0 < k_end; k0 += BK) {
     __syncthreads();               // the last tile's K and dS are read
     load_tile_f32<HD>(Ks, k + koff, krow, k0, T_len);
     load_tile_f32<HD>(Vs, v + koff, krow, k0, T_len);
     __syncthreads();
     score_tiles<HD>(Qs, dOs, Ks, Vs, Ls, Ds, Ps, dSs, q0, k0, S, T_len,
-                    causal, window, scale);
+                    causal, window, kofs, scale);
     __syncthreads();
     // dq += dS K over the tile's keys
 #pragma unroll 4
@@ -619,7 +628,8 @@ flash_bwd_dkdv_mma_kernel(const bf16* __restrict__ q,
                           const float* __restrict__ lse,
                           const float* __restrict__ D, bf16* __restrict__ dk,
                           bf16* __restrict__ dv, int S, int T_len, int H,
-                          int KV, int causal, int window, float scale) {
+                          int KV, int causal, int window, int kofs,
+                          float scale) {
   constexpr int LDS = HD + PAD;
   constexpr int ND = HD / 8;       // 8-column tiles of dk and dv
   constexpr uint32_t TILE_B = 64 * LDS * sizeof(bf16);
@@ -638,11 +648,12 @@ flash_bwd_dkdv_mma_kernel(const bf16* __restrict__ q,
   const size_t qrow = (size_t)H * HD, krow = (size_t)KV * HD;
   const size_t koff = (size_t)b * T_len * krow + (size_t)kvh * HD;
   const float scale_log2 = scale * LOG2E;
-  // under the causal mask the query tiles before the key tile see none of
-  // its keys (BQ == BK): the walk starts at the key tile; under a window it
-  // ends before the first query past every key's window
-  const int q_start = causal ? k0 : 0;
-  const int q_end = WINDOW ? min(S, k0 + BK - 1 + window) : S;
+  // under the causal mask the query tiles before the key tile (at its
+  // position k0 + kofs) see none of its keys: the walk starts at the query
+  // tile holding it; under a window it ends before the first query past
+  // every key's window
+  const int q_start = causal ? min(S, (k0 + kofs) / BQ * BQ) : 0;
+  const int q_end = WINDOW ? min(S, k0 + kofs + BK - 1 + window) : S;
   const int nq = max(0, (q_end - q_start + BQ - 1) / BQ);  // tiles a head
   const int steps = G * nq;
 
@@ -692,9 +703,10 @@ flash_bwd_dkdv_mma_kernel(const bf16* __restrict__ q,
 #pragma unroll
     for (int h2 = 0; h2 < 2; ++h2) {
       const int c0 = 32 * h2;                 // first query column
-      if (causal && k0 + 16 * warp > q0 + c0 + 31) continue;
+      if (causal && k0 + kofs + 16 * warp > q0 + c0 + 31) continue;
       // nor when every query of the half is past every key's window
-      if (WINDOW && q0 + c0 - window >= k0 + 16 * warp + 15) continue;
+      if (WINDOW && q0 + c0 - window >= k0 + kofs + 16 * warp + 15)
+        continue;
       // s^T = K Q^T and dP^T = V dO^T: 16 keys x 32 queries
       float s[4][4], dp[4][4];
 #pragma unroll
@@ -714,10 +726,10 @@ flash_bwd_dkdv_mma_kernel(const bf16* __restrict__ q,
 #pragma unroll
         for (int e = 0; e < 4; ++e) {
           const int qc = c + e % 2, kpos = kr0 + 8 * (e / 2);
-          const int qpos = q0 + qc;
+          const int qpos = q0 + qc, kg = kpos + kofs;
           const bool ok = qpos < S && kpos < T_len &&
-                          (!causal || kpos <= qpos) &&
-                          (!WINDOW || kpos > qpos - window);
+                          (!causal || kg <= qpos) &&
+                          (!WINDOW || kg > qpos - window);
           const float pe = ex2(fmaf(s[n][e], scale_log2, -Lt[qc] * LOG2E));
           p[e] = ok ? pe : 0.f;
           ds[e] = p[e] * (dp[n][e] - Dt[qc]);
@@ -734,6 +746,7 @@ flash_bwd_dkdv_mma_kernel(const bf16* __restrict__ q,
     }
     __syncthreads();               // stage st is read; step j + 2 may land
   }
+  if (steps == 0) cp_async_wait<0>();  // no query sees the key tile
 
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
@@ -765,7 +778,7 @@ flash_bwd_dq_mma_kernel(const bf16* __restrict__ q,
                         const float* __restrict__ lse,
                         const float* __restrict__ D, bf16* __restrict__ dq,
                         int S, int T_len, int H, int KV, int causal,
-                        int window, float scale) {
+                        int window, int kofs, float scale) {
   constexpr int LDS = HD + PAD;
   constexpr int ND = HD / 8;
   constexpr uint32_t TILE_B = 64 * LDS * sizeof(bf16);
@@ -784,17 +797,21 @@ flash_bwd_dq_mma_kernel(const bf16* __restrict__ q,
   const size_t qoff = (size_t)b * S * qrow + (size_t)h * HD;
   const size_t koff = (size_t)b * T_len * krow + (size_t)kvh * HD;
   const float scale_log2 = scale * LOG2E;
-  const int k_end = causal ? min(T_len, q0 + BQ) : T_len;
+  // the block's keys (local positions) the tile's rows can see
+  const int k_end = causal ? min(T_len, q0 + BQ - kofs) : T_len;
   // the first key tile holding a key inside the window of row q0
-  const int k_begin = window > 0 ? max(0, q0 - window + 1) / BK * BK : 0;
-  const int n_tiles = (k_end - k_begin + BK - 1) / BK;
+  const int k_begin =
+      window > 0 ? max(0, q0 - window + 1 - kofs) / BK * BK : 0;
+  const int n_tiles = max(0, (k_end - k_begin + BK - 1) / BK);
   const int row0 = q0 + 16 * warp;           // this warp's first row
 
-  load_tile<HD>(Qs, q + qoff, qrow, q0, S, tid);
-  load_tile<HD>(dOs, dO + qoff, qrow, q0, S, tid);
-  load_tile<HD>(Ks, k + koff, krow, k_begin, T_len, tid);
-  load_tile<HD>(Vs, v + koff, krow, k_begin, T_len, tid);
-  cp_async_commit();
+  if (n_tiles > 0) {               // else the tile's rows see no key: dq 0
+    load_tile<HD>(Qs, q + qoff, qrow, q0, S, tid);
+    load_tile<HD>(dOs, dO + qoff, qrow, q0, S, tid);
+    load_tile<HD>(Ks, k + koff, krow, k_begin, T_len, tid);
+    load_tile<HD>(Vs, v + koff, krow, k_begin, T_len, tid);
+    cp_async_commit();
+  }
 
   // this lane's rows g, g + 8: lse in log2 units and D
   float l2[2], dd[2];
@@ -834,9 +851,9 @@ flash_bwd_dq_mma_kernel(const bf16* __restrict__ q,
 #pragma unroll
     for (int h2 = 0; h2 < 2; ++h2) {
       const int c0 = 32 * h2;                 // first key of the half
-      if (causal && kt0 + c0 > row0 + 15) continue;
+      if (causal && kt0 + kofs + c0 > row0 + 15) continue;
       // nor one whose keys are all at or below every row's window edge
-      if (window > 0 && kt0 + c0 + 31 <= row0 - window) continue;
+      if (window > 0 && kt0 + kofs + c0 + 31 <= row0 - window) continue;
       // s = Q K^T and dP = dO V^T: 16 rows x 32 keys
       float s[4][4], dp[4][4];
 #pragma unroll
@@ -853,10 +870,10 @@ flash_bwd_dq_mma_kernel(const bf16* __restrict__ q,
 #pragma unroll
         for (int e = 0; e < 4; ++e) {
           const int kpos = kt0 + c0 + 8 * n + 2 * t + e % 2;
-          const int qpos = row0 + g + 8 * (e / 2);
+          const int qpos = row0 + g + 8 * (e / 2), kg = kpos + kofs;
           const bool ok = qpos < S && kpos < T_len &&
-                          (!causal || kpos <= qpos) &&
-                          (window <= 0 || kpos > qpos - window);
+                          (!causal || kg <= qpos) &&
+                          (window <= 0 || kg > qpos - window);
           const float pe = ex2(fmaf(s[n][e], scale_log2, -l2[e / 2]));
           ds[e] = ok ? pe * (dp[n][e] - dd[e / 2]) : 0.f;
         }
@@ -903,7 +920,7 @@ template <int HD>
 int launch_f32(const void* q, const void* k, const void* v, const void* o,
                const void* dO, const void* lse, void* dq, void* dk, void* dv,
                void* D, int B, int S, int T_len, int H, int KV, int causal,
-               int window, float scale, void* stream) {
+               int window, int kofs, float scale, void* stream) {
   const cudaStream_t st = (cudaStream_t)stream;
   const size_t bytes = f32_smem_bytes<HD>();
   cudaError_t err = cudaFuncSetAttribute(
@@ -919,14 +936,14 @@ int launch_f32(const void* q, const void* k, const void* v, const void* o,
       <<<dim3(B * KV, (T_len + BK - 1) / BK), NT, bytes, st>>>(
           (const float*)q, (const float*)k, (const float*)v,
           (const float*)dO, (const float*)lse, (const float*)D, (float*)dk,
-          (float*)dv, S, T_len, H, KV, causal, window, scale);
+          (float*)dv, S, T_len, H, KV, causal, window, kofs, scale);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   flash_bwd_dq_f32_kernel<HD>
       <<<dim3(B * H, (S + BQ - 1) / BQ), NT, bytes, st>>>(
           (const float*)q, (const float*)k, (const float*)v,
           (const float*)dO, (const float*)lse, (const float*)D, (float*)dq,
-          S, T_len, H, KV, causal, window, scale);
+          S, T_len, H, KV, causal, window, kofs, scale);
   return (int)cudaGetLastError();
 }
 
@@ -949,7 +966,7 @@ template <int HD>
 int launch_bf16(const void* q, const void* k, const void* v, const void* o,
                 const void* dO, const void* lse, void* dq, void* dk, void* dv,
                 void* D, int B, int S, int T_len, int H, int KV, int causal,
-                int window, float scale, void* stream) {
+                int window, int kofs, float scale, void* stream) {
   const cudaStream_t st = (cudaStream_t)stream;
   const size_t bytes = mma_smem_bytes<HD>();
   cudaError_t err = allow_mma_smem<HD>();
@@ -960,19 +977,19 @@ int launch_bf16(const void* q, const void* k, const void* v, const void* o,
     flash_bwd_dkdv_mma_kernel<HD, true><<<grid, MMA_NT, bytes, st>>>(
         (const bf16*)q, (const bf16*)k, (const bf16*)v, (const bf16*)dO,
         (const float*)lse, (const float*)D, (bf16*)dk, (bf16*)dv, S, T_len,
-        H, KV, causal, window, scale);
+        H, KV, causal, window, kofs, scale);
   else
     flash_bwd_dkdv_mma_kernel<HD, false><<<grid, MMA_NT, bytes, st>>>(
         (const bf16*)q, (const bf16*)k, (const bf16*)v, (const bf16*)dO,
         (const float*)lse, (const float*)D, (bf16*)dk, (bf16*)dv, S, T_len,
-        H, KV, causal, window, scale);
+        H, KV, causal, window, kofs, scale);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   flash_bwd_dq_mma_kernel<HD>
       <<<dim3(B * H, (S + BQ - 1) / BQ), MMA_NT, bytes, st>>>(
           (const bf16*)q, (const bf16*)k, (const bf16*)v, (const bf16*)dO,
           (const float*)lse, (const float*)D, (bf16*)dq, S, T_len, H, KV,
-          causal, window, scale);
+          causal, window, kofs, scale);
   return (int)cudaGetLastError();
 }
 
@@ -991,9 +1008,9 @@ int blocks_per_sm(int which) {
   return err == cudaSuccess ? n : -(int)err;
 }
 
-bool valid(int B, int S, int T_len, int H, int KV, int window) {
+bool valid(int B, int S, int T_len, int H, int KV, int window, int kofs) {
   return B >= 1 && S >= 1 && T_len >= 1 && KV >= 1 && H % KV == 0 &&
-         window >= 0 && (S + BQ - 1) / BQ <= 65535 &&
+         window >= 0 && kofs >= 0 && (S + BQ - 1) / BQ <= 65535 &&
          (T_len + BK - 1) / BK <= 65535;
 }
 
@@ -1006,18 +1023,21 @@ extern "C" {
 // float32 from the forward; D: a float32 scratch of B * H * S.  H is a
 // multiple of KV; hd is 16, 32, 64 or 128 (a smaller head size is
 // zero-padded by the wrapper, which passes the true scale); causal is 0 or
-// 1; window >= 0 (0: none; > 0: keep kpos > qpos - window), as in the
-// forward that wrote lse; scale is 1 / sqrt(hd).
+// 1; window >= 0 (0: none; > 0: keep kpos > qpos - window) and k_offset
+// >= 0 (the position of key 0), as in the forward that wrote lse (or lse
+// and o of the whole key sequence, of which k and v are a block); scale is
+// 1 / sqrt(hd).
 int flash_bwd_f32(const void* q, const void* k, const void* v, const void* o,
                   const void* dO, const void* lse, void* dq, void* dk,
                   void* dv, void* D, int B, int S, int T, int H, int KV,
-                  int hd, int causal, int window, float scale,
+                  int hd, int causal, int window, int k_offset, float scale,
                   void* stream) {
-  if (!valid(B, S, T, H, KV, window)) return (int)cudaErrorInvalidValue;
+  if (!valid(B, S, T, H, KV, window, k_offset))
+    return (int)cudaErrorInvalidValue;
 #define FLASH_BWD_F32(HD_)                                                   \
   case HD_:                                                                  \
     return launch_f32<HD_>(q, k, v, o, dO, lse, dq, dk, dv, D, B, S, T, H,   \
-                           KV, causal, window, scale, stream);
+                           KV, causal, window, k_offset, scale, stream);
   switch (hd) {
     FLASH_BWD_F32(16)
     FLASH_BWD_F32(32)
@@ -1032,13 +1052,14 @@ int flash_bwd_f32(const void* q, const void* k, const void* v, const void* o,
 int flash_bwd_bf16(const void* q, const void* k, const void* v,
                    const void* o, const void* dO, const void* lse, void* dq,
                    void* dk, void* dv, void* D, int B, int S, int T, int H,
-                   int KV, int hd, int causal, int window, float scale,
-                   void* stream) {
-  if (!valid(B, S, T, H, KV, window)) return (int)cudaErrorInvalidValue;
+                   int KV, int hd, int causal, int window, int k_offset,
+                   float scale, void* stream) {
+  if (!valid(B, S, T, H, KV, window, k_offset))
+    return (int)cudaErrorInvalidValue;
 #define FLASH_BWD_BF16(HD_)                                                  \
   case HD_:                                                                  \
     return launch_bf16<HD_>(q, k, v, o, dO, lse, dq, dk, dv, D, B, S, T, H,  \
-                            KV, causal, window, scale, stream);
+                            KV, causal, window, k_offset, scale, stream);
   switch (hd) {
     FLASH_BWD_BF16(16)
     FLASH_BWD_BF16(32)

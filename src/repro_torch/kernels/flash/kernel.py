@@ -15,7 +15,10 @@ given the true scale 1/sqrt(hd), and the outputs sliced back (zero columns
 add nothing to q k^T, and give zero output and gradient columns); a head
 size above 128 raises.  ``window`` > 0 is the reference's sliding window
 (keys ``kpos > qpos - window`` kept, beside the causal mask), taken by both
-kernels and both plain versions.  The kernels are built at first use
+kernels and both plain versions.  ``_forward`` and
+:func:`flash_attention_bwd` take ``k_offset``, the position of key 0 (k
+and v one block of the keys' sequence: ``split.py``'s split-key
+attention).  The kernels are built at first use
 (``kernels/_build.py``) and launched on PyTorch's current stream without
 synchronising.
 
@@ -67,7 +70,7 @@ def _library() -> ctypes.CDLL:
     lib = load_library(LIB_NAME, SOURCES)
     for name in _ENTRY.values():
         fn = getattr(lib, name)
-        fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 8 \
+        fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 9 \
             + [ctypes.c_float, ctypes.c_void_p]
         fn.restype = ctypes.c_int
     lib.flash_fwd_bf16_blocks_per_sm.argtypes = [ctypes.c_int]
@@ -79,7 +82,7 @@ def _bwd_library() -> ctypes.CDLL:
     lib = load_library(BWD_LIB_NAME, BWD_SOURCES)
     for name in _BWD_ENTRY.values():
         fn = getattr(lib, name)
-        fn.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 8 \
+        fn.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 9 \
             + [ctypes.c_float, ctypes.c_void_p]
         fn.restype = ctypes.c_int
     lib.flash_bwd_bf16_blocks_per_sm.argtypes = [ctypes.c_int] * 2
@@ -110,35 +113,40 @@ def aligned16(t: torch.Tensor) -> torch.Tensor:
     return t if is_fake(t) or t.data_ptr() % 16 == 0 else t.clone()
 
 
-def mask_pairs(S: int, T: int, causal: bool, window: int = 0) -> int:
+def mask_pairs(S: int, T: int, causal: bool, window: int = 0,
+               k_offset: int = 0) -> int:
     """The query-key pairs the mask keeps: all S T, or under the
     start-aligned causal mask kpos <= qpos, and under a window > 0 only
-    kpos > qpos - window besides."""
-    s = np.arange(S, dtype=np.int64)
+    kpos > qpos - window besides, the keys at positions k_offset ..
+    k_offset + T - 1."""
+    s = np.arange(S, dtype=np.int64) - k_offset     # in the block's keys
     hi = np.minimum(s, T - 1) if causal else np.full(S, T - 1)
     lo = np.maximum(0, s - window + 1) if window > 0 else 0
     return int(np.maximum(0, hi - lo + 1).sum())
 
 
 def flash_cost(B, S, T, H, KV, hd, causal, window, dtype,
-               with_lse=False) -> tuple:
+               with_lse=False, k_offset=0) -> tuple:
     """(operations, bytes) of one K2 call: 4 hd a kept pair and query head
     (the score and its share of p v); q, k, v read and the output (and the
     lse) written once."""
     esize = torch.empty((), dtype=dtype).element_size()
     nbytes = esize * (2 * B * S * H * hd + 2 * B * T * KV * hd) \
         + (4 * B * H * S if with_lse else 0)
-    return 4 * hd * mask_pairs(S, T, causal, window) * B * H, nbytes
+    return 4 * hd * mask_pairs(S, T, causal, window, k_offset) * B * H, \
+        nbytes
 
 
-def flash_bwd_cost(B, S, T, H, KV, hd, causal, window, dtype) -> tuple:
+def flash_bwd_cost(B, S, T, H, KV, hd, causal, window, dtype,
+                   k_offset=0) -> tuple:
     """(operations, bytes) of one K2' call: the five hd-deep products
     (q k^T, dO v^T, P^T dO, dS^T q, dS k) over the kept pairs; q, k, v, o,
     dO and lse read and dq, dk, dv written once."""
     esize = torch.empty((), dtype=dtype).element_size()
     nbytes = esize * (4 * B * S * H * hd + 4 * B * T * KV * hd) \
         + 4 * B * H * S
-    return 10 * hd * mask_pairs(S, T, causal, window) * B * H, nbytes
+    return 10 * hd * mask_pairs(S, T, causal, window, k_offset) * B * H, \
+        nbytes
 
 
 def kernel_head_dim(hd: int) -> int:
@@ -159,9 +167,10 @@ def _pad_hd(tensors, hd_kernel: int) -> list:
             for t in tensors]
 
 
-def _check(q, k, v, causal: bool = True, window: int = 0) -> tuple:
-    """Validate the shapes, devices, types and the window; returns
-    (B, S, T, H, KV, hd)."""
+def _check(q, k, v, causal: bool = True, window: int = 0,
+           k_offset: int = 0) -> tuple:
+    """Validate the shapes, devices, types, the window and the key offset;
+    returns (B, S, T, H, KV, hd)."""
     if q.dim() != 4 or k.dim() != 4 or v.dim() != 4:
         raise ValueError("flash_attention takes (B, S, H, hd) q and "
                          "(B, T, KV, hd) k and v")
@@ -186,6 +195,8 @@ def _check(q, k, v, causal: bool = True, window: int = 0) -> tuple:
     if window > 0 and not causal:
         raise ValueError("a sliding window is taken only with the causal "
                          "mask (the model's attention is causal)")
+    if int(k_offset) != k_offset or k_offset < 0:
+        raise ValueError(f"k_offset {k_offset!r}: expected an integer >= 0")
     if dev.type == "cuda":
         if dtype not in _ENTRY:
             raise TypeError(f"flash_attention takes float32 or bfloat16, "
@@ -196,12 +207,14 @@ def _check(q, k, v, causal: bool = True, window: int = 0) -> tuple:
     return B, S, T, H, KV, hd
 
 
-def _forward(q, k, v, causal: bool, with_lse: bool, window: int = 0):
+def _forward(q, k, v, causal: bool, with_lse: bool, window: int = 0,
+             k_offset: int = 0):
     """(out, lse or None) of K2 on CUDA tensors (checked by ``_check``)."""
     B, S, H, hd = q.shape
     T, KV = k.shape[1], k.shape[2]
     dev = q.device
-    cost = flash_cost(B, S, T, H, KV, hd, causal, window, q.dtype, with_lse)
+    cost = flash_cost(B, S, T, H, KV, hd, causal, window, q.dtype, with_lse,
+                      k_offset)
     if is_fake(q):
         lse = (torch.empty((B, H, S), dtype=torch.float32, device=dev)
                if with_lse else None)
@@ -219,7 +232,7 @@ def _forward(q, k, v, causal: bool, with_lse: bool, window: int = 0):
         err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
                  None if lse is None else lse.data_ptr(),
                  B, S, T, H, KV, hd_k, int(bool(causal)), int(window),
-                 1.0 / math.sqrt(hd), stream)
+                 int(k_offset), 1.0 / math.sqrt(hd), stream)
     if err != 0:
         raise RuntimeError(f"flash_attention kernel launch failed: CUDA "
                            f"error {err}")
@@ -236,16 +249,23 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0):
     q: (B, S, H, hd); k, v: (B, T, KV, hd) with H a multiple of KV, all of
     one type (float32 or bfloat16 on the card).  The causal mask keeps
     ``kpos <= qpos`` counted from 0; ``window`` > 0 (with ``causal`` only)
-    also keeps only ``kpos > qpos - window``.  Returns (B, S, H, hd) in q's
-    type.  On CUDA tensors that need a gradient it goes through
-    :class:`FlashAttention` (K2 with its log-sum-exp, K2' in the backward).
-    Every forward kernel launch adds one to ``flash_attention.launches``.
-    DTensors (the dry run's sharded layers) run through ``local_map`` on
-    each rank's blocks, in q's placements (heads or the batch split,
-    never the sequence).
+    also keeps only ``kpos > qpos - window``.  Returns (B, S, H, hd) in
+    q's type.  On CUDA tensors that need a gradient it goes through
+    :class:`FlashAttention` (K2 with its log-sum-exp, K2' in the
+    backward).  Every forward kernel launch adds one to
+    ``flash_attention.launches``.  DTensors (the dry run's sharded layers)
+    run through ``local_map`` on each rank's blocks, in q's placements
+    (heads or the batch split); where k's sequence is split over a mesh
+    dim that q is whole on (the reference's ``_kv_seq_spec``), each rank
+    attends to its block of the keys, at the offset of its coordinate
+    there, and the blocks' softmaxes are combined over that dim
+    (``split.py::split_key_attention``).
     """
     from torch.distributed.tensor import DTensor
     if isinstance(q, DTensor):
+        from .split import split_key_attention, split_key_dim
+        if split_key_dim(q, k) is not None:
+            return split_key_attention(q, k, v, causal=causal, window=window)
         from torch.distributed.tensor import Replicate
         from torch.distributed.tensor.experimental import local_map
         place = [Replicate() if p.is_partial() else p for p in q.placements]
@@ -269,18 +289,20 @@ flash_attention.launches = 0
 
 
 def flash_attention_bwd(q, k, v, o, do, lse, *, causal: bool = True,
-                        window: int = 0):
+                        window: int = 0, k_offset: int = 0):
     """K2': (dq, dk, dv) of ``flash_attention`` at the output gradient
     ``do``, from the forward's output ``o`` and log-sum-exp ``lse``
-    ((B, H, S) float32, of the same ``causal`` and ``window``); each in its
-    input's type.  CPU tensors take the
+    ((B, H, S) float32, of the same ``causal``, ``window`` and
+    ``k_offset``; or the output and lse of the whole key sequence, of
+    which k and v are the block at ``k_offset``: then dk and dv are the
+    block's, dq its share); each in its input's type.  CPU tensors take the
     plain version (:func:`~repro_torch.kernels.flash.ref.flash_bwd_plain`);
     CUDA tensors launch ``csrc/flash_bwd.cu`` or raise: three kernels, D
     (rowsum(do o o)), dk/dv (a block per kv head and 64-key tile) and dq
     (a block per query head and 64-row tile), on the tensor cores for
     bfloat16 and on the CUDA cores for float32.  Each call adds one to
     ``flash_attention_bwd.launches``."""
-    B, S, T, H, KV, hd = _check(q, k, v, causal, window)
+    B, S, T, H, KV, hd = _check(q, k, v, causal, window, k_offset)
     dtype, dev = q.dtype, q.device
     for name, t in (("o", o), ("do", do)):
         if tuple(t.shape) != (B, S, H, hd) or t.device != dev:
@@ -291,8 +313,9 @@ def flash_attention_bwd(q, k, v, o, do, lse, *, causal: bool = True,
                          f"{(B, H, S)}")
     if dev.type == "cpu":
         return flash_bwd_plain(q, k, v, o, do, lse, causal=causal,
-                               window=window)
-    cost = flash_bwd_cost(B, S, T, H, KV, hd, causal, window, dtype)
+                               window=window, k_offset=k_offset)
+    cost = flash_bwd_cost(B, S, T, H, KV, hd, causal, window, dtype,
+                          k_offset)
     if is_fake(q):
         charge("flash_attention_bwd", *cost)
         return tuple(torch.empty(t.shape, dtype=dtype, device=dev)
@@ -310,8 +333,8 @@ def flash_attention_bwd(q, k, v, o, do, lse, *, causal: bool = True,
         err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
                  do.data_ptr(), lse.data_ptr(), dq.data_ptr(), dk.data_ptr(),
                  dv.data_ptr(), D.data_ptr(), B, S, T, H, KV, hd_k,
-                 int(bool(causal)), int(window), 1.0 / math.sqrt(hd),
-                 stream)
+                 int(bool(causal)), int(window), int(k_offset),
+                 1.0 / math.sqrt(hd), stream)
     if err != 0:
         raise RuntimeError(f"flash_attention_bwd kernel launch failed: CUDA "
                            f"error {err}")

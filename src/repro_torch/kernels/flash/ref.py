@@ -14,6 +14,13 @@ counted from 0 (start-aligned, as the Pallas kernel masks); a sliding
 the reference's ``full_attention``.  GQA maps query head h to kv head ``h // (H // KV)``.
 Layouts: q (B, S, H, hd); k, v (B, T, KV, hd); returns (B, S, H, hd).
 
+``k_offset`` is the position of key 0: k and v are the block of keys
+``k_offset .. k_offset + T - 1`` of a longer sequence (one rank's block of
+the keys' sequence, ``split.py``), and the mask compares those positions
+with the queries' (from 0).  A query row none of whose keys in the block
+is kept gives a zero output row and an lse of -inf (the block adds
+nothing to the row's softmax); with ``k_offset`` 0 no row is empty.
+
 ``attention_lse_plain`` is the forward's second output (the log-sum-exp of
 each query row's masked, scaled scores, (B, H, S) float32) and
 ``flash_bwd_plain`` the backward K2' computes, written out with lse and
@@ -34,10 +41,10 @@ import torch
 NEG_INF = -1e30
 
 
-def _mask(S, T, causal, window, device):
+def _mask(S, T, causal, window, device, k_offset=0):
     """(S, T) bool of the query-key pairs kept, or None when all are."""
     qpos = torch.arange(S, device=device)[:, None]
-    kpos = torch.arange(T, device=device)[None, :]
+    kpos = torch.arange(T, device=device)[None, :] + k_offset
     mask = None
     if causal:
         mask = kpos <= qpos
@@ -47,8 +54,9 @@ def _mask(S, T, causal, window, device):
     return mask
 
 
-def _scores(q, k, causal, window):
-    """(B, H, S, T) float32 masked, scaled scores and the GQA group."""
+def _scores(q, k, causal, window, k_offset=0):
+    """(B, H, S, T) float32 masked, scaled scores, the GQA group and the
+    (S, T) mask (None: every pair kept)."""
     B, S, H, hd = q.shape
     T, KV = k.shape[1], k.shape[2]
     if H % KV:
@@ -58,36 +66,58 @@ def _scores(q, k, causal, window):
     kf = k.float().repeat_interleave(g, dim=2)
     scores = torch.einsum("bshd,bthd->bhst", q.float(), kf)
     scores = scores * (1.0 / math.sqrt(hd))
-    mask = _mask(S, T, causal, window, q.device)
+    mask = _mask(S, T, causal, window, q.device, k_offset)
     if mask is not None:
         scores = torch.where(mask, scores, NEG_INF)
-    return scores, g
+    return scores, g, mask
 
 
-def attention_plain(q, k, v, *, causal: bool = True, window: int = 0):
-    scores, g = _scores(q, k, causal, window)
+def _empty_rows(mask, k_offset):
+    """(S, 1) bool of the query rows with no kept key in the block, or
+    None (with ``k_offset`` 0 every row keeps its diagonal)."""
+    if mask is None or k_offset == 0:
+        return None
+    return ~mask.any(dim=-1, keepdim=True)
+
+
+def attention_plain(q, k, v, *, causal: bool = True, window: int = 0,
+                    k_offset: int = 0):
+    scores, g, mask = _scores(q, k, causal, window, k_offset)
     vf = v.float().repeat_interleave(g, dim=2)
     probs = torch.softmax(scores, dim=-1)
-    return torch.einsum("bhst,bthd->bshd", probs, vf).to(q.dtype)
+    out = torch.einsum("bhst,bthd->bshd", probs, vf)
+    empty = _empty_rows(mask, k_offset)
+    if empty is not None:
+        out = torch.where(empty[None, :, :, None], 0.0, out)
+    return out.to(q.dtype)
 
 
-def attention_lse_plain(q, k, *, causal: bool = True, window: int = 0):
-    """(B, H, S) float32: logsumexp of each row's masked, scaled scores."""
-    return torch.logsumexp(_scores(q, k, causal, window)[0], dim=-1)
+def attention_lse_plain(q, k, *, causal: bool = True, window: int = 0,
+                        k_offset: int = 0):
+    """(B, H, S) float32: logsumexp of each row's masked, scaled scores
+    (-inf for a row with no kept key)."""
+    scores, _, mask = _scores(q, k, causal, window, k_offset)
+    lse = torch.logsumexp(scores, dim=-1)
+    empty = _empty_rows(mask, k_offset)
+    if empty is not None:
+        lse = torch.where(empty[:, 0], float("-inf"), lse)
+    return lse
 
 
 def flash_bwd_plain(q, k, v, o, do, lse, *, causal: bool = True,
-                    window: int = 0):
+                    window: int = 0, k_offset: int = 0):
     """(dq, dk, dv) of ``attention_plain`` at the output gradient ``do``,
     from the forward's output ``o`` and log-sum-exp ``lse``; each in its
-    input's type."""
+    input's type.  Given the output and lse of the whole sequence's
+    softmax (``split.py``'s combine), the gradients of this block of keys:
+    dk and dv whole, dq this block's share."""
     B, S, H, hd = q.shape
     T, KV = k.shape[1], k.shape[2]
-    scores, g = _scores(q, k, causal, window)
+    scores, g, mask = _scores(q, k, causal, window, k_offset)
     scale = 1.0 / math.sqrt(hd)
     p = torch.exp(scores - lse.float()[..., None])          # (B, H, S, T)
-    mask = _mask(S, T, causal, window, q.device)
     if mask is not None:
+        # a row with no kept key (lse -inf) has every p masked: 0, no NaN
         p = torch.where(mask, p, 0.0)
     dof = do.float()
     D = (dof * o.float()).sum(-1).transpose(1, 2)           # (B, H, S)

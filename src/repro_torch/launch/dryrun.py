@@ -453,10 +453,7 @@ def _lower_pipeline_cell(arch: str, mesh, *, num_stages: int = 4,
         raise ValueError(f"{arch}: L={cfg.num_layers} % stages={num_stages}")
     t0 = time.time()
     opt_name = default_optimizer_name(cfg)
-    # heads that do not split over "model" run whole (XLA splits the keys'
-    # sequence there; the port counts M times their attention)
-    pcfg = PipelineConfig(num_stages=num_stages, num_microbatches=q,
-                          whole_attention=True)
+    pcfg = PipelineConfig(num_stages=num_stages, num_microbatches=q)
     specs = _input_specs(cfg, sp)
     with _fake_mode():
         opt = get_optimizer(opt_name)

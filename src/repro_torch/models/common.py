@@ -115,21 +115,40 @@ def _identity(x):
     return x
 
 
+def _whole(x, dim, blocks=None):
+    return x
+
+
+def _no_reduce(t, op):
+    return t
+
+
 @dataclasses.dataclass(frozen=True)
 class ModelSplit:
     """This rank's block of a layer along a mesh's "model" axis
     (Megatron-style tensor parallelism inside a pipeline stage): ``size``
     ranks, this one ``rank``.  A layer built with a split holds 1/size of
-    its query and kv heads and of its FFN's hidden width (or of its
-    experts, see ``models/moe.py``); ``enter`` marks the input of each
-    column-parallel block (identity forward, the gradient summed over the
-    model group) and ``exit`` the output of each row-parallel one (summed
-    over the model group forward, identity backward).  The default is the
+    its attention's flat query and kv columns (whole heads where they
+    divide) and of its FFN's hidden width (or of its experts, see
+    ``models/moe.py``); ``enter`` marks the input of each column-parallel
+    block (identity forward, the gradient summed over the model group)
+    and ``exit`` the output of each row-parallel one (summed over the
+    model group forward, identity backward).  Where the attention's heads
+    do not split (``transformer.py::attention_mode``): ``gather(x, dim)``
+    joins the group's equal blocks of ``x`` along ``dim`` (backward: this
+    rank's block of the whole gradient), ``split(x, dim, blocks)`` keeps
+    this rank's block ``blocks[rank]`` = (lo, hi) of a whole ``x`` along
+    ``dim`` (backward: the blocks' gradients joined), and ``reduce(t,
+    op)`` sums ("sum") or maxes ("max") a tensor over the group, outside
+    autograd (``kernels/flash/split.py``'s combine).  The default is the
     whole layer."""
     size: int = 1
     rank: int = 0
     enter: Callable = _identity
     exit: Callable = _identity
+    gather: Callable = _whole
+    split: Callable = _whole
+    reduce: Callable = _no_reduce
 
     def part(self, n: int, what: str) -> int:
         """n / size, or ValueError when size does not divide n."""
@@ -297,6 +316,19 @@ def lay_out(t, mesh, placements):
                                run_check=False)
     return t if list(t.placements) == list(placements) else \
         t.redistribute(mesh, placements)
+
+
+def head_input(x, vocab: int) -> tuple:
+    """The head's input on a mesh and its logits' layout: the vocabulary
+    over "model" where it divides the axis (the reference's rule for
+    ``embed`` / ``lm_head``), else the tokens over "model", as XLA lays
+    the head out there (the logits' rows split, not their columns).  A
+    plain tensor: (x, any spec; ``maybe_constrain`` passes it through)."""
+    tp = model_axis_size(x)
+    if tp > 1 and vocab % tp:
+        spec = (DATA, "model", None)
+        return maybe_constrain(x, spec), spec
+    return x, (DATA, None, "model")
 
 
 def heads_flat(t, n: int):

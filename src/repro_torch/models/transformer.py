@@ -68,12 +68,13 @@ from torch import nn
 from torch.distributed.tensor import DTensor
 
 from ..kernels.flash import flash_attention
+from ..kernels.flash.split import key_blocks, split_key_local
 from . import moe as moe_lib
 from .common import (DATA, WHOLE, ArchConfig, CastCache, ModelSplit,
                      apply_rope, cross_entropy, decode_attention, dense_init,
-                     embed_init, heads_flat, lookup, maybe_constrain,
-                     mesh_zeros, model_axis_size, nest_layers, remat_wrap,
-                     rms_norm, rope_cos_sin)
+                     embed_init, head_input, heads_flat, lookup,
+                     maybe_constrain, mesh_zeros, model_axis_size,
+                     nest_layers, remat_wrap, rms_norm, rope_cos_sin)
 
 #: the families this module builds
 FAMILIES = ("dense", "moe", "vlm")
@@ -85,34 +86,31 @@ def _swiglu(cfg: ArchConfig) -> bool:
     return cfg.ffn_mult == 3
 
 
-#: a layer's attention leaves: its query, key, value and output matrices
-#: and their biases
-ATTENTION = ("wq", "wk", "wv", "wo", "bq", "bk", "bv")
-
-
-def attention_split(cfg: ArchConfig, split: ModelSplit) -> ModelSplit:
-    """``split`` for the attention block where the query and kv heads
-    split over it into whole heads; else the whole block, every model rank
-    running every head on the whole activation (the FFN still split): a
-    head cannot be cut, and the reference's XLA then keeps the heads whole
-    as well, splitting the keys' sequence instead."""
-    if cfg.n_heads % split.size == 0 and cfg.n_kv % split.size == 0:
-        return split
-    return WHOLE
+def attention_mode(cfg: ArchConfig, size: int) -> str:
+    """How a model axis of ``size`` ranks splits the attention, as the
+    reference's layouts do: "heads" where the query and kv heads split
+    into whole heads (each rank its heads); "shared_kv" where the query
+    heads split and the kv heads do not (each rank its query heads and
+    the kv heads they read, as the reference's repeat of the kv heads
+    gives them); "split_keys" where the query heads do not split (every
+    head whole on every rank, the keys' sequence split over the ranks:
+    the reference's ``_kv_seq_spec``).  The leaves are cut by their flat
+    columns in every mode (``launch/sharding.py::model_block``)."""
+    if size == 1 or (cfg.n_heads % size == 0 and cfg.n_kv % size == 0):
+        return "heads"
+    return "shared_kv" if cfg.n_heads % size == 0 else "split_keys"
 
 
 def _matrices(cfg: ArchConfig, split: ModelSplit = WHOLE) -> dict:
     """The per-layer matrices of the reference, by shape (the experts'
     are ``moe_lib.MoEFFN``'s), or ``split``'s block of them: wq, wk, wv
-    and the FFN's first matrices by columns (whole heads), wo and w_down
-    by rows (the attention's whole where its heads do not split, see
-    :func:`attention_split`)."""
+    and the FFN's first matrices by columns (wq, wk and wv by their flat
+    H hd / KV hd columns, whole heads where the heads split), wo and
+    w_down by rows."""
     d, hd = cfg.d_model, cfg.head_dim
-    att = attention_split(cfg, split)
-    H = att.part(cfg.n_heads, "query heads")
-    KV = att.part(cfg.n_kv, "kv heads")
-    out = {"wq": (d, H * hd), "wk": (d, KV * hd), "wv": (d, KV * hd),
-           "wo": (H * hd, d)}
+    Hc = split.part(cfg.n_heads * hd, "query columns")
+    KVc = split.part(cfg.n_kv * hd, "kv columns")
+    out = {"wq": (d, Hc), "wk": (d, KVc), "wv": (d, KVc), "wo": (Hc, d)}
     if cfg.moe_experts > 0:
         return out
     ff = split.part(cfg.d_ff, "FFN columns")
@@ -137,12 +135,11 @@ def _biases(cfg: ArchConfig, split: ModelSplit = WHOLE) -> dict:
     ``split`` each cut as its matrix's columns, ``b_down`` whole (added
     after the row-parallel sum)."""
     hd = cfg.head_dim
-    att = attention_split(cfg, split)
-    H = att.part(cfg.n_heads, "query heads")
-    KV = att.part(cfg.n_kv, "kv heads")
+    Hc = split.part(cfg.n_heads * hd, "query columns")
+    KVc = split.part(cfg.n_kv * hd, "kv columns")
     out = {}
     if cfg.qkv_bias:
-        out.update(bq=(H * hd,), bk=(KV * hd,), bv=(KV * hd,))
+        out.update(bq=(Hc,), bk=(KVc,), bv=(KVc,))
     if not _swiglu(cfg) and cfg.moe_experts == 0:
         out.update(b_up=(split.part(cfg.d_ff, "FFN columns"),),
                    b_down=(cfg.d_model,))
@@ -156,26 +153,40 @@ _RESIDUAL = (DATA, None, None)
 _HIDDEN = (DATA, None, "model")
 
 
+def attention_layout(q, k, v) -> tuple:
+    """q, k and v with the reference's layout hints on DTensors
+    (``full_attention`` / ``chunked_attention``,
+    ``repro/models/common.py:218-227``): where the query heads split over
+    "model", all three over the data axes and their heads over "model"
+    (kv heads repeated per query head first when they do not split over
+    it, as the reference's ``jnp.repeat``); where they do not, q whole over
+    "model" and the keys' sequence split over it (``_kv_seq_spec``), so
+    that ``flash_attention`` has each model rank attend to its block of
+    the keys and combines the blocks' softmaxes
+    (``kernels/flash/split.py``).  Plain tensors are returned as they
+    are."""
+    tp = model_axis_size(q)
+    if tp == 1:
+        return q, k, v
+    H, KV = q.shape[2], k.shape[2]
+    if H % tp:
+        return (maybe_constrain(q, (DATA, None, None, None)),
+                *(maybe_constrain(t, (DATA, "model", None, None))
+                  for t in (k, v)))
+    if KV % tp:
+        # whole heads around the repeat, its gradient's sum included
+        k, v = (maybe_constrain(t.repeat_interleave(H // KV, dim=2),
+                                (DATA, None, None, None)) for t in (k, v))
+    return tuple(maybe_constrain(t, (DATA, None, "model", None))
+                 for t in (q, k, v))
+
+
 def attention(q, k, v, window: int = 0):
     """Causal attention over the whole sequence (K2 through
-    ``flash_attention``), with the reference's layout hints on DTensors:
-    q, k and v over the data axes and their heads over "model" (kv heads
-    repeated per query head first when they do not split over it, as the
-    reference's ``jnp.repeat``); when the query heads do not split either,
-    the heads stay whole on every model rank (the reference shards the
-    keys instead, ``_kv_seq_spec``; the port does not split a softmax).
-    A plain tensor goes straight through."""
-    tp = model_axis_size(q)
-    if tp > 1:
-        H, KV = q.shape[2], k.shape[2]
-        if KV % tp:
-            # whole heads around the repeat, its gradient's sum included
-            k, v = (maybe_constrain(t.repeat_interleave(H // KV, dim=2),
-                                    (DATA, None, None, None))
-                    for t in (k, v))
-        spec = (DATA, None, None if H % tp else "model", None)
-        q, k, v = (maybe_constrain(t, spec) for t in (q, k, v))
-    return flash_attention(q, k, v, causal=True, window=window)
+    ``flash_attention``) in the reference's layout on a mesh
+    (:func:`attention_layout`)."""
+    return flash_attention(*attention_layout(q, k, v), causal=True,
+                           window=window)
 
 
 def check_config(cfg: ArchConfig) -> None:
@@ -206,27 +217,36 @@ def project_qkv(layer, x, cos=None, sin=None) -> tuple:
     q = q.reshape(B, S, -1, hd)
     k = k.reshape(B, S, -1, hd)
     v = v.reshape(B, S, -1, hd)
+    return (*_norm_rope(layer, q, k, cos, sin), v)
+
+
+def _norm_rope(layer, q, k, cos, sin) -> tuple:
+    """q and k (B, S, n, hd) after the config's per-head qk-norm and, when
+    ``cos`` / ``sin`` are given, RoPE."""
+    cfg = layer.cfg
     if cfg.qk_norm:
         q = rms_norm(q, layer.q_norm, cfg.norm_eps)
         k = rms_norm(k, layer.k_norm, cfg.norm_eps)
     if cos is not None:
         q = apply_rope(q, cos, sin)
         k = apply_rope(k, cos, sin)
-    return q, k, v
+    return q, k
 
 
 class TransformerLayer(nn.Module):
     """One block (the reference's ``block_fwd``), whole or ``split``'s
-    block of it: then the attention runs on the rank's heads and the FFN
-    on its columns (or experts), each between ``split.enter`` and
-    ``split.exit``."""
+    block of it: then the attention runs in :func:`attention_mode`'s
+    layout on the rank's flat columns and the FFN on its columns (or
+    experts), each between ``split.enter`` and ``split.exit``."""
 
     def __init__(self, cfg: ArchConfig, device=None,
                  split: ModelSplit = WHOLE):
         super().__init__()
         self.cfg = cfg
         self.split = split
-        self.attn_split = attention_split(cfg, split)
+        self.mode = attention_mode(cfg, split.size)
+        if self.mode == "shared_kv":
+            self._kv_heads = _kv_heads_read(cfg, split)
         for name, shape in {**_vectors(cfg), **_biases(cfg, split),
                             **_matrices(cfg, split)}.items():
             self.register_parameter(name, nn.Parameter(torch.empty(
@@ -255,21 +275,67 @@ class TransformerLayer(nn.Module):
         h = maybe_constrain(h, _HIDDEN)
         return sp.exit(h @ self.w("w_down", dt)) + self.w("b_down", dt)
 
+    def _columns(self, h, name: str):
+        """h times this rank's columns of ``w<name>`` (its bias added)."""
+        dt = h.dtype
+        t = h @ self.w("w" + name, dt)
+        return t + self.w("b" + name, dt) if self.cfg.qkv_bias else t
+
+    def _split_attention(self, h, cos, sin):
+        """The attention of a layer whose heads do not split over the
+        model group (:func:`attention_mode`), from the block's entered
+        input h (B, S, d): returns this rank's columns of the attention's
+        flat output (B, S, H hd / size), the rows of ``wo`` it holds.
+
+        "split_keys": q, k and v from the rank's columns, gathered whole
+        over the group; the qk-norm and RoPE on whole heads; the rank's
+        block of the keys' sequence (``kernels/flash/split.py::
+        key_blocks``) and split-key attention over the group.
+        "shared_kv": the rank's whole query heads; k and v gathered whole
+        over the group (their gradient summed over the ranks that read a
+        kv head), then the kv heads its query heads read."""
+        cfg, sp = self.cfg, self.split
+        B, S, _ = h.shape
+        hd = cfg.head_dim
+        if self.mode == "split_keys":
+            q, k, v = (sp.gather(self._columns(h, n), -1).reshape(
+                B, S, -1, hd) for n in "qkv")
+            q, k = _norm_rope(self, q, k, cos, sin)
+            blocks = key_blocks(S, sp.size)
+            k, v = (sp.split(t, 1, blocks) for t in (k, v))
+            o = split_key_local(q, k, v, k_offset=blocks[sp.rank][0],
+                                reduce=sp.reduce, causal=True,
+                                window=cfg.sliding_window)
+            n = cfg.n_heads * hd // sp.size
+            return sp.split(o.reshape(B, S, -1), -1,
+                            [(r * n, (r + 1) * n) for r in range(sp.size)])
+        q = self._columns(h, "q").reshape(B, S, -1, hd)
+        k, v = (sp.enter(sp.gather(self._columns(h, n), -1)).reshape(
+            B, S, cfg.n_kv, hd)[:, :, self._kv_heads] for n in "kv")
+        q, k = _norm_rope(self, q, k, cos, sin)
+        o = flash_attention(q, k, v, causal=True, window=cfg.sliding_window)
+        return o.reshape(B, S, -1)
+
     def forward(self, x, cos=None, sin=None, *, cache=None, pos=None):
         """x (B, S, d); cos/sin from ``rope_cos_sin`` at the positions of
         ``x`` (None without RoPE).
 
         Without ``cache`` (prefill, the sequence starting at position 0):
-        returns (x, (k, v)), the keys and values to store.  With ``cache``
+        returns (x, (k, v)), the keys and values to store (None where the
+        heads do not split over the layer's model group).  With ``cache``
         = (k_cache, v_cache) of shape (B, T, KV, hd) and S == 1 (decode):
         writes this token's k and v into the cache at ``min(pos, T - 1)``
         in place (the reference's clamp) and returns (x, cache)."""
         cfg = self.cfg
         B, S, _ = x.shape
         dt = x.dtype
-        q, k, v = project_qkv(
-            self, self.attn_split.enter(rms_norm(x, self.ln1, cfg.norm_eps)),
-            cos, sin)
+        h = self.split.enter(rms_norm(x, self.ln1, cfg.norm_eps))
+        if self.mode != "heads":
+            x = x + self.split.exit(self._split_attention(h, cos, sin)
+                                    @ self.w("wo", dt))
+            x = x + self._ffn(rms_norm(x, self.ln2, cfg.norm_eps))
+            return x, None
+        q, k, v = project_qkv(self, h, cos, sin)
         if cache is None:
             attn = attention(q, k, v, cfg.sliding_window)
             new = (k, v)
@@ -283,12 +349,26 @@ class TransformerLayer(nn.Module):
             attn = decode_attention(q, k_cache, v_cache, pos)
             new = cache
         attn = heads_flat(attn.reshape(B, S, -1), cfg.n_heads)
-        x = x + self.attn_split.exit(attn @ self.w("wo", dt))
+        x = x + self.split.exit(attn @ self.w("wo", dt))
         # on a mesh the row-parallel products leave partial sums: the
         # residual stream is summed over "model" (the model group's sum)
         x = maybe_constrain(x, _RESIDUAL)
         x = x + self._ffn(rms_norm(x, self.ln2, cfg.norm_eps))
         return maybe_constrain(x, _RESIDUAL), new
+
+
+def _kv_heads_read(cfg: ArchConfig, split: ModelSplit):
+    """The kv heads that rank ``split.rank``'s query heads read (query
+    head h reads kv head h // (H / KV)): a slice where they form whole
+    GQA groups of its heads, else one index per query head."""
+    Hl = cfg.n_heads // split.size
+    g = cfg.n_heads // cfg.n_kv
+    idx = [(split.rank * Hl + j) // g for j in range(Hl)]
+    lo, n = idx[0], idx[-1] - idx[0] + 1
+    if Hl % n == 0 and all(i - lo == j // (Hl // n)
+                           for j, i in enumerate(idx)):
+        return slice(lo, lo + n)
+    return idx
 
 
 class Transformer(nn.Module):
@@ -326,13 +406,15 @@ class Transformer(nn.Module):
         """The reference's ``_unembed``: the final norm, then the tied head
         (``embed.T``) or ``lm_head``."""
         x = rms_norm(x, self.final_norm, self.cfg.norm_eps)
+        # on a mesh: the vocab over "model" (or, where it does not split,
+        # the tokens), and the logits' gradient too (the head's weight
+        # gradient then splits as its product does)
+        x, spec = head_input(x, self.cfg.vocab)
         if self.cfg.tie_embeddings:
             logits = x @ self._cast.get("embed", self.embed, x.dtype).T
         else:
             logits = x @ self._cast.get("lm_head", self.lm_head, x.dtype)
-        # on a mesh: the vocab over "model", and the logits' gradient too
-        # (the head's weight gradient then splits as its product does)
-        return maybe_constrain(logits, (DATA, None, "model"))
+        return maybe_constrain(logits, spec)
 
     def rope(self, positions):
         """(cos, sin) at ``positions``, or (None, None) without RoPE."""

@@ -16,7 +16,10 @@ Every attention over a whole sequence goes through
 ``kernels/flash::flash_attention`` (K2; K2' for its gradient): the
 encoder's without the causal mask (T_enc x T_enc), the decoder's
 self-attention with it, and the cross-attention without it (S queries
-against T_enc keys).  A decode step attends through the plain
+against T_enc keys); on a mesh, laid out by
+``transformer.py::attention_layout``: where the heads do not divide the
+"model" axis, the keys' sequence splits over it, as the reference's
+``_kv_seq_spec`` (``repro/models/whisper.py:96-105, 194-202``).  A decode step attends through the plain
 ``decode_attention``: over the self-attention cache, and over every frame
 of the cross cache (the reference's ``pos`` = T_enc - 1).  The cache is
 the reference's: ``k`` / ``v`` (L, B, T, H, hd) and the cross ``xk`` /
@@ -42,9 +45,10 @@ from torch import nn
 
 from ..kernels.flash import flash_attention
 from .common import (ArchConfig, CastCache, cross_entropy, decode_attention,
-                     dense_init, embed_init, gelu_mlp, heads_flat,
-                     layer_norm, lookup, mesh_zeros, nest_layers,
-                     remat_wrap)
+                     dense_init, embed_init, gelu_mlp, head_input,
+                     heads_flat, layer_norm, lookup, maybe_constrain,
+                     mesh_zeros, nest_layers, remat_wrap)
+from .transformer import attention_layout
 
 MAX_TARGET_POSITIONS = 448
 LN_EPS = 1e-5
@@ -149,8 +153,11 @@ class Whisper(nn.Module):
         return x + self.dec_pos[pos].to(ct)[None]
 
     def logits(self, x) -> torch.Tensor:
-        x = self.dec_ln(x)
-        return x @ self._cast.get("tok_embed", self.tok_embed, x.dtype).T
+        # on a mesh, the vocab (or where it does not split, the tokens)
+        # over "model", as transformer.py's head
+        x, spec = head_input(self.dec_ln(x), self.cfg.vocab)
+        return maybe_constrain(
+            x @ self._cast.get("tok_embed", self.tok_embed, x.dtype).T, spec)
 
 
 def sinusoids(length: int, channels: int, device=None) -> torch.Tensor:
@@ -209,7 +216,8 @@ def params_to_jax(model: Whisper) -> dict:
 def _enc_layer(layer, x):
     h = layer.ln1(x)
     k, v = layer.keys_values(h)
-    x = x + layer.out(flash_attention(layer.query(h), k, v, causal=False))
+    x = x + layer.out(flash_attention(
+        *attention_layout(layer.query(h), k, v), causal=False))
     return x + layer.mlp(layer.ln2(x))
 
 
@@ -230,11 +238,13 @@ def _dec_layer(layer, x, enc_out, xk=None, xv=None):
     keys and values are computed from ``enc_out`` unless given."""
     h = layer.ln1(x)
     k, v = layer.keys_values(h)
-    x = x + layer.out(flash_attention(layer.query(h), k, v, causal=True))
+    x = x + layer.out(flash_attention(
+        *attention_layout(layer.query(h), k, v), causal=True))
     h = layer.ln_x(x)
     if xk is None:
         xk, xv = layer.keys_values(enc_out, "x_")
-    o = flash_attention(layer.query(h, "x_"), xk, xv, causal=False)
+    o = flash_attention(*attention_layout(layer.query(h, "x_"), xk, xv),
+                        causal=False)
     x = x + layer.out(o, "x_")
     return x + layer.mlp(layer.ln2(x)), (k, v)
 

@@ -11,22 +11,30 @@ outside the pipe, as in the reference).
 A "model" axis of size M > 1 is tensor parallelism inside a stage: each
 layer leaf is further cut to the rank's block along the "model" entry of
 the reference's rules (``launch/sharding.py::model_block``): 1/M of the
-query and kv heads, of the FFN's columns, and of the experts (or of each
-expert's columns), so the stage's layers run Megatron-style column and row
-blocks (``stage.py::transformer_stage_fn(cfg, tp=...)``).  Every model
-rank of a stage holds the whole activation; a block's input is marked by
-an identity whose backward sums the gradient over the model group, its
-output summed over the model group (``Pipe.all_reduce_``, "tp_reduce").
-Where the query or kv heads do not split over M into whole heads, the
-config is refused, unless ``PipelineConfig.whole_attention`` asks for the
-attention whole on every model rank (its leaves whole, the FFN still
-split; ``transformer.py::attention_split``).  The leaves a layer reads
-whole inside those blocks — the qk-norm scales of split heads and the MoE
-router — get a partial gradient on each model rank, summed over the
-model group in the backward; the ones read outside them (the
-layer norms, the embedding, the final norm, the head) are whole on each
-rank, and the head runs on every model rank (the reference's XLA lays all
-of this out itself: its stage region is manual over "stage" only).
+attention's flat query and kv columns and of wo's rows, of the FFN's
+columns, and of the experts (or of each expert's columns), so the stage's
+layers run Megatron-style column and row blocks (``stage.py::
+transformer_stage_fn(cfg, tp=...)``).  Every model rank of a stage holds
+the whole activation; a block's input is marked by an identity whose
+backward sums the gradient over the model group, its output summed over
+the model group (``Pipe.all_reduce_``, "tp_reduce").  Where the heads do
+not split into whole heads (``transformer.py::attention_mode``), the
+reference's layouts: query heads that split read the kv heads gathered
+over the group ("shared_kv"); query heads that do not are gathered whole
+on every rank, which attends to its block of the keys' sequence, the
+blocks' softmaxes combined over the group ("split_keys",
+``kernels/flash/split.py``; the gathers and the combine are "tp_reduce"
+too).  The leaves a layer reads whole inside those blocks — the qk-norm
+scales of split heads and the MoE router — get a partial gradient on
+each model rank, summed over the model group in the backward; the ones
+read outside them (the layer norms, the qk-norm scales of gathered heads,
+the embedding, the final norm) are whole on each rank.  The head: where
+the rules put the vocabulary on "model" (it divides M,
+``launch/sharding.py``'s rule for ``embed`` / ``lm_head``) each model rank
+computes its block of the logits and the cross entropy is
+vocabulary-parallel (the max, the sum of exponentials and each row's gold
+logit summed over the group; :func:`_vocab_parallel_ce`); else the head
+runs whole on every model rank.
 
 Activations hop stage -> stage + 1 (the paper's inter-server
 transmissions, Eqs. 5/6) and their gradients hop back (Eqs. 9/10): a hop
@@ -89,14 +97,9 @@ from .stage import transformer_stage_fn
 
 @dataclasses.dataclass(frozen=True)
 class PipelineConfig:
-    """``whole_attention``: where the query or kv heads do not split over
-    the "model" axis, run the attention whole on every model rank (M times
-    its work; the dry run's stand-in for the reference's XLA, which splits
-    the keys' sequence there) instead of raising ValueError."""
     num_stages: int
     num_microbatches: int
     stage_axis: str = "stage"
-    whole_attention: bool = False
 
 
 def _coords(mesh, pcfg: PipelineConfig) -> tuple:
@@ -181,8 +184,9 @@ class Pipe:
 
     def _buffer(self, role: str, like: torch.Tensor) -> torch.Tensor:
         """A host buffer shaped like ``like`` for one role ("send",
-        "recv", "reduce"), pinned for a CUDA device; every transfer waits
-        for its own completion, so the next one may reuse it."""
+        "recv", "reduce", "gather"), pinned for a CUDA device; every
+        transfer waits for its own completion, so the next one may reuse
+        it."""
         key = (role, tuple(like.shape), like.dtype)
         buf = self._buffers.get(key)
         if buf is None:
@@ -221,20 +225,47 @@ class Pipe:
     def backward_hop(self, g):
         return self._p2p(g, self.prev, g, self.next, "hop_back")
 
-    def all_reduce_(self, t: torch.Tensor, group, what: str) -> torch.Tensor:
-        """Sum ``t`` over ``group`` in place (None: a group of one)."""
+    def all_reduce_(self, t: torch.Tensor, group, what: str,
+                    op: str = "sum") -> torch.Tensor:
+        """Sum (or with ``op`` "max", max) ``t`` over ``group`` in place
+        (None: a group of one)."""
         if group is None or dist.get_world_size(group) == 1:
             return t
         t0 = time.perf_counter()
         self.bytes[what] += t.numel() * t.element_size()
+        rop = {"sum": dist.ReduceOp.SUM, "max": dist.ReduceOp.MAX}[op]
         if self.host:
             h = self._buffer("reduce", t).copy_(t.detach())
-            dist.all_reduce(h, group=group)
+            dist.all_reduce(h, op=rop, group=group)
             t.copy_(h)
         else:
-            dist.all_reduce(t, group=group)
+            dist.all_reduce(t, op=rop, group=group)
         self.seconds[what] += time.perf_counter() - t0
         return t
+
+    def all_gather(self, t: torch.Tensor, group, what: str,
+                   dim: int) -> torch.Tensor:
+        """The group's equal blocks ``t`` joined along ``dim``, in the
+        group's rank order: gathered into one (n, ...) buffer (pinned and
+        kept per shape when host-staged), joined on the device."""
+        t0 = time.perf_counter()
+        self.bytes[what] += t.numel() * t.element_size()
+        n = dist.get_world_size(group)
+        src = t.detach().contiguous()
+        like = torch.empty((n,) + tuple(src.shape), dtype=src.dtype,
+                           device="meta")
+        if self.host:
+            src = self._buffer("send", src).copy_(src)
+            parts = self._buffer("gather", like)
+        else:
+            parts = torch.empty(like.shape, dtype=src.dtype,
+                                device=src.device)
+        dist.all_gather(list(parts.unbind(0)), src, group=group)
+        if self.host:
+            parts = parts.to(self.device, non_blocking=False)
+        out = torch.cat(parts.unbind(0), dim=dim)
+        self.seconds[what] += time.perf_counter() - t0
+        return out
 
 
 class _Hop(torch.autograd.Function):
@@ -298,11 +329,54 @@ class _FromModel(torch.autograd.Function):
         return g, None
 
 
+class _Gather(torch.autograd.Function):
+    """The model group's equal blocks joined along ``dim``; backward this
+    rank's block of the gradient (the whole one, the same on every
+    rank)."""
+
+    @staticmethod
+    def forward(ctx, x, pipe, dim):
+        ctx.m, ctx.n, ctx.dim = pipe.m, x.shape[dim], dim
+        return pipe.all_gather(x, pipe.model_group, "tp_reduce", dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g.narrow(ctx.dim, ctx.m * ctx.n, ctx.n), None, None
+
+
+class _Split(torch.autograd.Function):
+    """This rank's block (lo, hi) of a whole tensor along ``dim`` (blocks
+    that may be uneven or empty); backward the blocks' gradients joined
+    (gathered padded to the largest block)."""
+
+    @staticmethod
+    def forward(ctx, x, pipe, dim, blocks):
+        ctx.pipe, ctx.dim, ctx.blocks = pipe, dim, blocks
+        lo, hi = blocks[pipe.m]
+        return x.narrow(dim, lo, hi - lo)
+
+    @staticmethod
+    def backward(ctx, g):
+        dim, blocks = ctx.dim % g.dim(), ctx.blocks
+        width = max(hi - lo for lo, hi in blocks)
+        pad = [0, 0] * (g.dim() - 1 - dim) + [0, width - g.shape[dim]]
+        whole = ctx.pipe.all_gather(torch.nn.functional.pad(g, pad),
+                                    ctx.pipe.model_group, "tp_reduce", dim)
+        parts = [whole.narrow(dim, i * width, hi - lo)
+                 for i, (lo, hi) in enumerate(blocks)]
+        return torch.cat(parts, dim=dim), None, None, None
+
+
 def model_split(pipe: Pipe) -> ModelSplit:
     """The layers' :class:`ModelSplit` on this rank's model group."""
-    return ModelSplit(pipe.M, pipe.m,
-                      enter=lambda x: _ToModel.apply(x, pipe),
-                      exit=lambda x: _FromModel.apply(x, pipe))
+    return ModelSplit(
+        pipe.M, pipe.m,
+        enter=lambda x: _ToModel.apply(x, pipe),
+        exit=lambda x: _FromModel.apply(x, pipe),
+        gather=lambda x, dim: _Gather.apply(x, pipe, dim),
+        split=lambda x, dim, blocks: _Split.apply(x, pipe, dim, blocks),
+        reduce=lambda t, op: pipe.all_reduce_(t, pipe.model_group,
+                                              "tp_reduce", op))
 
 
 class _ReduceGrad(torch.autograd.Function):
@@ -335,19 +409,13 @@ class _ReduceGrad(torch.autograd.Function):
 _INSIDE = ("q_norm", "k_norm", "router")
 
 
-def _whole_attention(cfg: ArchConfig, M: int) -> bool:
-    """Whether the layers' attention runs whole on every model rank (its
-    heads do not split over a model axis of M: ``transformer.py::
-    attention_split``)."""
-    from ..models import transformer as tf_lib
-    return M > 1 and tf_lib.attention_split(cfg, ModelSplit(M)).size == 1
-
-
 def _inside(cfg: ArchConfig, M: int) -> tuple:
     """:data:`_INSIDE` for ``cfg`` on a model axis of M: the qk-norm
-    scales are read outside the blocks where the attention runs whole
-    (their gradient whole on each rank, as the layer norms')."""
-    if _whole_attention(cfg, M):
+    scales are read on whole gathered heads where the query heads do not
+    split (``transformer.py::attention_mode`` "split_keys"; their gradient
+    whole on each rank, as the layer norms')."""
+    from ..models import transformer as tf_lib
+    if tf_lib.attention_mode(cfg, M) == "split_keys":
         return tuple(n for n in _INSIDE if n not in ("q_norm", "k_norm"))
     return _INSIDE
 
@@ -370,27 +438,73 @@ def _check_config(cfg: ArchConfig) -> None:
                          f"family {cfg.family!r} has none")
 
 
-def _head_logits(cfg: ArchConfig, params: dict, y: torch.Tensor):
-    """The reference's ``_unembed`` (``Transformer.logits``)."""
+def _head_logits(cfg: ArchConfig, params: dict, y: torch.Tensor,
+                 block=None, pipe: Pipe | None = None):
+    """The reference's ``_unembed`` (``Transformer.logits``); with
+    ``block`` (:func:`_vocab_block`), this model rank's block of the
+    logits, the input's gradient summed over the model group."""
     x = rms_norm(y, params["final_norm"], cfg.norm_eps)
+    if block is None:
+        head = params["embed"].T if cfg.tie_embeddings else \
+            params["lm_head"]
+    else:
+        x = _ToModel.apply(x, pipe)
+        head = block.T if cfg.tie_embeddings else block
+    return x @ head.to(x.dtype)
+
+
+def vocab_parallel(cfg: ArchConfig, M: int) -> bool:
+    """Whether the head splits its vocabulary over a model axis of M: the
+    reference's rule puts ``embed``'s rows and ``lm_head``'s columns on
+    "model" where they divide (``shard_vocab``)."""
+    return M > 1 and cfg.vocab % M == 0
+
+
+def _vocab_block(cfg: ArchConfig, params: dict, pipe: Pipe):
+    """This model rank's block of the head: the embedding's rows (tied)
+    or ``lm_head``'s columns, its gradient joined over the model group
+    (zero outside the block on each rank; the leaf stays whole)."""
+    V = cfg.vocab
+    blocks = [(r * V // pipe.M, (r + 1) * V // pipe.M)
+              for r in range(pipe.M)]
     if cfg.tie_embeddings:
-        return x @ params["embed"].to(x.dtype).T
-    return x @ params["lm_head"].to(x.dtype)
+        return _Split.apply(params["embed"], pipe, 0, blocks)
+    return _Split.apply(params["lm_head"], pipe, 1, blocks)
 
 
-def check_model_axis(cfg: ArchConfig, M: int,
-                     whole_attention: bool = False) -> None:
+def _vocab_parallel_ce(logits: torch.Tensor, labels: torch.Tensor,
+                       pipe: Pipe, ignore_id: int = -1) -> torch.Tensor:
+    """``models/common.py::cross_entropy`` of logits whose vocabulary is
+    split over the model group, each rank holding its block (B, S, V / M)
+    of it: the max (no gradient) and the sum of exponentials over the
+    group, each row's gold logit from the rank whose block holds its
+    label (0 from the others), summed over the group; labels equal to
+    ``ignore_id`` left out."""
+    n = logits.shape[-1]
+    mx = pipe.all_reduce_(logits.detach().amax(dim=-1, keepdim=True),
+                          pipe.model_group, "tp_reduce", "max")
+    shifted = logits - mx
+    sumexp = _FromModel.apply(
+        torch.exp(shifted).sum(dim=-1, dtype=torch.float32), pipe)
+    idx = labels.long() - pipe.m * n
+    mine = (idx >= 0) & (idx < n)
+    gold = torch.gather(shifted, -1, idx.clamp(0, n - 1)[..., None])[..., 0]
+    gold = _FromModel.apply(torch.where(mine, gold.float(), 0.0), pipe)
+    nll = torch.log(sumexp) - gold
+    mask = labels != ignore_id
+    return (nll * mask).sum() / mask.sum().clamp_min(1)
+
+
+def check_model_axis(cfg: ArchConfig, M: int) -> None:
     """ValueError unless a model axis of M splits ``cfg``'s layers into
-    whole heads (unless ``whole_attention``: then such heads run whole on
-    every model rank) and equal FFN (or expert) blocks."""
+    equal blocks: the attention's flat query and kv columns (whole heads
+    or not, :func:`~repro_torch.models.transformer.attention_mode`) and
+    the FFN's columns (or the experts)."""
     if M == 1:
         return
     from ..models import moe as moe_lib
     from ..models import transformer as tf_lib
     split = ModelSplit(M)
-    if not whole_attention:
-        split.part(cfg.n_heads, "query heads")
-        split.part(cfg.n_kv, "kv heads")
     tf_lib.TransformerLayer(cfg, device="meta", split=split)
     if cfg.moe_experts and not moe_lib.expert_parallel(cfg, split):
         split.part(cfg.d_ff, "expert FFN columns")
@@ -406,19 +520,16 @@ def shard_params(params: dict, mesh, pcfg: PipelineConfig,
     stays whole, see the module docstring), each a leaf tensor on
     ``device`` (``"cuda"`` unless the caller passes ``"cpu"``) that
     requires grad.  ``cfg`` is needed with a model axis; a config whose
-    heads or kv heads (unless ``pcfg.whole_attention``) or FFN do not
-    split over it raises ValueError."""
+    attention columns or FFN do not split over it raises ValueError."""
     dev = resolve_device(device)
     M = as_layout(mesh).shape.get("model", 1)
     if M > 1:
         if cfg is None:
             raise ValueError("a model axis needs the config (cfg=) to cut "
                              "the layers by the sharding rules")
-        check_model_axis(cfg, M, pcfg.whole_attention)
+        check_model_axis(cfg, M)
     _, _, k, m = _coords(mesh, pcfg)
     S = pcfg.num_stages
-    from ..models import transformer as tf_lib
-    whole_attention = M > 1 and _whole_attention(cfg, M)
 
     def leaf(x, rows=None):
         t = x if isinstance(x, torch.Tensor) else torch.as_tensor(
@@ -435,8 +546,7 @@ def shard_params(params: dict, mesh, pcfg: PipelineConfig,
         if L % S:
             raise ValueError(f"{L} layers do not split into {S} stages")
         name = path.rsplit("/", 1)[-1]
-        if M > 1 and name not in _INSIDE and not (
-                whole_attention and name in tf_lib.ATTENTION):
+        if M > 1 and name not in _INSIDE:
             tree = model_block(cfg, mesh, path, tree, m)
         n = L // S
         return leaf(tree, slice(k * n, (k + 1) * n))
@@ -484,12 +594,12 @@ def make_pipelined_loss(cfg: ArchConfig, mesh, pcfg: PipelineConfig,
     A collective: every rank of the mesh calls it, and then the loss,
     together.  ``loss.pipe`` tells the transport."""
     _check_config(cfg)
-    check_model_axis(cfg, as_layout(mesh).shape.get("model", 1),
-                     pcfg.whole_attention)
+    check_model_axis(cfg, as_layout(mesh).shape.get("model", 1))
     dev = resolve_device(device)
     pipe = Pipe(mesh, pcfg, dev)
     stage_fn = transformer_stage_fn(cfg, model_split(pipe))
     inside = _inside(cfg, pipe.M)
+    vocab_split = vocab_parallel(cfg, pipe.M)
     S, Q = pcfg.num_stages, pcfg.num_microbatches
     T = Q + S - 1
     first = torch.tensor(pipe.k == 0, device=dev)
@@ -526,8 +636,12 @@ def make_pipelined_loss(cfg: ArchConfig, mesh, pcfg: PipelineConfig,
         ys = ys.to(cfg.compute_dtype)
         part = torch.zeros((), dtype=torch.float32, device=dev)
         heads = range(pipe.k, Q, S)
+        block = _vocab_block(cfg, rep, pipe) if heads and vocab_split \
+            else None
         for q in heads:
-            ce = cross_entropy(_head_logits(cfg, rep, ys[q]), labels[q])
+            logits = _head_logits(cfg, rep, ys[q], block, pipe)
+            ce = _vocab_parallel_ce(logits, labels[q], pipe) if vocab_split \
+                else cross_entropy(logits, labels[q])
             part = part + (ce if weight == 1 else ce * weight)
         if not heads:
             # Q < S: this rank scores no micro-batch.  Its part still

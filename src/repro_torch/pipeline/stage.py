@@ -128,9 +128,12 @@ def transformer_stage_fn(cfg: ArchConfig, tp: ModelSplit = WHOLE):
     :func:`stack_stage_params`, the experts nested under ``"moe"``; under
     ``tp`` this rank's block of each along the "model" axis), x is (B, S,
     d), whole on every model rank.  With ``tp`` the layers are
-    Megatron-style column and row blocks: H / tp query heads, KV / tp kv
-    heads, d_ff / tp columns (or E / tp experts), their outputs summed
-    over the model group by ``tp.exit``."""
+    Megatron-style column and row blocks: H hd / tp query and KV hd / tp
+    kv columns (whole heads where the heads split; else the reference's
+    layouts, ``transformer.py::attention_mode``: kv heads gathered over
+    the group, or every head gathered and the keys' sequence split over
+    it), d_ff / tp columns (or E / tp experts), their outputs summed over
+    the model group by ``tp.exit``."""
     layer = tf_lib.TransformerLayer(cfg, device="meta", split=tp)
     body = remat_wrap(functools.partial(_block, layer, cfg), cfg.remat)
 

@@ -11,17 +11,19 @@ the shapes, with P = 2 t d V one full-vocabulary head product of a data
 rank's t tokens of a micro-batch):
 
 - the port deals the Q micro-batches' heads round-robin over the S stage
-  ranks, each run whole over the vocabulary on every model rank: rank 0
-  runs ceil(Q / S) heads, forward and two backward products, 3 ceil(Q / S)
-  P;
+  ranks, each with its vocabulary over the M model ranks where it divides
+  them (the vocabulary-parallel head, ``pipeline/spmd.py::
+  _vocab_parallel_ce``; else whole on every model rank): rank 0 runs
+  ceil(Q / S) heads, forward and two backward products, 3 ceil(Q / S) P /
+  M;
 - the reference runs every micro-batch's head on every stage rank (its
   head is outside the stage region), the vocabulary over the M model
   ranks, and XLA also splits the head's input gradient over the stage
   axis: Q P (2 / M + 1 / (M S)).
 
-At this mesh that is 3 P against 2.5 P, one more head product a device
-(the 8.3% of the production qwen3-0.6b cell on 16x4x4 is 12 P against 9
-P).  The reference lowers both cells in a subprocess on 8 host devices
+At this mesh that is 1.5 P against 2.5 P, one head product a device fewer
+(on the production qwen3-0.6b cell on 16x4x4, 3 P against 9 P).  The
+reference lowers both cells in a subprocess on 8 host devices
 (``tests/dryrun_reference.py``).
 """
 
@@ -67,7 +69,8 @@ def heads(arch) -> tuple:
     B, L = CELL["batch"]
     Q = CELL["q"]
     P = 2 * (B // Q // D) * L * cfg.d_model * cfg.vocab
-    return 3 * math.ceil(Q / S) * P, Q * P * (2 / M + 1 / (M * S))
+    split = M if cfg.vocab % M == 0 else 1
+    return 3 * math.ceil(Q / S) * P / split, Q * P * (2 / M + 1 / (M * S))
 
 
 @pytest.mark.parametrize("arch", ARCHS)

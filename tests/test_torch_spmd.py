@@ -117,29 +117,34 @@ def _flat(tree, prefix=""):
     return out
 
 
-def _reference(arch, layers, d):
-    """The reference model of ``arch`` at ``layers`` (float32, remat
-    none), its weights and a batch, written for the ranks; returns (api,
-    params, batch)."""
-    cfg = dataclasses.replace(ref_config(arch, reduced=True),
-                              num_layers=layers, remat="none",
-                              compute_dtype=jnp.float32)
+def _reference(name, spec, d):
+    """The reference model ``name`` (an arch at ``spec`` layers, or
+    ``spec`` = {"arch", "layers", "over": config fields, "seq": the
+    batch's length}; float32, remat none), its weights and a batch,
+    written for the ranks; returns (api, params, batch)."""
+    if not isinstance(spec, dict):
+        spec = {"arch": name, "layers": spec}
+    cfg = dataclasses.replace(ref_config(spec["arch"], reduced=True),
+                              num_layers=spec["layers"], remat="none",
+                              compute_dtype=jnp.float32,
+                              **spec.get("over", {}))
     api = ref_model(cfg)
     params = api.init(jax.random.key(0))
     rng = np.random.default_rng(0)
-    batch = {"tokens": rng.integers(0, cfg.vocab, (BATCH, SEQ), np.int32),
-             "labels": rng.integers(0, cfg.vocab, (BATCH, SEQ), np.int32)}
-    np.savez(d / f"weights_{arch}.npz", **_flat(params),
+    shape = (BATCH, spec.get("seq", SEQ))
+    batch = {"tokens": rng.integers(0, cfg.vocab, shape, np.int32),
+             "labels": rng.integers(0, cfg.vocab, shape, np.int32)}
+    np.savez(d / f"weights_{name}.npz", **_flat(params),
              **{f"batch/{k}": v for k, v in batch.items()})
     return api, params, batch
 
 
 def spawn(d, models, pipelines, train, splits):
-    """Run the ranks on ``models`` ({arch: layers}) and the cases; returns
-    {"ref": each arch's reference loss, gradients, weights and experts,
-    "outs": each rank's arrays, "jax_splits": JAX's blocks of
-    ``splits``}."""
-    refs = {arch: _reference(arch, models[arch], d) for arch in models}
+    """Run the ranks on ``models`` ({name: layers, or a spec, see
+    :func:`_reference`}) and the cases; returns {"ref": each model's
+    reference loss, gradients, weights and experts, "outs": each rank's
+    arrays, "jax_splits": JAX's blocks of ``splits``}."""
+    refs = {name: _reference(name, models[name], d) for name in models}
     (d / "job.json").write_text(json.dumps(
         {"models": models, "pipelines": pipelines, "train": train,
          "lr": LR, "splits": splits}))
@@ -159,8 +164,7 @@ def spawn(d, models, pipelines, train, splits):
         loss, grads = jax.jit(jax.value_and_grad(api.loss))(params, batch)
         ref[arch] = {"loss": float(loss), "grads": _flat(grads),
                      "weights": _flat(params),
-                     "experts": api.cfg.moe_experts,
-                     "heads": (api.cfg.n_heads, api.cfg.n_kv)}
+                     "experts": api.cfg.moe_experts}
     errors = []
     out, err = jax_proc.communicate(timeout=120)
     for r, p in enumerate(ranks):
@@ -197,20 +201,17 @@ def _stage_rows(full, k, stages):
 
 
 #: Megatron's blocks on a "model" axis: the columns of these (the last dim;
-#: a bias as its matrix), the rows of those; the experts' dim of the MoE
-#: matrices when the axis divides E, else their columns / rows.  The
-#: router and the norm scales stay whole, and so does the attention where
-#: its query or kv heads do not split over the axis.
+#: a bias as its matrix; the attention's flat columns, whole heads or
+#: not), the rows of those; the experts' dim of the MoE matrices when the
+#: axis divides E, else their columns / rows.  The router and the norm
+#: scales stay whole.
 _COLS = ("wq", "wk", "wv", "w_gate", "w_up", "bq", "bk", "bv", "b_up")
 _ROWS = ("wo", "w_down")
-_ATTENTION = ("wq", "wk", "wv", "wo", "bq", "bk", "bv")
 
 
-def _model_part(key, full, m, M, experts, heads=(1, 1)):
+def _model_part(key, full, m, M, experts):
     name = key.split("/")[-1]
     if M == 1 or not key.startswith("layers/") or name not in _COLS + _ROWS:
-        return full
-    if name in _ATTENTION and any(h % M for h in heads):
         return full
     if key.startswith("layers/moe/") and experts % M == 0:
         dim = 1
@@ -224,8 +225,8 @@ def _model_size(case):
     return dict(zip(case["axes"], case["sizes"])).get("model", 1)
 
 
-def _want(key, ref, k, stages, m=0, M=1, experts=0, heads=(1, 1)):
-    full = _model_part(key, ref[key], m, M, experts, heads)
+def _want(key, ref, k, stages, m=0, M=1, experts=0):
+    full = _model_part(key, ref[key], m, M, experts)
     return _stage_rows(full, k, stages) if key.startswith("layers/") \
         else full
 
@@ -254,8 +255,7 @@ def check_grads(run, case):
         assert keys == set(ref["grads"]), keys ^ set(ref["grads"])
         for key in keys:
             got = o[pre + key]
-            want = _want(key, ref["grads"], k, S, m, M, ref["experts"],
-                         ref["heads"])
+            want = _want(key, ref["grads"], k, S, m, M, ref["experts"])
             assert got.shape == want.shape, key
             err = float(np.max(np.abs(got - want)))
             assert err < GRAD_ATOL, (tag, k, m, key, err)
@@ -298,8 +298,7 @@ def check_train(run, case):
         pre = f"{tag}/param/"
         keys = {key[len(pre):] for key in o if key.startswith(pre)}
         assert keys == set(ref["weights"])
-        local = {key: _want(key, ref["weights"], k, S, m, M, ref["experts"],
-                            ref["heads"])
+        local = {key: _want(key, ref["weights"], k, S, m, M, ref["experts"])
                  for key in keys}
         grads = {key: o[f"{via}/grad/{key}"] for key in keys}
         stepped = _flat(update(_nest(local), _nest(grads)))
@@ -340,40 +339,48 @@ def test_a_mesh_of_another_size_than_the_world_raises(run):
 
 
 def test_a_model_axis_and_other_families_raise():
-    """A "model" axis must split every layer into whole heads (and equal
-    FFN blocks); the pipeline runs the transformer's layers only.  Each
-    refuses before any rank is contacted."""
+    """A "model" axis must split every layer into equal blocks: the
+    attention's flat query and kv columns (heads that do not split run
+    in the reference's layouts, ``transformer.py::attention_mode``) and
+    the FFN's columns; the pipeline runs the transformer's layers only.
+    Each refuses before any rank is contacted."""
     import torch
     from repro_torch.configs import get_config
     from repro_torch.launch.mesh import MeshLayout
     from repro_torch.models.common import ModelSplit
-    from repro_torch.models.transformer import TransformerLayer
+    from repro_torch.models.transformer import (TransformerLayer,
+                                                attention_mode)
     from repro_torch.pipeline.spmd import (PipelineConfig,
                                            check_model_axis,
                                            make_pipelined_loss,
                                            shard_params)
     cfg = dataclasses.replace(get_config(ARCH, reduced=True),
                               compute_dtype=torch.float32)
-    # 4 query and 2 kv heads: a model axis of 4 would split a kv head
-    with pytest.raises(ValueError, match="2 kv heads do not split over a "
-                                         "model axis of 4"):
-        make_pipelined_loss(cfg, MeshLayout(("stage", "model"), (2, 4)),
-                            PipelineConfig(2, 2), "cpu")
-    with pytest.raises(ValueError, match="4 query heads do not split over "
-                                         "a model axis of 8"):
-        make_pipelined_loss(cfg, MeshLayout(("stage", "model"), (1, 8)),
-                            PipelineConfig(1, 2), "cpu")
-    # unless the caller asks for the attention whole on every model rank
-    # (the dry run's layout): the FFN's 176 columns must still split
-    check_model_axis(cfg, 4, whole_attention=True)
+    # 4 query and 2 kv heads of 16: over 4 each rank reads a kv head it
+    # shares; over 8 every head is whole and the keys' sequence splits
+    check_model_axis(cfg, 4)
+    assert attention_mode(cfg, 2) == "heads"
+    assert attention_mode(cfg, 4) == "shared_kv"
+    assert attention_mode(cfg, 8) == "split_keys"
     layer = TransformerLayer(cfg, device="meta", split=ModelSplit(4))
-    assert tuple(layer.wk.shape) == (cfg.d_model, 2 * cfg.head_dim)
+    assert tuple(layer.wq.shape) == (cfg.d_model, cfg.head_dim)
+    assert tuple(layer.wk.shape) == (cfg.d_model, cfg.head_dim // 2)
+    assert tuple(layer.wo.shape) == (cfg.head_dim, cfg.d_model)
     assert tuple(layer.w_up.shape) == (cfg.d_model, 44)
-    with pytest.raises(ValueError, match="176 FFN columns do not split over "
-                                         "a model axis of 3"):
+    layer = TransformerLayer(cfg, device="meta", split=ModelSplit(8, 7))
+    assert tuple(layer.wq.shape) == (cfg.d_model, cfg.head_dim // 2)
+    assert tuple(layer.wk.shape) == (cfg.d_model, cfg.head_dim // 4)
+    assert tuple(layer.wo.shape) == (cfg.head_dim // 2, cfg.d_model)
+    # the flat columns themselves must split, and the FFN's
+    with pytest.raises(ValueError, match="64 query columns do not split "
+                                         "over a model axis of 3"):
         make_pipelined_loss(cfg, MeshLayout(("stage", "model"), (2, 3)),
-                            PipelineConfig(2, 2, whole_attention=True),
-                            "cpu")
+                            PipelineConfig(2, 2), "cpu")
+    with pytest.raises(ValueError, match="90 FFN columns do not split over "
+                                         "a model axis of 4"):
+        make_pipelined_loss(dataclasses.replace(cfg, d_ff=90),
+                            MeshLayout(("stage", "model"), (2, 4)),
+                            PipelineConfig(2, 2), "cpu")
     # and shard_params needs the config to cut by the rules
     with pytest.raises(ValueError, match="needs the config"):
         shard_params({}, MeshLayout(("stage", "model"), (1, 2)),

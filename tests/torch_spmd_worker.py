@@ -4,9 +4,10 @@ under gloo.  Imports no JAX (the ranks stand for the card's processes).
 
     python tests/torch_spmd_worker.py RANK WORLD DIR
 
-reads ``DIR/job.json`` (the configs and what to run) and
-``DIR/weights_<arch>.npz`` (each reference's parameter tree, flat ``a/b``
-keys, and the batch), meets
+reads ``DIR/job.json`` (the configs and what to run: a model is an arch
+at a depth, or ``{"arch", "layers", "over"}``, its config's fields
+replaced) and ``DIR/weights_<model>.npz`` (each reference's parameter
+tree, flat ``a/b`` keys, and the batch), meets
 the other ranks through a ``FileStore`` under ``DIR`` and writes
 ``DIR/out_<RANK>.npz``.
 """
@@ -141,22 +142,23 @@ def main():
     dist.init_process_group("gloo", store=store, rank=rank,
                             world_size=world)
     models = {}
-    for arch, layers in job["models"].items():
-        cfg = dataclasses.replace(get_config(arch, reduced=True),
-                                  num_layers=layers, remat="layer",
-                                  compute_dtype=torch.float32)
-        with np.load(os.path.join(directory, f"weights_{arch}.npz")) as npz:
+    for name, spec in job["models"].items():
+        if not isinstance(spec, dict):
+            spec = {"arch": name, "layers": spec}
+        cfg = dataclasses.replace(get_config(spec["arch"], reduced=True),
+                                  num_layers=spec["layers"], remat="layer",
+                                  compute_dtype=torch.float32,
+                                  **spec.get("over", {}))
+        with np.load(os.path.join(directory, f"weights_{name}.npz")) as npz:
             arrays = {k: npz[k] for k in npz.files}
         batch = {"tokens": arrays.pop("batch/tokens"),
                  "labels": arrays.pop("batch/labels")}
-        models[arch] = (cfg, nested(arrays), batch)
+        models[name] = (cfg, nested(arrays), batch)
     out = {}
     for case in job["pipelines"]:
         pipeline_case(case["tag"], *models[case["arch"]],
                       MeshLayout(tuple(case["axes"]), tuple(case["sizes"])),
-                      PipelineConfig(case["stages"], case["q"],
-                                     whole_attention=case.get(
-                                         "whole_attention", False)), out)
+                      PipelineConfig(case["stages"], case["q"]), out)
     for case in job["train"]:
         train_case(case["tag"], *models[case["arch"]],
                    MeshLayout(tuple(case["axes"]), tuple(case["sizes"])),
