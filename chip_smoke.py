@@ -340,7 +340,9 @@ exits non-zero:
              dry runs of the reduced cells its repair covers (micro-batches
              with fewer rows than the (pod, data) ranks, RWKV6's decode
              state, RWKV6 training over (pod, data), whisper's prefill,
-             the VLM pipeline) on fake CUDA tensors, each kernel of the
+             the VLM pipeline, qwen3-moe-235b's training and
+             jamba-1.5-large's batch-1 decode with the experts on their
+             FSDP blocks) on fake CUDA tensors, each kernel of the
              cell charged, beside the same trace on fake CPU tensors
 
 Every device time a run prints (``device_ms``) comes from CUDA events
@@ -577,17 +579,40 @@ def _kernel_name(name: str) -> str:
     return m.group(0) if m else name
 
 
-#: launches of the spin kernel that open every profiled session
+#: launches of the spin kernel that open a profiled session: at first,
+#: and at most (the number grows with the profiler's loss, see ``profiled``)
 PROBE_LAUNCHES = 64
+PROBE_LAUNCHES_MAX = 16384
 PROBE_KERNEL = "spin_kernel"
+#: the spin launches that open the next profiled session
+PROBE = {"launches": PROBE_LAUNCHES}
 
 
 def _probe():
-    """``PROBE_LAUNCHES`` launches of ``torch.cuda._sleep``'s spin kernel
+    """``PROBE["launches"]`` launches of ``torch.cuda._sleep``'s spin kernel
     (a name no measured function launches), then a sync."""
-    for _ in range(PROBE_LAUNCHES):
+    for _ in range(PROBE["launches"]):
         torch.cuda._sleep(1)
     torch.cuda.synchronize()
+
+
+def _probe_loss(recorded: int) -> bool:
+    """Note a session's loss of opening spin launches (``recorded`` of
+    ``PROBE["launches"]`` seen) and keep the next sessions' opening ahead
+    of it: the loss grows over a long process (53-63 of 64 lost late in
+    full runs, PR 34 chip calls), so past half the opening, the opening is
+    made four times longer, up to ``PROBE_LAUNCHES_MAX``.  True when the
+    opening grew after losing every spin launch: that session says
+    nothing and is run again without using up a try."""
+    launches = PROBE["launches"]
+    lost = launches - recorded
+    PROFILER_STATS["probe_lost"] = max(PROFILER_STATS["probe_lost"], lost)
+    if 2 * lost <= launches or launches >= PROBE_LAUNCHES_MAX:
+        return False
+    PROBE["launches"] = min(4 * launches, PROBE_LAUNCHES_MAX)
+    log(f"profiler: {lost} of {launches} opening probe launches lost; "
+        f"sessions now open with {PROBE['launches']}")
+    return recorded == 0
 
 
 def profiled(fn, reps: int = 50, host_events: bool = True) -> tuple:
@@ -614,7 +639,9 @@ def profiled(fn, reps: int = 50, host_events: bool = True) -> tuple:
     torch.cuda.synchronize()
     seen = []
     tries = PROFILE_TRIES_ONE_CALL if reps == 1 else PROFILE_TRIES
-    for attempt in range(tries):
+    attempt = -1
+    while attempt + 1 < tries:
+        attempt += 1
         PROFILER_STATS["sessions"] += 1
         with profile(activities=[ProfilerActivity.CUDA]
                      + [ProfilerActivity.CPU] * host_events) as prof:
@@ -631,8 +658,11 @@ def profiled(fn, reps: int = 50, host_events: bool = True) -> tuple:
                    if _kernel_name(e.name) != PROBE_KERNEL]
         PROFILER_STATS["largest_session"] = max(
             PROFILER_STATS["largest_session"], len(kernels))
-        PROFILER_STATS["probe_lost"] = max(PROFILER_STATS["probe_lost"],
-                                           PROBE_LAUNCHES - probes)
+        opening = PROBE["launches"]
+        if _probe_loss(probes):
+            PROFILER_STATS["lossy_sessions"] += 1
+            attempt -= 1
+            continue
         us = sum(e.time_range.elapsed_us() for e in kernels)
         split, counts = {}, {}
         for e in kernels:
@@ -648,7 +678,7 @@ def profiled(fn, reps: int = 50, host_events: bool = True) -> tuple:
             continue
         if probes == 0:
             PROFILER_STATS["lossy_sessions"] += 1
-            log(f"profiler session {attempt + 1} lost all {PROBE_LAUNCHES} "
+            log(f"profiler session {attempt + 1} lost all {opening} "
                 "probe launches; run again")
             continue
         result = (us / reps / 1e3, split,
@@ -670,7 +700,7 @@ def profiled(fn, reps: int = 50, host_events: bool = True) -> tuple:
         if short:
             PROFILER_STATS["lossy_sessions"] += 1
             log(f"profiler session {attempt + 1} lost events ({short} over "
-                f"{reps} calls; {probes} of {PROBE_LAUNCHES} probes); run "
+                f"{reps} calls; {probes} of {opening} probes); run "
                 "again without host events")
             host_events = False
             continue
@@ -745,8 +775,9 @@ def profiler_line() -> str:
             f"lost events and {st['empty_sessions']} saw no device time "
             f"(each run again), {st['unresolved']} unresolved, the largest "
             f"{st['largest_session']} kernel events, at most "
-            f"{st['probe_lost']} of {PROBE_LAUNCHES} opening probe launches "
-            f"lost; profiled because not capturable: {st['uncapturable']}")
+            f"{st['probe_lost']} opening probe launches lost (sessions "
+            f"opened with {PROBE_LAUNCHES} to {PROBE['launches']}); "
+            f"profiled because not capturable: {st['uncapturable']}")
 
 
 @contextlib.contextmanager
@@ -2944,6 +2975,14 @@ def time_flash_bwd_turns(flash_mod, flash_kernel, shape, turns=2) -> dict:
     return t
 
 
+def card_name() -> str:
+    """The card's name and power limit, as ``nvidia-smi`` gives them."""
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.strip().splitlines()[0]
+
+
 def gpu_clocks() -> str:
     """The card's SM clock, its maximum, power draw and temperature now
     (``nvidia-smi``): beside a timing, they say whether the card ran at
@@ -4188,13 +4227,15 @@ def spmd_phase(out_dir: str) -> dict:
 
 
 #: phase 29: tensor parallelism inside the pipeline's stages on the card
-#: (pipeline/spmd.py with a "model" axis): qwen3-0.6b at full width and
-#: depth over (stage 2 x model 2), four processes sharing the GPU under
-#: gloo with TP_THREADS intra-op threads each, 14 layers a stage and 8 / 4
-#: heads of 128 and d_ff 1536 a rank; a batch of 8 x 512 tokens, Q from
-#: the stage planner as in phase 28
-TP_RUN = {"arch": "qwen3-0.6b", "stages": 2, "model": 2, "batch": 8,
-          "seq": 512, "lr": 1e-3, "steps": 3, "seed": 0}
+#: (pipeline/spmd.py with a "model" axis): qwen3-0.6b at full width, cut
+#: to 8 of its 28 layers (phase 28 runs the full depth; the cut keeps the
+#: script inside its time limit), over (stage 2 x model 2), four
+#: processes sharing the GPU under gloo with TP_THREADS intra-op threads
+#: each, 4 layers a stage and 8 / 4 heads of 128 and d_ff 1536 a rank; a
+#: batch of 8 x 512 tokens, Q from the stage planner on the whole model as
+#: in phase 28
+TP_RUN = {"arch": "qwen3-0.6b", "layers": 8, "stages": 2, "model": 2,
+          "batch": 8, "seq": 512, "lr": 1e-3, "steps": 3, "seed": 0}
 TP_THREADS = 2
 #: the MoE branch on the card: granite-moe-3b at full width, 2 layers,
 #: 40 experts (expert parallelism: 20 a rank), Q = 2
@@ -4575,7 +4616,7 @@ def _tp_work(rank: int, job: dict) -> dict:
     S, M, Q = job["stages"], job["model"], job["q"]
     pcfg = PipelineConfig(S, Q)
     layout = MeshLayout(("stage", "model"), (S, M))
-    base = get_config(job["arch"])
+    base = tp_config(job)
     batch = next(token_lm_batches(batch=job["batch"], seq_len=job["seq"],
                                   vocab=base.vocab, seed=job["seed"]))
     batch = {k: torch.as_tensor(v, device="cuda") for k, v in batch.items()}
@@ -4712,6 +4753,13 @@ def stage_plan_q(run: dict) -> tuple:
     return plans, best, pcfg.num_microbatches
 
 
+def tp_config(run: dict):
+    """Phase 29's model: ``run["arch"]`` cut to ``run["layers"]``."""
+    from repro_torch.configs import get_config
+    return dataclasses.replace(get_config(run["arch"]),
+                               num_layers=run["layers"])
+
+
 def tp_dry_run(Q: int) -> dict:
     """The dry run (launch/dryrun.py) of phase 29's cell on a fake process
     group of 4 with fake CUDA tensors, and its roofline row at the H100
@@ -4725,7 +4773,8 @@ def tp_dry_run(Q: int) -> dict:
     with fake_process_group(layout.size):
         rec = _lower_pipeline_cell(
             run["arch"], layout, num_stages=run["stages"], q=Q,
-            device="cuda", batch_override=(run["batch"], run["seq"]))
+            device="cuda", cfg=tp_config(run),
+            batch_override=(run["batch"], run["seq"]))
     return {"record": rec, "roofline": roofline_row(rec)}
 
 
@@ -4734,8 +4783,11 @@ def tp_dry_run(Q: int) -> dict:
 #: their work) and on fake CPU tensors (the plain versions): micro-batches
 #: with fewer rows than the (pod, data) ranks; RWKV6's state in a decode;
 #: RWKV6 training over (pod, data) (K3 / K3'); whisper's prefill with its
-#: caches on the mesh; the VLM backbone in the stage pipeline.  "kernels"
-#: are those the fake CUDA trace must charge.
+#: caches on the mesh; the VLM backbone in the stage pipeline; the MoE's
+#: expert products on the slices of their FSDP blocks where a
+#: micro-batch's rows are replicated over the data ranks (qwen3-moe-235b
+#: training, jamba-1.5-large's batch-1 decode).  "kernels" are those the
+#: fake CUDA trace must charge.
 DRY_CELLS = [
     {"name": "small micro-batches", "arch": "qwen3-0.6b",
      "shape": "train_4k", "axes": ("pod", "data", "model"),
@@ -4756,6 +4808,13 @@ DRY_CELLS = [
      "axes": ("data", "stage", "model"), "sizes": (2, 2, 2),
      "batch": (8, 32), "q": 2, "pipeline": True, "over": {"num_layers": 4},
      "kernels": ("flash_attention", "flash_attention_bwd")},
+    {"name": "moe small micro-batches", "arch": "qwen3-moe-235b-a22b",
+     "shape": "train_4k", "axes": ("pod", "data", "model"),
+     "sizes": (2, 2, 2), "batch": (8, 32), "q": 4,
+     "kernels": ("flash_attention", "flash_attention_bwd")},
+    {"name": "jamba batch-1 decode", "arch": "jamba-1.5-large-398b",
+     "shape": "long_500k", "axes": ("pod", "data", "model"),
+     "sizes": (2, 2, 2), "batch": (1, 256), "kernels": ()},
 ]
 
 
@@ -4812,6 +4871,7 @@ def check_dry_cells(rows: list) -> list:
     the failures (a trace that raised, a kernel the fake CUDA trace did
     not charge)."""
     failures = []
+    card = card_name()
     for cell, row in zip(DRY_CELLS, rows):
         bad = [d for d in ("cuda", "cpu") if "error" in row[d]]
         if bad:
@@ -4828,12 +4888,14 @@ def check_dry_cells(rows: list) -> list:
             f"device {cu['flops']:.6e} on fake CUDA (kernels charged "
             f"{cu['kernels']}) beside {cp['flops']:.6e} on fake CPU (the "
             f"plain versions); arguments {cu['args']} / {cp['args']} B; "
-            f"traced in {cu['seconds']:.1f} / {cp['seconds']:.1f} s")
+            f"traced in {cu['seconds']:.1f} / {cp['seconds']:.1f} s on the "
+            f"host of {card}")
     return failures
 
 
 def tp_phase(out_dir: str, flash_mod, flash_kernel) -> dict:
-    """Phase 29: qwen3-0.6b pipelined over (stage 2 x model 2) on one card
+    """Phase 29: qwen3-0.6b (``TP_RUN``'s layers) pipelined over (stage 2 x
+    model 2) on one card
     (four processes under gloo, host-staged transfers).  float32 (TF32
     off), the model blocks put back together: the loss within 1e-5 of the
     plain model's, every gradient within 1e-4 of each tensor's largest
@@ -5055,7 +5117,8 @@ def tp_phase(out_dir: str, flash_mod, flash_kernel) -> dict:
            "dry_run": dry,
            "launches": {name: sum(r["launches"][name] for r in ranks)
                         for name in ranks[0]["launches"]}}
-    log(f"phase 29 qwen3-0.6b over (stage {S} x model {M}) on one card "
+    log(f"phase 29 {run['arch']} ({run['layers']} layers) over (stage {S} "
+        f"x model {M}) on one card "
         f"(gloo, host-staged), Q {Q} (plan L_t {best['L_t']:.6f} s), T {T} "
         f"ticks; bf16 AdamW steps {[round(w, 4) for w in walls]} s "
         f"({[round(t) for t in out['tokens_per_s']]} tokens/s); device "
@@ -5189,9 +5252,7 @@ def main(argv=None) -> int:
         log("FAIL: torch.cuda.is_available() is False; this script needs "
             "an NVIDIA GPU")
         return 1
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True,
-                         text=True, check=True).stdout.strip().splitlines()[0]
+    smi = card_name()
     log(smi)
     log(f"torch {torch.__version__} cuda {torch.version.cuda} "
         f"device {torch.cuda.get_device_name(0)}")

@@ -273,7 +273,8 @@ def _lower_cell(arch: str, shape: str, mesh, *, policy=None,
     the process group's size); returns the record dict.  ``cfg`` replaces
     ``get_config(arch)`` (a reduced or re-timed config), and
     ``batch_override`` = (global batch, sequence) the shape's;
-    ``breakdown`` adds ``peak_temp_by_op`` (what is alive at the peak)."""
+    ``breakdown`` adds ``peak_temp_by_op`` (what is alive at the peak) and
+    ``flops_by_op`` (the FLOPs by product and shapes)."""
     import torch.distributed as dist
     cfg = cfg or get_config(arch)
     if os.environ.get("REPRO_REMAT"):
@@ -347,6 +348,7 @@ def _lower_cell(arch: str, shape: str, mesh, *, policy=None,
         rec["cache"] = _layouts(outs[1])
     if breakdown:
         rec["peak_temp_by_op"] = counter.peak_by_op()
+        rec["flops_by_op"] = counter.flops_by_op()
     return _finish(rec, counter, args, outs, t0, layout.size)
 
 
@@ -565,7 +567,8 @@ def main(argv=None):
                     "branches; cpu: the plain versions)")
     ap.add_argument("--breakdown", action="store_true",
                     help="record what is alive at the memory peak, by the "
-                    "op that made it (peak_temp_by_op; baseline cells)")
+                    "op that made it (peak_temp_by_op), and the FLOPs by "
+                    "product (flops_by_op; baseline cells)")
     args = ap.parse_args(argv)
 
     archs = [args.arch] if args.arch else list(ARCH_IDS)

@@ -272,10 +272,12 @@ def batch_layout(rows):
         yield
 
 
-def gather_data_axes(p):
+def gather_data_axes(p, stationary: bool = False):
     """A DTensor parameter made whole over every mesh axis but "model"
     before use (FSDP's all-gather: the rules shard d_model over the data
-    axes for storage only) — but a matrix left split over the axes where
+    axes for storage only) — but a matrix, or a ``stationary`` parameter
+    whose products the caller lays out itself (the MoE's experts,
+    ``models/moe.py``), left split over the axes where
     :func:`batch_layout` keeps it in place (the products
     :class:`_WeightStationary` lays out); a plain tensor as it is."""
     from torch.distributed.tensor import DTensor, Replicate
@@ -284,7 +286,7 @@ def gather_data_axes(p):
     names = p.device_mesh.mesh_dim_names or ()
     mode = _stationary_mode()
     keep = ("model",) + (tuple(mode.axes) if mode is not None
-                         and p.dim() == 2 else ())
+                         and (p.dim() == 2 or stationary) else ())
     place = tuple(pl if i < len(names) and names[i] in keep
                   else Replicate() for i, pl in enumerate(p.placements))
     return p if place == tuple(p.placements) else \
@@ -545,8 +547,8 @@ class CastCache:
     def __init__(self):
         self._casts = {}
 
-    def get(self, name, p, dtype):
-        p = gather_data_axes(p)
+    def get(self, name, p, dtype, stationary: bool = False):
+        p = gather_data_axes(p, stationary)
         if p.dtype == dtype:
             return p
         if p.requires_grad and torch.is_grad_enabled():

@@ -34,7 +34,12 @@ with the whole router (the same picks and capacity on every rank),
 dispatches only the pairs of its experts and combines only those; else it
 holds every expert's block of d_ff columns (rows of ``w_down``), routes
 and dispatches everything and combines its partial outputs.  Either way
-the layer's ``split.exit`` sums the combine over the model group.
+the layer's ``split.exit`` sums the combine over the model group.  On
+DTensors (the dry run) the rules' placements decide the same branches;
+where a micro-batch's rows are replicated over the data ranks
+(``common.batch_layout``), the experts keep their FSDP blocks and each
+product runs on the matching slice, as XLA lays out the reference's
+(:func:`_moe_stationary`).
 """
 
 from __future__ import annotations
@@ -48,7 +53,8 @@ import torch.nn.functional as F
 from torch import nn
 
 from .common import (DATA, WHOLE, ArchConfig, CastCache, ModelSplit,
-                     dense_init, maybe_constrain)
+                     _Constrain, _stationary_mode, dense_init, lay_out,
+                     maybe_constrain)
 
 
 def expert_parallel(cfg: ArchConfig, split: ModelSplit) -> bool:
@@ -87,7 +93,10 @@ class MoEFFN(nn.Module):
         self._cast = CastCache()
 
     def w(self, name: str, dtype) -> torch.Tensor:
-        return self._cast.get(name, getattr(self, name), dtype)
+        # on a mesh under ``batch_layout`` the experts keep their FSDP
+        # blocks: ``_moe_on_mesh`` lays their products out
+        return self._cast.get(name, getattr(self, name), dtype,
+                              stationary=True)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return moe_ffn(self, x)
@@ -230,25 +239,50 @@ def combine(out: torch.Tensor, r: Routing) -> torch.Tensor:
     return y
 
 
-def _experts(cfg: ArchConfig, buf: torch.Tensor, wg, wu, wd) -> torch.Tensor:
+def _per_expert(a: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """a (B, E, C, k) times each expert's w (E, k, n) -> (B, E, C, n)."""
+    return torch.einsum("becd,edf->becf", a, w)
+
+
+def _experts(cfg: ArchConfig, buf: torch.Tensor, wg, wu, wd,
+             product=_per_expert, blocks: int = 1) -> torch.Tensor:
     """The expert SwiGLU on the dispatch buffer (B, E, C, d), in
-    ``moe_ff_chunks`` slices of d_ff when that divides it."""
+    ``moe_ff_chunks`` slices of d_ff when that divides it; ``product``
+    multiplies the buffer (or the hidden units) by each expert's matrix
+    (on a mesh: :func:`_stationary_product` on an (E, rows, d) buffer),
+    and a slice of d_ff is the same slice of each of its ``blocks``
+    (:func:`_ff_chunk`)."""
     ff = wg.shape[-1]
 
     def ffn(g, u, dn):
-        h = F.silu(torch.einsum("becd,edf->becf", buf, g))
-        h = h * torch.einsum("becd,edf->becf", buf, u)
-        return torch.einsum("becf,efd->becd", h, dn)
+        h = F.silu(product(buf, g))
+        h = h * product(buf, u)
+        return product(h, dn)
 
     n = max(1, cfg.moe_ff_chunks)
     if n > 1 and ff % n == 0:
-        f = ff // n
         acc = torch.zeros_like(buf)
         for i in range(n):
-            s = slice(i * f, (i + 1) * f)
-            acc = acc + ffn(wg[..., s], wu[..., s], wd[:, s])
+            acc = acc + ffn(*(_ff_chunk(w, dim, i, n, blocks)
+                              for w, dim in ((wg, 2), (wu, 2), (wd, 1))))
         return acc
     return ffn(wg, wu, wd)
+
+
+def _ff_chunk(w: torch.Tensor, dim: int, i: int, n: int,
+              blocks: int) -> torch.Tensor:
+    """Slice ``i`` of ``n`` of w's d_ff dim ``dim``: one contiguous slice
+    (``blocks`` 1, the reference's scan over ff blocks), or slice ``i`` of
+    each of ``blocks`` equal blocks (on a mesh whose data ranks hold one
+    such block each: every rank's slice is then its own, and no weight
+    is gathered; ``blocks * n`` must divide d_ff).  The slices sum to the
+    same FFN in another order."""
+    f = w.shape[dim] // n
+    if blocks == 1:
+        return w.narrow(dim, i * f, f)
+    shape = list(w.shape)
+    v = w.reshape(shape[:dim] + [blocks, n, f // blocks] + shape[dim + 1:])
+    return v.select(dim + 1, i).reshape(shape[:dim] + [f] + shape[dim + 1:])
 
 
 def router_logits(moe: MoEFFN, x: torch.Tensor) -> torch.Tensor:
@@ -273,10 +307,9 @@ def _moe(cfg: ArchConfig, split: ModelSplit, x, router, wg, wu, wd):
 def moe_ffn(moe: MoEFFN, x: torch.Tensor) -> torch.Tensor:
     """x (B, S, d) -> (B, S, d) (under a split: this rank's part of it,
     which the model group's sum completes).  On a DTensor (the dry run's
-    sharded layers) each rank runs its block through ``local_map``:
-    every token routed on every model rank, the experts (or their
-    columns) as the rules place them, the output a partial sum over
-    "model"."""
+    sharded layers): :func:`_moe_on_mesh`, every token routed on every
+    model rank, the experts (or their columns) as the rules place them,
+    the output a partial sum over "model"."""
     from torch.distributed.tensor import DTensor
     dt = x.dtype
     if isinstance(x, DTensor):
@@ -286,6 +319,14 @@ def moe_ffn(moe: MoEFFN, x: torch.Tensor) -> torch.Tensor:
 
 
 def _moe_on_mesh(moe: MoEFFN, x):
+    """``moe_ffn`` on a DTensor.  Under an active ``batch_layout`` with
+    experts dealt over "model" and FSDP blocks on the axes where the rows
+    are replicated: :func:`_moe_stationary`.  Else one ``local_map``:
+    each rank routes and dispatches whole, runs its experts (or their
+    columns) on weights gathered over the data axes, and combines; the
+    gradients it returns are sums over the ranks that read the input
+    their own way (the model group, and the data ranks holding other
+    rows)."""
     from torch.distributed.tensor import Partial, Replicate
     from torch.distributed.tensor.experimental import local_map
     dt = x.dtype
@@ -294,20 +335,133 @@ def _moe_on_mesh(moe: MoEFFN, x):
     names = mesh.mesh_dim_names or ()
     ws = [moe.w(n, dt) for n in ("w_gate", "w_up", "w_down")]
     router = moe.w("router", dt)
-    router = router.redistribute(mesh, [Replicate()] * mesh.ndim)
-    out = list(x.placements)
+    m = names.index("model") if "model" in names else None
     split = WHOLE
-    if "model" in names:
-        ax = names.index("model")
-        if ws[0].placements[ax].is_shard():
-            split = ModelSplit(mesh.size(ax), mesh.get_local_rank("model"))
-            out[ax] = Partial()
+    if m is not None and ws[0].placements[m].is_shard():
+        split = ModelSplit(mesh.size(m), mesh.get_local_rank("model"))
+    mode = _stationary_mode()
+    axes = [i for i, n in enumerate(names) if mode is not None
+            and n in mode.axes and x.placements[i] == Replicate()
+            and any(w.placements[i].is_shard() for w in ws)]
+    if axes and expert_parallel(moe.cfg, split):
+        return _moe_stationary(moe, x, router, ws, split, axes)
+    ws = [lay_out(w, mesh, [p if i == m else Replicate()
+                            for i, p in enumerate(w.placements)])
+          for w in ws]
+    router = lay_out(router, mesh, [Replicate()] * mesh.ndim)
+    out = list(x.placements)
+    if split.size > 1:
+        out[m] = Partial()
+    # the data ranks that hold other rows sum the weights' gradients
+    rows = [Partial() if p.is_shard() else Replicate() for p in x.placements]
+    if m is not None:
+        rows[m] = Partial() if split.size > 1 else Replicate()
+    grad_x = list(out)
+    grad_w = [list(rows) for _ in ws]
+    if m is not None:
+        for g, w in zip(grad_w, ws):
+            g[m] = w.placements[m]
     fn = functools.partial(_moe, moe.cfg, split)
     return local_map(fn, out_placements=out,
                      in_placements=(list(x.placements),
                                     list(router.placements),
                                     *(list(w.placements) for w in ws)),
+                     in_grad_placements=(grad_x, rows, *grad_w),
                      device_mesh=mesh)(x, router, *ws)
+
+
+def _moe_stationary(moe: MoEFFN, x, router, ws, split: ModelSplit,
+                    axes: list):
+    """The MoE FFN as XLA lays it out for a micro-batch whose rows are
+    replicated over the data axes ``axes`` (mesh dims), with experts
+    dealt over "model" and FSDP blocks over those axes (the reference
+    pins the dispatch buffer to ``P(bd, "model", None, None)``, its batch
+    entry dropped): the router product split by ``_WeightStationary``;
+    routing and dispatch whole on every rank (a ``local_map``); each
+    expert product on the slice of the buffer, or of the hidden units,
+    that matches its weight's block (:func:`_stationary_product`), its
+    backward too; the combine in a second ``local_map``."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+    cfg = moe.cfg
+    mesh = x.device_mesh
+    names = mesh.mesh_dim_names or ()
+    m = names.index("model") if "model" in names else None
+    _, S, d = x.shape
+    C = expert_capacity(S, cfg)
+    E, K = cfg.moe_experts, cfg.moe_top_k
+    n = E // split.size
+    # logits whole on every rank: the router product laid out by
+    # _WeightStationary, then its partial sums and blocks joined
+    logits = lay_out((x @ router).float(), mesh, [Replicate()] * mesh.ndim)
+
+    def rows_at(dim):
+        """A tensor's placements with its dim ``dim`` holding the
+        rows: split where x's rows are, else replicated."""
+        return [Shard(dim) if p.is_shard() else Replicate()
+                for p in x.placements]
+
+    def route_dispatch(xl, lg):
+        r = route(lg, C, E, K)
+        buf, _, _ = dispatch(xl, local_routing(r, split.rank * n, n))
+        b = buf.shape[0]
+        return (buf.transpose(0, 1).reshape(n, b * C, d),
+                r.idx, r.expert, r.token, r.gate, r.keep, r.slot)
+
+    def combine_local(out, idx, expert, token, gate, keep, slot):
+        r = Routing(idx, None, expert, token, gate, keep, slot, C, E)
+        b = idx.shape[0]
+        out = out.reshape(n, b, C, d).transpose(0, 1)
+        return combine(out, local_routing(r, split.rank * n, n))
+
+    buf_pl = rows_at(1)
+    if m is not None:
+        buf_pl[m] = Shard(0)
+    pair_pl = rows_at(0)
+    x_grad = list(x.placements)
+    gate_grad = list(pair_pl)
+    y_pl = list(x.placements)
+    if m is not None and split.size > 1:
+        # each model rank dispatches and combines its own experts' pairs
+        x_grad[m] = gate_grad[m] = y_pl[m] = Partial()
+    buf, *pairs = local_map(
+        route_dispatch, out_placements=(buf_pl,) + (pair_pl,) * 6,
+        in_placements=(list(x.placements), list(logits.placements)),
+        in_grad_placements=(x_grad, list(logits.placements)),
+        device_mesh=mesh)(x, logits)
+    # d_ff slices that keep w_down's data blocks in place
+    blocks = math.prod(mesh.size(i) for i in axes
+                       if ws[2].placements[i].is_shard(1))
+    if ws[0].shape[-1] % (max(1, cfg.moe_ff_chunks) * blocks):
+        blocks = 1
+    out = _experts(cfg, buf, *ws, product=functools.partial(
+        _stationary_product, axes), blocks=blocks)
+    out = lay_out(out, mesh, buf_pl)
+    # (out, idx, expert, token, gate, keep, slot)
+    grads = (buf_pl, pair_pl, pair_pl, pair_pl, gate_grad, pair_pl, pair_pl)
+    return local_map(
+        combine_local, out_placements=y_pl,
+        in_placements=(buf_pl,) + (pair_pl,) * 6, in_grad_placements=grads,
+        device_mesh=mesh)(out, *pairs)
+
+
+def _stationary_product(axes: list, a, w):
+    """a (E, rows, k) times each expert's w (E, k, n) on a mesh, laid out
+    as XLA lays out a product of activations replicated over the mesh
+    dims ``axes``: over each, where w's block lies on its contracted dim,
+    ``a`` is cut to the matching slice and each rank's partial product is
+    summed later; where it lies on the output dim (or nowhere: XLA runs
+    the product whole) ``a`` is made whole and the product is already
+    split.  The placements are set before the product, so its backward
+    (the weight's gradient among it) runs on the same slices: DTensor's
+    planner weighs only communication and would run it whole."""
+    from torch.distributed.tensor import Replicate, Shard
+    place = list(a.placements)
+    for i in axes:
+        place[i] = Shard(2) if w.placements[i].is_shard(1) else Replicate()
+    y = torch.bmm(lay_out(a, a.device_mesh, place), w)
+    # its gradient as the product left it, the partial sums summed
+    return _Constrain.apply(y, tuple(y.placements))
 
 
 def aux_load_balance_loss(logits: torch.Tensor, gate_idx: torch.Tensor,

@@ -27,6 +27,9 @@ actually runs, under a ``TorchDispatchMode`` (:class:`CostCounter`):
   the step;
   with ``breakdown`` also the storages alive at the peak above the
   arguments, each by the op that made it (:meth:`CostCounter.peak_by_op`).
+- **FLOPs by product** (``breakdown``): each counted op's FLOPs summed by
+  the op and its operands' shapes (:meth:`CostCounter.flops_by_op`), the
+  counterpart of ``tests/dryrun_reference.py``'s ``"dots"``.
 
 ``while_trip_counts`` / ``unresolved_loops`` have no counterpart: torch
 counts each op every time it runs, so a loop body is counted once per
@@ -209,6 +212,7 @@ class CostCounter(TorchDispatchMode):
         self._made_by = {}          # storage -> (op, shape, dtype)
         self._op = None
         self._at_peak = {}          # storage -> (bytes, (op, shape, dtype))
+        self._flops_by = defaultdict(lambda: [0.0, 0])
 
     @contextlib.contextmanager
     def repeat(self, n: int):
@@ -305,6 +309,15 @@ class CostCounter(TorchDispatchMode):
                 for (op, shape, dtype), (c, b) in groups.items()]
         return sorted(rows, key=lambda r: -r["bytes"])[:top]
 
+    def flops_by_op(self, top: int = 40) -> list:
+        """The counted FLOPs (needs ``breakdown``) grouped by op and
+        operand shapes: [{"op", "shapes", "count", "flops"}], the largest
+        first."""
+        rows = [{"op": op, "shapes": [list(s) for s in shapes],
+                 "count": c, "flops": f}
+                for (op, shapes), (f, c) in self._flops_by.items()]
+        return sorted(rows, key=lambda r: -r["flops"])[:top]
+
     # -- dispatch -------------------------------------------------------
     def __enter__(self):
         if not _ACTIVE:
@@ -354,7 +367,14 @@ class CostCounter(TorchDispatchMode):
             from torch.utils.flop_counter import flop_registry
             f = flop_registry.get(packet)
             if f is not None:
-                self.flops += m * f(*args, **kwargs, out_val=out)
+                n = m * f(*args, **kwargs, out_val=out)
+                self.flops += n
+                if self.breakdown and n:
+                    row = self._flops_by[(name, tuple(
+                        tuple(t.shape) for t in flat
+                        if isinstance(t, torch.Tensor)))]
+                    row[0] += n
+                    row[1] += m
             self.traffic += m * (sum(tensor_bytes(t) for t in flat
                                      if isinstance(t, torch.Tensor))
                                  + tensor_bytes(tree_flatten(out)[0]))

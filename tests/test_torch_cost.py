@@ -137,6 +137,27 @@ def test_op_histogram():
     assert op_histogram(c.ops) == op_histogram(c)
 
 
+def test_the_flops_by_product_sum_to_the_count():
+    a, b, w = torch.randn(8, 16), torch.randn(16, 4), torch.randn(3, 8, 16)
+    with CostCounter(breakdown=True) as c:
+        with c.repeat(3):
+            a @ b
+        torch.bmm(w, b.expand(3, 16, 4))
+        torch.relu(a)
+    rows = c.flops_by_op()
+    assert rows == [
+        {"op": "mm", "shapes": [[8, 16], [16, 4]], "count": 3,
+         "flops": 3 * 2 * 8 * 16 * 4},
+        {"op": "bmm", "shapes": [[3, 8, 16], [3, 16, 4]], "count": 1,
+         "flops": 2 * 3 * 8 * 16 * 4}]
+    assert sum(r["flops"] for r in rows) == c.flops
+    assert c.flops_by_op(top=1) == rows[:1]
+    # without a breakdown nothing is kept
+    with CostCounter() as plain:
+        a @ b
+    assert plain.flops_by_op() == []
+
+
 def pairs_counted(S, T, causal, window):
     """The kept query-key pairs, one by one."""
     return sum(1 for s in range(S) for t in range(T)
