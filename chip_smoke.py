@@ -299,21 +299,28 @@ exits non-zero:
              times); f32 params, bf16 compute, batch 4; prefill ms per
              request, decode tokens/s, peak device memory; each model
              freed before the next
- 28. spmd    the paper's stage pipeline (pipeline/spmd.py) across two
-             stage ranks: the stage planner (core/planner.py, H100
-             defaults, 2 GPUs, a batch of 8; BCD from b0 = 8 and from 1,
-             the lower L_t kept) gives Q; two processes share the card
-             under gloo (host-staged hops; NCCL refuses two ranks on one
-             GPU), each holding 14 of qwen3-0.6b's 28 layers at full
-             width; float32 with TF32 off: the pipelined loss within 1e-5
-             of the plain model's on the card, every gradient and one AdamW
-             step within 1e-4 of each tensor's largest magnitude; bfloat16:
-             2 timed AdamW steps (wall, tokens/s, each rank's device busy
-             time from two profiled steps whose kernel counts must agree,
-             peak memory) beside the plan's T_f / T_i / L_t / bubble and the
-             plain single-process step at the same batch (Q = 2 and Q); K2
-             / K2' launches per rank equal to T x 14 (x 2 for K2 under
-             remat "layer") a step
+ 28. spmd    the paper's stage pipeline (pipeline/spmd.py) over (data
+             2 x stage 2): the stage planner (core/planner.py, H100
+             defaults, 2 GPUs, the 8 rows a data rank scores of a batch
+             of 16; BCD from b0 = 8 and from 1, the lower L_t kept) gives
+             Q; four processes share the card under gloo (host-staged
+             transfers; NCCL refuses two ranks on one GPU), each holding
+             14 of qwen3-0.6b's 28 layers at full width in their FSDP
+             blocks over the two data ranks (gathered once a step, the
+             gradients reduce-scattered); float32 with TF32 off: the
+             pipelined loss within 1e-5 of the plain model's on the card,
+             every block gradient and one AdamW step within 1e-4 of each
+             tensor's largest magnitude against the matching blocks of the
+             plain ones; bfloat16: each rank's memory_allocated after
+             shard_params and opt.init beside its blocks' bytes, the same
+             stage's at one data rank and the dry run's argument bytes of
+             the cell, 2 timed AdamW steps (wall, tokens/s, each rank's
+             device busy time from two profiled steps whose kernel counts
+             must agree, peak memory, host seconds and bytes by transfer)
+             beside the plan's T_f / T_i / L_t / bubble and the plain
+             single-process step at the same batch (Q = 2 and Q); K2 / K2'
+             launches per rank equal to T x 14 (x 2 for K2 under remat
+             "layer") a step
  29. tp      the "model" axis inside the stages: qwen3-0.6b over (stage
              2 x model 2), four processes sharing the card under gloo
              (2 intra-op threads each), each rank 14 layers at 8 / 4
@@ -3802,11 +3809,14 @@ def planning_phase(core, minplus, profile, net, plan, out_dir) -> dict:
 
 
 #: phase 28: the paper's stage pipeline (pipeline/spmd.py) on the card:
-#: qwen3-0.6b at full width and depth over 2 stage ranks, two processes
-#: sharing the one GPU under gloo (NCCL refuses two ranks on a GPU), a
-#: batch of 8 x 512 tokens; Q from the stage planner
-SPMD_RUN = {"arch": "qwen3-0.6b", "stages": 2, "batch": 8, "seq": 512,
-            "lr": 1e-3, "steps": 2, "seed": 0}
+#: qwen3-0.6b at full width and depth over (data 2 x stage 2), four
+#: processes sharing the one GPU under gloo (NCCL refuses two ranks on a
+#: GPU), each holding its stage's layers in their FSDP blocks over the two
+#: data ranks (gathered once a step, their gradients reduce-scattered); a
+#: batch of 16 x 512 tokens, 8 rows a data rank as phase 28 ran on one
+#: before; Q from the stage planner on the batch a data rank scores
+SPMD_RUN = {"arch": "qwen3-0.6b", "data": 2, "stages": 2, "batch": 16,
+            "seq": 512, "lr": 1e-3, "steps": 2, "seed": 0}
 #: pipelined against plain on the card, float32 with TF32 off: the loss
 #: relative to its size, each gradient and each updated parameter relative
 #: to its tensor's largest magnitude (the reference's own pipeline test
@@ -3822,8 +3832,8 @@ SPMD_STEP_REL = 1e-6
 #: 1e-8), so below it a rounding of the gradient moves the step by a
 #: visible share of the rate; the elements below are counted
 SPMD_STEP_GRAD_MIN = 1e-6
-#: seconds the parent waits for the two ranks
-SPMD_TIMEOUT_S = 480
+#: seconds the parent waits for the four ranks
+SPMD_TIMEOUT_S = 600
 #: profiled steps a rank runs for its device busy time
 SPMD_PROFILED = 3
 
@@ -3845,6 +3855,22 @@ def _stage_part(key, full, k, stages):
         return full
     n = full.shape[0] // stages
     return full[k * n:(k + 1) * n]
+
+
+def _block_part(cfg, layout, key, full, d, k, m, S):
+    """Rank (data d, stage k, model m)'s block of the whole tree's leaf
+    ``key``, as ``shard_params`` cuts it: the model and data dims
+    ``pipeline/spmd.py::block_dims`` names on the whole shape, then the
+    stage's rows."""
+    from repro_torch.pipeline.spmd import block_dims
+    sizes = {"model": layout.shape.get("model", 1),
+             "data": layout.shape.get("pod", 1) * layout.shape.get("data", 1)}
+    for dim, i, axis in zip(block_dims(cfg, layout, key, tuple(full.shape)),
+                            (m, d), ("model", "data")):
+        if dim is not None:
+            n = full.shape[dim] // sizes[axis]
+            full = full.narrow(dim, i * n, n)
+    return _stage_part(key, full, k, S)
 
 
 def derived_spmd_launches(Q: int, S: int, layers_per_stage: int,
@@ -3918,9 +3944,20 @@ def step_busy(run_step, sessions_to_run: int = SPMD_PROFILED) -> dict:
     return out
 
 
+def _spmd_blocks_bytes(cfg, layout, k: int, S: int) -> int:
+    """Bytes of rank (data 0, stage k)'s blocks of ``cfg``'s parameters and
+    their AdamW state on ``layout`` (float32: the parameter, m and v), from
+    the shapes (meta tensors), with AdamW's int32 step count."""
+    from repro_torch.configs import param_specs
+    specs = _flat_tree(param_specs(cfg))
+    n = sum(_block_part(cfg, layout, key, t, 0, k, 0, S).numel()
+            for key, t in specs.items())
+    return 3 * 4 * n + 4
+
+
 def _spmd_work(rank: int, job: dict) -> dict:
-    """Phase 28 on one stage rank: correctness in float32, then the timed
-    bfloat16 steps."""
+    """Phase 28 on one rank of (data D x stage S): correctness in float32,
+    then the timed bfloat16 steps."""
     import torch.distributed as dist
     from repro_torch.configs import get_config
     from repro_torch.data import token_lm_batches
@@ -3931,61 +3968,85 @@ def _spmd_work(rank: int, job: dict) -> dict:
     from repro_torch.models.common import nest_layers
     from repro_torch.models.registry import get_model
     from repro_torch.optim import get_optimizer
-    from repro_torch.utils import tree_map
+    from repro_torch.utils import tree_leaves, tree_map
     from repro_torch.pipeline.spmd import (PipelineConfig,
                                            make_pipelined_loss,
                                            make_pipelined_train_step,
                                            shard_params)
-    S, Q, B, L = job["stages"], job["q"], job["batch"], job["seq"]
+    D, S, Q, B, L = (job["data"], job["stages"], job["q"], job["batch"],
+                     job["seq"])
     pcfg = PipelineConfig(S, Q)
-    mesh = build_mesh(MeshLayout(("stage",), (S,)), "cuda")
+    layout = MeshLayout(("data", "stage"), (D, S))
+    mesh = build_mesh(layout, "cuda")
+    d, k = divmod(rank, S)                 # the mesh's ranks, row-major
     base = get_config(job["arch"])
     batch = next(token_lm_batches(batch=B, seq_len=L, vocab=base.vocab,
                                   seed=job["seed"]))
-    batch = {k: torch.as_tensor(v, device="cuda") for k, v in batch.items()}
-    out = {"rank": rank}
+    batch = {n: torch.as_tensor(v, device="cuda") for n, v in batch.items()}
+    out = {"rank": rank, "data": d, "stage": k}
 
     def whole_tree(model):
         return nest_layers({n: p.detach().clone()
                             for n, p in model.named_parameters()},
                            torch.stack)
 
-    # float32, TF32 off: pipelined against plain on this card
+    # float32, TF32 off: pipelined against plain on this card.  The plain
+    # model's loss, gradient and AdamW step run one rank at a time (each
+    # holds the whole model, its gradient and moments meanwhile), each
+    # keeping its blocks of them
     cfg32 = dataclasses.replace(base, compute_dtype=torch.float32)
-    gen = torch.Generator(device="cuda").manual_seed(job["seed"])
-    model = tf.init_params(cfg32, gen, "cuda")
-    tree = whole_tree(model)
-    named = dict(model.named_parameters())
-    loss0 = get_model(cfg32, "cuda").loss(model, batch)
-    g0 = dict(zip(named, torch.autograd.grad(loss0, list(named.values()))))
-    g0 = _flat_tree(nest_layers(g0, torch.stack))
-    local = shard_params(tree, mesh, pcfg, "cuda")
+    opt = get_optimizer("adamw", lr=job["lr"])
+
+    def part(key, full):
+        return _block_part(cfg32, layout, key, full, d, k, 0, S).clone()
+
+    plain = {}
+    for turn in range(D * S):
+        if turn == rank:
+            gen = torch.Generator(device="cuda").manual_seed(job["seed"])
+            model = tf.init_params(cfg32, gen, "cuda")
+            tree = whole_tree(model)
+            named = dict(model.named_parameters())
+            loss0 = get_model(cfg32, "cuda").loss(model, batch)
+            g0 = dict(zip(named, torch.autograd.grad(
+                loss0, list(named.values()))))
+            plain["loss"] = loss0.item()
+            plain["grads"] = {key: part(key, g) for key, g in _flat_tree(
+                nest_layers(g0, torch.stack)).items()}
+            del g0, loss0
+            plain_step = make_train_step(cfg32, opt, Q, "cuda")
+            model, _, _ = plain_step(model, opt.init(named), batch)
+            plain["stepped"] = {key: part(key, p) for key, p in
+                                _flat_tree(whole_tree(model)).items()}
+            del model, named, plain_step
+            torch.cuda.empty_cache()
+        dist.barrier()
+    local = shard_params(tree, mesh, pcfg, "cuda", cfg=cfg32)
     loss_fn = make_pipelined_loss(cfg32, mesh, pcfg, "cuda")
-    k = loss_fn.pipe.k
-    out.update(stage=k, backend=loss_fn.pipe.backend,
+    if (loss_fn.pipe.d, loss_fn.pipe.k) != (d, k):
+        raise AssertionError(f"rank {rank} is (data {loss_fn.pipe.d}, stage "
+                             f"{loss_fn.pipe.k}), not ({d}, {k})")
+    out.update(backend=loss_fn.pipe.backend,
                transport=loss_fn.pipe.transport)
     loss = loss_fn(local, batch)
     leaves = _flat_tree(local)
     grads = dict(zip(leaves, torch.autograd.grad(loss, list(leaves.values()))))
-    out["loss"], out["plain_loss"] = loss.item(), loss0.item()
+    out["loss"], out["plain_loss"] = loss.item(), plain["loss"]
     out["loss_rel"] = abs(out["loss"] - out["plain_loss"]) \
         / abs(out["plain_loss"])
     out["grad_rel"] = {}
     for key, g in grads.items():
-        want = _stage_part(key, g0[key], k, S)
+        want = plain["grads"][key]
+        if g.shape != want.shape:
+            raise AssertionError(f"{key}: block {tuple(g.shape)} against "
+                                 f"{tuple(want.shape)}")
         out["grad_rel"][key] = float((g - want).abs().max()
                                      / want.abs().max())
-    del loss, grads, local, loss_fn
+    del loss, grads, leaves, local, loss_fn
     # one AdamW step each way from the same weights.  The pipelined step
-    # hands its optimizer the gradients it computed: they are held to the
-    # plain ones, and the step's every element to AdamW applied to them
-    opt = get_optimizer("adamw", lr=job["lr"])
-    plain_step = make_train_step(cfg32, opt, Q, "cuda")
-    model, _, _ = plain_step(model, opt.init(dict(model.named_parameters())),
-                             batch)
-    stepped = _flat_tree(whole_tree(model))
-    del model, named
-    local = shard_params(tree, mesh, pcfg, "cuda")
+    # hands its optimizer the block gradients it computed: they are held to
+    # the plain ones, and the step's every element to AdamW applied to them
+    local = shard_params(tree, mesh, pcfg, "cuda", cfg=cfg32)
     del tree
     seen = {}
 
@@ -3997,8 +4058,8 @@ def _spmd_work(rank: int, job: dict) -> dict:
     pipe_step = make_pipelined_train_step(
         cfg32, mesh, pcfg, dataclasses.replace(opt, update=recorded), "cuda")
     local, _, _ = pipe_step(local, opt.init(local), batch)
-    adamw, _ = opt.update(seen["before"], seen["grads"],
-                          opt.init(seen["before"]))
+    adamw = opt.update(seen["before"], seen["grads"],
+                       opt.init(seen["before"]))[0]
     adamw, step_grads = _flat_tree(adamw), _flat_tree(seen["grads"])
     out["step_rel"], out["step_grad_rel"] = {}, {}
     out["step_plain_rel"], out["step_small_grad"] = {}, {}
@@ -4006,29 +4067,38 @@ def _spmd_work(rank: int, job: dict) -> dict:
         p = p.detach()
         out["step_rel"][key] = float((p - adamw[key]).abs().max()
                                      / adamw[key].abs().max())
-        g = _stage_part(key, g0[key], k, S)
+        g = plain["grads"][key]
         out["step_grad_rel"][key] = float((step_grads[key] - g).abs().max()
                                           / g.abs().max())
         # against the plain step where AdamW's first step is well
         # conditioned (SPMD_STEP_GRAD_MIN); the rest is only counted
-        want = _stage_part(key, stepped[key], k, S)
+        want = plain["stepped"][key]
         held = g.abs() >= SPMD_STEP_GRAD_MIN
         diff = torch.where(held, (p - want).abs(), 0.0)
         out["step_plain_rel"][key] = float(diff.max() / want.abs().max())
         out["step_small_grad"][key] = int((~held).sum())
-    del local, stepped, g0, pipe_step, plain_step, seen, adamw, step_grads
+    seen.clear()                      # the closure `recorded` keeps it
+    del local, plain, pipe_step, adamw, step_grads, p, g, want, held, diff
     torch.cuda.empty_cache()
 
-    # bfloat16 compute (the config's), remat "layer": timed steps
+    # bfloat16 compute (the config's), remat "layer": what a rank holds,
+    # then timed steps
     gen = torch.Generator(device="cuda").manual_seed(job["seed"])
     model = tf.init_params(base, gen, "cuda")
     tree = whole_tree(model)
     del model
-    local = shard_params(tree, mesh, pcfg, "cuda")
+    local = shard_params(tree, mesh, pcfg, "cuda", cfg=base)
     del tree
     torch.cuda.empty_cache()
     opt = get_optimizer("adamw", lr=job["lr"])
     state = opt.init(local)
+    torch.cuda.synchronize()
+    out["allocated_after_init"] = torch.cuda.memory_allocated()
+    out["held_bytes"] = sum(t.numel() * t.element_size()
+                            for t in tree_leaves((local, state)))
+    out["blocks_bytes"] = _spmd_blocks_bytes(base, layout, k, S)
+    out["blocks_bytes_d1"] = _spmd_blocks_bytes(
+        base, MeshLayout(("stage",), (S,)), k, S)
     step = make_pipelined_train_step(base, mesh, pcfg, opt, "cuda")
     step(local, state, batch)                                  # warm-up
     counters = (flash_mod.flash_attention, flash_mod.flash_attention_bwd)
@@ -4037,6 +4107,7 @@ def _spmd_work(rank: int, job: dict) -> dict:
     reset_launches(*counters)
     torch.cuda.reset_peak_memory_stats()
     step.pipe.seconds = dict.fromkeys(step.pipe.seconds, 0.0)
+    step.pipe.bytes = dict.fromkeys(step.pipe.bytes, 0)
     walls, losses = [], []
     for _ in range(job["steps"]):
         dist.barrier()
@@ -4046,29 +4117,35 @@ def _spmd_work(rank: int, job: dict) -> dict:
         losses.append(float(m["loss"]))
         torch.cuda.synchronize()
         walls.append(time.perf_counter() - t0)
+    # the timed steps are done: the parent's dry run may start
+    open(job["timed"].format(rank=rank), "w").close()
     out["launches"] = {c.__name__: c.launches for c in counters}
     out["launches_derived"] = {
         name: n * job["steps"] for name, n in derived_spmd_launches(
             Q, S, base.num_layers // S, base.remat).items()}
     out["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
     out["step_s"], out["losses"] = walls, losses
-    out["transfer_s"] = {k: v / job["steps"]
-                         for k, v in step.pipe.seconds.items()}
+    out["transfer_s"] = {n: v / job["steps"]
+                         for n, v in step.pipe.seconds.items()}
+    out["transfer_bytes"] = {n: v // job["steps"]
+                             for n, v in step.pipe.bytes.items()}
     out.update(step_busy(lambda: step(local, state, batch)))
     return out
 
 
 def spmd_rank(rank: int, job: dict) -> None:
-    """One stage rank of phase 28, in a process of its own: gloo over a
+    """One rank of phase 28, in a process of its own: gloo over a
     FileStore, loopback sockets; writes its results as JSON."""
     os.environ.setdefault("GLOO_SOCKET_IFNAME", "lo")
     import torch.distributed as dist
+    torch.set_num_threads(TP_THREADS)
     torch.cuda.set_device(0)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    world = job["data"] * job["stages"]
     dist.init_process_group("gloo", store=dist.FileStore(job["store"],
-                                                         job["stages"]),
-                            rank=rank, world_size=job["stages"])
+                                                         world),
+                            rank=rank, world_size=world)
     try:
         out = _spmd_work(rank, job)
         with open(job["out"].format(rank=rank), "w") as f:
@@ -4077,37 +4154,78 @@ def spmd_rank(rank: int, job: dict) -> None:
         dist.destroy_process_group()
 
 
+def spmd_dry_run(Q: int) -> dict:
+    """The dry run (launch/dryrun.py) of phase 28's cell on a fake process
+    group of its ranks with fake CUDA tensors: rank 0's argument bytes
+    and the rest of its record (predictions from shapes)."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.dryrun import (_lower_pipeline_cell,
+                                           fake_process_group)
+    from repro_torch.launch.mesh import MeshLayout
+    run = SPMD_RUN
+    layout = MeshLayout(("data", "stage"), (run["data"], run["stages"]))
+    with fake_process_group(layout.size):
+        return _lower_pipeline_cell(
+            run["arch"], layout, num_stages=run["stages"], q=Q,
+            device="cuda", cfg=get_config(run["arch"]),
+            batch_override=(run["batch"], run["seq"]))
+
+
 def spmd_phase(out_dir: str) -> dict:
-    """Phase 28: the stage planner picks Q for qwen3-0.6b on 2 GPUs (a
-    batch of 8); two processes, one stage rank each, share the card under
-    gloo (host-staged hops); each holds its stage's 14 layers.  float32
-    (TF32 off): the pipelined loss within 1e-5 of the plain model's on the
-    card, every gradient within 1e-4 of each tensor's largest magnitude;
-    one pipelined AdamW step: the gradients it used within 1e-4 of the
-    plain ones, its every element within 1e-6 of AdamW applied to them,
-    and within 1e-4 of the plain step where the plain gradient is at
-    least 1e-6.  bfloat16: the steps' wall, tokens/s, each rank's
-    device busy time and peak memory beside the plan's T_f, T_i, L_t and
-    bubble, and the plain single-process step at the same batch; K2 / K2'
-    launches a step per rank equal to T x the layers a stage holds (twice
-    for K2 under remat "layer")."""
+    """Phase 28: the stage planner picks Q for qwen3-0.6b on 2 GPUs (the
+    batch of one data rank); four processes, one rank of (data 2 x stage
+    2) each, share the card under gloo (host-staged transfers); each holds
+    its stage's 14 layers in their FSDP blocks over the two data ranks.
+    float32 (TF32 off): the pipelined loss within 1e-5 of the plain
+    model's on the card, every block gradient within 1e-4 of its tensor's
+    largest magnitude against the matching block of the plain gradient;
+    one pipelined AdamW step: the block gradients it used within 1e-4 of
+    the plain ones, its every element within 1e-6 of AdamW applied to
+    them, and within 1e-4 of the plain step where the plain gradient is
+    at least 1e-6.  bfloat16: each rank's ``memory_allocated`` after
+    ``shard_params`` and ``opt.init`` beside its blocks' bytes from the
+    shapes, the same stage's at D = 1 and the dry run's argument bytes of
+    the same cell; the steps' wall, tokens/s, each rank's device busy
+    time, peak memory and ``Pipe.seconds`` / ``Pipe.bytes`` by kind beside
+    the plan's T_f, T_i, L_t and bubble, and the plain single-process
+    step at the same batch; K2 / K2' launches a step per rank equal to T x
+    the layers a stage holds (twice for K2 under remat "layer")."""
     import multiprocessing
     import shutil
     from repro_torch.configs import get_config
     run = SPMD_RUN
     cfg = get_config(run["arch"])
-    plans, best, Q = stage_plan_q(run)
-    S = run["stages"]
+    D, S = run["data"], run["stages"]
+    plans, best, Q = stage_plan_q({**run, "batch": run["batch"] // D})
     shutil.rmtree(out_dir, ignore_errors=True)
     os.makedirs(out_dir)
     job = {**run, "q": Q, "store": os.path.join(out_dir, "store"),
-           "out": os.path.join(out_dir, "rank{rank}.json")}
+           "out": os.path.join(out_dir, "rank{rank}.json"),
+           "timed": os.path.join(out_dir, "timed{rank}")}
     torch.cuda.empty_cache()
     ctx = multiprocessing.get_context("spawn")
-    procs = [ctx.Process(target=spmd_rank, args=(r, job)) for r in range(S)]
+    procs = [ctx.Process(target=spmd_rank, args=(r, job))
+             for r in range(D * S)]
     t0 = time.perf_counter()
     for p in procs:
         p.start()
+    # the dry run of the same cell (host work only, fake tensors) runs in
+    # this process once every rank has timed its steps
+    dry_out = {}
+
+    def dry_run():
+        marks = [job["timed"].format(rank=r) for r in range(D * S)]
+        while not all(os.path.exists(m) for m in marks):
+            if not any(p.is_alive() for p in procs):
+                return                      # the ranks failed: see below
+            time.sleep(0.5)
+        try:
+            dry_out["record"] = spmd_dry_run(Q)
+        except BaseException as e:          # re-raised below
+            dry_out["error"] = e
+
+    dry_thread = threading.Thread(target=dry_run)
+    dry_thread.start()
     deadline = t0 + SPMD_TIMEOUT_S
     for p in procs:
         p.join(max(1.0, deadline - time.perf_counter()))
@@ -4116,11 +4234,15 @@ def spmd_phase(out_dir: str) -> dict:
         if p.is_alive():
             p.kill()
             p.join()
+    dry_thread.join()
     if any(p.exitcode != 0 for p in procs):
-        raise AssertionError(f"stage ranks ended with "
+        raise AssertionError(f"phase 28 ranks ended with "
                              f"{[p.exitcode for p in procs]}")
+    if "error" in dry_out:
+        raise dry_out["error"]
+    rec = dry_out["record"]
     ranks = []
-    for r in range(S):
+    for r in range(D * S):
         with open(job["out"].format(rank=r)) as f:
             ranks.append(json.load(f))
     failures = []
@@ -4130,25 +4252,32 @@ def spmd_phase(out_dir: str) -> dict:
         worst_sg = max(o["step_grad_rel"], key=o["step_grad_rel"].get)
         worst_plain = max(o["step_plain_rel"], key=o["step_plain_rel"].get)
         small = sum(o["step_small_grad"].values())
-        log(f"stage rank {o['rank']} (stage {o['stage']}; backend "
-            f"{o['backend']}, transport {o['transport']}): float32 loss "
-            f"{o['loss']:.6f} against plain {o['plain_loss']:.6f} (rel "
-            f"{o['loss_rel']:.2e}); gradients within {o['grad_rel'][worst]:.2e}"
-            f" of scale (worst {worst}); AdamW step: its gradients within "
-            f"{o['step_grad_rel'][worst_sg]:.2e} of the plain ones (worst "
+        log(f"phase 28 rank {o['rank']} (data {o['data']}, stage "
+            f"{o['stage']}; backend {o['backend']}, transport "
+            f"{o['transport']}): float32 loss {o['loss']:.6f} against plain "
+            f"{o['plain_loss']:.6f} (rel {o['loss_rel']:.2e}); block "
+            f"gradients within {o['grad_rel'][worst]:.2e} of scale (worst "
+            f"{worst}); AdamW step: its gradients within "
+            f"{o['step_grad_rel'][worst_sg]:.2e} of the plain blocks (worst "
             f"{worst_sg}), every element within "
             f"{o['step_rel'][worst_step]:.2e} of AdamW on them (worst "
             f"{worst_step}), within {o['step_plain_rel'][worst_plain]:.2e} "
             f"of the plain step (worst {worst_plain}; {small} entries with "
             f"|g| < {SPMD_STEP_GRAD_MIN} not held to it)")
-        log(f"stage rank {o['rank']}: bf16 steps "
+        log(f"phase 28 rank {o['rank']}: bf16 parameters and AdamW state "
+            f"{o['held_bytes']} B held (from the shapes {o['blocks_bytes']} B;"
+            f" the same stage at D = 1 {o['blocks_bytes_d1']} B, ratio "
+            f"{o['blocks_bytes'] / o['blocks_bytes_d1']:.4f}), "
+            f"memory_allocated after shard_params and opt.init "
+            f"{o['allocated_after_init']} B; steps "
             f"{[round(x, 4) for x in o['step_s']]} s, peak "
             f"{o['peak_gib']:.2f} GiB, launches {o['launches']} (derived "
             f"{o['launches_derived']}); profiled steps' device time "
             f"{[round(x, 2) for x in o['busy_sessions_ms']]} ms with "
-            f"{o['busy_sessions_kernels']} kernel events; host time in "
-            f"transfers a step {o['transfer_s']} s; K2's mean span in a "
-            f"step {o.get('k2_mean_ms', 0.0):.4f} ms; top kernels "
+            f"{o['busy_sessions_kernels']} kernel events; host seconds a "
+            f"step by transfer {o['transfer_s']}; bytes a step by transfer "
+            f"{o['transfer_bytes']}; K2's mean span in a step "
+            f"{o.get('k2_mean_ms', 0.0):.4f} ms; top kernels "
             f"{ {n: round(v['ms'], 1) for n, v in o['top_kernels'].items()} }"
             + ("" if o["busy_sessions_agree"] else
                f"; no two sessions agree: {o['busy_sessions_differ']}"))
@@ -4164,6 +4293,24 @@ def spmd_phase(out_dir: str) -> dict:
         if not o["busy_sessions_agree"]:
             failures.append(f"rank {o['rank']}'s profiled steps counted "
                             "different kernel events every time")
+        if o["held_bytes"] != o["blocks_bytes"]:
+            failures.append(f"rank {o['rank']} holds {o['held_bytes']} B of "
+                            f"parameters and state, its blocks "
+                            f"{o['blocks_bytes']}")
+        if not (o["transfer_bytes"]["fsdp_gather"] > 0
+                and o["transfer_bytes"]["fsdp_scatter"] > 0):
+            failures.append(f"rank {o['rank']} ran no FSDP gather or "
+                            "reduce-scatter")
+    r0 = next(r for r in ranks if r["rank"] == 0)
+    args = rec["memory"]["argument_size_in_bytes"]
+    log(f"phase 28 dry run of the same cell (predicted from shapes; fake "
+        f"CUDA tensors, a fake group of {D * S}; rank 0): arguments {args} "
+        f"B (rank 0's memory_allocated after shard_params and opt.init "
+        f"{r0['allocated_after_init']} B, its blocks and state "
+        f"{r0['held_bytes']} B), peak {rec['hbm_per_device'] / 2**30:.3f} "
+        f"GiB (measured max_memory_allocated {r0['peak_gib']:.3f}), FLOPs a "
+        f"step {rec['flops_per_device']:.6e}, collectives "
+        f"{rec['collective_breakdown']}")
     tokens = run["batch"] * run["seq"]
     walls = [max(r["step_s"][i] for r in ranks)
              for i in range(run["steps"])]
@@ -4199,16 +4346,19 @@ def spmd_phase(out_dir: str) -> dict:
     del api, model
     torch.cuda.empty_cache()
     T = Q + S - 1
-    out = {"plans": plans, "Q": Q, "stages": S, "ticks": T,
+    out = {"plans": plans, "Q": Q, "data": D, "stages": S, "ticks": T,
            "tick_bubble": (S - 1) / T, "step_s": walls,
            "tokens_per_s": [tokens / w for w in walls],
            "ranks": ranks, "plain": plain, "ranks_wall_s": ranks_s,
+           "dry_run": {k: rec[k] for k in (
+               "memory", "hbm_per_device", "flops_per_device",
+               "collective_breakdown")},
            "launches": {name: sum(r["launches"][name] for r in ranks)
                         for name in ranks[0]["launches"]}}
     log(f"phase 28 pipelined qwen3-0.6b ({cfg.num_layers} layers, "
-        f"{cfg.num_layers // S} a stage), {S} stage ranks on one card "
-        f"(gloo, host-staged hops), Q {Q}, T {T} ticks (tick bubble "
-        f"{out['tick_bubble']:.4f}); bf16 AdamW steps "
+        f"{cfg.num_layers // S} a stage) over (data {D} x stage {S}) on one "
+        f"card (gloo, host-staged transfers), Q {Q}, T {T} ticks (tick "
+        f"bubble {out['tick_bubble']:.4f}); bf16 AdamW steps "
         f"{[round(w, 4) for w in walls]} s "
         f"({[round(t) for t in out['tokens_per_s']]} tokens/s); device busy "
         f"a step per rank {[[round(x, 1) for x in r['busy_ms']] for r in ranks]}"
@@ -4260,34 +4410,14 @@ TP_TIMEOUT_S = 600
 TP_PROFILED = 3
 
 
-def _model_axis_dim(cfg, layout, key, full_shape):
-    """The dim of leaf ``key`` (whole shape ``full_shape``) that the
-    runtime cuts over the "model" axis (the rules' "model" entry; the
-    leaves read whole inside the blocks, and the replicated ones, none)."""
-    from repro_torch.launch.sharding import model_dim
-    from repro_torch.pipeline.spmd import _INSIDE
-    if not key.startswith("layers/") or key.rsplit("/", 1)[-1] in _INSIDE:
-        return None
-    return model_dim(cfg, layout, key, tuple(full_shape))
-
-
-def _local_part(cfg, layout, key, full, k, m, S):
-    """Rank (stage k, model m)'s part of the whole tree's leaf ``key``, as
-    ``shard_params`` cuts it."""
-    d = _model_axis_dim(cfg, layout, key, full.shape)
-    if d is not None:
-        n = full.shape[d] // layout.shape["model"]
-        full = full.narrow(d, m * n, n)
-    return _stage_part(key, full, k, S)
-
-
 def _model_blocks_joined(pipe, cfg, layout, key, g, full_shape):
     """The model group's blocks of the gradient ``g`` of leaf ``key``
     (this rank's stage rows) put back together along the dim the rules
     split (gathered through the host under gloo); ``g`` itself when the
     leaf is whole on every model rank."""
     import torch.distributed as dist
-    d = _model_axis_dim(cfg, layout, key, full_shape)
+    from repro_torch.pipeline.spmd import block_dims
+    d = block_dims(cfg, layout, key, tuple(full_shape))[0]
     if d is None:
         return g
     host = g.detach().cpu().contiguous()
@@ -4376,7 +4506,8 @@ def _tp_adamw_check(cfg32, layout, pcfg, batch, seed, lr, g0) -> tuple:
     for key, p in _flat_tree(local).items():
         step_rel[key] = float((p.detach() - adamw[key]).abs().max()
                               / adamw[key].abs().max())
-        g = _local_part(cfg32, layout, key, g0[key], k, m, pcfg.num_stages)
+        g = _block_part(cfg32, layout, key, g0[key], 0, k, m,
+                        pcfg.num_stages)
         grad_rel[key] = float((step_grads[key] - g).abs().max()
                               / g.abs().max())
     return step_rel, grad_rel

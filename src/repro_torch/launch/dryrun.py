@@ -17,8 +17,9 @@ every collective returns at once), and counts what rank 0 runs with
 - the step is ``launch/steps.py``'s ``make_train_step`` /
   ``make_prefill_step`` / ``make_decode_step``, or for ``--mode pipeline``
   ``pipeline/spmd.py::make_pipelined_train_step`` on
-  ``launch/mesh.py::pipeline_layout`` (each rank's stage block of the
-  layers, cut to its "model" block);
+  ``launch/mesh.py::pipeline_layout`` (each rank's leaves in the rules'
+  blocks: its stage's layers cut to their FSDP and "model" blocks, the
+  embedding to its vocabulary block, AdamW's moments alike);
 - on ``--device cuda`` (the default) the tensors are fake CUDA tensors, so
   K2 / K2' / K3 / K3' take their fake branches and charge their work;
   on ``cpu`` the plain attention and scan run, as the reference's dry run
@@ -431,10 +432,12 @@ def _cache(cfg, sp, layout, mesh, dev, policy):
 
 def _lower_pipeline_cell(arch: str, mesh, *, num_stages: int = 4,
                          q: int = 16, device: str = "cuda", cfg=None,
-                         batch_override=None, shape: str = "train_4k"):
+                         batch_override=None, shape: str = "train_4k",
+                         breakdown: bool = False):
     """Paper-mode train cell: rank 0's pipelined step
     (``pipeline/spmd.py``) on ``mesh`` (a ``MeshLayout`` with "stage" and
-    "model" axes, of the process group's size)."""
+    "model" axes, of the process group's size); ``breakdown`` as
+    :func:`_lower_cell`'s."""
     import torch.distributed as dist
     from repro_torch.pipeline import (PipelineConfig,
                                       make_pipelined_train_step)
@@ -467,7 +470,8 @@ def _lower_pipeline_cell(arch: str, mesh, *, num_stages: int = 4,
         state = opt.init(local)
         batch = {k: torch.zeros(v.shape, dtype=v.dtype, device=device)
                  for k, v in specs.items()}
-        counter = CostCounter(track_memory=True, pipe=step.pipe)
+        counter = CostCounter(track_memory=True, pipe=step.pipe,
+                              breakdown=breakdown)
         args = counter.mark_arguments(local, state, batch)
         with counter:
             outs = step(local, state, batch)
@@ -478,6 +482,9 @@ def _lower_pipeline_cell(arch: str, mesh, *, num_stages: int = 4,
            "microbatches": q, "optimizer": opt_name, "device": device,
            "rank": {"data": step.pipe.d, "stage": step.pipe.k,
                     "model": step.pipe.m}}
+    if breakdown:
+        rec["peak_temp_by_op"] = counter.peak_by_op()
+        rec["flops_by_op"] = counter.flops_by_op()
     return _finish(rec, counter, args, outs, t0, layout.size)
 
 
@@ -519,7 +526,8 @@ def run_cells(archs, shapes, meshes, *, mode="baseline", out_dir=RESULTS_DIR,
                         if mode == "pipeline":
                             rec = _lower_pipeline_cell(
                                 arch, layout, num_stages=layout.shape["stage"],
-                                q=q_override or 16, device=device)
+                                q=q_override or 16, device=device,
+                                breakdown=breakdown)
                         else:
                             rec = _lower_cell(arch, shape, layout,
                                               policy=policy,
@@ -568,7 +576,7 @@ def main(argv=None):
     ap.add_argument("--breakdown", action="store_true",
                     help="record what is alive at the memory peak, by the "
                     "op that made it (peak_temp_by_op), and the FLOPs by "
-                    "product (flops_by_op; baseline cells)")
+                    "product (flops_by_op)")
     args = ap.parse_args(argv)
 
     archs = [args.arch] if args.arch else list(ARCH_IDS)

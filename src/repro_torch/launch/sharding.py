@@ -198,6 +198,37 @@ def model_block(cfg: ArchConfig, mesh, path: str, x, rank: int,
     return x[tuple(idx)]
 
 
+def data_dim(cfg: ArchConfig, mesh, path: str, shape: tuple,
+             policy: ShardingPolicy = ShardingPolicy()):
+    """The dim of the leaf at ``path`` that :func:`param_spec` splits over
+    the data axes (its FSDP block), or None."""
+    lay = as_layout(mesh)
+    dax = _entry(a for a in policy.batch_axes if a in lay.axis_names)
+    if dax is None:
+        return None
+    spec = param_spec(cfg, mesh, path, shape, policy)
+    return next((d for d, e in enumerate(spec) if e == dax), None)
+
+
+def data_block(cfg: ArchConfig, mesh, path: str, x, rank: int,
+               policy: ShardingPolicy = ShardingPolicy()):
+    """Data rank ``rank``'s block of the leaf ``x`` (at tree path ``path``,
+    in the reference's stacked layout): the dim :func:`data_dim` names
+    cut into as many equal blocks as the data axes have ranks (major to
+    minor: ``rank`` = pod index x data size + data index), or ``x``
+    itself when no dim is split.  A view, for tensors and arrays alike."""
+    d = data_dim(cfg, mesh, path, tuple(x.shape), policy)
+    if d is None:
+        return x
+    lay = as_layout(mesh)
+    n = x.shape[d]
+    for a in policy.batch_axes:
+        n //= _axis_size(lay, a)
+    idx = [slice(None)] * len(x.shape)
+    idx[d] = slice(rank * n, (rank + 1) * n)
+    return x[tuple(idx)]
+
+
 def _flatten(tree, prefix=()) -> list:
     """[(path components, leaf)] of a nested dict / list / tuple, dict keys
     in sorted order (``jax.tree_util``'s)."""

@@ -9,9 +9,9 @@ from .stage import (VGGStage, split_vgg_params, stack_stage_params,
                     vgg_stages_from_cuts)
 from .executor import (LinkHooks, SplitLearningExecutor, microbatch_grads,
                        split_batch)
-from .spmd import (PipelineConfig, make_pipelined_loss,
-                   make_pipelined_train_step, plan_to_pipeline_config,
-                   shard_params)
+from .spmd import (PipelineConfig, as_dtensors, make_pipelined_loss,
+                   make_pipelined_train_step, param_shardings,
+                   plan_to_pipeline_config, shard_params)
 
 __all__ = [
     "SimResult", "memory_highwater", "simulate", "simulate_from_breakdown",
@@ -19,6 +19,7 @@ __all__ = [
     "transformer_stage_fn", "unstack_stage_params", "vgg_stages_from_cuts",
     "LinkHooks",
     "SplitLearningExecutor", "microbatch_grads", "split_batch",
-    "PipelineConfig", "make_pipelined_loss", "make_pipelined_train_step",
+    "PipelineConfig", "as_dtensors", "make_pipelined_loss",
+    "make_pipelined_train_step", "param_shardings",
     "plan_to_pipeline_config", "shard_params",
 ]

@@ -2,11 +2,23 @@
 devices, on ``torch.distributed``; the port of ``repro/pipeline/spmd.py``.
 
 A mesh of ("data", "stage", "model") ranks (a "pod" axis folds into
-data).  Stage k's block of layers lives on the ranks of stage k only: the
-local parameter tree of a rank (:func:`shard_params`) holds its stage's
-slice of the stacked layers (``stage.py::stack_stage_params``) beside the
-embedding, final norm and head, which every rank holds whole (replicated,
-outside the pipe, as in the reference).
+data).  Stage k's block of layers lives on the ranks of stage k only.  A
+rank's parameter tree (:func:`shard_params`) holds each leaf in the
+reference's blocks (``launch/sharding.py::param_spec``): its stage's
+slice of the stacked layers (``stage.py::stack_stage_params``), each layer
+leaf cut further to the rank's FSDP block over the data ranks
+(``data_block``) and to its block on "model" (``model_block``); the
+embedding's rows to its vocabulary block on "model" (no FSDP block, as the
+rule has it), an untied ``lm_head``'s columns to its vocabulary block and
+its rows to its FSDP block; the final norm whole.  The reference holds
+every stage's layers at 1 / (D M) and gathers them at use; here a rank
+holds only its stage's.  AdamW's moments (``opt.init``) take the same
+blocks.  A leaf with an FSDP block is gathered whole over the data group,
+in the compute dtype, once a step (:class:`_GatherBlock`, "fsdp_gather";
+remat's recompute reads the same gathered tensor), its gradient summed
+over the ticks that read it in that dtype (as torch's FSDP with a bf16
+parameter dtype; the reference sums them in float32) and reduce-scattered
+back to the block in float32 ("fsdp_scatter").
 
 A "model" axis of size M > 1 is tensor parallelism inside a stage: each
 layer leaf is further cut to the rank's block along the "model" entry of
@@ -28,13 +40,15 @@ too).  The leaves a layer reads whole inside those blocks — the qk-norm
 scales of split heads and the MoE router — get a partial gradient on
 each model rank, summed over the model group in the backward; the ones
 read outside them (the layer norms, the qk-norm scales of gathered heads,
-the embedding, the final norm) are whole on each rank.  The head: where
+the final norm) are whole on each rank.  The embedding and the head: where
 the rules put the vocabulary on "model" (it divides M,
 ``launch/sharding.py``'s rule for ``embed`` / ``lm_head``) each model rank
-computes its block of the logits and the cross entropy is
-vocabulary-parallel (the max, the sum of exponentials and each row's gold
-logit summed over the group; :func:`_vocab_parallel_ce`); else the head
-runs whole on every model rank.
+looks the tokens up in its row block (ids outside it give zero rows,
+summed over the model group: :func:`_embed_rows`), computes its block of
+the logits, and the cross entropy is vocabulary-parallel (the max, the sum
+of exponentials and each row's gold logit summed over the group;
+:func:`_vocab_parallel_ce`); else the table is whole and the head runs
+whole on every model rank.
 
 Activations hop stage -> stage + 1 (the paper's inter-server
 transmissions, Eqs. 5/6) and their gradients hop back (Eqs. 9/10): a hop
@@ -57,20 +71,24 @@ stage ranks (q -> rank q mod S), so the head runs once, not S times (a
 rank left with none when Q < S still takes part in the backward); the
 loss is their sum over the stage group, averaged over the data group.
 Gradients as JAX's transposes give them: the combine's backward sums the
-cotangents over the stage group; the replicated leaves' gradients are
-summed over the stage group and averaged over the data group, the stage
-leaves' averaged over the data group — inside the backward, so
-``torch.autograd.grad(loss, leaves)`` returns the whole gradient on every
-rank.  Every rank builds the same autograd graph, so its backward issues
-the hops and reductions in the same order on every rank.
+cotangents over the stage group; the leaves outside the pipe get their
+gradients summed over the stage group, the stage leaves' not; every
+gradient is averaged over the data group, reduce-scattered where the leaf
+has an FSDP block — inside the backward, so ``torch.autograd.grad(loss,
+leaves)`` returns on every rank its block of the whole gradient.  Every
+rank builds the same autograd graph, so its backward issues the hops and
+reductions in the same order on every rank.
 
 Transport: the process group's backend as the caller set it up.  NCCL
 where each rank has a GPU of its own; gloo where ranks share one (NCCL
 refuses two ranks on a GPU): gloo moves host memory, so a hop, the
-combine and the gradient reductions of CUDA tensors go through pinned
-host buffers (kept per shape, reused every tick and step), while all
-compute stays on the device.  A CPU tensor under gloo
-moves as it is.  A failed collective raises; nothing falls back.
+combine, the gathers and the gradient reductions of CUDA tensors go
+through pinned host buffers (kept per shape, reused every tick and step),
+while all compute stays on the device.  A CPU tensor under gloo moves as
+it is.  Under NCCL (and the dry run's fake group, which stands for it)
+gathers are ``all_gather_into_tensor`` and the FSDP gradients
+``reduce_scatter_tensor``; under gloo a gather of a list and an all-reduce
+and a slice.  A failed collective raises; nothing falls back.
 
 Every transfer's host seconds and operand bytes are kept by kind in
 ``Pipe.seconds`` / ``Pipe.bytes`` (``utils/cost.py`` reads the bytes: no
@@ -89,7 +107,7 @@ import torch.distributed as dist
 
 from .._device import resolve_device
 from ..launch.mesh import as_layout
-from ..launch.sharding import model_block
+from ..launch.sharding import data_block, data_dim, model_block, model_dim
 from ..models.common import ArchConfig, ModelSplit, cross_entropy, rms_norm
 from ..utils.treemath import tree_leaves, tree_map
 from .stage import transformer_stage_fn
@@ -140,12 +158,13 @@ class Pipe:
     tensors move (``transport``: "direct", or "host-staged" for CUDA
     tensors under gloo).  ``seconds`` adds up the host's time in each kind
     of transfer ("hop", "hop_back", "combine", "combine_back",
-    "grad_reduce", "loss_reduce", "tp_reduce"), ``bytes`` the operand
-    bytes this rank put into each; a host-staged transfer's copy to the
-    host first waits for the device's queued work."""
+    "grad_reduce", "loss_reduce", "tp_reduce", "fsdp_gather",
+    "fsdp_scatter"), ``bytes`` the operand bytes this rank put into each;
+    a host-staged transfer's copy to the host first waits for the
+    device's queued work."""
 
     KINDS = ("hop", "hop_back", "combine", "combine_back", "grad_reduce",
-             "loss_reduce", "tp_reduce")
+             "loss_reduce", "tp_reduce", "fsdp_gather", "fsdp_scatter")
 
     def __init__(self, mesh, pcfg: PipelineConfig, device):
         grid, self.d, self.k, self.m = _coords(mesh, pcfg)
@@ -177,6 +196,9 @@ class Pipe:
         # NCCL's direct transfers
         self.host = self.backend not in ("nccl", "fake") \
             and device.type == "cuda"
+        # NCCL's gathers and reduce-scatters into one tensor; gloo's of a
+        # list, and an all-reduce and a slice
+        self.fused = self.backend in ("nccl", "fake")
         self.transport = "host-staged" if self.host else "direct"
         self.seconds = dict.fromkeys(self.KINDS, 0.0)
         self.bytes = dict.fromkeys(self.KINDS, 0)
@@ -260,12 +282,56 @@ class Pipe:
         else:
             parts = torch.empty(like.shape, dtype=src.dtype,
                                 device=src.device)
-        dist.all_gather(list(parts.unbind(0)), src, group=group)
+        if self.fused:
+            _all_gather_into(parts, src, group=group)
+        else:
+            dist.all_gather(list(parts.unbind(0)), src, group=group)
         if self.host:
             parts = parts.to(self.device, non_blocking=False)
         out = torch.cat(parts.unbind(0), dim=dim)
         self.seconds[what] += time.perf_counter() - t0
         return out
+
+    def reduce_scatter(self, t: torch.Tensor, group,
+                       what: str) -> torch.Tensor:
+        """This rank's block (its index in ``group``) of the sum of ``t``
+        over ``group``, ``t`` cut into the group's number of equal blocks
+        along dim 0: ``reduce_scatter_tensor``, or (gloo) an all-reduce of
+        ``t`` in place, host-staged for a CUDA tensor, and this rank's
+        slice of it."""
+        t0 = time.perf_counter()
+        self.bytes[what] += t.numel() * t.element_size()
+        n = dist.get_world_size(group)
+        w = t.shape[0] // n
+        if self.fused:
+            out = torch.empty((w,) + tuple(t.shape[1:]), dtype=t.dtype,
+                              device=t.device)
+            _reduce_scatter_into(out, t.contiguous(), group=group)
+        else:
+            i = dist.get_rank(group)
+            if self.host:
+                h = self._buffer("reduce", t).copy_(t)
+                dist.all_reduce(h, group=group)
+                out = h[i * w:(i + 1) * w].to(self.device, copy=True)
+            else:
+                dist.all_reduce(t, group=group)
+                out = t[i * w:(i + 1) * w]
+        self.seconds[what] += time.perf_counter() - t0
+        return out
+
+
+def _all_gather_into(out, t, group):
+    """``all_gather_into_tensor`` by the name this torch gives it."""
+    fn = getattr(dist, "all_gather_single", None) \
+        or dist.all_gather_into_tensor
+    fn(out, t, group=group)
+
+
+def _reduce_scatter_into(out, t, group):
+    """``reduce_scatter_tensor`` by the name this torch gives it."""
+    fn = getattr(dist, "reduce_scatter_single", None) \
+        or dist.reduce_scatter_tensor
+    fn(out, t, group=group)
 
 
 class _Hop(torch.autograd.Function):
@@ -404,6 +470,34 @@ class _ReduceGrad(torch.autograd.Function):
         return g, None, None, None
 
 
+class _GatherBlock(torch.autograd.Function):
+    """A leaf's FSDP block gathered whole over the data group along
+    ``dim``, in ``dtype``.  Backward: the whole gradient (summed over the
+    uses in ``dtype``) in the block's type, reduce-scattered over the data
+    group back to the block and averaged over it, then summed over the
+    stage group (``over_stage``: a leaf outside the pipe)."""
+
+    @staticmethod
+    def forward(ctx, x, pipe, dim, dtype, over_stage):
+        ctx.pipe, ctx.dim, ctx.dtype, ctx.over_stage = pipe, dim, x.dtype, \
+            over_stage
+        return pipe.all_gather(x.detach().to(dtype), pipe.data_group,
+                               "fsdp_gather", dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        pipe, dim = ctx.pipe, ctx.dim
+        moved = g.movedim(dim, 0)
+        whole = torch.empty(moved.shape, dtype=ctx.dtype,
+                            device=g.device).copy_(moved)
+        del g, moved
+        block = pipe.reduce_scatter(whole, pipe.data_group, "fsdp_scatter")
+        block = block.movedim(0, dim).contiguous().div_(pipe.D)
+        if ctx.over_stage:
+            pipe.all_reduce_(block, pipe.stage_group, "grad_reduce")
+        return block, None, None, None, None
+
+
 #: layer leaves read whole inside the model-parallel blocks (their
 #: gradient on one model rank is that rank's heads' or experts' part)
 _INSIDE = ("q_norm", "k_norm", "router")
@@ -429,6 +523,17 @@ def _reduced(pipe: Pipe, x: torch.Tensor, over_stage: bool,
     return _ReduceGrad.apply(x, pipe, over_stage, over_model)
 
 
+def _as_read(pipe: Pipe, x: torch.Tensor, dim, dtype, over_stage: bool,
+             over_model: bool = False):
+    """The leaf ``x`` as the step reads it: gathered whole over the data
+    group where it holds an FSDP block along ``dim``
+    (:class:`_GatherBlock`), else itself with its gradient reduced
+    (:func:`_reduced`)."""
+    if dim is None:
+        return _reduced(pipe, x, over_stage, over_model)
+    return _GatherBlock.apply(x, pipe, dim, dtype, over_stage)
+
+
 def _check_config(cfg: ArchConfig) -> None:
     """The transformer's families: dense, MoE, and the VLM backbone, whose
     pipelined loss reads the tokens only (as the reference's does: its
@@ -439,17 +544,16 @@ def _check_config(cfg: ArchConfig) -> None:
 
 
 def _head_logits(cfg: ArchConfig, params: dict, y: torch.Tensor,
-                 block=None, pipe: Pipe | None = None):
-    """The reference's ``_unembed`` (``Transformer.logits``); with
-    ``block`` (:func:`_vocab_block`), this model rank's block of the
-    logits, the input's gradient summed over the model group."""
+                 pipe: Pipe, vocab_split: bool):
+    """The reference's ``_unembed`` (``Transformer.logits``) from the head
+    as the step reads it (the tied embedding's rows or ``lm_head``); with
+    ``vocab_split``, from this model rank's vocabulary block of it: this
+    rank's block of the logits, the input's gradient summed over the
+    model group."""
     x = rms_norm(y, params["final_norm"], cfg.norm_eps)
-    if block is None:
-        head = params["embed"].T if cfg.tie_embeddings else \
-            params["lm_head"]
-    else:
+    if vocab_split:
         x = _ToModel.apply(x, pipe)
-        head = block.T if cfg.tie_embeddings else block
+    head = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
     return x @ head.to(x.dtype)
 
 
@@ -460,16 +564,17 @@ def vocab_parallel(cfg: ArchConfig, M: int) -> bool:
     return M > 1 and cfg.vocab % M == 0
 
 
-def _vocab_block(cfg: ArchConfig, params: dict, pipe: Pipe):
-    """This model rank's block of the head: the embedding's rows (tied)
-    or ``lm_head``'s columns, its gradient joined over the model group
-    (zero outside the block on each rank; the leaf stays whole)."""
-    V = cfg.vocab
-    blocks = [(r * V // pipe.M, (r + 1) * V // pipe.M)
-              for r in range(pipe.M)]
-    if cfg.tie_embeddings:
-        return _Split.apply(params["embed"], pipe, 0, blocks)
-    return _Split.apply(params["lm_head"], pipe, 1, blocks)
+def _embed_rows(block: torch.Tensor, tokens: torch.Tensor,
+                pipe: Pipe) -> torch.Tensor:
+    """The embedding of ``tokens`` from this model rank's vocabulary block
+    of the table (rows [m n, (m + 1) n)): ids outside the block give zero
+    rows, summed over the model group, so every rank holds the whole
+    embedding and each row's gradient stays on the rank that holds it."""
+    n = block.shape[0]
+    idx = tokens.long() - pipe.m * n
+    mine = (idx >= 0) & (idx < n)
+    rows = block[idx.clamp(0, n - 1)]
+    return _FromModel.apply(torch.where(mine[..., None], rows, 0.0), pipe)
 
 
 def _vocab_parallel_ce(logits: torch.Tensor, labels: torch.Tensor,
@@ -510,49 +615,130 @@ def check_model_axis(cfg: ArchConfig, M: int) -> None:
         split.part(cfg.d_ff, "expert FFN columns")
 
 
+def _data_size(mesh) -> int:
+    lay = as_layout(mesh)
+    return lay.shape.get("pod", 1) * lay.shape.get("data", 1)
+
+
+def block_dims(cfg: ArchConfig, mesh, path: str, shape: tuple) -> tuple:
+    """(the model dim, the data dim) of the leaf at ``path`` (of whole
+    shape ``shape``) that :func:`shard_params` cuts into the rank's block
+    over the "model" axis and over the data ranks (FSDP), each None where
+    it is whole: the rules' entries (``launch/sharding.py::model_dim`` /
+    ``data_dim``), none on an axis of one rank, and no model block for
+    the leaves read whole inside the model blocks (:data:`_INSIDE`)."""
+    lay = as_layout(mesh)
+    name = path.rsplit("/", 1)[-1]
+    md = model_dim(cfg, mesh, path, shape) \
+        if lay.shape.get("model", 1) > 1 and name not in _INSIDE else None
+    dd = data_dim(cfg, mesh, path, shape) if _data_size(mesh) > 1 else None
+    return md, dd
+
+
+def _leaf_shapes(cfg: ArchConfig) -> dict:
+    """{tree path: whole shape} of ``cfg``'s parameter tree."""
+    from ..configs import param_specs
+
+    def walk(tree, prefix):
+        for k, v in tree.items():
+            if isinstance(v, dict):
+                yield from walk(v, f"{prefix}{k}/")
+            else:
+                yield prefix + k, tuple(v.shape)
+    return dict(walk(param_specs(cfg), ""))
+
+
 def shard_params(params: dict, mesh, pcfg: PipelineConfig,
                  device="cuda", *, cfg: ArchConfig | None = None) -> dict:
     """This rank's parameter tree from the reference's whole tree
-    (``nest_layers`` of a model's named parameters, or numpy arrays):
-    the replicated leaves whole and ``"layers"`` cut to this rank's stage
-    and, on a "model" axis of size > 1, to this rank's block of the
-    reference's rules (``launch/sharding.py::model_block``; the router
-    stays whole, see the module docstring), each a leaf tensor on
-    ``device`` (``"cuda"`` unless the caller passes ``"cpu"``) that
-    requires grad.  ``cfg`` is needed with a model axis; a config whose
-    attention columns or FFN do not split over it raises ValueError."""
+    (``nest_layers`` of a model's named parameters, or numpy arrays), in
+    the reference's nested layout with each leaf the rank's block (see
+    the module docstring): ``"layers"`` cut to this rank's stage, every
+    leaf to its FSDP block over the data ranks (``launch/sharding.py::
+    data_block``) and, on a "model" axis of size > 1, to its block on
+    "model" (``model_block``; the router stays whole), where the
+    reference's rules split it (:func:`block_dims`).  Each is a leaf
+    tensor on ``device`` (``"cuda"`` unless the caller passes ``"cpu"``)
+    that requires grad.  ``cfg`` is needed with a data or a model axis; a
+    config whose attention columns or FFN do not split over the model
+    axis raises ValueError."""
     dev = resolve_device(device)
     M = as_layout(mesh).shape.get("model", 1)
+    if (M > 1 or _data_size(mesh) > 1) and cfg is None:
+        raise ValueError("a data or a model axis needs the config (cfg=) "
+                         "to cut the leaves by the sharding rules")
     if M > 1:
-        if cfg is None:
-            raise ValueError("a model axis needs the config (cfg=) to cut "
-                             "the layers by the sharding rules")
         check_model_axis(cfg, M)
-    _, _, k, m = _coords(mesh, pcfg)
+    _, d, k, m = _coords(mesh, pcfg)
     S = pcfg.num_stages
 
-    def leaf(x, rows=None):
+    def leaf(x, path):
         t = x if isinstance(x, torch.Tensor) else torch.as_tensor(
             np.asarray(x))
-        if rows is not None:
-            t = t[rows]
+        md, dd = block_dims(cfg, mesh, path, tuple(t.shape))
+        # the data block first: the model dim of the cut leaf is the
+        # whole one's (the rules' data and model dims differ, and a dim
+        # a data block makes divisible by M was divisible before)
+        if dd is not None:
+            t = data_block(cfg, mesh, path, t, d)
+        if md is not None:
+            t = model_block(cfg, mesh, path, t, m)
+        if path.startswith("layers/"):
+            L = t.shape[0]
+            if L % S:
+                raise ValueError(f"{L} layers do not split into {S} stages")
+            t = t[k * (L // S):(k + 1) * (L // S)]
         return t.detach().to(dev).clone().requires_grad_(True)
 
-    def stage_slice(tree, path):
-        if isinstance(tree, dict):
-            return {name: stage_slice(v, f"{path}/{name}")
-                    for name, v in tree.items()}
-        L = tree.shape[0]
-        if L % S:
-            raise ValueError(f"{L} layers do not split into {S} stages")
-        name = path.rsplit("/", 1)[-1]
-        if M > 1 and name not in _INSIDE:
-            tree = model_block(cfg, mesh, path, tree, m)
-        n = L // S
-        return leaf(tree, slice(k * n, (k + 1) * n))
+    def walk(tree, prefix):
+        return {name: (walk(v, f"{prefix}{name}/") if isinstance(v, dict)
+                       else leaf(v, prefix + name))
+                for name, v in tree.items()}
 
-    return {k: (stage_slice(v, k) if k == "layers" else leaf(v))
-            for k, v in params.items()}
+    return walk(params, "")
+
+
+def param_shardings(params: dict, mesh, pcfg: PipelineConfig, *,
+                    cfg: ArchConfig | None = None) -> dict:
+    """The blocks :func:`shard_params` cuts from the whole tree ``params``
+    (tensors or arrays of the whole shapes), as a tree of
+    ``launch/sharding.py::NamedSharding`` on ``mesh`` (a ``DeviceMesh``):
+    a layer leaf's dim 0 over the stage axis, its model and data dims
+    (:func:`block_dims`) over "model" and the data axes, so each rank's
+    block of a leaf under DTensor's placements is its :func:`shard_params`
+    leaf.  With ``sharding.py::opt_sharding_tree`` the AdamW state's too:
+    ``checkpoint/store.py`` saves a rank's tree as DTensors
+    (:func:`as_dtensors`) and restores it onto another mesh."""
+    from ..launch.sharding import NamedSharding, param_spec
+
+    def spec(path, shape):
+        md, dd = block_dims(cfg, mesh, path, shape)
+        out = [None] * len(shape)
+        if path.startswith("layers/"):
+            out[0] = pcfg.stage_axis
+        if md is not None:
+            out[md] = "model"
+        if dd is not None:
+            out[dd] = param_spec(cfg, mesh, path, shape)[dd]
+        return NamedSharding(mesh, tuple(out))
+
+    def walk(tree, prefix):
+        return {name: (walk(v, f"{prefix}{name}/") if isinstance(v, dict)
+                       else spec(prefix + name, tuple(v.shape)))
+                for name, v in tree.items()}
+
+    return walk(params, "")
+
+
+def as_dtensors(local, shardings):
+    """Each block of the tree ``local`` (a rank's :func:`shard_params`
+    tree, or its optimizer state) as the DTensor it is a block of, under
+    the matching ``NamedSharding`` of ``shardings``: what
+    ``checkpoint/store.py::save_checkpoint`` gathers and writes whole."""
+    from torch.distributed.tensor import DTensor
+    return tree_map(lambda t, sh: DTensor.from_local(
+        t.detach(), sh.mesh, sh.placements(), run_check=False),
+        local, shardings)
 
 
 def _data_rows(tokens, labels, Q: int, pipe: Pipe) -> tuple:
@@ -590,13 +776,16 @@ def make_pipelined_loss(cfg: ArchConfig, mesh, pcfg: PipelineConfig,
     micro-batch with fewer rows than the D data ranks padded, see
     :func:`_data_rows`).  The
     loss equals the plain model's mean cross entropy, and its gradient
-    (``torch.autograd.grad``) the plain gradient of this rank's leaves.
+    (``torch.autograd.grad``) this rank's block of the plain gradient of
+    each leaf.
     A collective: every rank of the mesh calls it, and then the loss,
     together.  ``loss.pipe`` tells the transport."""
     _check_config(cfg)
     check_model_axis(cfg, as_layout(mesh).shape.get("model", 1))
     dev = resolve_device(device)
     pipe = Pipe(mesh, pcfg, dev)
+    dims = {path: block_dims(cfg, mesh, path, shape)[1]
+            for path, shape in _leaf_shapes(cfg).items()}
     stage_fn = transformer_stage_fn(cfg, model_split(pipe))
     inside = _inside(cfg, pipe.M)
     vocab_split = vocab_parallel(cfg, pipe.M)
@@ -613,14 +802,20 @@ def make_pipelined_loss(cfg: ArchConfig, mesh, pcfg: PipelineConfig,
             raise ValueError(f"a batch of {B} does not split into {Q} "
                              f"micro-batches")
         tokens, labels, weight = _data_rows(tokens, labels, Q, pipe)
-        rep = {k: _reduced(pipe, v, True) for k, v in params.items()
-               if k != "layers"}
-        layers = {k: (_reduced(pipe, v, False, k in inside)
-                      if not isinstance(v, dict) else
-                      {n: _reduced(pipe, w, False, n in inside)
-                       for n, w in v.items()})
-                  for k, v in params["layers"].items()}
-        x = rep["embed"][tokens.long()].to(cfg.compute_dtype)
+
+        def read(tree, prefix, over_stage):
+            return {k: (read(v, f"{prefix}{k}/", over_stage)
+                        if isinstance(v, dict) else
+                        _as_read(pipe, v, dims[prefix + k],
+                                 cfg.compute_dtype, over_stage, k in inside))
+                    for k, v in tree.items()}
+
+        rep = read({k: v for k, v in params.items() if k != "layers"}, "",
+                   True)
+        layers = read(params["layers"], "layers/", False)
+        x = _embed_rows(rep["embed"], tokens, pipe) if vocab_split else \
+            rep["embed"][tokens.long()]
+        x = x.to(cfg.compute_dtype)
         stream = x.float()                          # (Q, m, L, d), f32
         carry = torch.zeros(stream.shape[1:], dtype=cfg.compute_dtype,
                             device=dev)
@@ -636,10 +831,8 @@ def make_pipelined_loss(cfg: ArchConfig, mesh, pcfg: PipelineConfig,
         ys = ys.to(cfg.compute_dtype)
         part = torch.zeros((), dtype=torch.float32, device=dev)
         heads = range(pipe.k, Q, S)
-        block = _vocab_block(cfg, rep, pipe) if heads and vocab_split \
-            else None
         for q in heads:
-            logits = _head_logits(cfg, rep, ys[q], block, pipe)
+            logits = _head_logits(cfg, rep, ys[q], pipe, vocab_split)
             ce = _vocab_parallel_ce(logits, labels[q], pipe) if vocab_split \
                 else cross_entropy(logits, labels[q])
             part = part + (ce if weight == 1 else ce * weight)
@@ -668,11 +861,12 @@ def make_pipelined_train_step(cfg: ArchConfig, mesh, pcfg: PipelineConfig,
     """``train_step(params, opt_state, batch) -> (params, opt_state,
     {"loss": loss})``: the pipelined loss's gradient, then ``optimizer``'s
     update of this rank's tree in place (``opt_state = optimizer.init(
-    params)``).  Elementwise optimizers only: Adafactor factors and clips
-    whole leaves, and a rank holds a stage's slice of each."""
+    params)``: the moments in the leaves' blocks).  Elementwise optimizers
+    only: Adafactor factors and clips whole leaves, and a rank holds a
+    block of each."""
     if not optimizer.elementwise:
         raise ValueError(f"{optimizer.name} is not elementwise; a stage "
-                         "rank holds a slice of each stacked leaf")
+                         "rank holds a block of each leaf")
     loss_fn = make_pipelined_loss(cfg, mesh, pcfg, device)
 
     def train_step(params, opt_state, batch):
@@ -696,6 +890,6 @@ def plan_to_pipeline_config(stage_plan, global_batch: int) -> PipelineConfig:
                           num_microbatches=q)
 
 
-__all__ = ["Pipe", "PipelineConfig", "make_pipelined_loss",
-           "make_pipelined_train_step", "plan_to_pipeline_config",
-           "shard_params"]
+__all__ = ["Pipe", "PipelineConfig", "as_dtensors", "block_dims",
+           "make_pipelined_loss", "make_pipelined_train_step",
+           "param_shardings", "plan_to_pipeline_config", "shard_params"]

@@ -8,25 +8,30 @@ case: llama3-8b reduced to 4 layers in float32, a batch of 8 x 16 in Q = 4
 micro-batches, pipelined over (data 2 x stage 2) and (stage 4), and in
 Q = 2 over (stage 4), where two stage ranks score no micro-batch, and in
 Q = 8 over (data 2 x stage 2), a micro-batch's one row over two data
-ranks (the second holds a padding row); with a
-"model" axis (tensor parallelism inside a stage: each rank holds its
-block of heads and FFN columns) over (stage 2 x model 2) and (data 2 x
-stage 1 x model 2); the MoE branches over (stage 2 x model 2):
-qwen3-moe-235b-a22b reduced (8 experts: 4 a rank) and
-granite-moe-3b-a800m reduced (5 experts: each expert's d_ff split); the
-loss within 1e-5 and every gradient within 1e-4 (absolute) of the
-reference's plain ``api.loss`` / ``jax.grad`` on the same numpy weights,
-each model rank's gradient against its block of the reference's (cut here
-by Megatron's layout, independently of ``launch/sharding.py``) — the
-bounds the reference's own pipeline test keeps (``tests/test_spmd.py``);
-one AdamW train step each over (data 2 x stage 2) and (stage 2 x model 2):
-its loss the reference's, and its update the reference's AdamW on the
-gradients the pipeline gave (held to ``jax.grad`` above);
-reshard-on-restore from a (4,) "model" mesh to a (2, 2) ("data", "model")
-one, as ``tests/test_spmd.py::test_checkpoint_reshards_across_meshes``; and
-each rank's block under DTensor's placements of a spec against the block
-JAX's ``NamedSharding`` gives the same device (a JAX subprocess with four
-host devices).
+ranks (the second holds a padding row); qwen3-0.6b reduced (tied, vocab
+256) at 2 layers over (data 2 x stage 1 x model 2) in Q = 2: the
+vocabulary split over "model" beside FSDP blocks over "data".  A rank
+holds each leaf in the reference's blocks: its stage's layers, each cut
+to its FSDP block over the data ranks (the d_model rows or columns of a
+projection; of the experts' matrices the first of the two, where it
+divides) and to its block on "model"; the embedding's rows and an untied
+head's columns to their vocabulary block where the vocabulary divides
+the model axis, the head's rows to their FSDP block.  The loss within
+1e-5 and every gradient within 1e-4 (absolute) of the reference's plain
+``api.loss`` / ``jax.grad`` on the same numpy weights, each rank's
+gradient against its block of the reference's (cut here by Megatron's
+layout and the FSDP rule above, independently of ``launch/sharding.py``)
+— the bounds the reference's own pipeline test keeps
+(``tests/test_spmd.py``); one AdamW train step over (data 2 x stage 2):
+its loss the reference's, and its update on each block the reference's
+AdamW on the block gradients the pipeline gave (held to ``jax.grad``
+above); reshard-on-restore from a (4,) "model" mesh to a (2, 2) ("data",
+"model") one, as ``tests/test_spmd.py::
+test_checkpoint_reshards_across_meshes``, and the stepped (data 2 x stage
+2) blocks and AdamW state saved, restored onto (stage 2 x model 2), where
+D = 1, and back; and each rank's block under DTensor's placements of a
+spec against the block JAX's ``NamedSharding`` gives the same device (a
+JAX subprocess with four host devices).
 """
 
 import dataclasses
@@ -50,8 +55,10 @@ from repro.optim import get_optimizer as ref_optimizer
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 WORLD = 4
 ARCH, LAYERS, BATCH, SEQ, Q = "llama3-8b", 4, 8, 16, 4
+#: the tied config with the vocabulary split beside a data axis
+TIED = "qwen3-0.6b"
 #: the configs the spawn runs, and their depth
-MODELS = {ARCH: LAYERS}
+MODELS = {ARCH: LAYERS, TIED: 2}
 LR = 1e-3
 LOSS_ATOL, GRAD_ATOL = 1e-5, 1e-4
 #: the train step against the reference's AdamW on the same gradients:
@@ -70,13 +77,20 @@ PIPELINES = [
     # rank 1 holding a padding row
     {"tag": "d2s2q8", "axes": ["data", "stage"], "sizes": [2, 2],
      "stages": 2, "q": 8},
+    # the tied embedding's rows over "model" (a masked lookup, the
+    # vocabulary-parallel head) beside the layers' FSDP blocks
+    {"tag": "d2m2_tied", "arch": TIED, "axes": ["data", "stage", "model"],
+     "sizes": [2, 1, 2], "stages": 1, "q": 2},
 ]
 for _c in PIPELINES:
     _c.setdefault("arch", ARCH)
 #: each train case holds its step to the gradients of the pipeline case
-#: ``grads`` (the same mesh, config and Q)
+#: ``grads`` (the same mesh, config and Q); ``reshard``: the layout its
+#: stepped blocks and AdamW state are restored onto, and back
 TRAIN = [{"tag": "train", "arch": ARCH, "axes": ["data", "stage"],
-          "sizes": [2, 2], "stages": 2, "q": Q, "grads": "d2s2"}]
+          "sizes": [2, 2], "stages": 2, "q": Q, "grads": "d2s2",
+          "reshard": {"axes": ["stage", "model"], "sizes": [2, 2],
+                      "stages": 2}}]
 #: (mesh axes, sizes, spec, tensor shape): a dim over two axes, major to
 #: minor, as the reference shards d_model over ("pod", "data")
 SPLITS = [
@@ -209,24 +223,63 @@ _COLS = ("wq", "wk", "wv", "w_gate", "w_up", "bq", "bk", "bv", "b_up")
 _ROWS = ("wo", "w_down")
 
 
+def _part(full, dim, i, n):
+    w = full.shape[dim] // n
+    return np.take(full, np.arange(i * w, (i + 1) * w), axis=dim)
+
+
 def _model_part(key, full, m, M, experts):
     name = key.split("/")[-1]
-    if M == 1 or not key.startswith("layers/") or name not in _COLS + _ROWS:
+    if M == 1:
+        return full
+    # the vocabulary: the embedding's rows, an untied head's columns
+    if key in ("embed", "lm_head"):
+        V = full.shape[0 if key == "embed" else 1]
+        return _part(full, 0 if key == "embed" else 1, m, M) \
+            if V % M == 0 else full
+    if not key.startswith("layers/") or name not in _COLS + _ROWS:
         return full
     if key.startswith("layers/moe/") and experts % M == 0:
         dim = 1
     else:
         dim = full.ndim - (2 if name in _ROWS else 1)
-    n = full.shape[dim] // M
-    return np.take(full, np.arange(m * n, (m + 1) * n), axis=dim)
+    return _part(full, dim, m, M)
+
+
+#: the FSDP block over D data ranks: a dense projection's d_model dim (the
+#: rows of the column blocks, the columns of the row blocks), an untied
+#: head's d_model rows; of an expert-parallel matrix (E, a, b) the a dim
+#: (expert-sliced TP has none); each only where it divides D.  The
+#: embedding, the norms, the biases and the router have none.
+def _data_part(key, full, d, D, experts, M):
+    name = key.split("/")[-1]
+    if D == 1:
+        return full
+    if key == "lm_head":
+        dim = 0
+    elif not key.startswith("layers/") or name not in _COLS + _ROWS \
+            or name in ("bq", "bk", "bv", "b_up"):
+        return full
+    elif key.startswith("layers/moe/"):
+        if experts % M:
+            return full
+        dim = full.ndim - 2
+    else:
+        dim = full.ndim - (1 if name in _ROWS else 2)
+    return _part(full, dim, d, D) if full.shape[dim] % D == 0 else full
 
 
 def _model_size(case):
     return dict(zip(case["axes"], case["sizes"])).get("model", 1)
 
 
-def _want(key, ref, k, stages, m=0, M=1, experts=0):
-    full = _model_part(key, ref[key], m, M, experts)
+def _data_size(case):
+    return dict(zip(case["axes"], case["sizes"])).get("data", 1)
+
+
+def _want(key, ref, k, stages, m=0, M=1, experts=0, d=0, D=1):
+    full = _data_part(key, _model_part(key, ref[key], m, M, experts), d, D,
+                      experts, M)
     return _stage_rows(full, k, stages) if key.startswith("layers/") \
         else full
 
@@ -243,24 +296,31 @@ def check_loss(run, case):
             (_model_size(case) > 1)
 
 
+def _coords(o, tag):
+    return tuple(int(o[f"{tag}/{a}"]) for a in ("data", "stage", "model"))
+
+
 def check_grads(run, case):
     """Every rank's gradients against its block of ``jax.grad``'s."""
-    tag, S, M = case["tag"], case["stages"], _model_size(case)
+    tag, S, M, D = case["tag"], case["stages"], _model_size(case), \
+        _data_size(case)
     ref = run["ref"][case["arch"]]
     seen = set()
     for o in run["outs"]:
-        k, m = int(o[f"{tag}/stage"]), int(o[f"{tag}/model"])
+        d, k, m = _coords(o, tag)
         pre = f"{tag}/grad/"
         keys = {key[len(pre):] for key in o if key.startswith(pre)}
         assert keys == set(ref["grads"]), keys ^ set(ref["grads"])
         for key in keys:
             got = o[pre + key]
-            want = _want(key, ref["grads"], k, S, m, M, ref["experts"])
+            want = _want(key, ref["grads"], k, S, m, M, ref["experts"], d,
+                         D)
             assert got.shape == want.shape, key
             err = float(np.max(np.abs(got - want)))
-            assert err < GRAD_ATOL, (tag, k, m, key, err)
-        seen.add((k, m))
-    assert seen == {(k, m) for k in range(S) for m in range(M)}
+            assert err < GRAD_ATOL, (tag, d, k, m, key, err)
+        seen.add((d, k, m))
+    assert seen == {(d, k, m) for d in range(D) for k in range(S)
+                    for m in range(M)}
 
 
 @pytest.mark.parametrize("case", PIPELINES, ids=lambda c: c["tag"])
@@ -287,18 +347,19 @@ def _nest(flat):
 def check_train(run, case):
     """Every rank's AdamW step against the reference's AdamW on the
     gradients the pipeline gave."""
-    tag, S, M, via = case["tag"], case["stages"], _model_size(case), \
-        case["grads"]
+    tag, S, M, D, via = case["tag"], case["stages"], _model_size(case), \
+        _data_size(case), case["grads"]
     ref = run["ref"][case["arch"]]
     opt = ref_optimizer("adamw", lr=LR)
     update = jax.jit(lambda p, g: opt.update(p, g, opt.init(p))[0])
     for o in run["outs"]:
-        k, m = int(o[f"{via}/stage"]), int(o[f"{via}/model"])
+        d, k, m = _coords(o, via)
         assert abs(float(o[f"{tag}/loss"]) - ref["loss"]) < LOSS_ATOL
         pre = f"{tag}/param/"
         keys = {key[len(pre):] for key in o if key.startswith(pre)}
         assert keys == set(ref["weights"])
-        local = {key: _want(key, ref["weights"], k, S, m, M, ref["experts"])
+        local = {key: _want(key, ref["weights"], k, S, m, M, ref["experts"],
+                            d, D)
                  for key in keys}
         grads = {key: o[f"{via}/grad/{key}"] for key in keys}
         stepped = _flat(update(_nest(local), _nest(grads)))
@@ -316,7 +377,55 @@ def test_pipelined_train_step_matches_the_references_adamw(run, case):
     check_train(run, case)
 
 
+def _whole(run, tag, prefix, case):
+    """{key: the whole tensor} put back together from every rank's blocks
+    ``{tag}/{prefix}{key}`` of the train case ``case`` (no model axis):
+    the data blocks joined along their dim, the stages along dim 0."""
+    S, D = case["stages"], _data_size(case)
+    ref = run["ref"][case["arch"]]
+    pre = f"{tag}/{prefix}"
+    out = {}
+    for key, full in ref["weights"].items():
+        parts = {}
+        for o in run["outs"]:
+            d, k, _ = _coords(o, case["grads"])
+            parts[(d, k)] = o[pre + key]
+        # the dim the rule cuts: where a data block differs from the whole
+        dims = [i for i in range(full.ndim)
+                if _data_part(key, full, 0, D, ref["experts"], 1).shape[i]
+                != full.shape[i]]
+        rows = [np.concatenate([parts[(d, k)] for d in range(D)], dims[0])
+                if dims else parts[(0, k)] for k in range(S)]
+        out[key] = np.concatenate(rows, 0) if key.startswith("layers/") \
+            else rows[0]
+        assert out[key].shape == full.shape, key
+    return out
+
+
 def test_checkpoint_reshards_across_meshes(run):
+    # the stepped (data 2 x stage 2) blocks and AdamW state, restored onto
+    # (stage 2 x model 2) and back
+    case = TRAIN[0]
+    there = case["reshard"]
+    ref = run["ref"][case["arch"]]
+    S, M = there["stages"], dict(zip(there["axes"], there["sizes"]))["model"]
+    wholes = {"params/": _whole(run, "train", "param/", case)}
+    for moment in ("m", "v"):
+        wholes[f"opt/{moment}/"] = _whole(run, "train", f"opt/{moment}/",
+                                          case)
+    for r, o in enumerate(run["outs"]):
+        k, m = r // M, r % M          # the (stage, model) mesh's rank
+        for pre, whole in wholes.items():
+            for key in whole:
+                want = _want(key, whole, k, S, m, M, ref["experts"])
+                np.testing.assert_array_equal(o[f"ckpt/there/{pre}{key}"],
+                                              want)
+                src = f"train/param/{key}" if pre == "params/" else \
+                    f"train/{pre}{key}"
+                np.testing.assert_array_equal(o[f"ckpt/back/{pre}{key}"],
+                                              o[src])
+        assert int(o["ckpt/there/opt/t"]) == int(o["ckpt/back/opt/t"]) \
+            == int(o["train/opt/t"]) == 1
     x = np.arange(32.0).reshape(8, 4)
     for r, o in enumerate(run["outs"]):
         # saved from a (4,) "model" mesh: rows split four ways

@@ -1,5 +1,6 @@
 """One rank of ``tests/test_torch_spmd.py``: the port's stage pipeline, its
-train step, a sharded checkpoint's reshard and DTensor's splits, on the CPU
+train step, sharded checkpoints' reshards (a DTensor's, and the pipeline's
+blocks and AdamW state across meshes) and DTensor's splits, on the CPU
 under gloo.  Imports no JAX (the ranks stand for the card's processes).
 
     python tests/torch_spmd_worker.py RANK WORLD DIR
@@ -29,12 +30,14 @@ from repro_torch.checkpoint import (restore_checkpoint,  # noqa: E402
                                     save_checkpoint)
 from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.launch.mesh import MeshLayout, build_mesh  # noqa: E402
-from repro_torch.launch.sharding import NamedSharding  # noqa: E402
+from repro_torch.launch.sharding import (NamedSharding,  # noqa: E402
+                                         opt_sharding_tree)
 from repro_torch.optim import get_optimizer  # noqa: E402
 from repro_torch.pipeline.spmd import (PipelineConfig,  # noqa: E402
-                                       make_pipelined_loss,
+                                       as_dtensors, make_pipelined_loss,
                                        make_pipelined_train_step,
-                                       shard_params)
+                                       param_shardings, shard_params)
+from repro_torch.utils import tree_map  # noqa: E402
 
 CPU = "cpu"
 
@@ -69,6 +72,7 @@ def pipeline_case(tag, cfg, params, batch, layout, pcfg, out):
     leaves = flat(local)
     grads = torch.autograd.grad(loss, list(leaves.values()))
     out[f"{tag}/loss"] = loss.detach().numpy()
+    out[f"{tag}/data"] = np.array(loss_fn.pipe.d)
     out[f"{tag}/stage"] = np.array(loss_fn.pipe.k)
     out[f"{tag}/model"] = np.array(loss_fn.pipe.m)
     out[f"{tag}/transport"] = np.array(loss_fn.pipe.transport)
@@ -87,6 +91,39 @@ def train_case(tag, cfg, params, batch, layout, pcfg, lr, out):
     out[f"{tag}/loss"] = metrics["loss"].numpy()
     for key, p in flat(local).items():
         out[f"{tag}/param/{key}"] = p.detach().numpy()
+    for key, t in flat(state).items():
+        out[f"{tag}/opt/{key}"] = t.numpy()
+    return local, state
+
+
+def blocks_reshard_case(directory, cfg, whole, local, state, layouts,
+                        out):
+    """A rank's pipeline blocks and AdamW state, sharded by the first of
+    ``layouts`` ((axes, sizes, stages) each), saved whole through
+    DTensors, restored onto the second layout's blocks, saved from there
+    and restored onto the first's again."""
+    from repro_torch.checkpoint import restore_checkpoint, save_checkpoint
+    like = {"params": whole,
+            "opt": {"m": whole, "v": whole,
+                    "t": torch.zeros((), dtype=torch.int32)}}
+
+    def shardings(layout, stages):
+        mesh = build_mesh(MeshLayout(*layout), CPU)
+        p = param_shardings(whole, mesh, PipelineConfig(stages, 1), cfg=cfg)
+        return {"params": p,
+                "opt": opt_sharding_tree(mesh, "adamw", p, whole)}
+
+    there, back = (shardings(lay[:2], lay[2]) for lay in layouts)
+    ckpt = os.path.join(directory, "ckpt_blocks")
+    tree = {"params": local, "opt": state}
+    for step, (src, dst, tag) in enumerate(((there, back, "there"),
+                                            (back, there, "back"))):
+        save_checkpoint(ckpt, step, as_dtensors(tree, src))
+        got, _ = restore_checkpoint(ckpt, step, like, shardings=dst,
+                                    device=CPU)
+        tree = tree_map(lambda t: t.to_local(), got)
+        for key, t in flat(tree).items():
+            out[f"ckpt/{tag}/{key}"] = t.numpy()
 
 
 def reshard_case(directory, out):
@@ -160,9 +197,18 @@ def main():
                       MeshLayout(tuple(case["axes"]), tuple(case["sizes"])),
                       PipelineConfig(case["stages"], case["q"]), out)
     for case in job["train"]:
-        train_case(case["tag"], *models[case["arch"]],
-                   MeshLayout(tuple(case["axes"]), tuple(case["sizes"])),
-                   PipelineConfig(case["stages"], case["q"]), job["lr"], out)
+        local, state = train_case(
+            case["tag"], *models[case["arch"]],
+            MeshLayout(tuple(case["axes"]), tuple(case["sizes"])),
+            PipelineConfig(case["stages"], case["q"]), job["lr"], out)
+        if case.get("reshard"):
+            cfg, whole, _ = models[case["arch"]]
+            blocks_reshard_case(
+                directory, cfg, whole, local, state,
+                [(tuple(case["axes"]), tuple(case["sizes"]), case["stages"]),
+                 (tuple(case["reshard"]["axes"]),
+                  tuple(case["reshard"]["sizes"]),
+                  case["reshard"]["stages"])], out)
     reshard_case(directory, out)
     mesh_size_case(out)
     split_case(job["splits"], out)
